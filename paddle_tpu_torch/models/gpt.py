@@ -1,0 +1,219 @@
+"""Decoder-only causal LM (GPT-style) — the port of
+``paddle_tpu/models/gpt.py``: the config, the pre-norm blocks, the full
+forward, and the paged serving methods of ``GPTDecoder``.
+
+Pools are updated in place by the paged methods (the reference donates
+them to its jitted step and gets new ones back); each method still
+returns the list of pools so that call sites read like the reference's.
+"""
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from paddle_tpu_torch import nn as pnn
+from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.enforce import enforce
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position: int = 2048
+    dropout: float = 0.1
+    use_flash: bool = True
+    seq_axis: str = None       # ring sequence parallelism: not ported
+    moe_experts: int = 0       # MoE FFN: not ported
+    scan_layers: bool = False  # stacked layers under scan: not ported
+
+    @staticmethod
+    def small():
+        return GPTConfig()
+
+    @staticmethod
+    def tiny():
+        return GPTConfig(vocab_size=512, hidden_size=64, num_layers=2,
+                         num_heads=4, intermediate_size=128,
+                         max_position=128)
+
+    def check_ported(self):
+        for name, on in (("seq_axis", self.seq_axis is not None),
+                         ("moe_experts", bool(self.moe_experts)),
+                         ("scan_layers", bool(self.scan_layers))):
+            if on:
+                raise NotImplementedError(
+                    f"GPTConfig.{name} is not ported to paddle_tpu_torch")
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg: GPTConfig, gen=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = pnn.LayerNorm(cfg.hidden_size)
+        self.attn = pnn.MultiHeadAttention(cfg.hidden_size, cfg.num_heads,
+                                           dropout=cfg.dropout,
+                                           use_flash=cfg.use_flash, gen=gen)
+        self.ln2 = pnn.LayerNorm(cfg.hidden_size)
+        self.fc1 = pnn.Linear(cfg.hidden_size, cfg.intermediate_size,
+                              gen=gen)
+        self.fc2 = pnn.Linear(cfg.intermediate_size, cfg.hidden_size,
+                              gen=gen)
+        self.drop = pnn.Dropout(cfg.dropout)
+
+    def _ffn(self, x):
+        return pnn.fused_ffn(self.fc1, self.fc2, x)
+
+    def forward(self, x):
+        # pre-norm residual blocks (GPT-2 style)
+        x = x + self.drop(self.attn(self.ln1(x), causal=True))
+        return x + self.drop(self._ffn(self.ln2(x)))
+
+    def paged_decode_step(self, x, pool, page_table, att_lengths,
+                          write_pages, write_offsets):
+        h, pool = self.attn.paged_decode_step(
+            self.ln1(x), pool, page_table, att_lengths, write_pages,
+            write_offsets)
+        x = x + h
+        return x + self._ffn(self.ln2(x)), pool
+
+    def paged_prefill_chunk(self, x, pool, page_ids, offsets, page_rows,
+                            q_pos, chunked):
+        h, pool = self.attn.paged_prefill_chunk(
+            self.ln1(x), pool, page_ids, offsets, page_rows, q_pos, chunked)
+        x = x + h
+        return x + self._ffn(self.ln2(x)), pool
+
+
+class GPT(nn.Module):
+    """Causal LM returning next-token logits ``[B, T, V]`` (weight-tied
+    head). Weights are drawn from ``seed`` on the CPU (so a seed gives
+    the same weights on every machine) and moved to ``device``, which
+    defaults to the card and raises when there is none."""
+
+    def __init__(self, cfg: GPTConfig, device="cuda", seed=0):
+        super().__init__()
+        cfg.check_ported()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        gen = torch.Generator().manual_seed(seed)
+        self.tok_emb = pnn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                     gen=gen)
+        self.pos_emb = pnn.Embedding(cfg.max_position, cfg.hidden_size,
+                                     gen=gen)
+        self.drop = pnn.Dropout(cfg.dropout)
+        self.blocks = nn.ModuleList(GPTBlock(cfg, gen)
+                                    for _ in range(cfg.num_layers))
+        self.ln_f = pnn.LayerNorm(cfg.hidden_size)
+        self.to(dev)
+
+    @property
+    def device(self):
+        return self.tok_emb.weight.device
+
+    def hidden(self, input_ids, pos_offset=0):
+        """Final post-LN hidden states ``[B, T, H]``."""
+        _, t = input_ids.shape
+        pos = pos_offset + torch.arange(t, device=self.device)[None, :]
+        x = self.drop(self.tok_emb(input_ids) + self.pos_emb(pos))
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+    def forward(self, input_ids, pos_offset=0):
+        return pnn.tied_vocab_head(self.tok_emb,
+                                   self.hidden(input_ids, pos_offset))
+
+
+class GPTDecoder(GPT):
+    """GPT plus the paged serving methods the serving engine drives."""
+
+    def init_paged_caches(self, num_pages, page_size, dtype=torch.float32,
+                          kv_dtype=None):
+        """Per-layer page pools on the model's device; ``kv_dtype=
+        torch.int8`` stores int8 values with per-row scales."""
+        return [blk.attn.init_page_pool(num_pages, page_size, dtype,
+                                        kv_dtype=kv_dtype)
+                for blk in self.blocks]
+
+    def paged_decode_step(self, tokens, caches, page_table, lengths,
+                          active):
+        """One serve-step forward for all slots. tokens ``[S]`` (the
+        pending token per slot, at position ``lengths``); page_table
+        ``[S, Pmax]`` in range everywhere; lengths ``[S]`` tokens already
+        cached; active ``[S]`` bool. The new token's K/V lands at
+        ``page_table[s, lengths // ps]`` offset ``lengths % ps`` (dropped
+        for inactive slots); attention covers ``lengths + 1`` tokens.
+        -> ``(logits [S, V], caches)``, the caches updated in place."""
+        s = tokens.shape[0]
+        num_pages, _, page_size, _ = caches[0]["k"].shape
+        p_max = page_table.shape[1]
+        # the reference's gather clamps an index past Pmax; torch raises
+        col = torch.clamp(lengths // page_size, max=p_max - 1)
+        write_pages = page_table[torch.arange(s, device=tokens.device),
+                                 col.long()]
+        write_pages = torch.where(active, write_pages,
+                                  torch.full_like(write_pages, num_pages))
+        write_offsets = lengths % page_size
+        att_lengths = lengths + active.to(lengths.dtype)
+        pos = torch.clamp(lengths, max=self.cfg.max_position - 1)
+        x = (self.tok_emb(tokens[:, None]) + self.pos_emb(pos[:, None])
+             ).reshape(s, 1, self.cfg.hidden_size)
+        for blk, pool in zip(self.blocks, caches):
+            x, _ = blk.paged_decode_step(x, pool, page_table, att_lengths,
+                                         write_pages, write_offsets)
+        x = self.ln_f(x)
+        return pnn.tied_vocab_head(self.tok_emb, x)[:, 0], caches
+
+    def paged_prefill(self, prompt, lengths, caches, page_rows):
+        """Admission prefill of whole prompts: the ``starts = 0`` case of
+        :meth:`paged_prefill_chunk`."""
+        starts = torch.zeros(prompt.shape[0], dtype=torch.int32)
+        return self.paged_prefill_chunk(prompt, starts, lengths, caches,
+                                        page_rows)
+
+    def paged_prefill_chunk(self, prompt, starts, chunk_lengths, caches,
+                            page_rows):
+        """Chunked admission prefill: the ``[B, Lp]`` window holds tokens
+        at absolute positions ``starts[b] .. starts[b] + chunk_lengths[b]
+        - 1``. ``starts`` is read on the host to pick each request's
+        attention branch (first chunk or continuation). Returns (logits
+        of each request's last chunk token ``[B, V]``, caches)."""
+        x, caches = self._paged_chunk_hidden(prompt, starts, chunk_lengths,
+                                             caches, page_rows)
+        last = torch.clamp(chunk_lengths.to(x.device).long() - 1, min=0)
+        x_last = x[torch.arange(x.shape[0], device=x.device), last]
+        return pnn.tied_vocab_head(self.tok_emb, x_last), caches
+
+    def _paged_chunk_hidden(self, prompt, starts, chunk_lengths, caches,
+                            page_rows):
+        """Run the window through every block; returns the post-``ln_f``
+        hidden states ``[B, Lp, H]`` and the caches."""
+        dev = self.device
+        enforce(prompt.device == dev, f"prompt on {prompt.device}, model "
+                f"on {dev}")
+        b, lp = prompt.shape
+        num_pages, _, page_size, _ = caches[0]["k"].shape
+        p_max = page_rows.shape[1]
+        chunked = starts.cpu() > 0
+        starts = starts.to(dev).long()
+        chunk_lengths = chunk_lengths.to(dev).long()
+        rel = torch.arange(lp, device=dev)
+        pos = starts[:, None] + rel[None, :]                  # [B, Lp]
+        in_chunk = rel[None, :] < chunk_lengths[:, None]
+        # the reference's take_along_axis clamps; torch raises
+        col = torch.clamp(pos // page_size, max=p_max - 1)
+        page_ids = torch.gather(page_rows.long(), 1, col)
+        page_ids = torch.where(in_chunk, page_ids,
+                               torch.full_like(page_ids, num_pages))
+        offsets = pos % page_size
+        emb_pos = torch.clamp(pos, max=self.cfg.max_position - 1)
+        x = self.tok_emb(prompt) + self.pos_emb(emb_pos)
+        for blk, pool in zip(self.blocks, caches):
+            x, _ = blk.paged_prefill_chunk(x, pool, page_ids, offsets,
+                                           page_rows, pos, chunked)
+        return self.ln_f(x), caches

@@ -1,0 +1,231 @@
+"""Layers of the slice (ref: ``paddle_tpu/nn/layers.py``).
+
+Weights keep the reference's layout: a projection stores ``[in, out]``
+and computes ``x @ W``, so the weight bridge (``paddle_tpu_torch/bridge.py``)
+copies arrays without transposing them. Parameter names match the
+reference's param-tree keys (``weight``, ``bias``, ``scale``, ``wq`` ...).
+
+Weights are created on the CPU from a ``torch.Generator`` and moved by the
+owning model; the weight-only int8 variants of the reference (``weight_q``)
+are not ported and the bridge refuses them.
+"""
+
+import torch
+from torch import nn
+
+from paddle_tpu_torch.ops import attention as att
+from paddle_tpu_torch.ops import nn as F
+from paddle_tpu_torch.ops.cuda.mlp import fused_mlp
+
+
+def _xavier(shape, gen, dtype):
+    w = torch.empty(shape, dtype=dtype)
+    nn.init.xavier_uniform_(w, generator=gen)
+    return nn.Parameter(w)
+
+
+class Linear(nn.Module):
+    """ref: ``nn/layers.py:37`` — ``x @ weight + bias``, weight
+    ``[in, out]``."""
+
+    def __init__(self, in_features, out_features, gen=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = _xavier((in_features, out_features), gen, dtype)
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype))
+
+    def forward(self, x):
+        return x @ self.weight + self.bias
+
+
+def fused_ffn(fc1, fc2, x, act="gelu"):
+    """``fc2(gelu(fc1(x)))`` through the fused MLP (K4 on the card): the
+    ``[rows, intermediate]`` activation never reaches device memory
+    (ref: ``nn/layers.py:63``)."""
+    if act != "gelu":
+        raise NotImplementedError(f"fused_ffn: act={act!r} (the port has "
+                                  "the exact-gelu MLP only)")
+    return fused_mlp(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+
+
+class LayerNorm(nn.Module):
+    """ref: ``nn/layers.py:208`` (without the fused ``residual=`` path)."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, dtype=torch.float32):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        n = 1
+        for d in self.shape:
+            n *= d
+        self.scale = nn.Parameter(torch.ones(n, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(n, dtype=dtype))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.scale, self.bias,
+                            begin_norm_axis=x.ndim - len(self.shape),
+                            epsilon=self.epsilon)
+
+
+class Embedding(nn.Module):
+    """ref: ``nn/layers.py:266`` — table ``[num_embeddings, dim]``,
+    initialized N(0, 0.02)."""
+
+    def __init__(self, num_embeddings, embedding_dim, gen=None,
+                 dtype=torch.float32):
+        super().__init__()
+        w = torch.empty((num_embeddings, embedding_dim), dtype=dtype)
+        w.normal_(0.0, 0.02, generator=gen)
+        self.weight = nn.Parameter(w)
+
+    def forward(self, ids):
+        return F.lookup_table(ids, self.weight)
+
+
+def tied_vocab_head(emb, x):
+    """Weight-tied vocab projection ``x @ W.T`` (ref:
+    ``nn/layers.py:292``)."""
+    return x @ emb.weight.T
+
+
+class Dropout(nn.Module):
+    """ref: ``nn/layers.py:304`` — inverted dropout in training, identity
+    otherwise."""
+
+    def __init__(self, rate=0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return torch.nn.functional.dropout(x, self.rate, training=True)
+
+
+class MultiHeadAttention(nn.Module):
+    """ref: ``nn/layers.py:488`` — q/k/v/o projections ``[E, E]``, the
+    full forward and the paged serving methods. The paged methods update
+    the pool **in place** and return it."""
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0, use_flash=False,
+                 gen=None, dtype=torch.float32):
+        super().__init__()
+        self.num_heads, self.dropout_rate = num_heads, dropout
+        self.use_flash = use_flash
+        for n in ("q", "k", "v", "o"):
+            setattr(self, f"w{n}", _xavier((embed_dim, embed_dim), gen,
+                                           dtype))
+            setattr(self, f"b{n}",
+                    nn.Parameter(torch.zeros(embed_dim, dtype=dtype)))
+
+    def _project(self, x, n):
+        return x @ getattr(self, f"w{n}") + getattr(self, f"b{n}")
+
+    def forward(self, x, mask=None, causal=False):
+        return att.multihead_attention(
+            x, self.wq, self.wk, self.wv, self.wo, self.bq, self.bk,
+            self.bv, self.bo, self.num_heads, mask=mask, causal=causal,
+            dropout_rate=self.dropout_rate, training=self.training,
+            use_flash=self.use_flash)
+
+    def init_page_pool(self, num_pages, page_size, dtype=torch.float32,
+                       kv_dtype=None):
+        """This layer's page pool, on the layer's device."""
+        hd = self.wq.shape[0] // self.num_heads
+        return att.init_page_pool(num_pages, self.num_heads, page_size, hd,
+                                  dtype, kv_dtype=kv_dtype,
+                                  device=self.wq.device)
+
+    def _heads(self, y):
+        b, t, e = y.shape
+        return y.reshape(b, t, self.num_heads, e // self.num_heads)
+
+    def paged_decode_step(self, x_t, pool, page_table, att_lengths,
+                          write_pages, write_offsets):
+        """One incremental step. x_t ``[S, 1, E]``; page_table
+        ``[S, Pmax]``; att_lengths ``[S]`` valid tokens including the one
+        written now; write_pages/write_offsets ``[S]`` (page id
+        ``num_pages`` drops the write). Returns ``(out [S, 1, E], pool)``
+        with the pool updated in place."""
+        s, _, e = x_t.shape
+        q = self._project(x_t, "q").reshape(s, self.num_heads, -1)
+        k = self._project(x_t, "k").reshape(s, self.num_heads, -1)
+        v = self._project(x_t, "v").reshape(s, self.num_heads, -1)
+        att.paged_write(pool, k, v, write_pages, write_offsets)
+        ctx = att.paged_decode_attention(
+            q, pool["k"], pool["v"], page_table, att_lengths,
+            k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"))
+        return self._project(ctx.reshape(s, 1, e), "o"), pool
+
+    def paged_prefill(self, x, pool, page_ids, offsets):
+        """Prompt fill: one causal forward over the padded prompt, K/V
+        scattered to ``(page_ids, offsets)`` ``[B, T]`` (page id
+        ``num_pages`` drops a pad position). Returns ``(out, pool)``."""
+        b, t, _ = x.shape
+        chunked = torch.zeros(b, dtype=torch.bool)
+        return self.paged_prefill_chunk(x, pool, page_ids, offsets, None,
+                                        None, chunked)
+
+    def paged_prefill_chunk(self, x, pool, page_ids, offsets, page_rows,
+                            q_pos, chunked):
+        """Chunked prompt fill. K/V of the chunk is written as in
+        :meth:`paged_prefill`. A first chunk (``chunked[b]`` False)
+        attends causally within the chunk through flash attention; a
+        continuation chunk attends every token its slot has cached, by
+        gathering its page table row (``page_rows [B, Pmax]``) and masking
+        keys by absolute position (``q_pos [B, T]``). ``chunked`` is a
+        host-side ``[B]`` bool tensor; each request runs only the branch
+        it takes (the reference computes both and selects, with the same
+        result)."""
+        b, t, e = x.shape
+        hd = e // self.num_heads
+        q = self._heads(self._project(x, "q"))           # [B, T, H, hd]
+        k = self._heads(self._project(x, "k"))
+        v = self._heads(self._project(x, "v"))
+        att.paged_write(pool, k.reshape(b * t, self.num_heads, hd),
+                        v.reshape(b * t, self.num_heads, hd),
+                        page_ids.reshape(b * t), offsets.reshape(b * t))
+        q, k, v = (y.transpose(1, 2) for y in (q, k, v))  # [B, H, T, hd]
+        ctx = torch.empty_like(q)
+        flags = [bool(c) for c in chunked]
+        first = [i for i, c in enumerate(flags) if not c]
+        cont = [i for i, c in enumerate(flags) if c]
+        if first:
+            ctx[first] = self._causal(q[first], k[first], v[first])
+        if cont:
+            ctx[cont] = self._gathered(q[cont], pool, page_rows[cont],
+                                       q_pos[cont]).to(ctx.dtype)
+        out = ctx.transpose(1, 2).reshape(b, t, e)
+        return self._project(out, "o"), pool
+
+    def _causal(self, q, k, v):
+        if self.use_flash:
+            return att.flash_attention(q, k, v, causal=True)
+        return att.scaled_dot_product_attention(q, k, v, causal=True)
+
+    def _gathered(self, q, pool, page_rows, q_pos):
+        """Attention over the slot's whole cached prefix (pool pages were
+        just updated with this chunk), f32, keys masked by absolute
+        position."""
+        b, h, t, hd = q.shape
+        rows = page_rows.long()
+        tk = rows.shape[1] * pool["k"].shape[2]
+        kg, vg = pool["k"][rows], pool["v"][rows]     # [B, P, H, ps, hd]
+        if att.quantized_pool(pool):
+            kg = att.dequantize_pages(kg, pool["k_scale"][rows])
+            vg = att.dequantize_pages(vg, pool["v_scale"][rows])
+        kf = kg.movedim(2, 1).reshape(b, h, tk, hd).float()
+        vf = vg.movedim(2, 1).reshape(b, h, tk, hd).float()
+        scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / (hd ** 0.5)
+        keep = (torch.arange(tk, device=q.device)[None, None, None, :]
+                <= q_pos[:, None, :, None])
+        scores = torch.where(keep, scores,
+                             torch.full_like(scores, att.NEG_INF))
+        m = scores.amax(dim=-1, keepdim=True)
+        p = torch.where(keep, torch.exp(scores - m), torch.zeros_like(scores))
+        l = p.sum(dim=-1, keepdim=True)
+        full = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+        return torch.where(l > 0, full / torch.clamp(l, min=1e-30),
+                           torch.zeros_like(full))

@@ -1,0 +1,11 @@
+"""Activation ops (the slice's subset of ``paddle_tpu/ops/activations.py``)."""
+
+import torch
+
+
+def gelu(x, approximate=False):
+    """Gelu; the exact erf form by default, as ``jax.nn.gelu(x,
+    approximate=False)`` in the reference (``ops/activations.py:48``).
+    The fused MLP kernel uses the same exact form."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")

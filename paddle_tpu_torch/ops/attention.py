@@ -1,0 +1,176 @@
+"""Attention ops and the paged KV cache (ref: ``paddle_tpu/ops/attention.py``).
+
+The paged layout is the reference's: one pool of fixed-size pages per
+layer, ``{"k", "v"}`` of ``[num_pages, H, page_size, hd]``, plus per-slot
+page tables ``[slots, Pmax]`` int32 and token counts ``[slots]``. An int8
+pool adds ``{"k_scale", "v_scale"}`` f32 ``[num_pages, page_size]``: one
+symmetric absmax scale per (page, token row), shared across heads and
+head_dim.
+
+Unlike the reference, which donates the pools to each jitted step and
+gets new ones back, the port updates the pools **in place**:
+:func:`paged_write` writes into the tensors of the dict it is given and
+returns that same dict.
+"""
+
+import math
+
+import torch
+
+from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.ops.cuda.decode_attention import (  # noqa: F401
+    NEG_INF, paged_decode_attention)
+from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+
+
+def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
+                                 causal=False, dropout_rate=0.0,
+                                 training=False):
+    """q, k, v ``[B, H, T, D]`` (or ``[B, T, D]``); mask broadcastable to
+    ``[B, H, Tq, Tk]``, True/1 = keep. Materializes the score matrix;
+    causal masking is bottom-right aligned; a fully masked row gives
+    exactly 0 (ref: ``ops/attention.py:22``)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("...qd,...kd->...qk", q, k) * scale
+    keep = None
+    if causal:
+        tq, tk = scores.shape[-2], scores.shape[-1]
+        keep = torch.ones((tq, tk), dtype=torch.bool,
+                          device=q.device).tril(diagonal=tk - tq)
+    if mask is not None:
+        keep = mask.bool() if keep is None else keep & mask.bool()
+    if keep is not None:
+        scores = torch.where(keep, scores, torch.full_like(scores, -1e9))
+    probs = torch.softmax(scores, dim=-1)
+    if keep is not None:
+        any_keep = torch.broadcast_to(keep, scores.shape).any(
+            dim=-1, keepdim=True)
+        probs = torch.where(any_keep, probs, torch.zeros_like(probs))
+    if dropout_rate > 0.0 and training:
+        probs = torch.nn.functional.dropout(probs, dropout_rate)
+    return torch.einsum("...qk,...kd->...qd", probs, v)
+
+
+def multihead_attention(x, wq, wk, wv, wo, bq, bk, bv, bo, num_heads,
+                        mask=None, causal=False, dropout_rate=0.0,
+                        training=False, use_flash=False):
+    """Self-attention forward (ref: ``ops/attention.py:266``). x
+    ``[B, T, E]``; w* ``[E, E]`` stored ``[in, out]`` for ``x @ W``. With
+    ``use_flash``, calls without a mask or attention dropout ride flash
+    attention (K2 on the card)."""
+    b, t, e = x.shape
+    hd = e // num_heads
+
+    def proj(w, bias):
+        return (x @ w + bias).reshape(b, t, num_heads, hd).transpose(1, 2)
+
+    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
+    no_dropout = dropout_rate == 0.0 or not training
+    if use_flash and mask is None and no_dropout:
+        ctx = flash_attention(q, k, v, causal=causal)
+    else:
+        ctx = scaled_dot_product_attention(q, k, v, mask=mask,
+                                           causal=causal,
+                                           dropout_rate=dropout_rate,
+                                           training=training)
+    return ctx.transpose(1, 2).reshape(b, t, e) @ wo + bo
+
+
+# --- paged KV cache --------------------------------------------------------
+
+def quantized_pool(pool):
+    """True iff ``pool`` is an int8 pool carrying per-row scales."""
+    return "k_scale" in pool
+
+
+def quantize_kv_rows(x):
+    """Symmetric per-token-row int8 quantization. x ``[T, H, hd]`` ->
+    (int8 ``[T, H, hd]``, f32 scale ``[T]``), scale = absmax/127. An
+    all-zero row stores scale 0 and dequantizes to exactly 0."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=(1, 2)) / 127.0
+    q = torch.clamp(torch.round(xf / torch.clamp(scale, min=1e-30)[:, None,
+                                                                  None]),
+                    -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def dequantize_pages(pages, scales):
+    """Dequantize gathered pages: ``[..., H, ps, hd]`` int8 with scales
+    ``[..., ps]`` aligned on the leading dims -> f32."""
+    return pages.float() * scales[..., None, :, None]
+
+
+def init_page_pool(num_pages, num_heads, page_size, head_dim,
+                   dtype=torch.float32, kv_dtype=None, device="cuda"):
+    """One layer's KV page pool ``{"k", "v"}`` ``[num_pages, H, page_size,
+    hd]`` of zeros on ``device``; ``kv_dtype=torch.int8`` stores int8
+    values and adds ``{"k_scale", "v_scale"}`` f32 ``[num_pages,
+    page_size]``."""
+    dev = resolve_device(device)
+    shape = (num_pages, num_heads, page_size, head_dim)
+    if kv_dtype is None or kv_dtype == dtype:
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if kv_dtype != torch.int8:
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r} "
+                         "(supported: torch.int8, or None for the pool "
+                         "dtype)")
+    sshape = (num_pages, page_size)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32, device=dev),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32, device=dev)}
+
+
+def _drop_redirect(page_ids, offsets, num_pages):
+    """Destinations for a scatter that DROPS rows whose page id lies
+    outside ``[0, num_pages)``, as the reference's ``mode="drop"`` does.
+    PyTorch has no drop mode, and filtering the rows would need the
+    device's answer on the host. So every dropped row is sent to the
+    destination of the first kept row instead, and writes that row's
+    value there (a duplicate index carrying the identical value is
+    harmless). With no kept row at all, every row goes to ``(0, 0)`` and
+    rewrites the value already there. Returns ``(src [T], pages [T],
+    offsets [T], any_kept)``: row ``i`` writes the value of row
+    ``src[i]``."""
+    keep = (page_ids >= 0) & (page_ids < num_pages)
+    first = torch.argmax(keep.to(torch.int32))
+    any_kept = keep[first]
+    idx = torch.arange(page_ids.shape[0], device=page_ids.device)
+    src = torch.where(keep, idx, first)
+    pages = torch.where(any_kept, page_ids[src], torch.zeros_like(page_ids))
+    offs = torch.where(any_kept, offsets[src], torch.zeros_like(offsets))
+    return src, pages.long(), offs.long(), any_kept
+
+
+def paged_write(pool, k_t, v_t, page_ids, offsets):
+    """Scatter per-token K/V into the pool's pages **in place**. k_t/v_t
+    ``[T, H, hd]``; page_ids/offsets ``[T]``. A page id outside
+    ``[0, num_pages)`` drops its row (the engine sends inactive slots and
+    pad positions to page ``num_pages`` on purpose). On an int8 pool each
+    row is quantized on the way in and its scale written beside it.
+    Returns ``pool``."""
+    if k_t.shape[0] == 0:
+        return pool
+    num_pages = pool["k"].shape[0]
+    src, pages, offs, any_kept = _drop_redirect(page_ids, offsets,
+                                                num_pages)
+
+    def put(name, rows):
+        dst = pool[name]
+        idx = (pages, slice(None), offs) if dst.ndim == 4 else (pages, offs)
+        dst[idx] = torch.where(any_kept, rows[src].to(dst.dtype), dst[idx])
+
+    if quantized_pool(pool):
+        k_q, k_s = quantize_kv_rows(k_t)
+        v_q, v_s = quantize_kv_rows(v_t)
+        put("k", k_q)
+        put("v", v_q)
+        put("k_scale", k_s)
+        put("v_scale", v_s)
+    else:
+        put("k", k_t)
+        put("v", v_t)
+    return pool
+

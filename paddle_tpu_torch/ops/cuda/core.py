@@ -1,0 +1,235 @@
+"""The one launch layer of the port's CUDA kernels.
+
+The counterpart of ``paddle_tpu/ops/pallas/core.py:78 kernel_call``, the
+JAX package's single ``pl.pallas_call`` site. It owns:
+
+* the build: every ``paddle_tpu_torch/csrc/*.cu`` is compiled by ``nvcc``
+  for ``sm_90a`` (one process per source, all started together) and
+  linked into one shared library with a plain C interface, at first use,
+  into ``paddle_tpu_torch/csrc/build/<hash of the sources>/``. A later
+  run with the same sources loads the library it finds there. A failed
+  compile raises with nvcc's output;
+* the ``ctypes`` binding: ``argtypes`` set on every entry, ``c_void_p``
+  for each pointer and the stream;
+* the launch check: every C entry returns ``cudaGetLastError()`` and
+  :class:`Kernel` raises when it is not 0;
+* a plain-integer launch count per kernel (:attr:`Kernel.launches`);
+* the device rule (:func:`on_card`): tensors on the CPU take the kernel's
+  plain PyTorch version, tensors on a CUDA device take the kernel, and
+  anything else raises. There is no flag and no fallback: a kernel that
+  fails on the card raises.
+
+The online-softmax (m, l, acc) combiner of ``core.py:220-269`` lives in
+device code, in the kernels themselves (``csrc/flash_attention.cu``,
+``csrc/decode_attention.cu``), with the same rule that a fully masked row
+gives exactly 0.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc")
+BUILD_ROOT = os.path.join(CSRC, "build")
+LIB_NAME = "libpaddle_tpu_torch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: storage-type codes of csrc/common.cuh
+F32, BF16, I8 = 0, 1, 2
+_CODES = {torch.float32: F32, torch.bfloat16: BF16, torch.int8: I8}
+
+#: largest dynamic shared memory a block may take on the H100
+MAX_SMEM = 232448
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the port's kernels are built from "
+                           f"{CSRC}")
+    return found
+
+
+def _sources():
+    names = sorted(n for n in os.listdir(CSRC)
+                   if n.endswith((".cu", ".cuh")))
+    return [os.path.join(CSRC, n) for n in names]
+
+
+def build_dir():
+    """The build directory of the current sources: a hash of the flags
+    and of every source's name and bytes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+
+
+def build():
+    """Compile and link the kernel library if this build directory does
+    not hold it yet; returns its path. Each ``nvcc -c`` writes its
+    ``-Xptxas=-v`` report (registers, shared memory, spills) beside the
+    library as ``<source>.o.ptxas.txt``. Objects go to a directory of this
+    process's own and the library appears by an atomic rename, so two
+    processes building at once cannot mix their files."""
+    out = build_dir()
+    lib = os.path.join(out, LIB_NAME)
+    if os.path.exists(lib):
+        return lib
+    work = os.path.join(out, f"tmp{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    nvcc = _nvcc()
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    procs = []
+    for src in cus:
+        obj = os.path.join(work, os.path.basename(src) + ".o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, obj, proc in procs:
+        log, _ = proc.communicate()
+        with open(os.path.join(out, os.path.basename(obj) + ".ptxas.txt"),
+                  "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc {os.path.basename(src)} exited "
+                          f"{proc.returncode}:\n{log}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    tmp = os.path.join(work, LIB_NAME)
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", tmp, *[obj for _, obj, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"kernel link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    shutil.rmtree(work, ignore_errors=True)
+    return lib
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            lib.ptt_error_string.argtypes = [ctypes.c_int]
+            lib.ptt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+class Kernel:
+    """One C entry of the kernel library and its launch count.
+
+    ``__call__`` forwards its arguments to the entry, raises if the entry
+    returns a CUDA error, and only then adds one to :attr:`launches`."""
+
+    def __init__(self, name, symbol, argtypes, replaces, source):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.replaces = replaces      # file:line of the TPU kernel
+        self.source = source          # the CUDA source in this repo
+        self.launches = 0
+        self._fn = None
+
+    def _entry(self):
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, *args):
+        err = self._entry()(*args)
+        if err != 0:
+            text = library().ptt_error_string(err).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: "
+                               f"CUDA error {err} ({text})")
+        self.launches += 1
+
+
+#: every kernel of the port, by name (the counts chip_smoke.py reads)
+KERNELS = {}
+
+
+def register(name, symbol, argtypes, replaces, source):
+    kernel = Kernel(name, symbol, argtypes, replaces, source)
+    KERNELS[name] = kernel
+    return kernel
+
+
+def reset_launches():
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def launch_counts():
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def on_card(*tensors):
+    """The device rule. False when every tensor lies on the CPU (the
+    caller runs the plain PyTorch version), True when every tensor lies
+    on one CUDA device (the caller launches the kernel); raises for
+    anything else, such as a mix of devices. ``None`` entries are
+    skipped."""
+    devs = {t.device for t in tensors if t is not None}
+    if not devs:
+        raise ValueError("on_card: no tensors given")
+    if all(d.type == "cpu" for d in devs):
+        return False
+    if len(devs) == 1 and next(iter(devs)).type == "cuda":
+        return True
+    raise ValueError("kernel inputs must all lie on the CPU or all on one "
+                     f"CUDA device, got {sorted(map(str, devs))}")
+
+
+def dtype_code(t, allowed):
+    """The C storage-type code of ``t``; raises for a type the kernel does
+    not take."""
+    if t.dtype not in allowed:
+        raise TypeError(f"kernel takes {[str(a) for a in allowed]}, got "
+                        f"{t.dtype}")
+    return _CODES[t.dtype]
+
+
+def ptr(t):
+    """A tensor's device pointer for ctypes (None for an absent
+    operand)."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t):
+    """PyTorch's current stream on ``t``'s device, for ctypes."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_contiguous(**tensors):
+    for name, t in tensors.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+VP, I32, F32_ARG = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

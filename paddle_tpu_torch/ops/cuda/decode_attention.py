@@ -1,0 +1,127 @@
+"""K7: paged decode attention — the CUDA kernel and its plain PyTorch
+version.
+
+Replaces ``paddle_tpu/ops/pallas/decode_attention.py:48 _decode_kernel``
+(launcher ``paged_decode_attention_tpu`` :114), for f32, bf16 and int8
+pools (the int8 variant is the same TPU kernel behind its ``quantized``
+switch, dequantizing rows with ``[N, ps]`` scales). Source:
+``paddle_tpu_torch/csrc/decode_attention.cu``. The scalar prefetch of the
+page table has no counterpart: each block (one per slot and head) reads
+``page_table[s, j]`` itself and skips the pages at or past the slot's
+length. Bound on the H100: bytes (each live K/V element is read once for
+two FMAs). Splitting a slot's pages across blocks (flash-decoding) is the
+later redesign.
+
+The plain version is the reference's ``_paged_attention_xla``
+(``ops/attention.py:190``): it gathers every table page densely and masks
+by length.
+"""
+
+import math
+
+import torch
+
+from paddle_tpu_torch.ops.cuda import core
+
+KERNEL = core.register(
+    "decode_attention", "ptt_decode_attention",
+    [core.I32] + [core.VP] * 8 + [core.I32] * 6 + [core.F32_ARG, core.VP],
+    replaces="paddle_tpu/ops/pallas/decode_attention.py:48",
+    source="paddle_tpu_torch/csrc/decode_attention.cu")
+
+NEG_INF = -1e30
+
+
+def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, scale,
+                          k_scale=None, v_scale=None):
+    """Gather-and-mask reference. q ``[S, H, hd]``; pools
+    ``[N, H, ps, hd]``; page_table ``[S, Pmax]`` (in range everywhere);
+    lengths ``[S]``; k/v_scale ``[N, ps]`` for int8 pools. A length-0
+    slot gives exactly 0."""
+    s_slots, h, hd = q.shape
+    page_size = k_pages.shape[2]
+    p_max = page_table.shape[1]
+    t = p_max * page_size
+    pt = page_table.long()
+    kg = k_pages[pt].float()                   # [S, Pmax, H, ps, hd]
+    vg = v_pages[pt].float()
+    if k_scale is not None:
+        kg = kg * k_scale[pt][:, :, None, :, None]
+        vg = vg * v_scale[pt][:, :, None, :, None]
+    k = kg.movedim(2, 1).reshape(s_slots, h, t, hd)
+    v = vg.movedim(2, 1).reshape(s_slots, h, t, hd)
+    scores = torch.einsum("shd,shtd->sht", q.float(), k) * scale
+    valid = (torch.arange(t, device=q.device)[None, :]
+             < lengths[:, None])[:, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    # mask p, not just scores: a length-0 slot keeps m at NEG_INF
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("sht,shtd->shd", p, v)
+    out = torch.where(l > 0, out / torch.clamp(l, min=1e-30),
+                      torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def paged_decode_kernel(q, k_pages, v_pages, page_table, lengths, scale,
+                        k_scale=None, v_scale=None):
+    """Launch K7 on CUDA tensors -> ``[S, H, hd]`` f32. q is f32; pools
+    are f32, bf16, or int8 with both scales."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"decode kernel: q must be float32, got {q.dtype}")
+    code = core.dtype_code(k_pages,
+                           (torch.float32, torch.bfloat16, torch.int8))
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError("decode kernel: k and v pools differ in dtype")
+    quantized = code == core.I8
+    if quantized != (k_scale is not None) or (k_scale is None) != (
+            v_scale is None):
+        raise ValueError("decode kernel: k_scale/v_scale go with int8 "
+                         "pools and only with them")
+    core.require_contiguous(q=q, k_pages=k_pages, v_pages=v_pages,
+                            k_scale=k_scale, v_scale=v_scale)
+    s_slots, h, hd = q.shape
+    n, h2, ps, hd2 = k_pages.shape
+    if (h2, hd2) != (h, hd) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"decode kernel: pools {tuple(k_pages.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if quantized and (k_scale.dtype != torch.float32
+                      or k_scale.shape != (n, ps)
+                      or v_scale.shape != (n, ps)):
+        raise ValueError(f"decode kernel: scales must be f32 [{n}, {ps}]")
+    if page_table.shape[0] != s_slots or lengths.shape != (s_slots,):
+        raise ValueError("decode kernel: page_table/lengths do not match "
+                         f"{s_slots} slots")
+    smem = 4 * (hd + ps * (hd + 1) + ps * hd + ps + 32)
+    if smem > core.MAX_SMEM:
+        raise ValueError(f"decode kernel: page {ps}x{hd} needs {smem} bytes "
+                         "of shared memory")
+    ptab = page_table.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if s_slots == 0 or h == 0:
+        return out
+    KERNEL(code, core.ptr(q), core.ptr(k_pages), core.ptr(v_pages),
+           core.ptr(k_scale), core.ptr(v_scale), core.ptr(ptab),
+           core.ptr(lens), core.ptr(out), s_slots, n, h, ps, hd,
+           ptab.shape[1], float(scale), core.stream(q))
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                           scale=None, k_scale=None, v_scale=None):
+    """Single-query attention over a paged KV cache (ref:
+    ``ops/attention.py:225``). q ``[S, H, hd]``; pools ``[N, H, ps, hd]``;
+    page_table ``[S, Pmax]`` int32, in range everywhere; lengths ``[S]``
+    (0 = inactive slot -> exactly-zero output); k/v_scale ``[N, ps]`` for
+    int8 pools. K7 on CUDA tensors, the plain version on CPU tensors."""
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    if core.on_card(q, k_pages, v_pages, page_table, lengths, k_scale,
+                    v_scale):
+        return paged_decode_kernel(q.contiguous(), k_pages, v_pages,
+                                   page_table, lengths, scale, k_scale,
+                                   v_scale)
+    return paged_attention_plain(q, k_pages, v_pages, page_table, lengths,
+                                 scale, k_scale, v_scale)

@@ -1,0 +1,83 @@
+"""K1: layer norm forward — the CUDA kernel and its plain PyTorch version.
+
+Replaces ``paddle_tpu/ops/pallas/layer_norm.py:30 _ln_fwd_kernel``
+(launcher ``_stats_pallas`` :62, entry ``layer_norm_fused`` :148).
+Source: ``paddle_tpu_torch/csrc/layer_norm.cu``. One warp normalizes one
+row of ``[R, C]``; statistics are f32; the kernel also writes the f32
+mean and rstd per row, which the serving path ignores and a backward
+will read. Bound on the H100: bytes (one read of x, one write of y), so
+the design keeps the statistics in warp shuffles and reads x once from
+device memory.
+"""
+
+import torch
+
+from paddle_tpu_torch.ops.cuda import core
+
+KERNEL = core.register(
+    "layer_norm", "ptt_layer_norm",
+    [core.I32, core.VP, core.VP, core.VP, core.VP, core.VP, core.VP,
+     core.I32, core.I32, core.F32_ARG, core.VP],
+    replaces="paddle_tpu/ops/pallas/layer_norm.py:30",
+    source="paddle_tpu_torch/csrc/layer_norm.cu")
+
+
+def layer_norm_plain(x2d, gamma, beta, epsilon):
+    """The plain version: ``(y, mean, rstd)`` with mean/rstd ``[R, 1]``
+    f32, exactly the reference's ``_stats_xla``."""
+    x = x2d.float()
+    m = x.mean(dim=1, keepdim=True)
+    xc = x - m
+    v = (xc * xc).mean(dim=1, keepdim=True)
+    r = torch.rsqrt(v + epsilon)
+    y = xc * r
+    y = y * gamma.float()[None, :] + beta.float()[None, :]
+    return y.to(x2d.dtype), m, r
+
+
+def layer_norm_kernel(x2d, gamma, beta, epsilon):
+    """Launch K1 on CUDA tensors; same outputs as the plain version."""
+    code = core.dtype_code(x2d, (torch.float32, torch.bfloat16))
+    if gamma.dtype != x2d.dtype or beta.dtype != x2d.dtype:
+        raise TypeError("layer_norm kernel: scale and bias must have x's "
+                        f"dtype {x2d.dtype}")
+    core.require_contiguous(x=x2d, gamma=gamma, beta=beta)
+    r_, c_ = x2d.shape
+    if gamma.shape != (c_,) or beta.shape != (c_,):
+        raise ValueError(f"scale/bias must be [{c_}]")
+    y = torch.empty_like(x2d)
+    mean = torch.empty((r_, 1), dtype=torch.float32, device=x2d.device)
+    rstd = torch.empty((r_, 1), dtype=torch.float32, device=x2d.device)
+    if r_ == 0:
+        return y, mean, rstd
+    KERNEL(code, core.ptr(x2d), core.ptr(gamma), core.ptr(beta),
+           core.ptr(y), core.ptr(mean), core.ptr(rstd), r_, c_,
+           float(epsilon), core.stream(x2d))
+    return y, mean, rstd
+
+
+def layer_norm_rows(x2d, gamma, beta, epsilon=1e-5):
+    """``(y, mean, rstd)`` over the rows of ``x2d``: K1 on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if core.on_card(x2d, gamma, beta):
+        return layer_norm_kernel(x2d, gamma, beta, epsilon)
+    return layer_norm_plain(x2d, gamma, beta, epsilon)
+
+
+def layer_norm_fused(x, scale=None, bias=None, begin_norm_axis=1,
+                     epsilon=1e-5):
+    """Layer norm over dims ``[begin_norm_axis:]``; scale/bias flat over
+    those dims (the reference ``layer_norm_fused`` contract)."""
+    rows = 1
+    for d in x.shape[:begin_norm_axis]:
+        rows *= d
+    cols = 1
+    for d in x.shape[begin_norm_axis:]:
+        cols *= d
+    gamma = (scale.reshape(cols) if scale is not None
+             else torch.ones(cols, dtype=x.dtype, device=x.device))
+    beta = (bias.reshape(cols) if bias is not None
+            else torch.zeros(cols, dtype=x.dtype, device=x.device))
+    y, _, _ = layer_norm_rows(x.reshape(rows, cols).contiguous(), gamma,
+                              beta, epsilon)
+    return y.reshape(x.shape)

@@ -1,0 +1,94 @@
+"""K4: fused feed-forward ``gelu(x @ w1 + b1) @ w2 + b2`` — the CUDA
+kernel and its plain PyTorch version.
+
+Replaces ``paddle_tpu/ops/pallas/mlp.py:51 _mlp_kernel`` (launcher
+``_mlp_pallas`` :92, entry ``fused_mlp`` :201); forward only, no gate.
+Source: ``paddle_tpu_torch/csrc/mlp.cu``. The TPU kernel streams the
+intermediate axis I through one f32 ``[BN, Hout]`` accumulator on a
+sequential grid axis. On Hopper the I axis is split across blocks as well
+as the rows, so that decode's 8 rows still fill the card: each block
+writes an f32 ``[BN, Hout]`` partial of its I slice into a scratch
+buffer, and a second small kernel sums the partials in a fixed order and
+adds ``b2``. Bound on the H100: bytes at decode (the weights are read
+once), f32 operations at prefill. Gelu is the exact erf form
+(``paddle_tpu/ops/pallas/mlp.py:43``: it must match the unfused model
+math).
+"""
+
+import torch
+
+from paddle_tpu_torch.ops.activations import gelu
+from paddle_tpu_torch.ops.cuda import core
+
+KERNEL = core.register(
+    "mlp", "ptt_mlp",
+    [core.I32] + [core.VP] * 7 + [core.I32] * 6 + [core.VP],
+    replaces="paddle_tpu/ops/pallas/mlp.py:51",
+    source="paddle_tpu_torch/csrc/mlp.cu")
+
+#: rows per tile and intermediate columns per chunk in csrc/mlp.cu
+BLOCK_ROWS, BLOCK_I = 16, 32
+
+
+def mlp_plain(x, w1, b1, w2, b2):
+    """The plain version, the reference's ``_mlp_unfused`` (Linear
+    matmul + bias in the input dtype, then exact gelu)."""
+    return gelu(x @ w1 + b1) @ w2 + b2
+
+
+def split_plan(rows, inter, num_sms):
+    """``(splits, chunks_per_split)`` of the I axis: enough blocks for two
+    per SM when the row tiles alone are too few, each split a whole
+    number of 32-column chunks."""
+    row_tiles = -(-rows // BLOCK_ROWS)
+    n_chunks = -(-inter // BLOCK_I)
+    want = max(1, -(-2 * num_sms // row_tiles))
+    per = -(-n_chunks // min(n_chunks, want))
+    return -(-n_chunks // per), per
+
+
+def mlp_kernel(x2, w1, b1, w2, b2):
+    """Launch K4 on CUDA tensors. x2 ``[R, H]``, w1 ``[H, I]``, b1 ``[I]``,
+    w2 ``[I, Hout]``, b2 ``[Hout]``, all of one dtype -> ``[R, Hout]``."""
+    code = core.dtype_code(x2, (torch.float32, torch.bfloat16))
+    for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        if t.dtype != x2.dtype:
+            raise TypeError(f"mlp kernel: {name} is {t.dtype}, x is "
+                            f"{x2.dtype}")
+    core.require_contiguous(x=x2, w1=w1, b1=b1, w2=w2, b2=b2)
+    rows, hidden = x2.shape
+    inter, hout = w1.shape[1], w2.shape[1]
+    if (w1.shape[0] != hidden or w2.shape[0] != inter
+            or b1.shape != (inter,) or b2.shape != (hout,)):
+        raise ValueError("mlp kernel: shapes do not chain: x "
+                         f"{tuple(x2.shape)} w1 {tuple(w1.shape)} b1 "
+                         f"{tuple(b1.shape)} w2 {tuple(w2.shape)} b2 "
+                         f"{tuple(b2.shape)}")
+    smem = core.library().ptt_mlp_smem_bytes(hidden, hout)
+    if smem > core.MAX_SMEM:
+        raise ValueError(f"mlp kernel: H={hidden}, Hout={hout} need {smem} "
+                         f"bytes of shared memory (max {core.MAX_SMEM})")
+    out = torch.empty((rows, hout), dtype=x2.dtype, device=x2.device)
+    if rows == 0:
+        return out
+    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
+    nsplit, per = split_plan(rows, inter, sms)
+    part = torch.empty((nsplit, rows, hout), dtype=torch.float32,
+                       device=x2.device)
+    KERNEL(code, core.ptr(x2), core.ptr(w1), core.ptr(b1), core.ptr(w2),
+           core.ptr(b2), core.ptr(out), core.ptr(part), rows, hidden, inter,
+           hout, nsplit, per, core.stream(x2))
+    return out
+
+
+def fused_mlp(x, w1, b1, w2, b2):
+    """``gelu(x @ w1 + b1) @ w2 + b2`` over the last axis of ``x``: K4 on
+    CUDA tensors (the ``[rows, I]`` activation never reaches device
+    memory), the plain version on CPU tensors (on the original leading
+    shape, as the reference's unfused path)."""
+    if not core.on_card(x, w1, b1, w2, b2):
+        return mlp_plain(x, w1, b1, w2, b2)
+    lead = x.shape[:-1]
+    out = mlp_kernel(x.reshape(-1, x.shape[-1]).contiguous(), w1, b1, w2,
+                     b2)
+    return out.reshape(*lead, w2.shape[1])

@@ -1,0 +1,124 @@
+"""The PyTorch port stands alone: paddle_tpu_torch/ and chip_smoke.py import
+neither jax nor the JAX package, the port serves on the CPU in a process
+where jax, jaxlib, paddle_tpu and triton cannot be imported, and its
+entry points refuse to run without a card unless asked for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "paddle_tpu", "triton")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirnames, filenames in os.walk(
+            os.path.join(ROOT, "paddle_tpu_torch")):
+        dirnames[:] = [d for d in dirnames if d not in ("build",
+                                                        "__pycache__")]
+        out += [os.path.join(dirpath, f) for f in filenames
+                if f.endswith(".py")]
+    return out
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_ast_scan_finds_no_reference_imports():
+    files = _port_files()
+    assert len(files) > 10
+    for path in files:
+        bad = _imported_roots(path) & set(BLOCKED)
+        assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+_SERVE_BLOCKED = r"""
+import importlib.abc, sys
+BLOCKED = {blocked!r}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:          # exact top-level name
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+for mod in list(sys.modules):
+    if mod.split(".")[0] in BLOCKED:
+        del sys.modules[mod]
+sys.path.insert(0, {root!r})
+import numpy as np, torch
+torch.set_num_threads(1)
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+from paddle_tpu_torch.ops.cuda import core
+cfg = GPTConfig.tiny()
+cfg.dropout = 0.0
+eng = ServingEngine(GPTDecoder(cfg, device="cpu"), ServeConfig(
+    num_slots=2, page_size=8, max_len=40, prefill_len=16))
+rs = np.random.RandomState(0)
+for n in (5, 20, 9):
+    eng.submit(rs.randint(0, 512, n), max_new=4)
+done = eng.drain()
+assert len(done) == 3 and all(len(r.tokens) == 4 for r in done)
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("SERVED", sorted(len(r.output) for r in done))
+"""
+
+
+def test_port_serves_with_reference_and_triton_blocked():
+    code = _SERVE_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "SERVED [9, 13, 24]" in proc.stdout
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.ops.attention import init_page_pool
+    with pytest.raises(EnforceError):
+        GPTDecoder(GPTConfig.tiny())
+    with pytest.raises(EnforceError):
+        init_page_pool(4, 2, 8, 16)
+    with pytest.raises(EnforceError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without a
+    CUDA device, and also when it stands alone without the package."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    alone = tmp_path / "chip_smoke.py"
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        alone.write_text(f.read())
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                          env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout

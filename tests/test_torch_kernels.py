@@ -1,0 +1,295 @@
+"""Per-kernel parity of the PyTorch port (paddle_tpu_torch) against the JAX
+reference.
+
+Each kernel module of the port holds a hand-written CUDA kernel and its
+plain PyTorch version; on CPU tensors the port runs the plain version.
+The same inputs, made with numpy from a seed, go through:
+
+* the JAX function on its XLA path (the default on the CPU), and
+* the JAX Pallas kernel in interpret mode,
+
+and both must agree with the port within 1e-5 abs/rel in f32 — the bar
+the reference holds its own fused paths to.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.core.flags import all_flags, set_flags
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def flags_guard():
+    saved = all_flags()
+    yield
+    set_flags(saved)
+
+
+def t(a):
+    """numpy/jax array -> CPU torch tensor (bf16 via f32, exactly)."""
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def n(x):
+    return x.detach().float().numpy()
+
+
+# ------------------------------------------------------------ K1 layer norm
+
+@pytest.mark.parametrize("shape", [(13, 48), (3, 5, 40), (1, 64)])
+def test_layer_norm_matches_jax_xla_and_interpret(rng, flags_guard, shape):
+    from paddle_tpu.ops.pallas.layer_norm import (_stats_pallas, _stats_xla,
+                                                  layer_norm_fused)
+    from paddle_tpu_torch.ops.cuda.layer_norm import (layer_norm_fused as
+                                                      port_ln,
+                                                      layer_norm_plain)
+    c = shape[-1]
+    x = rng.randn(*shape).astype(np.float32) * 3 + 1
+    g = rng.randn(c).astype(np.float32)
+    b = rng.randn(c).astype(np.float32)
+    got = n(port_ln(t(x), t(g), t(b), begin_norm_axis=len(shape) - 1))
+    ref_xla = np.asarray(layer_norm_fused(jnp.asarray(x), jnp.asarray(g),
+                                          jnp.asarray(b),
+                                          begin_norm_axis=len(shape) - 1))
+    np.testing.assert_allclose(got, ref_xla, **TOL)
+    set_flags({"pallas_interpret": True, "use_pallas_layer_norm": True})
+    x2 = x.reshape(-1, c)
+    y, m, r = _stats_pallas(jnp.asarray(x2), jnp.asarray(g), jnp.asarray(b),
+                            1e-5, interpret=True, block_rows=8)
+    py, pm, pr = layer_norm_plain(t(x2), t(g), t(b), 1e-5)
+    np.testing.assert_allclose(n(py), np.asarray(y), **TOL)
+    np.testing.assert_allclose(n(pm), np.asarray(m), **TOL)
+    np.testing.assert_allclose(n(pr), np.asarray(r), **TOL)
+    xy, xm, xr = _stats_xla(jnp.asarray(x2), jnp.asarray(g), jnp.asarray(b),
+                            1e-5)
+    np.testing.assert_allclose(n(pm), np.asarray(xm), **TOL)
+    np.testing.assert_allclose(n(pr), np.asarray(xr), **TOL)
+
+
+# -------------------------------------------------------------- K4 fused MLP
+
+@pytest.mark.parametrize("rows,inter", [(13, 72), (8, 128), (1, 40)])
+def test_fused_mlp_matches_jax_xla_and_interpret(rng, flags_guard, rows,
+                                                 inter):
+    from paddle_tpu.ops.pallas.mlp import _mlp_pallas, fused_mlp
+    from paddle_tpu_torch.ops.cuda.mlp import fused_mlp as port_mlp
+    h = 32
+    x = rng.randn(rows, h).astype(np.float32)
+    w1 = (rng.randn(h, inter) * 0.2).astype(np.float32)
+    b1 = (rng.randn(inter) * 0.1).astype(np.float32)
+    w2 = (rng.randn(inter, h) * 0.2).astype(np.float32)
+    b2 = (rng.randn(h) * 0.1).astype(np.float32)
+    got = n(port_mlp(t(x), t(w1), t(b1), t(w2), t(b2)))
+    ref_xla = np.asarray(fused_mlp(*map(jnp.asarray, (x, w1, b1, w2, b2))))
+    np.testing.assert_allclose(got, ref_xla, **TOL)
+    set_flags({"pallas_interpret": True, "use_pallas_mlp": True})
+    # small tiles: the row tail and the intermediate tail both run
+    ref_int = np.asarray(_mlp_pallas(*map(jnp.asarray, (x, w1, b1, w2, b2)),
+                                     None, None, "gelu", interpret=True,
+                                     blocks=(8, 32)))
+    np.testing.assert_allclose(got, ref_int, **TOL)
+
+
+def test_mlp_split_plan_covers_every_chunk():
+    from paddle_tpu_torch.ops.cuda.mlp import BLOCK_I, split_plan
+    for rows, inter in ((8, 3072), (512, 3072), (13, 3000), (1, 40)):
+        nsplit, per = split_plan(rows, inter, 132)
+        chunks = -(-inter // BLOCK_I)
+        assert (nsplit - 1) * per < chunks <= nsplit * per
+
+
+def test_gelu_is_exact_erf(rng):
+    from paddle_tpu.ops.activations import gelu
+    from paddle_tpu_torch.ops.activations import gelu as port_gelu
+    x = rng.randn(257).astype(np.float32) * 4
+    np.testing.assert_allclose(n(port_gelu(t(x))),
+                               np.asarray(gelu(jnp.asarray(x))), **TOL)
+
+
+# ------------------------------------------------------- K2 flash attention
+
+@pytest.mark.parametrize("tq,tk,causal,masked", [
+    (24, 40, True, False),     # bottom-right causal offset tk - tq
+    (40, 40, True, False),
+    (24, 24, False, True),     # key padding, one fully masked batch row
+])
+def test_flash_matches_jax_xla_and_interpret(rng, flags_guard, tq, tk,
+                                             causal, masked):
+    from paddle_tpu.ops.pallas.flash_attention import (
+        _flash_attention_fwd_tpu, chunked_attention)
+    from paddle_tpu_torch.ops.cuda.flash_attention import (
+        chunked_attention as port_chunked, flash_attention as port_flash)
+    b, h, d = 2, 3, 64
+    q = rng.randn(b, h, tq, d).astype(np.float32)
+    k = rng.randn(b, h, tk, d).astype(np.float32)
+    v = rng.randn(b, h, tk, d).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.ones((b, tk), bool)
+        mask[0, tk // 2:] = False
+        mask[1] = False
+    scale = 1.0 / 8.0
+    got, lse = port_chunked(t(q), t(k), t(v), scale, causal,
+                            None if mask is None else t(mask),
+                            chunk_size=16, return_lse=True)
+    got = n(got)
+    ref_xla = np.asarray(chunked_attention(
+        *map(jnp.asarray, (q, k, v)), scale=scale, causal=causal,
+        kv_mask=None if mask is None else jnp.asarray(mask), chunk_size=16))
+    np.testing.assert_allclose(got, ref_xla, **TOL)
+    out, ref_lse = _flash_attention_fwd_tpu(
+        *map(jnp.asarray, (q, k, v)), scale, causal, 8, 16,
+        kv_mask=None if mask is None else jnp.asarray(mask),
+        interpret=True, return_lse=True)
+    np.testing.assert_allclose(got, np.asarray(out), **TOL)
+    if not masked:
+        np.testing.assert_allclose(n(lse), np.asarray(ref_lse), **TOL)
+    else:
+        assert float(np.abs(got[1]).max()) == 0.0   # fully masked -> 0
+    # the dispatching entry takes the plain version on CPU tensors
+    entry = port_flash(t(q), t(k), t(v), scale=scale, causal=causal,
+                       kv_mask=None if mask is None else t(mask))
+    np.testing.assert_allclose(n(entry), got, **TOL)
+
+
+def test_sdpa_matches_jax_causal_offset(rng):
+    from paddle_tpu.ops.attention import scaled_dot_product_attention
+    from paddle_tpu_torch.ops.attention import \
+        scaled_dot_product_attention as port_sdpa
+    q = rng.randn(2, 2, 5, 8).astype(np.float32)
+    k = rng.randn(2, 2, 9, 8).astype(np.float32)
+    v = rng.randn(2, 2, 9, 8).astype(np.float32)
+    got = n(port_sdpa(t(q), t(k), t(v), causal=True))
+    ref = np.asarray(scaled_dot_product_attention(
+        *map(jnp.asarray, (q, k, v)), causal=True))
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+# -------------------------------------------------- K7 paged decode attention
+
+def _jax_pool(rng, lengths, dtype, kv_dtype, h=4, hd=16, ps=8, n_pages=24):
+    from paddle_tpu.ops.attention import init_page_pool, paged_write
+    s = len(lengths)
+    pmax = max(-(-max(lengths) // ps), 1) + 1
+    pool = init_page_pool(n_pages, h, ps, hd, dtype, kv_dtype=kv_dtype)
+    ptab = np.zeros((s, pmax), np.int32)
+    free = list(rng.permutation(n_pages))
+    for i, ln in enumerate(lengths):
+        pages = [int(free.pop()) for _ in range(-(-ln // ps))]
+        ptab[i, :len(pages)] = pages
+        if not ln:
+            continue
+        ids = np.asarray([ptab[i, p // ps] for p in range(ln)], np.int32)
+        pool = paged_write(pool,
+                           jnp.asarray(rng.randn(ln, h, hd), jnp.float32),
+                           jnp.asarray(rng.randn(ln, h, hd), jnp.float32),
+                           jnp.asarray(ids),
+                           jnp.asarray(np.arange(ln) % ps, jnp.int32))
+    return pool, ptab
+
+
+@pytest.mark.parametrize("pool_kind", ["f32", "bf16", "int8"])
+def test_paged_decode_matches_jax_xla_and_interpret(rng, flags_guard,
+                                                    pool_kind):
+    from paddle_tpu.ops.attention import _paged_attention_xla
+    from paddle_tpu.ops.pallas.decode_attention import \
+        paged_decode_attention_tpu
+    from paddle_tpu_torch.ops.attention import paged_decode_attention
+    lengths = [13, 0, 37, 8, 1, 16]          # ragged, partial pages, empty
+    dtype = jnp.bfloat16 if pool_kind == "bf16" else jnp.float32
+    kv = jnp.int8 if pool_kind == "int8" else None
+    pool, ptab = _jax_pool(rng, lengths, dtype, kv)
+    q = rng.randn(len(lengths), 4, 16).astype(np.float32)
+    scale = 0.25
+    args = (jnp.asarray(q), pool["k"], pool["v"], jnp.asarray(ptab),
+            jnp.asarray(lengths, jnp.int32))
+    ks, vs = pool.get("k_scale"), pool.get("v_scale")
+    ref_xla = np.asarray(_paged_attention_xla(*args, scale, k_scale=ks,
+                                              v_scale=vs))
+    ref_int = np.asarray(paged_decode_attention_tpu(
+        *args, scale, k_scale=ks, v_scale=vs, interpret=True, block_h=2))
+    got = n(paged_decode_attention(
+        t(q), t(pool["k"]), t(pool["v"]), t(ptab),
+        torch.tensor(lengths, dtype=torch.int32), scale=scale,
+        k_scale=None if ks is None else t(ks),
+        v_scale=None if vs is None else t(vs)))
+    np.testing.assert_allclose(got, ref_xla, **TOL)
+    np.testing.assert_allclose(got, ref_int, **TOL)
+    assert float(np.abs(got[1]).max()) == 0.0      # length-0 slot: exact 0
+
+
+@pytest.mark.parametrize("pool_kind", ["f32", "int8"])
+@pytest.mark.parametrize("ids", [[1, 4, 2, 4], [4, 4, 4, 4], [0, 3, 2, 1]])
+def test_paged_write_drop_semantics_match_jax(rng, pool_kind, ids):
+    """Page id == num_pages drops the row (mode="drop"); the port writes
+    the pool in place and must leave it exactly as the reference does."""
+    from paddle_tpu.ops.attention import init_page_pool, paged_write
+    from paddle_tpu_torch.ops import attention as port
+    kv = jnp.int8 if pool_kind == "int8" else None
+    jpool = init_page_pool(4, 2, 8, 16, kv_dtype=kv)
+    ppool = port.init_page_pool(4, 2, 8, 16, kv_dtype=(
+        torch.int8 if kv else None), device="cpu")
+    for step in range(2):                    # second write over the first
+        k = rng.randn(4, 2, 16).astype(np.float32)
+        v = rng.randn(4, 2, 16).astype(np.float32)
+        offs = np.asarray([3, 0, 7, 5], np.int32) - step
+        jpool = paged_write(jpool, jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(ids, jnp.int32), jnp.asarray(offs))
+        out = port.paged_write(ppool, t(k), t(v),
+                               torch.tensor(ids, dtype=torch.int32),
+                               torch.from_numpy(offs))
+        assert out is ppool                     # in place
+    for name in jpool:
+        np.testing.assert_allclose(n(ppool[name]), np.asarray(jpool[name]),
+                                   rtol=0, atol=1e-7)
+
+
+def test_quantize_rows_matches_jax(rng):
+    from paddle_tpu.ops.attention import quantize_kv_rows
+    from paddle_tpu_torch.ops.attention import quantize_kv_rows as port_q
+    x = rng.randn(9, 3, 16).astype(np.float32)
+    x[4] = 0.0                                  # all-zero row: scale 0
+    q, s = quantize_kv_rows(jnp.asarray(x))
+    pq, ps = port_q(t(x))
+    np.testing.assert_array_equal(pq.numpy(), np.asarray(q))
+    np.testing.assert_allclose(ps.numpy(), np.asarray(s), rtol=0, atol=0)
+
+
+# ------------------------------------------------------------- device rule
+
+def test_device_rule_cpu_plain_and_others_raise():
+    from paddle_tpu_torch.ops.cuda import core
+    cpu = torch.zeros(2)
+    assert core.on_card(cpu, None, cpu) is False
+    with pytest.raises(ValueError):
+        core.on_card(torch.zeros(2, device="meta"))
+    with pytest.raises(ValueError):
+        core.on_card(cpu, torch.zeros(2, device="meta"))
+    with pytest.raises(TypeError):
+        core.dtype_code(torch.zeros(2, dtype=torch.float64),
+                        (torch.float32,))
+
+
+def test_every_kernel_is_registered_with_its_sources():
+    import os
+
+    from paddle_tpu_torch.ops.cuda import core
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert set(core.KERNELS) == {"layer_norm", "flash_attention", "mlp",
+                                 "decode_attention"}
+    for kernel in core.KERNELS.values():
+        assert os.path.isfile(os.path.join(root, kernel.source))
+        path, line = kernel.replaces.split(":")
+        with open(os.path.join(root, path)) as f:
+            text = f.readlines()[int(line) - 1]
+        assert text.startswith("def _") and "kernel" in text
