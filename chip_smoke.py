@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -7,26 +8,42 @@ Phases, each printing one JSON line:
 1. device  — needs a CUDA device (exits non-zero without one); prints the
    card's name and power limit from nvidia-smi; turns TF32 off.
 2. build   — compiles the kernels from paddle_tpu_torch/csrc with nvcc.
-3. kernel  — each kernel (K1 layer norm, K2 flash attention, K4 fused MLP,
-   K7 paged decode attention) at the serving path's shapes and at ragged
-   shapes, against its plain PyTorch version on the same inputs, with the
-   stated tolerance; times the kernel, the plain version and, where one
-   exists, one PyTorch library call computing the same function, beside
-   the least time the card could take (bytes over 3.35 TB/s or operations
-   over the peak rate of the input type).
+3. kernel  — each kernel (K1 layer norm, K2 flash attention, K3 flash
+   backward dq and dk/dv, K4 fused MLP, K5 fused cross-entropy statistics,
+   K6 its backward dh and dw/db, K7 paged decode attention) at the
+   serving or training path's shapes and at ragged shapes, against its
+   plain PyTorch version on the same inputs, with the stated tolerance
+   (the serving kernels' outputs absolutely; the training path's each on
+   its own scale max |plain|); times the kernel, the plain version
+   and, where one exists, one PyTorch library call computing the same
+   function, beside the least time the card could take (bytes over
+   3.35 TB/s or operations over the peak rate of the input type).
 4. serve   — GPTConfig.small() at full width (random weights from a
    seed) behind ServingEngine(num_slots=8, page_size=64, max_len=1024,
    prefill_len=512, bf16 cache): 16 prompts uniform in [64, 512] plus one
    of 700 tokens (chunked prefill), 64 new tokens each. The launch counts
-   are zeroed just before and read just after; each kernel must have run.
+   are zeroed just before and read just after; each serving kernel (K1,
+   K2, K4, K7) must have run.
 5. crosscheck — two of those requests replayed teacher-forced on the
    card and on the CPU (plain path, f32 cache, same weights); logits must
    agree within the stated tolerance.
 6. int8    — a short serve with an int8 KV pool.
+7. train   — the GPT training step at full width (GPTConfig.small(),
+   dropout 0, weights from a seed): GPT.loss, its backward and
+   amp.decorate(Adam(1e-4), bf16_policy()), batch 16 x seq 512 of one
+   fixed seeded batch; 2 warm-up steps, then 10 timed steps with the
+   launch counts zeroed just before and read just after. Each training
+   kernel (K1-K6) must launch its expected count per step, the loss must
+   be finite at every step and fall from the first step to the last.
+8. train crosscheck — one f32 step (TF32 off) of GPTConfig.small() at
+   batch 2 x seq 128 on the card and on the CPU plain path from the same
+   weights: loss and every parameter's gradient must agree.
 
-Then the {"kernels": [...]} line, the nvidia-smi line, and the contract
-line {"ok": true, "device": {...}}. Any failed phase raises, and the
-script exits non-zero without the contract line.
+Then the {"kernels": [...]} line (each kernel with the launches of its
+own path: serve for K1, K2, K4 and K7, train for K3, K5 and K6), the
+nvidia-smi line, and the contract line {"ok": true, "device": {...}}. Any
+failed phase raises, and the script exits non-zero without the contract
+line.
 """
 
 import glob
@@ -46,6 +63,16 @@ PEAK_OPS = {torch.float32: 67e12,        # f32 outside the tensor cores
 F32_TOL = 1e-4     # f32 kernels: sums in another order than cuBLAS/torch
 BF16_TOL = 3e-2    # bf16 storage: one bf16 rounding of outputs ~ 2^-8 rel
 SERVE_LOGIT_TOL = 5e-2   # bf16 KV cache on the card vs f32 cache on CPU
+TRAIN_LOSS_TOL = 1e-4    # f32 train step, card vs CPU plain path
+TRAIN_GRAD_TOL = 1e-3    # relative L2 of each parameter's gradient: sums
+                         # in other orders, embedding gradients by atomics
+                         # in an order that changes from run to run
+
+#: the kernels each path must launch
+SERVE_KERNELS = ("layer_norm", "flash_attention", "mlp", "decode_attention")
+TRAIN_KERNELS = ("layer_norm", "flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "mlp", "xent_stats",
+                 "xent_bwd_dh", "xent_bwd_dwb")
 
 
 def emit(obj):
@@ -61,19 +88,24 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20):
+def time_ms(fn, iters=20, graph=True):
     """Mean device time of ``fn`` over ``iters`` runs. ``fn`` is captured
     once as a CUDA graph, and each replay is bracketed by its own CUDA
     events right after a 256 MiB memset: the memset evicts the 50 MB L2
     (inputs are read cold, as the model reads its weights) and keeps the
     device busy while the host enqueues the replay, so host launch time
-    stays out of the reading."""
+    stays out of the reading. ``graph=False`` brackets plain calls
+    instead (for autograd backward calls, timed as library yardsticks at
+    sizes where a call takes milliseconds)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    run = fn
+    if graph:
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(cuda_graph):
+            fn()
+        run = cuda_graph.replay
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     marks = []
     for _ in range(iters):
@@ -81,7 +113,7 @@ def time_ms(fn, iters=20):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        graph.replay()
+        run()
         end.record()
         marks.append((start, end))
     torch.cuda.synchronize()
@@ -106,6 +138,36 @@ def max_err(a, b):
 def check(name, err, tol):
     if not (err <= tol):
         raise AssertionError(f"{name}: max |kernel - plain| = {err} > {tol}")
+
+
+def held(name, got, want, dtype):
+    """Hold each output against its own plain version on its own scale:
+    max |kernel - plain| <= tol * max |plain| (tol 1e-4 in f32, 3e-2 in
+    bf16), so the limit is a small fraction of each output's largest
+    value whatever its magnitude; an output whose plain version is all zero
+    must come out exactly zero. Returns the case's fields: the largest
+    absolute error over the outputs, the worst error over its output's
+    scale, and tol."""
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    errs, rel = [], 0.0
+    for a, b in zip(got, want):
+        err = max_err(a, b) if b.numel() else 0.0
+        top = float(b.float().abs().max()) if b.numel() else 0.0
+        errs.append(err)
+        rel = max(rel, err / top if top > 0 else (0.0 if err == 0 else
+                                                  float("inf")))
+    if not (rel <= tol):
+        raise AssertionError(f"{name}: max |kernel - plain| / max |plain| "
+                             f"= {rel} > {tol}")
+    return dict(max_abs_err=max(errs), rel_err=rel, tol=tol)
+
+
+def attended_pairs(tq, tk, causal):
+    """(query, key) pairs a causal (bottom-right) or full attention
+    computes per head."""
+    if not causal:
+        return tq * tk
+    return sum(min(tk, max(0, i + (tk - tq) + 1)) for i in range(tq))
 
 
 # --------------------------------------------------------------- kernels
@@ -283,6 +345,204 @@ def kernel_cases(dev):
     return results
 
 
+def train_kernel_cases(dev):
+    """The training path's kernels at the train step's shapes (GPTConfig
+    .small(), batch 16 x seq 512, bf16 compute) — the case reported in the
+    kernels line comes first — then the same shapes in f32 and ragged
+    shapes; plus K1, K2 and K4 at the train step's shapes."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import (flash_attention as fa,
+                                           layer_norm as ln, mlp,
+                                           xent as xe)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    results = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
+               "xent_stats": [], "xent_bwd_dh": [], "xent_bwd_dwb": [],
+               "train_shapes": []}
+
+    # K1, K2, K4 at the train step's shapes (bf16 rows of 16 x 512)
+    x = randn(8192, 768, dtype=bf16)
+    gam, bet = randn(768, dtype=bf16) * 0.1 + 1.0, randn(768, dtype=bf16)
+    case = dict(kernel="layer_norm", shape=[8192, 768], dtype="bf16",
+                **held("layer_norm train shape",
+                       ln.layer_norm_kernel(x, gam, bet, 1e-5),
+                       ln.layer_norm_plain(x, gam, bet, 1e-5), bf16),
+                kernel_ms=time_ms(lambda: ln.layer_norm_kernel(
+                    x, gam, bet, 1e-5)),
+                plain_ms=time_ms(lambda: ln.layer_norm_plain(
+                    x, gam, bet, 1e-5)),
+                library_ms=time_ms(lambda: F.layer_norm(
+                    x, (768,), gam, bet, 1e-5)))
+    case["bound_ms"], case["bound_by"] = bound_ms(
+        2 * nbytes(x) + nbytes(gam, bet) + 8 * 8192, 8 * x.numel(), bf16)
+    results["train_shapes"].append(case)
+
+    w1, b1 = randn(768, 3072, dtype=bf16, scale=0.036), randn(
+        3072, dtype=bf16, scale=0.02)
+    w2, b2 = randn(3072, 768, dtype=bf16, scale=0.036), randn(
+        768, dtype=bf16, scale=0.02)
+    out = mlp.mlp_kernel(x, w1, b1, w2, b2)
+    case = dict(kernel="mlp", shape=[8192, 768, 3072, 768], dtype="bf16",
+                **held("mlp train shape", [out], [mlp.mlp_plain(
+                    x.float(), w1.float(), b1.float(), w2.float(),
+                    b2.float())], bf16),
+                kernel_ms=time_ms(lambda: mlp.mlp_kernel(x, w1, b1, w2, b2)),
+                plain_ms=time_ms(lambda: mlp.mlp_plain(x, w1, b1, w2, b2)),
+                library_ms=time_ms(lambda: F.linear(F.gelu(F.linear(
+                    x, w1.t(), b1)), w2.t(), b2)))
+    case["bound_ms"], case["bound_by"] = bound_ms(
+        nbytes(x, w1, b1, w2, b2, out), 2.0 * 8192 * 3072 * 1536, bf16)
+    results["train_shapes"].append(case)
+
+    # K2 and K3: [16, 12, 512, 512, 64] causal bf16 first
+    for b, h, tq, tk, d, dtype, causal, masked in (
+            (16, 12, 512, 512, 64, bf16, True, False),
+            (16, 12, 512, 512, 64, torch.float32, True, False),
+            (2, 3, 200, 200, 64, torch.float32, True, False),
+            (1, 4, 100, 300, 32, torch.float32, True, False),
+            (2, 2, 130, 130, 128, torch.float32, False, True),
+            (1, 2, 70, 70, 16, bf16, True, True)):
+        q, do = randn(b, h, tq, d, dtype=dtype), randn(b, h, tq, d,
+                                                       dtype=dtype)
+        k, v = randn(b, h, tk, d, dtype=dtype), randn(b, h, tk, d,
+                                                      dtype=dtype)
+        mask = None
+        if masked:
+            mask = torch.ones(b, tk, dtype=torch.bool, device=dev)
+            mask[0, tk // 3:] = False
+            mask[-1, :] = False              # fully masked rows -> 0
+        scale = d ** -0.5
+        out, lse = fa.flash_attention_kernel(q, k, v, scale, causal, mask)
+        got = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do, scale,
+                                            causal, mask)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale,
+                                            causal, mask)
+        shape = [b, h, tq, tk, d]
+        name = f"flash backward {shape} {dtype}"
+        if masked and float(got[0][-1].abs().max()) != 0.0:
+            raise AssertionError(f"{name}: fully masked rows are not 0")
+        base = dict(shape=shape, dtype=str(dtype), causal=causal,
+                    masked=masked)
+        dq_case = dict(base, **held(name + " dq", got[:1], want[:1], dtype))
+        dkv_case = dict(base, **held(name + " dk/dv", got[1:], want[1:],
+                                     dtype))
+        if not results["flash_attention_bwd_dq"]:
+            # the train step's case: kernel, plain (dq, dk and dv at
+            # once) and the library backward of the same attention
+            pairs = b * h * attended_pairs(tq, tk, causal)
+            delta = (do.float() * out.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta, scale, causal)
+            dq_case["kernel_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_dq_kernel(*bwd))
+            dkv_case["kernel_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_dkv_kernel(*bwd))
+            plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, scale, causal))
+            qg, kg, vg = (t_.detach().requires_grad_(True)
+                          for t_ in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qg, kg, vg,
+                                                  is_causal=True,
+                                                  scale=scale)
+            library = time_ms(lambda: torch.autograd.grad(
+                sdpa, (qg, kg, vg), do, retain_graph=True), graph=False)
+            for case, products, outs in ((dq_case, 3, got[:1]),
+                                         (dkv_case, 4, got[1:])):
+                case["plain_ms"], case["library_ms"] = plain, library
+                case["bound_ms"], case["bound_by"] = bound_ms(
+                    nbytes(q, k, v, do, lse, delta, *outs),
+                    2.0 * products * pairs * d, dtype)
+        results["flash_attention_bwd_dq"].append(dq_case)
+        results["flash_attention_bwd_dkv"].append(dkv_case)
+        if (b, dtype) == (16, bf16):
+            case = dict(kernel="flash_attention", shape=shape, dtype="bf16",
+                        causal=True,
+                        max_abs_err=max_err(out, fa.chunked_attention(
+                            q, k, v, scale, causal)),
+                        kernel_ms=time_ms(lambda: fa.flash_attention_kernel(
+                            q, k, v, scale, causal)),
+                        plain_ms=time_ms(lambda: fa.chunked_attention(
+                            q, k, v, scale, causal)),
+                        library_ms=time_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q, k, v, is_causal=True, scale=scale)))
+            check("flash train shape", case["max_abs_err"], BF16_TOL)
+            case["bound_ms"], case["bound_by"] = bound_ms(
+                nbytes(q, k, v, out, lse),
+                4.0 * b * h * attended_pairs(tq, tk, causal) * d, bf16)
+            results["train_shapes"].append(case)
+
+    # K5 and K6: [16 x 511, 768] rows against the tied [32000, 768] table
+    for n, vocab, hid, dtype, ls, oob in (
+            (8176, 32000, 768, bf16, 0.0, False),
+            (8176, 32000, 768, torch.float32, 0.0, False),
+            (78, 300, 128, torch.float32, 0.1, True),
+            (130, 1000, 768, torch.float32, 0.0, True),
+            (37, 65, 96, bf16, 0.1, True),
+            (1000, 5000, 640, bf16, 0.0, False)):
+        h = randn(n, hid, dtype=dtype)
+        w = randn(vocab, hid, dtype=dtype, scale=0.05)
+        bias = randn(vocab, scale=0.1)
+        labels = torch.randint(0, vocab, (n,), generator=g).to(dev)
+        if oob:
+            labels[::7] = vocab + 3          # out of range: never hits
+            labels[1::9] = -2
+        shape = [n, vocab, hid]
+        stats = xe.xent_stats_kernel(h, w, bias, labels)
+        pstats = xe.xent_stats_plain(h, w, bias, labels)
+        logz = pstats[0] + torch.log(pstats[1])
+        gg = randn(n, scale=1.0 / n)
+        sn, sp = (ls / (vocab - 1), 1.0 - ls) if ls else (0.0, 1.0)
+        dh, dw, db = xe.xent_bwd_kernel(h, w, bias, labels, logz, gg, sn,
+                                        sp)
+        pdh, pdw, pdb = xe.xent_bwd_plain(h, w, bias, labels, logz, gg, sn,
+                                          sp)
+        base = dict(shape=shape, dtype=str(dtype), label_smoothing=ls,
+                    out_of_range_labels=oob)
+        # f32 outputs from either storage type: held at the f32 tolerance
+        cases = (dict(base, **held(f"xent_stats {shape} {dtype}", stats,
+                                   pstats, torch.float32)),
+                 dict(base, **held(f"xent_bwd_dh {shape} {dtype}", [dh],
+                                   [pdh], torch.float32)),
+                 dict(base, **held(f"xent_bwd_dwb {shape} {dtype}",
+                                   [dw, db], [pdw, pdb], torch.float32)))
+        if not results["xent_stats"]:
+            ops = 2.0 * n * vocab * hid
+            inputs = (h, w, bias, labels)
+            hl, wl = (t_.detach().requires_grad_(True) for t_ in (h, w))
+            bl = bias.to(dtype).requires_grad_(True)
+            rows = F.cross_entropy(F.linear(hl, wl, bl), labels,
+                                   reduction="none")
+            cases[0].update(
+                kernel_ms=time_ms(lambda: xe.xent_stats_kernel(*inputs)),
+                plain_ms=time_ms(lambda: xe.xent_stats_plain(*inputs)),
+                library_ms=time_ms(lambda: F.cross_entropy(
+                    F.linear(h, w, bl.detach()), labels,
+                    reduction="none")))
+            cases[0]["bound_ms"], cases[0]["bound_by"] = bound_ms(
+                nbytes(*inputs) + 16 * n, ops, dtype)
+            bwd_args = (h, w, bias, labels, logz, gg, sn, sp)
+            kernel_ms = (time_ms(lambda: xe.xent_bwd_dh_kernel(*bwd_args)),
+                         time_ms(lambda: xe.xent_bwd_dwb_kernel(*bwd_args)))
+            plain = time_ms(lambda: xe.xent_bwd_plain(*bwd_args))
+            library = time_ms(lambda: torch.autograd.grad(
+                rows, (hl, wl, bl), gg, retain_graph=True), graph=False)
+            for case, outs, k_ms in ((cases[1], (dh,), kernel_ms[0]),
+                                     (cases[2], (dw, db), kernel_ms[1])):
+                case.update(kernel_ms=k_ms, plain_ms=plain,
+                            library_ms=library)
+                case["bound_ms"], case["bound_by"] = bound_ms(
+                    nbytes(*inputs, logz, gg, *outs), 2 * ops, dtype)
+        for name, case in zip(("xent_stats", "xent_bwd_dh", "xent_bwd_dwb"),
+                              cases):
+            results[name].append(case)
+    return results
+
+
 # ------------------------------------------------------------------ serve
 
 def serve(model, num_requests, prompt_range, long_prompt, max_new, cfg_kw,
@@ -381,7 +641,99 @@ def crosscheck(card_model, cpu_model, reqs, page_size, prefill_len):
     return rows
 
 
+# ------------------------------------------------------------------ train
+
+def loss_of(model, ids):
+    return model.loss(ids)
+
+
+def train(model, opt, ids, warmup, steps):
+    """``warmup`` steps, then ``steps`` timed steps of ``opt.minimize`` on
+    the fixed batch ``ids``, with the launch counts and the peak-memory
+    statistic zeroed just before the timed steps. Each step ends by
+    reading its loss on the host, so its wall time covers its device
+    work. Returns (losses of every step, timed step seconds, launches)."""
+    from paddle_tpu_torch.ops.cuda import core
+    losses, times = [], []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            core.reset_launches()
+        t0 = time.perf_counter()
+        losses.append(float(opt.minimize(model, loss_of, ids)))
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+    return losses, times, core.launch_counts()
+
+
+def check_train_launches(launches, steps, layers):
+    """Each training kernel's launches per step: K1 twice per block plus
+    ln_f, K2/K3/K4 once per block, K5 and K6 once."""
+    want = {"layer_norm": 2 * layers + 1, "flash_attention": layers,
+            "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers, "mlp": layers,
+            "xent_stats": 1, "xent_bwd_dh": 1, "xent_bwd_dwb": 1}
+    wrong = {k: (launches[k] / steps, n) for k, n in want.items()
+             if launches[k] != n * steps}
+    if wrong:
+        raise AssertionError(f"train launches per step (got, want): "
+                             f"{wrong}")
+
+
+def train_crosscheck(cfg, ids):
+    """One f32 Adam step on the card and on the CPU plain path from the
+    same weights: (loss card, loss CPU, per-parameter gradient errors).
+    A parameter whose gradient is 0 in exact arithmetic (the key bias,
+    which softmax cancels) carries only rounding noise, so each error is
+    relative to the larger of its own gradient's norm and 1e-3 of the
+    largest one."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.optimizer import Adam
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = GPT(cfg, device=dev, seed=0)
+        opt = Adam(model.parameters(), 1e-4)
+        loss = float(opt.minimize(model, loss_of, ids.to(dev)))
+        out[dev] = (loss, {n: p.grad.detach().cpu()
+                           for n, p in model.named_parameters()})
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    top = max(float(g.norm()) for g in gp.values())
+    errs = {n: float((gc[n] - gp[n]).norm())
+            / max(float(gp[n].norm()), 1e-3 * top) for n in gp}
+    return lc, lp, errs
+
+
 # ------------------------------------------------------------------- main
+
+def train_phase(cfg, smi):
+    """The training path at full width; returns (stats, launches)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.optimizer import Adam
+    batch, seq, warmup, steps = 16, 512, 2, 10
+    model = GPT(cfg, device="cuda", seed=0)
+    opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    losses, times, launches = train(model, opt, ids, warmup, steps)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall {losses}")
+    check_train_launches(launches, steps, cfg.num_layers)
+    stats = dict(config="GPTConfig.small()", batch=batch, seq=seq,
+                 policy="bf16", optimizer="Adam(1e-4)", warmup=warmup,
+                 steps=steps, losses=losses,
+                 tokens_per_s=batch * seq * steps / sum(times),
+                 p50_step_ms=float(np.median(times)) * 1e3,
+                 mean_step_ms=float(np.mean(times)) * 1e3,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches_per_step={k: n / steps
+                                    for k, n in launches.items()},
+                 card=smi)
+    return stats, launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -413,10 +765,12 @@ def main():
 
     dev = torch.device("cuda")
     results = kernel_cases(dev)
+    results.update(train_kernel_cases(dev))
     torch.cuda.synchronize()
     for name, cases in results.items():
         for case in cases:
-            emit(dict(phase="kernel", kernel=name, **case))
+            emit(dict(phase="kernel", kernel=case.pop("kernel", name),
+                      **case))
 
     cfg = GPTConfig.small()
     cfg.dropout = 0.0
@@ -430,9 +784,9 @@ def main():
                              seed=0)
     launches = core.launch_counts()
     torch.cuda.synchronize()
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on the serve path: "
                              f"{missing}")
     emit(dict(phase="serve", config="GPTConfig.small()",
               **{k: v for k, v in serve_kw.items() if k != "cache_dtype"},
@@ -454,14 +808,37 @@ def main():
     emit(dict(phase="int8", kv_dtype="int8", launches=launches8,
               **{k: v for k, v in stats8.items() if k != "prompt_lens"}))
 
+    del model, eng
+    torch.cuda.empty_cache()
+    train_stats, train_launches = train_phase(cfg, smi)
+    emit(dict(phase="train", **train_stats))
+
+    small = GPTConfig.small()
+    small.dropout = 0.0
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, small.vocab_size, (2, 128)))
+    loss_card, loss_cpu, errs = train_crosscheck(small, ids)
+    worst = max(errs, key=errs.get)
+    emit(dict(phase="train_crosscheck", config="GPTConfig.small()",
+              batch=2, seq=128, dtype="float32", allow_tf32=False,
+              loss_card=loss_card, loss_cpu=loss_cpu, loss_tol=TRAIN_LOSS_TOL,
+              grad_rel_err_max=errs[worst], grad_rel_err_worst=worst,
+              grad_tol=TRAIN_GRAD_TOL, params=len(errs)))
+    check("train crosscheck loss", abs(loss_card - loss_cpu), TRAIN_LOSS_TOL)
+    check(f"train crosscheck gradient of {worst}", errs[worst],
+          TRAIN_GRAD_TOL)
+
     table = []
     for name, kernel in core.KERNELS.items():
         main_case = results[name][0] if name in ("flash_attention",
                                                  "decode_attention") \
             else next(c for c in results[name] if "kernel_ms" in c)
+        path = launches if name in SERVE_KERNELS else train_launches
         table.append(dict(
             name=name, route="cuda", source=kernel.source,
-            replaces=kernel.replaces, launches=launches[name],
+            replaces=kernel.replaces, launches=path[name],
+            launches_path="serve" if name in SERVE_KERNELS else "train",
+            launches_train=train_launches[name],
             max_abs_err=main_case["max_abs_err"],
             ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"],

@@ -3,8 +3,8 @@ H100.
 
 The JAX package ``paddle_tpu`` stays the reference; this package imports
 neither it nor jax. Its layout mirrors the reference (``ops/``, ``nn/``,
-``models/``, ``serving/``), and each Pallas kernel on the ported path is a
-hand-written Hopper kernel under ``ops/cuda`` (sources in ``csrc/``),
-beside its plain PyTorch version. Entry points run on the card unless the
+``models/``, ``serving/``, ``optimizer/``, ``amp.py``), and each Pallas
+kernel on the ported path is a hand-written Hopper kernel under
+``ops/cuda`` (sources in ``csrc/``), beside its plain PyTorch version. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """

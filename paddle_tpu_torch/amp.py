@@ -1,0 +1,106 @@
+"""Automatic mixed precision (ref: ``paddle_tpu/amp.py``).
+
+A :class:`Policy` casts the whole model: master parameters stay f32 in
+the optimizer, the forward runs on compute-dtype copies of them, the loss
+comes back in f32, and the gradients reach the masters in f32. This is
+the reference's whole-model cast, not ``torch.autocast`` (which picks a
+dtype per op): ``minimize`` evaluates the loss through
+``torch.func.functional_call`` with the cast copies in place of the
+parameters, so autograd carries the gradient through the casts to the
+masters.
+
+bf16 needs no loss scaling. The fp16 dynamic ``LossScaler`` is not ported
+and raises.
+"""
+
+import dataclasses
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass
+class Policy:
+    """Param storage / compute / output dtypes."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    output_dtype: torch.dtype = torch.float32
+
+    def cast_to_compute(self, tree):
+        return _cast_floating(tree, self.compute_dtype)
+
+
+def _cast_floating(tree, dtype):
+    """Cast the floating tensors of a dict/list/tuple tree; pass the rest
+    through."""
+    if isinstance(tree, dict):
+        return {k: _cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floating(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def bf16_policy():
+    return Policy(torch.float32, torch.bfloat16, torch.float32)
+
+
+class LossScaler:
+    """The fp16 dynamic loss scaler (ref: ``amp.py:57``): not ported."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("the fp16 LossScaler is not ported")
+
+
+class _Bound(nn.Module):
+    """``forward(*a, **k) = fn(model, *a, **k)``, so that
+    ``functional_call`` can swap the model's parameters for a call of any
+    loss function (``model.loss`` is not ``model.forward``)."""
+
+    def __init__(self, model, fn):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args, **kwargs):
+        return self.fn(self.model, *args, **kwargs)
+
+
+class MixedPrecisionOptimizer:
+    """``decorate``'s wrapper: :meth:`minimize` runs the loss on
+    compute-dtype copies of the parameters and steps :attr:`inner` on the
+    f32 masters."""
+
+    def __init__(self, optimizer, policy):
+        self.inner = optimizer
+        self.policy = policy
+
+    def minimize(self, model, loss_fn, *args, **kwargs):
+        """``loss_fn(model, *args, **kwargs)`` with every floating
+        parameter cast to the compute dtype (floating inputs too), the
+        loss cast to f32, its backward into the masters, and one step of
+        the inner optimizer. Gradients stay on the masters after the step.
+        Returns the loss, detached."""
+        self.inner.zero_grad(set_to_none=True)
+        params = {"model." + name: self.policy.cast_to_compute(p)
+                  for name, p in model.named_parameters()}
+        loss = torch.func.functional_call(
+            _Bound(model, loss_fn), params,
+            tuple(self.policy.cast_to_compute(list(args))), kwargs)
+        loss = loss.to(torch.float32)
+        loss.backward()
+        self.inner.step()
+        return loss.detach()
+
+
+def decorate(optimizer, policy=None):
+    """ref: ``amp.py:152`` — wrap an optimizer so that ``minimize`` runs
+    the forward in the compute dtype on f32 master weights. fp16 (which
+    needs the loss scaler) is not ported."""
+    policy = policy or bf16_policy()
+    if policy.compute_dtype == torch.float16:
+        raise NotImplementedError("fp16 mixed precision needs the loss "
+                                  "scaler, which is not ported")
+    return MixedPrecisionOptimizer(optimizer, policy)

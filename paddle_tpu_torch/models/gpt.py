@@ -1,6 +1,7 @@
 """Decoder-only causal LM (GPT-style) — the port of
 ``paddle_tpu/models/gpt.py``: the config, the pre-norm blocks, the full
-forward, and the paged serving methods of ``GPTDecoder``.
+forward, the training loss (``GPT.loss``, the fused cross-entropy against
+the tied embedding), and the paged serving methods of ``GPTDecoder``.
 
 Pools are updated in place by the paged methods (the reference donates
 them to its jitted step and gets new ones back); each method still
@@ -15,6 +16,8 @@ from torch import nn
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.ops.fused import fused_xent
+from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
 
 
 @dataclasses.dataclass
@@ -51,19 +54,20 @@ class GPTConfig:
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, gen=None):
+    def __init__(self, cfg: GPTConfig, gen=None, dropout_gen=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = pnn.LayerNorm(cfg.hidden_size)
         self.attn = pnn.MultiHeadAttention(cfg.hidden_size, cfg.num_heads,
                                            dropout=cfg.dropout,
-                                           use_flash=cfg.use_flash, gen=gen)
+                                           use_flash=cfg.use_flash, gen=gen,
+                                           dropout_gen=dropout_gen)
         self.ln2 = pnn.LayerNorm(cfg.hidden_size)
         self.fc1 = pnn.Linear(cfg.hidden_size, cfg.intermediate_size,
                               gen=gen)
         self.fc2 = pnn.Linear(cfg.intermediate_size, cfg.hidden_size,
                               gen=gen)
-        self.drop = pnn.Dropout(cfg.dropout)
+        self.drop = pnn.Dropout(cfg.dropout, gen=dropout_gen)
 
     def _ffn(self, x):
         return pnn.fused_ffn(self.fc1, self.fc2, x)
@@ -93,7 +97,9 @@ class GPT(nn.Module):
     """Causal LM returning next-token logits ``[B, T, V]`` (weight-tied
     head). Weights are drawn from ``seed`` on the CPU (so a seed gives
     the same weights on every machine) and moved to ``device``, which
-    defaults to the card and raises when there is none."""
+    defaults to the card and raises when there is none. Dropout masks
+    come from ``dropout_gen``, a generator on ``device`` seeded with
+    ``seed``."""
 
     def __init__(self, cfg: GPTConfig, device="cuda", seed=0):
         super().__init__()
@@ -101,12 +107,13 @@ class GPT(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
+        self.dropout_gen = torch.Generator(device=dev).manual_seed(seed)
         self.tok_emb = pnn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                      gen=gen)
         self.pos_emb = pnn.Embedding(cfg.max_position, cfg.hidden_size,
                                      gen=gen)
-        self.drop = pnn.Dropout(cfg.dropout)
-        self.blocks = nn.ModuleList(GPTBlock(cfg, gen)
+        self.drop = pnn.Dropout(cfg.dropout, gen=self.dropout_gen)
+        self.blocks = nn.ModuleList(GPTBlock(cfg, gen, self.dropout_gen)
                                     for _ in range(cfg.num_layers))
         self.ln_f = pnn.LayerNorm(cfg.hidden_size)
         self.to(dev)
@@ -127,6 +134,35 @@ class GPT(nn.Module):
     def forward(self, input_ids, pos_offset=0):
         return pnn.tied_vocab_head(self.tok_emb,
                                    self.hidden(input_ids, pos_offset))
+
+    def loss(self, input_ids, labels=None, pad_id=None):
+        """Shifted next-token cross entropy, a scalar f32 (ref:
+        ``models/gpt.py:174``): the fused cross-entropy against the tied
+        embedding table (K5 forward, K6 backward on the card), so no
+        ``[B, T, V]`` logits exist. ``pad_id`` averages over the
+        positions whose label is not ``pad_id``. Vocab and batch sharding
+        wait for multi-GPU."""
+        if labels is None:
+            labels = input_ids
+        h = self.hidden(input_ids)
+        ce = fused_xent(h[:, :-1], self.tok_emb.weight, labels[:, 1:])
+        return _masked_mean(ce, labels[:, 1:], pad_id)
+
+
+def _masked_mean(ce, tgt, pad_id):
+    if pad_id is None:
+        return ce.mean()
+    valid = (tgt != pad_id).to(ce.dtype)
+    return (ce * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def lm_loss(logits, labels, pad_id=None):
+    """Shifted next-token cross entropy of materialized logits ``[B, T,
+    V]``, optionally ignoring pad positions — the parity composition for
+    :meth:`GPT.loss` (ref: ``models/gpt.py:207``)."""
+    tgt = labels[:, 1:]
+    ce = softmax_with_cross_entropy(logits[:, :-1], tgt[..., None])[..., 0]
+    return _masked_mean(ce, tgt, pad_id)
 
 
 class GPTDecoder(GPT):

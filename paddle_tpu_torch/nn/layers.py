@@ -92,16 +92,20 @@ def tied_vocab_head(emb, x):
 
 class Dropout(nn.Module):
     """ref: ``nn/layers.py:304`` — inverted dropout in training, identity
-    otherwise."""
+    otherwise. The mask is drawn from the explicit ``torch.Generator``
+    ``gen`` (the reference's ``rngs={"dropout": key}``); training with a
+    nonzero rate and no generator raises."""
 
-    def __init__(self, rate=0.5):
+    def __init__(self, rate=0.5, gen=None):
         super().__init__()
         self.rate = rate
+        self.gen = gen
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        return torch.nn.functional.dropout(x, self.rate, training=True)
+        keep = att.dropout_mask(x.shape, self.rate, self.gen, x.device)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class MultiHeadAttention(nn.Module):
@@ -110,10 +114,11 @@ class MultiHeadAttention(nn.Module):
     the pool **in place** and return it."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, use_flash=False,
-                 gen=None, dtype=torch.float32):
+                 gen=None, dtype=torch.float32, dropout_gen=None):
         super().__init__()
         self.num_heads, self.dropout_rate = num_heads, dropout
         self.use_flash = use_flash
+        self.dropout_gen = dropout_gen
         for n in ("q", "k", "v", "o"):
             setattr(self, f"w{n}", _xavier((embed_dim, embed_dim), gen,
                                            dtype))
@@ -128,7 +133,7 @@ class MultiHeadAttention(nn.Module):
             x, self.wq, self.wk, self.wv, self.wo, self.bq, self.bk,
             self.bv, self.bo, self.num_heads, mask=mask, causal=causal,
             dropout_rate=self.dropout_rate, training=self.training,
-            use_flash=self.use_flash)
+            use_flash=self.use_flash, dropout_gen=self.dropout_gen)
 
     def init_page_pool(self, num_pages, page_size, dtype=torch.float32,
                        kv_dtype=None):

@@ -18,18 +18,31 @@ import math
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.enforce import EnforceError
 from paddle_tpu_torch.ops.cuda.decode_attention import (  # noqa: F401
     NEG_INF, paged_decode_attention)
 from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
 
 
+def dropout_mask(shape, rate, gen, device):
+    """Keep-mask of inverted dropout drawn from the explicit generator
+    ``gen`` (the reference draws from an explicit PRNG key; the port never
+    draws from torch's global generator). Raises without one."""
+    if gen is None:
+        raise EnforceError(
+            f"dropout (rate {rate}) in training needs an explicit "
+            "torch.Generator")
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
 def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
                                  causal=False, dropout_rate=0.0,
-                                 training=False):
+                                 training=False, dropout_gen=None):
     """q, k, v ``[B, H, T, D]`` (or ``[B, T, D]``); mask broadcastable to
     ``[B, H, Tq, Tk]``, True/1 = keep. Materializes the score matrix;
     causal masking is bottom-right aligned; a fully masked row gives
-    exactly 0 (ref: ``ops/attention.py:22``)."""
+    exactly 0 (ref: ``ops/attention.py:22``). Attention dropout draws its
+    mask from ``dropout_gen``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("...qd,...kd->...qk", q, k) * scale
     keep = None
@@ -47,13 +60,16 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
             dim=-1, keepdim=True)
         probs = torch.where(any_keep, probs, torch.zeros_like(probs))
     if dropout_rate > 0.0 and training:
-        probs = torch.nn.functional.dropout(probs, dropout_rate)
+        keep = dropout_mask(probs.shape, dropout_rate, dropout_gen,
+                            probs.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                            torch.zeros_like(probs))
     return torch.einsum("...qk,...kd->...qd", probs, v)
 
 
 def multihead_attention(x, wq, wk, wv, wo, bq, bk, bv, bo, num_heads,
                         mask=None, causal=False, dropout_rate=0.0,
-                        training=False, use_flash=False):
+                        training=False, use_flash=False, dropout_gen=None):
     """Self-attention forward (ref: ``ops/attention.py:266``). x
     ``[B, T, E]``; w* ``[E, E]`` stored ``[in, out]`` for ``x @ W``. With
     ``use_flash``, calls without a mask or attention dropout ride flash
@@ -72,7 +88,8 @@ def multihead_attention(x, wq, wk, wv, wo, bq, bk, bv, bo, num_heads,
         ctx = scaled_dot_product_attention(q, k, v, mask=mask,
                                            causal=causal,
                                            dropout_rate=dropout_rate,
-                                           training=training)
+                                           training=training,
+                                           dropout_gen=dropout_gen)
     return ctx.transpose(1, 2).reshape(b, t, e) @ wo + bo
 
 

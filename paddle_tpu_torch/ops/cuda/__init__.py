@@ -4,4 +4,5 @@ launch counters in :data:`core.KERNELS`; nothing is built until a kernel
 first launches on a CUDA tensor."""
 
 from paddle_tpu_torch.ops.cuda import (core, decode_attention,  # noqa: F401
-                                       flash_attention, layer_norm, mlp)
+                                       flash_attention, layer_norm, mlp,
+                                       xent)

@@ -1,18 +1,26 @@
-"""K2: flash-attention forward — the CUDA kernel and its plain PyTorch
-version.
+"""K2 and K3: flash-attention forward and backward — the CUDA kernels and
+their plain PyTorch versions.
 
-Replaces ``paddle_tpu/ops/pallas/flash_attention.py:64 _fa_kernel``
+K2 replaces ``paddle_tpu/ops/pallas/flash_attention.py:64 _fa_kernel``
 (launcher ``_flash_attention_fwd_tpu`` :112, entry ``flash_attention``
-:510); forward only. Source: ``paddle_tpu_torch/csrc/flash_attention.cu``.
-The TPU kernel's sequential kv grid axis, which carries (m, l, acc) in
-VMEM, becomes a loop inside one block per (batch*head, 64-row query
-tile). Both products run in the kernel's own body, in f32, so at prefill
-it is bound by f32 operations; the causal block skip halves them.
+:510). Source: ``paddle_tpu_torch/csrc/flash_attention.cu``. The TPU
+kernel's sequential kv grid axis, which carries (m, l, acc) in VMEM,
+becomes a loop inside one block per (batch*head, 64-row query tile). Both
+products run in the kernel's own body, in f32, so at prefill it is bound
+by f32 operations; the causal block skip halves them.
 
-The plain version is the reference's ``chunked_attention`` (:379): the
-same online softmax over kv chunks, with the same masking rules
-(bottom-right causal offset ``tk - tq``, key-padding mask, fully masked
-rows exactly 0).
+K3 replaces ``:180 _fa_bwd_dq_kernel`` and ``:232 _fa_bwd_dkv_kernel``
+(launcher ``_flash_attention_bwd_tpu`` :289). Source:
+``paddle_tpu_torch/csrc/flash_attention_bwd.cu``. Two kernels recompute
+``p = exp(s - lse)`` from K2's saved lse; ``delta = rowsum(dO * O)`` is
+computed here in torch, as the reference computes it in XLA (:299).
+
+The plain versions are the reference's ``chunked_attention`` (:379) for
+the forward (the same online softmax over kv chunks, with the same masking
+rules: bottom-right causal offset ``tk - tq``, key-padding mask, fully
+masked rows exactly 0) and ``_flash_attention_bwd_tpu``'s math for the
+backward. :class:`FlashAttentionFunction` pairs K2 and K3 (or the two
+plain versions on CPU tensors) as one differentiable op.
 """
 
 import math
@@ -27,6 +35,19 @@ KERNEL = core.register(
     + [core.F32_ARG, core.I32, core.VP],
     replaces="paddle_tpu/ops/pallas/flash_attention.py:64",
     source="paddle_tpu_torch/csrc/flash_attention.cu")
+_BWD_ARGS = [core.I32] + [core.VP] * 7
+KERNEL_BWD_DQ = core.register(
+    "flash_attention_bwd_dq", "ptt_flash_attention_bwd_dq",
+    _BWD_ARGS + [core.VP] + [core.I32] * 5 + [core.F32_ARG, core.I32,
+                                              core.VP],
+    replaces="paddle_tpu/ops/pallas/flash_attention.py:180",
+    source="paddle_tpu_torch/csrc/flash_attention_bwd.cu")
+KERNEL_BWD_DKV = core.register(
+    "flash_attention_bwd_dkv", "ptt_flash_attention_bwd_dkv",
+    _BWD_ARGS + [core.VP] * 2 + [core.I32] * 5 + [core.F32_ARG, core.I32,
+                                                  core.VP],
+    replaces="paddle_tpu/ops/pallas/flash_attention.py:232",
+    source="paddle_tpu_torch/csrc/flash_attention_bwd.cu")
 
 NEG_INF = -1e30
 #: the reference's default kv block (flag flash_block_k), which is also
@@ -84,22 +105,10 @@ def chunked_attention(q, k, v, scale=None, causal=False, kv_mask=None,
 def flash_attention_kernel(q, k, v, scale, causal=False, kv_mask=None):
     """Launch K2 on CUDA tensors -> ``(out [B, H, Tq, D], lse
     [B, H, Tq] f32)``."""
-    code = core.dtype_code(q, (torch.float32, torch.bfloat16))
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash kernel: q, k and v must share one dtype")
+    b, h, tq, tk, d, code = _check_qkv(q, k, v, kv_mask, "flash kernel")
     core.require_contiguous(q=q, k=k, v=v)
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel: head dim {d} not in {HEAD_DIMS}")
-    if k.shape != (b, h, tk, d) or v.shape != k.shape:
-        raise ValueError(f"flash kernel: k/v {tuple(k.shape)} "
-                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    mask = None
-    if kv_mask is not None:
-        if kv_mask.shape != (b, tk):
-            raise ValueError(f"kv_mask must be [{b}, {tk}]")
-        mask = kv_mask.to(torch.int32).contiguous()
+    mask = (kv_mask.to(torch.int32).contiguous() if kv_mask is not None
+            else None)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -110,15 +119,153 @@ def flash_attention_kernel(q, k, v, scale, causal=False, kv_mask=None):
     return out, lse
 
 
+def _check_qkv(q, k, v, kv_mask, what):
+    """(b, h, tq, tk, d, dtype code); raises for what the kernels do not
+    take."""
+    code = core.dtype_code(q, (torch.float32, torch.bfloat16))
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k and v must share one dtype")
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
+    if k.shape != (b, h, tk, d) or v.shape != k.shape:
+        raise ValueError(f"{what}: k/v {tuple(k.shape)} {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if kv_mask is not None and kv_mask.shape != (b, tk):
+        raise ValueError(f"kv_mask must be [{b}, {tk}]")
+    return b, h, tq, tk, d, code
+
+
+def _valid(tq, tk, causal, kv_mask, device):
+    """[B or 1, 1, Tq, Tk] bool: which (query, key) pairs attend."""
+    q_pos = torch.arange(tq, device=device) + (tk - tq)
+    k_pos = torch.arange(tk, device=device)
+    valid = torch.ones((1, 1, tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        valid = valid & (q_pos[:, None] >= k_pos[None, :])[None, None]
+    if kv_mask is not None:
+        valid = valid & kv_mask.bool()[:, None, None, :]
+    return valid
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, scale, causal=False,
+                              kv_mask=None):
+    """The plain backward: ``_flash_attention_bwd_tpu``'s math over the
+    whole score matrix, in f32. ``lse`` ``[B, H, Tq]`` f32 from the
+    forward. Returns ``(dq, dk, dv)`` in q's dtype. Masked pairs give
+    p = 0 exactly (selected, so the overflowed exp of a fully masked
+    row's -1e30 lse is discarded)."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * out.float()).sum(-1)                     # [B, H, Tq]
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    valid = _valid(q.shape[2], k.shape[2], causal, kv_mask, q.device)
+    p = torch.where(valid, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask, scale):
+    b, h, tq, tk, d, code = _check_qkv(q, k, v, kv_mask,
+                                       "flash backward kernel")
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError("flash backward kernel: dO must match q's shape "
+                         "and dtype")
+    if lse.shape != (b, h, tq) or delta.shape != (b, h, tq):
+        raise ValueError(f"flash backward kernel: lse and delta must be "
+                         f"[{b}, {h}, {tq}]")
+    core.require_contiguous(q=q, k=k, v=v, do=do)
+    mask = (kv_mask.to(torch.int32).contiguous() if kv_mask is not None
+            else None)
+    ptrs = (core.ptr(q), core.ptr(k), core.ptr(v), core.ptr(do),
+            core.ptr(lse.float().contiguous()),
+            core.ptr(delta.float().contiguous()), core.ptr(mask))
+    dims = (b, h, tq, tk, d, float(scale), int(bool(causal)),
+            core.stream(q))
+    return code, ptrs, dims
+
+
+def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
+                                  causal=False, kv_mask=None):
+    """Launch K3's dq kernel on CUDA tensors -> dq like q. ``delta`` is
+    ``rowsum(dO * O)`` ``[B, H, Tq]`` f32."""
+    code, ptrs, dims = _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask,
+                                  scale)
+    dq = torch.empty_like(q)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_()
+    KERNEL_BWD_DQ(code, *ptrs, core.ptr(dq), *dims)
+    return dq
+
+
+def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, scale,
+                                   causal=False, kv_mask=None):
+    """Launch K3's dk/dv kernel on CUDA tensors -> ``(dk, dv)`` like k."""
+    code, ptrs, dims = _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask,
+                                  scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dk.zero_(), dv.zero_()
+    KERNEL_BWD_DKV(code, *ptrs, core.ptr(dk), core.ptr(dv), *dims)
+    return dk, dv
+
+
+def flash_attention_bwd_kernel(q, k, v, out, lse, do, scale, causal=False,
+                               kv_mask=None):
+    """K3 on CUDA tensors: ``delta = rowsum(dO * O)`` in torch, then the
+    dq kernel and the dk/dv kernel; same outputs as the plain version.
+    Every operand must be contiguous: the gradient arrives as a
+    transposed view, so the caller makes it contiguous."""
+    delta = (do.float() * out.float()).sum(-1)
+    dq = flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
+                                       causal, kv_mask)
+    dk, dv = flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, scale,
+                                            causal, kv_mask)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention as one differentiable op (the reference's
+    ``_flash_core`` custom_vjp): K2 forward saving lse, K3 backward on
+    CUDA tensors; the chunked plain forward and the plain backward on CPU
+    tensors, so the CPU runs the kernels' exact backward math."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale, causal):
+        if core.on_card(q, k, v, kv_mask):
+            out, lse = flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                              v.contiguous(), scale, causal,
+                                              kv_mask)
+        else:
+            out, lse = chunked_attention(q, k, v, scale=scale, causal=causal,
+                                         kv_mask=kv_mask, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_mask = ctx.saved_tensors
+        if core.on_card(q, k, v, dout):
+            dq, dk, dv = flash_attention_bwd_kernel(
+                q.contiguous(), k.contiguous(), v.contiguous(), out, lse,
+                dout.to(q.dtype).contiguous(), ctx.scale, ctx.causal,
+                kv_mask)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(
+                q, k, v, out, lse, dout, ctx.scale, ctx.causal, kv_mask)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, scale=None, causal=False, kv_mask=None):
     """Memory-efficient attention. q, k, v ``[B, H, T, D]``; kv_mask
-    ``[B, Tk]`` (True = attend). K2 on CUDA tensors, the chunked plain
-    version on CPU tensors."""
+    ``[B, Tk]`` (True = attend). Differentiable: K2 forward and K3
+    backward on CUDA tensors, the plain versions on CPU tensors."""
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
-    if core.on_card(q, k, v, kv_mask):
-        return flash_attention_kernel(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), scale, causal,
-                                      kv_mask)[0]
-    return chunked_attention(q, k, v, scale=scale, causal=causal,
-                             kv_mask=kv_mask)
+    return FlashAttentionFunction.apply(q, k, v, kv_mask, scale, causal)

@@ -1,13 +1,17 @@
-"""K1: layer norm forward — the CUDA kernel and its plain PyTorch version.
+"""K1: layer norm — the CUDA forward kernel, its plain PyTorch version, and
+the differentiable op around them.
 
 Replaces ``paddle_tpu/ops/pallas/layer_norm.py:30 _ln_fwd_kernel``
 (launcher ``_stats_pallas`` :62, entry ``layer_norm_fused`` :148).
 Source: ``paddle_tpu_torch/csrc/layer_norm.cu``. One warp normalizes one
 row of ``[R, C]``; statistics are f32; the kernel also writes the f32
-mean and rstd per row, which the serving path ignores and a backward
-will read. Bound on the H100: bytes (one read of x, one write of y), so
-the design keeps the statistics in warp shuffles and reads x once from
-device memory.
+mean and rstd per row, which the backward reads. Bound on the H100: bytes
+(one read of x, one write of y), so the design keeps the statistics in
+warp shuffles and reads x once from device memory.
+
+The backward is the reference's ``_ln_bwd`` (:131) in plain torch, from
+the saved mean and rstd: the JAX package has no backward kernel for layer
+norm, so neither has the port.
 """
 
 import torch
@@ -58,16 +62,52 @@ def layer_norm_kernel(x2d, gamma, beta, epsilon):
 
 def layer_norm_rows(x2d, gamma, beta, epsilon=1e-5):
     """``(y, mean, rstd)`` over the rows of ``x2d``: K1 on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor. Not differentiable; see
+    :class:`LayerNormFunction`."""
     if core.on_card(x2d, gamma, beta):
         return layer_norm_kernel(x2d, gamma, beta, epsilon)
     return layer_norm_plain(x2d, gamma, beta, epsilon)
 
 
+def layer_norm_bwd(x2d, gamma, mean, rstd, dy):
+    """The reference's ``_ln_bwd``: ``(dx, dgamma, dbeta)`` from the saved
+    f32 statistics, in the dtypes of x and gamma."""
+    x = x2d.float()
+    dy = dy.float()
+    xhat = (x - mean) * rstd
+    dgamma = (dy * xhat).sum(dim=0).to(gamma.dtype)
+    dbeta = dy.sum(dim=0).to(gamma.dtype)
+    wdy = dy * gamma.float()[None, :]
+    c1 = wdy.mean(dim=1, keepdim=True)
+    c2 = (wdy * xhat).mean(dim=1, keepdim=True)
+    dx = (wdy - c1 - xhat * c2) * rstd
+    return dx.to(x2d.dtype), dgamma, dbeta
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """Layer norm over the rows of ``x2d`` as one differentiable op (the
+    reference's ``_layer_norm_rows`` custom_vjp): K1 forward on CUDA
+    tensors, the plain forward on CPU tensors, the plain backward on
+    both."""
+
+    @staticmethod
+    def forward(ctx, x2d, gamma, beta, epsilon):
+        y, mean, rstd = layer_norm_rows(x2d, gamma, beta, epsilon)
+        ctx.save_for_backward(x2d, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, gamma, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_bwd(x2d, gamma, mean, rstd, dy)
+        return dx, dgamma, dbeta, None
+
+
 def layer_norm_fused(x, scale=None, bias=None, begin_norm_axis=1,
                      epsilon=1e-5):
     """Layer norm over dims ``[begin_norm_axis:]``; scale/bias flat over
-    those dims (the reference ``layer_norm_fused`` contract)."""
+    those dims (the reference ``layer_norm_fused`` contract).
+    Differentiable."""
     rows = 1
     for d in x.shape[:begin_norm_axis]:
         rows *= d
@@ -78,6 +118,6 @@ def layer_norm_fused(x, scale=None, bias=None, begin_norm_axis=1,
              else torch.ones(cols, dtype=x.dtype, device=x.device))
     beta = (bias.reshape(cols) if bias is not None
             else torch.zeros(cols, dtype=x.dtype, device=x.device))
-    y, _, _ = layer_norm_rows(x.reshape(rows, cols).contiguous(), gamma,
-                              beta, epsilon)
+    y = LayerNormFunction.apply(x.reshape(rows, cols).contiguous(), gamma,
+                                beta, epsilon)
     return y.reshape(x.shape)

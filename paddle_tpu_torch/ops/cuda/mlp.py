@@ -1,8 +1,11 @@
 """K4: fused feed-forward ``gelu(x @ w1 + b1) @ w2 + b2`` — the CUDA
-kernel and its plain PyTorch version.
+kernel, its plain PyTorch version, and the differentiable op around them.
 
 Replaces ``paddle_tpu/ops/pallas/mlp.py:51 _mlp_kernel`` (launcher
-``_mlp_pallas`` :92, entry ``fused_mlp`` :201); forward only, no gate.
+``_mlp_pallas`` :92, entry ``fused_mlp`` :201); no gate. The backward is
+the reference's ``_mlp_core_bwd`` (:184): the VJP of the plain
+composition, recomputing ``h = x @ w1 + b1`` (its products go to
+``torch.matmul``, as the reference leaves them to XLA).
 Source: ``paddle_tpu_torch/csrc/mlp.cu``. The TPU kernel streams the
 intermediate axis I through one f32 ``[BN, Hout]`` accumulator on a
 sequential grid axis. On Hopper the I axis is split across blocks as well
@@ -81,14 +84,42 @@ def mlp_kernel(x2, w1, b1, w2, b2):
     return out
 
 
+def mlp_bwd(x, w1, b1, w2, g):
+    """The VJP of the plain composition for the output cotangent ``g``:
+    ``(dx, dw1, db1, dw2, db2)``. Recomputes ``h = x @ w1 + b1`` and its
+    gelu, then ``dW2 = a^T g``, ``da = g W2^T``, ``dh = da * gelu'(h)``,
+    ``dW1 = x^T dh``, ``dx = dh W1^T``."""
+    x2 = x.reshape(-1, x.shape[-1])
+    g2 = g.reshape(-1, g.shape[-1])
+    h = x2 @ w1 + b1
+    dh = torch.ops.aten.gelu_backward(g2 @ w2.T, h, approximate="none")
+    return ((dh @ w1.T).reshape(x.shape), x2.T @ dh, dh.sum(dim=0),
+            gelu(h).T @ g2, g2.sum(dim=0))
+
+
+class MLPFunction(torch.autograd.Function):
+    """The fused MLP as one differentiable op (the reference's
+    ``_mlp_core`` custom_vjp): K4 forward on CUDA tensors, the plain
+    forward on CPU tensors (on the original leading shape, as the
+    reference's unfused path), and :func:`mlp_bwd` on both."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        if not core.on_card(x, w1, b1, w2, b2):
+            return mlp_plain(x, w1, b1, w2, b2)
+        lead = x.shape[:-1]
+        out = mlp_kernel(x.reshape(-1, x.shape[-1]).contiguous(), w1, b1,
+                         w2, b2)
+        return out.reshape(*lead, w2.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return mlp_bwd(*ctx.saved_tensors, g)
+
+
 def fused_mlp(x, w1, b1, w2, b2):
     """``gelu(x @ w1 + b1) @ w2 + b2`` over the last axis of ``x``: K4 on
     CUDA tensors (the ``[rows, I]`` activation never reaches device
-    memory), the plain version on CPU tensors (on the original leading
-    shape, as the reference's unfused path)."""
-    if not core.on_card(x, w1, b1, w2, b2):
-        return mlp_plain(x, w1, b1, w2, b2)
-    lead = x.shape[:-1]
-    out = mlp_kernel(x.reshape(-1, x.shape[-1]).contiguous(), w1, b1, w2,
-                     b2)
-    return out.reshape(*lead, w2.shape[1])
+    memory), the plain version on CPU tensors. Differentiable."""
+    return MLPFunction.apply(x, w1, b1, w2, b2)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: paddle_tpu_torch/ and chip_smoke.py import
-neither jax nor the JAX package, the port serves on the CPU in a process
-where jax, jaxlib, paddle_tpu and triton cannot be imported, and its
-entry points refuse to run without a card unless asked for the CPU."""
+neither jax nor the JAX package, the port serves and trains on the CPU in
+a process where jax, jaxlib, paddle_tpu and triton cannot be imported, and
+its entry points refuse to run without a card unless asked for the CPU."""
 
 import ast
 import os
@@ -87,6 +87,51 @@ def test_port_serves_with_reference_and_triton_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout
     assert "SERVED [9, 13, 24]" in proc.stdout
+
+
+_TRAIN_BLOCKED = r"""
+import importlib.abc, sys
+BLOCKED = {blocked!r}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+for mod in list(sys.modules):
+    if mod.split(".")[0] in BLOCKED:
+        del sys.modules[mod]
+sys.path.insert(0, {root!r})
+import torch
+torch.set_num_threads(1)
+from paddle_tpu_torch import amp, bridge
+from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+from paddle_tpu_torch.ops.cuda import core
+from paddle_tpu_torch.optimizer import Adam
+cfg = GPTConfig.tiny()
+cfg.dropout = 0.0
+model = GPT(cfg, device="cpu")
+opt = amp.decorate(Adam(model.parameters(), 1e-3), amp.bf16_policy())
+ids = torch.randint(0, cfg.vocab_size, (2, 16),
+                    generator=torch.Generator().manual_seed(0))
+losses = [float(opt.minimize(model, lambda m, x: m.loss(x), ids))
+          for _ in range(3)]
+assert losses[-1] < losses[0], losses
+assert int(bridge.export_opt_state(opt, model)["inner"]["step"]) == 3
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("TRAINED", len(losses))
+"""
+
+
+def test_port_trains_with_reference_and_triton_blocked():
+    code = _TRAIN_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "TRAINED 3" in proc.stdout
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one():

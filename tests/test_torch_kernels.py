@@ -285,8 +285,10 @@ def test_every_kernel_is_registered_with_its_sources():
 
     from paddle_tpu_torch.ops.cuda import core
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    assert set(core.KERNELS) == {"layer_norm", "flash_attention", "mlp",
-                                 "decode_attention"}
+    assert set(core.KERNELS) == {
+        "layer_norm", "flash_attention", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv", "mlp", "decode_attention", "xent_stats",
+        "xent_bwd_dh", "xent_bwd_dwb"}
     for kernel in core.KERNELS.values():
         assert os.path.isfile(os.path.join(root, kernel.source))
         path, line = kernel.replaces.split(":")

@@ -34,11 +34,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def _kernel_times(prof):
-    """(total device µs, launches, {name: µs}) of the CUDA kernels."""
+    """(total device µs, launches, {name: µs}) of the CUDA kernels. The
+    device-side spans of ``record_function`` annotations (such as
+    ``Optimizer.step``) cover kernels already counted and are skipped."""
     by_name = collections.Counter()
     launches = 0
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         us = evt.time_range.elapsed_us()
         by_name[evt.name] += us

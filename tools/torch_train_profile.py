@@ -1,0 +1,110 @@
+"""Where the time of the PyTorch port's training step goes, on one card.
+
+    python3 tools/torch_train_profile.py [--steps 5] [--out DIR]
+
+Builds the training step chip_smoke.py drives (GPTConfig.small() with
+dropout 0 and weights from a seed, GPT.loss under
+amp.decorate(Adam(1e-4), bf16_policy()), one fixed seeded batch of
+16 x 512), runs 2 warm-up steps, and profiles ``--steps`` steady steps
+with torch.profiler: host wall time per step, device time per step (the
+sum of the CUDA kernels, which run on one stream and do not overlap), the
+device's idle share, kernel launches per step (every CUDA kernel, and the
+port's own kernels by their launch counts), and device time per step by
+kernel name.
+
+Prints one JSON line and writes the Chrome trace under ``--out``
+(default ``chiprun_out/``). Needs a CUDA device.
+"""
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def _kernel_times(prof):
+    """(total device µs, launches, {name: µs}) of the CUDA kernels. The
+    device-side spans of ``record_function`` annotations (such as
+    ``Optimizer.step``) cover kernels already counted and are skipped."""
+    by_name = collections.Counter()
+    launches = 0
+    for evt in prof.events():
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        by_name[evt.name] += evt.time_range.elapsed_us()
+        launches += 1
+    return sum(by_name.values()), launches, by_name
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default="chiprun_out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(args.out, exist_ok=True)
+    core.library()
+    cfg = GPTConfig.small()
+    cfg.dropout = 0.0
+    model = GPT(cfg, device="cuda", seed=0)
+    opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (16, 512))).cuda()
+
+    def step():
+        return float(opt.minimize(model, lambda m, x: m.loss(x), ids))
+
+    for _ in range(2):                   # warm-up
+        step()
+    torch.cuda.synchronize()
+    core.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    losses = []
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            losses.append(step())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(os.path.join(args.out, "train_step.json"))
+    busy_us, launches, by_name = _kernel_times(prof)
+    per = args.steps
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps(dict(
+        part="train_step", device=torch.cuda.get_device_name(0), card=smi,
+        config="GPTConfig.small()", batch=16, seq=512, policy="bf16",
+        steps=per, losses=losses, step_ms=wall / per * 1e3,
+        device_ms_per_step=(busy_us / per / 1e3) if busy_us else None,
+        idle_share=(1 - busy_us / 1e6 / wall) if busy_us else None,
+        launches_per_step=launches / per,
+        port_launches_per_step={k: n / per
+                                for k, n in core.launch_counts().items()},
+        top_kernels_ms_per_step={name[:80]: us / per / 1e3
+                                 for name, us in by_name.most_common(20)})),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
