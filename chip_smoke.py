@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-H100.
+"""Drive the PyTorch/CUDA port's serving, GPT training and BERT pretraining
+paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,9 @@ Phases, each printing one JSON line:
 2. build   — compiles the kernels from paddle_tpu_torch/csrc with nvcc.
 3. kernel  — each kernel (K1 layer norm, K2 flash attention, K3 flash
    backward dq and dk/dv, K4 fused MLP, K5 fused cross-entropy statistics,
-   K6 its backward dh and dw/db, K7 paged decode attention) at the
-   serving or training path's shapes and at ragged shapes, against its
+   K6 its backward dh and dw/db, K7 paged decode attention, K8 fused
+   residual add + layer norm) at the serving, training or BERT path's
+   shapes and at ragged shapes, against its
    plain PyTorch version on the same inputs, with the stated tolerance
    (the serving kernels' outputs absolutely; the training path's each on
    its own scale max |plain|); times the kernel, the plain version
@@ -38,12 +39,23 @@ Phases, each printing one JSON line:
 8. train crosscheck — one f32 step (TF32 off) of GPTConfig.small() at
    batch 2 x seq 128 on the card and on the CPU plain path from the same
    weights: loss and every parameter's gradient must agree.
+9. bert_train — bench.py's BERT row on the card: BertConfig.base()
+   (dropout 0, weights from a seed), BertForPretraining.loss with 76
+   gathered MLM positions per row, its backward and
+   amp.decorate(Adam(1e-4), bf16_policy()), batch 64 x seq 512 of one
+   fixed seeded batch; 2 warm-up and 10 timed steps with the launch
+   counts zeroed just before. Each kernel of the path (K1-K6, K8) must
+   launch its expected count per step; the loss must be finite and fall.
+10. bert_crosscheck — one f32 step (TF32 off) of BertConfig.base() at
+   batch 2 x seq 128 with a padded attention mask (K2/K3 with kv_mask),
+   token types and 19 mask positions per row, on the card and on the CPU
+   plain path: loss and every parameter's gradient must agree.
 
 Then the {"kernels": [...]} line (each kernel with the launches of its
-own path: serve for K1, K2, K4 and K7, train for K3, K5 and K6), the
-nvidia-smi line, and the contract line {"ok": true, "device": {...}}. Any
-failed phase raises, and the script exits non-zero without the contract
-line.
+own path: serve for K1, K2, K4 and K7, train for K3, K5 and K6, bert for
+K8), the nvidia-smi line, and the contract line {"ok": true, "device":
+{...}}. Any failed phase raises, and the script exits non-zero without
+the contract line.
 """
 
 import glob
@@ -73,6 +85,7 @@ SERVE_KERNELS = ("layer_norm", "flash_attention", "mlp", "decode_attention")
 TRAIN_KERNELS = ("layer_norm", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "mlp", "xent_stats",
                  "xent_bwd_dh", "xent_bwd_dwb")
+BERT_KERNELS = TRAIN_KERNELS + ("add_layer_norm",)
 
 
 def emit(obj):
@@ -543,6 +556,196 @@ def train_kernel_cases(dev):
     return results
 
 
+def bert_kernel_cases(dev):
+    """K8 at the BERT step's shape ([64 x 512, 768] bf16, the case reported
+    in the kernels line), in f32 and at ragged shapes; then K1-K6 at the
+    BERT step's shapes (bf16; attention not causal, with a padded
+    key mask in a ragged case; a 30522 vocab with an f32 bias), each
+    timed beside its plain version, its bound and one library call."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import (flash_attention as fa,
+                                           layer_norm as ln, mlp,
+                                           xent as xe)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    bf16 = torch.bfloat16
+    rows, hid, inter, vocab, n_mask = 64 * 512, 768, 3072, 30522, 64 * 76
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    results = {"add_layer_norm": [], "bert_shapes": []}
+
+    # K8: the train shape in bf16 and f32, then R not a multiple of the 8
+    # rows per block, C not a multiple of 32, C not a multiple of the
+    # 16-byte pack, and a view whose data is not 16-byte aligned
+    for r_, c_, dtype, offset in ((rows, hid, bf16, 0),
+                                  (rows, hid, torch.float32, 0),
+                                  (1000, 200, bf16, 0),
+                                  (37, 96, torch.float32, 0),
+                                  (13, 770, bf16, 0),
+                                  (29, 768, torch.float32, 1)):
+        x = randn(r_ * c_ + offset, dtype=dtype)[offset:].view(r_, c_)
+        h = randn(r_, c_, dtype=dtype)
+        gam = randn(c_, dtype=dtype, scale=0.1) + 1.0
+        bet = randn(c_, dtype=dtype, scale=0.1)
+        got = ln.add_layer_norm_kernel(x, h, gam, bet, 1e-5)
+        case = dict(shape=[r_, c_], dtype=str(dtype), misaligned=bool(offset),
+                    **held(f"add_layer_norm {[r_, c_]} {dtype}", got,
+                           ln.add_layer_norm_plain(x, h, gam, bet, 1e-5),
+                           dtype))
+        if not results["add_layer_norm"]:
+            case.update(
+                kernel_ms=time_ms(lambda: ln.add_layer_norm_kernel(
+                    x, h, gam, bet, 1e-5)),
+                plain_ms=time_ms(lambda: ln.add_layer_norm_plain(
+                    x, h, gam, bet, 1e-5)),
+                library_ms=time_ms(lambda: F.layer_norm(
+                    x + h, (c_,), gam, bet, 1e-5)),
+                library="F.layer_norm(x + h): two library calls")
+            case["bound_ms"], case["bound_by"] = bound_ms(
+                nbytes(x, h, gam, bet, *got), 10 * x.numel(), dtype)
+        results["add_layer_norm"].append(case)
+
+    # K1 (emb_ln) and K4 at the 32768 rows of the step
+    x = randn(rows, hid, dtype=bf16)
+    gam, bet = randn(hid, dtype=bf16) * 0.1 + 1.0, randn(hid, dtype=bf16)
+    got = ln.layer_norm_kernel(x, gam, bet, 1e-5)
+    case = dict(kernel="layer_norm", shape=[rows, hid], dtype="bf16",
+                **held("layer_norm bert shape", got,
+                       ln.layer_norm_plain(x, gam, bet, 1e-5), bf16),
+                kernel_ms=time_ms(lambda: ln.layer_norm_kernel(
+                    x, gam, bet, 1e-5)),
+                plain_ms=time_ms(lambda: ln.layer_norm_plain(
+                    x, gam, bet, 1e-5)),
+                library_ms=time_ms(lambda: F.layer_norm(
+                    x, (hid,), gam, bet, 1e-5)))
+    case["bound_ms"], case["bound_by"] = bound_ms(
+        nbytes(x, gam, bet, *got), 8 * x.numel(), bf16)
+    results["bert_shapes"].append(case)
+
+    w1, b1 = randn(hid, inter, dtype=bf16, scale=0.036), randn(
+        inter, dtype=bf16, scale=0.02)
+    w2, b2 = randn(inter, hid, dtype=bf16, scale=0.036), randn(
+        hid, dtype=bf16, scale=0.02)
+    out = mlp.mlp_kernel(x, w1, b1, w2, b2)
+    case = dict(kernel="mlp", shape=[rows, hid, inter, hid], dtype="bf16",
+                **held("mlp bert shape", [out], [mlp.mlp_plain(
+                    x.float(), w1.float(), b1.float(), w2.float(),
+                    b2.float())], bf16),
+                kernel_ms=time_ms(lambda: mlp.mlp_kernel(x, w1, b1, w2, b2)),
+                plain_ms=time_ms(lambda: mlp.mlp_plain(x, w1, b1, w2, b2)),
+                library_ms=time_ms(lambda: F.linear(F.gelu(F.linear(
+                    x, w1.t(), b1)), w2.t(), b2)))
+    case["bound_ms"], case["bound_by"] = bound_ms(
+        nbytes(x, w1, b1, w2, b2, out), 2.0 * rows * inter * 2 * hid, bf16)
+    results["bert_shapes"].append(case)
+    del x, out, w1, w2
+
+    # K2 and K3: [64, 12, 512, 512, 64] bf16 not causal (timed), then a
+    # ragged batch padded by a key mask
+    for b, h, t, dtype, lengths in ((64, 12, 512, bf16, None),
+                                    (3, 12, 200, bf16, (200, 137, 61)),
+                                    (2, 4, 90, torch.float32, (90, 33))):
+        q, k, v, do = (randn(b, h, t, 64, dtype=dtype) for _ in range(4))
+        mask = None
+        if lengths is not None:
+            mask = (torch.arange(t, device=dev)[None, :]
+                    < torch.tensor(lengths, device=dev)[:, None])
+        scale = 0.125
+        out, lse = fa.flash_attention_kernel(q, k, v, scale, False, mask)
+        pout, plse = fa.chunked_attention(q, k, v, scale, False, mask,
+                                          return_lse=True)
+        shape = [b, h, t, t, 64]
+        name = f"flash {shape} {dtype} mask={lengths}"
+        fwd = dict(kernel="flash_attention", shape=shape, dtype=str(dtype),
+                   causal=False, kv_mask=lengths,
+                   **held(name, [out], [pout], dtype))
+        held(name + " lse", [lse], [plse], torch.float32)
+        got = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do, scale,
+                                            False, mask)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale,
+                                            False, mask)
+        dq = dict(fwd, kernel="flash_attention_bwd_dq",
+                  **held(name + " dq", got[:1], want[:1], dtype))
+        dkv = dict(fwd, kernel="flash_attention_bwd_dkv",
+                   **held(name + " dk/dv", got[1:], want[1:], dtype))
+        if lengths is None:
+            ops = 2.0 * b * h * t * t * 64
+            fwd.update(
+                kernel_ms=time_ms(lambda: fa.flash_attention_kernel(
+                    q, k, v, scale, False)),
+                plain_ms=time_ms(lambda: fa.chunked_attention(
+                    q, k, v, scale, False)),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=scale)))
+            fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+                nbytes(q, k, v, out, lse), 2 * ops, dtype)
+            delta = (do.float() * out.float()).sum(-1)
+            bwd = (q, k, v, do, lse, delta, scale, False)
+            plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, scale, False))
+            qg, kg, vg = (t_.detach().requires_grad_(True)
+                          for t_ in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            library = time_ms(lambda: torch.autograd.grad(
+                sdpa, (qg, kg, vg), do, retain_graph=True), graph=False)
+            for case, fn, products, outs in (
+                    (dq, fa.flash_attention_bwd_dq_kernel, 3, got[:1]),
+                    (dkv, fa.flash_attention_bwd_dkv_kernel, 4, got[1:])):
+                case.update(kernel_ms=time_ms(lambda: fn(*bwd)),
+                            plain_ms=plain, library_ms=library)
+                case["bound_ms"], case["bound_by"] = bound_ms(
+                    nbytes(q, k, v, do, lse, delta, *outs),
+                    products * ops, dtype)
+            del sdpa, qg, kg, vg
+        results["bert_shapes"] += [fwd, dq, dkv]
+        del q, k, v, do, out, got, want, pout
+
+    # K5 and K6: 64 x 76 gathered rows against the tied [30522, 768] table
+    # and the f32 MLM bias
+    h = randn(n_mask, hid, dtype=bf16)
+    w = randn(vocab, hid, dtype=bf16, scale=0.05)
+    bias = randn(vocab, scale=0.1)
+    labels = torch.randint(0, vocab, (n_mask,), generator=g).to(dev)
+    inputs = (h, w, bias, labels)
+    shape = [n_mask, vocab, hid]
+    stats = xe.xent_stats_kernel(*inputs)
+    pstats = xe.xent_stats_plain(*inputs)
+    logz = pstats[0] + torch.log(pstats[1])
+    gg = randn(n_mask, scale=1.0 / n_mask)
+    bwd_args = (h, w, bias, labels, logz, gg, 0.0, 1.0)
+    dh, dw, db = xe.xent_bwd_kernel(*bwd_args)
+    pdh, pdw, pdb = xe.xent_bwd_plain(*bwd_args)
+    ops = 2.0 * n_mask * vocab * hid
+    hl, wl = (t_.detach().requires_grad_(True) for t_ in (h, w))
+    bl = bias.to(bf16).requires_grad_(True)
+    rows_ce = F.cross_entropy(F.linear(hl, wl, bl), labels,
+                              reduction="none")
+    library = time_ms(lambda: torch.autograd.grad(
+        rows_ce, (hl, wl, bl), gg, retain_graph=True), graph=False)
+    plain_bwd = time_ms(lambda: xe.xent_bwd_plain(*bwd_args))
+    for name, got, want, fn, lib, plain, outs, k_ops in (
+            ("xent_stats", stats, pstats, xe.xent_stats_kernel,
+             time_ms(lambda: F.cross_entropy(F.linear(h, w, bl.detach()),
+                                             labels, reduction="none")),
+             time_ms(lambda: xe.xent_stats_plain(*inputs)), (), ops),
+            ("xent_bwd_dh", [dh], [pdh], xe.xent_bwd_dh_kernel, library,
+             plain_bwd, (dh,), 2 * ops),
+            ("xent_bwd_dwb", [dw, db], [pdw, pdb], xe.xent_bwd_dwb_kernel,
+             library, plain_bwd, (dw, db), 2 * ops)):
+        args = inputs if name == "xent_stats" else bwd_args
+        extra = 16 * n_mask if name == "xent_stats" else nbytes(logz, gg)
+        case = dict(kernel=name, shape=shape, dtype="bf16",
+                    **held(f"{name} bert shape", got, want, torch.float32),
+                    kernel_ms=time_ms(lambda: fn(*args)), plain_ms=plain,
+                    library_ms=lib)
+        case["bound_ms"], case["bound_by"] = bound_ms(
+            nbytes(*inputs, *outs) + extra, k_ops, bf16)
+        results["bert_shapes"].append(case)
+    return results
+
+
 # ------------------------------------------------------------------ serve
 
 def serve(model, num_requests, prompt_range, long_prompt, max_new, cfg_kw,
@@ -647,12 +850,24 @@ def loss_of(model, ids):
     return model.loss(ids)
 
 
-def train(model, opt, ids, warmup, steps):
-    """``warmup`` steps, then ``steps`` timed steps of ``opt.minimize`` on
-    the fixed batch ``ids``, with the launch counts and the peak-memory
-    statistic zeroed just before the timed steps. Each step ends by
-    reading its loss on the host, so its wall time covers its device
-    work. Returns (losses of every step, timed step seconds, launches)."""
+def bert_loss_of(model, ids, mlm_labels, nsp_labels, mlm_mask,
+                 token_type_ids=None, attention_mask=None,
+                 mask_positions=None):
+    """BertForPretraining.loss with every input positional, so that
+    ``minimize`` carries them all (and casts the float ones)."""
+    return model.loss(ids, mlm_labels, nsp_labels, mlm_mask,
+                      token_type_ids=token_type_ids,
+                      attention_mask=attention_mask,
+                      mask_positions=mask_positions)
+
+
+def train(model, opt, loss_fn, args, warmup, steps):
+    """``warmup`` steps, then ``steps`` timed steps of ``opt.minimize`` of
+    ``loss_fn`` on the fixed batch ``args``, with the launch counts and
+    the peak-memory statistic zeroed just before the timed steps. Each
+    step ends by reading its loss on the host, so its wall time covers
+    its device work. Returns (losses of every step, timed step seconds,
+    launches)."""
     from paddle_tpu_torch.ops.cuda import core
     losses, times = [], []
     for i in range(warmup + steps):
@@ -661,47 +876,64 @@ def train(model, opt, ids, warmup, steps):
             torch.cuda.reset_peak_memory_stats()
             core.reset_launches()
         t0 = time.perf_counter()
-        losses.append(float(opt.minimize(model, loss_of, ids)))
+        losses.append(float(opt.minimize(model, loss_fn, *args)))
         if i >= warmup:
             times.append(time.perf_counter() - t0)
     return losses, times, core.launch_counts()
 
 
-def check_train_launches(launches, steps, layers):
-    """Each training kernel's launches per step: K1 twice per block plus
-    ln_f, K2/K3/K4 once per block, K5 and K6 once."""
-    want = {"layer_norm": 2 * layers + 1, "flash_attention": layers,
+def train_launches_per_step(layers):
+    """Each GPT training kernel's launches per step: K1 twice per block
+    plus ln_f, K2/K3/K4 once per block, K5 and K6 once."""
+    return {"layer_norm": 2 * layers + 1, "flash_attention": layers,
             "flash_attention_bwd_dq": layers,
             "flash_attention_bwd_dkv": layers, "mlp": layers,
             "xent_stats": 1, "xent_bwd_dh": 1, "xent_bwd_dwb": 1}
+
+
+def bert_launches_per_step(layers):
+    """Each BERT pretraining kernel's launches per step: K8 twice per
+    layer (the post-norm residuals), K1 for emb_ln and mlm_ln, K2/K3/K4
+    once per layer, K5 and K6 once (the MLM head)."""
+    return {"add_layer_norm": 2 * layers, "layer_norm": 2,
+            "flash_attention": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers, "mlp": layers,
+            "xent_stats": 1, "xent_bwd_dh": 1, "xent_bwd_dwb": 1}
+
+
+def check_launches(what, launches, steps, want):
     wrong = {k: (launches[k] / steps, n) for k, n in want.items()
              if launches[k] != n * steps}
     if wrong:
-        raise AssertionError(f"train launches per step (got, want): "
+        raise AssertionError(f"{what} launches per step (got, want): "
                              f"{wrong}")
 
 
-def train_crosscheck(cfg, ids):
-    """One f32 Adam step on the card and on the CPU plain path from the
-    same weights: (loss card, loss CPU, per-parameter gradient errors).
-    A parameter whose gradient is 0 in exact arithmetic (the key bias,
-    which softmax cancels) carries only rounding noise, so each error is
-    relative to the larger of its own gradient's norm and 1e-3 of the
-    largest one."""
-    from paddle_tpu_torch.models.gpt import GPT
+def train_crosscheck(make_model, loss_fn, args):
+    """One f32 Adam step of ``loss_fn`` on the card and on the CPU plain
+    path, each on a model from ``make_model(device)`` (the same weights):
+    (loss card, loss CPU, per-parameter gradient errors, the card run's
+    launches). A parameter whose gradient is 0 in exact arithmetic (the
+    key bias, which softmax cancels) carries only rounding noise, so each
+    error is relative to the larger of its own gradient's norm and 1e-3
+    of the largest one."""
+    from paddle_tpu_torch.ops.cuda import core
     from paddle_tpu_torch.optimizer import Adam
     out = {}
     for dev in ("cuda", "cpu"):
-        model = GPT(cfg, device=dev, seed=0)
+        model = make_model(dev)
         opt = Adam(model.parameters(), 1e-4)
-        loss = float(opt.minimize(model, loss_of, ids.to(dev)))
+        core.reset_launches()
+        loss = float(opt.minimize(model, loss_fn,
+                                  *(a.to(dev) for a in args)))
         out[dev] = (loss, {n: p.grad.detach().cpu()
-                           for n, p in model.named_parameters()})
-    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+                           for n, p in model.named_parameters()},
+                    core.launch_counts())
+    (lc, gc, launches), (lp, gp, _) = out["cuda"], out["cpu"]
     top = max(float(g.norm()) for g in gp.values())
     errs = {n: float((gc[n] - gp[n]).norm())
             / max(float(gp[n].norm()), 1e-3 * top) for n in gp}
-    return lc, lp, errs
+    return lc, lp, errs, launches
 
 
 # ------------------------------------------------------------------- main
@@ -716,30 +948,119 @@ def train_phase(cfg, smi):
     opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (batch, seq))).cuda()
-    losses, times, launches = train(model, opt, ids, warmup, steps)
+    losses, times, launches = train(model, opt, loss_of, (ids,), warmup,
+                                    steps)
+    check_launches("train", launches, steps,
+                   train_launches_per_step(cfg.num_layers))
+    return step_stats("train", "GPTConfig.small()", batch, seq, losses,
+                      times, launches, smi), launches
+
+
+def step_stats(what, config, batch, seq, losses, times, launches, smi):
+    """The training phase's line; raises unless every loss is finite and
+    the loss fell from the first step to the last."""
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train: non-finite loss {losses}")
+        raise AssertionError(f"{what}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss did not fall {losses}")
-    check_train_launches(launches, steps, cfg.num_layers)
-    stats = dict(config="GPTConfig.small()", batch=batch, seq=seq,
-                 policy="bf16", optimizer="Adam(1e-4)", warmup=warmup,
-                 steps=steps, losses=losses,
-                 tokens_per_s=batch * seq * steps / sum(times),
-                 p50_step_ms=float(np.median(times)) * 1e3,
-                 mean_step_ms=float(np.mean(times)) * 1e3,
-                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 launches_per_step={k: n / steps
-                                    for k, n in launches.items()},
-                 card=smi)
-    return stats, launches
+        raise AssertionError(f"{what}: loss did not fall {losses}")
+    steps = len(times)
+    return dict(config=config, batch=batch, seq=seq, policy="bf16",
+                optimizer="Adam(1e-4)", warmup=len(losses) - steps,
+                steps=steps, losses=losses,
+                tokens_per_s=batch * seq * steps / sum(times),
+                p50_step_ms=float(np.median(times)) * 1e3,
+                mean_step_ms=float(np.mean(times)) * 1e3,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches_per_step={k: n / steps
+                                   for k, n in launches.items()},
+                card=smi)
+
+
+def bert_batch(rs, vocab, batch, seq, n_mask, pad_row0=None,
+               segment_b=None):
+    """A seeded pretraining batch, as ``bench.py``'s ``_bench_mlm`` makes
+    it: ids, sorted distinct ``mask_positions`` with their labels,
+    ``nsp_labels`` and an ``mlm_mask`` of ones. ``pad_row0`` pads row 0
+    after that many tokens (an ``attention_mask``, the positions drawn
+    below it); ``segment_b`` starts segment B there (``token_type_ids``).
+    Returns the ``bert_loss_of`` arguments after the model, on the
+    CPU."""
+    ids = rs.randint(0, vocab, (batch, seq))
+    att = types = None
+    if pad_row0 is not None:
+        att = np.ones((batch, seq), np.float32)
+        att[0, pad_row0:] = 0.0
+    if segment_b is not None:
+        types = np.zeros((batch, seq), np.int64)
+        types[:, segment_b:] = 1
+    pos = np.stack([np.sort(rs.choice(
+        pad_row0 if (i == 0 and pad_row0) else seq, n_mask, replace=False))
+        for i in range(batch)])
+    labels = rs.randint(0, vocab, (batch, n_mask))
+    nsp = rs.randint(0, 2, (batch,))
+    mlm_mask = np.ones((batch, n_mask), np.float32)
+    return tuple(None if a is None else torch.from_numpy(a) for a in (
+        ids, labels, nsp, mlm_mask, types, att, pos))
+
+
+def bert_train_phase(smi):
+    """``bench.py``'s BERT row on the card: BertConfig.base() (dropout 0,
+    weights from seed 0) under amp.decorate(Adam(1e-4), bf16_policy()) on
+    one fixed batch of 64 x 512 with 76 masked positions per row; returns
+    (stats, launches)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import Adam
+    batch, seq, n_mask, warmup, steps = 64, 512, 76, 2, 10
+    cfg = BertConfig.base()
+    cfg.dropout = 0.0
+    model = BertForPretraining(cfg, device="cuda", seed=0)
+    opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+    ids, labels, nsp, mlm_mask, _, _, pos = bert_batch(
+        np.random.RandomState(0), cfg.vocab_size, batch, seq, n_mask)
+    pos = pos.cuda()
+
+    def loss_fn(m, *a):
+        return m.loss(*a, mask_positions=pos)
+
+    args = tuple(a.cuda() for a in (ids, labels, nsp, mlm_mask))
+    losses, times, launches = train(model, opt, loss_fn, args, warmup,
+                                    steps)
+    check_launches("bert_train", launches, steps,
+                   bert_launches_per_step(cfg.num_layers))
+    stats = step_stats("bert_train", "BertConfig.base()", batch, seq,
+                       losses, times, launches, smi)
+    return dict(stats, masked_positions=n_mask), launches
+
+
+def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
+                     kernels, **extra):
+    """One f32 step on the card against the CPU plain path (see
+    ``train_crosscheck``); emits the phase line, then raises if the loss
+    or a gradient is outside its tolerance, or if one of ``kernels`` did
+    not launch on the card."""
+    loss_card, loss_cpu, errs, launches = train_crosscheck(make_model,
+                                                           loss_fn, args)
+    worst = max(errs, key=errs.get)
+    emit(dict(phase=phase, config=config, batch=batch, seq=seq,
+              dtype="float32", allow_tf32=False, **extra,
+              loss_card=loss_card, loss_cpu=loss_cpu, loss_tol=TRAIN_LOSS_TOL,
+              grad_rel_err_max=errs[worst], grad_rel_err_worst=worst,
+              grad_tol=TRAIN_GRAD_TOL, params=len(errs),
+              launches={k: launches[k] for k in kernels}))
+    check(f"{phase} loss", abs(loss_card - loss_cpu), TRAIN_LOSS_TOL)
+    check(f"{phase} gradient of {worst}", errs[worst], TRAIN_GRAD_TOL)
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: kernels not launched {missing}")
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, GPTDecoder
     from paddle_tpu_torch.ops.cuda import core
 
     smi = nvidia_smi()
@@ -766,7 +1087,9 @@ def main():
     dev = torch.device("cuda")
     results = kernel_cases(dev)
     results.update(train_kernel_cases(dev))
+    results.update(bert_kernel_cases(dev))
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     for name, cases in results.items():
         for case in cases:
             emit(dict(phase="kernel", kernel=case.pop("kernel", name),
@@ -817,28 +1140,41 @@ def main():
     small.dropout = 0.0
     ids = torch.from_numpy(np.random.RandomState(3).randint(
         0, small.vocab_size, (2, 128)))
-    loss_card, loss_cpu, errs = train_crosscheck(small, ids)
-    worst = max(errs, key=errs.get)
-    emit(dict(phase="train_crosscheck", config="GPTConfig.small()",
-              batch=2, seq=128, dtype="float32", allow_tf32=False,
-              loss_card=loss_card, loss_cpu=loss_cpu, loss_tol=TRAIN_LOSS_TOL,
-              grad_rel_err_max=errs[worst], grad_rel_err_worst=worst,
-              grad_tol=TRAIN_GRAD_TOL, params=len(errs)))
-    check("train crosscheck loss", abs(loss_card - loss_cpu), TRAIN_LOSS_TOL)
-    check(f"train crosscheck gradient of {worst}", errs[worst],
-          TRAIN_GRAD_TOL)
+    crosscheck_phase("train_crosscheck", "GPTConfig.small()",
+                     lambda dev: GPT(small, device=dev, seed=0), loss_of,
+                     (ids,), 2, 128, TRAIN_KERNELS)
 
+    torch.cuda.empty_cache()
+    bert_stats, bert_launches = bert_train_phase(smi)
+    emit(dict(phase="bert_train", **bert_stats))
+
+    torch.cuda.empty_cache()
+    base = BertConfig.base()
+    base.dropout = 0.0
+    batch = bert_batch(np.random.RandomState(4), base.vocab_size, 2, 128, 19,
+                       pad_row0=90, segment_b=60)
+    crosscheck_phase(
+        "bert_crosscheck", "BertConfig.base()",
+        lambda dev: BertForPretraining(base, device=dev, seed=0),
+        bert_loss_of, batch, 2, 128, BERT_KERNELS,
+        attention_mask="row 0 padded after 90 tokens",
+        token_type_ids="segment B from position 60", mask_positions=19)
+
+    paths = {"serve": launches, "train": train_launches,
+             "bert": bert_launches}
     table = []
     for name, kernel in core.KERNELS.items():
         main_case = results[name][0] if name in ("flash_attention",
                                                  "decode_attention") \
             else next(c for c in results[name] if "kernel_ms" in c)
-        path = launches if name in SERVE_KERNELS else train_launches
+        path = ("serve" if name in SERVE_KERNELS else
+                "train" if name in TRAIN_KERNELS else "bert")
         table.append(dict(
             name=name, route="cuda", source=kernel.source,
-            replaces=kernel.replaces, launches=path[name],
-            launches_path="serve" if name in SERVE_KERNELS else "train",
+            replaces=kernel.replaces, launches=paths[path][name],
+            launches_path=path,
             launches_train=train_launches[name],
+            launches_bert=bert_launches[name],
             max_abs_err=main_case["max_abs_err"],
             ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"],

@@ -7,8 +7,11 @@ as ``blocks/<i>/attn/wq``, ``blocks/<i>/fc1/weight``,
 ``blocks/<i>/ln1/scale``, ``tok_emb/weight`` and ``ln_f/bias``. The port
 names its parameters the same way, joined with dots, and keeps the same
 ``[in, out]`` layout for every projection (``x @ W``), so the bridge
-copies arrays without transposing any. The bridge imports neither jax
-nor ``paddle_tpu``.
+copies arrays without transposing any. A scan-stacked subtree (the JAX
+package's ``ScanLayers``, ``scan_layers=True``: ``encoder/layers/layer/
+<leaf>`` with a leading layer axis) loads into the port's unrolled
+layers ``encoder.layers.<i>.<leaf>``; :func:`export_params` writes the
+unrolled tree. The bridge imports neither jax nor ``paddle_tpu``.
 
 Optimizer state has the JAX package's shape ``{"step": int, "slots":
 <param tree of {"moment1", "moment2"}>}`` (under ``amp.decorate``,
@@ -35,17 +38,39 @@ def flatten(params, prefix=""):
     return out
 
 
+#: the child name under which ScanLayers stacks its layers
+SCAN_CHILD = "layer"
+
+
+def _unstack(flat, own):
+    """Split each scan-stacked leaf ``<prefix>.layer.<rest>`` whose
+    unrolled form ``<prefix>.0.<rest>`` is a parameter of the model into
+    ``<prefix>.<i>.<rest>``, one per entry of its leading axis."""
+    out = {}
+    for name, arr in flat.items():
+        prefix, sep, rest = name.partition(f".{SCAN_CHILD}.")
+        if sep and name not in own and f"{prefix}.0.{rest}" in own:
+            arr = np.asarray(arr)
+            for i in range(arr.shape[0]):
+                out[f"{prefix}.{i}.{rest}"] = arr[i]
+        else:
+            out[name] = arr
+    return out
+
+
 def load_params(model, params):
     """Copy a JAX param tree (numpy leaves) into ``model``'s parameters,
-    on the model's device and in its dtype. Every parameter must be
-    present and no extra leaf may be left over. Weight-only int8 trees
-    (``weight_q`` / ``w*_q`` leaves) raise ``NotImplementedError``."""
+    on the model's device and in its dtype; a scan-stacked subtree loads
+    into the unrolled layers. Every parameter must be present and no
+    extra leaf may be left over. Weight-only int8 trees (``weight_q`` /
+    ``w*_q`` leaves) raise ``NotImplementedError``."""
     flat = flatten(params)
     quant = [k for k in flat if k.endswith(("_q", "_scale"))]
     if quant:
         raise NotImplementedError(
             f"weight-only int8 params are not ported: {quant[:3]}")
     own = dict(model.named_parameters())
+    flat = _unstack(flat, own)
     missing = sorted(set(own) - set(flat))
     extra = sorted(set(flat) - set(own))
     if missing or extra:

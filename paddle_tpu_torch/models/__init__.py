@@ -1,2 +1,9 @@
+from paddle_tpu_torch.models.bert import (BertConfig,  # noqa: F401
+                                          BertEncoder, BertForPretraining,
+                                          TransformerLayer, pretrain_loss)
+from paddle_tpu_torch.models.ernie import (ErnieConfig,  # noqa: F401
+                                           ErnieForPretraining,
+                                           ernie_pretrain_loss,
+                                           knowledge_mask)
 from paddle_tpu_torch.models.gpt import (GPT, GPTBlock,  # noqa: F401
                                          GPTConfig, GPTDecoder)

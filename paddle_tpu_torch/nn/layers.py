@@ -13,8 +13,10 @@ are not ported and the bridge refuses them.
 import torch
 from torch import nn
 
+from paddle_tpu_torch.ops import activations as A
 from paddle_tpu_torch.ops import attention as att
 from paddle_tpu_torch.ops import nn as F
+from paddle_tpu_torch.ops.cuda.layer_norm import add_layer_norm_fused
 from paddle_tpu_torch.ops.cuda.mlp import fused_mlp
 
 
@@ -24,18 +26,28 @@ def _xavier(shape, gen, dtype):
     return nn.Parameter(w)
 
 
-class Linear(nn.Module):
-    """ref: ``nn/layers.py:37`` — ``x @ weight + bias``, weight
-    ``[in, out]``."""
+def _act(name, x):
+    return x if name is None else getattr(A, name)(x)
 
-    def __init__(self, in_features, out_features, gen=None,
-                 dtype=torch.float32):
+
+class Linear(nn.Module):
+    """ref: ``nn/layers.py:37`` — ``act(x @ weight + bias)``, weight
+    ``[in, out]``; ``bias=False`` has no bias parameter, ``act`` names an
+    activation of ``ops/activations.py`` (``"gelu"``, ``"tanh"``)."""
+
+    def __init__(self, in_features, out_features, bias=True, act=None,
+                 gen=None, dtype=torch.float32):
         super().__init__()
+        self.act = act
         self.weight = _xavier((in_features, out_features), gen, dtype)
-        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype))
+                     if bias else None)
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        out = x @ self.weight
+        if self.bias is not None:
+            out = out + self.bias
+        return _act(self.act, out)
 
 
 def fused_ffn(fc1, fc2, x, act="gelu"):
@@ -49,7 +61,7 @@ def fused_ffn(fc1, fc2, x, act="gelu"):
 
 
 class LayerNorm(nn.Module):
-    """ref: ``nn/layers.py:208`` (without the fused ``residual=`` path)."""
+    """ref: ``nn/layers.py:208``."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, dtype=torch.float32):
         super().__init__()
@@ -63,9 +75,16 @@ class LayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(n, dtype=dtype))
         self.bias = nn.Parameter(torch.zeros(n, dtype=dtype))
 
-    def forward(self, x):
-        return F.layer_norm(x, self.scale, self.bias,
-                            begin_norm_axis=x.ndim - len(self.shape),
+    def forward(self, x, residual=None):
+        """``ln(x)`` (K1 on the card); with ``residual``, ``ln(x +
+        residual)`` in one fused pass (K8 on the card), the transformer's
+        post-norm residual."""
+        begin = x.ndim - len(self.shape)
+        if residual is not None:
+            return add_layer_norm_fused(x, residual, self.scale, self.bias,
+                                        begin_norm_axis=begin,
+                                        epsilon=self.epsilon)
+        return F.layer_norm(x, self.scale, self.bias, begin_norm_axis=begin,
                             epsilon=self.epsilon)
 
 

@@ -9,3 +9,8 @@ def gelu(x, approximate=False):
     The fused MLP kernel uses the same exact form."""
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x):
+    """ref: ``ops/activations.py:68``."""
+    return torch.tanh(x)

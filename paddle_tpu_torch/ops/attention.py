@@ -67,13 +67,43 @@ def scaled_dot_product_attention(q, k, v, mask=None, scale=None,
     return torch.einsum("...qk,...kd->...qd", probs, v)
 
 
+def _as_key_padding_mask(mask, batch, tk):
+    """Reduce a broadcastable attention mask to key-padding form ``[B, Tk]``
+    bool when its per-head and per-query dims are 1 (ref:
+    ``ops/attention.py:56``): ``[B, 1, 1, Tk]`` -> ``[B, Tk]``,
+    ``[1, 1, Tk]`` and ``[1, Tk]`` broadcast over the batch. A 2-D
+    ``[B, Tk]`` mask broadcasts per query in the dense path, so it is not
+    reduced; neither is a mask of another ``Tk``. Returns None when the
+    mask is not of key-padding form."""
+    if mask is None:
+        return None
+    m = mask
+    if m.ndim == 4 and m.shape[1] == 1 and m.shape[2] == 1:
+        m = m[:, 0, 0, :]
+    elif m.ndim == 3 and m.shape[0] == 1 and m.shape[1] == 1:
+        # a 3-D mask's leading dim broadcasts against the head axis in the
+        # dense path, so only the fully degenerate [1, 1, Tk] is unambiguous
+        m = m[:, 0, :]
+    elif not (m.ndim == 2 and m.shape[0] == 1):
+        return None
+    if m.shape[-1] != tk:
+        return None
+    if m.shape[0] == 1 and batch > 1:
+        m = m.expand(batch, tk)
+    elif m.shape[0] != batch:
+        return None
+    return m.bool()
+
+
 def multihead_attention(x, wq, wk, wv, wo, bq, bk, bv, bo, num_heads,
                         mask=None, causal=False, dropout_rate=0.0,
                         training=False, use_flash=False, dropout_gen=None):
     """Self-attention forward (ref: ``ops/attention.py:266``). x
     ``[B, T, E]``; w* ``[E, E]`` stored ``[in, out]`` for ``x @ W``. With
-    ``use_flash``, calls without a mask or attention dropout ride flash
-    attention (K2 on the card)."""
+    ``use_flash`` and no attention dropout, a call without a mask or with
+    a mask of key-padding form rides flash attention (K2 forward, K3
+    backward on the card) with that mask as ``kv_mask``; any other mask
+    takes the dense path."""
     b, t, e = x.shape
     hd = e // num_heads
 
@@ -82,8 +112,9 @@ def multihead_attention(x, wq, wk, wv, wo, bq, bk, bv, bo, num_heads,
 
     q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
     no_dropout = dropout_rate == 0.0 or not training
-    if use_flash and mask is None and no_dropout:
-        ctx = flash_attention(q, k, v, causal=causal)
+    kv_mask = _as_key_padding_mask(mask, b, k.shape[2])
+    if use_flash and (mask is None or kv_mask is not None) and no_dropout:
+        ctx = flash_attention(q, k, v, causal=causal, kv_mask=kv_mask)
     else:
         ctx = scaled_dot_product_attention(q, k, v, mask=mask,
                                            causal=causal,

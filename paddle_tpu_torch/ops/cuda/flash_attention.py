@@ -180,38 +180,43 @@ def _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask, scale):
         raise ValueError(f"flash backward kernel: lse and delta must be "
                          f"[{b}, {h}, {tq}]")
     core.require_contiguous(q=q, k=k, v=v, do=do)
-    mask = (kv_mask.to(torch.int32).contiguous() if kv_mask is not None
-            else None)
+    # the caller holds these converted operands until the launch: a copy
+    # freed before its kernel is enqueued goes back to the caching
+    # allocator, and the kernel's own output may be handed the same memory
+    operands = (lse.float().contiguous(), delta.float().contiguous(),
+                kv_mask.to(torch.int32).contiguous() if kv_mask is not None
+                else None)
     ptrs = (core.ptr(q), core.ptr(k), core.ptr(v), core.ptr(do),
-            core.ptr(lse.float().contiguous()),
-            core.ptr(delta.float().contiguous()), core.ptr(mask))
+            *(core.ptr(t) for t in operands))
     dims = (b, h, tq, tk, d, float(scale), int(bool(causal)),
             core.stream(q))
-    return code, ptrs, dims
+    return code, ptrs, dims, operands
 
 
 def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
                                   causal=False, kv_mask=None):
     """Launch K3's dq kernel on CUDA tensors -> dq like q. ``delta`` is
     ``rowsum(dO * O)`` ``[B, H, Tq]`` f32."""
-    code, ptrs, dims = _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask,
-                                  scale)
+    code, ptrs, dims, operands = _bwd_setup(q, k, v, do, lse, delta, causal,
+                                            kv_mask, scale)
     dq = torch.empty_like(q)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_()
     KERNEL_BWD_DQ(code, *ptrs, core.ptr(dq), *dims)
+    del operands                     # enqueued: stream order protects them
     return dq
 
 
 def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, scale,
                                    causal=False, kv_mask=None):
     """Launch K3's dk/dv kernel on CUDA tensors -> ``(dk, dv)`` like k."""
-    code, ptrs, dims = _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask,
-                                  scale)
+    code, ptrs, dims, operands = _bwd_setup(q, k, v, do, lse, delta, causal,
+                                            kv_mask, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dk.zero_(), dv.zero_()
     KERNEL_BWD_DKV(code, *ptrs, core.ptr(dk), core.ptr(dv), *dims)
+    del operands                     # enqueued: stream order protects them
     return dk, dv
 
 

@@ -1,5 +1,6 @@
-"""K1: layer norm — the CUDA forward kernel, its plain PyTorch version, and
-the differentiable op around them.
+"""K1 (layer norm) and K8 (fused residual add + layer norm) — the CUDA
+forward kernels, their plain PyTorch versions, and the differentiable ops
+around them.
 
 Replaces ``paddle_tpu/ops/pallas/layer_norm.py:30 _ln_fwd_kernel``
 (launcher ``_stats_pallas`` :62, entry ``layer_norm_fused`` :148).
@@ -9,9 +10,17 @@ mean and rstd per row, which the backward reads. Bound on the H100: bytes
 (one read of x, one write of y), so the design keeps the statistics in
 warp shuffles and reads x once from device memory.
 
-The backward is the reference's ``_ln_bwd`` (:131) in plain torch, from
-the saved mean and rstd: the JAX package has no backward kernel for layer
-norm, so neither has the port.
+K8 replaces ``:175 _ln_add_fwd_kernel`` (launcher ``_stats_add_pallas``
+:190, entry ``add_layer_norm_fused`` :263): ``ln(x + h)`` with the sum
+formed once in f32 and kept in shared memory for the three passes, never
+rounded to the storage type (the reference's XLA twin ``_stats_add``
+rounds it to x's dtype first; in f32 the two agree, in bf16 they differ
+by that one rounding). Bound on the H100: bytes (one read of x and h, one
+write of y).
+
+The backwards are the reference's ``_ln_bwd`` (:131) and ``_aln_bwd``
+(:245) in plain torch, from the saved mean and rstd: the JAX package has
+no backward kernel for layer norm, so neither has the port.
 """
 
 import torch
@@ -23,6 +32,12 @@ KERNEL = core.register(
     [core.I32, core.VP, core.VP, core.VP, core.VP, core.VP, core.VP,
      core.I32, core.I32, core.F32_ARG, core.VP],
     replaces="paddle_tpu/ops/pallas/layer_norm.py:30",
+    source="paddle_tpu_torch/csrc/layer_norm.cu")
+KERNEL_ADD = core.register(
+    "add_layer_norm", "ptt_add_layer_norm",
+    [core.I32] + [core.VP] * 7 + [core.I32, core.I32, core.F32_ARG,
+                                  core.VP],
+    replaces="paddle_tpu/ops/pallas/layer_norm.py:175",
     source="paddle_tpu_torch/csrc/layer_norm.cu")
 
 
@@ -103,11 +118,10 @@ class LayerNormFunction(torch.autograd.Function):
         return dx, dgamma, dbeta, None
 
 
-def layer_norm_fused(x, scale=None, bias=None, begin_norm_axis=1,
-                     epsilon=1e-5):
-    """Layer norm over dims ``[begin_norm_axis:]``; scale/bias flat over
-    those dims (the reference ``layer_norm_fused`` contract).
-    Differentiable."""
+def _rows_cols(x, begin_norm_axis, scale, bias):
+    """``(rows, cols, gamma, beta)`` of the reference's flattening: rows
+    over dims ``[:begin_norm_axis]``, cols over the rest, scale and bias
+    flat over cols (ones and zeros when absent)."""
     rows = 1
     for d in x.shape[:begin_norm_axis]:
         rows *= d
@@ -118,6 +132,100 @@ def layer_norm_fused(x, scale=None, bias=None, begin_norm_axis=1,
              else torch.ones(cols, dtype=x.dtype, device=x.device))
     beta = (bias.reshape(cols) if bias is not None
             else torch.zeros(cols, dtype=x.dtype, device=x.device))
+    return rows, cols, gamma, beta
+
+
+def layer_norm_fused(x, scale=None, bias=None, begin_norm_axis=1,
+                     epsilon=1e-5):
+    """Layer norm over dims ``[begin_norm_axis:]``; scale/bias flat over
+    those dims (the reference ``layer_norm_fused`` contract).
+    Differentiable."""
+    rows, cols, gamma, beta = _rows_cols(x, begin_norm_axis, scale, bias)
     y = LayerNormFunction.apply(x.reshape(rows, cols).contiguous(), gamma,
                                 beta, epsilon)
+    return y.reshape(x.shape)
+
+
+# ---- K8: fused residual add + layer norm ---------------------------------
+
+def add_layer_norm_plain(x2d, h2d, gamma, beta, epsilon):
+    """The plain version of K8: ``(y, mean, rstd)`` of ``ln(x + h)``, the
+    sum formed in f32 and never rounded (as the Pallas kernel keeps it),
+    y in x's dtype, mean/rstd ``[R, 1]`` f32."""
+    y, m, r = layer_norm_plain(x2d.float() + h2d.float(), gamma, beta,
+                               epsilon)
+    return y.to(x2d.dtype), m, r
+
+
+def add_layer_norm_kernel(x2d, h2d, gamma, beta, epsilon):
+    """Launch K8 on CUDA tensors; same outputs as the plain version. x, h,
+    scale and bias share one dtype (f32 or bf16); the rows must fit one
+    block's shared memory (8 rows of C f32 sums, C padded to 256)."""
+    code = core.dtype_code(x2d, (torch.float32, torch.bfloat16))
+    for name, t in (("h", h2d), ("scale", gamma), ("bias", beta)):
+        if t.dtype != x2d.dtype:
+            raise TypeError(f"add_layer_norm kernel: {name} is {t.dtype}, "
+                            f"x is {x2d.dtype}")
+    core.require_contiguous(x=x2d, h=h2d, gamma=gamma, beta=beta)
+    r_, c_ = x2d.shape
+    if h2d.shape != x2d.shape:
+        raise ValueError(f"add_layer_norm kernel: h {tuple(h2d.shape)} is "
+                         f"not x's {tuple(x2d.shape)}")
+    if gamma.shape != (c_,) or beta.shape != (c_,):
+        raise ValueError(f"scale/bias must be [{c_}]")
+    smem = core.library().ptt_add_layer_norm_smem_bytes(c_)
+    if smem > core.MAX_SMEM:
+        raise ValueError(f"add_layer_norm kernel: C={c_} needs {smem} bytes "
+                         f"of shared memory (max {core.MAX_SMEM})")
+    y = torch.empty_like(x2d)
+    mean = torch.empty((r_, 1), dtype=torch.float32, device=x2d.device)
+    rstd = torch.empty((r_, 1), dtype=torch.float32, device=x2d.device)
+    if r_ == 0 or c_ == 0:
+        return y, mean, rstd
+    KERNEL_ADD(code, core.ptr(x2d), core.ptr(h2d), core.ptr(gamma),
+               core.ptr(beta), core.ptr(y), core.ptr(mean), core.ptr(rstd),
+               r_, c_, float(epsilon), core.stream(x2d))
+    return y, mean, rstd
+
+
+def add_layer_norm_rows(x2d, h2d, gamma, beta, epsilon=1e-5):
+    """``(y, mean, rstd)`` of ``ln(x + h)`` over the rows: K8 on CUDA
+    tensors, the plain version on CPU tensors. Not differentiable; see
+    :class:`AddLayerNormFunction`."""
+    if core.on_card(x2d, h2d, gamma, beta):
+        return add_layer_norm_kernel(x2d, h2d, gamma, beta, epsilon)
+    return add_layer_norm_plain(x2d, h2d, gamma, beta, epsilon)
+
+
+class AddLayerNormFunction(torch.autograd.Function):
+    """``ln(x + h)`` over the rows as one differentiable op (the
+    reference's ``_add_layer_norm_rows`` custom_vjp): K8 forward on CUDA
+    tensors, the plain forward on CPU tensors. The backward is the
+    reference's ``_aln_bwd``: the sum recomputed in f32, ``ds`` from the
+    saved statistics, returned in x's dtype and in h's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2d, h2d, gamma, beta, epsilon):
+        y, mean, rstd = add_layer_norm_rows(x2d, h2d, gamma, beta, epsilon)
+        ctx.save_for_backward(x2d, h2d, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, h2d, gamma, mean, rstd = ctx.saved_tensors
+        ds, dgamma, dbeta = layer_norm_bwd(x2d.float() + h2d.float(), gamma,
+                                           mean, rstd, dy)
+        return ds.to(x2d.dtype), ds.to(h2d.dtype), dgamma, dbeta, None
+
+
+def add_layer_norm_fused(x, h, scale=None, bias=None, begin_norm_axis=1,
+                         epsilon=1e-5):
+    """Fused ``ln(x + h)`` over dims ``[begin_norm_axis:]`` (the
+    reference's ``add_layer_norm_fused`` contract): the residual add and
+    the layer norm in one pass over device memory on the card.
+    Differentiable."""
+    rows, cols, gamma, beta = _rows_cols(x, begin_norm_axis, scale, bias)
+    y = AddLayerNormFunction.apply(x.reshape(rows, cols).contiguous(),
+                                   h.reshape(rows, cols).contiguous(), gamma,
+                                   beta, epsilon)
     return y.reshape(x.shape)

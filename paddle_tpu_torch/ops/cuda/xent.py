@@ -160,18 +160,23 @@ def xent_bwd_plain(h, w, b, labels, logz, g, sn, sp, chunk=CHUNK):
 
 
 def _bwd_setup(h, w, b, labels, logz, g, what):
+    """``(code, n, v, hid, ptrs, operands)``. The caller holds
+    ``operands`` (labels, logz and g converted for the kernel) until the
+    launch: a converted copy freed before its kernel is enqueued goes back
+    to the caching allocator, and the next allocation on the stream (the
+    kernel's own output) may be handed the same memory."""
     code, n, v, hid = _check(h, w, b, labels, what)
+    operands = (labels.to(torch.int32).contiguous(),
+                logz.float().contiguous(), g.float().contiguous())
     ptrs = (core.ptr(h), core.ptr(w), core.ptr(b),
-            core.ptr(labels.to(torch.int32).contiguous()),
-            core.ptr(logz.float().contiguous()),
-            core.ptr(g.float().contiguous()))
-    return code, n, v, hid, ptrs
+            *(core.ptr(t) for t in operands))
+    return code, n, v, hid, ptrs, operands
 
 
 def xent_bwd_dh_kernel(h, w, b, labels, logz, g, sn, sp):
     """Launch K6's dh kernel on CUDA tensors -> dh ``[N, H]`` f32."""
-    code, n, v, hid, ptrs = _bwd_setup(h, w, b, labels, logz, g,
-                                       "xent_bwd_dh kernel")
+    code, n, v, hid, ptrs, operands = _bwd_setup(h, w, b, labels, logz, g,
+                                                 "xent_bwd_dh kernel")
     dh = torch.empty((n, hid), dtype=torch.float32, device=h.device)
     if n == 0 or v == 0:
         return dh.zero_()
@@ -181,14 +186,15 @@ def xent_bwd_dh_kernel(h, w, b, labels, logz, g, sn, sp):
                         device=h.device) if nsplit > 1 else None)
     KERNEL_DH(code, *ptrs, core.ptr(dh), core.ptr(part), n, v, hid, nsplit,
               per, float(sn), float(sp), core.stream(h))
+    del operands                     # enqueued: stream order protects them
     return dh
 
 
 def xent_bwd_dwb_kernel(h, w, b, labels, logz, g, sn, sp):
     """Launch K6's dw/db kernel on CUDA tensors -> ``(dw [V, H], db
     [V])`` f32."""
-    code, n, v, hid, ptrs = _bwd_setup(h, w, b, labels, logz, g,
-                                       "xent_bwd_dwb kernel")
+    code, n, v, hid, ptrs, operands = _bwd_setup(h, w, b, labels, logz, g,
+                                                 "xent_bwd_dwb kernel")
     dw = torch.empty((v, hid), dtype=torch.float32, device=h.device)
     db = torch.empty(v, dtype=torch.float32, device=h.device)
     if n == 0 or v == 0:
@@ -203,6 +209,7 @@ def xent_bwd_dwb_kernel(h, w, b, labels, logz, g, sn, sp):
     KERNEL_DWB(code, *ptrs, core.ptr(dw), core.ptr(db), core.ptr(part),
                core.ptr(db_part), n, v, hid, nsplit, per, float(sn),
                float(sp), core.stream(h))
+    del operands                     # enqueued: stream order protects them
     return dw, db
 
 

@@ -8,8 +8,8 @@ fixture, never at import). On the card, with no JAX installed there:
 Tolerances: 1e-4 abs in f32 for outputs of order 1 (sums taken in
 another order than the plain version's cuBLAS/torch reductions); bf16
 outputs within 3e-2 (one bf16 rounding of values of order 1). The
-training kernels' outputs (K3, K5, K6) range over many magnitudes, so each
-is held on its own scale: max |kernel - plain| <= tol * max |plain|.
+training kernels' outputs (K3, K5, K6, K8) range over many magnitudes, so
+each is held on its own scale: max |kernel - plain| <= tol * max |plain|.
 """
 
 import numpy as np
@@ -56,6 +56,73 @@ def test_layer_norm_kernel(cuda):
         want = ln.layer_norm_plain(x, gam, bet, 1e-5)
         for a, b in zip(got, want):
             assert float((a - b).abs().max()) <= F32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_layer_norm_kernel(cuda, dtype):
+    """K8 against its plain version: 16-byte packs (C a multiple of the
+    pack), element-wise rows (ragged C, and a misaligned view), and R not
+    a multiple of the 8 rows per block."""
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator().manual_seed(7)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for rows, cols, offset in ((1, 64, 0), (13, 768, 0), (70, 100, 0),
+                               (37, 96, 0), (9, 770, 0), (11, 256, 1)):
+        buf = _randn(g, rows * cols + offset, scale=3.0, dtype=dtype)
+        x = buf[offset:].view(rows, cols)
+        h = _randn(g, rows, cols, dtype=dtype)
+        gam = _randn(g, cols, scale=0.1, dtype=dtype) + 1.0
+        bet = _randn(g, cols, scale=0.1, dtype=dtype)
+        got = ln.add_layer_norm_kernel(x, h, gam, bet, 1e-5)
+        want = ln.add_layer_norm_plain(x, h, gam, bet, 1e-5)
+        assert got[0].dtype == dtype
+        _held(got, want, tol)
+
+
+def test_add_layer_norm_card_gradients_are_the_cpu_gradients(cuda):
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.cuda.layer_norm import add_layer_norm_fused
+    g = torch.Generator().manual_seed(8)
+    leaves = [_randn(g, 3, 5, 96, dev="cpu"), _randn(g, 3, 5, 96, dev="cpu"),
+              _randn(g, 96, dev="cpu"), _randn(g, 96, dev="cpu")]
+    dy = _randn(g, 3, 5, 96, dev="cpu")
+    grads = {}
+    core.reset_launches()
+    for dev in ("cuda", "cpu"):
+        ts = [a.to(dev).requires_grad_(True) for a in leaves]
+        add_layer_norm_fused(*ts, begin_norm_axis=2).backward(dy.to(dev))
+        grads[dev] = [a.grad.cpu() for a in ts]
+    assert core.launch_counts()["add_layer_norm"] == 1
+    _held(grads["cuda"], grads["cpu"], F32_TOL)
+
+
+def test_masked_attention_launches_the_flash_kernels(cuda):
+    """A key-padding mask ([B, 1, 1, T], as BERT builds it) rides K2 with
+    kv_mask, and its backward K3, with the CPU's output and gradients."""
+    from paddle_tpu_torch.ops.attention import multihead_attention
+    from paddle_tpu_torch.ops.cuda import core
+    g = torch.Generator().manual_seed(9)
+    x = _randn(g, 2, 40, 128, dev="cpu")
+    ws = [_randn(g, 128, 128, scale=0.1, dev="cpu") for _ in range(4)]
+    bs = [_randn(g, 128, scale=0.1, dev="cpu") for _ in range(4)]
+    mask = torch.ones(2, 1, 1, 40)
+    mask[0, ..., 25:] = 0.0
+    outs, grads, counts = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        core.reset_launches()
+        xx = x.to(dev).requires_grad_(True)
+        out = multihead_attention(xx, *(w.to(dev) for w in ws),
+                                  *(b.to(dev) for b in bs), 2,
+                                  mask=mask.to(dev), use_flash=True)
+        out.sum().backward()
+        outs[dev], grads[dev] = out.detach().cpu(), xx.grad.cpu()
+        counts[dev] = core.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert counts["cuda"][name] == 1, counts["cuda"]
+        assert counts["cpu"][name] == 0, counts["cpu"]
+    _held([outs["cuda"], grads["cuda"]], [outs["cpu"], grads["cpu"]],
+          F32_TOL)
 
 
 def test_flash_kernel_causal_offset_tails_and_mask(cuda):
@@ -173,6 +240,7 @@ def test_flash_backward_kernel(cuda, b, h, tq, tk, d, dtype, causal, masked):
     (78, 300, 128, torch.float32, 0.1),
     (130, 1000, 768, torch.float32, 0.0),
     (37, 65, 96, torch.bfloat16, 0.0),
+    (4864, 30522, 768, torch.bfloat16, 0.0),   # BERT's MLM head
 ])
 def test_xent_kernels(cuda, n, v, hid, dtype, ls):
     from paddle_tpu_torch.ops.cuda import xent
@@ -220,3 +288,46 @@ def test_card_loss_backward_gives_the_cpu_gradients(cuda):
         want = grads[name]
         err = float((p.grad.cpu() - want).norm())
         assert err <= 1e-3 * max(float(want.norm()), 1e-3 * scale), name
+
+
+def test_bert_card_loss_backward_gives_the_cpu_gradients(cuda):
+    """BertForPretraining.loss on the card (K1, K2/K3 with a padded
+    kv_mask, K4, K5/K6 with the MLM bias, K8) gives the CPU plain path's
+    loss and every parameter's gradient (f32, TF32 off)."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.ops.cuda import core
+    cfg = BertConfig(vocab_size=300, hidden_size=128, num_layers=2,
+                     num_heads=2, intermediate_size=256, max_position=64,
+                     dropout=0.0)
+    rs = np.random.RandomState(11)
+    ids = torch.from_numpy(rs.randint(0, 300, (2, 40)))
+    types = torch.zeros(2, 40, dtype=torch.long)
+    types[:, 22:] = 1
+    att = torch.ones(2, 40)
+    att[0, 30:] = 0.0
+    pos = torch.from_numpy(np.sort(np.stack([rs.choice(30, 6, replace=False)
+                                             for _ in range(2)]), 1))
+    args = (ids, torch.from_numpy(rs.randint(0, 300, (2, 6))),
+            torch.from_numpy(rs.randint(0, 2, 2)), torch.ones(2, 6))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = BertForPretraining(cfg, device=dev, seed=0)
+        core.reset_launches()
+        loss = model.loss(*(a.to(dev) for a in args),
+                          token_type_ids=types.to(dev),
+                          attention_mask=att.to(dev),
+                          mask_positions=pos.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), {k: p.grad.cpu()
+                                  for k, p in model.named_parameters()},
+                    core.launch_counts())
+    (lc, gc, counts), (lp, gp, _) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= F32_TOL
+    want = {"add_layer_norm": 4, "layer_norm": 2, "flash_attention": 2,
+            "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
+            "mlp": 2, "xent_stats": 1, "xent_bwd_dh": 1, "xent_bwd_dwb": 1}
+    assert {k: counts[k] for k in want} == want, counts
+    scale = max(float(g.norm()) for g in gp.values())
+    for name, g in gc.items():
+        err = float((g - gp[name]).norm())
+        assert err <= 1e-3 * max(float(gp[name].norm()), 1e-3 * scale), name

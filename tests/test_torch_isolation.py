@@ -134,6 +134,73 @@ def test_port_trains_with_reference_and_triton_blocked():
     assert "TRAINED 3" in proc.stdout
 
 
+_BERT_BLOCKED = r"""
+import importlib.abc, sys
+BLOCKED = {blocked!r}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+for mod in list(sys.modules):
+    if mod.split(".")[0] in BLOCKED:
+        del sys.modules[mod]
+sys.path.insert(0, {root!r})
+import numpy as np, torch
+torch.set_num_threads(1)
+from paddle_tpu_torch import amp
+from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                     ErnieConfig, ErnieForPretraining,
+                                     knowledge_mask)
+from paddle_tpu_torch.ops.cuda import core
+from paddle_tpu_torch.optimizer import Adam
+rs = np.random.RandomState(0)
+for cls, cfg in ((BertForPretraining, BertConfig.tiny()),
+                 (ErnieForPretraining, ErnieConfig.tiny())):
+    cfg.dropout = 0.0
+    model = cls(cfg, device="cpu")
+    opt = amp.decorate(Adam(model.parameters(), 1e-3), amp.bf16_policy())
+    ids = rs.randint(5, cfg.vocab_size, (2, 32))
+    masked, labels, weights = knowledge_mask(ids, [[(2, 6)], [(9, 12)]], 1,
+                                             cfg.vocab_size, 0.3, seed=1)
+    att = np.ones((2, 32), np.float32)
+    att[1, 20:] = 0.0
+    args = [torch.from_numpy(a) for a in (masked, labels,
+                                          rs.randint(0, 2, 2), weights, att)]
+    losses = [float(opt.minimize(model, lambda m, i, l, n, w, a: m.loss(
+        i, l, n, w, attention_mask=a), *args)) for _ in range(3)]
+    assert losses[-1] < losses[0], losses
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("PRETRAINED", len(losses))
+"""
+
+
+def test_port_pretrains_bert_and_ernie_with_reference_and_triton_blocked():
+    code = _BERT_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "PRETRAINED 3" in proc.stdout
+
+
+def test_bert_defaults_to_the_card_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         ErnieConfig, ErnieForPretraining)
+    with pytest.raises(EnforceError):
+        BertForPretraining(BertConfig.tiny())
+    with pytest.raises(EnforceError):
+        ErnieForPretraining(ErnieConfig.tiny())
+    assert BertForPretraining(BertConfig.tiny(),
+                              device="cpu").device == torch.device("cpu")
+
+
 def test_entry_points_default_to_the_card_and_raise_without_one():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

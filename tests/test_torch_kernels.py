@@ -288,7 +288,7 @@ def test_every_kernel_is_registered_with_its_sources():
     assert set(core.KERNELS) == {
         "layer_norm", "flash_attention", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv", "mlp", "decode_attention", "xent_stats",
-        "xent_bwd_dh", "xent_bwd_dwb"}
+        "xent_bwd_dh", "xent_bwd_dwb", "add_layer_norm"}
     for kernel in core.KERNELS.values():
         assert os.path.isfile(os.path.join(root, kernel.source))
         path, line = kernel.replaces.split(":")

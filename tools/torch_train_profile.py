@@ -1,11 +1,15 @@
 """Where the time of the PyTorch port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py [--steps 5] [--out DIR]
+    python3 tools/torch_train_profile.py [--model gpt|bert] [--steps 5]
+                                         [--out DIR]
 
-Builds the training step chip_smoke.py drives (GPTConfig.small() with
-dropout 0 and weights from a seed, GPT.loss under
-amp.decorate(Adam(1e-4), bf16_policy()), one fixed seeded batch of
-16 x 512), runs 2 warm-up steps, and profiles ``--steps`` steady steps
+Builds the training step chip_smoke.py drives under
+amp.decorate(Adam(1e-4), bf16_policy()), dropout 0 and weights from a
+seed: ``--model gpt`` (the default) GPT.loss of GPTConfig.small() on one
+fixed seeded batch of 16 x 512; ``--model bert`` BertForPretraining.loss
+of BertConfig.base() on one fixed seeded batch of 64 x 512 with 76
+masked positions per row (chip_smoke.py's bert_train phase). It runs 2
+warm-up steps, and profiles ``--steps`` steady steps
 with torch.profiler: host wall time per step, device time per step (the
 sum of the CUDA kernels, which run on one stream and do not overlap), the
 device's idle share, kernel launches per step (every CUDA kernel, and the
@@ -13,7 +17,8 @@ port's own kernels by their launch counts), and device time per step by
 kernel name.
 
 Prints one JSON line and writes the Chrome trace under ``--out``
-(default ``chiprun_out/``). Needs a CUDA device.
+(default ``chiprun_out/``) as ``<model>_train_step.json``. Needs a CUDA
+device.
 """
 
 import argparse
@@ -29,6 +34,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+
+import chip_smoke  # noqa: E402  (at the repo root: bert_batch)
 
 
 def _kernel_times(prof):
@@ -48,6 +55,7 @@ def _kernel_times(prof):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("gpt", "bert"), default="gpt")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
@@ -55,21 +63,40 @@ def main():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
     from paddle_tpu_torch import amp
-    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.ops.cuda import core
     from paddle_tpu_torch.optimizer import Adam
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
     core.library()
-    cfg = GPTConfig.small()
-    cfg.dropout = 0.0
-    model = GPT(cfg, device="cuda", seed=0)
+    if args.model == "gpt":
+        from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+        cfg, batch, seq = GPTConfig.small(), 16, 512
+        config = "GPTConfig.small()"
+        cfg.dropout = 0.0
+        model = GPT(cfg, device="cuda", seed=0)
+        data = (torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (batch, seq))).cuda(),)
+
+        def loss_fn(m, x):
+            return m.loss(x)
+    else:
+        from paddle_tpu_torch.models.bert import (BertConfig,
+                                                  BertForPretraining)
+        cfg, batch, seq = BertConfig.base(), 64, 512
+        config = "BertConfig.base()"
+        cfg.dropout = 0.0
+        model = BertForPretraining(cfg, device="cuda", seed=0)
+        ids, labels, nsp, mlm_mask, _, _, pos = chip_smoke.bert_batch(
+            np.random.RandomState(0), cfg.vocab_size, batch, seq, 76)
+        pos = pos.cuda()
+        data = tuple(a.cuda() for a in (ids, labels, nsp, mlm_mask))
+
+        def loss_fn(m, *a):
+            return m.loss(*a, mask_positions=pos)
     opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
-    ids = torch.from_numpy(np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (16, 512))).cuda()
 
     def step():
-        return float(opt.minimize(model, lambda m, x: m.loss(x), ids))
+        return float(opt.minimize(model, loss_fn, *data))
 
     for _ in range(2):                   # warm-up
         step()
@@ -84,7 +111,8 @@ def main():
             losses.append(step())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    prof.export_chrome_trace(os.path.join(args.out, "train_step.json"))
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          f"{args.model}_train_step.json"))
     busy_us, launches, by_name = _kernel_times(prof)
     per = args.steps
     smi = subprocess.run(
@@ -93,7 +121,7 @@ def main():
         timeout=60).stdout.strip()
     print(json.dumps(dict(
         part="train_step", device=torch.cuda.get_device_name(0), card=smi,
-        config="GPTConfig.small()", batch=16, seq=512, policy="bf16",
+        config=config, batch=batch, seq=seq, policy="bf16",
         steps=per, losses=losses, step_ms=wall / per * 1e3,
         device_ms_per_step=(busy_us / per / 1e3) if busy_us else None,
         idle_share=(1 - busy_us / 1e6 / wall) if busy_us else None,
