@@ -4,28 +4,67 @@
 // by xent_stats_pallas :99), :178 _xent_bwd_dh_kernel and :200
 // _xent_bwd_dwb_kernel (K6, launched by xent_bwd_pallas :227). The logits
 // h @ W^T + b ([N, V]) never reach device memory: each block recomputes
-// its tiles of them in f32 and reduces them at once.
+// its tiles of them and reduces them at once.
 //
-// One block shape serves all three kernels. A block keeps a RESIDENT tile
-// of 32 rows of one operand ([32, H], f32, in shared memory) and STREAMS
-// 64-row tiles of the other operand through it:
-//   * xent_stats and xent_bwd_dh: resident rows of h, streamed rows of W;
-//   * xent_bwd_dwb:               resident rows of W, streamed rows of h.
-// The first product S = R X^T ([32, 64], K = H) gives the tile's logits
-// (or their transpose). xent_stats reduces each row online to
-// (m, s, picked, sum_logits), as the TPU kernel's revisited output block
-// does. The backward turns S into the smoothed-CE dlogits
+// Both backward kernels compute, per (row, vocab) entry, the smoothed-CE
+// dlogits from the saved logz (xent.py:156-175)
 //   gch = (exp(logit - logz) - sn - (sp - sn) * onehot) * g
-// (xent.py:156-175) and adds the second product gch X ([32, 64] x
-// [64, H]) into an f32 [32, H] accumulator held in registers (96 values
-// per thread at H = 768). The TPU kernels keep that accumulator as a
-// [bn, H] / [bv, H] VMEM block revisited across a sequential grid axis;
-// on Hopper a 64-row accumulator at H = 768 would fill shared memory, so
-// the resident tile is 32 rows and the accumulator lives in registers.
+// and reduce them against the other operand: dh = gch W, dw = gch^T h,
+// db = column sums of gch. Two routes, chosen by the storage type:
 //
-// The streamed axis may be split across blocks (blockIdx.y) when the
-// resident tiles alone are too few to fill the card: each split writes
-// f32 partials, and a second kernel combines them in a fixed order
+// bf16 (the training path): tensor cores, xent_bwd_tc_kernel below.
+//   A block owns a RESIDENT tile of 64 rows (h rows for dh, W rows for
+//   dw/db) and one chunk of at most 512 columns of its output, and
+//   streams 64-row tiles of the other operand. Per streamed tile, both
+//   products are bf16 wgmma with f32 accumulators:
+//     S = R X^T    [64, 64], K = H: the logits tile (dh) or its transpose
+//                  (dw), split by columns over the two consumer warpgroups
+//                  (m64n32 each), so it is computed once per chunk;
+//     acc += gch X [64, chunk]: gch rounded to bf16 and staged once in
+//                  shared memory (swizzled, the K-major A); X's columns
+//                  of the chunk are the MN-major B. Each consumer
+//                  warpgroup owns up to four 64-column slots of the chunk
+//                  (128 f32 registers).
+//   Why chunks and not all of H: a [64, H] f32 accumulator is 49,152
+//   registers at H = 768 and 65,536 (the whole register file) at
+//   H = 1024, so it cannot live in one block. H is split into the fewest
+//   chunks of at most 512 columns across blocks, and each chunk
+//   recomputes the logits: H = 768 or 1024 take 2 chunks, so the first
+//   product runs twice and the kernel does 1.5x the 4 N V H operations of
+//   the bound.
+//   Copies: the resident tile (H/64 boxes of [64, 64]) arrives once by
+//   TMA; the streamed tile arrives by TMA into a ring of 16 KB stages
+//   (two boxes each) with full/empty mbarriers, fed by one producer
+//   thread (warpgroup 2, registers given up by setmaxnreg). The chunk's
+//   own boxes come last in each tile's K order and are held in the ring
+//   until the second product has read them, so X is read once per chunk
+//   (from L2) and serves both products: K-major for the first, MN-major
+//   for the second (one 128-byte-swizzled layout is both; hopper.cuh).
+//   Shared memory: H/64 + 2 x stages + 2 boxes of 8 KB; at H = 1024 the
+//   resident tile is 128 KB and 5 stages fit, and H <= 1152 fits at all
+//   (the ring must hold the chunk's boxes). db is summed from the f32
+//   gch before the bf16 rounding; the bf16 gch adds one rounding (2^-9
+//   relative) to each dlogit of the second product. exp is the
+//   special-function unit's 2^x (ex2.approx, ~2^-22 relative).
+//   What holds it back (PERF.md): the recomputed logits (1.5x the
+//   operations), the 64-row resident tile that shared memory allows
+//   (each tile's operands are re-read from L2 per 64 x 64 logits), and
+//   the per-tile dlogit phase, in which the tensor cores wait.
+//
+// f32 (the crosschecks): CUDA cores, xent_bwd_kernel below, chosen by the
+//   storage type only. A RESIDENT tile of 32 rows ([32, H] f32 in shared
+//   memory) against STREAMED 64-row tiles; S = R X^T ([32, 64]) as f32
+//   FMAs, then gch X added into an f32 [32, 768] register accumulator;
+//   H beyond 768 takes further column chunks (blockIdx.z), each
+//   recomputing the logits.
+//
+// K5 (xent_stats_kernel) uses the f32 block shape for both storage types
+// and reduces each row of S online to (m, s, picked, sum_logits), as the
+// TPU kernel's revisited output block does.
+//
+// The streamed axis may be split across blocks (the last grid axis) so
+// that the grid fills the card in whole waves: each split writes f32
+// partials and a second kernel combines them in a fixed order
 // (deterministic, no atomics), as csrc/mlp.cu does for its I axis.
 //
 // Semantics kept from the TPU kernels: the vocab tail is masked by the
@@ -34,12 +73,12 @@
 // select, never 0 * NaN. Statistics and gradients are f32 whatever the
 // storage type (f32 or bf16).
 //
-// What bounds it on the H100: operations. xent_stats does 2*N*V*H, each
-// backward kernel 4*N*V*H (the logits are recomputed), all here as f32
-// FMAs on the CUDA cores. bf16 wgmma tiles fed by TMA are the later
-// redesign (ROADMAP).
+// What bounds it on the H100: operations (2 N V H for K5, 4 N V H for
+// each backward kernel: 989 TFLOP/s in bf16 on the tensor cores, 67 in
+// f32 on the CUDA cores).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -49,7 +88,7 @@ constexpr int kStr = 64;        // streamed rows per tile
 constexpr int kKC = 32;         // K chunk of the first product
 constexpr int kBC = 8;          // streamed rows per chunk of the second
 constexpr int kCols = 12;       // accumulator columns per thread
-constexpr int kMaxH = 64 * kCols;
+constexpr int kChunk = 64 * kCols;   // output columns per f32 block
 constexpr int kXS = kKC + 1;    // padded row of a first-product chunk
 constexpr int kGS = kStr + 1;   // padded row of the dlogits tile
 
@@ -279,6 +318,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int cg = tid & 63, rg = tid >> 6;      // accumulator layout
   const int r0 = blockIdx.x * kRes;
   const int split = blockIdx.y;
+  const int col0 = blockIdx.z * kChunk;         // this block's columns
+  const int cw = min(kChunk, H - col0);
   const int ntiles = (nstr + kStr - 1) / kStr;
   const int t0 = split * tiles_per_split;
   const int t1 = min(ntiles, t0 + tiles_per_split);
@@ -351,13 +392,16 @@ __global__ void __launch_bounds__(kThreads, 1)
             dlogit(logit, z, gg, col == lbl, valid, sn, sp);
       }
     }
-    // second product: acc[rg*8 + i][cg + 64*j] += sum_s g_s[..][s] X[x0+s]
+    // second product: acc[rg*8 + i][cg + 64*j] += sum_s g_s[..][s]
+    // X[x0+s][col0 + cg + 64*j]
     for (int c0 = 0; c0 < kStr; c0 += kBC) {
       __syncthreads();           // g_s written / xs of the last chunk read
-      for (int e = tid; e < kBC * H; e += kThreads) {
-        const int r = e / H, c = e - r * H;
+      for (int e = tid; e < kBC * cw; e += kThreads) {
+        const int r = e / cw, c = e - r * cw;
         const int xr = x0 + c0 + r;
-        xs[e] = xr < nstr ? to_f32(X[static_cast<size_t>(xr) * H + c]) : 0.f;
+        xs[e] = xr < nstr
+                    ? to_f32(X[static_cast<size_t>(xr) * H + col0 + c])
+                    : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -366,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
           const int c = cg + 64 * j;
-          xv[j] = c < H ? xs[sc * H + c] : 0.f;
+          xv[j] = c < cw ? xs[sc * cw + c] : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -387,9 +431,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = cg + 64 * j;
-      if (c < H) o[static_cast<size_t>(r) * H + c] = acc[i][j];
+      if (c < cw) o[static_cast<size_t>(r) * H + col0 + c] = acc[i][j];
     }
-    if (!kRowsResident && cg == 0)
+    if (!kRowsResident && cg == 0 && blockIdx.z == 0)
       db_out[static_cast<size_t>(split) * V + r] = dbacc[i];
   }
 }
@@ -418,9 +462,9 @@ size_t stats_smem(int H) {
 }
 
 size_t bwd_smem(int H) {
-  const size_t chunk = static_cast<size_t>(kBC) * H > kStr * kXS
-                           ? static_cast<size_t>(kBC) * H
-                           : static_cast<size_t>(kStr) * kXS;
+  const size_t cols = H < kChunk ? H : kChunk;
+  const size_t chunk = kBC * cols > kStr * kXS ? kBC * cols
+                                               : static_cast<size_t>(kStr) * kXS;
   return sizeof(float) *
          (static_cast<size_t>(kRes) * (H + 1) + kRes * kGS + chunk);
 }
@@ -447,28 +491,493 @@ cudaError_t stats_launch(const void* h, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-template <typename T, bool kRowsResident>
+template <bool kRowsResident>
 cudaError_t bwd_launch(const void* h, const void* w, const void* bias,
                        const void* labels, const void* logz, const void* g,
                        void* out, void* db, void* part, void* db_part, int N,
                        int V, int H, int nsplit, int tiles_per_split,
-                       float sn, float sp, cudaStream_t st) {
+                       int nchunks, float sn, float sp, cudaStream_t st) {
   const size_t smem = bwd_smem(H);
-  cudaError_t err = ptt_set_smem(xent_bwd_kernel<T, kRowsResident>, smem);
+  cudaError_t err = ptt_set_smem(xent_bwd_kernel<float, kRowsResident>,
+                                 smem);
   if (err != cudaSuccess) return err;
   const int nres = kRowsResident ? N : V;
   float* dst = nsplit == 1 ? static_cast<float*>(out)
                            : static_cast<float*>(part);
   float* db_dst = nsplit == 1 ? static_cast<float*>(db)
                               : static_cast<float*>(db_part);
-  const dim3 grid((nres + kRes - 1) / kRes, nsplit);
-  xent_bwd_kernel<T, kRowsResident><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w),
+  const dim3 grid((nres + kRes - 1) / kRes, nsplit, nchunks);
+  xent_bwd_kernel<float, kRowsResident><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(labels),
       static_cast<const float*>(logz), static_cast<const float*>(g), dst,
       db_dst, N, V, H, tiles_per_split, sn, sp);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// ------------------------------------------- K6 backward, bf16 wgmma route
+
+namespace tc {
+
+using hopper::kBoxBytes;
+constexpr int kRows = 64;          // resident rows per block (wgmma M)
+constexpr int kMaxSlots = 4;       // 64-column output slots per warpgroup
+constexpr int kThreads = 384;      // consumer warpgroups 0, 1; producer 2
+constexpr int kStageBytes = 2 * kBoxBytes;   // a ring stage: two boxes
+constexpr int kMaxPairs = 16;      // stages per streamed tile, at most
+
+// Output slots per warpgroup for H (the Python plan's arithmetic): the
+// fewest chunks of at most 2 x 4 boxes, then the fewest slots per chunk.
+int slots_for(int H) {
+  const int nk = (H + 63) / 64;
+  const int chunks = (nk + 2 * kMaxSlots - 1) / (2 * kMaxSlots);
+  const int per_chunk = (nk + chunks - 1) / chunks;
+  return (per_chunk + 1) / 2;
+}
+
+struct Params {
+  const float* bias;
+  const int* labels;
+  const float* logz;
+  const float* g;
+  float* out;
+  float* db_out;
+  int N, V, H, tiles_per_split, stages;
+  float sn, sp;
+};
+
+size_t smem_bytes(int H, int stages) {
+  const size_t boxes = (H + 63) / 64 + 2 * stages + 2;
+  return 1024 + boxes * kBoxBytes + (2 * stages + 1) * 8 + kRows * 4 +
+         kMaxPairs * 8;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit (relative error ~2^-22; the bf16
+// rounding of gch that follows is 2^-9).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A position in the ring: stage index and the parity of its fill, kept
+// incrementally (no division on the per-box path).
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  int stages;
+  __device__ explicit Ring(int n) : stages(n) {}
+  __device__ void next() {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// kRowsResident: dh (resident rows of h, streamed rows of W); otherwise
+// dw/db (resident rows of W, streamed rows of h). Each warpgroup owns
+// kSlots 64-column slots of a chunk of 2 kSlots boxes. Grid: (resident
+// tiles, output chunks, splits of the streamed axis).
+template <bool kRowsResident, int kSlots>
+__global__ void __launch_bounds__(kThreads, 1)
+    xent_bwd_tc_kernel(const __grid_constant__ CUtensorMap tm_res,
+                       const __grid_constant__ CUtensorMap tm_str,
+                       const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int nk = (p.H + 63) / 64;
+  uint8_t* res_s = base;                          // nk boxes
+  uint8_t* ring = res_s + nk * kBoxBytes;         // `stages` x 2 boxes
+  uint8_t* gch_s = ring + p.stages * kStageBytes; // 2 boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(gch_s + 2 * kBoxBytes);
+  uint64_t* empty = full + p.stages;
+  uint64_t* res_full = empty + p.stages;
+  float* db_s = reinterpret_cast<float*>(res_full + 1);
+  int2* pairs = reinterpret_cast<int2*>(db_s + kRows);
+
+  const int nres = kRowsResident ? p.N : p.V;
+  const int nstr = kRowsResident ? p.V : p.N;
+  const int r0 = blockIdx.x * kRows;
+  const int chunk = blockIdx.y;
+  const int split = blockIdx.z;
+  const int ntiles = (nstr + 63) / 64;
+  const int t0 = split * p.tiles_per_split;
+  const int t1 = min(ntiles, t0 + p.tiles_per_split);
+  const int kw0 = chunk * 2 * kSlots;              // the chunk's boxes
+  const int kw1 = min(nk, kw0 + 2 * kSlots);
+  const int nwin = kw1 - kw0;
+
+  // One streamed tile's boxes in the order they pass through the ring,
+  // two per stage: the boxes outside the chunk [kw1, nk) + [0, kw0), then
+  // the chunk's own [kw0, kw1) (held for the second product). A part of
+  // odd length ends with the box at column nk * 64, wholly past H: TMA
+  // fills it with zeros, so the R box it meets adds 0.
+  const int np0 = (nk - nwin + 1) / 2;            // stages outside the chunk
+  const int npairs = np0 + (nwin + 1) / 2;
+  if (threadIdx.x == 0) {
+    int k = kw1 == nk ? 0 : kw1;
+    for (int part = 0, g = 0; part < 2; ++part) {
+      const int len = part == 0 ? nk - nwin : nwin;
+      for (int i = 0; i < len; i += 2, ++g) {
+        const int ka = k;
+        if (++k == nk) k = 0;
+        int kb = nk;
+        if (i + 1 < len) {
+          kb = k;
+          if (++k == nk) k = 0;
+        }
+        pairs[g] = make_int2(ka, kb);
+      }
+    }
+    for (int s = 0; s < p.stages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 8);       // one arrival per consumer warp
+    }
+    hopper::mbar_init(res_full, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 256) {
+      hopper::mbar_expect_tx(res_full, nk * kBoxBytes);
+      for (int k = 0; k < nk; ++k)
+        hopper::tma_load_2d(res_s + k * kBoxBytes, &tm_res, res_full,
+                            k * 64, r0);
+      // per streamed tile, the boxes in the consumers' K order: the
+      // chunk's own boxes [kw0, kw1) last
+      Ring w(p.stages);
+      for (int t = t0; t < t1; ++t) {
+        for (int g = 0; g < npairs; ++g) {
+          const int2 kp = pairs[g];
+          uint8_t* dst = ring + w.stage * kStageBytes;
+          hopper::mbar_wait(empty + w.stage, w.phase ^ 1);
+          hopper::mbar_expect_tx(full + w.stage, kStageBytes);
+          hopper::tma_load_2d(dst, &tm_str, full + w.stage, kp.x * 64,
+                              t * 64);
+          hopper::tma_load_2d(dst + kBoxBytes, &tm_str, full + w.stage,
+                              kp.y * 64, t * 64);
+          w.next();
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    hopper::reg_alloc<232>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int rr0 = 16 * warp + (lane >> 2);   // rows rr0 and rr0 + 8
+    const int q4 = lane & 3;
+    auto release = [&](int st) {               // this warp is done with st
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty + st);
+    };
+
+    // per resident row: (logz, g, label) for dh, the bias for dw/db
+    float rz[2], rg[2], rb[2];
+    int rl[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int row = r0 + rr0 + 8 * a;
+      const bool ok = row < nres;
+      if (kRowsResident) {
+        rz[a] = ok ? p.logz[row] * kLog2e : 0.f;      // logz in log2 units
+        rg[a] = ok ? p.g[row] : 0.f;
+        rl[a] = ok ? p.labels[row] : -1;
+        rb[a] = 0.f;
+      } else {
+        rb[a] = (ok && p.bias != nullptr) ? p.bias[row] : 0.f;
+        rz[a] = rg[a] = 0.f;
+        rl[a] = -1;
+      }
+    }
+
+    float acc[kSlots][32];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+    float dbacc[2] = {0.f, 0.f};
+
+    hopper::mbar_wait(res_full, 0);
+    Ring r(p.stages);
+    for (int t = t0; t < t1; ++t) {
+      const int x0 = t * 64;
+      // per streamed index of this thread's 8 columns of S: the bias for
+      // dh; (logz, g, label) for dw/db. Loaded before the first product.
+      float cz[8], cg[8], cb[8];
+      int cl[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 2 * i + e;
+          const int idx = x0 + 32 * wg + 8 * i + 2 * q4 + e;
+          const bool ok = idx < nstr;
+          if (kRowsResident) {
+            cb[j] = (ok && p.bias != nullptr) ? p.bias[idx] : 0.f;
+            cz[j] = cg[j] = 0.f;
+            cl[j] = -1;
+          } else {
+            cz[j] = ok ? p.logz[idx] * kLog2e : 0.f;
+            cg[j] = ok ? p.g[idx] : 0.f;
+            cl[j] = ok ? p.labels[idx] : -1;
+            cb[j] = 0.f;
+          }
+        }
+
+      // first product: S[:, 32 wg : 32 wg + 32] = R X^T over K = H
+      float s[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = 0.f;
+      int prev = -1, win = 0;
+      for (int g = 0; g < npairs; ++g) {
+        const int st = r.stage;
+        if (g == np0) win = st;              // the chunk's first stage
+        const int2 kp = pairs[g];
+        hopper::mbar_wait(full + st, r.phase);
+        const uint8_t* a0 = res_s + kp.x * kBoxBytes;
+        const uint8_t* a1 = res_s + (kp.y < nk ? kp.y : 0) * kBoxBytes;
+        const uint8_t* b = ring + st * kStageBytes + wg * 32 * 128;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n32k16_kk(s, hopper::desc_sw128(a0 + 32 * kk),
+                                     hopper::desc_sw128(b + 32 * kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n32k16_kk(
+              s, hopper::desc_sw128(a1 + 32 * kk),
+              hopper::desc_sw128(b + kBoxBytes + 32 * kk));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        // the previous stage is read; free it unless the chunk holds it
+        if (prev >= 0 && g - 1 < np0) release(prev);
+        prev = st;
+        r.next();
+      }
+      hopper::wgmma_wait<0>();
+
+      // gch in f32 -> db partial sums; bf16 into the K-major A tile
+      uint8_t* gbuf = gch_s + ((t - t0) & 1) * kBoxBytes;
+      float rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int rr = rr0 + 8 * a;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 2 * i + e;
+            const int cc = 32 * wg + 8 * i + 2 * q4 + e;
+            int row, col, lbl;
+            float logit = s[4 * i + 2 * a + e], z, gg;
+            if (kRowsResident) {
+              row = r0 + rr;
+              col = x0 + cc;
+              logit += cb[j];
+              z = rz[a];
+              gg = rg[a];
+              lbl = rl[a];
+            } else {
+              row = x0 + cc;
+              col = r0 + rr;
+              logit += rb[a];
+              z = cz[j];
+              gg = cg[j];
+              lbl = cl[j];
+            }
+            // dlogit() with exp(logit - logz) = 2^(logit log2e - z)
+            const float pr = ex2(fmaf(logit, kLog2e, -z));
+            const float hit = col == lbl ? 1.f : 0.f;
+            const float d = (pr - p.sn - (p.sp - p.sn) * hit) * gg;
+            v[e] = (row < p.N && col < p.V) ? d : 0.f;
+            rsum[a] += v[e];
+          }
+          const int box16 = (4 * wg + i) ^ (rr & 7);   // 128-byte swizzle
+          *reinterpret_cast<__nv_bfloat162*>(gbuf + rr * 128 + box16 * 16 +
+                                             4 * q4) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      if (!kRowsResident) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          rsum[a] += __shfl_xor_sync(0xffffffffu, rsum[a], 1);
+          rsum[a] += __shfl_xor_sync(0xffffffffu, rsum[a], 2);
+          dbacc[a] += rsum[a];
+        }
+      }
+      hopper::fence_async_shared();
+      hopper::named_barrier(1, 256);      // both halves of gch written
+
+      // second product: acc[slot] += gch X[:, box kw0 + 2 slot + wg].
+      // A slot past the chunk's last box (a narrower last chunk) reads
+      // that box and is never stored: the wgmma stays unconditional, so
+      // ptxas keeps the products asynchronous.
+      // window box j: stage win + j / 2, box j % 2 of it
+      int bst[kSlots];
+#pragma unroll
+      for (int slot = 0; slot < kSlots; ++slot) {
+        const int j = min(2 * slot + wg, nwin - 1);
+        const int st = win + j / 2;
+        bst[slot] = (st >= p.stages ? st - p.stages : st) * 2 + (j & 1);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t da = hopper::desc_sw128(gbuf + 32 * ks);
+#pragma unroll
+        for (int slot = 0; slot < kSlots; ++slot)
+          hopper::wgmma_m64n64k16_kt(
+              acc[slot], da,
+              hopper::desc_sw128(ring + bst[slot] * kBoxBytes + 2048 * ks));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      for (int j = np0, st = win; j < npairs; ++j) {
+        release(st);
+        if (++st == p.stages) st = 0;
+      }
+    }
+
+    // epilogue: this warpgroup's slots of the chunk, f32
+    float* o = p.out + static_cast<size_t>(split) * nres * p.H;
+#pragma unroll
+    for (int slot = 0; slot < kSlots; ++slot) {
+      const int box = kw0 + 2 * slot + wg;
+      if (box >= kw1) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int row = r0 + rr0 + 8 * a;
+          const int col = box * 64 + 8 * i + 2 * q4;
+          if (row < nres && col < p.H)
+            *reinterpret_cast<float2*>(o + static_cast<size_t>(row) * p.H +
+                                       col) =
+                make_float2(acc[slot][4 * i + 2 * a],
+                            acc[slot][4 * i + 2 * a + 1]);
+        }
+    }
+    if (!kRowsResident && chunk == 0) {
+      // db of the block's rows: warpgroup 0's sum plus warpgroup 1's
+      if (wg == 1 && q4 == 0) {
+        db_s[rr0] = dbacc[0];
+        db_s[rr0 + 8] = dbacc[1];
+      }
+      hopper::named_barrier(2, 256);
+      if (wg == 0 && q4 == 0)
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int row = r0 + rr0 + 8 * a;
+          if (row < p.V)
+            p.db_out[static_cast<size_t>(split) * p.V + row] =
+                dbacc[a] + db_s[rr0 + 8 * a];
+        }
+    }
+  }
+}
+
+template <bool kRowsResident, int kSlots>
+cudaError_t launch_slots(const void* h, const void* w, const void* bias,
+                         const void* labels, const void* logz, const void* g,
+                         void* out, void* db, void* part, void* db_part,
+                         int N, int V, int H, int nsplit,
+                         int tiles_per_split, int nchunks, int stages,
+                         float sn, float sp, cudaStream_t st) {
+  // the shapes the Python plan guarantees (ops/cuda/xent.py tc_plan)
+  const int nk = (H + 63) / 64;
+  if (H % 8 != 0 || (reinterpret_cast<uintptr_t>(h) & 15) ||
+      (reinterpret_cast<uintptr_t>(w) & 15) ||
+      nchunks * 2 * kSlots < nk || nk > 2 * kMaxPairs - 2 ||
+      stages < ((nk < 2 * kSlots ? nk : 2 * kSlots) + 1) / 2)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_h, tm_w;
+  cudaError_t err = hopper::encode_bf16_boxes(&tm_h, h, N, H);
+  if (err != cudaSuccess) return err;
+  err = hopper::encode_bf16_boxes(&tm_w, w, V, H);
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes(H, stages);
+  err = ptt_set_smem(xent_bwd_tc_kernel<kRowsResident, kSlots>, smem);
+  if (err != cudaSuccess) return err;
+  const int nres = kRowsResident ? N : V;
+  Params p;
+  p.bias = static_cast<const float*>(bias);
+  p.labels = static_cast<const int*>(labels);
+  p.logz = static_cast<const float*>(logz);
+  p.g = static_cast<const float*>(g);
+  p.out = static_cast<float*>(nsplit == 1 ? out : part);
+  p.db_out = static_cast<float*>(nsplit == 1 ? db : db_part);
+  p.N = N;
+  p.V = V;
+  p.H = H;
+  p.tiles_per_split = tiles_per_split;
+  p.stages = stages;
+  p.sn = sn;
+  p.sp = sp;
+  const dim3 grid((nres + kRows - 1) / kRows, nchunks, nsplit);
+  xent_bwd_tc_kernel<kRowsResident, kSlots><<<grid, kThreads, smem, st>>>(
+      kRowsResident ? tm_h : tm_w, kRowsResident ? tm_w : tm_h, p);
+  return cudaGetLastError();
+}
+
+template <bool kRowsResident>
+cudaError_t launch(const void* h, const void* w, const void* bias,
+                   const void* labels, const void* logz, const void* g,
+                   void* out, void* db, void* part, void* db_part, int N,
+                   int V, int H, int nsplit, int tiles_per_split,
+                   int nchunks, int stages, float sn, float sp,
+                   cudaStream_t st) {
+  switch (slots_for(H)) {
+#define PTT_SLOTS(k)                                                       \
+  case k:                                                                  \
+    return launch_slots<kRowsResident, k>(h, w, bias, labels, logz, g, out, \
+                                          db, part, db_part, N, V, H,      \
+                                          nsplit, tiles_per_split, nchunks, \
+                                          stages, sn, sp, st);
+    PTT_SLOTS(1)
+    PTT_SLOTS(2)
+    PTT_SLOTS(3)
+    PTT_SLOTS(4)
+#undef PTT_SLOTS
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// The backward by storage type: f32 on the CUDA cores, bf16 on the
+// tensor cores; then the fixed-order sum of the splits' partials.
+template <bool kRowsResident>
+cudaError_t bwd_route(int dtype, const void* h, const void* w,
+                      const void* bias, const void* labels, const void* logz,
+                      const void* g, void* out, void* db, void* part,
+                      void* db_part, int N, int V, int H, int nsplit,
+                      int tiles_per_split, int nchunks, int stages, float sn,
+                      float sp, cudaStream_t st) {
+  cudaError_t err;
+  if (dtype == PTT_F32) {
+    err = bwd_launch<kRowsResident>(h, w, bias, labels, logz, g, out, db,
+                                    part, db_part, N, V, H, nsplit,
+                                    tiles_per_split, nchunks, sn, sp, st);
+  } else if (dtype == PTT_BF16) {
+    err = tc::launch<kRowsResident>(h, w, bias, labels, logz, g, out, db,
+                                    part, db_part, N, V, H, nsplit,
+                                    tiles_per_split, nchunks, stages, sn, sp,
+                                    st);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess || nsplit == 1) return err;
+  const int nres = kRowsResident ? N : V;
   err = sum_splits(static_cast<const float*>(part), static_cast<float*>(out),
                    static_cast<size_t>(nres) * H, nsplit, st);
   if (err != cudaSuccess || kRowsResident) return err;
@@ -487,7 +996,6 @@ extern "C" int ptt_xent_stats(int dtype, const void* h, const void* w,
                               void* out, void* part, int N, int V, int H,
                               int nsplit, int tiles_per_split,
                               void* stream) {
-  if (H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == PTT_F32) {
@@ -504,28 +1012,17 @@ extern "C" int ptt_xent_stats(int dtype, const void* h, const void* w,
 
 // dh [N, H] f32 for the per-row cotangent g [N] f32 and the saved logz
 // [N] f32. part [nsplit, N, H] f32 scratch (unused when nsplit == 1).
+// Grid: nchunks column chunks of H; `stages` sizes the bf16 route's ring.
 extern "C" int ptt_xent_bwd_dh(int dtype, const void* h, const void* w,
                                const void* bias, const void* labels,
                                const void* logz, const void* g, void* dh,
                                void* part, int N, int V, int H, int nsplit,
-                               int tiles_per_split, float sn, float sp,
-                               void* stream) {
-  if (H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == PTT_F32) {
-    err = bwd_launch<float, true>(h, w, bias, labels, logz, g, dh, nullptr,
-                                  part, nullptr, N, V, H, nsplit,
-                                  tiles_per_split, sn, sp, st);
-  } else if (dtype == PTT_BF16) {
-    err = bwd_launch<__nv_bfloat16, true>(h, w, bias, labels, logz, g, dh,
-                                          nullptr, part, nullptr, N, V, H,
-                                          nsplit, tiles_per_split, sn, sp,
-                                          st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+                               int tiles_per_split, int nchunks, int stages,
+                               float sn, float sp, void* stream) {
+  return static_cast<int>(bwd_route<true>(
+      dtype, h, w, bias, labels, logz, g, dh, nullptr, part, nullptr, N, V,
+      H, nsplit, tiles_per_split, nchunks, stages, sn, sp,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // dw [V, H] and db [V], f32. part [nsplit, V, H] and db_part [nsplit, V]
@@ -535,22 +1032,10 @@ extern "C" int ptt_xent_bwd_dwb(int dtype, const void* h, const void* w,
                                 const void* logz, const void* g, void* dw,
                                 void* db, void* part, void* db_part, int N,
                                 int V, int H, int nsplit,
-                                int tiles_per_split, float sn, float sp,
-                                void* stream) {
-  if (H > kMaxH) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == PTT_F32) {
-    err = bwd_launch<float, false>(h, w, bias, labels, logz, g, dw, db, part,
-                                   db_part, N, V, H, nsplit,
-                                   tiles_per_split, sn, sp, st);
-  } else if (dtype == PTT_BF16) {
-    err = bwd_launch<__nv_bfloat16, false>(h, w, bias, labels, logz, g, dw,
-                                           db, part, db_part, N, V, H,
-                                           nsplit, tiles_per_split, sn, sp,
-                                           st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+                                int tiles_per_split, int nchunks, int stages,
+                                float sn, float sp, void* stream) {
+  return static_cast<int>(bwd_route<false>(
+      dtype, h, w, bias, labels, logz, g, dw, db, part, db_part, N, V, H,
+      nsplit, tiles_per_split, nchunks, stages, sn, sp,
+      static_cast<cudaStream_t>(stream)));
 }

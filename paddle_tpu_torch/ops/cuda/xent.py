@@ -12,6 +12,13 @@ Source: ``paddle_tpu_torch/csrc/xent.cu``. The ``[N, V]`` logits never
 reach device memory. Weights are in the tied ``[V, H]`` ("vh") layout;
 h and W share one storage type (f32 or bf16); the bias is f32.
 
+K6 takes one of two routes, by storage type only: bf16 runs on the tensor
+cores (wgmma fed by TMA, :func:`tc_plan`), f32 on the CUDA cores
+(:func:`simt_plan`). A bf16 launch that fails raises; it never falls back
+to the f32 route. The limits are shared memory: each plan raises for a
+hidden size whose tiles do not fit in :data:`core.MAX_SMEM`, and the bf16
+route needs ``H % 8 == 0`` (TMA rows are whole 16-byte units).
+
 The plain versions are the reference's chunked XLA formulation:
 ``_xent_stats_parts`` (``paddle_tpu/ops/fused.py:75``) and the chunk loop
 of ``_xent_bwd_impl`` (:159-186), over vocab chunks of :data:`CHUNK`.
@@ -29,22 +36,26 @@ KERNEL_STATS = core.register(
     replaces="paddle_tpu/ops/pallas/xent.py:49", source=_SRC)
 KERNEL_DH = core.register(
     "xent_bwd_dh", "ptt_xent_bwd_dh",
-    [core.I32] + [core.VP] * 8 + [core.I32] * 5
+    [core.I32] + [core.VP] * 8 + [core.I32] * 7
     + [core.F32_ARG, core.F32_ARG, core.VP],
     replaces="paddle_tpu/ops/pallas/xent.py:178", source=_SRC)
 KERNEL_DWB = core.register(
     "xent_bwd_dwb", "ptt_xent_bwd_dwb",
-    [core.I32] + [core.VP] * 10 + [core.I32] * 5
+    [core.I32] + [core.VP] * 10 + [core.I32] * 7
     + [core.F32_ARG, core.F32_ARG, core.VP],
     replaces="paddle_tpu/ops/pallas/xent.py:200", source=_SRC)
 
 #: vocab chunk of the plain versions (the reference's xent_chunk flag)
 CHUNK = 8192
-#: resident rows per block and streamed rows per tile in csrc/xent.cu
-RES_ROWS, STREAM_ROWS = 32, 64
-#: the largest hidden size the kernels take (12 accumulator columns of
-#: 64 per thread)
-MAX_HIDDEN = 768
+#: f32 blocks (K5, and K6's f32 route): resident rows per block,
+#: streamed rows per tile, and output columns per block (12 accumulator
+#: columns of 64 per thread)
+RES_ROWS, STREAM_ROWS, SIMT_COLS = 32, 64, 768
+#: K6's bf16 route: resident rows per block, streamed rows per tile and
+#: columns per TMA box, 64-column output slots per warpgroup at most, the
+#: ring's largest stage count, and the most splits of the streamed axis
+TC_ROWS, TC_BOX, TC_MAX_SLOTS, TC_MAX_STAGES, TC_MAX_SPLITS = 64, 64, 4, 8, 8
+_BOX_BYTES = TC_BOX * TC_BOX * 2          # a TMA box; a ring stage holds 2
 
 
 def _chunk_logits(h, w, b, c0, c1):
@@ -91,14 +102,95 @@ def _check(h, w, b, labels, what):
     if w.shape != (v, hid):
         raise ValueError(f"{what}: weight {tuple(w.shape)} is not [V, "
                          f"{hid}] (the vh layout)")
-    if hid > MAX_HIDDEN:
-        raise ValueError(f"{what}: hidden size {hid} > {MAX_HIDDEN}")
     if labels.shape != (n,):
         raise ValueError(f"{what}: labels must be [{n}]")
     if b is not None and (b.shape != (v,) or b.dtype != torch.float32):
         raise ValueError(f"{what}: bias must be [{v}] f32")
     core.require_contiguous(h=h, w=w, b=b)
     return code, n, v, hid
+
+
+def stats_smem(hid):
+    """Shared memory of a K5 block (``csrc/xent.cu stats_smem``)."""
+    return 4 * (RES_ROWS * (hid + 1) + STREAM_ROWS * 33)
+
+
+def simt_smem(hid):
+    """Shared memory of an f32 K6 block (``csrc/xent.cu bwd_smem``)."""
+    chunk = max(8 * min(hid, SIMT_COLS), STREAM_ROWS * 33)
+    return 4 * (RES_ROWS * (hid + 1) + RES_ROWS * 65 + chunk)
+
+
+def _fits(what, hid, smem):
+    if smem > core.MAX_SMEM:
+        raise ValueError(f"{what}: hidden size {hid} needs {smem} bytes of "
+                         f"shared memory per block > {core.MAX_SMEM}")
+
+
+def tc_smem(hid, stages):
+    """Shared memory of a bf16 K6 block (``csrc/xent.cu tc::smem_bytes``):
+    the resident tile (H/64 boxes), the ring (two boxes a stage), two gch
+    tiles, the barriers, the db exchange and the stage table, plus 1 KB
+    of alignment."""
+    boxes = -(-hid // TC_BOX) + 2 * stages + 2
+    return (1024 + boxes * _BOX_BYTES + (2 * stages + 1) * 8 + 4 * TC_ROWS
+            + 16 * 8)
+
+
+def wave_splits(units, tiles, sms, max_splits=TC_MAX_SPLITS):
+    """``(splits, tiles_per_split)`` of a streamed axis of ``tiles`` tiles
+    under ``units`` blocks of equal work, one block per SM: the fewest
+    splits whose last wave is at least half full, else the fullest last
+    wave within ``max_splits``."""
+    best = None
+    for want in range(1, min(max_splits, tiles) + 1):
+        per = -(-tiles // want)
+        splits = -(-tiles // per)
+        blocks = units * splits
+        fill = blocks / sms - (-(-blocks // sms) - 1)
+        if fill >= 0.5:
+            return splits, per
+        if best is None or fill > best[0]:
+            best = (fill, splits, per)
+    return best[1], best[2]
+
+
+def tc_plan(resident, streamed, hid, sms):
+    """K6's bf16 launch plan (a pure function of the shape and the SM
+    count): ``dict(chunks, slots, splits, per, stages, smem)``. Blocks are
+    ``ceil(resident / 64) x chunks x splits``, one per SM. H is cut into
+    the fewest chunks of at most 512 columns, each ``2 x slots`` boxes of
+    64 (``csrc/xent.cu tc::slots_for``): two warpgroups of ``slots``
+    64-column accumulators. Each streamed tile of 64 rows arrives as H/64
+    boxes, two to a stage, through a ring of ``stages`` stages, which must
+    hold the chunk's own boxes at once. Raises for a shape the kernel does
+    not take."""
+    what = "xent backward (bf16)"
+    if hid % 8:
+        raise ValueError(f"{what}: hidden size {hid} is not a multiple of 8 "
+                         "(TMA rows are whole 16-byte units)")
+    boxes = -(-hid // TC_BOX)
+    chunks = -(-boxes // (2 * TC_MAX_SLOTS))
+    slots = -(-(-(-boxes // chunks)) // 2)
+    held = -(-min(boxes, 2 * slots) // 2)
+    stages = min(TC_MAX_STAGES,
+                 (core.MAX_SMEM - tc_smem(hid, 0)) // (2 * _BOX_BYTES + 16))
+    if stages < held:
+        _fits(what, hid, tc_smem(hid, held))
+    tiles = max(1, -(-streamed // TC_BOX))
+    splits, per = wave_splits(-(-resident // TC_ROWS) * chunks, tiles, sms)
+    return dict(chunks=chunks, slots=slots, splits=splits, per=per,
+                stages=stages, smem=tc_smem(hid, stages))
+
+
+def simt_plan(resident, streamed, hid, sms):
+    """K6's f32 launch plan: ``dict(chunks, splits, per, smem)``; blocks
+    are ``ceil(resident / 32) x splits x chunks`` of 768 columns each."""
+    smem = simt_smem(hid)
+    _fits("xent backward (f32)", hid, smem)
+    chunks = -(-hid // SIMT_COLS)
+    splits, per = _split_plan(resident, streamed, -(-sms // chunks))
+    return dict(chunks=chunks, splits=splits, per=per, smem=smem)
 
 
 def _split_plan(resident, streamed, blocks_wanted):
@@ -118,6 +210,7 @@ def _sms(t):
 def xent_stats_kernel(h, w, b, labels):
     """Launch K5 on CUDA tensors; same outputs as the plain version."""
     code, n, v, hid = _check(h, w, b, labels, "xent_stats kernel")
+    _fits("xent_stats kernel", hid, stats_smem(hid))
     out = torch.empty((4, n), dtype=torch.float32, device=h.device)
     if n == 0 or v == 0:
         return tuple(out)
@@ -159,33 +252,45 @@ def xent_bwd_plain(h, w, b, labels, logz, g, sn, sp, chunk=CHUNK):
     return dh, torch.cat(dw_parts), torch.cat(db_parts)
 
 
-def _bwd_setup(h, w, b, labels, logz, g, what):
-    """``(code, n, v, hid, ptrs, operands)``. The caller holds
+def _bwd_setup(h, w, b, labels, logz, g, what, resident):
+    """``(code, n, v, hid, plan, ptrs, operands)``. The plan is
+    :func:`tc_plan` for bf16 and :func:`simt_plan` for f32, over
+    ``resident`` rows (N for dh, V for dw/db). The caller holds
     ``operands`` (labels, logz and g converted for the kernel) until the
     launch: a converted copy freed before its kernel is enqueued goes back
     to the caching allocator, and the next allocation on the stream (the
     kernel's own output) may be handed the same memory."""
     code, n, v, hid = _check(h, w, b, labels, what)
+    res, streamed = (n, v) if resident == "rows" else (v, n)
+    if code == core.BF16:
+        plan = tc_plan(res, streamed, hid, _sms(h))
+        if h.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError(f"{what}: bf16 h and weight must start on a "
+                             "16-byte boundary (TMA)")
+    else:
+        plan = dict(simt_plan(res, streamed, hid, _sms(h)), stages=0)
     operands = (labels.to(torch.int32).contiguous(),
                 logz.float().contiguous(), g.float().contiguous())
     ptrs = (core.ptr(h), core.ptr(w), core.ptr(b),
             *(core.ptr(t) for t in operands))
-    return code, n, v, hid, ptrs, operands
+    return code, n, v, hid, plan, ptrs, operands
+
+
+def _plan_args(plan):
+    return plan["splits"], plan["per"], plan["chunks"], plan["stages"]
 
 
 def xent_bwd_dh_kernel(h, w, b, labels, logz, g, sn, sp):
     """Launch K6's dh kernel on CUDA tensors -> dh ``[N, H]`` f32."""
-    code, n, v, hid, ptrs, operands = _bwd_setup(h, w, b, labels, logz, g,
-                                                 "xent_bwd_dh kernel")
+    code, n, v, hid, plan, ptrs, operands = _bwd_setup(
+        h, w, b, labels, logz, g, "xent_bwd_dh kernel", "rows")
     dh = torch.empty((n, hid), dtype=torch.float32, device=h.device)
     if n == 0 or v == 0:
         return dh.zero_()
-    # one block fits on an SM (its accumulator takes the registers)
-    nsplit, per = _split_plan(n, v, _sms(h))
-    part = (torch.empty((nsplit, n, hid), dtype=torch.float32,
-                        device=h.device) if nsplit > 1 else None)
-    KERNEL_DH(code, *ptrs, core.ptr(dh), core.ptr(part), n, v, hid, nsplit,
-              per, float(sn), float(sp), core.stream(h))
+    part = (torch.empty((plan["splits"], n, hid), dtype=torch.float32,
+                        device=h.device) if plan["splits"] > 1 else None)
+    KERNEL_DH(code, *ptrs, core.ptr(dh), core.ptr(part), n, v, hid,
+              *_plan_args(plan), float(sn), float(sp), core.stream(h))
     del operands                     # enqueued: stream order protects them
     return dh
 
@@ -193,21 +298,20 @@ def xent_bwd_dh_kernel(h, w, b, labels, logz, g, sn, sp):
 def xent_bwd_dwb_kernel(h, w, b, labels, logz, g, sn, sp):
     """Launch K6's dw/db kernel on CUDA tensors -> ``(dw [V, H], db
     [V])`` f32."""
-    code, n, v, hid, ptrs, operands = _bwd_setup(h, w, b, labels, logz, g,
-                                                 "xent_bwd_dwb kernel")
+    code, n, v, hid, plan, ptrs, operands = _bwd_setup(
+        h, w, b, labels, logz, g, "xent_bwd_dwb kernel", "vocab")
     dw = torch.empty((v, hid), dtype=torch.float32, device=h.device)
     db = torch.empty(v, dtype=torch.float32, device=h.device)
     if n == 0 or v == 0:
         return dw.zero_(), db.zero_()
-    nsplit, per = _split_plan(v, n, _sms(h))
     part, db_part = None, None
-    if nsplit > 1:
-        part = torch.empty((nsplit, v, hid), dtype=torch.float32,
+    if plan["splits"] > 1:
+        part = torch.empty((plan["splits"], v, hid), dtype=torch.float32,
                            device=h.device)
-        db_part = torch.empty((nsplit, v), dtype=torch.float32,
+        db_part = torch.empty((plan["splits"], v), dtype=torch.float32,
                               device=h.device)
     KERNEL_DWB(code, *ptrs, core.ptr(dw), core.ptr(db), core.ptr(part),
-               core.ptr(db_part), n, v, hid, nsplit, per, float(sn),
+               core.ptr(db_part), n, v, hid, *_plan_args(plan), float(sn),
                float(sp), core.stream(h))
     del operands                     # enqueued: stream order protects them
     return dw, db

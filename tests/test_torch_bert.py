@@ -332,6 +332,25 @@ def test_bert_loss_value_and_grads_match_jax(rng, flags_guard, mode):
                                    **GRAD_TOL)
 
 
+def test_bert_large_width_loss_and_grads_match_jax(rng, flags_guard):
+    """BertConfig.large()'s width (H = 1024, 16 heads, I = 4096) at one
+    layer and a small vocab: the width the cross-entropy kernels refused
+    before, on the CPU plain path against JAX."""
+    jm, params, pm = _pair(hidden_size=1024, num_heads=16, num_layers=1,
+                           intermediate_size=4096)
+    batch = _batch(rng)
+    jl, jg = jax.value_and_grad(_jax_loss(jm, batch))(params)
+    pl = _port_loss(pm, batch)
+    pl.backward()
+    np.testing.assert_allclose(pl.item(), float(jl), **TOL)
+    want = _flat(jg)
+    got = {name: n(p.grad) for name, p in pm.named_parameters()}
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], err_msg=name,
+                                   **GRAD_TOL)
+
+
 def test_bert_loss_equals_pretrain_loss_of_the_logits(rng):
     """The fused loss against the logits-then-pretrain_loss composition,
     in the port and in the reference."""

@@ -236,11 +236,22 @@ def test_flash_backward_kernel(cuda, b, h, tq, tk, d, dtype, causal, masked):
         assert float(got[0][1].abs().max()) == 0.0
 
 
+# K6's bf16 route feeds the second product gch rounded to bf16 (one
+# rounding, 2^-9 relative, per dlogit), so its outputs are held at 2^-8 of
+# their largest plain value; its f32 route and K5 at F32_TOL.
+XENT_BF16_TOL = 2.0 ** -8
+
+
 @pytest.mark.parametrize("n,v,hid,dtype,ls", [
     (78, 300, 128, torch.float32, 0.1),
     (130, 1000, 768, torch.float32, 0.0),
     (37, 65, 96, torch.bfloat16, 0.0),
     (4864, 30522, 768, torch.bfloat16, 0.0),   # BERT's MLM head
+    (8176, 32000, 768, torch.bfloat16, 0.0),   # GPT's train step
+    (300, 2000, 1024, torch.bfloat16, 0.1),    # BERT-large's width
+    (130, 1000, 1024, torch.float32, 0.0),
+    (50, 300, 64, torch.bfloat16, 0.0),        # one box: a zero box pads
+    (200, 3000, 576, torch.bfloat16, 0.1),     # 9 boxes: odd ring parts
 ])
 def test_xent_kernels(cuda, n, v, hid, dtype, ls):
     from paddle_tpu_torch.ops.cuda import xent
@@ -256,7 +267,38 @@ def test_xent_kernels(cuda, n, v, hid, dtype, ls):
     gg = _randn(g, n, scale=0.01)
     sn, sp = (ls / (v - 1), 1.0 - ls) if ls else (0.0, 1.0)
     _held(xent.xent_bwd_kernel(h, w, bias, labels, logz, gg, sn, sp),
-          xent.xent_bwd_plain(h, w, bias, labels, logz, gg, sn, sp), F32_TOL)
+          xent.xent_bwd_plain(h, w, bias, labels, logz, gg, sn, sp),
+          F32_TOL if dtype == torch.float32 else XENT_BF16_TOL)
+
+
+def test_xent_bf16_backward_takes_the_tensor_core_route(cuda):
+    """bf16 K6 launches its own kernels (the counts rise) and refuses what
+    only the f32 route takes (H % 8 != 0) instead of running it."""
+    from paddle_tpu_torch.ops.cuda import core, xent
+    g = torch.Generator().manual_seed(6)
+
+    def inputs(hid, dtype):
+        h = _randn(g, 70, hid, dtype=dtype)
+        w = _randn(g, 200, hid, scale=0.05, dtype=dtype)
+        labels = torch.randint(0, 200, (70,), generator=g).to(cuda)
+        stats = xent.xent_stats_plain(h, w, None, labels)
+        return (h, w, None, labels, stats[0] + torch.log(stats[1]),
+                _randn(g, 70, scale=0.01), 0.0, 1.0)
+
+    args = inputs(128, torch.bfloat16)
+    before = core.launch_counts()
+    _held(xent.xent_bwd_kernel(*args), xent.xent_bwd_plain(*args),
+          XENT_BF16_TOL)
+    after = core.launch_counts()
+    assert after["xent_bwd_dh"] == before["xent_bwd_dh"] + 1
+    assert after["xent_bwd_dwb"] == before["xent_bwd_dwb"] + 1
+    with pytest.raises(ValueError, match="multiple of 8"):
+        xent.xent_bwd_dh_kernel(*inputs(100, torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        xent.xent_bwd_dwb_kernel(*inputs(100, torch.bfloat16))
+    assert core.launch_counts()["xent_bwd_dh"] == after["xent_bwd_dh"]
+    args = inputs(100, torch.float32)
+    _held(xent.xent_bwd_kernel(*args), xent.xent_bwd_plain(*args), F32_TOL)
 
 
 def test_card_loss_backward_gives_the_cpu_gradients(cuda):

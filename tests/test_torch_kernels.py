@@ -108,6 +108,67 @@ def test_mlp_split_plan_covers_every_chunk():
         assert (nsplit - 1) * per < chunks <= nsplit * per
 
 
+def _wave_fill(blocks, sms):
+    """The share of the last wave's SMs that have a block (one per SM)."""
+    return blocks / sms - (-(-blocks // sms) - 1)
+
+
+@pytest.mark.parametrize("hid", [64, 96, 640, 768, 1024])
+def test_xent_bwd_plan_covers_every_tile_in_whole_waves(hid):
+    """K6's launch plans: every (resident tile, column chunk, streamed
+    tile) is covered exactly once; all waves but the last are full (one
+    block per SM) and the last is at least half full wherever a split of
+    the streamed axis can make it so; shared memory stays within the
+    H100's 227 KB per block."""
+    from paddle_tpu_torch.ops.cuda import core, xent
+    sms = 132
+    shapes = ((8176, 32000), (4864, 30522), (37, 65), (1000, 5000),
+              (300, 2000), (130, 1000))        # GPT, BERT(-large), ragged
+    for n_, v in shapes:
+        for res, streamed in ((n_, v), (v, n_)):   # dh, then dw/db
+            plan = xent.tc_plan(res, streamed, hid, sms)
+            assert plan["smem"] <= core.MAX_SMEM
+            boxes, width = -(-hid // 64), 2 * plan["slots"]
+            assert plan["slots"] <= xent.TC_MAX_SLOTS
+            assert (plan["chunks"] - 1) * width < boxes
+            assert boxes <= plan["chunks"] * width
+            assert 2 * plan["stages"] >= min(boxes, width)
+            tiles, per = -(-streamed // 64), plan["per"]
+            covered = [t_ for s_ in range(plan["splits"])
+                       for t_ in range(s_ * per, min(tiles, (s_ + 1) * per))]
+            assert covered == list(range(tiles))
+            assert (plan["splits"] - 1) * per < tiles
+            units = -(-res // xent.TC_ROWS) * plan["chunks"]
+            blocks = units * plan["splits"]
+            waves = -(-blocks // sms)
+            assert (waves - 1) * sms < blocks <= waves * sms
+            if _wave_fill(blocks, sms) < 0.5:
+                for want in range(1, min(xent.TC_MAX_SPLITS, tiles) + 1):
+                    per_ = -(-tiles // want)
+                    fill = _wave_fill(units * -(-tiles // per_), sms)
+                    assert fill <= _wave_fill(blocks, sms) < 0.5
+            simt = xent.simt_plan(res, streamed, hid, sms)
+            assert simt["smem"] <= core.MAX_SMEM
+            assert (simt["chunks"] - 1) * xent.SIMT_COLS < hid
+            assert hid <= simt["chunks"] * xent.SIMT_COLS
+        assert xent.stats_smem(hid) <= core.MAX_SMEM
+    # the training paths' shapes fill their last wave at least half
+    for res, streamed in ((8176, 32000), (32000, 8176), (4864, 30522),
+                          (30522, 4864)):
+        plan = xent.tc_plan(res, streamed, hid, sms)
+        blocks = -(-res // 64) * plan["chunks"] * plan["splits"]
+        assert _wave_fill(blocks, sms) >= 0.5
+
+
+def test_xent_bwd_plan_refuses_what_the_bf16_route_cannot_take():
+    from paddle_tpu_torch.ops.cuda import xent
+    with pytest.raises(ValueError, match="multiple of 8"):
+        xent.tc_plan(100, 200, 100, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        xent.tc_plan(100, 200, 1216, 132)
+    assert xent.tc_plan(100, 200, 1152, 132)["chunks"] == 3
+
+
 def test_gelu_is_exact_erf(rng):
     from paddle_tpu.ops.activations import gelu
     from paddle_tpu_torch.ops.activations import gelu as port_gelu

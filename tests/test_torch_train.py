@@ -177,13 +177,14 @@ def _xent_inputs(rng, n_=78, v=300, hid=128):
     return h, w, b, labels
 
 
+@pytest.mark.parametrize("hid", [128, 1024])     # 1024: BERT-large's width
 @pytest.mark.parametrize("ls", [0.0, 0.1])
-def test_xent_plain_versions_match_pallas_interpret(rng, ls):
+def test_xent_plain_versions_match_pallas_interpret(rng, ls, hid):
     from paddle_tpu.ops.fused import _smooth_consts
     from paddle_tpu.ops.pallas.xent import xent_bwd_pallas, xent_stats_pallas
     from paddle_tpu_torch.ops.cuda.xent import (xent_bwd_plain,
                                                 xent_stats_plain)
-    h, w, b, labels = _xent_inputs(rng)
+    h, w, b, labels = _xent_inputs(rng, hid=hid)
     jh, jw, jb, jl = map(jnp.asarray, (h, w, b, labels))
     want = xent_stats_pallas(jh, jw, jb, jl, interpret=True,
                              return_parts=True, blocks=(32, 128))
