@@ -160,6 +160,17 @@ def check(name, err, tol):
         raise AssertionError(f"{name}: max |kernel - plain| = {err} > {tol}")
 
 
+def scaled_err(got, want):
+    """``(max |got - want|, that over max |want|)``; where ``want`` is all
+    zero the second is 0 if ``got`` matches it exactly, else inf."""
+    if not want.numel():
+        return 0.0, 0.0
+    err = max_err(got, want)
+    top = float(want.float().abs().max())
+    return err, (err / top if top > 0 else
+                 (0.0 if err == 0 else float("inf")))
+
+
 def held(name, got, want, dtype, tol=None):
     """Hold each output against its own plain version on its own scale:
     max |kernel - plain| <= tol * max |plain| (tol 1e-4 in f32, 3e-2 in
@@ -172,15 +183,135 @@ def held(name, got, want, dtype, tol=None):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     errs, rel = [], 0.0
     for a, b in zip(got, want):
-        err = max_err(a, b) if b.numel() else 0.0
-        top = float(b.float().abs().max()) if b.numel() else 0.0
+        err, r = scaled_err(a, b)
         errs.append(err)
-        rel = max(rel, err / top if top > 0 else (0.0 if err == 0 else
-                                                  float("inf")))
+        rel = max(rel, r)
     if not (rel <= tol):
         raise AssertionError(f"{name}: max |kernel - plain| / max |plain| "
                              f"= {rel} > {tol}")
     return dict(max_abs_err=max(errs), rel_err=rel, tol=tol)
+
+
+def xent_unreached(labels, vocab):
+    """``(rows, vocab_rows)`` bool masks: the rows whose label is outside
+    ``[0, vocab)`` and the vocab rows that no label hits. Their dlogits
+    are the softmax term alone, ``(p - sn) g``; wherever a label hits,
+    the label term ``-(sp - sn) g`` outweighs it many times over."""
+    lab = labels.long()
+    miss = (lab < 0) | (lab >= vocab)
+    hit = torch.zeros(vocab, dtype=torch.bool, device=labels.device)
+    hit[lab[~miss]] = True
+    return miss, ~hit
+
+
+def held_xent_bwd(name, got, want, labels, vocab, dtype):
+    """Hold K6's outputs, ``[dh]`` or ``[dw, db]``, each on its own scale
+    (as :func:`held`) and again on the entries no label reaches (dh's
+    rows with an out-of-range label, dw's rows and db's entries that no
+    label hits) on their own scale: there only the softmax term acts, so
+    a fault in it (the bias, logz) shows that the label term hides in
+    the whole output. bf16 dh and dw at XENT_BF16_TOL (the second product
+    takes gch in bf16); db, summed from the f32 gch, and every f32 output
+    at F32_TOL. Every part is measured before any is judged, so a failure
+    prints them all. Returns the case's fields: the largest absolute
+    error over the whole outputs and each part's reading."""
+    miss, unhit = xent_unreached(labels, vocab)
+    names = ("dh",) if len(got) == 1 else ("dw", "db")
+    parts, failed = {}, []
+    for out, a, b in zip(names, got, want):
+        tol = (XENT_BF16_TOL if dtype == torch.bfloat16 and out != "db"
+               else F32_TOL)
+        sel = miss if out == "dh" else unhit
+        for part, x, y in ((out, a, b), (f"{out} unreached", a[sel],
+                                          b[sel])):
+            if not y.numel():
+                continue
+            err, rel = scaled_err(x, y)
+            parts[part] = dict(max_abs_err=err, rel_err=rel, tol=tol)
+            if not (rel <= tol):
+                failed.append(part)
+    if failed:
+        raise AssertionError(f"{name}: {', '.join(failed)} over tolerance; "
+                             f"parts {json.dumps(parts)}")
+    return dict(max_abs_err=max(parts[o]["max_abs_err"] for o in names),
+                parts=parts)
+
+
+def xent_cases(dev, gen, n, vocab, hid, dtype, ls=0.0, oob=False,
+               timed=False):
+    """K5 and K6 on one vocab head: ``h [n, hid]`` against ``W [vocab,
+    hid]`` (the tied vh layout) and an f32 bias, made from ``gen``, logz
+    from the plain statistics, label smoothing ``ls``. Every 97th row
+    has the ignore label -100, and with ``oob`` every 7th and every 9th
+    (from row 1) is out of range too, so that no label reaches some rows
+    (:func:`held_xent_bwd`). Returns the three cases by kernel name; K5
+    is held at F32_TOL (f32 statistics from either storage type).
+    ``timed`` adds each kernel's time, its plain version's, one library
+    call's (the forward of ``F.cross_entropy(F.linear(h, w, b))`` for
+    K5, its autograd backward, all three outputs, for K6) and the
+    bound."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import xent as xe
+
+    def randn(*shape, dt=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dt)
+
+    h = randn(n, hid, dt=dtype)
+    w = randn(vocab, hid, dt=dtype, scale=0.05)
+    bias = randn(vocab, scale=0.1)
+    labels = torch.randint(0, vocab, (n,), generator=gen).to(dev)
+    labels[3::97] = -100                 # the ignore index: never hits
+    if oob:
+        labels[::7] = vocab + 3          # out of range: never hits
+        labels[1::9] = -2
+    inputs = (h, w, bias, labels)
+    shape = [n, vocab, hid]
+    stats = xe.xent_stats_kernel(*inputs)
+    pstats = xe.xent_stats_plain(*inputs)
+    logz = pstats[0] + torch.log(pstats[1])
+    gg = randn(n, scale=1.0 / n)
+    sn, sp = (ls / (vocab - 1), 1.0 - ls) if ls else (0.0, 1.0)
+    bwd_args = (h, w, bias, labels, logz, gg, sn, sp)
+    dh, dw, db = xe.xent_bwd_kernel(*bwd_args)
+    pdh, pdw, pdb = xe.xent_bwd_plain(*bwd_args)
+    base = dict(shape=shape, dtype=str(dtype), label_smoothing=ls,
+                out_of_range_labels=oob)
+    what = f"{shape} {dtype} ls={ls}"
+    cases = {"xent_stats": dict(base, **held(f"xent_stats {what}", stats,
+                                             pstats, torch.float32)),
+             "xent_bwd_dh": dict(base, **held_xent_bwd(
+                 f"xent_bwd_dh {what}", [dh], [pdh], labels, vocab,
+                 dtype)),
+             "xent_bwd_dwb": dict(base, **held_xent_bwd(
+                 f"xent_bwd_dwb {what}", [dw, db], [pdw, pdb], labels,
+                 vocab, dtype))}
+    if not timed:
+        return cases
+    ops = 2.0 * n * vocab * hid
+    hl, wl = (t_.detach().requires_grad_(True) for t_ in (h, w))
+    bl = bias.to(dtype).requires_grad_(True)
+    rows = F.cross_entropy(F.linear(hl, wl, bl), labels, reduction="none",
+                           ignore_index=-100)
+    cases["xent_stats"].update(
+        kernel_ms=time_ms(lambda: xe.xent_stats_kernel(*inputs)),
+        plain_ms=time_ms(lambda: xe.xent_stats_plain(*inputs)),
+        library_ms=time_ms(lambda: F.cross_entropy(
+            F.linear(h, w, bl.detach()), labels, reduction="none")))
+    cases["xent_stats"]["bound_ms"], cases["xent_stats"]["bound_by"] = \
+        bound_ms(nbytes(*inputs) + 16 * n, ops, dtype)
+    plain = time_ms(lambda: xe.xent_bwd_plain(*bwd_args))
+    library = time_ms(lambda: torch.autograd.grad(
+        rows, (hl, wl, bl), gg, retain_graph=True), graph=False)
+    for name, fn, outs in (("xent_bwd_dh", xe.xent_bwd_dh_kernel, (dh,)),
+                           ("xent_bwd_dwb", xe.xent_bwd_dwb_kernel,
+                            (dw, db))):
+        case = cases[name]
+        case.update(kernel_ms=time_ms(lambda: fn(*bwd_args)),
+                    plain_ms=plain, library_ms=library)
+        case["bound_ms"], case["bound_by"] = bound_ms(
+            nbytes(*inputs, logz, gg, *outs), 2 * ops, dtype)
+    return cases
 
 
 def attended_pairs(tq, tk, causal):
@@ -374,8 +505,7 @@ def train_kernel_cases(dev):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda import (flash_attention as fa,
-                                           layer_norm as ln, mlp,
-                                           xent as xe)
+                                           layer_norm as ln, mlp)
     g = torch.Generator(device="cpu").manual_seed(1)
     bf16 = torch.bfloat16
 
@@ -498,7 +628,8 @@ def train_kernel_cases(dev):
             results["train_shapes"].append(case)
 
     # K5 and K6: [16 x 511, 768] rows against the tied [32000, 768] table
-    for n, vocab, hid, dtype, ls, oob in (
+    # (timed), then f32 and ragged shapes
+    for i, spec in enumerate((
             (8176, 32000, 768, bf16, 0.0, False),
             (8176, 32000, 768, torch.float32, 0.0, False),
             (78, 300, 128, torch.float32, 0.1, True),
@@ -507,65 +638,8 @@ def train_kernel_cases(dev):
             (1000, 5000, 640, bf16, 0.0, False),
             (300, 2000, 1024, bf16, 0.1, True),
             (130, 1000, 1024, torch.float32, 0.0, True),
-            (200, 3000, 576, bf16, 0.0, True)):
-        h = randn(n, hid, dtype=dtype)
-        w = randn(vocab, hid, dtype=dtype, scale=0.05)
-        bias = randn(vocab, scale=0.1)
-        labels = torch.randint(0, vocab, (n,), generator=g).to(dev)
-        if oob:
-            labels[::7] = vocab + 3          # out of range: never hits
-            labels[1::9] = -2
-        shape = [n, vocab, hid]
-        stats = xe.xent_stats_kernel(h, w, bias, labels)
-        pstats = xe.xent_stats_plain(h, w, bias, labels)
-        logz = pstats[0] + torch.log(pstats[1])
-        gg = randn(n, scale=1.0 / n)
-        sn, sp = (ls / (vocab - 1), 1.0 - ls) if ls else (0.0, 1.0)
-        dh, dw, db = xe.xent_bwd_kernel(h, w, bias, labels, logz, gg, sn,
-                                        sp)
-        pdh, pdw, pdb = xe.xent_bwd_plain(h, w, bias, labels, logz, gg, sn,
-                                          sp)
-        base = dict(shape=shape, dtype=str(dtype), label_smoothing=ls,
-                    out_of_range_labels=oob)
-        # f32 outputs from either storage type: K5 and f32 K6 held at the
-        # f32 tolerance, bf16 K6 at XENT_BF16_TOL
-        k6_tol = XENT_BF16_TOL if dtype == bf16 else F32_TOL
-        cases = (dict(base, **held(f"xent_stats {shape} {dtype}", stats,
-                                   pstats, torch.float32)),
-                 dict(base, **held(f"xent_bwd_dh {shape} {dtype}", [dh],
-                                   [pdh], torch.float32, k6_tol)),
-                 dict(base, **held(f"xent_bwd_dwb {shape} {dtype}",
-                                   [dw, db], [pdw, pdb], torch.float32,
-                                   k6_tol)))
-        if not results["xent_stats"]:
-            ops = 2.0 * n * vocab * hid
-            inputs = (h, w, bias, labels)
-            hl, wl = (t_.detach().requires_grad_(True) for t_ in (h, w))
-            bl = bias.to(dtype).requires_grad_(True)
-            rows = F.cross_entropy(F.linear(hl, wl, bl), labels,
-                                   reduction="none")
-            cases[0].update(
-                kernel_ms=time_ms(lambda: xe.xent_stats_kernel(*inputs)),
-                plain_ms=time_ms(lambda: xe.xent_stats_plain(*inputs)),
-                library_ms=time_ms(lambda: F.cross_entropy(
-                    F.linear(h, w, bl.detach()), labels,
-                    reduction="none")))
-            cases[0]["bound_ms"], cases[0]["bound_by"] = bound_ms(
-                nbytes(*inputs) + 16 * n, ops, dtype)
-            bwd_args = (h, w, bias, labels, logz, gg, sn, sp)
-            kernel_ms = (time_ms(lambda: xe.xent_bwd_dh_kernel(*bwd_args)),
-                         time_ms(lambda: xe.xent_bwd_dwb_kernel(*bwd_args)))
-            plain = time_ms(lambda: xe.xent_bwd_plain(*bwd_args))
-            library = time_ms(lambda: torch.autograd.grad(
-                rows, (hl, wl, bl), gg, retain_graph=True), graph=False)
-            for case, outs, k_ms in ((cases[1], (dh,), kernel_ms[0]),
-                                     (cases[2], (dw, db), kernel_ms[1])):
-                case.update(kernel_ms=k_ms, plain_ms=plain,
-                            library_ms=library)
-                case["bound_ms"], case["bound_by"] = bound_ms(
-                    nbytes(*inputs, logz, gg, *outs), 2 * ops, dtype)
-        for name, case in zip(("xent_stats", "xent_bwd_dh", "xent_bwd_dwb"),
-                              cases):
+            (200, 3000, 576, bf16, 0.0, True))):
+        for name, case in xent_cases(dev, g, *spec, timed=i == 0).items():
             results[name].append(case)
     return results
 
@@ -579,8 +653,7 @@ def bert_kernel_cases(dev):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda import (flash_attention as fa,
-                                           layer_norm as ln, mlp,
-                                           xent as xe)
+                                           layer_norm as ln, mlp)
     g = torch.Generator(device="cpu").manual_seed(2)
     bf16 = torch.bfloat16
     rows, hid, inter, vocab, n_mask = 64 * 512, 768, 3072, 30522, 64 * 76
@@ -721,50 +794,10 @@ def bert_kernel_cases(dev):
     # BertConfig.large()'s H = 1024
     for width, config in ((hid, "BertConfig.base()"),
                           (1024, "BertConfig.large()")):
-        h = randn(n_mask, width, dtype=bf16)
-        w = randn(vocab, width, dtype=bf16, scale=0.05)
-        bias = randn(vocab, scale=0.1)
-        labels = torch.randint(0, vocab, (n_mask,), generator=g).to(dev)
-        inputs = (h, w, bias, labels)
-        shape = [n_mask, vocab, width]
-        stats = xe.xent_stats_kernel(*inputs)
-        pstats = xe.xent_stats_plain(*inputs)
-        logz = pstats[0] + torch.log(pstats[1])
-        gg = randn(n_mask, scale=1.0 / n_mask)
-        bwd_args = (h, w, bias, labels, logz, gg, 0.0, 1.0)
-        dh, dw, db = xe.xent_bwd_kernel(*bwd_args)
-        pdh, pdw, pdb = xe.xent_bwd_plain(*bwd_args)
-        ops = 2.0 * n_mask * vocab * width
-        hl, wl = (t_.detach().requires_grad_(True) for t_ in (h, w))
-        bl = bias.to(bf16).requires_grad_(True)
-        rows_ce = F.cross_entropy(F.linear(hl, wl, bl), labels,
-                                  reduction="none")
-        library = time_ms(lambda: torch.autograd.grad(
-            rows_ce, (hl, wl, bl), gg, retain_graph=True), graph=False)
-        plain_bwd = time_ms(lambda: xe.xent_bwd_plain(*bwd_args))
-        for name, got, want, fn, lib, plain, outs, k_ops, tol in (
-                ("xent_stats", stats, pstats, xe.xent_stats_kernel,
-                 time_ms(lambda: F.cross_entropy(
-                     F.linear(h, w, bl.detach()), labels,
-                     reduction="none")),
-                 time_ms(lambda: xe.xent_stats_plain(*inputs)), (), ops,
-                 F32_TOL),
-                ("xent_bwd_dh", [dh], [pdh], xe.xent_bwd_dh_kernel, library,
-                 plain_bwd, (dh,), 2 * ops, XENT_BF16_TOL),
-                ("xent_bwd_dwb", [dw, db], [pdw, pdb],
-                 xe.xent_bwd_dwb_kernel, library, plain_bwd, (dw, db),
-                 2 * ops, XENT_BF16_TOL)):
-            args = inputs if name == "xent_stats" else bwd_args
-            extra = 16 * n_mask if name == "xent_stats" else nbytes(logz, gg)
-            case = dict(kernel=name, shape=shape, dtype="bf16", config=config,
-                        **held(f"{name} {config} shape", got, want,
-                               torch.float32, tol),
-                        kernel_ms=time_ms(lambda: fn(*args)), plain_ms=plain,
-                        library_ms=lib)
-            case["bound_ms"], case["bound_by"] = bound_ms(
-                nbytes(*inputs, *outs) + extra, k_ops, bf16)
-            results["bert_shapes"].append(case)
-        del h, w, dh, dw, pdh, pdw, rows_ce, hl, wl
+        for name, case in xent_cases(dev, g, n_mask, vocab, width, bf16,
+                                     timed=True).items():
+            results["bert_shapes"].append(dict(kernel=name, config=config,
+                                               **case))
     return results
 
 

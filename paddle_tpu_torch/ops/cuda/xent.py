@@ -52,9 +52,11 @@ CHUNK = 8192
 #: columns of 64 per thread)
 RES_ROWS, STREAM_ROWS, SIMT_COLS = 32, 64, 768
 #: K6's bf16 route: resident rows per block, streamed rows per tile and
-#: columns per TMA box, 64-column output slots per warpgroup at most, the
-#: ring's largest stage count, and the most splits of the streamed axis
-TC_ROWS, TC_BOX, TC_MAX_SLOTS, TC_MAX_STAGES, TC_MAX_SPLITS = 64, 64, 4, 8, 8
+#: columns per TMA box, 64-column output slots per warpgroup at most, and
+#: the ring's largest stage count
+TC_ROWS, TC_BOX, TC_MAX_SLOTS, TC_MAX_STAGES = 64, 64, 4, 8
+#: K6 (both routes): the most splits of the streamed axis
+MAX_SPLITS = 8
 _BOX_BYTES = TC_BOX * TC_BOX * 2          # a TMA box; a ring stage holds 2
 
 
@@ -137,13 +139,13 @@ def tc_smem(hid, stages):
             + 16 * 8)
 
 
-def wave_splits(units, tiles, sms, max_splits=TC_MAX_SPLITS):
+def wave_splits(units, tiles, sms):
     """``(splits, tiles_per_split)`` of a streamed axis of ``tiles`` tiles
-    under ``units`` blocks of equal work, one block per SM: the fewest
-    splits whose last wave is at least half full, else the fullest last
-    wave within ``max_splits``."""
+    under ``units`` blocks of equal work, one block per SM (both K6
+    routes): the fewest splits whose last wave is at least half full,
+    else the fullest last wave within :data:`MAX_SPLITS`."""
     best = None
-    for want in range(1, min(max_splits, tiles) + 1):
+    for want in range(1, min(MAX_SPLITS, tiles) + 1):
         per = -(-tiles // want)
         splits = -(-tiles // per)
         blocks = units * splits
@@ -185,17 +187,23 @@ def tc_plan(resident, streamed, hid, sms):
 
 def simt_plan(resident, streamed, hid, sms):
     """K6's f32 launch plan: ``dict(chunks, splits, per, smem)``; blocks
-    are ``ceil(resident / 32) x splits x chunks`` of 768 columns each."""
+    are ``ceil(resident / 32) x splits x chunks`` of 768 columns each,
+    one per SM (the register accumulator), split as :func:`wave_splits`
+    says."""
     smem = simt_smem(hid)
     _fits("xent backward (f32)", hid, smem)
     chunks = -(-hid // SIMT_COLS)
-    splits, per = _split_plan(resident, streamed, -(-sms // chunks))
+    splits, per = wave_splits(-(-resident // RES_ROWS) * chunks,
+                              -(-streamed // STREAM_ROWS), sms)
     return dict(chunks=chunks, splits=splits, per=per, smem=smem)
 
 
 def _split_plan(resident, streamed, blocks_wanted):
-    """``(splits, tiles_per_split)`` of the streamed axis: enough splits
-    that ``resident tiles x splits`` reaches ``blocks_wanted``."""
+    """K5's ``(splits, tiles_per_split)`` of the streamed axis: enough
+    splits that ``resident tiles x splits`` reaches ``blocks_wanted``.
+    Not :func:`wave_splits`: a K5 block has no accumulator to keep it to
+    one per SM, and one block alone does not keep an SM busy, so K5 asks
+    for several blocks per SM rather than whole waves of one."""
     res_tiles = -(-resident // RES_ROWS)
     tiles = -(-streamed // STREAM_ROWS)
     want = max(1, -(-blocks_wanted // res_tiles))

@@ -237,9 +237,27 @@ def test_flash_backward_kernel(cuda, b, h, tq, tk, d, dtype, causal, masked):
 
 
 # K6's bf16 route feeds the second product gch rounded to bf16 (one
-# rounding, 2^-9 relative, per dlogit), so its outputs are held at 2^-8 of
-# their largest plain value; its f32 route and K5 at F32_TOL.
+# rounding, 2^-9 relative, per dlogit), so its dh and dw are held at 2^-8
+# of their largest plain value; db (summed from the f32 gch), its f32
+# route and K5 at F32_TOL.
 XENT_BF16_TOL = 2.0 ** -8
+
+
+def _held_xent_bwd(got, want, labels, v, dtype):
+    """K6's ``(dh, dw, db)``, each held on its own scale and again on the
+    entries no label reaches (dh's rows with an out-of-range label, dw's
+    rows and db's entries no label hits) on their own scale: there only
+    the softmax term acts, which the label term hides in the whole
+    output."""
+    lab = labels.long()
+    miss = (lab < 0) | (lab >= v)
+    unhit = torch.ones(v, dtype=torch.bool, device=labels.device)
+    unhit[lab[~miss]] = False
+    assert miss.any() and unhit.any()
+    tol = F32_TOL if dtype == torch.float32 else XENT_BF16_TOL
+    for a, w, sel, t in zip(got, want, (miss, unhit, unhit),
+                            (tol, tol, F32_TOL)):
+        _held([a, a[sel]], [w, w[sel]], t)
 
 
 @pytest.mark.parametrize("n,v,hid,dtype,ls", [
@@ -266,9 +284,10 @@ def test_xent_kernels(cuda, n, v, hid, dtype, ls):
     logz = want[0] + torch.log(want[1])
     gg = _randn(g, n, scale=0.01)
     sn, sp = (ls / (v - 1), 1.0 - ls) if ls else (0.0, 1.0)
-    _held(xent.xent_bwd_kernel(h, w, bias, labels, logz, gg, sn, sp),
-          xent.xent_bwd_plain(h, w, bias, labels, logz, gg, sn, sp),
-          F32_TOL if dtype == torch.float32 else XENT_BF16_TOL)
+    _held_xent_bwd(
+        xent.xent_bwd_kernel(h, w, bias, labels, logz, gg, sn, sp),
+        xent.xent_bwd_plain(h, w, bias, labels, logz, gg, sn, sp), labels,
+        v, dtype)
 
 
 def test_xent_bf16_backward_takes_the_tensor_core_route(cuda):
@@ -286,9 +305,10 @@ def test_xent_bf16_backward_takes_the_tensor_core_route(cuda):
                 _randn(g, 70, scale=0.01), 0.0, 1.0)
 
     args = inputs(128, torch.bfloat16)
+    args[3][::5] = -100                       # rows no label reaches
     before = core.launch_counts()
-    _held(xent.xent_bwd_kernel(*args), xent.xent_bwd_plain(*args),
-          XENT_BF16_TOL)
+    _held_xent_bwd(xent.xent_bwd_kernel(*args), xent.xent_bwd_plain(*args),
+                   args[3], 200, torch.bfloat16)
     after = core.launch_counts()
     assert after["xent_bwd_dh"] == before["xent_bwd_dh"] + 1
     assert after["xent_bwd_dwb"] == before["xent_bwd_dwb"] + 1

@@ -113,13 +113,31 @@ def _wave_fill(blocks, sms):
     return blocks / sms - (-(-blocks // sms) - 1)
 
 
+def _covers_in_whole_waves(units, tiles, splits, per, sms, max_splits):
+    """A split plan of ``tiles`` streamed tiles under ``units`` blocks:
+    each tile in exactly one split; the last wave at least half full
+    unless no split within ``max_splits`` makes it fuller."""
+    covered = [t_ for s_ in range(splits)
+               for t_ in range(s_ * per, min(tiles, (s_ + 1) * per))]
+    assert covered == list(range(tiles))
+    assert (splits - 1) * per < tiles
+    blocks = units * splits
+    waves = -(-blocks // sms)
+    assert (waves - 1) * sms < blocks <= waves * sms
+    if _wave_fill(blocks, sms) < 0.5:
+        for want in range(1, min(max_splits, tiles) + 1):
+            per_ = -(-tiles // want)
+            fill = _wave_fill(units * -(-tiles // per_), sms)
+            assert fill <= _wave_fill(blocks, sms) < 0.5
+
+
 @pytest.mark.parametrize("hid", [64, 96, 640, 768, 1024])
 def test_xent_bwd_plan_covers_every_tile_in_whole_waves(hid):
-    """K6's launch plans: every (resident tile, column chunk, streamed
-    tile) is covered exactly once; all waves but the last are full (one
-    block per SM) and the last is at least half full wherever a split of
-    the streamed axis can make it so; shared memory stays within the
-    H100's 227 KB per block."""
+    """K6's launch plans, bf16 and f32: every (resident tile, column
+    chunk, streamed tile) is covered exactly once; all waves but the last
+    are full (one block per SM) and the last is at least half full
+    wherever a split of the streamed axis can make it so; shared memory
+    stays within the H100's 227 KB per block."""
     from paddle_tpu_torch.ops.cuda import core, xent
     sms = 132
     shapes = ((8176, 32000), (4864, 30522), (37, 65), (1000, 5000),
@@ -133,24 +151,18 @@ def test_xent_bwd_plan_covers_every_tile_in_whole_waves(hid):
             assert (plan["chunks"] - 1) * width < boxes
             assert boxes <= plan["chunks"] * width
             assert 2 * plan["stages"] >= min(boxes, width)
-            tiles, per = -(-streamed // 64), plan["per"]
-            covered = [t_ for s_ in range(plan["splits"])
-                       for t_ in range(s_ * per, min(tiles, (s_ + 1) * per))]
-            assert covered == list(range(tiles))
-            assert (plan["splits"] - 1) * per < tiles
-            units = -(-res // xent.TC_ROWS) * plan["chunks"]
-            blocks = units * plan["splits"]
-            waves = -(-blocks // sms)
-            assert (waves - 1) * sms < blocks <= waves * sms
-            if _wave_fill(blocks, sms) < 0.5:
-                for want in range(1, min(xent.TC_MAX_SPLITS, tiles) + 1):
-                    per_ = -(-tiles // want)
-                    fill = _wave_fill(units * -(-tiles // per_), sms)
-                    assert fill <= _wave_fill(blocks, sms) < 0.5
+            _covers_in_whole_waves(
+                -(-res // xent.TC_ROWS) * plan["chunks"],
+                -(-streamed // xent.TC_BOX), plan["splits"], plan["per"],
+                sms, xent.MAX_SPLITS)
             simt = xent.simt_plan(res, streamed, hid, sms)
             assert simt["smem"] <= core.MAX_SMEM
             assert (simt["chunks"] - 1) * xent.SIMT_COLS < hid
             assert hid <= simt["chunks"] * xent.SIMT_COLS
+            _covers_in_whole_waves(
+                -(-res // xent.RES_ROWS) * simt["chunks"],
+                -(-streamed // xent.STREAM_ROWS), simt["splits"],
+                simt["per"], sms, xent.MAX_SPLITS)
         assert xent.stats_smem(hid) <= core.MAX_SMEM
     # the training paths' shapes fill their last wave at least half
     for res, streamed in ((8176, 32000), (32000, 8176), (4864, 30522),

@@ -1,21 +1,19 @@
-"""Time the port's fused cross-entropy kernels (K5 statistics, K6 backward
-dh and dw/db) at the training paths' vocab-head shapes, on one card.
+"""Check and time the port's fused cross-entropy kernels (K5 statistics, K6
+backward dh and dw/db) alone, at the training paths' bf16 vocab heads, on
+one card: chip_smoke.py's K5/K6 case (``chip_smoke.xent_cases``) without
+the rest of that script, as a quick loop for cross-entropy kernel work.
 
     python3 tools/torch_xent_bench.py [--shapes gpt,bert,bert_large]
-                                      [--dtype bf16|f32]
 
 Shapes (rows x vocab x hidden): ``gpt`` [8176, 32000, 768] (GPTConfig
 .small() at 16 x 512, the tied embedding), ``bert`` [4864, 30522, 768]
 (BertConfig.base(), 64 x 76 masked positions, f32 bias) and
-``bert_large`` [4864, 30522, 1024] (BertConfig.large()). Inputs come from
-a seed; logz from the plain statistics. For each shape it prints one JSON
-line: each kernel's device time (chip_smoke.time_ms: a CUDA graph, inputs
-cold in L2, mean of 20), its error over the plain version's largest
-value, the plain version's time, one PyTorch library call computing the
-same outputs (the autograd backward of ``F.cross_entropy(F.linear(h, w,
-b))`` for K6, the forward for K5), and the bound (bytes over 3.35 TB/s or
-operations over the peak rate of the input type). Then the card's name
-and power limit. Needs a CUDA device.
+``bert_large`` [4864, 30522, 1024] (BertConfig.large()). For each shape it
+prints one JSON line: per kernel its error readings (each output and the
+entries no label reaches, on their own scales), device time, plain and
+library times and bound, as chip_smoke.py's kernel phase gives them; a
+check that fails raises with every reading. Then the card's name and
+power limit. Needs a CUDA device.
 """
 
 import argparse
@@ -28,88 +26,27 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-import chip_smoke  # noqa: E402  (at the repo root: timing and bounds)
+import chip_smoke  # noqa: E402  (at the repo root: the K5/K6 case)
 
 SHAPES = {"gpt": (8176, 32000, 768), "bert": (4864, 30522, 768),
           "bert_large": (4864, 30522, 1024)}
 
 
-def bench(name, n, vocab, hid, dtype, gen):
-    import torch.nn.functional as F
-
-    from paddle_tpu_torch.ops.cuda import xent as xe
-
-    def randn(*shape, scale=1.0, dt=torch.float32):
-        return (torch.randn(*shape, generator=gen) * scale).to("cuda", dt)
-
-    h = randn(n, hid, dt=dtype)
-    w = randn(vocab, hid, scale=0.05, dt=dtype)
-    bias = randn(vocab, scale=0.1)
-    labels = torch.randint(0, vocab, (n,), generator=gen).cuda()
-    inputs = (h, w, bias, labels)
-    pstats = xe.xent_stats_plain(*inputs)
-    logz = pstats[0] + torch.log(pstats[1])
-    gg = randn(n, scale=1.0 / n)
-    args = (h, w, bias, labels, logz, gg, 0.0, 1.0)
-    ops = 2.0 * n * vocab * hid
-    dh = xe.xent_bwd_dh_kernel(*args)
-    dw, db = xe.xent_bwd_dwb_kernel(*args)
-    pdh, pdw, pdb = xe.xent_bwd_plain(*args)
-    stats = xe.xent_stats_kernel(*inputs)
-    tol = 2.0 ** -8 if dtype == torch.bfloat16 else chip_smoke.F32_TOL
-
-    def rel(got, want):
-        return max(float((a - b).abs().max()) / float(b.abs().max())
-                   for a, b in zip(got, want))
-
-    hl, wl = (t.detach().requires_grad_(True) for t in (h, w))
-    bl = bias.to(dtype).requires_grad_(True)
-    rows = F.cross_entropy(F.linear(hl, wl, bl), labels, reduction="none")
-    library_bwd = chip_smoke.time_ms(lambda: torch.autograd.grad(
-        rows, (hl, wl, bl), gg, retain_graph=True), graph=False)
-    out = dict(shape=[n, vocab, hid], name=name, dtype=str(dtype))
-    for kname, fn, got, want, k_ops, extra in (
-            ("xent_stats", lambda: xe.xent_stats_kernel(*inputs), stats,
-             pstats, ops, 16 * n),
-            ("xent_bwd_dh", lambda: xe.xent_bwd_dh_kernel(*args), [dh],
-             [pdh], 2 * ops, chip_smoke.nbytes(logz, gg, dh)),
-            ("xent_bwd_dwb", lambda: xe.xent_bwd_dwb_kernel(*args),
-             [dw, db], [pdw, pdb], 2 * ops,
-             chip_smoke.nbytes(logz, gg, dw, db))):
-        bound, by = chip_smoke.bound_ms(chip_smoke.nbytes(*inputs) + extra,
-                                        k_ops, dtype)
-        out[kname] = dict(
-            ms=chip_smoke.time_ms(fn), rel_err=rel(got, want),
-            tol=(chip_smoke.F32_TOL if kname == "xent_stats" else tol),
-            bound_ms=bound, bound_by=by)
-    out["xent_stats"]["library_ms"] = chip_smoke.time_ms(
-        lambda: F.cross_entropy(F.linear(h, w, bl.detach()), labels,
-                                reduction="none"))
-    out["xent_stats"]["plain_ms"] = chip_smoke.time_ms(
-        lambda: xe.xent_stats_plain(*inputs))
-    out["bwd_plain_ms"] = chip_smoke.time_ms(lambda: xe.xent_bwd_plain(
-        *args))
-    out["bwd_library_ms"] = library_bwd
-    out["bwd_kernels_ms"] = (out["xent_bwd_dh"]["ms"]
-                             + out["xent_bwd_dwb"]["ms"])
-    return out
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shapes", default="gpt,bert,bert_large")
-    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_xent_bench: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    dtype = torch.bfloat16 if a.dtype == "bf16" else torch.float32
     gen = torch.Generator().manual_seed(7)
     smi = chip_smoke.nvidia_smi()
     for name in a.shapes.split(","):
-        print(json.dumps(dict(bench(name, *SHAPES[name], dtype, gen),
-                              card=smi)), flush=True)
+        cases = chip_smoke.xent_cases(torch.device("cuda"), gen,
+                                      *SHAPES[name], torch.bfloat16,
+                                      timed=True)
+        print(json.dumps(dict(name=name, card=smi, **cases)), flush=True)
         torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0
