@@ -19,7 +19,9 @@ Phases, each printing one JSON line:
    product takes the dlogits in bf16); times the kernel, the plain version
    and, where one exists, one PyTorch library call computing the same
    function, beside the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate of the input type).
+   3.35 TB/s or operations over the peak rate of the input type). K4
+   and K5 (the tc route) also at BertConfig.base()'s and .large()'s
+   shapes.
 4. serve   — GPTConfig.small() at full width (random weights from a
    seed) behind ServingEngine(num_slots=8, page_size=64, max_len=1024,
    prefill_len=512, bf16 cache): 16 prompts uniform in [64, 512] plus one
@@ -56,11 +58,19 @@ Phases, each printing one JSON line:
    3 timed bf16 Adam steps: every kernel of the path launches its count
    per step (K5/K6 at H = 1024) and every loss is finite.
 
+K4 and K5 have two routes each: bf16 with widths that are multiples of 8
+takes the tensor cores (the TMA + wgmma mainloop of csrc/gemm.cuh), f32
+the SIMT kernel. Every K4 and K5 case records the route it took and must
+have taken that one; every K4 and K5 launch of train, bert_train and
+bert_large must be on the tensor cores, every K4 launch of serve on the
+SIMT kernel.
+
 Then the {"kernels": [...]} line (each kernel with the launches of its
-own path: serve for K1, K2, K4 and K7, train for K3, K5 and K6, bert for
-K8), the nvidia-smi line, and the contract line {"ok": true, "device":
-{...}}. Any failed phase raises, and the script exits non-zero without
-the contract line.
+own path: serve for K1, K2, K4's SIMT row and K7, train for K3, K4's tc
+row ("mlp.tc"), K5 and K6, bert for K8; "variant" names the route), the
+nvidia-smi line, and the contract line {"ok": true, "device": {...}}.
+Any failed phase raises, and the script exits non-zero without the
+contract line.
 """
 
 import glob
@@ -93,6 +103,8 @@ TRAIN_KERNELS = ("layer_norm", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "mlp", "xent_stats",
                  "xent_bwd_dh", "xent_bwd_dwb")
 BERT_KERNELS = TRAIN_KERNELS + ("add_layer_norm",)
+#: the kernels with a tensor-core route (bf16) beside their SIMT one
+TC_KERNELS = ("mlp", "xent_stats")
 
 
 def emit(obj):
@@ -149,6 +161,18 @@ def bound_ms(nbytes, ops, dtype):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def route_of(name, fn, *args):
+    """``(fn(*args), the route its launch of kernel ``name`` took)``."""
+    from paddle_tpu_torch.ops.cuda import core
+    before = dict(core.KERNELS[name].route_launches)
+    out = fn(*args)
+    after = core.KERNELS[name].route_launches
+    taken = [r for r in after if after[r] != before[r]]
+    if len(taken) != 1:
+        raise AssertionError(f"{name}: one launch expected, routes {taken}")
+    return out, taken[0]
 
 
 def max_err(a, b):
@@ -267,7 +291,8 @@ def xent_cases(dev, gen, n, vocab, hid, dtype, ls=0.0, oob=False,
         labels[1::9] = -2
     inputs = (h, w, bias, labels)
     shape = [n, vocab, hid]
-    stats = xe.xent_stats_kernel(*inputs)
+    stats, stats_route = route_of("xent_stats", xe.xent_stats_kernel,
+                                  *inputs)
     pstats = xe.xent_stats_plain(*inputs)
     logz = pstats[0] + torch.log(pstats[1])
     gg = randn(n, scale=1.0 / n)
@@ -278,8 +303,9 @@ def xent_cases(dev, gen, n, vocab, hid, dtype, ls=0.0, oob=False,
     base = dict(shape=shape, dtype=str(dtype), label_smoothing=ls,
                 out_of_range_labels=oob)
     what = f"{shape} {dtype} ls={ls}"
-    cases = {"xent_stats": dict(base, **held(f"xent_stats {what}", stats,
-                                             pstats, torch.float32)),
+    cases = {"xent_stats": dict(base, route=stats_route,
+                                **held(f"xent_stats {what}", stats, pstats,
+                                       torch.float32)),
              "xent_bwd_dh": dict(base, **held_xent_bwd(
                  f"xent_bwd_dh {what}", [dh], [pdh], labels, vocab,
                  dtype)),
@@ -419,14 +445,14 @@ def kernel_cases(dev):
         b1 = randn(inter, dtype=dtype, scale=0.02)
         w2 = randn(inter, 768, dtype=dtype, scale=0.036)
         b2 = randn(768, dtype=dtype, scale=0.02)
-        out = mlp.mlp_kernel(x, w1, b1, w2, b2)
+        out, route = route_of("mlp", mlp.mlp_kernel, x, w1, b1, w2, b2)
         ref = mlp.mlp_plain(x.float(), w1.float(), b1.float(), w2.float(),
                             b2.float())
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         err = max_err(out, ref)
         check(f"mlp {rows}x768x{inter} {dtype}", err, tol)
         case = dict(shape=[rows, 768, inter, 768], dtype=str(dtype),
-                    max_abs_err=err, tol=tol)
+                    route=route, max_abs_err=err, tol=tol)
         if dtype == torch.float32 and inter == 3072 and rows in (8, 512):
             w1t, w2t = w1.t(), w2.t()
             case["kernel_ms"] = time_ms(
@@ -537,8 +563,9 @@ def train_kernel_cases(dev):
         3072, dtype=bf16, scale=0.02)
     w2, b2 = randn(3072, 768, dtype=bf16, scale=0.036), randn(
         768, dtype=bf16, scale=0.02)
-    out = mlp.mlp_kernel(x, w1, b1, w2, b2)
+    out, route = route_of("mlp", mlp.mlp_kernel, x, w1, b1, w2, b2)
     case = dict(kernel="mlp", shape=[8192, 768, 3072, 768], dtype="bf16",
+                route=route,
                 **held("mlp train shape", [out], [mlp.mlp_plain(
                     x.float(), w1.float(), b1.float(), w2.float(),
                     b2.float())], bf16),
@@ -711,23 +738,32 @@ def bert_kernel_cases(dev):
         nbytes(x, gam, bet, *got), 8 * x.numel(), bf16)
     results["bert_shapes"].append(case)
 
-    w1, b1 = randn(hid, inter, dtype=bf16, scale=0.036), randn(
-        inter, dtype=bf16, scale=0.02)
-    w2, b2 = randn(inter, hid, dtype=bf16, scale=0.036), randn(
-        hid, dtype=bf16, scale=0.02)
-    out = mlp.mlp_kernel(x, w1, b1, w2, b2)
-    case = dict(kernel="mlp", shape=[rows, hid, inter, hid], dtype="bf16",
-                **held("mlp bert shape", [out], [mlp.mlp_plain(
-                    x.float(), w1.float(), b1.float(), w2.float(),
-                    b2.float())], bf16),
-                kernel_ms=time_ms(lambda: mlp.mlp_kernel(x, w1, b1, w2, b2)),
-                plain_ms=time_ms(lambda: mlp.mlp_plain(x, w1, b1, w2, b2)),
-                library_ms=time_ms(lambda: F.linear(F.gelu(F.linear(
-                    x, w1.t(), b1)), w2.t(), b2)))
-    case["bound_ms"], case["bound_by"] = bound_ms(
-        nbytes(x, w1, b1, w2, b2, out), 2.0 * rows * inter * 2 * hid, bf16)
-    results["bert_shapes"].append(case)
-    del x, out, w1, w2
+    # K4 (the tc route) at BertConfig.base()'s [32768, 768] x [768, 3072]
+    # and BertConfig.large()'s bert_large rows (8 x 512) x [1024, 4096]
+    del x
+    for r_, h_, i_, config in ((rows, hid, inter, "BertConfig.base()"),
+                               (8 * 512, 1024, 4096, "BertConfig.large()")):
+        x = randn(r_, h_, dtype=bf16)
+        w1, b1 = randn(h_, i_, dtype=bf16, scale=h_ ** -0.5), randn(
+            i_, dtype=bf16, scale=0.02)
+        w2, b2 = randn(i_, h_, dtype=bf16, scale=i_ ** -0.5), randn(
+            h_, dtype=bf16, scale=0.02)
+        out, route = route_of("mlp", mlp.mlp_kernel, x, w1, b1, w2, b2)
+        case = dict(kernel="mlp", config=config, shape=[r_, h_, i_, h_],
+                    dtype="bf16", route=route,
+                    **held(f"mlp {config}", [out], [mlp.mlp_plain(
+                        x.float(), w1.float(), b1.float(), w2.float(),
+                        b2.float())], bf16),
+                    kernel_ms=time_ms(lambda: mlp.mlp_kernel(
+                        x, w1, b1, w2, b2)),
+                    plain_ms=time_ms(lambda: mlp.mlp_plain(
+                        x, w1, b1, w2, b2)),
+                    library_ms=time_ms(lambda: F.linear(F.gelu(F.linear(
+                        x, w1.t(), b1)), w2.t(), b2)))
+        case["bound_ms"], case["bound_by"] = bound_ms(
+            nbytes(x, w1, b1, w2, b2, out), 2.0 * r_ * i_ * 2 * h_, bf16)
+        results["bert_shapes"].append(case)
+        del x, out, w1, w2
 
     # K2 and K3: [64, 12, 512, 512, 64] bf16 not causal (timed), then a
     # ragged batch padded by a key mask
@@ -922,7 +958,7 @@ def train(model, opt, loss_fn, args, warmup, steps):
     the peak-memory statistic zeroed just before the timed steps. Each
     step ends by reading its loss on the host, so its wall time covers
     its device work. Returns (losses of every step, timed step seconds,
-    launches)."""
+    launches, launches by route of the kernels that have two)."""
     from paddle_tpu_torch.ops.cuda import core
     losses, times = [], []
     for i in range(warmup + steps):
@@ -934,7 +970,7 @@ def train(model, opt, loss_fn, args, warmup, steps):
         losses.append(float(opt.minimize(model, loss_fn, *args)))
         if i >= warmup:
             times.append(time.perf_counter() - t0)
-    return losses, times, core.launch_counts()
+    return losses, times, core.launch_counts(), core.route_counts()
 
 
 def train_launches_per_step(layers):
@@ -954,6 +990,17 @@ def bert_launches_per_step(layers):
             "flash_attention": layers, "flash_attention_bwd_dq": layers,
             "flash_attention_bwd_dkv": layers, "mlp": layers,
             "xent_stats": 1, "xent_bwd_dh": 1, "xent_bwd_dwb": 1}
+
+
+def check_routes(what, routes, route, kernels=None):
+    """Every launch of ``kernels`` (default :data:`TC_KERNELS`) in a run
+    took ``route``, and there was at least one."""
+    wrong = {k: routes[k] for k in kernels or TC_KERNELS
+             if routes[k][route] == 0 or sum(routes[k].values())
+             != routes[k][route]}
+    if wrong:
+        raise AssertionError(f"{what}: launches not all on the {route} "
+                             f"route: {wrong}")
 
 
 def check_launches(what, launches, steps, want):
@@ -1003,12 +1050,13 @@ def train_phase(cfg, smi):
     opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (batch, seq))).cuda()
-    losses, times, launches = train(model, opt, loss_of, (ids,), warmup,
-                                    steps)
+    losses, times, launches, routes = train(model, opt, loss_of, (ids,),
+                                            warmup, steps)
     check_launches("train", launches, steps,
                    train_launches_per_step(cfg.num_layers))
-    return step_stats("train", "GPTConfig.small()", batch, seq, losses,
-                      times, launches, smi), launches
+    check_routes("train", routes, "tc")
+    return dict(step_stats("train", "GPTConfig.small()", batch, seq, losses,
+                           times, launches, smi), routes=routes), launches
 
 
 def step_stats(what, config, batch, seq, losses, times, launches, smi,
@@ -1080,13 +1128,14 @@ def bert_train_phase(smi):
         return m.loss(*a, mask_positions=pos)
 
     args = tuple(a.cuda() for a in (ids, labels, nsp, mlm_mask))
-    losses, times, launches = train(model, opt, loss_fn, args, warmup,
-                                    steps)
+    losses, times, launches, routes = train(model, opt, loss_fn, args,
+                                            warmup, steps)
     check_launches("bert_train", launches, steps,
                    bert_launches_per_step(cfg.num_layers))
+    check_routes("bert_train", routes, "tc")
     stats = step_stats("bert_train", "BertConfig.base()", batch, seq,
                        losses, times, launches, smi)
-    return dict(stats, masked_positions=n_mask), launches
+    return dict(stats, masked_positions=n_mask, routes=routes), launches
 
 
 def bert_large_phase(smi):
@@ -1115,14 +1164,15 @@ def bert_large_phase(smi):
         return m.loss(*a, mask_positions=pos)
 
     args = tuple(a.cuda() for a in (ids, labels, nsp, mlm_mask))
-    losses, times, launches = train(model, opt, loss_fn, args, warmup,
-                                    steps)
+    losses, times, launches, routes = train(model, opt, loss_fn, args,
+                                            warmup, steps)
     check_launches("bert_large", launches, steps,
                    bert_launches_per_step(cfg.num_layers))
+    check_routes("bert_large", routes, "tc")
     stats = step_stats("bert_large", "BertConfig.large()", batch, seq,
                        losses, times, launches, smi, must_fall=False)
     return dict(stats, masked_positions=n_mask, hidden_size=cfg.hidden_size,
-                layers=cfg.num_layers), launches
+                layers=cfg.num_layers, routes=routes), launches
 
 
 def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
@@ -1145,6 +1195,48 @@ def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{phase}: kernels not launched {missing}")
+
+
+def kernel_table(results, mlp_tc, paths):
+    """The rows of the {"kernels": [...]} line. K4 has a row per route
+    (simt at serving's shape, "mlp.tc" at GPT training's case
+    ``mlp_tc``), every other kernel one: flash and decode at their first
+    case, the others at their first timed case; a row's case must have
+    taken the row's route. ``paths`` holds each path's launch counts
+    (serve, train, bert, bert_large)."""
+    from paddle_tpu_torch.ops.cuda import core
+    rows = []
+    for name, kernel in core.KERNELS.items():
+        case = results[name][0] if name in ("flash_attention",
+                                            "decode_attention") \
+            else next(c for c in results[name] if "kernel_ms" in c)
+        path = ("serve" if name in SERVE_KERNELS else
+                "train" if name in TRAIN_KERNELS else "bert")
+        variant = ("tc" if name.startswith("xent") else "simt")
+        rows.append((name, kernel, case, path, variant))
+        if name == "mlp":
+            rows.append(("mlp.tc", kernel, mlp_tc, "train", "tc"))
+    table = []
+    for name, kernel, case, path, variant in rows:
+        if case.get("route", variant) != variant:
+            raise AssertionError(f"{name}: its case took the "
+                                 f"{case['route']} route, not {variant}")
+        base = name.split(".")[0]
+        table.append(dict(
+            name=name, route="cuda", variant=variant, source=kernel.source,
+            replaces=kernel.replaces, launches=paths[path][base],
+            launches_path=path,
+            launches_train=paths["train"][base],
+            launches_bert=paths["bert"][base],
+            launches_bert_large=paths["bert_large"][base],
+            max_abs_err=case["max_abs_err"],
+            ms=case["kernel_ms"], plain_ms=case["plain_ms"],
+            bound_ms=case["bound_ms"],
+            bound_by=case["bound_by"],
+            library_ms=case["library_ms"],
+            shape=case.get("shape", case.get("lengths")),
+            dtype=case.get("dtype")))
+    return table
 
 
 def main():
@@ -1182,8 +1274,18 @@ def main():
     results.update(bert_kernel_cases(dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    mlp_tc = next(c for c in results["train_shapes"]      # K4's tc row
+                  if c["kernel"] == "mlp")
     for name, cases in results.items():
         for case in cases:
+            # K4 and K5 take the tensor cores in bf16 (every case here has
+            # widths that are multiples of 8) and the SIMT kernel in f32
+            want = "tc" if "bfloat16" in str(case.get("dtype")) or \
+                case.get("dtype") == "bf16" else "simt"
+            if case.get("route", want) != want:
+                raise AssertionError(f"{case.get('kernel', name)} "
+                                     f"{case.get('shape')}: took the "
+                                     f"{case['route']} route, not {want}")
             emit(dict(phase="kernel", kernel=case.pop("kernel", name),
                       **case))
 
@@ -1198,14 +1300,17 @@ def main():
     eng, rids, stats = serve(model, 16, (64, 512), 700, 64, serve_kw,
                              seed=0)
     launches = core.launch_counts()
+    serve_routes = core.route_counts()
     torch.cuda.synchronize()
     missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the serve path: "
                              f"{missing}")
+    check_routes("serve", serve_routes, "simt", ("mlp",))
     emit(dict(phase="serve", config="GPTConfig.small()",
               **{k: v for k, v in serve_kw.items() if k != "cache_dtype"},
-              cache_dtype="bfloat16", launches=launches, **stats))
+              cache_dtype="bfloat16", launches=launches,
+              routes={"mlp": serve_routes["mlp"]}, **stats))
 
     cpu_model = GPTDecoder(cfg, device="cpu", seed=0)
     pick = [eng.requests[rids[-1]], eng.requests[rids[0]]]
@@ -1256,28 +1361,9 @@ def main():
     large_stats, large_launches = bert_large_phase(smi)
     emit(dict(phase="bert_large", **large_stats))
 
-    paths = {"serve": launches, "train": train_launches,
-             "bert": bert_launches}
-    table = []
-    for name, kernel in core.KERNELS.items():
-        main_case = results[name][0] if name in ("flash_attention",
-                                                 "decode_attention") \
-            else next(c for c in results[name] if "kernel_ms" in c)
-        path = ("serve" if name in SERVE_KERNELS else
-                "train" if name in TRAIN_KERNELS else "bert")
-        table.append(dict(
-            name=name, route="cuda", source=kernel.source,
-            replaces=kernel.replaces, launches=paths[path][name],
-            launches_path=path,
-            launches_train=train_launches[name],
-            launches_bert=bert_launches[name],
-            launches_bert_large=large_launches[name],
-            max_abs_err=main_case["max_abs_err"],
-            ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
-            bound_ms=main_case["bound_ms"],
-            bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"],
-            shape=main_case.get("shape", main_case.get("lengths"))))
+    table = kernel_table(results, mlp_tc, {
+        "serve": launches, "train": train_launches, "bert": bert_launches,
+        "bert_large": large_launches})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

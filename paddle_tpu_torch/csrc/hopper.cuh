@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the bf16
-// wgmma shapes the kernels use, and the host-side tensor-map encoding.
+// wgmma shapes K6 uses (csrc/gemm.cuh holds the wide ones of the shared
+// GEMM mainloop), the ring position, 2^x, and the host-side tensor-map
+// encoding.
 //
 // Layout convention: every tile in shared memory is made of TMA boxes of
 // [64 rows, 64 bf16 columns] = 8 KB, written with the 128-byte swizzle
@@ -114,10 +116,38 @@ __device__ __forceinline__ void reg_dealloc() {
 }
 
 // The shared-memory descriptor of a 128-byte-swizzled operand starting at
-// `p` (see the layout convention above).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+// `p` (see the layout convention above). `lbo` is the byte distance
+// between 64-column atoms of an MN-major operand wider than one box (the
+// box size when boxes lie side by side); K-major operands ignore it.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p,
+                                               uint32_t lbo = 1024) {
   const uint64_t addr = (smem_addr(p) & 0x3FFFF) >> 4;
-  return addr | (64ull << 16) | (64ull << 32) | (1ull << 62);
+  return addr | (static_cast<uint64_t>(lbo >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// A position in an mbarrier ring: stage index and the parity of its
+// fill, kept incrementally (no division on the per-box path).
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  int stages;
+  __device__ explicit Ring(int n) : stages(n) {}
+  __device__ void next() {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit (relative error ~2^-22).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -58,9 +58,23 @@
 //   H beyond 768 takes further column chunks (blockIdx.z), each
 //   recomputing the logits.
 //
-// K5 (xent_stats_kernel) uses the f32 block shape for both storage types
-// and reduces each row of S online to (m, s, picked, sum_logits), as the
-// TPU kernel's revisited output block does.
+// K5 reduces each row of the logits online to (m, s, picked, sum_logits),
+// as the TPU kernel's revisited output block does. Two routes, chosen in
+// the wrapper (ops/cuda/xent.py stats_route):
+//
+// bf16 with H % 8 == 0 (the training path): tensor cores, on the shared
+//   mainloop of csrc/gemm.cuh (K-major B: the [V, H] table). A work item
+//   is a 128-row tile of h and one split of the vocab; the mainloop
+//   computes S = h W^T one [128, 256] tile at a time (f32 accumulators,
+//   K = H) and the StatsEpi epilogue adds the f32 bias, masks the vocab
+//   tail and folds the tile into each thread's running (m, s, picked,
+//   sum) of its two rows, in registers; the item's end combines the four
+//   lanes that share a row by quad shuffles. While a tile is reduced, the
+//   producer already loads the next tile's boxes. No [64, H] tile is held
+//   in shared memory, so this route has no H limit. Bound: 2 N V H
+//   operations at 989 TFLOP/s; exp is ex2.approx (~2^-22 relative).
+// f32, or bf16 with H % 8 != 0: CUDA cores, xent_stats_kernel below, the
+//   f32 block shape for both storage types.
 //
 // The streamed axis may be split across blocks (the last grid axis) so
 // that the grid fills the card in whole waves: each split writes f32
@@ -78,6 +92,7 @@
 // f32 on the CUDA cores).
 
 #include "common.cuh"
+#include "gemm.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -491,6 +506,151 @@ cudaError_t stats_launch(const void* h, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
+// ---------------------------------------- K5 stats, bf16 tensor-core route
+
+// The epilogue of K5's tensor-core route (see the header): each consumer
+// thread keeps (m, s, picked, sum_logits) of its two rows over its
+// columns, m and s in natural units, the exps as 2^x.
+struct StatsEpi {
+  static constexpr int kScratch = 0;
+  const float* bias;
+  const int* labels;
+  float* out;              // [splits, 4, N]
+  int N, V;
+  int row, q2;
+  float* dst;
+  int lbl[2];
+  float m[2], se[2], pk[2], sl[2];
+
+  __device__ __forceinline__ void begin(int row0, int split, uint8_t*) {
+    const int tid = threadIdx.x & 127;
+    row = row0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+    q2 = 2 * (tid & 3);
+    dst = out + static_cast<size_t>(split) * 4 * N;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = row + 8 * a;
+      lbl[a] = r < N ? labels[r] : -1;
+      m[a] = PTT_NEG_INF;
+      se[a] = pk[a] = sl[a] = 0.f;
+    }
+  }
+
+  template <int kN>
+  __device__ __forceinline__ void prepare(int) {}
+
+  // kTail: the tile reaches past V; its columns from V on are left out
+  // (their W rows arrived as zeros, but the bias and the sums must not
+  // see them, and a label >= V must not hit them).
+  template <int kN, bool kTail>
+  __device__ __forceinline__ void fold(float (&acc)[kN / 2], int n0) {
+    float tmax[2] = {PTT_NEG_INF, PTT_NEG_INF};
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+      const int col = n0 + 8 * i + q2;
+      float b[2] = {0.f, 0.f};
+      if (bias != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!kTail || col + e < V) b[e] = bias[col + e];
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = acc[4 * i + 2 * a + e];
+          v += b[e];
+          if (!kTail || col + e < V) tmax[a] = fmaxf(tmax[a], v);
+        }
+    }
+    float mz[2];
+    int lc[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const float mn = fmaxf(m[a], tmax[a]);
+      se[a] *= hopper::ex2((m[a] - mn) * hopper::kLog2e);
+      m[a] = mn;
+      mz[a] = mn * hopper::kLog2e;
+      lc[a] = lbl[a] - n0 - q2;          // hits column 8 i + e of the tile
+    }
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i)
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (kTail && n0 + 8 * i + q2 + e >= V) continue;
+          const float v = acc[4 * i + 2 * a + e];
+          se[a] += hopper::ex2(fmaf(v, hopper::kLog2e, -mz[a]));
+          sl[a] += v;
+          if (lc[a] == 8 * i + e) pk[a] += v;
+        }
+  }
+
+  template <int kN>
+  __device__ __forceinline__ void tile(float (&acc)[kN / 2], int n0) {
+    if (n0 + kN <= V)
+      fold<kN, false>(acc, n0);
+    else
+      fold<kN, true>(acc, n0);
+  }
+
+  __device__ __forceinline__ void end() {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[a], o);
+        const float so = __shfl_xor_sync(0xffffffffu, se[a], o);
+        const float mn = fmaxf(m[a], mo);
+        se[a] = se[a] * hopper::ex2((m[a] - mn) * hopper::kLog2e) +
+                so * hopper::ex2((mo - mn) * hopper::kLog2e);
+        m[a] = mn;
+        pk[a] += __shfl_xor_sync(0xffffffffu, pk[a], o);
+        sl[a] += __shfl_xor_sync(0xffffffffu, sl[a], o);
+      }
+      const int r = row + 8 * a;
+      if (q2 == 0 && r < N) {
+        dst[r] = m[a];
+        dst[N + r] = se[a];
+        dst[2 * N + r] = pk[a];
+        dst[3 * N + r] = sl[a];
+      }
+    }
+    __syncwarp();           // converged again before the next wgmma
+  }
+};
+
+constexpr int kStatsWidth = 256;   // vocab columns per tile (ops/cuda/xent.py)
+
+cudaError_t stats_tc_launch(const void* h, const void* w, const void* bias,
+                            const void* labels, void* out, void* part, int N,
+                            int V, int H, int nsplit, int tiles_per_split,
+                            int grid, cudaStream_t st) {
+  if (H % 8 != 0 || (reinterpret_cast<uintptr_t>(h) & 15) ||
+      (reinterpret_cast<uintptr_t>(w) & 15))
+    return cudaErrorInvalidValue;
+  gemm::Sched s;
+  s.M = N;
+  s.N = V;
+  s.K = H;
+  s.splits = nsplit;
+  s.per = tiles_per_split;
+  s.items = (N + gemm::kTileRows - 1) / gemm::kTileRows * nsplit;
+  StatsEpi epi;
+  epi.bias = static_cast<const float*>(bias);
+  epi.labels = static_cast<const int*>(labels);
+  epi.out = static_cast<float*>(nsplit == 1 ? out : part);
+  epi.N = N;
+  epi.V = V;
+  cudaError_t err =
+      gemm::launch<kStatsWidth, true>(h, w, s, grid, epi, st);
+  if (err != cudaSuccess || nsplit == 1) return err;
+  xent_stats_combine_kernel<<<(N + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), N, nsplit);
+  return cudaGetLastError();
+}
+
 template <bool kRowsResident>
 cudaError_t bwd_launch(const void* h, const void* w, const void* bias,
                        const void* labels, const void* logz, const void* g,
@@ -552,30 +712,11 @@ size_t smem_bytes(int H, int stages) {
          kMaxPairs * 8;
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the special-function unit (relative error ~2^-22; the bf16
-// rounding of gch that follows is 2^-9).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A position in the ring: stage index and the parity of its fill, kept
-// incrementally (no division on the per-box path).
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  int stages;
-  __device__ explicit Ring(int n) : stages(n) {}
-  __device__ void next() {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
+// exp is hopper::ex2 (~2^-22 relative; the bf16 rounding of gch that
+// follows is 2^-9); the ring position is hopper::Ring.
+using hopper::ex2;
+using hopper::kLog2e;
+using hopper::Ring;
 
 // kRowsResident: dh (resident rows of h, streamed rows of W); otherwise
 // dw/db (resident rows of W, streamed rows of h). Each warpgroup owns
@@ -1008,6 +1149,19 @@ extern "C" int ptt_xent_stats(int dtype, const void* h, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// K5's bf16 tensor-core route: the same outputs; the vocab's 256-column
+// tiles are cut into nsplit splits of tiles_per_split, and the row-tile x
+// split items run on `grid` blocks (ops/cuda/xent.py stats_tc_plan).
+extern "C" int ptt_xent_stats_tc(const void* h, const void* w,
+                                 const void* bias, const void* labels,
+                                 void* out, void* part, int N, int V, int H,
+                                 int nsplit, int tiles_per_split, int grid,
+                                 void* stream) {
+  return static_cast<int>(stats_tc_launch(
+      h, w, bias, labels, out, part, N, V, H, nsplit, tiles_per_split, grid,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // dh [N, H] f32 for the per-row cotangent g [N] f32 and the saved logz

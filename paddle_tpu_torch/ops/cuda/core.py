@@ -139,43 +139,56 @@ def library():
 
 
 class Kernel:
-    """One C entry of the kernel library and its launch count.
+    """One kernel of the port: its C entries, one per route, and its
+    launch counts.
 
-    ``__call__`` forwards its arguments to the entry, raises if the entry
-    returns a CUDA error, and only then adds one to :attr:`launches`."""
+    ``routes`` maps a route's name to its ``(symbol, argtypes)``; a kernel
+    with one entry has the single route ``"simt"``. ``__call__(*args,
+    route=...)`` forwards the arguments to that route's entry, raises if
+    the entry returns a CUDA error, and only then adds one to
+    :attr:`launches` and to :attr:`route_launches` of the route."""
 
-    def __init__(self, name, symbol, argtypes, replaces, source):
+    def __init__(self, name, routes, replaces, source):
         self.name = name
-        self.symbol = symbol
-        self.argtypes = list(argtypes)
+        self.routes = {r: (sym, list(types))
+                       for r, (sym, types) in routes.items()}
         self.replaces = replaces      # file:line of the TPU kernel
         self.source = source          # the CUDA source in this repo
         self.launches = 0
-        self._fn = None
+        self.route_launches = dict.fromkeys(self.routes, 0)
+        self._fns = {}
 
-    def _entry(self):
-        if self._fn is None:
-            fn = getattr(library(), self.symbol)
-            fn.argtypes = self.argtypes
+    def _entry(self, route):
+        if route not in self._fns:
+            symbol, argtypes = self.routes[route]
+            fn = getattr(library(), symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[route] = fn
+        return self._fns[route]
 
-    def __call__(self, *args):
-        err = self._entry()(*args)
+    def __call__(self, *args, route="simt"):
+        err = self._entry(route)(*args)
         if err != 0:
             text = library().ptt_error_string(err).decode()
-            raise RuntimeError(f"{self.name} kernel launch failed: "
-                               f"CUDA error {err} ({text})")
+            raise RuntimeError(f"{self.name} kernel launch failed "
+                               f"({route} route): CUDA error {err} "
+                               f"({text})")
         self.launches += 1
+        self.route_launches[route] += 1
 
 
 #: every kernel of the port, by name (the counts chip_smoke.py reads)
 KERNELS = {}
 
 
-def register(name, symbol, argtypes, replaces, source):
-    kernel = Kernel(name, symbol, argtypes, replaces, source)
+def register(name, symbol, argtypes, replaces, source, tc=None):
+    """Register a kernel whose ``"simt"`` route is the C entry ``symbol``;
+    ``tc``, a ``(symbol, argtypes)`` pair, adds a tensor-core route."""
+    routes = {"simt": (symbol, argtypes)}
+    if tc is not None:
+        routes["tc"] = tc
+    kernel = Kernel(name, routes, replaces, source)
     KERNELS[name] = kernel
     return kernel
 
@@ -183,10 +196,24 @@ def register(name, symbol, argtypes, replaces, source):
 def reset_launches():
     for kernel in KERNELS.values():
         kernel.launches = 0
+        kernel.route_launches = dict.fromkeys(kernel.routes, 0)
 
 
 def launch_counts():
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def route_counts():
+    """``{name: {route: launches}}`` of the kernels with more than one
+    route."""
+    return {name: dict(k.route_launches) for name, k in KERNELS.items()
+            if len(k.routes) > 1}
+
+
+def wave_busy(blocks, sms):
+    """The share of the SM slots of all waves (one block per SM) that hold
+    a block: ``blocks / (ceil(blocks / sms) * sms)``."""
+    return blocks / (-(-blocks // sms) * sms)
 
 
 def on_card(*tensors):

@@ -12,6 +12,12 @@ Source: ``paddle_tpu_torch/csrc/xent.cu``. The ``[N, V]`` logits never
 reach device memory. Weights are in the tied ``[V, H]`` ("vh") layout;
 h and W share one storage type (f32 or bf16); the bias is f32.
 
+K5 takes one of two routes by :func:`stats_route`: bf16 with ``H % 8 ==
+0`` runs on the tensor cores (the shared TMA + wgmma mainloop of
+``csrc/gemm.cuh`` with an online-statistics epilogue, split as
+:func:`stats_tc_plan` says; no H limit), everything else on the CUDA
+cores (``H <= 1744``, shared memory). A launch that fails raises.
+
 K6 takes one of two routes, by storage type only: bf16 runs on the tensor
 cores (wgmma fed by TMA, :func:`tc_plan`), f32 on the CUDA cores
 (:func:`simt_plan`). A bf16 launch that fails raises; it never falls back
@@ -33,7 +39,8 @@ _SRC = "paddle_tpu_torch/csrc/xent.cu"
 KERNEL_STATS = core.register(
     "xent_stats", "ptt_xent_stats",
     [core.I32] + [core.VP] * 6 + [core.I32] * 5 + [core.VP],
-    replaces="paddle_tpu/ops/pallas/xent.py:49", source=_SRC)
+    replaces="paddle_tpu/ops/pallas/xent.py:49", source=_SRC,
+    tc=("ptt_xent_stats_tc", [core.VP] * 6 + [core.I32] * 6 + [core.VP]))
 KERNEL_DH = core.register(
     "xent_bwd_dh", "ptt_xent_bwd_dh",
     [core.I32] + [core.VP] * 8 + [core.I32] * 7
@@ -57,6 +64,10 @@ RES_ROWS, STREAM_ROWS, SIMT_COLS = 32, 64, 768
 TC_ROWS, TC_BOX, TC_MAX_SLOTS, TC_MAX_STAGES = 64, 64, 4, 8
 #: K6 (both routes): the most splits of the streamed axis
 MAX_SPLITS = 8
+#: K5's bf16 route (csrc/gemm.cuh): rows and vocab columns per tile, the
+#: most vocab splits, and the share of the waves' SM slots to keep busy
+STATS_TC_ROWS, STATS_TC_WIDTH, STATS_TC_MAX_SPLITS = 128, 256, 16
+STATS_TC_BUSY = 7 / 8
 _BOX_BYTES = TC_BOX * TC_BOX * 2          # a TMA box; a ring stage holds 2
 
 
@@ -211,18 +222,60 @@ def _split_plan(resident, streamed, blocks_wanted):
     return -(-tiles // per), per
 
 
+def stats_route(dtype, hid):
+    """K5's route: ``"tc"`` for bf16 with ``H % 8 == 0`` (whole 16-byte
+    TMA rows), else ``"simt"``: the rule of K4's ``mlp_route``."""
+    return "tc" if dtype == torch.bfloat16 and hid % 8 == 0 else "simt"
+
+
+def stats_tc_plan(n, v, sms):
+    """K5's bf16 plan ``(splits, tiles_per_split, grid)``: the vocab's
+    256-column tiles cut into the fewest splits whose ``128-row tiles x
+    splits`` work items keep at least :data:`STATS_TC_BUSY` of the waves'
+    SM slots busy (else the busiest within :data:`STATS_TC_MAX_SPLITS`),
+    on ``grid`` persistent blocks (at most one per SM)."""
+    row_tiles = -(-n // STATS_TC_ROWS)
+    tiles = -(-v // STATS_TC_WIDTH)
+    best = None
+    for want in range(1, min(STATS_TC_MAX_SPLITS, tiles) + 1):
+        per = -(-tiles // want)
+        splits = -(-tiles // per)
+        items = row_tiles * splits
+        busy = core.wave_busy(items, sms)
+        if busy >= STATS_TC_BUSY:
+            return splits, per, min(items, sms)
+        if best is None or busy > best[0]:
+            best = (busy, splits, per, items)
+    return best[1], best[2], min(best[3], sms)
+
+
 def _sms(t):
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
+def _stats_tc(h, w, b, lbl, out, n, v, hid):
+    # TMA reads 16-byte aligned rows: a misaligned operand is copied
+    h, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (h, w))
+    nsplit, per, grid = stats_tc_plan(n, v, _sms(h))
+    part = (torch.empty((nsplit, 4, n), dtype=torch.float32,
+                        device=h.device) if nsplit > 1 else None)
+    KERNEL_STATS(core.ptr(h), core.ptr(w), core.ptr(b), core.ptr(lbl),
+                 core.ptr(out), core.ptr(part), n, v, hid, nsplit, per, grid,
+                 core.stream(h), route="tc")
+    return tuple(out)
+
+
 def xent_stats_kernel(h, w, b, labels):
-    """Launch K5 on CUDA tensors; same outputs as the plain version."""
+    """Launch K5 on CUDA tensors, on the route :func:`stats_route` picks;
+    same outputs as the plain version."""
     code, n, v, hid = _check(h, w, b, labels, "xent_stats kernel")
-    _fits("xent_stats kernel", hid, stats_smem(hid))
     out = torch.empty((4, n), dtype=torch.float32, device=h.device)
     if n == 0 or v == 0:
         return tuple(out)
     lbl = labels.to(torch.int32).contiguous()
+    if stats_route(h.dtype, hid) == "tc":
+        return _stats_tc(h, w, b, lbl, out, n, v, hid)
+    _fits("xent_stats kernel", hid, stats_smem(hid))
     # two blocks fit on an SM: aim for two waves of them
     nsplit, per = _split_plan(n, v, 4 * _sms(h))
     part = (torch.empty((nsplit, 4, n), dtype=torch.float32,

@@ -149,17 +149,41 @@ def test_flash_kernel_causal_offset_tails_and_mask(cuda):
             assert float((lse - rlse).abs().max()) <= F32_TOL
 
 
-def test_mlp_kernel_row_and_intermediate_tails(cuda):
-    from paddle_tpu_torch.ops.cuda import mlp
+# K4's tc route (bf16): rows 1, 13, 130 (a partial 128-row tile) and 8197
+# (64 tiles and 5 rows), I in {3000, 3072, 4096} (3000: a partial tile of
+# every width), H = Hout in {768, 1024}
+_MLP_TC_SHAPES = [(rows, hid, inter) for rows in (1, 13, 130, 8197)
+                  for inter in (3000, 3072, 4096) for hid in (768, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_kernel_row_and_intermediate_tails(cuda, dtype):
+    """K4 against its plain version in f32. f32 takes the SIMT route
+    (abs, or relative beyond 1); bf16 takes the tensor cores (each launch
+    counted on the tc route), its output held at BF16_TOL on its own
+    scale: one bf16 rounding of the activation and of the output."""
+    from paddle_tpu_torch.ops.cuda import core, mlp
     g = torch.Generator().manual_seed(2)
-    for rows, hid, inter in ((1, 64, 40), (17, 96, 200), (33, 768, 3072)):
-        x = _randn(g, rows, hid)
-        w1, b1 = _randn(g, hid, inter, scale=0.1), _randn(g, inter)
-        w2, b2 = _randn(g, inter, hid, scale=0.1), _randn(g, hid)
+    shapes = (((1, 64, 40), (17, 96, 200), (33, 768, 3072))
+              if dtype == torch.float32 else _MLP_TC_SHAPES)
+    for rows, hid, inter in shapes:
+        x = _randn(g, rows, hid, dtype=dtype)
+        w1 = _randn(g, hid, inter, scale=hid ** -0.5, dtype=dtype)
+        b1 = _randn(g, inter, scale=0.1, dtype=dtype)
+        w2 = _randn(g, inter, hid, scale=inter ** -0.5, dtype=dtype)
+        b2 = _randn(g, hid, scale=0.1, dtype=dtype)
+        before = dict(core.KERNELS["mlp"].route_launches)
         got = mlp.mlp_kernel(x, w1, b1, w2, b2)
-        want = mlp.mlp_plain(x, w1, b1, w2, b2)
-        assert float((got - want).abs().max()) <= F32_TOL * max(
-            1.0, float(want.abs().max()))
+        want = mlp.mlp_plain(*(t.float() for t in (x, w1, b1, w2, b2)))
+        route = "simt" if dtype == torch.float32 else "tc"
+        assert (core.KERNELS["mlp"].route_launches[route]
+                == before[route] + 1), (rows, hid, inter)
+        assert got.dtype == dtype and got.shape == (rows, hid)
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= F32_TOL * max(
+                1.0, float(want.abs().max()))
+        else:
+            _held([got], [want], BF16_TOL)
 
 
 @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
@@ -288,6 +312,93 @@ def test_xent_kernels(cuda, n, v, hid, dtype, ls):
         xent.xent_bwd_kernel(h, w, bias, labels, logz, gg, sn, sp),
         xent.xent_bwd_plain(h, w, bias, labels, logz, gg, sn, sp), labels,
         v, dtype)
+
+
+@pytest.mark.parametrize("n,v,hid", [
+    (300, 30522, 768),       # a vocab tail: 30522 = 119 x 256 + 58
+    (300, 30522, 1024),
+    (4864, 30522, 768),      # BERT's MLM head
+    (4864, 30522, 1024),     # BERT-large's
+    (130, 1000, 96),         # H not a multiple of 64: the K tail
+])
+def test_xent_stats_tensor_core_route(cuda, n, v, hid):
+    """K5's tc route (bf16) against its plain version at F32_TOL on each
+    statistic's scale, with the vocab tail, the ignore label and labels
+    out of range on both sides."""
+    from paddle_tpu_torch.ops.cuda import core, xent
+    g = torch.Generator().manual_seed(10)
+    h = _randn(g, n, hid, dtype=torch.bfloat16)
+    w = _randn(g, v, hid, scale=0.05, dtype=torch.bfloat16)
+    bias = _randn(g, v, scale=0.1)
+    labels = torch.randint(0, v, (n,), generator=g).to(cuda)
+    labels[3::97] = -100
+    labels[::7] = v + 3
+    labels[1::9] = -2
+    labels[5] = v - 1                         # the last column hits
+    before = core.KERNELS["xent_stats"].route_launches["tc"]
+    got = xent.xent_stats_kernel(h, w, bias, labels)
+    assert core.KERNELS["xent_stats"].route_launches["tc"] == before + 1
+    _held(got, xent.xent_stats_plain(h, w, bias, labels), F32_TOL)
+
+
+def test_k4_k5_take_the_tensor_core_route_by_the_rule(cuda):
+    """bf16 K4 and K5 with widths that are multiples of 8 launch on the
+    tc route (its count rises, the simt count does not); H = 100 in bf16
+    and f32 take the simt route, each still right."""
+    from paddle_tpu_torch.ops.cuda import core, mlp, xent
+    g = torch.Generator().manual_seed(12)
+
+    def mlp_case(hid, dtype):
+        x = _randn(g, 40, hid, dtype=dtype)
+        ws = (_randn(g, hid, 256, scale=0.1, dtype=dtype),
+              _randn(g, 256, dtype=dtype),
+              _randn(g, 256, hid, scale=0.1, dtype=dtype),
+              _randn(g, hid, dtype=dtype))
+        return (x,) + ws
+
+    def stats_case(hid, dtype):
+        labels = torch.randint(0, 300, (40,), generator=g).to(cuda)
+        return (_randn(g, 40, hid, dtype=dtype),
+                _randn(g, 300, hid, scale=0.05, dtype=dtype),
+                _randn(g, 300, scale=0.1), labels)
+
+    for hid, dtype, route in ((128, torch.bfloat16, "tc"),
+                              (100, torch.bfloat16, "simt"),
+                              (128, torch.float32, "simt")):
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        for name, fn, plain, case in (
+                ("mlp", mlp.mlp_kernel, mlp.mlp_plain, mlp_case),
+                ("xent_stats", xent.xent_stats_kernel,
+                 xent.xent_stats_plain, stats_case)):
+            args = case(hid, dtype)
+            before = dict(core.KERNELS[name].route_launches)
+            got = fn(*args)
+            after = core.KERNELS[name].route_launches
+            other = "simt" if route == "tc" else "tc"
+            assert after[route] == before[route] + 1, (name, hid, dtype)
+            assert after[other] == before[other], (name, hid, dtype)
+            if name == "mlp":
+                _held([got], [plain(*(t.float() for t in args))], tol)
+            else:
+                _held(got, plain(*args), F32_TOL)
+    # an input that does not start on 16 bytes (TMA's alignment) is copied
+    # by the wrapper and still takes the tc route
+    for name, fn, plain, case in (
+            ("mlp", mlp.mlp_kernel, mlp.mlp_plain, mlp_case),
+            ("xent_stats", xent.xent_stats_kernel, xent.xent_stats_plain,
+             stats_case)):
+        args = list(case(128, torch.bfloat16))
+        buf = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)
+        args[0] = buf[1:].view_as(args[0]).copy_(args[0])
+        assert args[0].data_ptr() % 16
+        before = core.KERNELS[name].route_launches["tc"]
+        got = fn(*args)
+        assert core.KERNELS[name].route_launches["tc"] == before + 1
+        if name == "mlp":
+            _held([got], [plain(*(t.float() for t in args))], BF16_TOL)
+        else:
+            _held(got, plain(*args), F32_TOL)
 
 
 def test_xent_bf16_backward_takes_the_tensor_core_route(cuda):

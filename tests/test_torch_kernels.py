@@ -108,6 +108,146 @@ def test_mlp_split_plan_covers_every_chunk():
         assert (nsplit - 1) * per < chunks <= nsplit * per
 
 
+# ----------------------------------------- K4 / K5 tensor-core route plans
+
+#: (rows, cols) of the tc passes: GPT train (8192 rows), BERT (32768),
+#: BERT-large (4096 rows, H = 1024, I = 4096), and ragged rows and widths
+_MLP_PASSES = [(8192, 3072), (8192, 768), (32768, 3072), (32768, 768),
+               (4096, 4096), (4096, 1024), (1, 768), (13, 3000),
+               (13, 768), (8197, 3072), (8197, 1024), (8197, 3000)]
+
+
+def _persistent_items(items, grid):
+    """The work items each block walks: ``blockIdx.x``, ``+ gridDim.x``,
+    ... (``csrc/gemm.cuh``)."""
+    return [list(range(b, items, grid)) for b in range(grid)]
+
+
+@pytest.mark.parametrize("rows,cols", _MLP_PASSES)
+def test_mlp_tc_plan_covers_every_tile_once(rows, cols):
+    """One tc pass's plan: 128-row tiles of a width the kernel has, every
+    output tile in exactly one block's walk, at most one block per SM, and
+    the waves' SM slots kept busy as the rule promises: at least
+    ``TC_BUSY`` (two waves at least 3/4 full) unless no width reaches
+    it, and then the busiest width."""
+    from paddle_tpu_torch.ops.cuda import core, mlp
+    sms = 132
+    width, tiles, grid = mlp.gemm_plan(rows, cols, sms)
+    assert width in mlp.TC_WIDTHS
+    mt, nt = -(-rows // mlp.TC_ROWS), -(-cols // width)
+    assert tiles == mt * nt and 1 <= grid <= min(tiles, sms)
+    # item it -> (row tile it // nt, column tile it % nt), as item_of
+    walked = sorted((it // nt, it % nt)
+                    for items in _persistent_items(tiles, grid)
+                    for it in items)
+    assert walked == [(m, n) for m in range(mt) for n in range(nt)]
+    assert (nt - 1) * width < cols <= nt * width
+    busy = core.wave_busy(tiles, sms)
+    others = [core.wave_busy(mt * -(-cols // w), sms)
+              for w in mlp.TC_WIDTHS]
+    if busy < mlp.TC_BUSY:
+        assert all(b < mlp.TC_BUSY for b in others) and busy == max(others)
+    else:
+        wider = [w for w in mlp.TC_WIDTHS if w > width]
+        assert all(core.wave_busy(mt * -(-cols // w), sms) < mlp.TC_BUSY
+                   for w in wider)
+    if -(-tiles // sms) == 2 and busy >= mlp.TC_BUSY:
+        assert tiles / sms - 1 >= 0.75          # the last wave 3/4 full
+
+
+def test_mlp_tc_plan_widths_of_the_training_paths():
+    """The widths the plan picks at the training paths' shapes: GPT's
+    pass 2 (8192 x 768) would be 1.45 waves at 256 columns, so it takes
+    192 (1.94 waves); every other pass keeps 256."""
+    from paddle_tpu_torch.ops.cuda import mlp
+    assert mlp.gemm_plan(8192, 768, 132)[0] == 192
+    for rows, cols in ((8192, 3072), (32768, 3072), (32768, 768),
+                       (4096, 4096), (4096, 1024)):
+        assert mlp.gemm_plan(rows, cols, 132)[0] == 256
+
+
+@pytest.mark.parametrize("n,v", [(8176, 32000), (4864, 30522),
+                                 (1, 30522), (13, 300), (8197, 32000),
+                                 (130, 256), (4864, 65)])
+def test_xent_stats_tc_plan_covers_every_tile_once(n, v):
+    """K5's tc plan: the vocab's 256-column tiles cut into splits that
+    cover them exactly once, every (row tile, vocab tile) in exactly one
+    block's walk, at most one block per SM, and the busy rule kept with
+    the fewest splits."""
+    from paddle_tpu_torch.ops.cuda import core, xent
+    sms = 132
+    splits, per, grid = xent.stats_tc_plan(n, v, sms)
+    mt = -(-n // xent.STATS_TC_ROWS)
+    tiles = -(-v // xent.STATS_TC_WIDTH)
+    assert 1 <= splits <= xent.STATS_TC_MAX_SPLITS
+    assert (splits - 1) * per < tiles <= splits * per
+    items = mt * splits
+    assert 1 <= grid <= min(items, sms)
+    walked = sorted((it // splits, c)
+                    for its in _persistent_items(items, grid)
+                    for it in its
+                    for c in range((it % splits) * per,
+                                   min(tiles, (it % splits + 1) * per)))
+    assert walked == [(m, c) for m in range(mt) for c in range(tiles)]
+    busy = core.wave_busy(items, sms)
+    fewer = [core.wave_busy(mt * -(-tiles // -(-tiles // s)), sms)
+             for s in range(1, splits)]
+    assert all(b < xent.STATS_TC_BUSY for b in fewer)
+    if busy < xent.STATS_TC_BUSY:
+        assert all(b <= busy for b in fewer)
+
+
+@pytest.mark.parametrize("dtype,widths,route,k5_route", [
+    (torch.bfloat16, (768, 3072, 768), "tc", "tc"),
+    (torch.bfloat16, (1024, 4096, 1024), "tc", "tc"),
+    (torch.bfloat16, (96, 200, 96), "tc", "tc"),
+    (torch.bfloat16, (100, 3072, 100), "simt", "simt"),
+    (torch.bfloat16, (768, 3004, 768), "simt", "tc"),
+    (torch.bfloat16, (768, 3072, 100), "simt", "tc"),
+    (torch.float32, (768, 3072, 768), "simt", "simt"),
+])
+def test_k4_k5_route_rule(dtype, widths, route, k5_route):
+    """K4's and K5's route: bf16 with every width a multiple of 8 (whole
+    16-byte TMA rows; K4 has H, I and Hout, K5 only H) takes the tensor
+    cores; any other width in bf16, and f32 always, the SIMT kernel."""
+    from paddle_tpu_torch.ops.cuda import mlp, xent
+    assert mlp.mlp_route(dtype, *widths) == route
+    assert xent.stats_route(dtype, widths[0]) == k5_route
+
+
+def test_tc_gelu_fit_is_erf_to_f32_precision():
+    """The tc route's branch-free gelu (``csrc/mlp.cu gelu_fit``):
+    erfc(u / sqrt 2) = 2^(u Q(u)) with Q read from the source, evaluated
+    in f32 like the kernel, against the exact erf gelu in float64."""
+    import os
+    import re
+
+    from scipy.special import erfc
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "paddle_tpu_torch/csrc/mlp.cu")) as f:
+        src = f.read()
+    body = src[src.index("float gelu_fit(float x)"):]
+    body = body[:body.index("\n}")]
+    head = re.search(r"float q = ([-+0-9.e]+)f;", body).group(1)
+    tail = re.findall(r"q = fmaf\(q, u, ([-+0-9.e]+)f\);", body)
+    coef = [np.float32(c) for c in [head] + tail]
+    assert len(coef) == 11
+    x = np.linspace(-9.0, 9.0, 360001).astype(np.float32)
+    u = np.minimum(np.abs(x), np.float32(6.5))
+    q = coef[0]
+    for c in coef[1:]:
+        q = (q * u + c).astype(np.float32)
+    e = np.exp2((q * u).astype(np.float32)).astype(np.float64)
+    x64 = x.astype(np.float64)
+    ref_e = erfc(np.abs(x64) / np.sqrt(2.0))
+    assert np.abs(e - ref_e).max() <= 2.5e-7
+    got = 0.5 * x64 * np.where(x64 >= 0, 2.0 - e, e)
+    want = 0.5 * x64 * erfc(-x64 / np.sqrt(2.0))
+    assert np.abs(got - want).max() <= 2.5e-7 * 9.0
+    assert (np.abs(got - want) <= 2.5e-7 * np.maximum(1.0, np.abs(x64))
+            ).all()
+
+
 def _wave_fill(blocks, sms):
     """The share of the last wave's SMs that have a block (one per SM)."""
     return blocks / sms - (-(-blocks // sms) - 1)

@@ -13,8 +13,8 @@ warm-up steps, and profiles ``--steps`` steady steps
 with torch.profiler: host wall time per step, device time per step (the
 sum of the CUDA kernels, which run on one stream and do not overlap), the
 device's idle share, kernel launches per step (every CUDA kernel, and the
-port's own kernels by their launch counts), and device time per step by
-kernel name.
+port's own kernels by their launch counts and, for K4 and K5, by route),
+peak device memory, and device time per step by kernel name.
 
 Prints one JSON line and writes the Chrome trace under ``--out``
 (default ``chiprun_out/``) as ``<model>_train_step.json``. Needs a CUDA
@@ -102,6 +102,7 @@ def main():
         step()
     torch.cuda.synchronize()
     core.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     losses = []
@@ -128,7 +129,10 @@ def main():
         launches_per_step=launches / per,
         port_launches_per_step={k: n / per
                                 for k, n in core.launch_counts().items()},
-        top_kernels_ms_per_step={name[:80]: us / per / 1e3
+        port_routes_per_step={k: {r: n / per for r, n in v.items()}
+                              for k, v in core.route_counts().items()},
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        top_kernels_ms_per_step={name[:120]: us / per / 1e3
                                  for name, us in by_name.most_common(20)})),
         flush=True)
     return 0
