@@ -19,9 +19,12 @@ Phases, each printing one JSON line:
    product takes the dlogits in bf16); times the kernel, the plain version
    and, where one exists, one PyTorch library call computing the same
    function, beside the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate of the input type). K4
-   and K5 (the tc route) also at BertConfig.base()'s and .large()'s
-   shapes.
+   3.35 TB/s or operations over the peak rate of the input type, and for
+   K2 and K3 exponentials over the special-function rate). K2-K5 (their
+   tc routes) also at BertConfig.base()'s and .large()'s shapes. K2 and
+   K3 (flash_cases) hold each output on its own scale, and again on the
+   rows that see few partners (a causal diagonal, the last keys) and on
+   those that see none (exactly 0).
 4. serve   — GPTConfig.small() at full width (random weights from a
    seed) behind ServingEngine(num_slots=8, page_size=64, max_len=1024,
    prefill_len=512, bf16 cache): 16 prompts uniform in [64, 512] plus one
@@ -58,17 +61,21 @@ Phases, each printing one JSON line:
    3 timed bf16 Adam steps: every kernel of the path launches its count
    per step (K5/K6 at H = 1024) and every loss is finite.
 
-K4 and K5 have two routes each: bf16 with widths that are multiples of 8
-takes the tensor cores (the TMA + wgmma mainloop of csrc/gemm.cuh), f32
-the SIMT kernel. Every K4 and K5 case records the route it took and must
-have taken that one; every K4 and K5 launch of train, bert_train and
-bert_large must be on the tensor cores, every K4 launch of serve on the
-SIMT kernel.
+K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
+and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
+of csrc/gemm.cuh; K2 and K3 with a head dim of 64 or 128, on their own
+TMA + wgmma kernels), the SIMT kernel for f32 and other widths. Every
+such case records the route it took and must have taken the rule's;
+every K2-K5 launch of train, bert_train and bert_large must be on the
+tensor cores, every K2 and K4 launch of serve on the SIMT kernel.
 
 Then the {"kernels": [...]} line (each kernel with the launches of its
-own path: serve for K1, K2, K4's SIMT row and K7, train for K3, K4's tc
-row ("mlp.tc"), K5 and K6, bert for K8; "variant" names the route), the
-nvidia-smi line, and the contract line {"ok": true, "device": {...}}.
+own path: serve for K1, the SIMT rows of K2 and K4 and K7,
+train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
+("flash_attention.tc", "flash_attention_bwd_dq.tc",
+"flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8;
+"variant" names the route), the nvidia-smi line, and the contract line
+{"ok": true, "device": {...}}.
 Any failed phase raises, and the script exits non-zero without the
 contract line.
 """
@@ -87,10 +94,21 @@ PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {torch.float32: 67e12,        # f32 outside the tensor cores
             torch.bfloat16: 989e12,      # dense bf16 tensor cores
             torch.int8: 1979e12}         # dense int8 tensor cores
+#: exponentials per second of the special-function units (MUFU.EX2) of
+#: one H100 SXM, the FlashAttention-3 paper's figure (Shah et al. 2024,
+#: section 3.2: 3.9 TFLOPS of special functions against 989 of bf16
+#: products); only K2's and K3's bounds count exponentials
+PEAK_EXPS = 3.9e12
 F32_TOL = 1e-4     # f32 kernels: sums in another order than cuBLAS/torch
 BF16_TOL = 3e-2    # bf16 storage: one bf16 rounding of outputs ~ 2^-8 rel
 XENT_BF16_TOL = 2.0 ** -8   # bf16 K6: gch rounded to bf16 (2^-9 rel) for
                             # its second product; f32 outputs
+FLASH_BF16_TOL = 2.0 ** -6  # bf16 K2/K3: P (and dS) rounded to bf16
+                            # (2^-9 rel each) for the products that take
+                            # them, and one bf16 rounding of each output;
+                            # the tc route reads 2.0e-3 to 7.7e-3 of each
+                            # output's largest value (the largest: K3's
+                            # dv at BERT-large's shape)
 SERVE_LOGIT_TOL = 5e-2   # bf16 KV cache on the card vs f32 cache on CPU
 TRAIN_LOSS_TOL = 1e-4    # f32 train step, card vs CPU plain path
 TRAIN_GRAD_TOL = 1e-3    # relative L2 of each parameter's gradient: sums
@@ -103,8 +121,12 @@ TRAIN_KERNELS = ("layer_norm", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "mlp", "xent_stats",
                  "xent_bwd_dh", "xent_bwd_dwb")
 BERT_KERNELS = TRAIN_KERNELS + ("add_layer_norm",)
-#: the kernels with a tensor-core route (bf16) beside their SIMT one
-TC_KERNELS = ("mlp", "xent_stats")
+#: the kernels with a tensor-core route (bf16) beside their SIMT one:
+#: every launch of the training paths takes it
+TC_KERNELS = ("mlp", "xent_stats", "flash_attention",
+              "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+#: the serve path's kernels of those, every launch on the SIMT route (f32)
+SERVE_ROUTED = ("mlp", "flash_attention")
 
 
 def emit(obj):
@@ -152,11 +174,16 @@ def time_ms(fn, iters=20, graph=True):
     return sum(s.elapsed_time(e) for s, e in marks) / iters
 
 
-def bound_ms(nbytes, ops, dtype):
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+def bound_ms(nbytes, ops, dtype, exps=0):
+    """The least time the card could take: the largest of the bytes over
+    the memory rate, the operations over the input type's peak rate and
+    (K2, K3) the exponentials over the special-function rate; and which
+    of the three it is."""
+    times = {"bytes": nbytes / PEAK_BYTES * 1e3,
+             "operations": ops / PEAK_OPS[dtype] * 1e3,
+             "exp": exps / PEAK_EXPS * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
 
 
 def nbytes(*ts):
@@ -348,6 +375,206 @@ def attended_pairs(tq, tk, causal):
     return sum(min(tk, max(0, i + (tk - tq) + 1)) for i in range(tq))
 
 
+#: a row that sees at most this many partners (the keys of a query, the
+#: queries of a key) is also held on its own scale (:func:`held_flash`)
+FEW = 64
+
+
+def held_flash(name, outs, tol):
+    """Hold K2's or K3's outputs, each a ``(label, got, want, parts)``
+    with ``parts`` ``{part: bool [B, H, T] row selection}``: each output
+    on its own scale (as :func:`held`), and again on its rows that see
+    few partners and on its rows that see none, each on its own scale.
+    The rows of a causal diagonal and the keys only the last queries see
+    carry few terms, and a fault there (the diagonal moved, a key
+    dropped) is small against the whole output's largest value; rows
+    that see no partner must come out exactly 0, as the plain version
+    gives them. Every part is measured before any is judged. Returns the
+    case's fields: the largest absolute error and the worst error over
+    scale of the whole outputs, each part's reading, and tol."""
+    parts, failed = {}, []
+    whole_err, whole_rel = 0.0, 0.0
+    for label, got, want, sel in outs:
+        for part, x, y in [(label, got, want)] + [
+                (f"{label} {p}", got[m], want[m]) for p, m in sel.items()]:
+            if not y.numel():
+                continue
+            err, rel = scaled_err(x, y)
+            parts[part] = dict(max_abs_err=err, rel_err=rel)
+            if part == label:
+                whole_err, whole_rel = max(whole_err, err), max(whole_rel,
+                                                                rel)
+            if not (rel <= tol):
+                failed.append(part)
+    if failed:
+        raise AssertionError(f"{name}: {', '.join(failed)} over tolerance "
+                             f"{tol}; parts {json.dumps(parts)}")
+    return dict(max_abs_err=whole_err, rel_err=whole_rel, tol=tol,
+                parts=parts)
+
+
+def sdpa_backward(q, k, v, do, scale, is_causal, mask):
+    """The library yardstick of K3: one call of the backward that
+    ``scaled_dot_product_attention`` runs on the H100 in bf16 (cuDNN's
+    flash backward, ``aten._scaled_dot_product_cudnn_attention_backward``:
+    dq, dk and dv from q, k, v, dO and its forward's out and logsumexp),
+    as a function of no arguments, and True: time_ms captures it in a
+    CUDA graph (the autograd call around it cannot be captured under
+    causal, and timed uncaptured it reads the host's launch time at the
+    small shapes). In f32, and with a key mask, SDPA takes another
+    backend: there its autograd backward, and False (timed uncaptured)."""
+    import torch.nn.functional as F
+    if q.dtype == torch.bfloat16 and mask is None:
+        aten = torch.ops.aten
+        res = aten._scaled_dot_product_cudnn_attention(
+            q, k, v, None, True, 0.0, is_causal, False, scale=scale)
+        o, lse, cq, ck, mq, mk, seed, offset = res[:8]
+        return (lambda: aten._scaled_dot_product_cudnn_attention_backward(
+            do, q, k, v, o, lse, seed, offset, None, cq, ck, mq, mk, 0.0,
+            is_causal, scale=scale)), True
+    qg, kg, vg = (t_.detach().requires_grad_(True) for t_ in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qg, kg, vg, None if mask is None else mask[:, None, None, :],
+        is_causal=is_causal, scale=scale)
+    return (lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                        retain_graph=True)), False
+
+
+def flash_parts(b, h, tq, tk, causal, mask, dev):
+    """``(keys, query-row parts, key-row parts)`` of :func:`held_flash`:
+    ``keys`` [B, H, Tq] counts the keys each query row sees; the parts
+    select the rows that see 1 to FEW partners and those that see none."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    valid = fa._valid(tq, tk, causal, mask, dev).expand(b, 1, tq, tk)
+    keys = valid.sum(-1).expand(b, h, tq)        # keys each query sees
+    seen = valid.sum(-2).expand(b, h, tk)        # queries each key meets
+    return keys, {"few keys": (keys >= 1) & (keys <= FEW),
+                  "no keys": keys == 0}, {
+        "few queries": (seen >= 1) & (seen <= FEW), "no queries": seen == 0}
+
+
+def flash_cases(dev, gen, b, h, tq, tk, d, dtype, causal=False,
+                lengths=None, timed=False):
+    """K2 and K3 on one attention: q, k, v and dO ``[B, H, T, D]`` drawn
+    from ``gen``, scale D^-0.5, and with ``lengths`` a key-padding mask
+    (batch row i attends its first ``lengths[i]`` keys; 0 masks every
+    key, so its rows must come out exactly 0). K2's out and K3's dq, dk
+    and dv are each held against the plain versions (K3's from K2's own
+    out and lse) by :func:`held_flash` at F32_TOL in f32 and
+    FLASH_BF16_TOL in bf16, and K2's out also absolutely, within F32_TOL
+    in f32 and BF16_TOL in bf16; K2's lse on the rows that see a key at
+    F32_TOL of its scale and within F32_TOL absolutely, and exactly on the
+    rows that see none. Each case records the route its launch took,
+    which must be :func:`flash_route`'s. Returns the three cases by
+    kernel name. ``timed`` adds each kernel's time, its plain version's,
+    one library call's (SDPA forward for K2, its autograd backward, all
+    three gradients, for K3) and the bound, with the pairs a causal
+    attention or the mask skips left out of the operations and
+    exponentials."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    q, do = randn(b, h, tq, d), randn(b, h, tq, d)
+    k, v = randn(b, h, tk, d), randn(b, h, tk, d)
+    mask = None
+    if lengths is not None:
+        mask = (torch.arange(tk, device=dev)[None, :]
+                < torch.tensor(lengths, device=dev)[:, None])
+    scale = d ** -0.5
+    (out, lse), fwd_route = route_of("flash_attention",
+                                     fa.flash_attention_kernel, q, k, v,
+                                     scale, causal, mask)
+    pout, plse = fa.chunked_attention(q, k, v, scale, causal, mask,
+                                      return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, scale, causal, mask)
+    dq, dq_route = route_of("flash_attention_bwd_dq",
+                            fa.flash_attention_bwd_dq_kernel, *bwd)
+    (dk, dv), dkv_route = route_of("flash_attention_bwd_dkv",
+                                   fa.flash_attention_bwd_dkv_kernel, *bwd)
+    pdq, pdk, pdv = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                 scale, causal, mask)
+    want_route = fa.flash_route(dtype, d)
+    shape = [b, h, tq, tk, d]
+    what = f"{shape} {dtype} causal={causal} mask={lengths}"
+    for kernel, route in (("flash_attention", fwd_route),
+                          ("flash_attention_bwd_dq", dq_route),
+                          ("flash_attention_bwd_dkv", dkv_route)):
+        if route != want_route:
+            raise AssertionError(f"{kernel} {what}: took the {route} "
+                                 f"route, not {want_route}")
+    keys, q_parts, k_parts = flash_parts(b, h, tq, tk, causal, mask, dev)
+    tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    base = dict(shape=shape, dtype=str(dtype), causal=causal,
+                kv_mask=lengths)
+    cases, failed = {}, []
+    for kernel, route, outs in (
+            ("flash_attention", fwd_route, [("out", out, pout, q_parts)]),
+            ("flash_attention_bwd_dq", dq_route, [("dq", dq, pdq, q_parts)]),
+            ("flash_attention_bwd_dkv", dkv_route,
+             [("dk", dk, pdk, k_parts), ("dv", dv, pdv, k_parts)])):
+        try:                      # measure all three before judging any
+            cases[kernel] = dict(base, route=route, **held_flash(
+                f"{kernel} {what}", outs, tol))
+        except AssertionError as e:
+            failed.append(str(e))
+    seeing = keys > 0
+    try:
+        check(f"flash_attention {what}: out",
+              max_err(out, pout), F32_TOL if dtype == torch.float32
+              else BF16_TOL)
+    except AssertionError as e:
+        failed.append(str(e))
+    try:
+        lse_held = held(f"flash lse {what}", [lse[seeing]], [plse[seeing]],
+                        torch.float32)
+        check(f"flash lse {what}", lse_held["max_abs_err"], F32_TOL)
+        lse_err = lse_held["rel_err"]
+        if not torch.equal(lse[~seeing], plse[~seeing]):
+            raise AssertionError(f"flash lse {what}: rows that see no key "
+                                 "differ from the plain version's")
+    except AssertionError as e:
+        failed.append(str(e))
+    if failed:
+        raise AssertionError("\n".join(failed))
+    cases["flash_attention"]["lse_err"] = lse_err
+    if not timed:
+        return cases
+    pairs = int(keys.sum())
+    sdpa_mask = None if mask is None else mask[:, None, None, :]
+    is_causal = causal and tq == tk and mask is None
+    fwd = cases["flash_attention"]
+    fwd.update(
+        kernel_ms=time_ms(lambda: fa.flash_attention_kernel(
+            q, k, v, scale, causal, mask)),
+        plain_ms=time_ms(lambda: fa.chunked_attention(
+            q, k, v, scale, causal, mask)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, sdpa_mask, is_causal=is_causal, scale=scale)))
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        nbytes(q, k, v, out, lse), 4.0 * pairs * d, dtype, pairs)
+    plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, scale, causal, mask))
+    backward, captured = sdpa_backward(q, k, v, do, scale, is_causal, mask)
+    library = time_ms(backward, graph=captured)
+    for name, fn, products, outs in (
+            ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq_kernel, 3,
+             (dq,)),
+            ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv_kernel,
+             4, (dk, dv))):
+        case = cases[name]
+        case.update(kernel_ms=time_ms(lambda: fn(*bwd)), plain_ms=plain,
+                    library_ms=library)
+        case["bound_ms"], case["bound_by"] = bound_ms(
+            nbytes(q, k, v, do, lse, delta, *outs),
+            2.0 * products * pairs * d, dtype, pairs)
+    return cases
+
+
 # --------------------------------------------------------------- kernels
 
 def kernel_cases(dev):
@@ -408,7 +635,9 @@ def kernel_cases(dev):
             mask[0, tk // 2:] = False
             mask[1, :] = False               # fully masked rows -> 0
         scale = 1.0 / 8.0
-        out, lse = fa.flash_attention_kernel(q, k, v, scale, causal, mask)
+        (out, lse), route = route_of("flash_attention",
+                                     fa.flash_attention_kernel, q, k, v,
+                                     scale, causal, mask)
         pout, plse = fa.chunked_attention(q, k, v, scale, causal, mask,
                                           return_lse=True)
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
@@ -418,10 +647,10 @@ def kernel_cases(dev):
         lse_err = max_err(lse, plse) if not masked else 0.0
         check(f"flash {b}x{h}x{tq}x{tk} {dtype}", max(err, lse_err), tol)
         case = dict(shape=[b, h, tq, tk, 64], dtype=str(dtype),
-                    causal=causal, masked=masked, max_abs_err=err,
-                    lse_err=lse_err, tol=tol)
+                    causal=causal, masked=masked, route=route,
+                    max_abs_err=err, lse_err=lse_err, tol=tol)
         if len(cases) == 0:
-            pairs = sum(min(tk, i + (tk - tq) + 1) for i in range(tq))
+            pairs = b * h * attended_pairs(tq, tk, causal)
             case["kernel_ms"] = time_ms(lambda: fa.flash_attention_kernel(
                 q, k, v, scale, causal))
             case["plain_ms"] = time_ms(lambda: fa.chunked_attention(
@@ -430,7 +659,7 @@ def kernel_cases(dev):
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, is_causal=True, scale=scale))
             case["bound_ms"], case["bound_by"] = bound_ms(
-                nbytes(q, k, v, out, lse), 4.0 * b * h * pairs * 64, dtype)
+                nbytes(q, k, v, out, lse), 4.0 * pairs * 64, dtype, pairs)
         cases.append(case)
     results["flash_attention"] = cases
 
@@ -530,17 +759,15 @@ def train_kernel_cases(dev):
     shapes; plus K1, K2 and K4 at the train step's shapes."""
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.ops.cuda import (flash_attention as fa,
-                                           layer_norm as ln, mlp)
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln, mlp
     g = torch.Generator(device="cpu").manual_seed(1)
     bf16 = torch.bfloat16
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-    results = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": [],
-               "xent_stats": [], "xent_bwd_dh": [], "xent_bwd_dwb": [],
-               "train_shapes": []}
+    results = {"flash_train": [], "xent_stats": [], "xent_bwd_dh": [],
+               "xent_bwd_dwb": [], "train_shapes": []}
 
     # K1, K2, K4 at the train step's shapes (bf16 rows of 16 x 512)
     x = randn(8192, 768, dtype=bf16)
@@ -577,82 +804,27 @@ def train_kernel_cases(dev):
         nbytes(x, w1, b1, w2, b2, out), 2.0 * 8192 * 3072 * 1536, bf16)
     results["train_shapes"].append(case)
 
-    # K2 and K3: [16, 12, 512, 512, 64] causal bf16 first
-    for b, h, tq, tk, d, dtype, causal, masked in (
-            (16, 12, 512, 512, 64, bf16, True, False),
-            (16, 12, 512, 512, 64, torch.float32, True, False),
-            (2, 3, 200, 200, 64, torch.float32, True, False),
-            (1, 4, 100, 300, 32, torch.float32, True, False),
-            (2, 2, 130, 130, 128, torch.float32, False, True),
-            (1, 2, 70, 70, 16, bf16, True, True)):
-        q, do = randn(b, h, tq, d, dtype=dtype), randn(b, h, tq, d,
-                                                       dtype=dtype)
-        k, v = randn(b, h, tk, d, dtype=dtype), randn(b, h, tk, d,
-                                                      dtype=dtype)
-        mask = None
-        if masked:
-            mask = torch.ones(b, tk, dtype=torch.bool, device=dev)
-            mask[0, tk // 3:] = False
-            mask[-1, :] = False              # fully masked rows -> 0
-        scale = d ** -0.5
-        out, lse = fa.flash_attention_kernel(q, k, v, scale, causal, mask)
-        got = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do, scale,
-                                            causal, mask)
-        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale,
-                                            causal, mask)
-        shape = [b, h, tq, tk, d]
-        name = f"flash backward {shape} {dtype}"
-        if masked and float(got[0][-1].abs().max()) != 0.0:
-            raise AssertionError(f"{name}: fully masked rows are not 0")
-        base = dict(shape=shape, dtype=str(dtype), causal=causal,
-                    masked=masked)
-        dq_case = dict(base, **held(name + " dq", got[:1], want[:1], dtype))
-        dkv_case = dict(base, **held(name + " dk/dv", got[1:], want[1:],
-                                     dtype))
-        if not results["flash_attention_bwd_dq"]:
-            # the train step's case: kernel, plain (dq, dk and dv at
-            # once) and the library backward of the same attention
-            pairs = b * h * attended_pairs(tq, tk, causal)
-            delta = (do.float() * out.float()).sum(-1)
-            bwd = (q, k, v, do, lse, delta, scale, causal)
-            dq_case["kernel_ms"] = time_ms(
-                lambda: fa.flash_attention_bwd_dq_kernel(*bwd))
-            dkv_case["kernel_ms"] = time_ms(
-                lambda: fa.flash_attention_bwd_dkv_kernel(*bwd))
-            plain = time_ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, out, lse, do, scale, causal))
-            qg, kg, vg = (t_.detach().requires_grad_(True)
-                          for t_ in (q, k, v))
-            sdpa = F.scaled_dot_product_attention(qg, kg, vg,
-                                                  is_causal=True,
-                                                  scale=scale)
-            library = time_ms(lambda: torch.autograd.grad(
-                sdpa, (qg, kg, vg), do, retain_graph=True), graph=False)
-            for case, products, outs in ((dq_case, 3, got[:1]),
-                                         (dkv_case, 4, got[1:])):
-                case["plain_ms"], case["library_ms"] = plain, library
-                case["bound_ms"], case["bound_by"] = bound_ms(
-                    nbytes(q, k, v, do, lse, delta, *outs),
-                    2.0 * products * pairs * d, dtype)
-        results["flash_attention_bwd_dq"].append(dq_case)
-        results["flash_attention_bwd_dkv"].append(dkv_case)
-        if (b, dtype) == (16, bf16):
-            case = dict(kernel="flash_attention", shape=shape, dtype="bf16",
-                        causal=True,
-                        max_abs_err=max_err(out, fa.chunked_attention(
-                            q, k, v, scale, causal)),
-                        kernel_ms=time_ms(lambda: fa.flash_attention_kernel(
-                            q, k, v, scale, causal)),
-                        plain_ms=time_ms(lambda: fa.chunked_attention(
-                            q, k, v, scale, causal)),
-                        library_ms=time_ms(
-                            lambda: F.scaled_dot_product_attention(
-                                q, k, v, is_causal=True, scale=scale)))
-            check("flash train shape", case["max_abs_err"], BF16_TOL)
-            case["bound_ms"], case["bound_by"] = bound_ms(
-                nbytes(q, k, v, out, lse),
-                4.0 * b * h * attended_pairs(tq, tk, causal) * d, bf16)
-            results["train_shapes"].append(case)
+    # K2 and K3 (flash_cases): GPT-train's [16, 12, 512, 512, 64] causal
+    # in bf16 (the tc route) and f32 (the simt route), both timed; then
+    # the tc route at Tq != Tk, ragged T with key masks and fully masked
+    # rows, T not a multiple of 64, at D = 64 and 128; then the simt
+    # route's ragged and narrow head dims
+    for spec, causal, lengths, timed in (
+            ((16, 12, 512, 512, 64, bf16), True, None, True),
+            ((16, 12, 512, 512, 64, torch.float32), True, None, True),
+            ((1, 4, 100, 300, 64, bf16), True, None, False),
+            ((3, 4, 200, 200, 64, bf16), True, (200, 137, 0), False),
+            ((3, 4, 200, 200, 128, bf16), False, (190, 61, 0), False),
+            ((2, 3, 130, 130, 128, bf16), True, None, False),
+            ((2, 3, 70, 70, 64, bf16), False, None, False),
+            ((1, 4, 300, 100, 128, bf16), True, (77,), False),
+            ((2, 3, 200, 200, 64, torch.float32), True, None, False),
+            ((1, 4, 100, 300, 32, torch.float32), True, None, False),
+            ((2, 2, 130, 130, 128, torch.float32), False, (43, 0), False),
+            ((1, 2, 70, 70, 16, bf16), True, (0,), False)):
+        for name, case in flash_cases(dev, g, *spec, causal=causal,
+                                      lengths=lengths, timed=timed).items():
+            results["flash_train"].append(dict(kernel=name, **case))
 
     # K5 and K6: [16 x 511, 768] rows against the tied [32000, 768] table
     # (timed), then f32 and ragged shapes
@@ -679,8 +851,7 @@ def bert_kernel_cases(dev):
     timed beside its plain version, its bound and one library call."""
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.ops.cuda import (flash_attention as fa,
-                                           layer_norm as ln, mlp)
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln, mlp
     g = torch.Generator(device="cpu").manual_seed(2)
     bf16 = torch.bfloat16
     rows, hid, inter, vocab, n_mask = 64 * 512, 768, 3072, 30522, 64 * 76
@@ -765,65 +936,19 @@ def bert_kernel_cases(dev):
         results["bert_shapes"].append(case)
         del x, out, w1, w2
 
-    # K2 and K3: [64, 12, 512, 512, 64] bf16 not causal (timed), then a
-    # ragged batch padded by a key mask
-    for b, h, t, dtype, lengths in ((64, 12, 512, bf16, None),
-                                    (3, 12, 200, bf16, (200, 137, 61)),
-                                    (2, 4, 90, torch.float32, (90, 33))):
-        q, k, v, do = (randn(b, h, t, 64, dtype=dtype) for _ in range(4))
-        mask = None
-        if lengths is not None:
-            mask = (torch.arange(t, device=dev)[None, :]
-                    < torch.tensor(lengths, device=dev)[:, None])
-        scale = 0.125
-        out, lse = fa.flash_attention_kernel(q, k, v, scale, False, mask)
-        pout, plse = fa.chunked_attention(q, k, v, scale, False, mask,
-                                          return_lse=True)
-        shape = [b, h, t, t, 64]
-        name = f"flash {shape} {dtype} mask={lengths}"
-        fwd = dict(kernel="flash_attention", shape=shape, dtype=str(dtype),
-                   causal=False, kv_mask=lengths,
-                   **held(name, [out], [pout], dtype))
-        held(name + " lse", [lse], [plse], torch.float32)
-        got = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do, scale,
-                                            False, mask)
-        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale,
-                                            False, mask)
-        dq = dict(fwd, kernel="flash_attention_bwd_dq",
-                  **held(name + " dq", got[:1], want[:1], dtype))
-        dkv = dict(fwd, kernel="flash_attention_bwd_dkv",
-                   **held(name + " dk/dv", got[1:], want[1:], dtype))
-        if lengths is None:
-            ops = 2.0 * b * h * t * t * 64
-            fwd.update(
-                kernel_ms=time_ms(lambda: fa.flash_attention_kernel(
-                    q, k, v, scale, False)),
-                plain_ms=time_ms(lambda: fa.chunked_attention(
-                    q, k, v, scale, False)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=scale)))
-            fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-                nbytes(q, k, v, out, lse), 2 * ops, dtype)
-            delta = (do.float() * out.float()).sum(-1)
-            bwd = (q, k, v, do, lse, delta, scale, False)
-            plain = time_ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, out, lse, do, scale, False))
-            qg, kg, vg = (t_.detach().requires_grad_(True)
-                          for t_ in (q, k, v))
-            sdpa = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-            library = time_ms(lambda: torch.autograd.grad(
-                sdpa, (qg, kg, vg), do, retain_graph=True), graph=False)
-            for case, fn, products, outs in (
-                    (dq, fa.flash_attention_bwd_dq_kernel, 3, got[:1]),
-                    (dkv, fa.flash_attention_bwd_dkv_kernel, 4, got[1:])):
-                case.update(kernel_ms=time_ms(lambda: fn(*bwd)),
-                            plain_ms=plain, library_ms=library)
-                case["bound_ms"], case["bound_by"] = bound_ms(
-                    nbytes(q, k, v, do, lse, delta, *outs),
-                    products * ops, dtype)
-            del sdpa, qg, kg, vg
-        results["bert_shapes"] += [fwd, dq, dkv]
-        del q, k, v, do, out, got, want, pout
+    # K2 and K3 (flash_cases): BertConfig.base()'s [64, 12, 512, 512, 64]
+    # and BertConfig.large()'s bert_large [8, 16, 512, 512, 64], bf16 not
+    # causal (timed), then ragged batches padded by a key mask
+    for spec, lengths, timed, config in (
+            ((64, 12, 512, 512, 64, bf16), None, True, "BertConfig.base()"),
+            ((8, 16, 512, 512, 64, bf16), None, True, "BertConfig.large()"),
+            ((3, 12, 200, 200, 64, bf16), (200, 137, 61), False, None),
+            ((2, 4, 90, 90, 64, torch.float32), (90, 33), False, None)):
+        for name, case in flash_cases(dev, g, *spec, lengths=lengths,
+                                      timed=timed).items():
+            results["bert_shapes"].append(dict(kernel=name, config=config,
+                                               **case))
+        torch.cuda.empty_cache()
 
     # K5 and K6: 64 x 76 gathered rows against the tied [30522, H] table
     # and the f32 MLM bias, at BertConfig.base()'s H = 768 and
@@ -1180,7 +1305,7 @@ def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
     """One f32 step on the card against the CPU plain path (see
     ``train_crosscheck``); emits the phase line, then raises if the loss
     or a gradient is outside its tolerance, or if one of ``kernels`` did
-    not launch on the card."""
+    not launch on the card. Returns the card run's launches."""
     loss_card, loss_cpu, errs, launches = train_crosscheck(make_model,
                                                            loss_fn, args)
     worst = max(errs, key=errs.get)
@@ -1195,47 +1320,70 @@ def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{phase}: kernels not launched {missing}")
+    return launches
 
 
-def kernel_table(results, mlp_tc, paths):
-    """The rows of the {"kernels": [...]} line. K4 has a row per route
-    (simt at serving's shape, "mlp.tc" at GPT training's case
-    ``mlp_tc``), every other kernel one: flash and decode at their first
-    case, the others at their first timed case; a row's case must have
-    taken the row's route. ``paths`` holds each path's launch counts
-    (serve, train, bert, bert_large)."""
+def expected_route(kernel, case):
+    """The route a kernel case must take: K2 and K3 by
+    :func:`flash_route` (bf16 with D = 64 or 128 on the tensor cores);
+    K4 and K5 the tensor cores in bf16 (every case here has widths that
+    are multiples of 8) and the SIMT kernel in f32."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    bf16 = case.get("dtype") in ("bf16", str(torch.bfloat16))
+    if kernel.startswith("flash"):
+        return fa.flash_route(torch.bfloat16 if bf16 else torch.float32,
+                              case["shape"][-1])
+    return "tc" if bf16 else "simt"
+
+
+#: the kernels with a row per route in the kernels line
+ROUTED_ROWS = ("flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv", "mlp")
+
+
+def kernel_table(by_kernel, paths):
+    """The rows of the {"kernels": [...]} line, each at its kernel's first
+    timed case on the row's route. K2, K3 and K4 have a row per route:
+    the SIMT one (serve's for K2 and K4, train_crosscheck's f32 step for
+    K3) under the kernel's name, the tc one (GPT training's) as
+    "<name>.tc"; K5 and K6 one row, their bf16 tensor-core kernels; the
+    others one SIMT row. ``paths`` holds each path's launch counts
+    (serve, train, train_crosscheck, bert, bert_large)."""
     from paddle_tpu_torch.ops.cuda import core
-    rows = []
-    for name, kernel in core.KERNELS.items():
-        case = results[name][0] if name in ("flash_attention",
-                                            "decode_attention") \
-            else next(c for c in results[name] if "kernel_ms" in c)
-        path = ("serve" if name in SERVE_KERNELS else
-                "train" if name in TRAIN_KERNELS else "bert")
-        variant = ("tc" if name.startswith("xent") else "simt")
-        rows.append((name, kernel, case, path, variant))
-        if name == "mlp":
-            rows.append(("mlp.tc", kernel, mlp_tc, "train", "tc"))
     table = []
-    for name, kernel, case, path, variant in rows:
-        if case.get("route", variant) != variant:
-            raise AssertionError(f"{name}: its case took the "
-                                 f"{case['route']} route, not {variant}")
-        base = name.split(".")[0]
-        table.append(dict(
-            name=name, route="cuda", variant=variant, source=kernel.source,
-            replaces=kernel.replaces, launches=paths[path][base],
-            launches_path=path,
-            launches_train=paths["train"][base],
-            launches_bert=paths["bert"][base],
-            launches_bert_large=paths["bert_large"][base],
-            max_abs_err=case["max_abs_err"],
-            ms=case["kernel_ms"], plain_ms=case["plain_ms"],
-            bound_ms=case["bound_ms"],
-            bound_by=case["bound_by"],
-            library_ms=case["library_ms"],
-            shape=case.get("shape", case.get("lengths")),
-            dtype=case.get("dtype")))
+    for name, kernel in core.KERNELS.items():
+        if name in ROUTED_ROWS:
+            variants = ("simt", "tc")
+        else:
+            variants = ("tc",) if name.startswith("xent") else ("simt",)
+        for variant in variants:
+            case = next(c for c in by_kernel[name] if "kernel_ms" in c
+                        and c.get("route", variant) == variant)
+            if variant == "tc" or name not in SERVE_KERNELS + BERT_KERNELS:
+                path = "train"
+            elif name in SERVE_KERNELS:
+                path = "serve"
+            elif name.startswith("flash"):
+                path = "train_crosscheck"
+            else:
+                path = "bert"
+            table.append(dict(
+                name=name if variant == "simt" or name not in ROUTED_ROWS
+                else f"{name}.tc",
+                route="cuda", variant=variant,
+                source=kernel.route_sources.get(variant, kernel.source),
+                replaces=kernel.replaces, launches=paths[path][name],
+                launches_path=path,
+                launches_train=paths["train"][name],
+                launches_bert=paths["bert"][name],
+                launches_bert_large=paths["bert_large"][name],
+                max_abs_err=case["max_abs_err"],
+                ms=case["kernel_ms"], plain_ms=case["plain_ms"],
+                bound_ms=case["bound_ms"],
+                bound_by=case["bound_by"],
+                library_ms=case["library_ms"],
+                shape=case.get("shape", case.get("lengths")),
+                dtype=case.get("dtype")))
     return table
 
 
@@ -1274,20 +1422,17 @@ def main():
     results.update(bert_kernel_cases(dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    mlp_tc = next(c for c in results["train_shapes"]      # K4's tc row
-                  if c["kernel"] == "mlp")
-    for name, cases in results.items():
+    by_kernel = {}
+    for key, cases in results.items():
         for case in cases:
-            # K4 and K5 take the tensor cores in bf16 (every case here has
-            # widths that are multiples of 8) and the SIMT kernel in f32
-            want = "tc" if "bfloat16" in str(case.get("dtype")) or \
-                case.get("dtype") == "bf16" else "simt"
+            name = case.pop("kernel", key)
+            want = expected_route(name, case)
             if case.get("route", want) != want:
-                raise AssertionError(f"{case.get('kernel', name)} "
-                                     f"{case.get('shape')}: took the "
-                                     f"{case['route']} route, not {want}")
-            emit(dict(phase="kernel", kernel=case.pop("kernel", name),
-                      **case))
+                raise AssertionError(f"{name} {case.get('shape')}: took "
+                                     f"the {case['route']} route, not "
+                                     f"{want}")
+            by_kernel.setdefault(name, []).append(case)
+            emit(dict(phase="kernel", kernel=name, **case))
 
     cfg = GPTConfig.small()
     cfg.dropout = 0.0
@@ -1306,11 +1451,11 @@ def main():
     if missing:
         raise AssertionError(f"kernels not launched on the serve path: "
                              f"{missing}")
-    check_routes("serve", serve_routes, "simt", ("mlp",))
+    check_routes("serve", serve_routes, "simt", SERVE_ROUTED)
     emit(dict(phase="serve", config="GPTConfig.small()",
               **{k: v for k, v in serve_kw.items() if k != "cache_dtype"},
               cache_dtype="bfloat16", launches=launches,
-              routes={"mlp": serve_routes["mlp"]}, **stats))
+              routes={k: serve_routes[k] for k in SERVE_ROUTED}, **stats))
 
     cpu_model = GPTDecoder(cfg, device="cpu", seed=0)
     pick = [eng.requests[rids[-1]], eng.requests[rids[0]]]
@@ -1337,9 +1482,10 @@ def main():
     small.dropout = 0.0
     ids = torch.from_numpy(np.random.RandomState(3).randint(
         0, small.vocab_size, (2, 128)))
-    crosscheck_phase("train_crosscheck", "GPTConfig.small()",
-                     lambda dev: GPT(small, device=dev, seed=0), loss_of,
-                     (ids,), 2, 128, TRAIN_KERNELS)
+    crosscheck_launches = crosscheck_phase(
+        "train_crosscheck", "GPTConfig.small()",
+        lambda dev: GPT(small, device=dev, seed=0), loss_of, (ids,), 2, 128,
+        TRAIN_KERNELS)
 
     torch.cuda.empty_cache()
     bert_stats, bert_launches = bert_train_phase(smi)
@@ -1361,8 +1507,9 @@ def main():
     large_stats, large_launches = bert_large_phase(smi)
     emit(dict(phase="bert_large", **large_stats))
 
-    table = kernel_table(results, mlp_tc, {
-        "serve": launches, "train": train_launches, "bert": bert_launches,
+    table = kernel_table(by_kernel, {
+        "serve": launches, "train": train_launches,
+        "train_crosscheck": crosscheck_launches, "bert": bert_launches,
         "bert_large": large_launches})
     emit({"kernels": table})
     print(smi, flush=True)

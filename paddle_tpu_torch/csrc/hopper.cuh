@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the bf16
-// wgmma shapes K6 uses (csrc/gemm.cuh holds the wide ones of the shared
-// GEMM mainloop), the ring position, 2^x, and the host-side tensor-map
-// encoding.
+// mbarriers, TMA tile loads (2-D, and 3-D for a stack of matrices),
+// wgmma shared-memory descriptors, the bf16 wgmma shapes K6 and the flash
+// kernels use (csrc/gemm.cuh holds the wide ones of the shared GEMM
+// mainloop), register-A wgmma on a packed accumulator fragment, the ring
+// position, 2^x, and the host-side tensor-map encoding.
 //
 // Layout convention: every tile in shared memory is made of TMA boxes of
 // [64 rows, 64 bf16 columns] = 8 KB, written with the 128-byte swizzle
@@ -93,6 +94,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same from a 3-D tensor map: the box at (column col, row row) of
+// matrix z. Rows past the map's row count arrive as zeros, so a tail tile
+// of one matrix never reads the next one's rows.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int row,
+                                            int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col),
+      "r"(row), "r"(z)
+      : "memory");
+}
+
 // Generic-proxy writes to shared memory become visible to wgmma reads.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -101,6 +116,12 @@ __device__ __forceinline__ void fence_async_shared() {
 // A barrier among `threads` threads (a multiple of 32) with id 1..15.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at named barrier `id` without waiting: with bar.sync of the same
+// id and count elsewhere, one group of threads lets another go on.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --------------------------------------------------------- warpgroups
@@ -150,6 +171,22 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the wgmma's issue or wait.
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kN][4]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -183,21 +220,25 @@ __device__ __forceinline__ void wgmma_m64n32k16_kk(float (&d)[16],
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64], A K-major, B MN-major (transposed)
-// in shared memory.
-__device__ __forceinline__ void wgmma_m64n64k16_kt(float (&d)[32],
-                                                   uint64_t da,
-                                                   uint64_t db) {
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A K-major and B K-major
+// (kTransB 0) or MN-major (1), both in shared memory; scale_d 0
+// overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -206,7 +247,109 @@ __device__ __forceinline__ void wgmma_m64n64k16_kt(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// ------------------------------------------------------------ register A
+//
+// An m64nN f32 accumulator fragment holds, in thread t of the warpgroup
+// (warp w = t / 32, lane l), rows r = 16 w + l / 4 and r + 8 at columns
+// 8 i + 2 (l % 4) + e: d[4 i + 2 a + e] is row r + 8 a. The register A
+// operand of an m64 k16 wgmma holds, in the same thread, rows r and r + 8
+// at columns 2 (l % 4) + e and 8 + 2 (l % 4) + e, as four bf16 pairs:
+// (r, 0-7), (r + 8, 0-7), (r, 8-15), (r + 8, 8-15). So columns 16 j ..
+// 16 j + 15 of an accumulator, packed to bf16 pairs in register order,
+// are the A operand of the k16 slice j of the next product: a
+// probability tile computed in registers feeds the tensor cores without
+// passing through shared memory.
+
+// Two floats as one bf16 pair, `lo` in the low half (round to nearest).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A operand of k16 slice j from an accumulator fragment (see above).
+template <int kN>
+__device__ __forceinline__ void acc_to_a(const float (&acc)[kN], int j,
+                                         uint32_t (&a)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    a[r] = pack_bf16(acc[8 * j + 2 * r], acc[8 * j + 2 * r + 1]);
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A in registers, the bf16 pairs
+// of an m64 accumulator fragment (see the register A note above), B from
+// shared memory, K-major (kTransB 0) or MN-major (1); scale_d 0
+// overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTransB));
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128]: A in registers, the bf16 pairs
+// of an m64 accumulator fragment (see the register A note above), B from
+// shared memory, K-major (kTransB 0) or MN-major (1); scale_d 0
+// overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTransB));
 }
 
 // --------------------------------------------------------------- host
@@ -216,14 +359,15 @@ __device__ __forceinline__ void wgmma_m64n64k16_kt(float (&d)[32],
 // and `base` 16-byte aligned (the caller checks). Returns a CUDA error.
 // cuTensorMapEncodeTiled lives in libcuda; the runtime's entry-point
 // lookup hands it over, so the library does not link libcuda itself.
-inline cudaError_t encode_bf16_boxes(CUtensorMap* map, const void* base,
-                                     int rows, int cols) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+using TensorMapEncode = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once; a CUDA error if it is missing.
+inline cudaError_t tensor_map_encoder(TensorMapEncode* out) {
+  static TensorMapEncode encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -237,8 +381,17 @@ inline cudaError_t encode_bf16_boxes(CUtensorMap* map, const void* base,
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr)
       return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<TensorMapEncode>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+inline cudaError_t encode_bf16_boxes(CUtensorMap* map, const void* base,
+                                     int rows, int cols) {
+  TensorMapEncode encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
@@ -246,6 +399,30 @@ inline cudaError_t encode_bf16_boxes(CUtensorMap* map, const void* base,
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same boxes over `mats` row-major [rows, cols] bf16 matrices stored
+// one after another ([mats, rows, cols]): a box never crosses from one
+// matrix into the next, whose rows it reads as zeros instead.
+inline cudaError_t encode_bf16_boxes_3d(CUtensorMap* map, const void* base,
+                                        int mats, int rows, int cols) {
+  TensorMapEncode encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(mats)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * 2,
+      static_cast<cuuint64_t>(cols) * 2 * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {kBoxCols, kBoxRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

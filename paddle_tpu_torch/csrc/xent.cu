@@ -977,9 +977,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint64_t da = hopper::desc_sw128(gbuf + 32 * ks);
 #pragma unroll
         for (int slot = 0; slot < kSlots; ++slot)
-          hopper::wgmma_m64n64k16_kt(
+          hopper::wgmma_m64n64k16_ss<1>(
               acc[slot], da,
-              hopper::desc_sw128(ring + bst[slot] * kBoxBytes + 2048 * ks));
+              hopper::desc_sw128(ring + bst[slot] * kBoxBytes + 2048 * ks),
+              1);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();

@@ -148,12 +148,15 @@ class Kernel:
     the entry returns a CUDA error, and only then adds one to
     :attr:`launches` and to :attr:`route_launches` of the route."""
 
-    def __init__(self, name, routes, replaces, source):
+    def __init__(self, name, routes, replaces, source, route_sources=None):
         self.name = name
         self.routes = {r: (sym, list(types))
                        for r, (sym, types) in routes.items()}
         self.replaces = replaces      # file:line of the TPU kernel
         self.source = source          # the CUDA source in this repo
+        #: each route's CUDA source (the simt route's is ``source``)
+        self.route_sources = {r: (route_sources or {}).get(r, source)
+                              for r in self.routes}
         self.launches = 0
         self.route_launches = dict.fromkeys(self.routes, 0)
         self._fns = {}
@@ -182,13 +185,17 @@ class Kernel:
 KERNELS = {}
 
 
-def register(name, symbol, argtypes, replaces, source, tc=None):
-    """Register a kernel whose ``"simt"`` route is the C entry ``symbol``;
-    ``tc``, a ``(symbol, argtypes)`` pair, adds a tensor-core route."""
+def register(name, symbol, argtypes, replaces, source, tc=None,
+             tc_source=None):
+    """Register a kernel whose ``"simt"`` route is the C entry ``symbol``
+    in ``source``; ``tc``, a ``(symbol, argtypes)`` pair, adds a
+    tensor-core route, whose source is ``tc_source`` where it has a file
+    of its own."""
     routes = {"simt": (symbol, argtypes)}
     if tc is not None:
         routes["tc"] = tc
-    kernel = Kernel(name, routes, replaces, source)
+    kernel = Kernel(name, routes, replaces, source,
+                    {"tc": tc_source} if tc_source else None)
     KERNELS[name] = kernel
     return kernel
 

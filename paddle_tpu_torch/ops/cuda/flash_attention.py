@@ -3,17 +3,28 @@ their plain PyTorch versions.
 
 K2 replaces ``paddle_tpu/ops/pallas/flash_attention.py:64 _fa_kernel``
 (launcher ``_flash_attention_fwd_tpu`` :112, entry ``flash_attention``
-:510). Source: ``paddle_tpu_torch/csrc/flash_attention.cu``. The TPU
-kernel's sequential kv grid axis, which carries (m, l, acc) in VMEM,
-becomes a loop inside one block per (batch*head, 64-row query tile). Both
-products run in the kernel's own body, in f32, so at prefill it is bound
-by f32 operations; the causal block skip halves them.
+:510). The TPU kernel's sequential kv grid axis, which carries
+(m, l, acc) in VMEM, becomes a loop over the kv tiles inside a block.
 
 K3 replaces ``:180 _fa_bwd_dq_kernel`` and ``:232 _fa_bwd_dkv_kernel``
-(launcher ``_flash_attention_bwd_tpu`` :289). Source:
-``paddle_tpu_torch/csrc/flash_attention_bwd.cu``. Two kernels recompute
+(launcher ``_flash_attention_bwd_tpu`` :289). Two kernels recompute
 ``p = exp(s - lse)`` from K2's saved lse; ``delta = rowsum(dO * O)`` is
 computed here in torch, as the reference computes it in XLA (:299).
+
+Two routes each, chosen by :func:`flash_route`, a rule on the storage type
+and the head dim:
+
+* ``"tc"`` — bf16 with D = 64 or 128 (the training paths): persistent
+  ``wgmma`` kernels fed by TMA (``csrc/flash_attention_tc.cu``,
+  ``csrc/flash_attention_bwd_tc.cu``, ``csrc/flash_tc.cuh``); the
+  probabilities (and K3's dS) are rounded to bf16 in registers for the
+  products that take them. Inputs that do not start on 16 bytes are
+  copied (TMA's alignment).
+* ``"simt"`` — f32 at every head dim and bf16 at D = 16 or 32 (serving's
+  f32 prefill, the crosschecks): the CUDA cores in f32
+  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
+
+A CUDA launch that fails raises; no route gives way to another.
 
 The plain versions are the reference's ``chunked_attention`` (:379) for
 the forward (the same online softmax over kv chunks, with the same masking
@@ -29,31 +40,67 @@ import torch
 
 from paddle_tpu_torch.ops.cuda import core
 
+# every entry takes (dtype code, on the simt route only), the operand
+# pointers, B, H, Tq, Tk, D, scale, causal and the stream
+_FWD_ARGS = [core.VP] * 6 + [core.I32] * 5 + [core.F32_ARG, core.I32,
+                                              core.VP]
 KERNEL = core.register(
-    "flash_attention", "ptt_flash_attention",
-    [core.I32] + [core.VP] * 6 + [core.I32] * 5
-    + [core.F32_ARG, core.I32, core.VP],
+    "flash_attention", "ptt_flash_attention", [core.I32] + _FWD_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:64",
-    source="paddle_tpu_torch/csrc/flash_attention.cu")
-_BWD_ARGS = [core.I32] + [core.VP] * 7
+    source="paddle_tpu_torch/csrc/flash_attention.cu",
+    tc=("ptt_flash_attention_tc", _FWD_ARGS),
+    tc_source="paddle_tpu_torch/csrc/flash_attention_tc.cu")
+_DQ_ARGS = [core.VP] * 8 + [core.I32] * 5 + [core.F32_ARG, core.I32,
+                                             core.VP]
 KERNEL_BWD_DQ = core.register(
     "flash_attention_bwd_dq", "ptt_flash_attention_bwd_dq",
-    _BWD_ARGS + [core.VP] + [core.I32] * 5 + [core.F32_ARG, core.I32,
-                                              core.VP],
+    [core.I32] + _DQ_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:180",
-    source="paddle_tpu_torch/csrc/flash_attention_bwd.cu")
+    source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    tc=("ptt_flash_attention_bwd_dq_tc", _DQ_ARGS),
+    tc_source="paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu")
+_DKV_ARGS = [core.VP] * 9 + [core.I32] * 5 + [core.F32_ARG, core.I32,
+                                              core.VP]
 KERNEL_BWD_DKV = core.register(
     "flash_attention_bwd_dkv", "ptt_flash_attention_bwd_dkv",
-    _BWD_ARGS + [core.VP] * 2 + [core.I32] * 5 + [core.F32_ARG, core.I32,
-                                                  core.VP],
+    [core.I32] + _DKV_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:232",
-    source="paddle_tpu_torch/csrc/flash_attention_bwd.cu")
+    source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    tc=("ptt_flash_attention_bwd_dkv_tc", _DKV_ARGS),
+    tc_source="paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu")
 
 NEG_INF = -1e30
 #: the reference's default kv block (flag flash_block_k), which is also
 #: the chunk of its CPU path
 CHUNK = 512
 HEAD_DIMS = (16, 32, 64, 128)
+#: the head dims of the tc route: one or two [64, 64] TMA boxes per row
+TC_HEAD_DIMS = (64, 128)
+
+
+def flash_route(dtype, d):
+    """K2's and K3's route: ``"tc"`` (the bf16 wgmma kernels) for bf16
+    with a head dim of 64 or 128, else ``"simt"`` (f32 at every head dim,
+    bf16 at 16 and 32). A launch on either route that fails raises."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+def _launch(kernel, code, route, *args):
+    """Launch ``kernel`` on ``route``; the simt entry takes the storage
+    type's code first, the tc entry is bf16 only."""
+    if route == "tc":
+        kernel(*args, route="tc")
+    else:
+        kernel(code, *args)
+
+
+def _aligned(*ts):
+    """TMA reads from 16-byte aligned bases: a tensor that does not start
+    on 16 bytes is copied (a fresh allocation does)."""
+    return [t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+            for t in ts]
 
 
 def chunked_attention(q, k, v, scale=None, causal=False, kv_mask=None,
@@ -109,13 +156,18 @@ def flash_attention_kernel(q, k, v, scale, causal=False, kv_mask=None):
     core.require_contiguous(q=q, k=k, v=v)
     mask = (kv_mask.to(torch.int32).contiguous() if kv_mask is not None
             else None)
+    route = flash_route(q.dtype, d)
+    if route == "tc":
+        q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    if q.numel() == 0:
-        return out, lse
-    KERNEL(code, core.ptr(q), core.ptr(k), core.ptr(v), core.ptr(mask),
-           core.ptr(out), core.ptr(lse), b, h, tq, tk, d, float(scale),
-           int(bool(causal)), core.stream(q))
+    if q.numel() == 0 or k.numel() == 0:
+        # no key: every row is fully masked (out 0, lse the sentinel, as
+        # chunked_attention gives them)
+        return out.zero_(), lse.fill_(NEG_INF)
+    _launch(KERNEL, code, route, core.ptr(q), core.ptr(k), core.ptr(v),
+            core.ptr(mask), core.ptr(out), core.ptr(lse), b, h, tq, tk, d,
+            float(scale), int(bool(causal)), core.stream(q))
     return out, lse
 
 
@@ -180,29 +232,32 @@ def _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask, scale):
         raise ValueError(f"flash backward kernel: lse and delta must be "
                          f"[{b}, {h}, {tq}]")
     core.require_contiguous(q=q, k=k, v=v, do=do)
+    route = flash_route(q.dtype, d)
+    if route == "tc":
+        q, k, v, do = _aligned(q, k, v, do)
     # the caller holds these converted operands until the launch: a copy
     # freed before its kernel is enqueued goes back to the caching
     # allocator, and the kernel's own output may be handed the same memory
-    operands = (lse.float().contiguous(), delta.float().contiguous(),
+    operands = (q, k, v, do, lse.float().contiguous(),
+                delta.float().contiguous(),
                 kv_mask.to(torch.int32).contiguous() if kv_mask is not None
                 else None)
-    ptrs = (core.ptr(q), core.ptr(k), core.ptr(v), core.ptr(do),
-            *(core.ptr(t) for t in operands))
+    ptrs = tuple(core.ptr(t) for t in operands)
     dims = (b, h, tq, tk, d, float(scale), int(bool(causal)),
             core.stream(q))
-    return code, ptrs, dims, operands
+    return code, route, ptrs, dims, operands
 
 
 def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
                                   causal=False, kv_mask=None):
     """Launch K3's dq kernel on CUDA tensors -> dq like q. ``delta`` is
     ``rowsum(dO * O)`` ``[B, H, Tq]`` f32."""
-    code, ptrs, dims, operands = _bwd_setup(q, k, v, do, lse, delta, causal,
-                                            kv_mask, scale)
+    code, route, ptrs, dims, operands = _bwd_setup(
+        q, k, v, do, lse, delta, causal, kv_mask, scale)
     dq = torch.empty_like(q)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_()
-    KERNEL_BWD_DQ(code, *ptrs, core.ptr(dq), *dims)
+    _launch(KERNEL_BWD_DQ, code, route, *ptrs, core.ptr(dq), *dims)
     del operands                     # enqueued: stream order protects them
     return dq
 
@@ -210,12 +265,13 @@ def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
 def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, scale,
                                    causal=False, kv_mask=None):
     """Launch K3's dk/dv kernel on CUDA tensors -> ``(dk, dv)`` like k."""
-    code, ptrs, dims, operands = _bwd_setup(q, k, v, do, lse, delta, causal,
-                                            kv_mask, scale)
+    code, route, ptrs, dims, operands = _bwd_setup(
+        q, k, v, do, lse, delta, causal, kv_mask, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dk.zero_(), dv.zero_()
-    KERNEL_BWD_DKV(code, *ptrs, core.ptr(dk), core.ptr(dv), *dims)
+    _launch(KERNEL_BWD_DKV, code, route, *ptrs, core.ptr(dk), core.ptr(dv),
+            *dims)
     del operands                     # enqueued: stream order protects them
     return dk, dv
 

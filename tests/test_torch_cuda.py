@@ -125,27 +125,70 @@ def test_masked_attention_launches_the_flash_kernels(cuda):
           F32_TOL)
 
 
-def test_flash_kernel_causal_offset_tails_and_mask(cuda):
+# K2's and K3's bf16 tc route rounds P (and dS) to bf16 for the products
+# that take them (2^-9 relative each) and each output once: every output
+# is held at 2^-6 of its largest plain value (the card reads 2.0e-3 to
+# 7.7e-3, the largest K3's dv at BERT-large's shape; faults planted in
+# the kernels read 0.1 to 7, CHANGES.md), and K2's out also within
+# BF16_TOL absolutely.
+FLASH_BF16_TOL = 2.0 ** -6
+#: (b, h, tq, tk, d, causal, masked): Tq != Tk causal, T not a multiple of
+#: 64 or of the 128-row tile, a key mask with a fully masked batch row
+_FLASH_CASES = {
+    torch.float32: [(2, 3, 70, 70, 64, True, False),
+                    (1, 2, 30, 100, 32, True, False),
+                    (2, 2, 65, 65, 128, False, True)],
+    torch.bfloat16: [(2, 3, 70, 70, 64, True, False),
+                     (1, 4, 100, 300, 64, True, False),
+                     (1, 2, 300, 100, 128, True, False),
+                     (2, 2, 65, 65, 128, False, True),
+                     (3, 2, 200, 200, 64, True, True),
+                     (2, 3, 130, 130, 128, True, True)],
+}
+
+
+def _flash_mask(b, tk, dev):
+    """Batch row 0 attends its first third of the keys, the last row
+    none (its rows must come out exactly 0), any other row all."""
+    mask = torch.ones(b, tk, dtype=torch.bool, device=dev)
+    mask[0, tk // 3:] = False
+    mask[-1] = False
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_causal_offset_tails_and_mask(cuda, dtype):
+    """K2 against chunked_attention: f32 (the simt route) within F32_TOL
+    absolutely; bf16 at D = 64 and 128 (the tc route) on its own scale at
+    FLASH_BF16_TOL and within BF16_TOL absolutely, against the f32 plain
+    version of the same bf16 inputs; lse on the rows that see a key within
+    F32_TOL of its scale, and in f32 also within F32_TOL absolutely; fully
+    masked rows exactly 0."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     g = torch.Generator().manual_seed(1)
-    for b, h, tq, tk, d, causal, masked in ((2, 3, 70, 70, 64, True, False),
-                                           (1, 2, 30, 100, 32, True, False),
-                                           (2, 2, 65, 65, 128, False, True)):
-        q = _randn(g, b, h, tq, d)
-        k = _randn(g, b, h, tk, d)
-        v = _randn(g, b, h, tk, d)
-        mask = None
-        if masked:
-            mask = torch.ones(b, tk, dtype=torch.bool, device=cuda)
-            mask[1] = False
+    for b, h, tq, tk, d, causal, masked in _FLASH_CASES[dtype]:
+        q = _randn(g, b, h, tq, d, dtype=dtype)
+        k = _randn(g, b, h, tk, d, dtype=dtype)
+        v = _randn(g, b, h, tk, d, dtype=dtype)
+        mask = _flash_mask(b, tk, cuda) if masked else None
         out, lse = fa.flash_attention_kernel(q, k, v, d ** -0.5, causal,
                                              mask)
-        ref, rlse = fa.chunked_attention(q, k, v, d ** -0.5, causal, mask,
+        ref, rlse = fa.chunked_attention(q.float(), k.float(), v.float(),
+                                         d ** -0.5, causal, mask,
                                          return_lse=True)
-        assert float((out - ref).abs().max()) <= F32_TOL
-        if masked:
-            assert float(out[1].abs().max()) == 0.0
+        assert out.dtype == dtype
+        if dtype == torch.float32:
+            assert float((out - ref).abs().max()) <= F32_TOL
         else:
+            _held([out], [ref], FLASH_BF16_TOL)
+            assert float((out.float() - ref).abs().max()) <= BF16_TOL
+        if masked:
+            assert float(out[-1].abs().max()) == 0.0
+            lse, rlse = lse[:-1], rlse[:-1]
+        if causal and tq > tk:
+            lse, rlse = lse[..., tq - tk:], rlse[..., tq - tk:]
+        _held([lse], [rlse], F32_TOL)
+        if dtype == torch.float32:
             assert float((lse - rlse).abs().max()) <= F32_TOL
 
 
@@ -237,27 +280,81 @@ def test_tiny_serve_runs_every_kernel(cuda):
     (2, 2, 65, 65, 128, torch.float32, False, True),
     (1, 2, 100, 40, 16, torch.float32, True, False),
     (2, 3, 130, 130, 64, torch.bfloat16, True, False),
+    (1, 4, 100, 300, 64, torch.bfloat16, True, False),
+    (1, 2, 300, 100, 128, torch.bfloat16, True, False),
+    (3, 2, 200, 200, 64, torch.bfloat16, False, True),
+    (2, 3, 130, 130, 128, torch.bfloat16, True, True),
 ])
 def test_flash_backward_kernel(cuda, b, h, tq, tk, d, dtype, causal, masked):
+    """K3 against its plain version from K2's own out and lse: f32 within
+    F32_TOL of each output's scale; bf16 (the tc route at D = 64 and 128,
+    the simt route below) each output on its own scale at FLASH_BF16_TOL
+    against the plain version in f32 of the same bf16 inputs; the rows of
+    a fully masked batch row and the masked keys exactly 0."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     g = torch.Generator().manual_seed(4)
     q, dout = (_randn(g, b, h, tq, d, dtype=dtype) for _ in range(2))
     k, v = (_randn(g, b, h, tk, d, dtype=dtype) for _ in range(2))
-    mask = None
-    if masked:
-        mask = torch.ones(b, tk, dtype=torch.bool, device=cuda)
-        mask[0, tk // 3:] = False
-        mask[1] = False
+    mask = _flash_mask(b, tk, cuda) if masked else None
     scale = d ** -0.5
     out, lse = fa.flash_attention_kernel(q, k, v, scale, causal, mask)
     got = fa.flash_attention_bwd_kernel(q, k, v, out, lse, dout, scale,
                                         causal, mask)
-    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, scale,
-                                        causal, mask)
+    want = fa.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), out.float(), lse, dout.float(),
+        scale, causal, mask)
     assert all(a.dtype == dtype for a in got)
-    _held(got, want, F32_TOL if dtype == torch.float32 else BF16_TOL)
+    _held(got, want, F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL)
     if masked:
-        assert float(got[0][1].abs().max()) == 0.0
+        assert float(got[0][-1].abs().max()) == 0.0
+        assert float(got[1][0, :, tk // 3:].abs().max()) == 0.0
+        assert float(got[2][-1].abs().max()) == 0.0
+
+
+def test_flash_takes_the_tensor_core_route_by_the_rule(cuda):
+    """bf16 K2 and K3 at D = 64 and 128 launch on the tc route (its count
+    rises, the simt count does not); bf16 at D = 32 and f32 at D = 64 take
+    the simt route, each still right; a bf16 input that does not start on
+    16 bytes (TMA's alignment) is copied and still takes the tc route."""
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    g = torch.Generator().manual_seed(13)
+    names = ("flash_attention", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+
+    def run(d, dtype, misaligned=False):
+        q, k, v, do = (_randn(g, 2, 2, 96, d, dtype=dtype)
+                       for _ in range(4))
+        if misaligned:
+            buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)
+            q = buf[1:].view_as(q).copy_(q)
+            assert q.data_ptr() % 16
+        before = {n: dict(core.KERNELS[n].route_launches) for n in names}
+        out, lse = fa.flash_attention_kernel(q, k, v, d ** -0.5, True)
+        got = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                            d ** -0.5, True)
+        after = {n: core.KERNELS[n].route_launches for n in names}
+        ref = fa.chunked_attention(q.float(), k.float(), v.float(),
+                                   d ** -0.5, True)
+        want = fa.flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+            d ** -0.5, True)
+        tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+        _held([out, *got], [ref, *want], tol)
+        return {n: {r: after[n][r] - before[n][r] for r in after[n]}
+                for n in names}
+
+    for d, dtype, route in ((64, torch.bfloat16, "tc"),
+                            (128, torch.bfloat16, "tc"),
+                            (32, torch.bfloat16, "simt"),
+                            (64, torch.float32, "simt")):
+        assert fa.flash_route(dtype, d) == route
+        other = "simt" if route == "tc" else "tc"
+        for name, counts in run(d, dtype).items():
+            assert counts[route] == 1 and counts[other] == 0, (name, d,
+                                                               dtype)
+    for name, counts in run(64, torch.bfloat16, misaligned=True).items():
+        assert counts == {"simt": 0, "tc": 1}, name
 
 
 # K6's bf16 route feeds the second product gch rounded to bf16 (one

@@ -478,6 +478,97 @@ def test_quantize_rows_matches_jax(rng):
     np.testing.assert_allclose(ps.numpy(), np.asarray(s), rtol=0, atol=0)
 
 
+# --------------------------------------------- K2 / K3 route and card check
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"),
+    (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"),
+])
+def test_flash_route_rule(dtype, d, route):
+    """K2's and K3's route: bf16 with a head dim of 64 or 128 (one or two
+    [64, 64] TMA boxes per row) takes the tensor cores; bf16 at 16 or 32,
+    and f32 at every head dim, the SIMT kernels, so every case the SIMT
+    kernels took before still runs."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    assert fa.flash_route(dtype, d) == route
+
+
+def _faulty_flash_bwd(q, k, v, out, lse, do, scale, causal, fault):
+    """The plain backward's math (``flash_attention_bwd_plain``) with one
+    of the faults planted in copies of the kernels to show that the card
+    check can fail: dS without its scale, each row reading the next row's
+    lse, the causal diagonal moved by one (``>`` for ``>=``), the last
+    key dropped from the mask."""
+    tq, tk = q.shape[2], k.shape[2]
+    q_pos = torch.arange(tq)[:, None] + (tk - tq)
+    k_pos = torch.arange(tk)[None, :]
+    valid = torch.ones(tq, tk, dtype=torch.bool)
+    if causal:
+        valid = (q_pos > k_pos) if fault == "diag" else (q_pos >= k_pos)
+    if fault == "dropkey":
+        valid = valid & (k_pos < tk - 1)
+    if fault == "lse_next":
+        lse = torch.cat([lse[..., 1:], lse[..., -1:]], -1)
+    delta = (do * out).sum(-1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - delta[..., None]) * (1.0 if fault == "noscale"
+                                         else scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q),
+            torch.einsum("bhqk,bhqd->bhkd", p, do))
+
+
+@pytest.mark.parametrize("fault", ["none", "noscale", "lse_next", "diag",
+                                   "dropkey"])
+def test_flash_card_check_fails_each_planted_fault(fault):
+    """chip_smoke.py's K3 check (``held_flash`` at FLASH_BF16_TOL) on the
+    CPU: the plain backward passes it, and each planted fault fails it at
+    a causal [2, 3, 200, 200, 64]. At the general bf16 bar (BF16_TOL) the
+    dropped key moves the whole outputs by less than the bar (dq 2.3e-2,
+    dk 1.5e-2, dv 8.7e-3 on the card); only the rows of the keys that few
+    queries see show it, which is why the check holds them on their own
+    scale."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    g = torch.Generator().manual_seed(3)
+    b, h, tq, tk, d = 2, 3, 200, 200, 64
+    q, k, v, do = (torch.randn(b, h, t_, d, generator=g)
+                   for t_ in (tq, tk, tk, tq))
+    scale = d ** -0.5
+    out, lse = fa.chunked_attention(q, k, v, scale, True, return_lse=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale, True)
+    got = _faulty_flash_bwd(q, k, v, out, lse, do, scale, True, fault)
+    _, q_parts, k_parts = chip_smoke.flash_parts(b, h, tq, tk, True, None,
+                                                 "cpu")
+    outs = [("dq", got[0], want[0], q_parts), ("dk", got[1], want[1],
+                                                k_parts),
+            ("dv", got[2], want[2], k_parts)]
+    if fault == "none":
+        chip_smoke.held_flash("plain", outs, chip_smoke.FLASH_BF16_TOL)
+        return
+    with pytest.raises(AssertionError):
+        chip_smoke.held_flash(fault, outs, chip_smoke.FLASH_BF16_TOL)
+    if fault == "dropkey":
+        # at the general bf16 bar the whole outputs alone pass it; the
+        # rows of the keys few queries see do not
+        whole = [(name, a, w, {}) for name, a, w, _ in outs]
+        chip_smoke.held_flash(fault, whole, chip_smoke.BF16_TOL)
+        with pytest.raises(AssertionError):
+            chip_smoke.held_flash(fault, outs, chip_smoke.BF16_TOL)
+
+
 # ------------------------------------------------------------- device rule
 
 def test_device_rule_cpu_plain_and_others_raise():
@@ -504,6 +595,8 @@ def test_every_kernel_is_registered_with_its_sources():
         "xent_bwd_dh", "xent_bwd_dwb", "add_layer_norm"}
     for kernel in core.KERNELS.values():
         assert os.path.isfile(os.path.join(root, kernel.source))
+        for source in kernel.route_sources.values():
+            assert os.path.isfile(os.path.join(root, source))
         path, line = kernel.replaces.split(":")
         with open(os.path.join(root, path)) as f:
             text = f.readlines()[int(line) - 1]

@@ -1,14 +1,16 @@
 """Where the time of the PyTorch port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py [--model gpt|bert] [--steps 5]
-                                         [--out DIR]
+    python3 tools/torch_train_profile.py [--model gpt|bert|bert_large]
+                                         [--steps 5] [--out DIR]
 
 Builds the training step chip_smoke.py drives under
 amp.decorate(Adam(1e-4), bf16_policy()), dropout 0 and weights from a
 seed: ``--model gpt`` (the default) GPT.loss of GPTConfig.small() on one
 fixed seeded batch of 16 x 512; ``--model bert`` BertForPretraining.loss
 of BertConfig.base() on one fixed seeded batch of 64 x 512 with 76
-masked positions per row (chip_smoke.py's bert_train phase). It runs 2
+masked positions per row (chip_smoke.py's bert_train phase);
+``--model bert_large`` BertConfig.large() on chip_smoke.py's bert_large
+batch of 8 x 512. It runs 2
 warm-up steps, and profiles ``--steps`` steady steps
 with torch.profiler: host wall time per step, device time per step (the
 sum of the CUDA kernels, which run on one stream and do not overlap), the
@@ -55,7 +57,8 @@ def _kernel_times(prof):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("gpt", "bert"), default="gpt")
+    ap.add_argument("--model", choices=("gpt", "bert", "bert_large"),
+                    default="gpt")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
@@ -82,12 +85,15 @@ def main():
     else:
         from paddle_tpu_torch.models.bert import (BertConfig,
                                                   BertForPretraining)
-        cfg, batch, seq = BertConfig.base(), 64, 512
-        config = "BertConfig.base()"
+        large = args.model == "bert_large"
+        cfg = BertConfig.large() if large else BertConfig.base()
+        batch, seq = (8 if large else 64), 512
+        config = "BertConfig.large()" if large else "BertConfig.base()"
         cfg.dropout = 0.0
         model = BertForPretraining(cfg, device="cuda", seed=0)
         ids, labels, nsp, mlm_mask, _, _, pos = chip_smoke.bert_batch(
-            np.random.RandomState(0), cfg.vocab_size, batch, seq, 76)
+            np.random.RandomState(5 if large else 0), cfg.vocab_size, batch,
+            seq, 76)
         pos = pos.cuda()
         data = tuple(a.cuda() for a in (ids, labels, nsp, mlm_mask))
 
