@@ -8,6 +8,8 @@ Phases, each printing one JSON line:
 1. device  — needs a CUDA device (exits non-zero without one); prints the
    card's name and power limit from nvidia-smi; turns TF32 off.
 2. build   — compiles the kernels from paddle_tpu_torch/csrc with nvcc.
+   Then one reading of time_ms's own floor: a CUDA graph of one empty
+   kernel, on a line of its own ("phase": "floor").
 3. kernel  — each kernel (K1 layer norm, K2 flash attention, K3 flash
    backward dq and dk/dv, K4 fused MLP, K5 fused cross-entropy statistics,
    K6 its backward dh and dw/db, K7 paged decode attention, K8 fused
@@ -24,17 +26,24 @@ Phases, each printing one JSON line:
    tc routes) also at BertConfig.base()'s and .large()'s shapes. K2 and
    K3 (flash_cases) hold each output on its own scale, and again on the
    rows that see few partners (a causal diagonal, the last keys) and on
-   those that see none (exactly 0).
+   those that see none (exactly 0). K1 (layer_norm_cases) also at
+   C = 1024, at C off the 16-byte pack and on a misaligned view; K7
+   (decode_cases, held_decode) also at lengths on and one past its
+   splits' boundaries, 0 and 1, hd 128, 40 and 36 (the simt route), and at
+   a long context (32 slots x 2048 tokens, timed), each split-route case
+   bitwise equal in two launches.
 4. serve   — GPTConfig.small() at full width (random weights from a
    seed) behind ServingEngine(num_slots=8, page_size=64, max_len=1024,
    prefill_len=512, bf16 cache): 16 prompts uniform in [64, 512] plus one
    of 700 tokens (chunked prefill), 64 new tokens each. The launch counts
    are zeroed just before and read just after; each serving kernel (K1,
-   K2, K4, K7) must have run.
+   K2, K4, K7) must have run, every K1 launch on its row route and every
+   K7 launch on its split route.
 5. crosscheck — two of those requests replayed teacher-forced on the
    card and on the CPU (plain path, f32 cache, same weights); logits must
    agree within the stated tolerance.
-6. int8    — a short serve with an int8 KV pool.
+6. int8    — a short serve with an int8 KV pool; every K7 launch on the
+   split route.
 7. train   — the GPT training step at full width (GPTConfig.small(),
    dropout 0, weights from a seed): GPT.loss, its backward and
    amp.decorate(Adam(1e-4), bf16_policy()), batch 16 x seq 512 of one
@@ -67,10 +76,15 @@ of csrc/gemm.cuh; K2 and K3 with a head dim of 64 or 128, on their own
 TMA + wgmma kernels), the SIMT kernel for f32 and other widths. Every
 such case records the route it took and must have taken the rule's;
 every K2-K5 launch of train, bert_train and bert_large must be on the
-tensor cores, every K2 and K4 launch of serve on the SIMT kernel.
+tensor cores, every K2 and K4 launch of serve on the SIMT kernel. K1 and
+K7 have a second route too, chosen by shape (K1's row route for rows of
+whole 16-byte packs, at most 8 a lane; K7's split route for head dims
+that are multiples of 8 up to 256), which every launch of every path
+takes.
 
 Then the {"kernels": [...]} line (each kernel with the launches of its
-own path: serve for K1, the SIMT rows of K2 and K4 and K7,
+own path: serve for K1 (its row route), K7 (its split route) and the SIMT
+rows of K2 and K4,
 train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
 ("flash_attention.tc", "flash_attention_bwd_dq.tc",
 "flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8;
@@ -127,6 +141,9 @@ TC_KERNELS = ("mlp", "xent_stats", "flash_attention",
               "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 #: the serve path's kernels of those, every launch on the SIMT route (f32)
 SERVE_ROUTED = ("mlp", "flash_attention")
+#: K1's and K7's second routes, which every launch of every path takes
+#: (the kernels line has one row for each, on that route)
+PATH_ROUTE = {"layer_norm": "row", "decode_attention": "split"}
 
 
 def emit(obj):
@@ -577,14 +594,172 @@ def flash_cases(dev, gen, b, h, tq, tk, d, dtype, causal=False,
 
 # --------------------------------------------------------------- kernels
 
+def floor_ms(dev):
+    """:func:`time_ms` of a CUDA graph of one empty kernel: the floor
+    under every kernel time this script reports (graph launch, events,
+    the memset's tail)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.cuda import core
+    lib = core.library()
+    lib.ptt_empty.argtypes = [ctypes.c_void_p]
+    lib.ptt_empty.restype = ctypes.c_int
+    anchor = torch.empty(1, device=dev)
+    # the stream is read at each call: capture runs on a stream of its own
+    return time_ms(lambda: lib.ptt_empty(core.stream(anchor)))
+
+
+def layer_norm_cases(randn):
+    """K1 at the serving path's rows (8 decode rows and 512 prefill rows
+    of 768, f32, both timed), ragged rows, BertConfig.large()'s C = 1024,
+    C of whole packs but not of whole warps of packs, C off the 16-byte
+    pack and past the row route's widest (both the simt route), and a
+    view that does not start on 16 bytes. Each case records the route it
+    took, which must be :func:`ln_route`'s."""
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for rows, cols, dtype, offset in (
+            (8, 768, f32, 0), (512, 768, f32, 0), (13, 768, f32, 0),
+            (37, 768, bf16, 0), (8, 1024, f32, 0), (64, 1024, bf16, 0),
+            (5, 200, bf16, 0), (13, 770, bf16, 0), (9, 771, f32, 0),
+            (7, 4096, f32, 0), (29, 768, bf16, 1)):
+        x = randn(rows * cols + offset, dtype=dtype)[offset:].view(rows,
+                                                                   cols)
+        gam = randn(cols, dtype=dtype) * 0.1 + 1.0
+        bet = randn(cols, dtype=dtype) * 0.1
+        (y, m, r), route = route_of("layer_norm", ln.layer_norm_kernel, x,
+                                    gam, bet, 1e-5)
+        py, pm, pr = ln.layer_norm_plain(x, gam, bet, 1e-5)
+        tol = F32_TOL if dtype == f32 else BF16_TOL
+        err = max(max_err(y, py), max_err(m, pm), max_err(r, pr))
+        check(f"layer_norm {rows}x{cols} {dtype}", err, tol)
+        case = dict(shape=[rows, cols], dtype=str(dtype), route=route,
+                    misaligned=bool(offset), max_abs_err=err, tol=tol)
+        if dtype == f32 and cols == 768 and rows in (8, 512):
+            case.update(ln_timing(x, gam, bet))
+        cases.append(case)
+    return cases
+
+
+def ln_timing(x, gam, bet):
+    """K1's times on ``x`` (kernel, plain version, ``F.layer_norm``) and
+    its bound: x read and y written once, the scale and bias read once,
+    the f32 mean and rstd written, 8 operations an element."""
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    rows, cols = x.shape
+    out = dict(
+        kernel_ms=time_ms(lambda: ln.layer_norm_kernel(x, gam, bet, 1e-5)),
+        plain_ms=time_ms(lambda: ln.layer_norm_plain(x, gam, bet, 1e-5)),
+        library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
+            x, (cols,), gam, bet, 1e-5)))
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        2 * nbytes(x) + nbytes(gam, bet) + 8 * rows, 8 * x.numel(), x.dtype)
+    return out
+
+
+def held_decode(name, got, want, lengths, tol=F32_TOL):
+    """K7's check: the output within ``tol`` of the plain version's, and
+    exactly 0 on every slot of length 0. Returns the largest error."""
+    err = max_err(got, want)
+    check(name, err, tol)
+    zero = [i for i, v in enumerate(lengths) if v == 0]
+    if zero and float(got[zero].abs().max()) != 0.0:
+        raise AssertionError(f"{name}: a length-0 slot is not exactly 0")
+    return err
+
+
+def decode_pool(dev, randn, rs, slots, heads, hd, ps, pmax, pool_dtype):
+    """A pool of ``slots x pmax`` pages, every row written (int8 rows
+    quantised with their scales), and a page table that is a seeded
+    permutation of the pages."""
+    from paddle_tpu_torch.ops.attention import init_page_pool, paged_write
+    n = slots * pmax
+    kv_dtype = torch.int8 if pool_dtype == torch.int8 else None
+    pool = init_page_pool(n, heads, ps, hd,
+                          dtype=torch.float32 if kv_dtype else pool_dtype,
+                          kv_dtype=kv_dtype, device=dev)
+    perm = torch.from_numpy(rs.permutation(n).astype(np.int32))
+    ptab = perm.reshape(slots, pmax).to(dev)
+    ids = ptab.reshape(-1).long()
+    for lo in range(0, n, 256):          # 256 pages a write
+        part = ids[lo:lo + 256]
+        rows = part.numel() * ps
+        paged_write(pool, randn(rows, heads, hd), randn(rows, heads, hd),
+                    part.repeat_interleave(ps),
+                    torch.arange(ps, device=dev).repeat(part.numel()))
+    return pool, ptab
+
+
+def decode_cases(dev, randn):
+    """K7 at the serve path's shape (8 slots x 12 heads, page size 64,
+    hd 64, bf16 pool, lengths from RandomState(0); timed), lengths on and
+    one past the split route's boundaries, length 0 and 1, int8 and f32
+    pools, hd 128, hd 40 (whole chunks that are not a power of two of
+    lanes), hd 36 (the simt route), 4 slots of up to 4096 tokens (32
+    splits: a merge of more than 16 partials), and a long context (32
+    slots x 2048 tokens, bf16; timed). Each case records its route,
+    which must be :func:`decode_route`'s; a split-route case must give
+    bitwise equal outputs in two launches."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    rs = np.random.RandomState(0)
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    cases = []
+    for lengths, pool_dtype, hd, pmax, timed in (
+            (list(rs.randint(1, 1025, 8)), bf16, 64, 16, True),
+            ([0, 1, 63, 64, 65, 700, 1024, 129], bf16, 64, 16, False),
+            ([0, 5, 64, 300, 1000, 17, 128, 1], i8, 64, 16, False),
+            ([37, 0, 200, 64, 1, 511, 66, 900], f32, 64, 16, False),
+            ([0, 1, 127, 128, 129, 640, 1024, 65], bf16, 128, 16, False),
+            ([3, 0, 200, 64, 1, 77, 130, 500], f32, 40, 8, False),
+            ([37, 0, 200, 64, 1, 511, 66, 900], f32, 36, 16, False),
+            ([4000, 0, 4096, 63], bf16, 64, 64, False),
+            ([2048] * 32, bf16, 64, 32, True)):
+        s_slots, h, ps = len(lengths), 12, 64
+        pool, ptab = decode_pool(dev, randn, rs, s_slots, h, hd, ps, pmax,
+                                 pool_dtype)
+        lens = torch.tensor([int(v) for v in lengths], dtype=torch.int32,
+                            device=dev)
+        q = randn(s_slots, h, hd)
+        scale = hd ** -0.5
+        ks, vs = pool.get("k_scale"), pool.get("v_scale")
+        args = (q, pool["k"], pool["v"], ptab, lens, scale, ks, vs)
+        out, route = route_of("decode_attention", da.paged_decode_kernel,
+                              *args)
+        ref = da.paged_attention_plain(*args)
+        what = f"decode {s_slots} slots hd {hd} {pool_dtype}"
+        err = held_decode(what, out, ref, lengths)
+        case = dict(lengths=[int(v) for v in lengths], pool=str(pool_dtype),
+                    shape=[s_slots, h, hd, ps, pmax], route=route,
+                    max_abs_err=err, tol=F32_TOL)
+        if route == "split":
+            sms = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+            case["splits"], case["per"] = da.split_plan(s_slots, h, pmax,
+                                                        sms)
+            if not torch.equal(out, da.paged_decode_kernel(*args)):
+                raise AssertionError(f"{what}: two launches differ")
+            case["bitwise_repeatable"] = True
+        if timed:
+            live = int(lens.sum())
+            elem = pool["k"].element_size()
+            read = 2 * live * h * hd * elem + nbytes(q, ptab, lens, out)
+            case["kernel_ms"] = time_ms(lambda: da.paged_decode_kernel(
+                *args))
+            case["plain_ms"] = time_ms(lambda: da.paged_attention_plain(
+                *args))
+            case["library_ms"] = None
+            case["bound_ms"], case["bound_by"] = bound_ms(
+                read, 4.0 * live * h * hd, pool_dtype)
+        cases.append(case)
+        del pool, ptab, ref
+    return cases
+
+
 def kernel_cases(dev):
     """Per kernel: the serving path's shapes first (the case reported in
     the kernels line), then the ragged set."""
-    from paddle_tpu_torch.ops.attention import (init_page_pool,
-                                                paged_write)
-    from paddle_tpu_torch.ops.cuda import (decode_attention as da,
-                                           flash_attention as fa,
-                                           layer_norm as ln, mlp)
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa, mlp
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
@@ -592,32 +767,7 @@ def kernel_cases(dev):
 
     results = {}
 
-    # K1 layer norm: decode rows (8 slots) and prefill rows (512)
-    cases = []
-    for rows, dtype in ((8, torch.float32), (512, torch.float32),
-                        (13, torch.float32), (37, torch.bfloat16)):
-        x = randn(rows, 768, dtype=dtype)
-        gam = randn(768, dtype=dtype) * 0.1 + 1.0
-        bet = randn(768, dtype=dtype) * 0.1
-        y, m, r = ln.layer_norm_kernel(x, gam, bet, 1e-5)
-        py, pm, pr = ln.layer_norm_plain(x, gam, bet, 1e-5)
-        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        err = max(max_err(y, py), max_err(m, pm), max_err(r, pr))
-        check(f"layer_norm {rows}x768 {dtype}", err, tol)
-        case = dict(shape=[rows, 768], dtype=str(dtype), max_abs_err=err,
-                    tol=tol)
-        if dtype == torch.float32 and rows in (8, 512):
-            case["kernel_ms"] = time_ms(
-                lambda: ln.layer_norm_kernel(x, gam, bet, 1e-5))
-            case["plain_ms"] = time_ms(
-                lambda: ln.layer_norm_plain(x, gam, bet, 1e-5))
-            case["library_ms"] = time_ms(
-                lambda: torch.nn.functional.layer_norm(x, (768,), gam, bet,
-                                                       1e-5))
-            case["bound_ms"], case["bound_by"] = bound_ms(
-                nbytes(x, gam, bet, y, m, r), 8 * x.numel(), dtype)
-        cases.append(case)
-    results["layer_norm"] = cases
+    results["layer_norm"] = layer_norm_cases(randn)
 
     # K2 flash attention: first-chunk prefill [1, 12, 512, 64] causal
     cases = []
@@ -698,57 +848,7 @@ def kernel_cases(dev):
         cases.append(case)
     results["mlp"] = cases
 
-    # K7 paged decode: 8 slots x 12 heads, ps 64, hd 64, bf16 pool
-    cases = []
-    rs = np.random.RandomState(0)
-    for lengths, pool_dtype in (
-            (list(rs.randint(1, 1025, 8)), torch.bfloat16),
-            ([0, 1, 63, 64, 65, 700, 1024, 129], torch.bfloat16),
-            ([0, 5, 64, 300, 1000, 17, 128, 1], torch.int8),
-            ([37, 0, 200, 64, 1, 511, 66, 900], torch.float32)):
-        s_slots, h, hd, ps, pmax = 8, 12, 64, 64, 16
-        n = s_slots * pmax
-        kv_dtype = torch.int8 if pool_dtype == torch.int8 else None
-        pool = init_page_pool(n, h, ps, hd,
-                              dtype=(torch.float32 if kv_dtype else
-                                     pool_dtype),
-                              kv_dtype=kv_dtype, device=dev)
-        perm = torch.from_numpy(rs.permutation(n).astype(np.int32))
-        ptab = perm.reshape(s_slots, pmax).to(dev)
-        ids = ptab.reshape(-1).long()
-        rows = n * ps
-        paged_write(pool, randn(rows, h, hd), randn(rows, h, hd),
-                    ids.repeat_interleave(ps),
-                    torch.arange(ps, device=dev).repeat(n))
-        lens = torch.tensor([int(v) for v in lengths], dtype=torch.int32,
-                            device=dev)
-        q = randn(s_slots, h, hd)
-        scale = 1.0 / 8.0
-        ks, vs = pool.get("k_scale"), pool.get("v_scale")
-        out = da.paged_decode_kernel(q, pool["k"], pool["v"], ptab, lens,
-                                     scale, ks, vs)
-        ref = da.paged_attention_plain(q, pool["k"], pool["v"], ptab, lens,
-                                       scale, ks, vs)
-        err = max_err(out, ref)
-        check(f"decode {lengths} {pool_dtype}", err, F32_TOL)
-        zero = [i for i, v in enumerate(lengths) if v == 0]
-        if zero and float(out[zero].abs().max()) != 0.0:
-            raise AssertionError("decode: a length-0 slot is not exactly 0")
-        case = dict(lengths=[int(v) for v in lengths],
-                    pool=str(pool_dtype), max_abs_err=err, tol=F32_TOL)
-        if len(cases) == 0:
-            live = int(lens.sum())
-            elem = pool["k"].element_size()
-            read = (2 * live * h * hd * elem + nbytes(q, ptab, lens, out))
-            case["kernel_ms"] = time_ms(lambda: da.paged_decode_kernel(
-                q, pool["k"], pool["v"], ptab, lens, scale))
-            case["plain_ms"] = time_ms(lambda: da.paged_attention_plain(
-                q, pool["k"], pool["v"], ptab, lens, scale))
-            case["library_ms"] = None
-            case["bound_ms"], case["bound_by"] = bound_ms(
-                read, 4.0 * live * h * hd, pool_dtype)
-        cases.append(case)
-    results["decode_attention"] = cases
+    results["decode_attention"] = decode_cases(dev, randn)
     return results
 
 
@@ -772,18 +872,13 @@ def train_kernel_cases(dev):
     # K1, K2, K4 at the train step's shapes (bf16 rows of 16 x 512)
     x = randn(8192, 768, dtype=bf16)
     gam, bet = randn(768, dtype=bf16) * 0.1 + 1.0, randn(768, dtype=bf16)
+    got, route = route_of("layer_norm", ln.layer_norm_kernel, x, gam, bet,
+                          1e-5)
     case = dict(kernel="layer_norm", shape=[8192, 768], dtype="bf16",
-                **held("layer_norm train shape",
-                       ln.layer_norm_kernel(x, gam, bet, 1e-5),
+                route=route,
+                **held("layer_norm train shape", got,
                        ln.layer_norm_plain(x, gam, bet, 1e-5), bf16),
-                kernel_ms=time_ms(lambda: ln.layer_norm_kernel(
-                    x, gam, bet, 1e-5)),
-                plain_ms=time_ms(lambda: ln.layer_norm_plain(
-                    x, gam, bet, 1e-5)),
-                library_ms=time_ms(lambda: F.layer_norm(
-                    x, (768,), gam, bet, 1e-5)))
-    case["bound_ms"], case["bound_by"] = bound_ms(
-        2 * nbytes(x) + nbytes(gam, bet) + 8 * 8192, 8 * x.numel(), bf16)
+                **ln_timing(x, gam, bet))
     results["train_shapes"].append(case)
 
     w1, b1 = randn(768, 3072, dtype=bf16, scale=0.036), randn(
@@ -895,18 +990,13 @@ def bert_kernel_cases(dev):
     # K1 (emb_ln) and K4 at the 32768 rows of the step
     x = randn(rows, hid, dtype=bf16)
     gam, bet = randn(hid, dtype=bf16) * 0.1 + 1.0, randn(hid, dtype=bf16)
-    got = ln.layer_norm_kernel(x, gam, bet, 1e-5)
+    got, route = route_of("layer_norm", ln.layer_norm_kernel, x, gam, bet,
+                          1e-5)
     case = dict(kernel="layer_norm", shape=[rows, hid], dtype="bf16",
+                route=route,
                 **held("layer_norm bert shape", got,
                        ln.layer_norm_plain(x, gam, bet, 1e-5), bf16),
-                kernel_ms=time_ms(lambda: ln.layer_norm_kernel(
-                    x, gam, bet, 1e-5)),
-                plain_ms=time_ms(lambda: ln.layer_norm_plain(
-                    x, gam, bet, 1e-5)),
-                library_ms=time_ms(lambda: F.layer_norm(
-                    x, (hid,), gam, bet, 1e-5)))
-    case["bound_ms"], case["bound_by"] = bound_ms(
-        nbytes(x, gam, bet, *got), 8 * x.numel(), bf16)
+                **ln_timing(x, gam, bet))
     results["bert_shapes"].append(case)
 
     # K4 (the tc route) at BertConfig.base()'s [32768, 768] x [768, 3072]
@@ -1128,6 +1218,13 @@ def check_routes(what, routes, route, kernels=None):
                              f"route: {wrong}")
 
 
+def check_path_routes(what, routes, kernels):
+    """Every launch of ``kernels`` in a run took the route
+    :data:`PATH_ROUTE` names for it, and there was at least one."""
+    for k in kernels:
+        check_routes(what, routes, PATH_ROUTE[k], (k,))
+
+
 def check_launches(what, launches, steps, want):
     wrong = {k: (launches[k] / steps, n) for k, n in want.items()
              if launches[k] != n * steps}
@@ -1180,6 +1277,7 @@ def train_phase(cfg, smi):
     check_launches("train", launches, steps,
                    train_launches_per_step(cfg.num_layers))
     check_routes("train", routes, "tc")
+    check_path_routes("train", routes, ("layer_norm",))
     return dict(step_stats("train", "GPTConfig.small()", batch, seq, losses,
                            times, launches, smi), routes=routes), launches
 
@@ -1258,6 +1356,7 @@ def bert_train_phase(smi):
     check_launches("bert_train", launches, steps,
                    bert_launches_per_step(cfg.num_layers))
     check_routes("bert_train", routes, "tc")
+    check_path_routes("bert_train", routes, ("layer_norm",))
     stats = step_stats("bert_train", "BertConfig.base()", batch, seq,
                        losses, times, launches, smi)
     return dict(stats, masked_positions=n_mask, routes=routes), launches
@@ -1294,6 +1393,7 @@ def bert_large_phase(smi):
     check_launches("bert_large", launches, steps,
                    bert_launches_per_step(cfg.num_layers))
     check_routes("bert_large", routes, "tc")
+    check_path_routes("bert_large", routes, ("layer_norm",))
     stats = step_stats("bert_large", "BertConfig.large()", batch, seq,
                        losses, times, launches, smi, must_fall=False)
     return dict(stats, masked_positions=n_mask, hidden_size=cfg.hidden_size,
@@ -1326,13 +1426,22 @@ def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
 def expected_route(kernel, case):
     """The route a kernel case must take: K2 and K3 by
     :func:`flash_route` (bf16 with D = 64 or 128 on the tensor cores);
-    K4 and K5 the tensor cores in bf16 (every case here has widths that
-    are multiples of 8) and the SIMT kernel in f32."""
+    K1 by :func:`ln_route` (the row route for C of whole 16-byte packs, at
+    most 8 a lane); K7 by :func:`decode_route` (the split route for head
+    dims that are multiples of 8 up to 256); K4 and K5 the tensor cores
+    in bf16 (every case here has widths that are multiples of 8) and the
+    SIMT kernel in f32."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
     bf16 = case.get("dtype") in ("bf16", str(torch.bfloat16))
+    dtype = torch.bfloat16 if bf16 else torch.float32
     if kernel.startswith("flash"):
-        return fa.flash_route(torch.bfloat16 if bf16 else torch.float32,
-                              case["shape"][-1])
+        return fa.flash_route(dtype, case["shape"][-1])
+    if kernel == "layer_norm":
+        return ln.ln_route(dtype, case["shape"][-1])
+    if kernel == "decode_attention":
+        return da.decode_route(case["shape"][2])
     return "tc" if bf16 else "simt"
 
 
@@ -1354,6 +1463,8 @@ def kernel_table(by_kernel, paths):
     for name, kernel in core.KERNELS.items():
         if name in ROUTED_ROWS:
             variants = ("simt", "tc")
+        elif name in PATH_ROUTE:
+            variants = (PATH_ROUTE[name],)
         else:
             variants = ("tc",) if name.startswith("xent") else ("simt",)
         for variant in variants:
@@ -1368,7 +1479,7 @@ def kernel_table(by_kernel, paths):
             else:
                 path = "bert"
             table.append(dict(
-                name=name if variant == "simt" or name not in ROUTED_ROWS
+                name=name if name not in ROUTED_ROWS or variant == "simt"
                 else f"{name}.tc",
                 route="cuda", variant=variant,
                 source=kernel.route_sources.get(variant, kernel.source),
@@ -1417,6 +1528,8 @@ def main():
     torch.cuda.synchronize()
 
     dev = torch.device("cuda")
+    emit(dict(phase="floor", what="time_ms of a CUDA graph of one empty "
+              "kernel", ms=floor_ms(dev)))
     results = kernel_cases(dev)
     results.update(train_kernel_cases(dev))
     results.update(bert_kernel_cases(dev))
@@ -1452,10 +1565,13 @@ def main():
         raise AssertionError(f"kernels not launched on the serve path: "
                              f"{missing}")
     check_routes("serve", serve_routes, "simt", SERVE_ROUTED)
+    check_path_routes("serve", serve_routes, ("layer_norm",
+                                              "decode_attention"))
     emit(dict(phase="serve", config="GPTConfig.small()",
               **{k: v for k, v in serve_kw.items() if k != "cache_dtype"},
               cache_dtype="bfloat16", launches=launches,
-              routes={k: serve_routes[k] for k in SERVE_ROUTED}, **stats))
+              routes={k: serve_routes[k] for k in SERVE_ROUTED
+                      + tuple(PATH_ROUTE)}, **stats))
 
     cpu_model = GPTDecoder(cfg, device="cpu", seed=0)
     pick = [eng.requests[rids[-1]], eng.requests[rids[0]]]
@@ -1468,9 +1584,10 @@ def main():
     _, _, stats8 = serve(model, 4, (64, 512), 600, 16, int8_kw, seed=2)
     torch.cuda.synchronize()
     launches8 = core.launch_counts()
-    if launches8["decode_attention"] == 0:
-        raise AssertionError("int8 serve did not launch the decode kernel")
+    routes8 = core.route_counts()
+    check_path_routes("int8", routes8, ("decode_attention",))
     emit(dict(phase="int8", kv_dtype="int8", launches=launches8,
+              routes={"decode_attention": routes8["decode_attention"]},
               **{k: v for k, v in stats8.items() if k != "prompt_lens"}))
 
     del model, eng

@@ -1,11 +1,23 @@
 // K1: layer norm forward over [R, C] rows.
 //
 // Replaces paddle_tpu/ops/pallas/layer_norm.py:30 _ln_fwd_kernel (launched
-// by _stats_pallas :62). One warp per row: the row is read three times
-// (mean, centred variance, normalize), which the L1 serves after the
-// first pass, so device memory sees one read of x and one write of y.
-// The work is a reduction plus an elementwise affine: it is bound by
-// bytes, and warp shuffles keep the statistics out of shared memory.
+// by _stats_pallas :62). The work is a reduction plus an elementwise
+// affine: it is bound by bytes (one read of x, one write of y), and at the
+// 8 rows of a decode step by the latency of one row. Two routes, chosen
+// by shape in the wrapper (ops/cuda/layer_norm.py ln_route):
+//
+// row (C a multiple of the 16-byte pack, at most 8 packs a lane): one warp
+//   holds a row in registers. Each lane issues all its 16-byte packs of x,
+//   and of the scale and bias, before the first reduction, so a row costs
+//   one memory round trip; the mean, then the centred variance (the
+//   reference's two-pass numerics, not E[x^2] - m^2) come from the
+//   registers by warp shuffles, and y leaves in 16-byte packs. The packs a
+//   lane holds are a template parameter: C = 768 and C = 1024 are
+//   compiled instances, as is every other C of 1-8 packs a lane.
+// simt (other C), the first port: one warp per row reads the row three
+//   times (mean, centred variance, normalize), the second and third from
+//   L1.
+//
 // Statistics are f32 whatever the storage type, as on the TPU.
 
 #include "common.cuh"
@@ -14,6 +26,128 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
+
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// ---- K1, the row route ---------------------------------------------------
+
+constexpr int kRowWarps = 4;     // rows (one a warp) per block
+constexpr int kMaxPacks = 8;     // 16-byte packs of a row a lane may hold
+
+// NP packs of 16 bytes a lane: pack c = lane + 32 i of the row, for the
+// packs that exist (C / VEC of them). The row stays in registers as it
+// was loaded (bf16 pairs, not f32), converted in each pass, so a lane
+// holds few registers and many warps fit on an SM.
+template <typename T, int NP>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    ln_row_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                  const T* __restrict__ beta, T* __restrict__ y,
+                  float* __restrict__ mean, float* __restrict__ rstd, int R,
+                  int C, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using P = Pack<T, VEC>;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (row >= R) return;
+  const int packs = C / VEC;
+  const P* xr = reinterpret_cast<const P*>(x + static_cast<size_t>(row) * C);
+  const P* gp = reinterpret_cast<const P*>(gamma);
+  const P* bp = reinterpret_cast<const P*>(beta);
+  P xv[NP], gv[NP], bv[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int c = lane + 32 * i;
+    if (c < packs) {
+      xv[i] = xr[c];
+      gv[i] = gp[c];
+      bv[i] = bp[c];
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    if (lane + 32 * i < packs)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s += to_f32(xv[i].v[e]);
+  const float m = warp_sum(s) / C;
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    if (lane + 32 * i < packs) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = to_f32(xv[i].v[e]) - m;
+        v += d * d;
+      }
+    }
+  }
+  v = warp_sum(v) / C;
+  const float r = 1.0f / sqrtf(v + eps);
+  P* yr = reinterpret_cast<P*>(y + static_cast<size_t>(row) * C);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const int c = lane + 32 * i;
+    if (c < packs) {
+      P o;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float t = (to_f32(xv[i].v[e]) - m) * r;
+        t = t * to_f32(gv[i].v[e]);
+        t = t + to_f32(bv[i].v[e]);
+        o.v[e] = from_f32<T>(t);
+      }
+      yr[c] = o;
+    }
+  }
+  if (lane == 0) {
+    mean[row] = m;
+    rstd[row] = r;
+  }
+}
+
+template <typename T, int NP>
+void launch_row_np(const void* x, const void* g, const void* b, void* y,
+                   void* mean, void* rstd, int R, int C, float eps,
+                   cudaStream_t stream) {
+  const dim3 grid((R + kRowWarps - 1) / kRowWarps);
+  ln_row_kernel<T, NP><<<grid, kRowWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const T*>(b), static_cast<T*>(y),
+      static_cast<float*>(mean), static_cast<float*>(rstd), R, C, eps);
+}
+
+// The row route for C a multiple of the pack with 1..kMaxPacks packs a
+// lane and every pointer 16-byte aligned; cudaErrorInvalidValue else.
+template <typename T>
+cudaError_t launch_row(const void* x, const void* g, const void* b, void* y,
+                       void* mean, void* rstd, int R, int C, float eps,
+                       cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int np = (C / VEC + 31) / 32;
+  if (C % VEC != 0 || np < 1 || np > kMaxPacks || !aligned16(x) ||
+      !aligned16(g) || !aligned16(b) || !aligned16(y))
+    return cudaErrorInvalidValue;
+  switch (np) {
+    case 1: launch_row_np<T, 1>(x, g, b, y, mean, rstd, R, C, eps, st); break;
+    case 2: launch_row_np<T, 2>(x, g, b, y, mean, rstd, R, C, eps, st); break;
+    case 3: launch_row_np<T, 3>(x, g, b, y, mean, rstd, R, C, eps, st); break;
+    case 4: launch_row_np<T, 4>(x, g, b, y, mean, rstd, R, C, eps, st); break;
+    case 5: launch_row_np<T, 5>(x, g, b, y, mean, rstd, R, C, eps, st); break;
+    case 6: launch_row_np<T, 6>(x, g, b, y, mean, rstd, R, C, eps, st); break;
+    case 7: launch_row_np<T, 7>(x, g, b, y, mean, rstd, R, C, eps, st); break;
+    default: launch_row_np<T, 8>(x, g, b, y, mean, rstd, R, C, eps, st);
+  }
+  return cudaGetLastError();
+}
+
+// ---- K1, the simt route --------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -82,11 +216,6 @@ __host__ __device__ inline int padded_cols(int C) {
 }
 
 template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
     add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
                       const T* __restrict__ gamma, const T* __restrict__ beta,
@@ -143,10 +272,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 template <typename T>
 cudaError_t launch_add(const void* x, const void* h, const void* g,
                        const void* b, void* y, void* mean, void* rstd, int R,
@@ -171,6 +296,24 @@ cudaError_t launch_add(const void* x, const void* h, const void* g,
 }
 
 }  // namespace
+
+// The row route (see launch_row for what it takes).
+extern "C" int ptt_layer_norm_row(int dtype, const void* x,
+                                  const void* gamma, const void* beta,
+                                  void* y, void* mean, void* rstd, int R,
+                                  int C, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == PTT_F32) {
+    err = launch_row<float>(x, gamma, beta, y, mean, rstd, R, C, eps, st);
+  } else if (dtype == PTT_BF16) {
+    err = launch_row<__nv_bfloat16>(x, gamma, beta, y, mean, rstd, R, C,
+                                    eps, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
 
 extern "C" int ptt_layer_norm(int dtype, const void* x, const void* gamma,
                               const void* beta, void* y, void* mean,

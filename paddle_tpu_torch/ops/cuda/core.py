@@ -20,9 +20,10 @@ JAX package's single ``pl.pallas_call`` site. It owns:
   fails on the card raises.
 
 The online-softmax (m, l, acc) combiner of ``core.py:220-269`` lives in
-device code, in the kernels themselves (``csrc/flash_attention.cu``,
-``csrc/decode_attention.cu``), with the same rule that a fully masked row
-gives exactly 0.
+device code, in the kernels themselves (``csrc/flash_attention.cu``;
+``csrc/decode_attention.cu``, whose split route also merges the
+partials of its splits in the last block of each to finish), with the
+same rule that a fully masked row gives exactly 0.
 """
 
 import ctypes
@@ -185,17 +186,15 @@ class Kernel:
 KERNELS = {}
 
 
-def register(name, symbol, argtypes, replaces, source, tc=None,
-             tc_source=None):
+def register(name, symbol, argtypes, replaces, source, routes=None,
+             route_sources=None):
     """Register a kernel whose ``"simt"`` route is the C entry ``symbol``
-    in ``source``; ``tc``, a ``(symbol, argtypes)`` pair, adds a
-    tensor-core route, whose source is ``tc_source`` where it has a file
-    of its own."""
-    routes = {"simt": (symbol, argtypes)}
-    if tc is not None:
-        routes["tc"] = tc
-    kernel = Kernel(name, routes, replaces, source,
-                    {"tc": tc_source} if tc_source else None)
+    in ``source``. ``routes`` adds further named routes, ``{route:
+    (symbol, argtypes)}`` (the tensor cores' ``"tc"``, K1's ``"row"``,
+    K7's ``"split"``), whose sources are ``route_sources[route]`` where
+    they have files of their own."""
+    kernel = Kernel(name, {"simt": (symbol, argtypes), **(routes or {})},
+                    replaces, source, route_sources)
     KERNELS[name] = kernel
     return kernel
 

@@ -48,8 +48,8 @@ KERNEL = core.register(
     "flash_attention", "ptt_flash_attention", [core.I32] + _FWD_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:64",
     source="paddle_tpu_torch/csrc/flash_attention.cu",
-    tc=("ptt_flash_attention_tc", _FWD_ARGS),
-    tc_source="paddle_tpu_torch/csrc/flash_attention_tc.cu")
+    routes={"tc": ("ptt_flash_attention_tc", _FWD_ARGS)},
+    route_sources={"tc": "paddle_tpu_torch/csrc/flash_attention_tc.cu"})
 _DQ_ARGS = [core.VP] * 8 + [core.I32] * 5 + [core.F32_ARG, core.I32,
                                              core.VP]
 KERNEL_BWD_DQ = core.register(
@@ -57,8 +57,8 @@ KERNEL_BWD_DQ = core.register(
     [core.I32] + _DQ_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:180",
     source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-    tc=("ptt_flash_attention_bwd_dq_tc", _DQ_ARGS),
-    tc_source="paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu")
+    routes={"tc": ("ptt_flash_attention_bwd_dq_tc", _DQ_ARGS)},
+    route_sources={"tc": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu"})
 _DKV_ARGS = [core.VP] * 9 + [core.I32] * 5 + [core.F32_ARG, core.I32,
                                               core.VP]
 KERNEL_BWD_DKV = core.register(
@@ -66,8 +66,8 @@ KERNEL_BWD_DKV = core.register(
     [core.I32] + _DKV_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:232",
     source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-    tc=("ptt_flash_attention_bwd_dkv_tc", _DKV_ARGS),
-    tc_source="paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu")
+    routes={"tc": ("ptt_flash_attention_bwd_dkv_tc", _DKV_ARGS)},
+    route_sources={"tc": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu"})
 
 NEG_INF = -1e30
 #: the reference's default kv block (flag flash_block_k), which is also

@@ -7,8 +7,11 @@ Replaces ``paddle_tpu/ops/pallas/layer_norm.py:30 _ln_fwd_kernel``
 Source: ``paddle_tpu_torch/csrc/layer_norm.cu``. One warp normalizes one
 row of ``[R, C]``; statistics are f32; the kernel also writes the f32
 mean and rstd per row, which the backward reads. Bound on the H100: bytes
-(one read of x, one write of y), so the design keeps the statistics in
-warp shuffles and reads x once from device memory.
+(one read of x, one write of y), and at decode's 8 rows the latency of
+one row. Two routes, chosen by :func:`ln_route` from the dtype and C:
+``"row"`` holds the row in registers, loaded once in 16-byte packs (C a
+multiple of the pack, at most 8 packs a lane: C <= 2048 in bf16, 1024 in
+f32); ``"simt"``, the first port, reads the row three times.
 
 K8 replaces ``:175 _ln_add_fwd_kernel`` (launcher ``_stats_add_pallas``
 :190, entry ``add_layer_norm_fused`` :263): ``ln(x + h)`` with the sum
@@ -32,13 +35,29 @@ KERNEL = core.register(
     [core.I32, core.VP, core.VP, core.VP, core.VP, core.VP, core.VP,
      core.I32, core.I32, core.F32_ARG, core.VP],
     replaces="paddle_tpu/ops/pallas/layer_norm.py:30",
-    source="paddle_tpu_torch/csrc/layer_norm.cu")
+    source="paddle_tpu_torch/csrc/layer_norm.cu",
+    routes={"row": ("ptt_layer_norm_row",
+                    [core.I32, core.VP, core.VP, core.VP, core.VP, core.VP,
+                     core.VP, core.I32, core.I32, core.F32_ARG, core.VP])})
 KERNEL_ADD = core.register(
     "add_layer_norm", "ptt_add_layer_norm",
     [core.I32] + [core.VP] * 7 + [core.I32, core.I32, core.F32_ARG,
                                   core.VP],
     replaces="paddle_tpu/ops/pallas/layer_norm.py:175",
     source="paddle_tpu_torch/csrc/layer_norm.cu")
+
+
+#: the row route: 16-byte packs a lane may hold (csrc/layer_norm.cu)
+ROW_MAX_PACKS = 8
+
+
+def ln_route(dtype, cols):
+    """K1's route: ``"row"`` when a row is whole 16-byte packs, at most
+    :data:`ROW_MAX_PACKS` of them a lane of a warp, else ``"simt"``."""
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    if cols > 0 and cols % vec == 0 and cols <= 32 * vec * ROW_MAX_PACKS:
+        return "row"
+    return "simt"
 
 
 def layer_norm_plain(x2d, gamma, beta, epsilon):
@@ -55,7 +74,8 @@ def layer_norm_plain(x2d, gamma, beta, epsilon):
 
 
 def layer_norm_kernel(x2d, gamma, beta, epsilon):
-    """Launch K1 on CUDA tensors; same outputs as the plain version."""
+    """Launch K1 on CUDA tensors, on the route :func:`ln_route` picks;
+    same outputs as the plain version."""
     code = core.dtype_code(x2d, (torch.float32, torch.bfloat16))
     if gamma.dtype != x2d.dtype or beta.dtype != x2d.dtype:
         raise TypeError("layer_norm kernel: scale and bias must have x's "
@@ -69,9 +89,15 @@ def layer_norm_kernel(x2d, gamma, beta, epsilon):
     rstd = torch.empty((r_, 1), dtype=torch.float32, device=x2d.device)
     if r_ == 0:
         return y, mean, rstd
+    route = ln_route(x2d.dtype, c_)
+    if route == "row":
+        # 16-byte packs: an operand that does not start on 16 bytes is
+        # copied (a fresh allocation does)
+        x2d, gamma, beta = (t if t.data_ptr() % 16 == 0 else t.clone()
+                            for t in (x2d, gamma, beta))
     KERNEL(code, core.ptr(x2d), core.ptr(gamma), core.ptr(beta),
            core.ptr(y), core.ptr(mean), core.ptr(rstd), r_, c_,
-           float(epsilon), core.stream(x2d))
+           float(epsilon), core.stream(x2d), route=route)
     return y, mean, rstd
 
 

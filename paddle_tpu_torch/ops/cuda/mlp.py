@@ -36,7 +36,8 @@ KERNEL = core.register(
     [core.I32] + [core.VP] * 7 + [core.I32] * 6 + [core.VP],
     replaces="paddle_tpu/ops/pallas/mlp.py:51",
     source="paddle_tpu_torch/csrc/mlp.cu",
-    tc=("ptt_mlp_tc", [core.VP] * 7 + [core.I32] * 8 + [core.VP]))
+    routes={"tc": ("ptt_mlp_tc", [core.VP] * 7 + [core.I32] * 8
+                   + [core.VP])})
 
 #: the simt route: rows per tile and intermediate columns per chunk
 BLOCK_ROWS, BLOCK_I = 16, 32

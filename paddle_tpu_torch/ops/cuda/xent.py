@@ -40,7 +40,8 @@ KERNEL_STATS = core.register(
     "xent_stats", "ptt_xent_stats",
     [core.I32] + [core.VP] * 6 + [core.I32] * 5 + [core.VP],
     replaces="paddle_tpu/ops/pallas/xent.py:49", source=_SRC,
-    tc=("ptt_xent_stats_tc", [core.VP] * 6 + [core.I32] * 6 + [core.VP]))
+    routes={"tc": ("ptt_xent_stats_tc",
+                   [core.VP] * 6 + [core.I32] * 6 + [core.VP])})
 KERNEL_DH = core.register(
     "xent_bwd_dh", "ptt_xent_bwd_dh",
     [core.I32] + [core.VP] * 8 + [core.I32] * 7

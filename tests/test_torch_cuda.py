@@ -59,6 +59,32 @@ def test_layer_norm_kernel(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols,offset", [
+    (8, 768, 0), (8192, 768, 0), (3, 1024, 0), (5, 200, 0), (13, 770, 0),
+    (2, 4096, 0), (29, 768, 1)])
+def test_layer_norm_row_route(cuda, dtype, rows, cols, offset):
+    """K1 on the route ln_route picks: the row route at C = 768 and 1024,
+    at C of whole packs that are not whole warps of packs, and on a view
+    that does not start on 16 bytes (copied); the simt route at C off
+    the pack and past the row route's widest."""
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator().manual_seed(rows + cols)
+    x = _randn(g, rows * cols + offset, scale=3.0,
+               dtype=dtype)[offset:].view(rows, cols)
+    gam = _randn(g, cols, dtype=dtype) * 0.1 + 1.0
+    bet = _randn(g, cols, dtype=dtype) * 0.1
+    core.reset_launches()
+    got = ln.layer_norm_kernel(x, gam, bet, 1e-5)
+    want = ln.layer_norm_plain(x, gam, bet, 1e-5)
+    route = ln.ln_route(dtype, cols)
+    assert core.route_counts()["layer_norm"][route] == 1
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_add_layer_norm_kernel(cuda, dtype):
     """K8 against its plain version: 16-byte packs (C a multiple of the
     pack), element-wise rows (ragged C, and a misaligned view), and R not
@@ -254,6 +280,84 @@ def test_decode_kernel_ragged_pools(cuda, pool):
     want = da.paged_attention_plain(*args)
     assert float((got - want).abs().max()) <= F32_TOL
     assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd,ps,lengths", [
+    (64, 64, [0, 1, 63, 64, 65, 1024, 700, 129]),
+    (128, 64, [1, 0, 128, 129, 1000, 5]),
+    (256, 16, [0, 17, 16, 255, 256, 3]),
+    (40, 8, [8, 9, 0, 1, 127, 64]),
+    (8, 32, [31, 32, 33, 0, 511, 512]),
+    (64, 16, [1000, 0, 999, 17])])
+def test_decode_split_route(cuda, pool, hd, ps, lengths):
+    """K7's split route against the plain version at head dims 8-256 and
+    page sizes 8-64, lengths 0 and 1 and on and one past the splits'
+    boundaries: within F32_TOL, exactly 0 at length 0, bitwise equal in
+    two launches, every launch on the split route."""
+    from paddle_tpu_torch.ops.attention import init_page_pool, paged_write
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    g = torch.Generator().manual_seed(hd + ps)
+    s, h = len(lengths), 4
+    pmax = -(-max(lengths) // ps)
+    n = s * pmax
+    kv = torch.int8 if pool == "int8" else None
+    dtype = torch.bfloat16 if pool == "bf16" else torch.float32
+    p = init_page_pool(n, h, ps, hd, dtype=dtype, kv_dtype=kv, device=cuda)
+    ptab = torch.from_numpy(np.random.RandomState(1).permutation(n)
+                            .astype(np.int32)).reshape(s, pmax).to(cuda)
+    ids = ptab.reshape(-1).long().repeat_interleave(ps)
+    offs = torch.arange(ps, device=cuda).repeat(n)
+    paged_write(p, _randn(g, n * ps, h, hd), _randn(g, n * ps, h, hd), ids,
+                offs)
+    q = _randn(g, s, h, hd)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    args = (q, p["k"], p["v"], ptab, lens, hd ** -0.5, p.get("k_scale"),
+            p.get("v_scale"))
+    assert da.decode_route(hd) == "split"
+    core.reset_launches()
+    got = da.paged_decode_kernel(*args)
+    again = da.paged_decode_kernel(*args)
+    assert core.route_counts()["decode_attention"] == {"simt": 0,
+                                                       "split": 2}
+    want = da.paged_attention_plain(*args)
+    assert float((got - want).abs().max()) <= F32_TOL
+    assert torch.equal(got, again)
+    zero = [i for i, v in enumerate(lengths) if v == 0]
+    assert float(got[zero].abs().max()) == 0.0
+
+
+def test_decode_split_route_in_a_cuda_graph(cuda):
+    """The split route's launch pair replays from a CUDA graph: new
+    lengths and queries written into the captured tensors between
+    replays give the plain version's answers (nothing read on the
+    host)."""
+    from paddle_tpu_torch.ops.attention import init_page_pool, paged_write
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    g = torch.Generator().manual_seed(5)
+    s, h, hd, ps, pmax = 4, 12, 64, 64, 8
+    n = s * pmax
+    p = init_page_pool(n, h, ps, hd, dtype=torch.bfloat16, device=cuda)
+    ptab = torch.arange(n, dtype=torch.int32, device=cuda).reshape(s, pmax)
+    paged_write(p, _randn(g, n * ps, h, hd), _randn(g, n * ps, h, hd),
+                ptab.reshape(-1).long().repeat_interleave(ps),
+                torch.arange(ps, device=cuda).repeat(n))
+    q = _randn(g, s, h, hd)
+    lens = torch.tensor([5, 0, 300, 512], dtype=torch.int32, device=cuda)
+    da.paged_decode_kernel(q, p["k"], p["v"], ptab, lens, 0.125)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.paged_decode_kernel(q, p["k"], p["v"], ptab, lens, 0.125)
+    for new in ([1, 64, 65, 0], [512, 511, 0, 129]):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        q.copy_(_randn(g, s, h, hd))
+        graph.replay()
+        want = da.paged_attention_plain(q, p["k"], p["v"], ptab, lens,
+                                        0.125)
+        assert float((out - want).abs().max()) <= F32_TOL
+        assert float(out[new.index(0)].abs().max()) == 0.0
 
 
 def test_tiny_serve_runs_every_kernel(cuda):

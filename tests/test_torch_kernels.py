@@ -46,7 +46,8 @@ def n(x):
 
 # ------------------------------------------------------------ K1 layer norm
 
-@pytest.mark.parametrize("shape", [(13, 48), (3, 5, 40), (1, 64)])
+@pytest.mark.parametrize("shape", [(13, 48), (3, 5, 40), (1, 64),
+                                   (4, 1024), (5, 770)])
 def test_layer_norm_matches_jax_xla_and_interpret(rng, flags_guard, shape):
     from paddle_tpu.ops.pallas.layer_norm import (_stats_pallas, _stats_xla,
                                                   layer_norm_fused)
@@ -439,6 +440,191 @@ def test_paged_decode_matches_jax_xla_and_interpret(rng, flags_guard,
     np.testing.assert_allclose(got, ref_xla, **TOL)
     np.testing.assert_allclose(got, ref_int, **TOL)
     assert float(np.abs(got[1]).max()) == 0.0      # length-0 slot: exact 0
+
+
+# K7's split route: its plan, and its split-and-combine in plain torch
+
+@pytest.mark.parametrize("slots,heads,pmax,sms", [
+    (8, 12, 16, 132), (32, 12, 32, 132), (1, 1, 1, 132), (100, 12, 16, 132),
+    (3, 4, 5, 132), (8, 12, 16, 1), (1, 12, 5000, 132), (2, 2, 7, 16)])
+def test_decode_split_plan_covers_every_entry_once(slots, heads, pmax, sms):
+    """Every page-table entry of a slot belongs to exactly one split, no
+    split is empty at pmax, none stages more than SPLIT_MAX_PER entries,
+    and the plan reads only shapes and the SM count."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    splits, per = da.split_plan(slots, heads, pmax, sms)
+    owner = [j for j in range(splits)
+             for _ in range(j * per, min((j + 1) * per, pmax))]
+    assert owner == [e // per for e in range(pmax)]    # each entry once
+    assert all(j * per < pmax for j in range(splits))  # none empty
+    assert per <= da.SPLIT_MAX_PER
+    blocks = slots * heads * splits
+    assert blocks >= min(da.SPLIT_BLOCKS_PER_SM * sms,
+                         slots * heads * -(-pmax // per))
+
+
+@pytest.mark.parametrize("hd,route", [(64, "split"), (128, "split"),
+                                      (256, "split"), (8, "split"),
+                                      (40, "split"), (36, "simt"),
+                                      (264, "simt"), (4, "simt")])
+def test_decode_route_rule(hd, route):
+    """K7's route: head dims that are multiples of 8 up to 256 take the
+    split route, the rest the simt kernel."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    assert da.decode_route(hd) == route
+
+
+@pytest.mark.parametrize("dtype,cols,route", [
+    (torch.float32, 768, "row"), (torch.bfloat16, 768, "row"),
+    (torch.float32, 1024, "row"), (torch.bfloat16, 1024, "row"),
+    (torch.bfloat16, 2048, "row"), (torch.float32, 100, "row"),
+    (torch.float32, 2048, "simt"), (torch.bfloat16, 770, "simt"),
+    (torch.float32, 771, "simt"), (torch.bfloat16, 4096, "simt")])
+def test_layer_norm_route_rule(dtype, cols, route):
+    """K1's route: rows of whole 16-byte packs, at most 8 a lane, take
+    the row route; the rest the simt kernel."""
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    assert ln.ln_route(dtype, cols) == route
+
+
+LOG2E = 1.4426950408889634
+
+
+def _split_decode_plain(q, k_pages, v_pages, page_table, lengths, scale,
+                        splits, per, k_scale=None, v_scale=None,
+                        fault=None):
+    """The split route's algorithm in plain torch, for the tests only:
+    split j of a slot owns its page-table entries [j per, (j + 1) per);
+    each live split gives a partial (m in base 2, l, acc) over its tokens
+    below the length; the live splits merge in split order. ``fault``
+    plants one error as a copy of the kernel could have it: ``drop_last``
+    (the last live token left out), ``past_length`` (one token past the
+    length read), ``no_rescale`` (a split merged without its max rescale)
+    and ``shift_pages`` (each split's page run one page late)."""
+    s_slots, h, hd = q.shape
+    ps = k_pages.shape[2]
+    pmax = page_table.shape[1]
+    pt = page_table.long()
+    if fault == "shift_pages":
+        pt = torch.cat([pt[:, 1:], pt[:, -1:]], 1)
+    kg, vg = k_pages[pt].float(), v_pages[pt].float()
+    if k_scale is not None:
+        kg = kg * k_scale[pt][:, :, None, :, None]
+        vg = vg * v_scale[pt][:, :, None, :, None]
+    t = pmax * ps
+    k = kg.movedim(2, 1).reshape(s_slots, h, t, hd)
+    v = vg.movedim(2, 1).reshape(s_slots, h, t, hd)
+    sc = torch.einsum("shd,shtd->sht", q.float(), k) * (scale * LOG2E)
+    lens = lengths.long().clamp(0, t)
+    if fault == "drop_last":
+        lens = (lens - 1).clamp(min=0)
+    if fault == "past_length":
+        lens = (lens + 1).clamp(max=t)
+    pos = torch.arange(t)
+    parts = []
+    for j in range(splits):
+        lo = j * per * ps
+        keep = (pos[None, :] >= lo) & (pos[None, :] < torch.minimum(
+            lens[:, None], torch.tensor(lo + per * ps)))     # [S, T]
+        keep = keep[:, None, :]
+        m = torch.where(keep, sc, torch.full_like(sc, -1e30)).amax(-1)
+        p = torch.where(keep, torch.exp2(sc - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum("sht,shtd->shd", p, v),
+                      lo < lens[:, None].expand(s_slots, h)))
+    gm = torch.full((s_slots, h), -1e30)
+    for m, _, _, live in parts:
+        gm = torch.where(live, torch.maximum(gm, m), gm)
+    gl = torch.zeros(s_slots, h)
+    acc = torch.zeros(s_slots, h, hd)
+    for m, l, a, live in parts:
+        w = (torch.ones_like(m) if fault == "no_rescale"
+             else torch.exp2(m - gm))
+        w = torch.where(live, w, 0.0)
+        gl = gl + l * w
+        acc = acc + a * w[..., None]
+    return torch.where(gl[..., None] > 0, acc / gl.clamp(min=1e-30)[..., None],
+                       0.0)
+
+
+@pytest.mark.parametrize("pool_kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("cut", ["one", "two", "many"])
+def test_split_decode_plain_matches_jax(rng, flags_guard, pool_kind, cut):
+    """The split route's split-and-combine, in plain torch, against the
+    port's plain version and the JAX reference (XLA path and the Pallas
+    kernel in interpret mode) at one split, two and one per page, with
+    lengths on a split's boundary, one past it, 1 and 0."""
+    from paddle_tpu.ops.attention import _paged_attention_xla
+    from paddle_tpu.ops.pallas.decode_attention import \
+        paged_decode_attention_tpu
+    from paddle_tpu_torch.ops.cuda.decode_attention import \
+        paged_attention_plain
+    ps, pmax = 8, 6
+    per = {"one": pmax, "two": 3, "many": 1}[cut]
+    splits = -(-pmax // per)
+    edge = per * ps if cut != "one" else 2 * ps     # a split's boundary
+    lengths = [edge, edge + 1, 1, 0, (pmax - 1) * ps, edge - 1]
+    dtype = jnp.bfloat16 if pool_kind == "bf16" else jnp.float32
+    kv = jnp.int8 if pool_kind == "int8" else None
+    pool, ptab = _jax_pool(rng, lengths, dtype, kv, n_pages=40)
+    assert ptab.shape[1] == pmax
+    q = rng.randn(len(lengths), 4, 16).astype(np.float32)
+    scale = 0.25
+    args = (jnp.asarray(q), pool["k"], pool["v"], jnp.asarray(ptab),
+            jnp.asarray(lengths, jnp.int32))
+    ks, vs = pool.get("k_scale"), pool.get("v_scale")
+    ref_xla = np.asarray(_paged_attention_xla(*args, scale, k_scale=ks,
+                                              v_scale=vs))
+    ref_int = np.asarray(paged_decode_attention_tpu(
+        *args, scale, k_scale=ks, v_scale=vs, interpret=True, block_h=2))
+    targs = (t(q), t(pool["k"]), t(pool["v"]), t(ptab),
+             torch.tensor(lengths, dtype=torch.int32), scale)
+    tks = None if ks is None else t(ks)
+    tvs = None if vs is None else t(vs)
+    got = n(_split_decode_plain(*targs, splits, per, tks, tvs))
+    np.testing.assert_allclose(got, ref_xla, **TOL)
+    np.testing.assert_allclose(got, ref_int, **TOL)
+    np.testing.assert_allclose(got, n(paged_attention_plain(
+        *targs, tks, tvs)), **TOL)
+    assert float(np.abs(got[3]).max()) == 0.0      # length 0: exactly 0
+
+
+@pytest.mark.parametrize("fault", ["none", "drop_last", "past_length",
+                                   "no_rescale", "shift_pages"])
+def test_decode_card_check_fails_each_planted_fault(fault):
+    """chip_smoke.py's K7 check (``held_decode`` at F32_TOL) on the CPU,
+    at the serve path's shape (8 slots x 12 heads, page size 64, hd 64,
+    16 pages a slot, 16 splits of one page as the plan gives them on 132
+    SMs) with chip_smoke.py's boundary lengths: the split-and-combine
+    passes it, and each planted fault fails it."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    g = torch.Generator().manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return torch.randn(*shape, generator=g).to(dtype) * scale
+
+    lengths = [0, 1, 63, 64, 65, 700, 1024, 129]
+    pool, ptab = chip_smoke.decode_pool("cpu", randn,
+                                        np.random.RandomState(0), 8, 12, 64,
+                                        64, 16, torch.bfloat16)
+    q = randn(8, 12, 64)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    splits, per = da.split_plan(8, 12, 16, 132)
+    assert (splits, per) == (16, 1)
+    want = da.paged_attention_plain(q, pool["k"], pool["v"], ptab, lens,
+                                    0.125)
+    got = _split_decode_plain(q, pool["k"], pool["v"], ptab, lens, 0.125,
+                              splits, per, fault=None if fault == "none"
+                              else fault)
+    if fault == "none":
+        chip_smoke.held_decode("plain", got, want, lengths)
+        return
+    with pytest.raises(AssertionError):
+        chip_smoke.held_decode(fault, got, want, lengths)
 
 
 @pytest.mark.parametrize("pool_kind", ["f32", "int8"])

@@ -11,7 +11,7 @@ profiles with torch.profiler:
   admission) — host wall time per step, device time per step (the sum of
   the CUDA kernels, which run on one stream and do not overlap), the
   device's idle share, kernel launches per step, and device time by
-  kernel name;
+  kernel name (every kernel);
 * ``prefill``: one admission of a 512-token prompt (one first-chunk
   prefill call) measured the same way.
 
@@ -105,7 +105,7 @@ def main():
         idle_share=(1 - busy_us / 1e6 / wall) if busy_us else None,
         launches_per_step=launches / per,
         top_kernels_ms_per_step={name[:80]: us / per / 1e3
-                                 for name, us in by_name.most_common(12)})),
+                                 for name, us in by_name.most_common()})),
         flush=True)
 
     # one first-chunk prefill of a 512-token prompt
