@@ -42,30 +42,46 @@ Phases, each printing one JSON line:
 5. crosscheck — two of those requests replayed teacher-forced on the
    card and on the CPU (plain path, f32 cache, same weights); logits must
    agree within the stated tolerance.
-6. int8    — a short serve with an int8 KV pool; every K7 launch on the
+6. serve_shared — the engine as the JAX engine serves by default: 4
+   system prompts of 576 tokens (9 pages), each followed by 6 requests
+   with unique suffixes of 16-192 tokens and 2 repeating it bare (32
+   requests, 64 new tokens each, odd ids sampled at temperature 0.8,
+   top-k 50, top-p 0.95 with explicit seeds), through the prefix cache
+   at a 30-page pool (below 8 slots x 13 pages). Prefix hits, skipped
+   prompt tokens, copy-on-writes, evictions and preemptions must all be
+   above 0; a rerun must give the same tokens, sampled ones too; greedy
+   requests never preempted must equal a cache-off, full-pool run token
+   for token; preempted requests are held by the crosscheck's logit bar;
+   a run with one injected serve.step fault must recover once and give
+   the clean run's tokens on the greedy requests it neither recovered
+   nor preempted (one recovered request held by the crosscheck). Every
+   other serving run asserts that no step was recovered, and the serve
+   and int8 waves that nothing was shared. Also the host time of one
+   call of the sampler.
+7. int8    — a short serve with an int8 KV pool; every K7 launch on the
    split route.
-7. train   — the GPT training step at full width (GPTConfig.small(),
+8. train   — the GPT training step at full width (GPTConfig.small(),
    dropout 0, weights from a seed): GPT.loss, its backward and
    amp.decorate(Adam(1e-4), bf16_policy()), batch 16 x seq 512 of one
    fixed seeded batch; 2 warm-up steps, then 10 timed steps with the
    launch counts zeroed just before and read just after. Each training
    kernel (K1-K6) must launch its expected count per step, the loss must
    be finite at every step and fall from the first step to the last.
-8. train crosscheck — one f32 step (TF32 off) of GPTConfig.small() at
+9. train crosscheck — one f32 step (TF32 off) of GPTConfig.small() at
    batch 2 x seq 128 on the card and on the CPU plain path from the same
    weights: loss and every parameter's gradient must agree.
-9. bert_train — bench.py's BERT row on the card: BertConfig.base()
+10. bert_train — bench.py's BERT row on the card: BertConfig.base()
    (dropout 0, weights from a seed), BertForPretraining.loss with 76
    gathered MLM positions per row, its backward and
    amp.decorate(Adam(1e-4), bf16_policy()), batch 64 x seq 512 of one
    fixed seeded batch; 2 warm-up and 10 timed steps with the launch
    counts zeroed just before. Each kernel of the path (K1-K6, K8) must
    launch its expected count per step; the loss must be finite and fall.
-10. bert_crosscheck — one f32 step (TF32 off) of BertConfig.base() at
+11. bert_crosscheck — one f32 step (TF32 off) of BertConfig.base() at
    batch 2 x seq 128 with a padded attention mask (K2/K3 with kv_mask),
    token types and 19 mask positions per row, on the card and on the CPU
    plain path: loss and every parameter's gradient must agree.
-11. bert_large — BertConfig.large() (H = 1024, 24 layers) at full width
+12. bert_large — BertConfig.large() (H = 1024, 24 layers) at full width
    and depth, batch 8 x seq 512 (bench.py's 64 cut to 8), 1 warm-up and
    3 timed bf16 Adam steps: every kernel of the path launches its count
    per step (K5/K6 at H = 1024) and every loss is finite.
@@ -94,6 +110,7 @@ Any failed phase raises, and the script exits non-zero without the
 contract line.
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -1054,39 +1071,42 @@ def bert_kernel_cases(dev):
 
 # ------------------------------------------------------------------ serve
 
-def serve(model, num_requests, prompt_range, long_prompt, max_new, cfg_kw,
-          seed):
-    """Submit a wave and drain it step by step; returns (engine, request
-    ids, stats)."""
+def drive(model, cfg_kw, submissions, plan=None):
+    """Submit ``[(prompt, max_new, submit kwargs)]`` to a fresh engine and
+    drain it step by step, under the faults of ``plan`` if given; returns
+    (engine, requests, stats). Every request must finish with its
+    ``max_new`` tokens, all in the vocabulary, and no step may have been
+    recovered unless ``plan`` injected a fault."""
     from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    from paddle_tpu_torch.testing import chaos
     eng = ServingEngine(model, ServeConfig(**cfg_kw))
-    rs = np.random.RandomState(seed)
     vocab = model.cfg.vocab_size
-    lens = list(rs.randint(prompt_range[0], prompt_range[1] + 1,
-                           num_requests))
-    if long_prompt:
-        lens.append(long_prompt)
-    rids = [eng.submit(rs.randint(0, vocab, n).astype(np.int32),
-                       max_new=max_new) for n in lens]
+    rids = [eng.submit(prompt, max_new=max_new, **kw)
+            for prompt, max_new, kw in submissions]
     steps = []
     t0 = time.perf_counter()
-    while eng._queue or eng._running:
-        s0 = time.perf_counter()
-        eng.step()
-        steps.append(time.perf_counter() - s0)
+    with chaos.active(plan) if plan else contextlib.nullcontext():
+        while eng._queue or eng._running:
+            s0 = time.perf_counter()
+            eng.step()
+            steps.append(time.perf_counter() - s0)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     reqs = [eng.requests[r] for r in rids]
-    gen = sum(len(r.tokens) for r in reqs)
-    for r in reqs:
+    for r, (_, max_new, _) in zip(reqs, submissions):
         if r.status != "done" or len(r.tokens) != max_new:
             raise AssertionError(f"request {r.id}: {r.status}, "
                                  f"{len(r.tokens)} tokens")
         if not all(0 <= t < vocab for t in r.tokens):
             raise AssertionError(f"request {r.id}: token out of range")
+    if plan is None and eng.recoveries:
+        raise AssertionError(f"{eng.recoveries} steps recovered in a run "
+                             "without injected faults")
+    gen = sum(len(r.tokens) for r in reqs)
     ttft = sorted((r.first_token_t - r.submit_t) * 1e3 for r in reqs)
-    stats = dict(requests=len(reqs), prompt_lens=[int(n) for n in lens],
+    stats = dict(requests=len(reqs),
+                 prompt_lens=[int(r.prompt.size) for r in reqs],
                  generated_tokens=gen, wall_s=wall,
                  decoded_tokens_per_s=gen / wall,
                  p50_ttft_ms=float(np.median(ttft)),
@@ -1094,7 +1114,27 @@ def serve(model, num_requests, prompt_range, long_prompt, max_new, cfg_kw,
                  steps=len(steps), decode_steps=eng.decode_steps,
                  prefill_calls=eng.prefill_calls,
                  kv_pool_bytes=eng.kv_pool_bytes())
-    return eng, rids, stats
+    return eng, reqs, stats
+
+
+def serve(model, num_requests, prompt_range, long_prompt, max_new, cfg_kw,
+          seed):
+    """Submit a wave of random prompts (no two share a page) and drain
+    it; returns (engine, request ids, stats). The prefix cache is on, as
+    by default, and must find nothing to share."""
+    rs = np.random.RandomState(seed)
+    lens = list(rs.randint(prompt_range[0], prompt_range[1] + 1,
+                           num_requests))
+    if long_prompt:
+        lens.append(long_prompt)
+    wave = [(rs.randint(0, model.cfg.vocab_size, n).astype(np.int32),
+             max_new, {}) for n in lens]
+    eng, reqs, stats = drive(model, cfg_kw, wave)
+    if eng.prefix_hits or eng.prefill_tokens_skipped:
+        raise AssertionError(f"random prompts hit {eng.prefix_hits} cached "
+                             "pages")
+    stats["prefix_hits"] = eng.prefix_hits
+    return eng, [r.id for r in reqs], stats
 
 
 @torch.inference_mode()
@@ -1130,9 +1170,16 @@ def teacher_forced_logits(model, prompt, tokens, page_size, prefill_len,
     return torch.stack(out)
 
 
-def crosscheck(card_model, cpu_model, reqs, page_size, prefill_len):
+def crosscheck(card_model, cpu_model, reqs, page_size, prefill_len,
+               reference=None):
     """Teacher-force each request's card tokens through the card (bf16
-    cache) and the CPU plain path (f32 cache); compare the logits."""
+    cache) and the CPU plain path (f32 cache); the logits must agree
+    within SERVE_LOGIT_TOL. A greedy request's every token must also be
+    the CPU's argmax there, or within SERVE_LOGIT_TOL of it (a near tie
+    the bf16 cache may flip). With ``reference`` (request id -> the
+    tokens another run served it), a greedy request must equal them up
+    to its end or to a step where the two tokens are such a near tie on
+    the CPU (the runs part there, and each goes on by its own argmax)."""
     rows = []
     for req in reqs:
         card = teacher_forced_logits(card_model, req.prompt, req.tokens,
@@ -1141,13 +1188,224 @@ def crosscheck(card_model, cpu_model, reqs, page_size, prefill_len):
         cpu = teacher_forced_logits(cpu_model, req.prompt, req.tokens,
                                     page_size, prefill_len, torch.float32)
         err = float((card - cpu).abs().max())
-        agree = float((cpu.argmax(-1).numpy()
-                       == np.asarray(req.tokens)).mean())
+        toks = torch.as_tensor(req.tokens)
+        served = cpu.gather(1, toks[:, None])[:, 0]
+        short = cpu.max(-1).values - served      # 0 where it is the argmax
         check(f"crosscheck request {req.id}", err, SERVE_LOGIT_TOL)
-        rows.append(dict(request=req.id, prompt_len=int(req.prompt.size),
-                         logits_max_abs_err=err, tol=SERVE_LOGIT_TOL,
-                         greedy_agreement=agree))
+        row = dict(request=req.id, prompt_len=int(req.prompt.size),
+                   logits_max_abs_err=err, tol=SERVE_LOGIT_TOL,
+                   greedy_agreement=float((short == 0).float().mean()))
+        if req.temperature == 0:
+            worst = float(short.max())
+            if worst > SERVE_LOGIT_TOL:
+                raise AssertionError(
+                    f"crosscheck request {req.id}: token "
+                    f"{int(short.argmax())} is {worst} below the CPU's "
+                    f"argmax (tol {SERVE_LOGIT_TOL})")
+            row["near_ties"] = int((short > 0).sum())
+        if reference is not None and req.temperature == 0:
+            ref = list(reference[req.id])
+            part = next((i for i, (a, b) in enumerate(zip(req.tokens, ref))
+                         if a != b), None)
+            row["token_exact_vs_reference"] = part is None
+            if part is not None:
+                gap = float((cpu[part, req.tokens[part]]
+                             - cpu[part, ref[part]]).abs())
+                row.update(parts_at=part, gap_there=gap)
+                if gap > SERVE_LOGIT_TOL:
+                    raise AssertionError(
+                        f"crosscheck request {req.id}: parts from its "
+                        f"reference at token {part}, where the CPU logits "
+                        f"of the two tokens differ by {gap} (tol "
+                        f"{SERVE_LOGIT_TOL})")
+        rows.append(row)
     return rows
+
+
+# ----------------------------------------------------------- serve_shared
+
+SHARED_SYSTEM = 576      # system prompt: 9 pages of 64, so a hit skips the
+#                          first 512-token chunk and the continuation chunk
+#                          reads the shared pages
+SHARED_GROUPS = 4
+SHARED_NEW = 64
+#: the pool of serve_shared's cached run: below 8 slots x 13 pages (the
+#: most a request of the wave needs), small enough that the run evicts
+#: idle cached pages and preempts
+SHARED_PAGES = 30
+#: the fault run's serve.step fault: at the first decode step from the
+#: SHARED_FAULT_AT-th hook event on (mid-wave, with slots in flight)
+SHARED_FAULT_AT = 120
+#: the wave's seed: its suffix lengths give the pool above a preemption
+SHARED_SEED = 8
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def shared_wave(vocab, seed):
+    """serve_shared's traffic: SHARED_GROUPS system prompts of
+    SHARED_SYSTEM tokens, each followed by 6 requests with unique
+    suffixes uniform in [16, 192] tokens and 2 that repeat the bare system
+    prompt (their match ends inside its last page: copy-on-write);
+    SHARED_NEW new tokens each. Even ids are greedy, odd ids sample
+    (SAMPLED) with explicit seeds. ``[(prompt, max_new, submit
+    kwargs)]``."""
+    rs = np.random.RandomState(seed)
+    # lengths first: the schedule (pages, preemptions) depends on them
+    # alone, so it is the same for any vocabulary
+    suffix_lens = rs.randint(16, 193, (SHARED_GROUPS, 6))
+    wave = []
+    for g in range(SHARED_GROUPS):
+        system = rs.randint(0, vocab, SHARED_SYSTEM).astype(np.int32)
+        for j in range(8):
+            prompt = system.copy()
+            if j < 6:
+                suffix = rs.randint(0, vocab, suffix_lens[g, j])
+                prompt = np.concatenate([system, suffix.astype(np.int32)])
+            i = len(wave)
+            wave.append((prompt, SHARED_NEW,
+                         dict(SAMPLED, seed=1000 + i) if i % 2 else {}))
+    return wave
+
+
+def sampling_ms(vocab, slots, iters=50):
+    """Wall ms a call of the engine's sampler (every row sampled, as a
+    decode step with a sampled request runs it) and of the greedy
+    ``argmax``, on ``[slots, vocab]`` f32 logits on the card: ``iters``
+    calls, then one synchronize. The decode step is host-bound, so this
+    is the host time sampling adds to a step."""
+    from paddle_tpu_torch.serving.sampling import sample
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn(slots, vocab, device=dev, generator=gen)
+    knobs = [torch.full((slots,), v, device=dev) for v in
+             (SAMPLED["temperature"], SAMPLED["top_k"], SAMPLED["top_p"])]
+    seeds = torch.arange(slots, device=dev)
+    out = {}
+    for name, fn in (("sample", lambda: sample(logits, *knobs, seeds, seeds,
+                                               0)),
+                     ("argmax", lambda: torch.argmax(logits, dim=-1))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
+
+
+SHARED_COUNTERS = ("prefix_hits", "prefill_tokens_skipped", "cow_copies",
+                   "evictions", "preemptions")
+
+
+def serve_shared_phase(model, cpu_model, serve_kw, smi):
+    """The serve_shared phase: the wave through the prefix cache at
+    SHARED_PAGES pages, with the launch counts zeroed just before and
+    read just after; then the checks: every counter of SHARED_COUNTERS
+    above 0; a rerun identical token for token (sampled requests too);
+    never-preempted greedy requests token-exact against a run with the
+    cache off and a full pool; every preempted greedy request held by
+    ``crosscheck`` (its tokens the CPU's argmax and the cache-off run's,
+    each but for a near tie); a run with one injected serve.step fault
+    recovers once, its greedy requests that were neither recovered nor
+    preempted equal the clean run's, and every recovered greedy request
+    is held by ``crosscheck`` against the clean run as the preempted ones
+    are against the cache-off run. Returns (the phase line, launches)."""
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.testing import chaos
+    wave = shared_wave(model.cfg.vocab_size, seed=SHARED_SEED)
+    kw = dict(serve_kw, num_pages=SHARED_PAGES)
+    drive(model, kw, wave[:2])                              # warm-up
+    torch.cuda.synchronize()
+    core.reset_launches()
+    eng, reqs, stats = drive(model, kw, wave)
+    launches = core.launch_counts()
+    routes = core.route_counts()
+    torch.cuda.synchronize()
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve_shared: kernels not launched {missing}")
+    check_routes("serve_shared", routes, "simt", SERVE_ROUTED)
+    check_path_routes("serve_shared", routes, ("layer_norm",
+                                               "decode_attention"))
+    counters = {k: getattr(eng, k) for k in SHARED_COUNTERS}
+    zero = [k for k, n in counters.items() if n <= 0]
+    if zero:
+        raise AssertionError(f"serve_shared: counters not above 0: {zero} "
+                             f"of {counters} at num_pages={SHARED_PAGES}")
+
+    _, again, _ = drive(model, kw, wave)
+    rerun_diff = [r.id for r, a in zip(reqs, again) if r.tokens != a.tokens]
+    if rerun_diff:
+        raise AssertionError(f"serve_shared: a rerun changed requests "
+                             f"{rerun_diff}")
+
+    cold_eng, cold, cold_stats = drive(model, dict(serve_kw,
+                                                   prefix_cache=False), wave)
+    if cold_eng.preemptions or cold_eng.prefix_hits:
+        raise AssertionError("serve_shared: the cache-off run preempted or "
+                             "hit")
+    held_greedy = [r for r in reqs if r.id % 2 == 0 and not r.preemptions]
+    diff = [r.id for r in held_greedy if r.tokens != cold[r.id].tokens]
+    if diff:
+        raise AssertionError(f"serve_shared: greedy requests {diff} differ "
+                             "from the cache-off run")
+    sampled_same = sum(r.tokens == cold[r.id].tokens for r in reqs
+                       if r.id % 2 and not r.preemptions)
+    # every preempted greedy request (and one sampled one, by its logits)
+    preempted = ([r for r in reqs if r.preemptions and r.id % 2 == 0]
+                 + [r for r in reqs if r.preemptions and r.id % 2][:1])
+    rows = crosscheck(model, cpu_model, preempted, serve_kw["page_size"],
+                      serve_kw["prefill_len"],
+                      reference={r.id: r.tokens for r in cold})
+
+    plan = chaos.FaultPlan().fail("fault_point", path=r"^serve\.step$",
+                                  nth=SHARED_FAULT_AT)
+    f_eng, faulted, _ = drive(model, kw, wave, plan)
+    if plan.fired() != 1 or f_eng.recoveries != 1:
+        raise AssertionError(f"serve_shared fault run: {plan.fired()} "
+                             f"faults, {f_eng.recoveries} recoveries")
+    recovered = [f for f in faulted if f.recoveries]
+    untouched = [f for f in faulted if f.id % 2 == 0 and not f.recoveries
+                 and not f.preemptions and not reqs[f.id].preemptions]
+    diff = [f.id for f in untouched if f.tokens != reqs[f.id].tokens]
+    if diff or not recovered:
+        raise AssertionError(f"serve_shared fault run: greedy requests "
+                             f"{diff} differ from the clean run; "
+                             f"{len(recovered)} recovered")
+    rec_greedy = [f for f in recovered if f.id % 2 == 0]
+    # every recovered greedy request, against the clean run; a sampled
+    # one by its logits when none was greedy
+    rows += crosscheck(model, cpu_model, rec_greedy or recovered[:1],
+                       serve_kw["page_size"], serve_kw["prefill_len"],
+                       reference={r.id: r.tokens for r in reqs})
+    torch.cuda.synchronize()
+    line = dict(
+        phase="serve_shared", config="GPTConfig.small()",
+        **{k: v for k, v in kw.items() if k != "cache_dtype"},
+        cache_dtype="bfloat16", nvidia_smi=smi, launches=launches,
+        routes={k: routes[k] for k in SERVE_ROUTED + tuple(PATH_ROUTE)},
+        counters=dict(counters, recoveries=eng.recoveries,
+                      prefix_misses=eng.prefix_misses),
+        preempted_requests=[r.id for r in reqs if r.preemptions],
+        greedy_token_exact_vs_cache_off=len(held_greedy),
+        sampled_equal_to_cache_off=sampled_same,
+        rerun_identical=len(reqs),
+        cache_off=dict(decoded_tokens_per_s=cold_stats[
+            "decoded_tokens_per_s"], p50_ttft_ms=cold_stats["p50_ttft_ms"],
+            p50_step_ms=cold_stats["p50_step_ms"],
+            prefill_calls=cold_stats["prefill_calls"]),
+        fault_run=dict(recoveries=f_eng.recoveries,
+                       recovered_requests=[f.id for f in recovered],
+                       greedy_token_exact=len(untouched),
+                       recovered_greedy_token_exact=sum(
+                           f.tokens == reqs[f.id].tokens
+                           for f in rec_greedy),
+                       recovered_greedy=len(rec_greedy)),
+        crosscheck=rows,
+        sampling_host=sampling_ms(model.cfg.vocab_size, kw["num_slots"]),
+        **{k: v for k, v in stats.items() if k != "prompt_lens"})
+    return line, launches
 
 
 # ------------------------------------------------------------------ train
@@ -1578,6 +1836,9 @@ def main():
     rows = crosscheck(model, cpu_model, pick, 64, 512)
     torch.cuda.synchronize()
     emit(dict(phase="crosscheck", rows=rows))
+
+    shared_line, _ = serve_shared_phase(model, cpu_model, serve_kw, smi)
+    emit(shared_line)
 
     int8_kw = dict(serve_kw, kv_dtype=torch.int8)
     core.reset_launches()

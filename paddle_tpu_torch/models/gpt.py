@@ -213,22 +213,27 @@ class GPTDecoder(GPT):
                                         page_rows)
 
     def paged_prefill_chunk(self, prompt, starts, chunk_lengths, caches,
-                            page_rows):
+                            page_rows, write_floor=None):
         """Chunked admission prefill: the ``[B, Lp]`` window holds tokens
         at absolute positions ``starts[b] .. starts[b] + chunk_lengths[b]
         - 1``. ``starts`` is read on the host to pick each request's
-        attention branch (first chunk or continuation). Returns (logits
-        of each request's last chunk token ``[B, V]``, caches)."""
+        attention branch (first chunk or continuation). ``write_floor``
+        (``[B]``, optional): K/V writes below that absolute position are
+        dropped, so the prefix-cache pages the engine maps there stay
+        bitwise untouched. Returns (logits of each request's last chunk
+        token ``[B, V]``, caches)."""
         x, caches = self._paged_chunk_hidden(prompt, starts, chunk_lengths,
-                                             caches, page_rows)
+                                             caches, page_rows, write_floor)
         last = torch.clamp(chunk_lengths.to(x.device).long() - 1, min=0)
         x_last = x[torch.arange(x.shape[0], device=x.device), last]
         return pnn.tied_vocab_head(self.tok_emb, x_last), caches
 
     def _paged_chunk_hidden(self, prompt, starts, chunk_lengths, caches,
-                            page_rows):
+                            page_rows, write_floor=None):
         """Run the window through every block; returns the post-``ln_f``
-        hidden states ``[B, Lp, H]`` and the caches."""
+        hidden states ``[B, Lp, H]`` and the caches. Positions outside the
+        chunk, and below ``write_floor``, write to page ``num_pages``,
+        which drops them."""
         dev = self.device
         enforce(prompt.device == dev, f"prompt on {prompt.device}, model "
                 f"on {dev}")
@@ -244,6 +249,8 @@ class GPTDecoder(GPT):
         # the reference's take_along_axis clamps; torch raises
         col = torch.clamp(pos // page_size, max=p_max - 1)
         page_ids = torch.gather(page_rows.long(), 1, col)
+        if write_floor is not None:
+            in_chunk &= pos >= write_floor.to(dev).long()[:, None]
         page_ids = torch.where(in_chunk, page_ids,
                                torch.full_like(page_ids, num_pages))
         offsets = pos % page_size

@@ -222,3 +222,24 @@ def paged_write(pool, k_t, v_t, page_ids, offsets):
         put("v", v_t)
     return pool
 
+
+
+def copy_pages(pool, src_ids, dst_ids):
+    """Copy whole pages ``src -> dst`` within one layer's pool **in
+    place** (ref: ``ops/attention.py:177``): the serving engine's
+    copy-on-write primitive, which duplicates a prefix-cache page into a
+    private one before a slot writes into it. src_ids/dst_ids ``[M]``
+    int, every src in range. A dst outside ``[0, num_pages)`` drops its
+    copy, as :func:`paged_write` drops a row. Every entry of the pool is
+    copied, so an int8 pool's ``k_scale``/``v_scale`` travel with their
+    pages bit-exact (no requantization). All sources are read before any
+    destination is written. Returns ``pool``."""
+    if src_ids.shape[0] == 0:
+        return pool
+    num_pages = pool["k"].shape[0]
+    rows, pages, _, any_kept = _drop_redirect(
+        dst_ids, torch.zeros_like(dst_ids), num_pages)
+    src = src_ids.long()[rows]
+    for arr in pool.values():
+        arr[pages] = torch.where(any_kept, arr[src], arr[pages])
+    return pool

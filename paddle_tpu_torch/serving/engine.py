@@ -1,22 +1,45 @@
-"""Continuous-batching serving engine over the paged KV cache — the greedy
-core of ``paddle_tpu/serving/engine.py``.
+"""Continuous-batching serving engine over the paged KV cache — the
+single-engine serving path of ``paddle_tpu/serving/engine.py``.
 
-What is ported: fixed-slot decode steps over all slots, paged KV memory
-(requests own pages, grow one page at a time as they decode, and free
-them when they finish), prefill-on-admit, and chunked prefill (a prompt
-longer than ``prefill_len`` is admitted as ``ceil(len / prefill_len)``
-fixed-shape ``[1, prefill_len]`` calls). Sampling is the greedy branch of
-the reference's ``_sample`` (argmax, first index on ties).
+What is ported:
 
-What is not, and raises or is refused up front: temperature sampling
-(``NotImplementedError``), the prefix cache, speculation, preemption
-(``ServeConfig.resolve`` requires enough pages for every slot at
-``max_len``, so the pool never runs dry), recovery, deadlines and
-priorities, the metrics plane.
+  * fixed-slot decode steps over all slots, paged KV memory (requests
+    own pages, grow one page at a time as they decode, and free them
+    when they finish), prefill-on-admit, and chunked prefill (a prompt
+    longer than ``prefill_len`` is admitted as ``ceil(len /
+    prefill_len)`` fixed-shape ``[1, prefill_len]`` calls);
+  * the prefix cache (``ServeConfig.prefix_cache``, on by default):
+    admissions map the cached full pages of their prompt read-only into
+    their page table and skip the prefill chunks those pages cover; the
+    prefill's write floor drops K/V writes below the match; a match that
+    ends inside a page copies that page to a private one first
+    (copy-on-write); idle cached pages are evicted LRU-first when the
+    free list runs dry;
+  * per-request sampling (temperature / top-k / top-p / seed, see
+    ``serving/sampling.py``): token ``i`` of a request draws from a
+    stream keyed by ``(cfg.seed, req.seed, i)`` alone, so a preempted,
+    recovered or re-batched request draws the same tokens;
+  * recompute preemption: a pool smaller than ``num_slots x
+    ceil(max_len / page_size)`` pages is accepted; when every running
+    slot needs a page and none is free, the lowest-priority /
+    latest-deadline / youngest of them loses its pages and is requeued;
+  * bounded admission: priorities, deadlines (a queued request past its
+    deadline is shed), a queue limit (over-limit submissions are
+    rejected, retriable) and ``cancel``;
+  * crash-isolated step recovery: a failed decode step or prefill chunk
+    rebuilds the page pools, clears the prefix cache and requeues every
+    in-flight request with its prompt + generated tokens; after
+    ``step_retries`` consecutive failures every request fails and the
+    error is re-raised. Recovery never switches a kernel to its plain
+    version.
 
-The scheduler state (page table, lengths, active mask, pending tokens)
-is host numpy, copied to the model's device for each call; the page
-pools live on the device and are updated in place.
+Terminal statuses: done | rejected | shed | cancelled | failed.
+
+Not ported: speculation, the fleet (``adopt``, ``export_inflight``,
+``prefix_lookup_depth``), run logs, metrics, the watchdog and traces.
+The scheduler state (page table, lengths, active mask, pending tokens,
+sampling knobs) is host numpy, copied to the model's device for each
+call; the page pools live on the device and are updated in place.
 """
 
 import collections
@@ -29,19 +52,34 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.retry import RetryBudget, RetryPolicy
+from paddle_tpu_torch.ops.attention import copy_pages
+from paddle_tpu_torch.serving.prefix_cache import PrefixCache
+from paddle_tpu_torch.serving.sampling import sample
+from paddle_tpu_torch.testing.chaos import fault_point
 
 
 @dataclasses.dataclass
 class ServeConfig:
-    num_slots: int = 4           # the reference's serve_slots default
-    page_size: int = 16          # the reference's serve_page_size default
+    """Defaults are the reference's flag defaults."""
+    num_slots: int = 4           # serve_slots
+    page_size: int = 16          # serve_page_size
     max_len: int = 256           # per-request cap: prompt + generated
     prefill_len: int = 64        # padded admission prompt length (fixed)
     num_pages: int = None        # None -> num_slots * ceil(max_len/page)
     cache_dtype: typing.Any = torch.float32
     kv_dtype: typing.Any = None  # torch.int8: int8 pages, per-row scales
+    temperature: float = 0.0     # default per-request; 0 = greedy
+    top_k: int = 0               # default per-request top-k; 0 = off
+    top_p: float = 0.0           # default per-request top-p; 0 = off
+    seed: int = 0                # the sampling streams' base key
+    prefix_cache: bool = True    # serve_prefix_cache
+    prefix_pages: int = 0        # max idle cached pages; 0 = pool-bounded
     eos_id: int = None           # default EOS (submit() can override)
     default_max_new: int = 32
+    queue_limit: int = 0         # 0 = unbounded queue
+    default_deadline_s: float = 0.0   # 0 = no deadline
+    step_retries: int = 3        # consecutive failed steps recovered
 
     def resolve(self):
         pages_per_slot = -(-self.max_len // self.page_size)
@@ -49,11 +87,11 @@ class ServeConfig:
             self.num_pages = self.num_slots * pages_per_slot
         enforce(self.prefill_len <= self.max_len,
                 "prefill_len must not exceed max_len")
-        enforce(self.num_pages >= self.num_slots * pages_per_slot,
-                f"num_pages={self.num_pages} < num_slots * ceil(max_len / "
-                f"page_size) = {self.num_slots * pages_per_slot}: the port "
-                "has no preemption, so every slot must be able to reach "
-                "max_len")
+        enforce(self.num_pages >= pages_per_slot,
+                f"num_pages={self.num_pages} cannot hold even one "
+                f"max_len={self.max_len} request ({pages_per_slot} pages "
+                f"of {self.page_size}): preemption needs a lone request "
+                "to fit")
         enforce(self.kv_dtype in (None, torch.int8),
                 f"kv_dtype={self.kv_dtype!r}: expected None or torch.int8")
         return self
@@ -66,13 +104,26 @@ class Request:
     max_new: int
     eos_id: int = None
     tokens: list = dataclasses.field(default_factory=list)
-    status: str = "queued"        # queued -> running -> done
+    status: str = "queued"        # queued -> running -> terminal (done |
+    #                               rejected | shed | cancelled | failed)
     slot: int = None
     pages: list = dataclasses.field(default_factory=list)
+    # prefix-cache pages mapped read-only into the slot's table; always a
+    # contiguous row prefix: table row = shared_pages ++ pages
+    shared_pages: list = dataclasses.field(default_factory=list)
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
+    seed: int = 0                 # token i draws from (cfg.seed, seed, i)
     submit_t: float = None
     first_token_t: float = None
     done_t: float = None
-    retire_reason: str = None     # "eos" | "length"
+    preemptions: int = 0
+    recoveries: int = 0           # times requeued after a failed step
+    retire_reason: str = None     # "eos" | "length" or the terminal cause
+    priority: int = 0             # higher admits first, is evicted last
+    deadline_t: float = None      # absolute clock() deadline, or None
+    retriable: bool = False       # rejected, worth resubmitting
 
     @property
     def output(self):
@@ -86,43 +137,91 @@ class ServingEngine:
     :class:`~paddle_tpu_torch.models.gpt.GPTDecoder`, on the model's
     device."""
 
-    def __init__(self, model, config=None, clock=time.perf_counter):
+    def __init__(self, model, config=None, clock=time.perf_counter,
+                 sleep=time.sleep):
+        """``sleep`` takes the recovery backoff (0.05 s, doubling with
+        each consecutive failure), injectable for tests."""
         self.cfg = (config or ServeConfig()).resolve()
         cfg = self.cfg
         self._model = model.eval()
         self._device = model.device
         self._clock = clock
         self._pages_per_slot = -(-cfg.max_len // cfg.page_size)
-        self._caches = model.init_paged_caches(
-            cfg.num_pages, cfg.page_size, dtype=cfg.cache_dtype,
-            kv_dtype=cfg.kv_dtype)
+        self._caches = self._new_caches()
         s = cfg.num_slots
         self._page_table = np.zeros((s, self._pages_per_slot), np.int32)
         self._lengths = np.zeros(s, np.int32)
         self._active = np.zeros(s, bool)
         self._last_tokens = np.zeros(s, np.int32)
+        # per-slot sampling knobs, set on admission
+        self._temps = np.zeros(s, np.float32)
+        self._top_ks = np.zeros(s, np.int64)
+        self._top_ps = np.zeros(s, np.float32)
+        self._seeds = np.zeros(s, np.int64)
+        self._gen_counts = np.zeros(s, np.int64)
         self._free_slots = list(range(s))
         self._free_pages = collections.deque(range(cfg.num_pages))
+        self._prefix_cache = (
+            PrefixCache(cfg.page_size, max_idle_pages=cfg.prefix_pages)
+            if cfg.prefix_cache else None)
         self._queue = collections.deque()
         self._running = {}
         self.requests = {}
         self._ids = itertools.count()
+        self._retry_budget = RetryBudget(
+            RetryPolicy(max_attempts=cfg.step_retries + 1, sleep=sleep))
         self.decode_steps = 0
         self.prefill_calls = 0
+        # the reference's serve.* counters, kept as attributes (the prefix
+        # cache's own are read through the properties below)
+        self.prefill_tokens_skipped = 0   # covered by prefix-cache hits
+        self.cow_copies = 0
+        self.preemptions = 0
+        self.recoveries = 0
+
+    def _cache_count(self, name):
+        return getattr(self._prefix_cache, name) if self._prefix_cache else 0
+
+    @property
+    def prefix_hits(self):
+        """Full prompt pages served from the prefix cache."""
+        return self._cache_count("hits")
+
+    @property
+    def prefix_misses(self):
+        """Full prompt pages not served (a failed match misses them all)."""
+        return self._cache_count("misses")
+
+    @property
+    def evictions(self):
+        return self._cache_count("evictions")
+
+    def _new_caches(self):
+        cfg = self.cfg
+        return self._model.init_paged_caches(
+            cfg.num_pages, cfg.page_size, dtype=cfg.cache_dtype,
+            kv_dtype=cfg.kv_dtype)
 
     def _dev(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(self._device)
 
     # --- public API ---
 
-    def submit(self, prompt, max_new=None, eos_id=None, temperature=None):
+    def submit(self, prompt, max_new=None, eos_id=None, deadline_s=None,
+               priority=0, temperature=None, top_k=None, top_p=None,
+               seed=None):
         """Queue a prompt (at most ``max_len`` tokens; longer than
         ``prefill_len`` is admitted chunk by chunk); returns the request
-        id. Only greedy decoding is ported: ``temperature > 0`` raises."""
+        id. ``deadline_s`` (None: ``cfg.default_deadline_s``, 0 there
+        meaning none) sets an absolute deadline past which a queued
+        request is shed; a non-positive explicit value is rejected as
+        infeasible. ``priority`` (higher first) orders admission and
+        inverts the preemption victim choice. With ``cfg.queue_limit``
+        set, an over-limit submission is rejected (``retriable``): check
+        ``engine.requests[rid].status``. ``temperature`` / ``top_k`` /
+        ``top_p`` default to the config's; ``seed`` (None: derived from
+        ``cfg.seed`` and the id) pins the request's sampling stream."""
         cfg = self.cfg
-        if temperature is not None and temperature > 0:
-            raise NotImplementedError("sampled decoding (temperature > 0) "
-                                      "is not ported; the engine is greedy")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         max_new = max_new if max_new is not None else cfg.default_max_new
         enforce(1 <= prompt.size <= cfg.max_len,
@@ -131,36 +230,77 @@ class ServingEngine:
                 f"prompt {prompt.size} + max_new {max_new} exceeds "
                 f"max_len {cfg.max_len}")
         req = Request(id=next(self._ids), prompt=prompt, max_new=max_new,
-                      eos_id=eos_id if eos_id is not None else cfg.eos_id)
+                      eos_id=eos_id if eos_id is not None else cfg.eos_id,
+                      priority=int(priority))
+        self._resolve_sampling(req, temperature, top_k, top_p, seed)
         req.submit_t = self._clock()
         self.requests[req.id] = req
+        if deadline_s is None and cfg.default_deadline_s > 0:
+            deadline_s = cfg.default_deadline_s
+        if deadline_s is not None:
+            if deadline_s <= 0:
+                self._reject(req, "infeasible_deadline")
+                return req.id
+            req.deadline_t = req.submit_t + float(deadline_s)
+        if cfg.queue_limit and len(self._queue) >= cfg.queue_limit:
+            self._reject(req, "queue_full")
+            return req.id
         self._queue.append(req)
         return req.id
 
+    def cancel(self, request_id):
+        """Client-initiated cancellation. A queued request leaves the
+        queue; a running one frees its slot and pages at once. Returns
+        False when the id is unknown or already terminal."""
+        req = self.requests.get(request_id)
+        if req is None or req.status not in ("queued", "running"):
+            return False
+        if req.status == "queued":
+            self._queue.remove(req)
+        else:
+            self._free_slot_state(req)
+        self._retire_terminal(req, "cancelled", "cancelled")
+        return True
+
     @torch.inference_mode()
     def step(self):
-        """One scheduling round: admit queued prompts into free slots
-        (prefill-on-admit), grow page tables where the next token opens a
-        page, run one decode step over all slots, and retire requests
-        that hit EOS or their token budget. Returns the requests finished
-        this round."""
+        """One scheduling round: shed expired queued requests, admit
+        queued prompts into free slots (prefill-on-admit), grow page
+        tables where the next token opens a page (preempting while every
+        running slot is stalled), run one decode step over all slots,
+        and retire requests that hit EOS or their token budget. Returns
+        the requests finished this round."""
         finished = []
+        if not self._caches:
+            # a spent recovery budget left the pools unbuilt
+            self._caches = self._new_caches()
+        self._shed_expired(finished)
         self._admit(finished)
-        self._grow_pages()
+        stalled = self._grow_pages()
+        while stalled and not self._active.any():
+            # pool deadlock: every live slot needs a page and none is
+            # free; the lowest-value stalled request gives its pages back
+            victim = min((self._running[s] for s in stalled),
+                         key=self._victim_key)
+            self._preempt(victim)
+            stalled = self._grow_pages()
+        toks = None
         if self._active.any():
-            logits, self._caches = self._model.paged_decode_step(
-                self._dev(self._last_tokens), self._caches,
-                self._dev(self._page_table), self._dev(self._lengths),
-                self._dev(self._active))
-            # the one sync per round: the scheduler needs the tokens
-            toks = torch.argmax(logits, dim=-1).cpu().numpy()
+            try:
+                fault_point("serve.step")
+                toks = self._decode()
+            except Exception as e:
+                self._recover("serve.step", e)
+        if toks is not None:
+            self._retry_budget.success()
             self.decode_steps += 1
             for slot, req in list(self._running.items()):
                 if not self._active[slot]:
-                    continue
+                    continue                   # page-stalled this round
                 self._lengths[slot] += 1       # pending token now cached
                 tok = int(toks[slot])
                 req.tokens.append(tok)
+                self._gen_counts[slot] += 1    # the next draw's index
                 self._last_tokens[slot] = tok
                 reason = self._done_reason(req, tok)
                 if reason:
@@ -168,8 +308,8 @@ class ServingEngine:
         return finished
 
     def drain(self, max_steps=100000):
-        """Run step() until every submitted request finishes; returns the
-        finished requests in completion order."""
+        """Run step() until every submitted request is terminal; returns
+        the requests finished (or shed) in order."""
         out = []
         for _ in range(max_steps):
             if not (self._queue or self._running):
@@ -181,76 +321,422 @@ class ServingEngine:
                 f"running requests left after {max_steps} steps")
         return out
 
+    def shed_queued(self, cause="overload"):
+        """Load shedding: shed every expired queued request; when none is
+        expired, the single lowest-priority / latest-deadline one.
+        Returns the shed ids."""
+        now = self._clock()
+        shed = [(r, "deadline_expired") for r in self._queue
+                if r.deadline_t is not None and now > r.deadline_t]
+        if not shed and self._queue:
+            shed = [(min(self._queue, key=self._victim_key), cause)]
+        for req, why in shed:
+            self._queue.remove(req)
+            self._retire_terminal(req, "shed", why)
+        return [req.id for req, _ in shed]
+
     def kv_pool_bytes(self):
         return sum(t.numel() * t.element_size()
                    for pool in self._caches for t in pool.values())
 
+    # --- device calls ---
+
+    def _knobs(self, temps, *rest):
+        """The sampling knobs on the device, or None when every row is
+        greedy (read from the host arrays: no device read). Called before
+        the model's launches are queued, since a host-to-device copy
+        waits for the work queued before it."""
+        if not (temps > 0).any():
+            return None
+        return tuple(self._dev(a) for a in (temps,) + rest)
+
+    def _tokens(self, logits, knobs):
+        """Tokens of logits ``[B, V]`` as host numpy: plain argmax when
+        every row is greedy, else :func:`sample`."""
+        if knobs is None:
+            toks = torch.argmax(logits, dim=-1)
+        else:
+            toks = sample(logits, *knobs, base_seed=self.cfg.seed)
+        # the one sync per call: the scheduler needs the tokens
+        return toks.cpu().numpy()
+
+    def _decode(self):
+        knobs = self._knobs(self._temps, self._top_ks, self._top_ps,
+                            self._seeds, self._gen_counts)
+        logits, self._caches = self._model.paged_decode_step(
+            self._dev(self._last_tokens), self._caches,
+            self._dev(self._page_table), self._dev(self._lengths),
+            self._dev(self._active))
+        return self._tokens(logits, knobs)
+
+    def _prefill_chunk(self, req, seq, start, clen, floor):
+        cfg = self.cfg
+        # a chunk with no row at or above the floor would send every
+        # write to the first row's page, which may be a shared one
+        enforce(start + clen > floor, f"prefill chunk [{start}, "
+                f"{start + clen}) lies wholly below its write floor {floor}")
+        window = np.zeros((1, cfg.prefill_len), np.int32)
+        window[0, :clen] = seq[start:start + clen]
+        knobs = self._knobs(*self._sampling_rows(req))
+        logits, self._caches = self._model.paged_prefill_chunk(
+            self._dev(window), torch.tensor([start], dtype=torch.int32),
+            torch.tensor([clen], dtype=torch.int32), self._caches,
+            self._dev(self._page_table[req.slot][None, :]),
+            write_floor=self._dev(np.asarray([floor], np.int32)))
+        self.prefill_calls += 1
+        return int(self._tokens(logits, knobs)[0])
+
+    # --- page allocation + prefix cache ---
+
+    def _pages_available(self):
+        """Pages an admission could obtain now: the free list plus idle
+        (refcount-zero) prefix-cache pages."""
+        n = len(self._free_pages)
+        if self._prefix_cache is not None:
+            n += self._prefix_cache.evictable()
+        return n
+
+    def _alloc_page(self):
+        """One free page id, evicting the least-recently-released idle
+        cached page when the free list is dry; None when nothing is
+        reclaimable."""
+        if self._free_pages:
+            return self._free_pages.popleft()
+        if self._prefix_cache is not None:
+            for page in self._prefix_cache.evict(1):
+                return page
+        return None
+
+    def _return_pages(self, req):
+        """Private pages to the free list; shared pages back to the cache
+        (they stay cached for later hits unless ``prefix_pages`` trims
+        them)."""
+        self._free_pages.extend(req.pages)
+        req.pages = []
+        if req.shared_pages:
+            if self._prefix_cache is not None:
+                self._free_pages.extend(
+                    self._prefix_cache.release(req.shared_pages))
+            else:
+                self._free_pages.extend(req.shared_pages)
+            req.shared_pages = []
+
+    def _map_prefix(self, req, total):
+        """Match the prompt against the prefix cache and map the hit pages
+        read-only into the slot's table row. Returns how many leading
+        tokens are already cached. The match is capped at ``total - 1``
+        so the last position is always prefilled (its logits give the
+        first token); when the cap ends inside the last matched page,
+        that page is copied to a private one first. A cache failure
+        (the ``serve.prefix_cache`` fault point) degrades to a miss."""
+        if self._prefix_cache is None or total <= 1:
+            return 0
+        cache = self._prefix_cache
+        try:
+            fault_point("serve.prefix_cache")
+            shared, matched = cache.match(req.prompt, cap=total - 1)
+        except Exception:
+            shared, matched = [], 0
+            cache.misses += req.prompt.size // self.cfg.page_size
+        if not shared:
+            return 0
+        cache.acquire(shared)
+        req.shared_pages = list(shared)
+        for idx, page in enumerate(shared):
+            self._page_table[req.slot, idx] = page
+        if matched % self.cfg.page_size and not self._cow_last_shared(req):
+            # no page for the private copy: shrink the match to the page
+            # boundary and let the tail prefill normally
+            drop = req.shared_pages.pop()
+            self._free_pages.extend(cache.release([drop]))
+            matched -= matched % self.cfg.page_size
+        return matched
+
+    def _cow_last_shared(self, req):
+        """Copy-on-write: duplicate the request's last shared page into a
+        fresh private page in every layer's pool and remap the table
+        row. False when no page is allocatable."""
+        dst = self._alloc_page()
+        if dst is None:
+            return False
+        src = req.shared_pages.pop()     # held: its refcount protects it
+        src_t = torch.tensor([src], dtype=torch.int64, device=self._device)
+        dst_t = torch.tensor([dst], dtype=torch.int64, device=self._device)
+        for pool in self._caches:
+            copy_pages(pool, src_t, dst_t)
+        self._free_pages.extend(self._prefix_cache.release([src]))
+        req.pages.append(dst)
+        self._page_table[req.slot, len(req.shared_pages)] = dst
+        self.cow_copies += 1
+        return True
+
+    def _publish_prefix(self, req):
+        """Register a just-prefilled prompt's full pages in the cache.
+        Newly registered pages move from the request's private list to
+        its shared list and keep their table positions."""
+        if self._prefix_cache is None:
+            return
+        row = self._page_table[req.slot]
+        full = req.prompt.size // self.cfg.page_size
+        for page in self._prefix_cache.insert(req.prompt, row[:full]):
+            req.pages.remove(page)
+            req.shared_pages.append(page)
+
+    # --- per-request sampling ---
+
+    def _resolve_sampling(self, req, temperature, top_k, top_p, seed):
+        """Explicit knobs win, else the config's; a missing seed derives
+        from the engine seed and the request id."""
+        cfg = self.cfg
+        req.temperature = (cfg.temperature if temperature is None
+                           else float(temperature))
+        req.top_k = cfg.top_k if top_k is None else int(top_k)
+        req.top_p = cfg.top_p if top_p is None else float(top_p)
+        req.seed = ((cfg.seed * 1_000_003 + req.id) & 0xFFFFFFFF
+                    if seed is None else int(seed) & 0xFFFFFFFF)
+
+    def _sampling_rows(self, req):
+        """One request's ``[1]``-shaped knobs; the count is the tokens
+        generated so far, so a replayed request redraws identically."""
+        return (np.asarray([req.temperature], np.float32),
+                np.asarray([req.top_k], np.int64),
+                np.asarray([req.top_p], np.float32),
+                np.asarray([req.seed], np.int64),
+                np.asarray([len(req.tokens)], np.int64))
+
     # --- scheduling ---
 
-    def _admit(self, finished):
-        while self._queue and self._free_slots:
-            self._prefill_request(self._queue.popleft(), finished)
+    def _admission_key(self, req):
+        """Highest priority, then earliest deadline (None last), then
+        FIFO."""
+        dl = req.deadline_t if req.deadline_t is not None else float("inf")
+        return (-req.priority, dl, req.id)
 
-    def _prefill_request(self, req, finished):
-        """Admit one request: take a slot, then for each ``prefill_len``
-        chunk of the prompt grow the page table and run one prefill call;
-        the last chunk's greedy token is the first generated token."""
+    def _victim_key(self, req):
+        """The inverse of admission: lowest priority, then latest deadline
+        (None latest), then youngest."""
+        dl = req.deadline_t if req.deadline_t is not None else float("inf")
+        return (req.priority, -dl, -req.id)
+
+    def _admit(self, finished):
         cfg = self.cfg
+        while self._queue and self._free_slots:
+            req = min(self._queue, key=self._admission_key)
+            total = req.prompt.size + len(req.tokens)  # recovery replays
+            first = min(cfg.prefill_len, total)
+            if -(-first // cfg.page_size) > self._pages_available():
+                break                      # head of line waits for pages
+            self._queue.remove(req)
+            if not self._prefill_request(req, total, finished):
+                break          # mid-admission page stall or a recovery
+
+    def _prefill_request(self, req, total, finished):
+        """Admit one request: take a slot, map the cached leading pages of
+        its prompt, then for each ``prefill_len`` chunk of the replay
+        sequence (prompt + tokens kept by a recovery) that the match does
+        not cover, grow the page table and run one prefill call; the
+        last chunk's token is the next generated one. The prompt's full
+        pages are then published to the cache. Returns False when
+        admission must back off (pages ran out between chunks, or a
+        failed chunk was recovered)."""
+        cfg = self.cfg
+        ps = cfg.page_size
         slot = self._free_slots.pop()
         req.slot = slot
         self._page_table[slot] = 0
         req.pages = []
-        total = req.prompt.size
-        lp = cfg.prefill_len
+        req.shared_pages = []
+        matched = self._map_prefix(req, total)
+        seq = req.output
         tok = None
-        for start in range(0, total, lp):
-            clen = min(lp, total - start)
-            need = -(-(start + clen) // cfg.page_size)
-            while len(req.pages) < need:
-                page = self._free_pages.popleft()   # never empty: resolve()
-                self._page_table[slot, len(req.pages)] = page
+        skipped = 0
+        for start in range(0, total, cfg.prefill_len):
+            clen = min(cfg.prefill_len, total - start)
+            if start + clen <= matched:
+                skipped += clen   # fully cache-covered: no prefill call
+                continue
+            need = -(-(start + clen) // ps)
+            while len(req.shared_pages) + len(req.pages) < need:
+                page = self._alloc_page()
+                if page is None:
+                    # pool drained between chunks: undo and wait
+                    self._abort_admission(req)
+                    return False
+                self._page_table[
+                    slot, len(req.shared_pages) + len(req.pages)] = page
                 req.pages.append(page)
-            window = np.zeros((1, lp), np.int32)
-            window[0, :clen] = req.prompt[start:start + clen]
-            logits, self._caches = self._model.paged_prefill_chunk(
-                self._dev(window), torch.tensor([start], dtype=torch.int32),
-                torch.tensor([clen], dtype=torch.int32), self._caches,
-                self._dev(self._page_table[slot][None, :]))
-            self.prefill_calls += 1
-            tok = int(torch.argmax(logits[0]))
+            try:
+                fault_point("serve.prefill")
+                tok = self._prefill_chunk(req, seq, start, clen, matched)
+            except Exception as e:
+                self._recover("serve.prefill", e, pending=req)
+                return False
+        self.prefill_tokens_skipped += skipped
+        self._publish_prefix(req)
         self._lengths[slot] = total
-        req.first_token_t = self._clock()
+        if req.first_token_t is None:     # a replay keeps the first
+            req.first_token_t = self._clock()
         req.tokens.append(tok)
         req.status = "running"
         self._running[slot] = req
+        self._temps[slot] = req.temperature
+        self._top_ks[slot] = req.top_k
+        self._top_ps[slot] = req.top_p
+        self._seeds[slot] = req.seed
+        self._gen_counts[slot] = len(req.tokens)
         self._last_tokens[slot] = tok
         self._active[slot] = True
         reason = self._done_reason(req, tok)
         if reason:
             self._release(req, finished, reason)
+        return True
+
+    def _abort_admission(self, req):
+        """Undo a half-done admission: free the slot and pages (shared
+        ones back to the cache) and requeue at the front."""
+        self._free_slot_state(req)
+        req.slot = None
+        req.status = "queued"
+        self._queue.appendleft(req)
 
     def _grow_pages(self):
         """Give each running slot the page its next token write needs
-        where its length crossed a page boundary."""
+        where its length reached a page boundary; a slot that cannot get
+        one stalls (is inactive) this round. Returns the stalled slots;
+        safe to re-run after a preemption freed pages."""
+        stalled = []
         ps = self.cfg.page_size
         for slot, req in self._running.items():
+            self._active[slot] = True
             ln = int(self._lengths[slot])
-            if ln % ps or ln // ps < len(req.pages):
+            owned = len(req.shared_pages) + len(req.pages)
+            if ln % ps or ln // ps < owned:
                 continue                   # room in the current page
-            page = self._free_pages.popleft()       # never empty: resolve()
-            req.pages.append(page)
-            self._page_table[slot, ln // ps] = page
+            page = self._alloc_page()
+            if page is not None:
+                req.pages.append(page)
+                self._page_table[slot, ln // ps] = page
+            else:
+                self._active[slot] = False
+                stalled.append(slot)
+        return stalled
 
     def _free_slot_state(self, req):
+        """Return a request's slot and pages and zero the slot's rows.
+        Leaves ``req.slot`` set; requeue paths clear it themselves."""
         slot = req.slot
-        self._free_pages.extend(req.pages)
-        req.pages = []
+        self._return_pages(req)
         self._page_table[slot] = 0
         self._lengths[slot] = 0
         self._active[slot] = False
         self._last_tokens[slot] = 0
+        self._temps[slot] = 0.0
+        self._top_ks[slot] = 0
+        self._top_ps[slot] = 0.0
+        self._seeds[slot] = 0
+        self._gen_counts[slot] = 0
         self._running.pop(slot, None)
         self._free_slots.append(slot)
+
+    def _preempt(self, req):
+        """Recompute preemption: drop the request's pages and tokens and
+        requeue it at the front; it re-prefills its prompt and
+        regenerates (greedy exactly; sampled from the same stream)."""
+        self._free_slot_state(req)
+        req.slot = None
+        req.tokens = []
+        req.status = "queued"
+        req.preemptions += 1
+        self.preemptions += 1
+        self._queue.appendleft(req)
+
+    def _recover(self, where, exc, pending=None):
+        """Crash-isolated recovery from a failed decode step or prefill
+        chunk: the pools may hold partial writes, so they are rebuilt
+        (every reference to the old ones dropped first, so the card
+        never holds two sets), the scheduler arrays zeroed, the prefix
+        cache cleared, and every in-flight request requeued in id order
+        to replay its prompt + generated tokens. The kernels stay on:
+        nothing here switches to a plain version. After
+        ``cfg.step_retries`` consecutive failures every request fails
+        and ``exc`` is re-raised with its traceback; otherwise the
+        traceback is dropped before the new pools are allocated, since
+        the frames of the failed call may hold the old pools' tensors."""
+        cfg = self.cfg
+        self.recoveries += 1
+        victims = sorted(self._running.values(), key=lambda r: r.id)
+        if pending is not None:
+            victims.append(pending)
+        for pool in self._caches:
+            pool.clear()           # drop the old tensors before the new
+        self._caches = []
+        self._page_table[:] = 0
+        self._lengths[:] = 0
+        self._active[:] = False
+        self._last_tokens[:] = 0
+        self._temps[:] = 0.0
+        self._top_ks[:] = 0
+        self._top_ps[:] = 0.0
+        self._seeds[:] = 0
+        self._gen_counts[:] = 0
+        self._free_slots = list(range(cfg.num_slots))
+        self._free_pages = collections.deque(range(cfg.num_pages))
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()     # its ids point at zeroed pages
+        self._running = {}
+        for req in reversed(victims):      # appendleft keeps id order
+            req.slot = None
+            req.pages = []
+            req.shared_pages = []
+            req.status = "queued"
+            req.recoveries += 1
+            self._queue.appendleft(req)
+        try:
+            self._retry_budget.failure(exc)   # backoff sleep, or raise
+        except Exception:
+            self._fail_all()
+            raise
+        while exc is not None:                # the chained ones too
+            exc.__traceback__ = None
+            exc = exc.__cause__ or exc.__context__
+        self._caches = self._new_caches()
+
+    def _fail_all(self):
+        """Recovery budget spent: retire every queued and running request
+        as ``failed`` before the engine re-raises."""
+        doomed = list(self._queue) + list(self._running.values())
+        self._queue.clear()
+        for req in doomed:
+            if req.slot is not None:
+                self._free_slot_state(req)
+            self._retire_terminal(req, "failed", "engine_error")
+
+    # --- terminal statuses ---
+
+    def _retire_terminal(self, req, status, why, finished=None):
+        """Retire a request on a path other than completion (rejected |
+        shed | cancelled | failed)."""
+        req.status = status
+        req.retire_reason = why
+        req.done_t = self._clock()
+        if finished is not None:
+            finished.append(req)
+
+    def _reject(self, req, why):
+        """Terminal ``rejected`` at submit time; never started, so worth
+        resubmitting."""
+        req.retriable = True
+        self._retire_terminal(req, "rejected", why)
+
+    def _shed_expired(self, finished):
+        """Shed every queued request whose deadline has passed."""
+        if not self._queue:
+            return
+        now = self._clock()
+        for req in [r for r in self._queue
+                    if r.deadline_t is not None and now > r.deadline_t]:
+            self._queue.remove(req)
+            self._retire_terminal(req, "shed", "deadline_expired", finished)
 
     def _done_reason(self, req, tok):
         """Retirement reason for the token just emitted, or None."""

@@ -378,6 +378,117 @@ def test_tiny_serve_runs_every_kernel(cuda):
     assert all(counts[k] > 0 for k in SERVE_KERNELS), counts
 
 
+def _shared_prefix_prompts(vocab, rs):
+    head = rs.randint(0, vocab, 16)
+    return [np.concatenate([head, rs.randint(0, vocab, n)])
+            for n in (3, 9, 0, 20)] + [rs.randint(0, vocab, 11)]
+
+
+def test_prefix_cache_on_and_off_token_exact_on_card(cuda):
+    """Greedy tokens with the prefix cache on (hits, a copy-on-write)
+    equal those with it off, through every serving kernel."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    model = GPTDecoder(cfg, device="cuda", seed=3)
+    prompts = _shared_prefix_prompts(cfg.vocab_size,
+                                     np.random.RandomState(1))
+    outs = []
+    for cache in (True, False):
+        eng = ServingEngine(model, ServeConfig(
+            num_slots=2, page_size=8, max_len=64, prefill_len=16,
+            prefix_cache=cache))
+        core.reset_launches()
+        for p in prompts:
+            eng.submit(p, max_new=12)
+        eng.drain()
+        assert all(core.launch_counts()[k] > 0 for k in SERVE_KERNELS)
+        outs.append([eng.requests[i].tokens for i in range(len(prompts))])
+        if cache:
+            assert eng.prefill_tokens_skipped > 0 and eng.cow_copies > 0
+    assert outs[0] == outs[1]
+
+
+def test_shared_pages_bitwise_unchanged_on_card(cuda):
+    """A second request repeating the first one's two cached pages maps
+    page 0, copies page 1 (its match ends inside it), prefills under the
+    write floor and decodes 33 tokens: both cached pages of every layer's
+    pool stay bitwise as published, and the private copy holds page 1's
+    rows bitwise."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    eng = ServingEngine(GPTDecoder(cfg, device="cuda", seed=4), ServeConfig(
+        num_slots=2, page_size=8, max_len=64, prefill_len=16,
+        cache_dtype=torch.bfloat16))
+    head = np.random.RandomState(2).randint(0, cfg.vocab_size, 20)
+    first = eng.submit(head, max_new=40)
+    eng.step()
+    cached = list(eng.requests[first].shared_pages)
+    assert len(cached) == 2
+    idx = torch.tensor(cached, device="cuda")
+    before = [{k: t[idx].clone() for k, t in pool.items()}
+              for pool in eng._caches]
+    second = eng.submit(head[:16], max_new=40)
+    for _ in range(33):
+        eng.step()
+    req = eng.requests[second]
+    assert req.shared_pages == cached[:1] and eng.cow_copies == 1
+    assert len(req.tokens) == 34                 # prefill + 33 steps
+    copy = req.pages[0]
+    for old, pool in zip(before, eng._caches):
+        for name, t in pool.items():
+            assert torch.equal(t[idx], old[name]), name
+            assert torch.equal(t[copy][..., :15, :] if t.ndim == 4
+                               else t[copy][:15],
+                               old[name][1][..., :15, :] if t.ndim == 4
+                               else old[name][1][:15]), name
+
+
+def test_sampled_wave_repeats_on_card(cuda):
+    """The same sampled wave (temperature, top-k, top-p, seeds) on two
+    fresh engines gives the same tokens."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    model = GPTDecoder(cfg, device="cuda", seed=5)
+    prompts = _shared_prefix_prompts(cfg.vocab_size,
+                                     np.random.RandomState(3))
+    outs = []
+    for _ in range(2):
+        eng = ServingEngine(model, ServeConfig(
+            num_slots=3, page_size=8, max_len=64, prefill_len=16,
+            num_pages=12))
+        for i, p in enumerate(prompts):
+            eng.submit(p, max_new=16, temperature=0.9, top_k=40 * (i % 2),
+                       top_p=0.9 if i % 3 else 0.0, seed=i)
+        eng.drain()
+        outs.append([eng.requests[i].tokens for i in range(len(prompts))])
+    assert outs[0] == outs[1]
+
+
+def test_sampling_uniforms_equal_on_cpu_and_card(cuda):
+    """The Philox uniforms are bit-identical on the CPU and the card, and
+    so are the sampled tokens of the same logits."""
+    from paddle_tpu_torch.serving.sampling import sample, uniforms
+    seeds = torch.tensor([0, 7, 2 ** 32 - 1, 123456789])
+    counts = torch.tensor([0, 1, 63, 1000])
+    cpu = uniforms(42, seeds, counts, 32000)
+    card = uniforms(42, seeds.cuda(), counts.cuda(), 32000)
+    assert torch.equal(card.cpu(), cpu)
+    logits = torch.randn(4, 32000, generator=torch.Generator().manual_seed(0))
+    knobs = (torch.tensor([0.8, 1.0, 0.0, 1.3]), torch.tensor([50, 0, 0, 5]),
+             torch.tensor([0.95, 0.0, 0.0, 0.5]))
+    want = sample(logits, *knobs, seeds, counts, 42)
+    got = sample(logits.cuda(), *(k.cuda() for k in knobs), seeds.cuda(),
+                 counts.cuda(), 42)
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("b,h,tq,tk,d,dtype,causal,masked", [
     (2, 3, 70, 70, 64, torch.float32, True, False),
     (1, 2, 30, 100, 32, torch.float32, True, False),

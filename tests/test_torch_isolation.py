@@ -89,6 +89,52 @@ def test_port_serves_with_reference_and_triton_blocked():
     assert "SERVED [9, 13, 24]" in proc.stdout
 
 
+_SERVE_FEATURES_BLOCKED = _SERVE_BLOCKED.split("cfg = GPTConfig.tiny()")[0] \
+    + r"""
+from paddle_tpu_torch.testing import chaos
+cfg = GPTConfig.tiny()
+cfg.dropout = 0.0
+eng = ServingEngine(GPTDecoder(cfg, device="cpu"), ServeConfig(
+    num_slots=2, page_size=8, max_len=32, prefill_len=8, num_pages=4))
+rs = np.random.RandomState(0)
+head = rs.randint(0, 512, 16)
+for i, n in enumerate((3, 5, 0, 7)):
+    prompt = np.concatenate([head, rs.randint(0, 512, n)])
+    eng.submit(prompt, max_new=8, temperature=0.8 * (i % 2), top_k=20,
+               top_p=0.9, seed=i)
+plan = chaos.FaultPlan().fail("fault_point", path=r"^serve\.step$", nth=9)
+with chaos.active(plan):
+    done = eng.drain()
+assert len(done) == 4 and all(len(r.tokens) == 8 for r in done)
+assert eng.prefill_tokens_skipped > 0 and eng.cow_copies > 0
+assert eng.preemptions > 0 and eng.recoveries == 1 == plan.fired()
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("SERVED FEATURES", sorted(len(r.output) for r in done))
+"""
+
+
+def test_port_serving_features_run_with_reference_and_triton_blocked():
+    """The prefix cache, copy-on-write, sampling, preemption and a
+    recovered step fault, in a process that cannot import jax."""
+    code = _SERVE_FEATURES_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "SERVED FEATURES [24, 27, 29, 31]" in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "serving/prefix_cache.py", "serving/sampling.py", "core/retry.py",
+    "testing/chaos.py", "serving/engine.py"])
+def test_ast_scan_covers_the_serving_feature_modules(module):
+    path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
 _TRAIN_BLOCKED = r"""
 import importlib.abc, sys
 BLOCKED = {blocked!r}

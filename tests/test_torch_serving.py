@@ -202,8 +202,8 @@ def test_engine_token_exact_vs_jax_engine(rng, kv):
     kw = dict(num_slots=2, page_size=8, max_len=40, prefill_len=16)
     je = JEngine(jm, v, JServe(**kw, prefix_cache=False,
                                 kv_dtype=jnp.int8 if kv else None))
-    pe = ServingEngine(pm, ServeConfig(**kw, kv_dtype=torch.int8 if kv
-                                       else None))
+    pe = ServingEngine(pm, ServeConfig(**kw, prefix_cache=False,
+                                       kv_dtype=torch.int8 if kv else None))
     prompts = [rng.randint(0, 512, (n,)).astype(np.int32) for n, _ in SPECS]
     for p, (_, mn) in zip(prompts, SPECS):
         je.submit(p, max_new=mn)
@@ -234,12 +234,10 @@ def test_engine_eos_and_refusals(rng):
     req = {r.id: r for r in eng.drain()}[rid]
     assert req.tokens == first[:first.index(eos) + 1]
     assert req.retire_reason == "eos"
-    with pytest.raises(NotImplementedError):
-        eng.submit(prompt, temperature=0.7)
     with pytest.raises(EnforceError):
         eng.submit(np.zeros(30, np.int32), max_new=8)     # > max_len
-    with pytest.raises(EnforceError):                  # preemption needed
-        ServeConfig(num_slots=2, page_size=8, max_len=32, num_pages=7
+    with pytest.raises(EnforceError):        # not even one request fits
+        ServeConfig(num_slots=2, page_size=8, max_len=32, num_pages=3
                     ).resolve()
 
 

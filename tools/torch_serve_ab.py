@@ -12,6 +12,13 @@ request, then ``--waves`` waves of 16 prompts uniform in [64, 512] plus
 one of 700 tokens, 64 new tokens each. Give the trees interleaved
 (A B B A) so that a drift of the shared host shows as such.
 
+With ``--shared`` each tree runs its ``chip_smoke.py`` serve_shared
+wave instead (32 requests over 4 shared system prompts, odd ids sampled;
+trees from the commit that added that phase on): per wave one run
+through the prefix cache at ``chip_smoke.SHARED_PAGES`` pages and one
+with the cache off and a full pool, then ``chip_smoke.sampling_ms`` (the
+host time of one call of the sampler and of the greedy argmax).
+
 Prints one JSON line per tree and wave (decoded tokens/s, p50 TTFT, p50
 step ms, steps), then the card's name and power limit. Needs a CUDA
 device.
@@ -27,8 +34,9 @@ KEYS = ("decoded_tokens_per_s", "p50_ttft_ms", "p50_step_ms", "wall_s",
         "steps", "generated_tokens")
 
 
-def one(tree, waves):
-    """Run the serve phase of ``tree`` in this process."""
+def one(tree, waves, shared=False):
+    """Run the serve phase (or the serve_shared wave) of ``tree`` in this
+    process."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -46,6 +54,10 @@ def one(tree, waves):
     model = GPTDecoder(cfg, device="cuda", seed=0)
     kw = dict(num_slots=8, page_size=64, max_len=1024, prefill_len=512,
               cache_dtype=torch.bfloat16)
+    name = os.path.relpath(tree)
+    if shared:
+        shared_waves(chip_smoke, model, kw, name, waves)
+        return
     chip_smoke.serve(model, 1, (64, 64), None, 4, kw, seed=1)   # warm-up
     torch.cuda.synchronize()
     for wave in range(waves):
@@ -55,20 +67,38 @@ def one(tree, waves):
                               **{k: stats[k] for k in KEYS})), flush=True)
 
 
+def shared_waves(chip_smoke, model, kw, name, waves):
+    wave_reqs = chip_smoke.shared_wave(model.cfg.vocab_size,
+                                       chip_smoke.SHARED_SEED)
+    runs = (("cached", dict(kw, num_pages=chip_smoke.SHARED_PAGES)),
+            ("cache_off", dict(kw, prefix_cache=False)))
+    chip_smoke.drive(model, runs[0][1], wave_reqs[:2])          # warm-up
+    for wave in range(waves):
+        for run, run_kw in runs:
+            _, _, stats = chip_smoke.drive(model, run_kw, wave_reqs)
+            print(json.dumps(dict(tree=name, wave=wave, run=run,
+                                  **{k: stats[k] for k in KEYS})),
+                  flush=True)
+        print(json.dumps(dict(tree=name, wave=wave, **chip_smoke.sampling_ms(
+            model.cfg.vocab_size, kw["num_slots"]))), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--waves", type=int, default=2)
+    ap.add_argument("--shared", action="store_true",
+                    help="run the serve_shared wave")
     ap.add_argument("--one", action="store_true",
                     help=argparse.SUPPRESS)     # the per-tree child
     args = ap.parse_args()
     if args.one:
-        one(args.trees[0], args.waves)
+        one(args.trees[0], args.waves, args.shared)
         return 0
     for tree in args.trees:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", tree,
-             "--waves", str(args.waves)],
+             "--waves", str(args.waves)] + ["--shared"] * args.shared,
             stdout=subprocess.PIPE, text=True, timeout=600, check=True)
         print(out.stdout, end="", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
