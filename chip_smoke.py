@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving, GPT training and BERT pretraining
-paths on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving, GPT training, BERT pretraining and
+Trainer paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -85,6 +85,28 @@ Phases, each printing one JSON line:
    and depth, batch 8 x seq 512 (bench.py's 64 cut to 8), 1 warm-up and
    3 timed bf16 Adam steps: every kernel of the path launches its count
    per step (K5/K6 at H = 1024) and every loss is finite.
+13. trainer — BertConfig.base() at dropout 0.0 (weights from seed 0)
+   trained through Trainer, as examples/pretrain_bert_flash.py sets it
+   and trains it: a seekable synthetic stream of 64 x 512 batches
+   (each row's attention mask cut at a length
+   uniform in [256, 512], 76 masked positions per row, NSP labels),
+   decorate(AdamW, bf16) with a warm-up into a polynomial decay, a
+   global-norm clip and no decay on layer-norm scales and biases,
+   checkpoints every 8 steps in a temporary directory. Runs of 16
+   steps: A (guardian armed), A' (no guardian: bitwise repeatability,
+   and the gate's cost), R (stopped at 10, resumed from step 8 on zeroed
+   weights) and G (the loss made non-finite at steps 10-12 by a
+   FaultPlan: the guardian skips, re-reads, rolls back to step 8 and
+   replays). R's
+   and G's losses and final parameters and slots must equal A's as far
+   as A' does; the refused step must leave the state bit-identical; a
+   RecomputeOptimizer step from the step-8 checkpoint must equal the
+   plain step bitwise, at dropout 0.0 (flash attention) and at the
+   published 0.1 (attention dropout takes the dense path, in both
+   packages). The launch counts are zeroed just before A and read just
+   after: K1-K6 and K8 at bert_train's counts on their routes. Records tokens/s,
+   the p50 step, every run's losses, checkpoint bytes, seconds per save
+   and restore, and peak memory with and without recompute.
 
 K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
 and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
@@ -1658,6 +1680,365 @@ def bert_large_phase(smi):
                 layers=cfg.num_layers, routes=routes), launches
 
 
+# ---------------------------------------------------------------- trainer
+
+TRAINER_STEPS = 16      # each run's steps
+TRAINER_EVERY = 8       # checkpoint interval (saves at 8 and 16); at 4,
+                        # saves took 16 s of run A's 20 s (1.32 GB each,
+                        # H100 80GB HBM3 at 700 W)
+TRAINER_STOP = 10       # R's first run stops here: its last save is 8
+TRAINER_POISON = 10     # G's loss is non-finite at steps 10, 11 and 12
+TRAINER_WARMUP = 2      # steps left out of the step-time statistics
+PUBLISHED_DROPOUT = 0.1  # BertConfig's; the recompute check's second rate
+#: the kernels a BERT step launches in its forward (twice under
+#: recompute); K3 and K6 launch in the backward only
+FORWARD_KERNELS = ("layer_norm", "add_layer_norm", "flash_attention", "mlp",
+                   "xent_stats")
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+class PretrainData:
+    """A seekable synthetic pretraining stream at bench's size: batch ``i``
+    comes from ``RandomState(seed * 100003 + i)``: ids, each row's
+    attention mask cut at a length uniform in [seq/2, seq] (as
+    ``examples/pretrain_bert_flash.py`` pads its batches), ``n_mask``
+    sorted distinct masked positions per row below that length with their
+    labels, NSP labels and an ``mlm_mask`` of ones. ``seek(step)`` makes
+    the stream replayable from any step."""
+
+    def __init__(self, vocab, batch=64, seq=512, n_mask=76, seed=0):
+        self.vocab, self.b, self.t, self.m = vocab, batch, seq, n_mask
+        self.seed = seed
+        self.pos = 0
+
+    def seek(self, step):
+        self.pos = int(step)
+
+    def batch(self, i):
+        rs = np.random.RandomState(self.seed * 100003 + i)
+        ids = rs.randint(0, self.vocab, (self.b, self.t))
+        lens = rs.randint(self.t // 2, self.t + 1, (self.b,))
+        att = (np.arange(self.t)[None, :] < lens[:, None]).astype(np.float32)
+        pos = np.stack([np.sort(rs.choice(n, self.m, replace=False))
+                        for n in lens])
+        labels = rs.randint(0, self.vocab, (self.b, self.m))
+        nsp = rs.randint(0, 2, (self.b,))
+        return (ids, labels, nsp, np.ones((self.b, self.m), np.float32),
+                att, pos)
+
+    def reader(self):
+        def feed():
+            i = self.pos
+            while True:
+                yield self.batch(i)
+                i += 1
+        return feed
+
+
+def trainer_loss(m, ids, labels, nsp, mlm_mask, att, pos):
+    return m.loss(ids, labels, nsp, mlm_mask, attention_mask=att,
+                  mask_positions=pos)
+
+
+def trainer_recipe(model):
+    """``decorate(AdamW, bf16_policy())``: warm-up over 4 steps into a
+    polynomial decay to 0 at step 16, peak 1e-4, global-norm clip 1.0,
+    weight decay 0.01 but for layer-norm scales and biases."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW, ClipByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr_scheduler as S
+    sched = S.linear_lr_warmup(S.polynomial_decay(1e-4, TRAINER_STEPS, 0.0),
+                               4, 0.0, 1e-4)
+    return amp.decorate(AdamW(
+        model.named_parameters(), sched, weight_decay=0.01,
+        decay_mask_fn=lambda name: not name.endswith(("bias", "scale")),
+        grad_clip=ClipByGlobalNorm(1.0)), amp.bf16_policy())
+
+
+def state_bits(model, opt):
+    """Copies of every parameter, slot and step count, by name."""
+    named = dict(model.named_parameters())
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                out[f"{prefix}{k}"] = v.detach().clone()
+    with torch.no_grad():
+        walk({"params": named, "opt": opt.state_tree(named)}, "")
+    return out
+
+
+def bits_diff(a, b):
+    """(all bitwise equal, the largest absolute difference)."""
+    equal = sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                           for k in a)
+    worst = max(float((a[k].double() - b[k].double()).abs().max())
+                for k in a)
+    return equal, worst
+
+
+def trainer_run(model, init, data, ckpt_dir, max_steps, guardian=True,
+                poison=None, snap_calls=(), reset=True):
+    """One ``Trainer`` run of :func:`trainer_recipe` on ``data``
+    (restarted at 0). ``reset`` puts back the weights ``init`` and the
+    dropout generator's seed first. The loss function records the host
+    time and the loss of every call, copies the whole state at the calls
+    in ``snap_calls`` (before that call's step: after the previous
+    step), and makes the loss non-finite where the FaultPlan ``poison``
+    fires."""
+    from paddle_tpu_torch.static import Trainer, TrainerConfig
+    if reset:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(init[name])
+        model.dropout_gen.manual_seed(0)
+    opt = trainer_recipe(model)
+    times, losses, snaps = [], [], {}
+
+    def loss_fn(m, *batch):
+        times.append(time.perf_counter())
+        if len(times) in snap_calls:
+            snaps[len(times)] = state_bits(model, opt)
+        loss = trainer_loss(m, *batch)
+        if poison is not None and poison.check("loss"):
+            loss = loss * float("nan")
+        losses.append(loss.detach().float())
+        return loss
+
+    data.seek(0)
+    tr = Trainer(model, opt, loss_fn, TrainerConfig(
+        max_steps=max_steps, num_ingest_threads=1,
+        checkpoint_dir=ckpt_dir, checkpoint_every=TRAINER_EVERY
+        if ckpt_dir else 0, guardian=guardian or None),
+        device="cuda")
+    tr.train(data)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter())
+    steps = np.diff(times)[TRAINER_WARMUP:]
+    return dict(trainer=tr, opt=opt, snaps=snaps,
+                losses=torch.stack(losses).tolist(),
+                p50_step_ms=float(np.median(steps)) * 1e3,
+                mean_step_ms=float(np.mean(steps)) * 1e3)
+
+
+def set_dropout(model, rate):
+    """Every dropout rate of a BERT model: its Dropout layers' and its
+    attention's."""
+    from paddle_tpu_torch import nn as pnn
+    for mod in model.modules():
+        if isinstance(mod, pnn.Dropout):
+            mod.rate = rate
+        elif isinstance(mod, pnn.MultiHeadAttention):
+            mod.dropout_rate = rate
+
+
+def recompute_check(model, data, ckpt_dir):
+    """One step from the step-8 checkpoint in ``ckpt_dir``, plain and
+    under RecomputeOptimizer, at the model's own dropout rates: (losses,
+    whether the loss and every gradient are bitwise equal, the largest
+    gradient difference, peak memory of each in GB, launches of
+    each)."""
+    from paddle_tpu_torch.core import random as R
+    from paddle_tpu_torch.io import CheckpointManager
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import RecomputeOptimizer
+    from paddle_tpu_torch.static import Trainer
+    mgr = CheckpointManager(ckpt_dir)
+    at = TRAINER_EVERY
+    batch = tuple(torch.from_numpy(a).cuda() for a in data.batch(at))
+    out = []
+    for recompute in (False, True):
+        opt = trainer_recipe(model)
+        tr = Trainer(model, opt, trainer_loss, device="cuda")
+        state, _ = mgr.restore(tr.state(), step=at)
+        tr.load_state(state)
+        R.set_state(R.step_generators(model, opt),
+                    mgr.read_meta(at)["rng"])
+        if recompute:
+            opt = RecomputeOptimizer(opt)
+        del state
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        core.reset_launches()
+        loss = opt.minimize(model, trainer_loss, *batch)
+        torch.cuda.synchronize()
+        out.append((loss, {k: p.grad.clone() for k, p in
+                           model.named_parameters() if p.grad is not None},
+                    torch.cuda.max_memory_allocated() / 1e9,
+                    core.launch_counts()))
+    (l0, g0, m0, n0), (l1, g1, m1, n1) = out
+    equal, worst = bits_diff(g0, g1)
+    return ([float(l0), float(l1)], equal and torch.equal(l0, l1), worst,
+            (m0, m1), (n0, n1))
+
+
+def trainer_phase(smi, bert_stats):
+    """BERT-base pretraining through ``Trainer`` (the JAX package's
+    ``examples/pretrain_bert_flash.py`` at bench's size, dropout 0.0 as
+    it sets it): runs A, A' (no guardian), R (stop at 10, resume to 16)
+    and G (the loss poisoned at steps 10-12), and a recompute check at
+    dropout 0.0 and 0.1. The launch counts are zeroed just before A and
+    read just after. Returns (line, A's launches)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.io import CheckpointManager
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.testing.chaos import FaultPlan
+    t_phase = time.perf_counter()
+    cfg = BertConfig.base()
+    cfg.dropout = 0.0                            # as the example sets it
+    model = BertForPretraining(cfg, device="cuda", seed=0)
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    data = PretrainData(cfg.vocab_size)
+    per_step = bert_launches_per_step(cfg.num_layers)
+    dense = dict(per_step, **{k: 0 for k in FLASH_KERNELS})
+    root = tempfile.mkdtemp(prefix="trainer_phase_")
+    try:
+        core.reset_launches()
+        a = trainer_run(model, init, data, os.path.join(root, "A"),
+                        TRAINER_STEPS)
+        launches_a, routes_a = core.launch_counts(), core.route_counts()
+        bits_a = state_bits(model, a["opt"])
+        ckpt_bytes = os.path.getsize(os.path.join(
+            root, "A", str(TRAINER_STEPS), "state.pt"))
+        shutil.rmtree(os.path.join(root, "A"))   # each run's 2 steps: 2.6 GB
+        check_launches("trainer A", launches_a, TRAINER_STEPS, per_step)
+        check_routes("trainer A", routes_a, "tc")
+        check_path_routes("trainer A", routes_a, ("layer_norm",))
+        a2 = trainer_run(model, init, data, None, TRAINER_STEPS,
+                         guardian=False)
+        rep_equal, rep_state = bits_diff(bits_a, state_bits(model,
+                                                            a2["opt"]))
+        rep_loss = max(abs(x - y) for x, y in zip(a["losses"],
+                                                    a2["losses"]))
+        ckpt_r = os.path.join(root, "R")
+        r1 = trainer_run(model, init, data, ckpt_r, TRAINER_STOP)
+        recompute = {}
+        for rate in (cfg.dropout, PUBLISHED_DROPOUT):
+            set_dropout(model, rate)
+            recompute[rate] = recompute_check(model, data, ckpt_r)
+        set_dropout(model, cfg.dropout)
+        with torch.no_grad():                    # the resume must restore
+            for p in model.parameters():
+                p.zero_()
+        r2 = trainer_run(model, init, data, ckpt_r, TRAINER_STEPS,
+                         reset=False)
+        r_equal, r_state = bits_diff(bits_a, state_bits(model, r2["opt"]))
+        shutil.rmtree(ckpt_r)
+        plan = FaultPlan().poison("loss", nth=TRAINER_POISON, times=3)
+        g = trainer_run(model, init, data, os.path.join(root, "G"),
+                        TRAINER_STEPS, poison=plan,
+                        snap_calls=(TRAINER_POISON, TRAINER_POISON + 1))
+        g_equal, g_state = bits_diff(bits_a, state_bits(model, g["opt"]))
+        skip_equal, _ = bits_diff(g["snaps"][TRAINER_POISON],
+                                  g["snaps"][TRAINER_POISON + 1])
+        guard = g["trainer"].guardian
+        actions = [rec["action"] for rec in guard.log if "action" in rec]
+        at = next(rec["step"] for rec in guard.log
+                  if rec["guardian"] == "rollback")
+        restored = next(rec["restored_step"] for rec in guard.log
+                        if rec["guardian"] == "rollback_done")
+        g_losses = g["losses"][at:]              # steps restored + 1 ..
+        del g, bits_a
+        shutil.rmtree(os.path.join(root, "G"))
+        mgr = CheckpointManager(os.path.join(root, "timing"))
+        tr = r2["trainer"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(TRAINER_STEPS, tr.state(), force=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, _ = mgr.restore(tr.state(), step=TRAINER_STEPS)
+        tr.load_state(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        r_losses = r2["losses"]                  # steps 9 .. 16 (from 8)
+        del state, tr, r2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a_losses = a["losses"]
+    last_save = TRAINER_STOP // TRAINER_EVERY * TRAINER_EVERY
+    r_loss = max(abs(x - y) for x, y in zip(r_losses,
+                                              a_losses[last_save:]))
+    g_loss = max(abs(x - y) for x, y in zip(g_losses, a_losses[restored:]))
+    plain_want = {cfg.dropout: per_step, PUBLISHED_DROPOUT: dense}
+    line = dict(
+        phase="trainer", config="BertConfig.base()", dropout=cfg.dropout,
+        batch=data.b, seq=data.t, masked_positions=data.m,
+        attention_mask="each row cut at a length uniform in [256, 512]",
+        optimizer="decorate(AdamW(wd 0.01, no decay on LN scales and "
+                  "biases), bf16): linear_lr_warmup(4, 0 -> 1e-4) into "
+                  "polynomial_decay(1e-4, 16, 0), ClipByGlobalNorm(1.0)",
+        steps=TRAINER_STEPS, checkpoint_every=TRAINER_EVERY,
+        tokens_per_s=data.b * data.t / a["p50_step_ms"] * 1e3,
+        p50_step_ms=a["p50_step_ms"], mean_step_ms=a["mean_step_ms"],
+        unguarded_p50_step_ms=a2["p50_step_ms"],
+        unguarded_mean_step_ms=a2["mean_step_ms"],
+        gate_ms=a["p50_step_ms"] - a2["p50_step_ms"],
+        bert_train_tokens_per_s=bert_stats["tokens_per_s"],
+        bert_train_p50_step_ms=bert_stats["p50_step_ms"],
+        losses_a=a_losses, losses_a2=a2["losses"],
+        losses_r_first=r1["losses"], losses_r_resumed=r_losses,
+        losses_g_replayed=g_losses,
+        repeatable=rep_equal, repeat_max_loss_diff=rep_loss,
+        repeat_max_state_diff=rep_state,
+        resume_equal=r_equal, resume_max_loss_diff=r_loss,
+        resume_max_state_diff=r_state,
+        rollback_equal=g_equal, rollback_max_loss_diff=g_loss,
+        rollback_max_state_diff=g_state,
+        skip_bit_identical=skip_equal, guardian_actions=actions,
+        guardian_skips=guard.skips, guardian_rollbacks=guard.rollbacks,
+        rollback_at=at, restored_step=restored, poison_fired=plan.fired(),
+        recompute={f"dropout {rate}": dict(
+            losses=rc[0], bitwise=rc[1], max_grad_diff=rc[2],
+            peak_memory_gb=rc[3][0], recompute_peak_memory_gb=rc[3][1],
+            launches={kk: rc[4][1][kk] for kk in per_step})
+            for rate, rc in recompute.items()},
+        checkpoint_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s,
+        launches_a_per_step={kk: launches_a[kk] / TRAINER_STEPS
+                             for kk in per_step},
+        routes_a={kk: routes_a[kk] for kk in TC_KERNELS},
+        seconds=time.perf_counter() - t_phase, card=smi)
+    emit(line)
+    if not all(np.isfinite(a_losses)):
+        raise AssertionError("trainer: a non-finite loss in A")
+    # R and G equal A as far as A' (a second uninterrupted run) does:
+    # bitwise when A' is bitwise equal, else within A''s differences
+    for what, equal, dl, ds in (("resume", r_equal, r_loss, r_state),
+                                ("rollback", g_equal, g_loss, g_state)):
+        if (rep_equal and not equal) or dl > rep_loss or ds > rep_state:
+            raise AssertionError(
+                f"trainer {what}: differs from A by {dl} (loss) and {ds} "
+                f"(state), beyond A''s {rep_loss} and {rep_state}")
+    if not skip_equal:
+        raise AssertionError("trainer G: the refused step changed the "
+                             "state")
+    if (actions != ["skip", "reread", "rollback"] or guard.rollbacks != 1
+            or restored != TRAINER_EVERY or plan.fired() != 3):
+        raise AssertionError(f"trainer G: ladder {actions}, rollbacks "
+                             f"{guard.rollbacks}, restored {restored}, "
+                             f"poison fired {plan.fired()}")
+    for rate, (_, rc_equal, rc_worst, _, rc_launches) in recompute.items():
+        if not rc_equal:
+            raise AssertionError(
+                f"trainer: at dropout {rate} the recompute step differs "
+                f"from the plain one by {rc_worst}")
+        want = plain_want[rate]
+        check_launches(f"trainer plain step, dropout {rate}",
+                       rc_launches[0], 1, want)
+        check_launches(f"trainer recompute step, dropout {rate}",
+                       rc_launches[1], 1,
+                       {kk: n * (2 if kk in FORWARD_KERNELS else 1)
+                        for kk, n in want.items()})
+    return line, launches_a
+
+
 def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
                      kernels, **extra):
     """One f32 step on the card against the CPU plain path (see
@@ -1715,7 +2096,7 @@ def kernel_table(by_kernel, paths):
     K3) under the kernel's name, the tc one (GPT training's) as
     "<name>.tc"; K5 and K6 one row, their bf16 tensor-core kernels; the
     others one SIMT row. ``paths`` holds each path's launch counts
-    (serve, train, train_crosscheck, bert, bert_large)."""
+    (serve, train, train_crosscheck, bert, bert_large, trainer)."""
     from paddle_tpu_torch.ops.cuda import core
     table = []
     for name, kernel in core.KERNELS.items():
@@ -1746,6 +2127,7 @@ def kernel_table(by_kernel, paths):
                 launches_train=paths["train"][name],
                 launches_bert=paths["bert"][name],
                 launches_bert_large=paths["bert_large"][name],
+                launches_trainer=paths["trainer"][name],
                 max_abs_err=case["max_abs_err"],
                 ms=case["kernel_ms"], plain_ms=case["plain_ms"],
                 bound_ms=case["bound_ms"],
@@ -1885,10 +2267,13 @@ def main():
     large_stats, large_launches = bert_large_phase(smi)
     emit(dict(phase="bert_large", **large_stats))
 
+    torch.cuda.empty_cache()
+    _, trainer_launches = trainer_phase(smi, bert_stats)
+
     table = kernel_table(by_kernel, {
         "serve": launches, "train": train_launches,
         "train_crosscheck": crosscheck_launches, "bert": bert_launches,
-        "bert_large": large_launches})
+        "bert_large": large_launches, "trainer": trainer_launches})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,6 +18,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from paddle_tpu_torch.optimizer.optimizers import Minimizer
+
 
 @dataclasses.dataclass
 class Policy:
@@ -68,21 +70,39 @@ class _Bound(nn.Module):
         return self.fn(self.model, *args, **kwargs)
 
 
-class MixedPrecisionOptimizer:
+class MixedPrecisionOptimizer(Minimizer):
     """``decorate``'s wrapper: :meth:`minimize` runs the loss on
     compute-dtype copies of the parameters and steps :attr:`inner` on the
-    f32 masters."""
+    f32 masters, whose f32 gradients its clip and regularizer see. Its
+    state is the reference's ``{"inner": ...}``."""
 
     def __init__(self, optimizer, policy):
         self.inner = optimizer
         self.policy = policy
 
-    def minimize(self, model, loss_fn, *args, **kwargs):
+    def zero_grad(self, set_to_none=True):
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def params(self):
+        return self.inner.params()
+
+    def apply_gradients(self, loss=None, gate=None):
+        return self.inner.apply_gradients(loss, gate)
+
+    def state_tree(self, named):
+        return {"inner": self.inner.state_tree(named)}
+
+    def load_state_tree(self, named, tree):
+        if "inner" not in tree:
+            raise KeyError("an amp optimizer takes {'inner': state}")
+        self.inner.load_state_tree(named, tree["inner"])
+
+    def _minimize(self, model, loss_fn, args, kwargs, gate=None):
         """``loss_fn(model, *args, **kwargs)`` with every floating
         parameter cast to the compute dtype (floating inputs too), the
-        loss cast to f32, its backward into the masters, and one step of
-        the inner optimizer. Gradients stay on the masters after the step.
-        Returns the loss, detached."""
+        loss cast to f32, its backward into the masters, and one update
+        of the inner optimizer. Gradients stay on the masters after the
+        step."""
         self.inner.zero_grad(set_to_none=True)
         params = {"model." + name: self.policy.cast_to_compute(p)
                   for name, p in model.named_parameters()}
@@ -91,16 +111,17 @@ class MixedPrecisionOptimizer:
             tuple(self.policy.cast_to_compute(list(args))), kwargs)
         loss = loss.to(torch.float32)
         loss.backward()
-        self.inner.step()
-        return loss.detach()
+        loss = loss.detach()
+        return loss, self.inner.apply_gradients(loss, gate)
 
 
-def decorate(optimizer, policy=None):
-    """ref: ``amp.py:152`` — wrap an optimizer so that ``minimize`` runs
-    the forward in the compute dtype on f32 master weights. fp16 (which
-    needs the loss scaler) is not ported."""
+def decorate(optimizer, policy=None, scaler=None):
+    """ref: ``amp.py:152`` — wrap an optimizer (or a wrapper such as
+    ``Lookahead``) so that ``minimize`` runs the forward in the compute
+    dtype on f32 master weights. fp16 and a loss scaler (which fp16
+    needs) are not ported."""
     policy = policy or bf16_policy()
-    if policy.compute_dtype == torch.float16:
+    if scaler is not None or policy.compute_dtype == torch.float16:
         raise NotImplementedError("fp16 mixed precision needs the loss "
                                   "scaler, which is not ported")
     return MixedPrecisionOptimizer(optimizer, policy)

@@ -13,11 +13,14 @@ package's ``ScanLayers``, ``scan_layers=True``: ``encoder/layers/layer/
 layers ``encoder.layers.<i>.<leaf>``; :func:`export_params` writes the
 unrolled tree. The bridge imports neither jax nor ``paddle_tpu``.
 
-Optimizer state has the JAX package's shape ``{"step": int, "slots":
-<param tree of {"moment1", "moment2"}>}`` (under ``amp.decorate``,
-``{"inner": ...}`` around it); :func:`load_opt_state` and
-:func:`export_opt_state` carry it to and from the port's optimizer, so
-both sides can continue from the same state.
+Optimizer state has the JAX package's shape: ``{"step": int, "slots":
+<param tree of slot dicts>}`` for an optimizer, ``{"inner": ...}``
+around it under ``amp.decorate``, ``{"inner", "slow", "step"}`` for
+``Lookahead``, ``{"shadow", "step"}`` and the window sums for the
+averages. The port's objects hold the same trees keyed by parameter name
+(``state_tree(named)``); :func:`load_opt_state` and
+:func:`export_opt_state` convert between the two, so both sides can
+continue from the same state.
 """
 
 import numpy as np
@@ -107,75 +110,94 @@ def export_params(model):
                  for name, p in model.named_parameters())
 
 
-def _unwrap(opt, state=None):
-    """The optimizer that holds the slots, and the state for it: an amp
-    wrapper's ``inner`` takes the ``{"inner": ...}`` level."""
-    inner = getattr(opt, "inner", None)
-    if inner is None:
-        return opt, state
-    if state is not None:
-        if "inner" not in state:
-            raise KeyError("an amp optimizer takes {'inner': state}")
-        state = state["inner"]
-    return inner, state
-
-
-def load_opt_state(opt, model, state):
-    """Set ``opt``'s step count and per-parameter slots from a JAX
-    optimizer state (numpy or array leaves), on each parameter's device,
-    in the dtypes the optimizer's own slots take (its ``state_dtype``
-    rule). Every parameter of ``model`` must have its slots in the
-    state."""
-    inner, state = _unwrap(opt, state)
-    flat = flatten(state["slots"])
-    own = dict(model.named_parameters())
-    slot_names = {}
-    for key in flat:
-        name, _, slot = key.rpartition(".")
-        slot_names.setdefault(name, []).append(slot)
-    missing = sorted(set(own) - set(slot_names))
-    extra = sorted(set(slot_names) - set(own))
-    if missing or extra:
-        raise KeyError(f"slot trees differ: missing {missing[:5]}, extra "
-                       f"{extra[:5]}")
-    for name, p in own.items():
-        template = inner.slots(p)
-        if sorted(template) != sorted(slot_names[name]):
-            raise KeyError(f"{name}: slots {sorted(slot_names[name])}, the "
-                           f"optimizer keeps {sorted(template)}")
-        st = inner.state[p]
-        st.clear()
-        for slot, like in template.items():
-            arr = np.asarray(flat[f"{name}.{slot}"])
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}.{slot}: shape {arr.shape} vs "
-                                 f"{tuple(p.shape)}")
-            st[slot] = _to_torch(arr).to(p.device, like.dtype)
-    inner.step_count = int(np.asarray(state["step"]))
-    return opt
-
-
 def _to_torch(arr):
     """A numpy array as a torch tensor; bf16 (numpy's ml_dtypes type)
     goes through f32, exactly."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
 
 
+def _to_numpy(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _named_level(node, names):
+    """True when ``node`` is keyed by every parameter name (a level of
+    the port's state tree that the JAX package holds as a param
+    tree)."""
+    return isinstance(node, dict) and node and set(node) == names
+
+
+def _from_jax(template, tree, names):
+    """The JAX state ``tree`` in the form of the port's ``template``:
+    param-tree levels become dicts keyed by parameter name."""
+    if _named_level(template, names):
+        flat = flatten(tree)
+        out, used = {}, set()
+        for name, like in template.items():
+            if isinstance(like, dict):
+                keys = {slot: f"{name}.{slot}" for slot in like}
+                out[name] = {slot: flat[k] for slot, k in keys.items()
+                             if k in flat}
+                used.update(k for k in keys.values() if k in flat)
+            elif name in flat:
+                out[name] = flat[name]
+                used.add(name)
+        if used != set(flat):
+            raise KeyError(f"state leaves the optimizer does not keep: "
+                           f"{sorted(set(flat) - used)[:5]}")
+        missing = sorted(n for n, like in template.items()
+                         if n not in out or (isinstance(like, dict)
+                                             and sorted(out[n]) != sorted(
+                                                 like)))
+        if missing:
+            raise KeyError(f"state lacks the slots of {missing[:5]}")
+        return {k: _from_jax(template[k], v, names) for k, v in out.items()}
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or sorted(tree) != sorted(template):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise KeyError(f"state keys {got}, the optimizer keeps "
+                           f"{sorted(template)}")
+        return {k: _from_jax(template[k], tree[k], names) for k in template}
+    return _to_torch(tree)
+
+
+def _to_jax(tree, names):
+    """The port's state tree as the JAX package's (numpy leaves, bf16 as
+    f32, param-tree levels nested by name)."""
+    if _named_level(tree, names):
+        return _nest((name, _to_jax(v, names)) for name, v in tree.items())
+    if isinstance(tree, dict):
+        return {k: _to_jax(v, names) for k, v in tree.items()}
+    if tree.dim() == 0 and not tree.is_floating_point():
+        return np.int32(int(tree))
+    return _to_numpy(tree)
+
+
+def load_opt_state(opt, model, state):
+    """Set the state of ``opt`` (an optimizer, ``amp.decorate``'s wrapper,
+    ``Lookahead``, ``RecomputeOptimizer``, or an average) from the JAX
+    package's state for ``model`` (numpy or array leaves): the step
+    counts and every per-parameter slot, on each parameter's device, in
+    the dtypes the port's own state takes (its ``state_dtype`` rule).
+    Every parameter of ``model`` must have its state, and no leaf may be
+    left over."""
+    named = dict(model.named_parameters())
+    template = opt.state_tree(named)
+    opt.load_state_tree(named, _from_jax(template, state, set(named)))
+    return opt
+
+
 def export_opt_state(opt, model):
-    """The port optimizer's state as the JAX package's tree (numpy
-    leaves; bf16 slots as f32). A parameter that has not been stepped yet
-    exports the zero slots the optimizer would start it with."""
-    inner, _ = _unwrap(opt)
-
-    def slots(p):
-        st = inner.state.get(p) or inner.slots(p)
-        return {k: v.detach().float().cpu().numpy() if v.dtype ==
-                torch.bfloat16 else v.detach().cpu().numpy()
-                for k, v in st.items()}
-
-    state = {"step": np.int32(inner.step_count),
-             "slots": _nest((name, slots(p))
-                            for name, p in model.named_parameters())}
-    return {"inner": state} if inner is not opt else state
+    """``opt``'s state as the JAX package's tree (numpy leaves; bf16
+    slots as f32). A parameter not stepped yet exports the zero slots the
+    optimizer would start it with."""
+    named = dict(model.named_parameters())
+    return _to_jax(opt.state_tree(named), set(named))

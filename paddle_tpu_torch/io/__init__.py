@@ -1,0 +1,5 @@
+"""Checkpoints of the port (``paddle_tpu/io``)."""
+from paddle_tpu_torch.io.checkpoint import (CheckpointManager,  # noqa: F401
+                                            crc_manifest, latest_step,
+                                            load_persistables,
+                                            save_persistables)

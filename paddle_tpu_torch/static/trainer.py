@@ -1,0 +1,430 @@
+"""Trainer runtime (ref: ``paddle_tpu/static/trainer.py``).
+
+Host ingestion threads fill a bounded channel; one loop dequeues, stages
+the batch on the device (pinned host memory, copied on the default
+stream, so the step's kernels see it after the copy lands) and, with
+``prefetch``, collates the next batch while the step runs. The step is
+``optimizer.minimize(model, loss_fn, *batch)``, or its gated form under
+the guardian. The Trainer saves ``{"params", "opt"}`` keyed by parameter
+name every ``checkpoint_every`` steps, with the data cursor, the states
+of the generators the step draws from (``core/random.py``) and the
+guardian's state in the step's meta, and resumes from the newest healthy
+step (``dataset.seek(step)`` replays the stream). Under the guardian a
+non-finite step is refused in place, and the ladder re-reads or rolls
+back to the last good checkpoint and replays the stream to its cursor.
+
+The reference's step is a function of a state tree; the port's state is
+the model and the optimizer, which the step updates in place, so
+``Trainer`` takes them and the loss function instead of a step function.
+
+Not ported, and refused when set: heartbeats, telemetry, the watchdog,
+``mesh_plan`` and ``sparse_tables``.
+"""
+
+import dataclasses
+import queue
+import signal
+import threading
+import time
+
+import torch
+
+from paddle_tpu_torch.core import random as _random
+from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.data.loader import _collate
+from paddle_tpu_torch.testing.chaos import fault_point
+
+# "rescheduleable interruption" exit status (BSD EX_TEMPFAIL)
+PREEMPTED_EXIT_CODE = 75
+
+#: the reference's flag default (``trainer_ingest_fail_fast``)
+INGEST_FAIL_FAST = True
+
+
+class Preempted(SystemExit):
+    """Raised out of :meth:`Trainer.train` after a preemption signal
+    triggered a final checkpoint at the step boundary; a script that lets
+    it propagate exits with :data:`PREEMPTED_EXIT_CODE`."""
+
+    def __init__(self, step, signum=None):
+        super().__init__(PREEMPTED_EXIT_CODE)
+        self.step = step
+        self.signum = signum
+
+    def __str__(self):
+        return (f"preempted by signal {self.signum} at step {self.step} "
+                "(checkpoint saved)")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """ref: ``trainer.py:59``."""
+
+    num_ingest_threads: int = 2
+    channel_capacity: int = 8
+    prefetch: bool = True          # collate batch t+1 during step t
+    log_every: int = 0             # 0 = silent
+    max_steps: int = None          # None = drain the dataset
+    heartbeat: bool = None         # not ported
+    heartbeat_transport: str = "file"  # not ported
+    heartbeat_dir: str = None      # not ported
+    heartbeat_timeout_s: float = None  # not ported
+    heartbeat_interval_s: float = None  # not ported
+    heartbeat_kv_client: object = None  # not ported
+    on_peer_stall: object = None   # not ported
+    checkpoint_dir: str = None     # None = checkpointing off
+    checkpoint_every: int = 0      # steps between saves (0 = off)
+    resume: bool = True            # restore the newest checkpoint first
+    handle_preemption: bool = False
+    preemption_signals: tuple = None  # default (SIGTERM, SIGINT)
+    telemetry: object = None       # not ported
+    watchdog: object = None        # not ported
+    mesh_plan: object = None       # not ported
+    guardian: object = None        # True or a GuardianConfig
+    ingest_fail_fast: bool = INGEST_FAIL_FAST
+
+    def check_ported(self):
+        """Raise NotImplementedError for any field set to a value the port
+        does not implement."""
+        defaults = TrainerConfig.__dataclass_fields__
+        for name in ("heartbeat_transport", "heartbeat_dir",
+                     "heartbeat_timeout_s", "heartbeat_interval_s",
+                     "heartbeat_kv_client", "on_peer_stall", "telemetry",
+                     "mesh_plan"):
+            if getattr(self, name) != defaults[name].default:
+                raise NotImplementedError(
+                    f"TrainerConfig.{name} is not ported to "
+                    "paddle_tpu_torch")
+        for name in ("heartbeat", "watchdog"):
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"TrainerConfig.{name} is not ported to "
+                    "paddle_tpu_torch")
+
+
+class _EndOfData:
+    pass
+
+
+_EOD = _EndOfData()
+
+
+class Trainer:
+    """Train ``model`` with ``optimizer`` (an optimizer of the port, or a
+    wrapper: ``amp.decorate``, ``Lookahead``, ``RecomputeOptimizer``) on
+    ``loss_fn(model, *batch)`` over a dataset.
+
+    dataset: anything with ``.readers(n)`` or ``.reader()`` returning a
+    callable that yields batches (tuples of numpy arrays), or such a
+    callable; ``.seek(step)`` makes it resumable and replayable.
+    ``device`` is where batches are staged; it must hold the model."""
+
+    def __init__(self, model, optimizer, loss_fn, config=None,
+                 sparse_tables=None, device="cuda"):
+        if sparse_tables:
+            raise NotImplementedError(
+                "Trainer(sparse_tables=...) is not ported to "
+                "paddle_tpu_torch")
+        self.cfg = config or TrainerConfig()
+        self.cfg.check_ported()
+        self.device = resolve_device(device)
+        enforce(all(p.device.type == self.device.type
+                    for p in model.parameters()),
+                f"the model's parameters are not on {self.device}")
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.history = []
+        self.guardian = None     # TrainGuardian after train() when armed
+        self._ingest_threads = []
+
+    # -- the state a checkpoint holds --------------------------------------
+    def _named(self):
+        return dict(self.model.named_parameters())
+
+    def state(self):
+        """``{"params": {name: tensor}, "opt": <optimizer state>}``, the
+        live tensors (a checkpoint copies them)."""
+        named = self._named()
+        return {"params": named, "opt": self.optimizer.state_tree(named)}
+
+    @torch.no_grad()
+    def load_state(self, state):
+        named = self._named()
+        for name, p in named.items():
+            p.copy_(state["params"][name].to(p.device))
+        self.optimizer.load_state_tree(named, state["opt"])
+
+    def _generators(self):
+        return _random.step_generators(self.model, self.optimizer)
+
+    # -- DataFeed channel --------------------------------------------------
+    def _start_ingest(self, readers):
+        chan = queue.Queue(maxsize=self.cfg.channel_capacity)
+        counts = {"live": len(readers)}
+        lock = threading.Lock()
+        errors = []
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    chan.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def work(reader):
+            try:
+                for item in reader():
+                    fault_point("trainer.ingest")
+                    if not put(item):
+                        return  # trainer stopped early (max_steps)
+            except BaseException as e:    # noqa: B036 - raised by train()
+                # a dead reader is never silent: train() raises it (at
+                # once under ingest_fail_fast, else at the end)
+                errors.append(e)
+            finally:
+                with lock:
+                    counts["live"] -= 1
+                    if counts["live"] == 0:
+                        put(_EOD)
+
+        threads = [threading.Thread(target=work, args=(r,), daemon=True)
+                   for r in readers]
+        for t in threads:
+            t.start()
+        self._ingest_threads = threads
+        return chan, stop, errors
+
+    def _split_readers(self, dataset):
+        n = self.cfg.num_ingest_threads
+        if hasattr(dataset, "readers"):
+            return dataset.readers(n)
+        if hasattr(dataset, "reader"):
+            return [dataset.reader()]
+        return [dataset]
+
+    # -- preemption --------------------------------------------------------
+    def _install_preemption_handler(self):
+        """Signal handlers that request a stop at the next step boundary.
+        Returns (requested: dict, restore: callable)."""
+        requested = {"signum": None}
+        if not self.cfg.handle_preemption:
+            return requested, lambda: None
+        sigs = self.cfg.preemption_signals or (signal.SIGTERM, signal.SIGINT)
+        prev = {}
+
+        def on_signal(signum, frame):
+            requested["signum"] = signum
+
+        try:
+            for s in sigs:
+                prev[s] = signal.signal(s, on_signal)
+        except ValueError:
+            print("[trainer] WARNING: handle_preemption requested off the "
+                  "main thread; preemption signals will not be trapped")
+            return requested, lambda: None
+
+        def restore():
+            for s, h in prev.items():
+                signal.signal(s, h)
+
+        return requested, restore
+
+    def _stage(self, batch):
+        """Each array of the batch on the device: pinned host memory,
+        copied without blocking the host on the default stream (torch
+        keeps the pinned block until the copy lands)."""
+        def put(a):
+            t = torch.as_tensor(a)
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
+        return tuple(put(a) for a in batch)
+
+    def train(self, dataset, batch_size=None, num_workers=None,
+              worker_id=None):
+        """Drain the dataset (or ``max_steps``); returns stats.
+
+        With ``batch_size`` the readers yield samples and the loop
+        collates ``batch_size`` of them per step off the merged channel
+        (dropping the last partial batch)."""
+        if num_workers is not None or worker_id is not None:
+            raise NotImplementedError(
+                "Trainer.train(num_workers=, worker_id=): multi-process "
+                "heartbeats are not ported")
+        cfg = self.cfg
+        step = 0
+        guard = None
+        if cfg.guardian:
+            from paddle_tpu_torch.static.guardian import (GuardianConfig,
+                                                          TrainGuardian)
+            guard = TrainGuardian(
+                cfg.guardian if isinstance(cfg.guardian, GuardianConfig)
+                else None)
+            self.guardian = guard
+        gens = self._generators()
+        ckpt_mgr = None
+        if cfg.checkpoint_dir and cfg.checkpoint_every:
+            from paddle_tpu_torch.io.checkpoint import CheckpointManager
+            ckpt_mgr = CheckpointManager(
+                cfg.checkpoint_dir, save_interval_steps=cfg.checkpoint_every)
+            if cfg.resume:
+                restored, at = ckpt_mgr.restore(self.state())
+                if restored is not None:
+                    self.load_state(restored)
+                    step = int(at)
+                    meta = ckpt_mgr.read_meta(step)
+                    _random.set_state(gens, meta.get("rng"))
+                    if guard is not None:
+                        guard.load_state(meta.get("guardian"))
+                    if hasattr(dataset, "seek"):
+                        dataset.seek(step)
+                    print(f"[trainer] resumed from step {step}")
+        start_step = step
+        preempt, restore_signals = self._install_preemption_handler()
+        chan, stop, errors = self._start_ingest(self._split_readers(dataset))
+
+        def ckpt_meta():
+            m = {"cursor": int(step), "rng": _random.get_state(gens)}
+            if guard is not None:
+                m["guardian"] = guard.state_dict()
+            return m
+
+        def next_batch():
+            if batch_size is None:
+                item = chan.get()
+                return None if isinstance(item, _EndOfData) else item
+            buf = []
+            while len(buf) < batch_size:
+                item = chan.get()
+                if isinstance(item, _EndOfData):
+                    return None  # drop_last on the merged stream
+                buf.append(item)
+            return _collate(buf)
+
+        def do_rollback():
+            # restore the newest checkpoint strictly before the anomaly
+            # episode and replay the stream to its cursor
+            nonlocal step, chan, stop, errors
+            enforce(ckpt_mgr is not None,
+                    "guardian rollback requires checkpointing "
+                    "(TrainerConfig.checkpoint_dir + checkpoint_every)")
+            enforce(hasattr(dataset, "seek"),
+                    "guardian rollback requires a seekable dataset "
+                    "(dataset.seek(step)) to replay the stream")
+            bound = guard.rollback_bound
+            guard.begin_rollback(step, bound=bound)  # budget; may raise
+            stop.set()
+            for t in self._ingest_threads:
+                t.join(timeout=10)
+            cands = [s for s in ckpt_mgr.steps()
+                     if bound is None or s <= bound]
+            restored = at = None
+            while cands:
+                target = cands.pop()        # newest safe step first
+                try:
+                    restored, at = ckpt_mgr.restore(self.state(),
+                                                    step=target)
+                    break
+                except Exception as e:      # degrade to the previous step
+                    print(f"[trainer] rollback: step {target} "
+                          f"unrestorable ({type(e).__name__}: {e}); "
+                          "degrading to the previous step")
+            enforce(restored is not None,
+                    "guardian rollback found no restorable checkpoint at "
+                    "or before the anomaly")
+            self.load_state(restored)
+            step = int(at)
+            # rewind the generators with the state; the guardian's window
+            # and counters are not rewound (the replay walks the healthy
+            # trajectory the window holds)
+            _random.set_state(gens, ckpt_mgr.read_meta(step).get("rng"))
+            guard.note_rollback_done(step)
+            dataset.seek(step)
+            chan, stop, errors = self._start_ingest(
+                self._split_readers(dataset))
+            print(f"[trainer] guardian rollback: restored step {step}, "
+                  "stream replayed")
+
+        t0 = time.perf_counter()
+        loss = None
+        preempted_sig = None
+        try:
+            nxt = next_batch()
+            while nxt is not None:
+                if cfg.max_steps is not None and step >= cfg.max_steps:
+                    break
+                if cfg.ingest_fail_fast and errors:
+                    break    # a reader died: stop now, raise below
+                staged = self._stage(nxt)
+                if cfg.prefetch:
+                    nxt = next_batch()
+                fault_point("trainer.step")
+                if guard is not None:
+                    loss, applied = self.optimizer.minimize_gated(
+                        guard.gate, self.model, self.loss_fn, *staged)
+                else:
+                    loss = self.optimizer.minimize(self.model, self.loss_fn,
+                                                   *staged)
+                step += 1
+                if guard is not None:
+                    # parks this step's device scalars and judges the
+                    # previous step's
+                    act = guard.observe_step(step, loss, applied)
+                    if act == "reread":
+                        # drop the batch at the cursor, take the next one
+                        fresh = next_batch()
+                        if cfg.prefetch or fresh is None:
+                            nxt = fresh
+                    elif act == "rollback":
+                        do_rollback()
+                        nxt = next_batch()
+                        continue
+                if preempt["signum"] is not None:
+                    if ckpt_mgr is not None:
+                        ckpt_mgr.save(step, self.state(), force=True,
+                                      meta=ckpt_meta())
+                    preempted_sig = preempt["signum"]
+                    print(f"[trainer] preemption signal {preempted_sig}: "
+                          f"checkpointed step {step}, exiting for resume")
+                    break
+                if ckpt_mgr is not None and (guard is None
+                                             or guard.healthy()):
+                    # no interval save while an anomaly episode is open,
+                    # so the newest checkpoint is a good rollback target
+                    if (ckpt_mgr.save(step, self.state(), meta=ckpt_meta())
+                            and guard is not None):
+                        guard.note_checkpoint(step)
+                if cfg.log_every and step % cfg.log_every == 0:
+                    lv = float(loss)
+                    self.history.append((step, lv))
+                    print(f"[trainer] step {step} loss {lv:.6f}")
+                if not cfg.prefetch:
+                    nxt = next_batch()
+        finally:
+            stop.set()  # release producers even when the step raises
+            restore_signals()
+            if guard is not None:
+                guard.flush_trailing()
+        if preempted_sig is not None:
+            raise Preempted(step, preempted_sig)
+        run_steps = step - start_step
+        if errors:
+            raise RuntimeError(
+                f"ingestion thread failed after {run_steps} steps "
+                f"(total step {step})") from errors[0]
+        wall = time.perf_counter() - t0
+        return {"steps": step, "run_steps": run_steps, "wall_s": wall,
+                "steps_per_s": run_steps / wall if wall > 0 else 0.0,
+                "final_loss": float(loss) if loss is not None else None}
+
+
+def train_from_dataset(model, optimizer, loss_fn, dataset, config=None,
+                       batch_size=None, device="cuda"):
+    """Functional one-call form (ref: executor.py:1107)."""
+    return Trainer(model, optimizer, loss_fn, config,
+                   device=device).train(dataset, batch_size=batch_size)

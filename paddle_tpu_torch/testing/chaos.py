@@ -1,17 +1,28 @@
-r"""Deterministic fault injection for the serving engine's recovery paths
-(ref: ``paddle_tpu/testing/chaos.py``, the part the engine needs).
+r"""Deterministic fault injection for the recovery paths (ref:
+``paddle_tpu/testing/chaos.py``, the part the engine, the Trainer and
+checkpoints need).
 
     plan = FaultPlan().fail("fault_point", path=r"^serve\.step$", nth=3)
     with chaos.active(plan):
         engine.drain()
     assert plan.fired() == 1
 
-The engine's hooks are ``fault_point("serve.step")`` (before each decode
-step), ``fault_point("serve.prefill")`` (before each prefill chunk) and
-``fault_point("serve.prefix_cache")`` (before each prefix-cache match).
-Each is a no-op unless a plan is active. All hooks are events of the one
-op ``"fault_point"`` whose path is the hook's name, so a rule's ``nth``
-counts every hook's events, as in the reference.
+The hooks are ``fault_point(name)``: the engine's ``serve.step`` (before
+each decode step), ``serve.prefill`` (before each prefill chunk) and
+``serve.prefix_cache`` (before each prefix-cache match); the Trainer's
+``trainer.ingest`` (each item a reader yields), ``trainer.step`` (before
+each step) and ``trainer.rollback`` (each guardian rollback); the
+checkpoint's ``checkpoint.save`` (after a step's file is written, before
+it is renamed into place) and ``checkpoint.verify`` (before each verified
+restore). Each is a no-op unless a plan is active. All hooks are events
+of the one op ``"fault_point"`` whose path is the hook's name, so a
+rule's ``nth`` counts every hook's events, as in the reference.
+
+Besides raising, a rule may poison (:meth:`FaultPlan.poison`):
+:meth:`FaultPlan.check` (and a hook) then returns True and the caller
+corrupts its own value, as the reference's torn-write rules corrupt a
+write instead of failing it. A training drill's loss function calls
+``plan.check("loss")`` and makes its loss non-finite when it fires.
 """
 
 import contextlib
@@ -38,10 +49,17 @@ class FaultPlan:
         self.log = []                  # (op, path, action) of each fault
 
     def fail(self, op, path=None, nth=1, times=1, exc=None):
-        """Add a rule; returns self for chaining."""
+        """Add a rule that raises; returns self for chaining."""
         self._rules.append(dict(
             op=op, path=re.compile(path) if path else None, nth=nth,
-            remaining=times, exc=exc))
+            remaining=times, exc=exc, poison=False))
+        return self
+
+    def poison(self, op, path=None, nth=1, times=1):
+        """Add a rule that makes :meth:`check` return True instead of
+        raising; returns self for chaining."""
+        self.fail(op, path, nth, times)
+        self._rules[-1]["poison"] = True
         return self
 
     def fired(self, op=None):
@@ -49,8 +67,8 @@ class FaultPlan:
         return len([e for e in self.log if op is None or e[0] == op])
 
     def check(self, op, path=""):
-        """Record one (op, path) event; raise per the first matching
-        rule."""
+        """Record one (op, path) event; raise per the first matching rule,
+        or return True when it poisons."""
         with self._lock:
             n = self._counts[op] = self._counts.get(op, 0) + 1
             rule = None
@@ -63,7 +81,10 @@ class FaultPlan:
                 rule = r
                 break
         if rule is None:
-            return
+            return None
+        if rule["poison"]:
+            self.log.append((op, path, "poison"))
+            return True
         exc = rule["exc"] or InjectedFault(
             f"injected fault: {op} #{n} on {path!r}")
         self.log.append((op, path, f"raise:{type(exc).__name__}"))
@@ -85,8 +106,9 @@ def active(plan):
 
 
 def fault_point(name):
-    """Named hook in the engine's paths: free when no plan is active;
-    under an active plan an event with op ``"fault_point"`` and path
-    ``name``."""
+    """Named hook: free when no plan is active; under an active plan an
+    event with op ``"fault_point"`` and path ``name``. Returns True when a
+    poison rule fired, else None."""
     if _ACTIVE is not None:
-        _ACTIVE.check("fault_point", name)
+        return _ACTIVE.check("fault_point", name)
+    return None

@@ -442,10 +442,10 @@ def test_optimizer_refuses_what_is_not_ported():
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.optimizer import Adam
     w = torch.nn.Parameter(torch.zeros(3))
-    with pytest.raises(TypeError):            # no clipping argument yet
-        Adam([w], 1e-3, grad_clip=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # fp16 needs the loss scaler
         amp.decorate(Adam([w], 1e-3), amp.Policy(compute_dtype=torch.float16))
+    with pytest.raises(NotImplementedError):
+        amp.decorate(Adam([w], 1e-3), amp.bf16_policy(), scaler=object())
     with pytest.raises(NotImplementedError):
         amp.LossScaler()
 
