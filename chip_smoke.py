@@ -58,34 +58,46 @@ Phases, each printing one JSON line:
    other serving run asserts that no step was recovered, and the serve
    and int8 waves that nothing was shared. Also the host time of one
    call of the sampler.
-7. int8    — a short serve with an int8 KV pool; every K7 launch on the
+7. serve_spec — the serve phase's engine and traffic through speculative
+   decoding (draft=True, spec_k=3): greedy self-draft, with the launch
+   counts zeroed just before and read just after (every serving kernel
+   launched, on serve's routes); the same prompts with odd ids sampled,
+   spec off then on; and a 2-layer draft cut from the target's weights
+   (greedy). Each run's requests must equal a spec-off run's token for
+   token or be held by the crosscheck at a near tie (serve_shared's
+   rule). Then one draft step (K1 row, K4 SIMT, K7 split) and one verify
+   call (K1 row, K4 SIMT, no K2) at the serve shapes: their launches and
+   routes checked, their device ms read with torch.profiler. Reports
+   each run's tokens/s, p50 step and TTFT, spec_stats() and
+   latency_stats() beside the spec-off serve phase.
+8. int8    — a short serve with an int8 KV pool; every K7 launch on the
    split route.
-8. train   — the GPT training step at full width (GPTConfig.small(),
+9. train   — the GPT training step at full width (GPTConfig.small(),
    dropout 0, weights from a seed): GPT.loss, its backward and
    amp.decorate(Adam(1e-4), bf16_policy()), batch 16 x seq 512 of one
    fixed seeded batch; 2 warm-up steps, then 10 timed steps with the
    launch counts zeroed just before and read just after. Each training
    kernel (K1-K6) must launch its expected count per step, the loss must
    be finite at every step and fall from the first step to the last.
-9. train crosscheck — one f32 step (TF32 off) of GPTConfig.small() at
+10. train crosscheck — one f32 step (TF32 off) of GPTConfig.small() at
    batch 2 x seq 128 on the card and on the CPU plain path from the same
    weights: loss and every parameter's gradient must agree.
-10. bert_train — bench.py's BERT row on the card: BertConfig.base()
+11. bert_train — bench.py's BERT row on the card: BertConfig.base()
    (dropout 0, weights from a seed), BertForPretraining.loss with 76
    gathered MLM positions per row, its backward and
    amp.decorate(Adam(1e-4), bf16_policy()), batch 64 x seq 512 of one
    fixed seeded batch; 2 warm-up and 10 timed steps with the launch
    counts zeroed just before. Each kernel of the path (K1-K6, K8) must
    launch its expected count per step; the loss must be finite and fall.
-11. bert_crosscheck — one f32 step (TF32 off) of BertConfig.base() at
+12. bert_crosscheck — one f32 step (TF32 off) of BertConfig.base() at
    batch 2 x seq 128 with a padded attention mask (K2/K3 with kv_mask),
    token types and 19 mask positions per row, on the card and on the CPU
    plain path: loss and every parameter's gradient must agree.
-12. bert_large — BertConfig.large() (H = 1024, 24 layers) at full width
+13. bert_large — BertConfig.large() (H = 1024, 24 layers) at full width
    and depth, batch 8 x seq 512 (bench.py's 64 cut to 8), 1 warm-up and
    3 timed bf16 Adam steps: every kernel of the path launches its count
    per step (K5/K6 at H = 1024) and every loss is finite.
-13. trainer — BertConfig.base() at dropout 0.0 (weights from seed 0)
+14. trainer — BertConfig.base() at dropout 0.0 (weights from seed 0)
    trained through Trainer, as examples/pretrain_bert_flash.py sets it
    and trains it: a seekable synthetic stream of 64 x 512 batches
    (each row's attention mask cut at a length
@@ -122,7 +134,7 @@ takes.
 
 Then the {"kernels": [...]} line (each kernel with the launches of its
 own path: serve for K1 (its row route), K7 (its split route) and the SIMT
-rows of K2 and K4,
+rows of K2 and K4, beside serve_spec's greedy run's,
 train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
 ("flash_attention.tc", "flash_attention_bwd_dq.tc",
 "flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8;
@@ -649,8 +661,9 @@ def floor_ms(dev):
 
 
 def layer_norm_cases(randn):
-    """K1 at the serving path's rows (8 decode rows and 512 prefill rows
-    of 768, f32, both timed), ragged rows, BertConfig.large()'s C = 1024,
+    """K1 at the serving path's rows (8 decode rows, 32 verify rows of
+    serve_spec's window and 512 prefill rows of 768, f32, all timed),
+    ragged rows, BertConfig.large()'s C = 1024,
     C of whole packs but not of whole warps of packs, C off the 16-byte
     pack and past the row route's widest (both the simt route), and a
     view that does not start on 16 bytes. Each case records the route it
@@ -659,7 +672,8 @@ def layer_norm_cases(randn):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for rows, cols, dtype, offset in (
-            (8, 768, f32, 0), (512, 768, f32, 0), (13, 768, f32, 0),
+            (8, 768, f32, 0), (32, 768, f32, 0), (512, 768, f32, 0),
+            (13, 768, f32, 0),
             (37, 768, bf16, 0), (8, 1024, f32, 0), (64, 1024, bf16, 0),
             (5, 200, bf16, 0), (13, 770, bf16, 0), (9, 771, f32, 0),
             (7, 4096, f32, 0), (29, 768, bf16, 1)):
@@ -675,7 +689,7 @@ def layer_norm_cases(randn):
         check(f"layer_norm {rows}x{cols} {dtype}", err, tol)
         case = dict(shape=[rows, cols], dtype=str(dtype), route=route,
                     misaligned=bool(offset), max_abs_err=err, tol=tol)
-        if dtype == f32 and cols == 768 and rows in (8, 512):
+        if dtype == f32 and cols == 768 and rows in (8, 32, 512):
             case.update(ln_timing(x, gam, bet))
         cases.append(case)
     return cases
@@ -852,9 +866,11 @@ def kernel_cases(dev):
         cases.append(case)
     results["flash_attention"] = cases
 
-    # K4 fused MLP: decode rows (8) and prefill rows (512) at 768/3072
+    # K4 fused MLP: decode rows (8), verify rows (32: 8 slots x a window
+    # of 4) and prefill rows (512) at 768/3072
     cases = []
     for rows, inter, dtype in ((8, 3072, torch.float32),
+                               (32, 3072, torch.float32),
                                (512, 3072, torch.float32),
                                (13, 3000, torch.float32),
                                (40, 3072, torch.bfloat16)):
@@ -871,7 +887,8 @@ def kernel_cases(dev):
         check(f"mlp {rows}x768x{inter} {dtype}", err, tol)
         case = dict(shape=[rows, 768, inter, 768], dtype=str(dtype),
                     route=route, max_abs_err=err, tol=tol)
-        if dtype == torch.float32 and inter == 3072 and rows in (8, 512):
+        if dtype == torch.float32 and inter == 3072 and rows in (8, 32,
+                                                                  512):
             w1t, w2t = w1.t(), w2.t()
             case["kernel_ms"] = time_ms(
                 lambda: mlp.mlp_kernel(x, w1, b1, w2, b2))
@@ -1102,6 +1119,7 @@ def drive(model, cfg_kw, submissions, plan=None):
     from paddle_tpu_torch.serving import ServeConfig, ServingEngine
     from paddle_tpu_torch.testing import chaos
     eng = ServingEngine(model, ServeConfig(**cfg_kw))
+    eng.reset_stats()         # the latency histograms are process-wide
     vocab = model.cfg.vocab_size
     rids = [eng.submit(prompt, max_new=max_new, **kw)
             for prompt, max_new, kw in submissions]
@@ -1139,18 +1157,30 @@ def drive(model, cfg_kw, submissions, plan=None):
     return eng, reqs, stats
 
 
-def serve(model, num_requests, prompt_range, long_prompt, max_new, cfg_kw,
-          seed):
-    """Submit a wave of random prompts (no two share a page) and drain
-    it; returns (engine, request ids, stats). The prefix cache is on, as
-    by default, and must find nothing to share."""
+def serve_wave(vocab, num_requests, prompt_range, long_prompt, max_new,
+               seed, sampled=False):
+    """``num_requests`` random prompts with lengths uniform in
+    ``prompt_range`` (no two share a page), then one of ``long_prompt``
+    tokens if given, ``max_new`` new tokens each; with ``sampled`` the odd
+    ids sample (SAMPLED, explicit seeds). ``[(prompt, max_new, submit
+    kwargs)]``."""
     rs = np.random.RandomState(seed)
     lens = list(rs.randint(prompt_range[0], prompt_range[1] + 1,
                            num_requests))
     if long_prompt:
         lens.append(long_prompt)
-    wave = [(rs.randint(0, model.cfg.vocab_size, n).astype(np.int32),
-             max_new, {}) for n in lens]
+    return [(rs.randint(0, vocab, n).astype(np.int32), max_new,
+             dict(SAMPLED, seed=1000 + i) if sampled and i % 2 else {})
+            for i, n in enumerate(lens)]
+
+
+def serve(model, num_requests, prompt_range, long_prompt, max_new, cfg_kw,
+          seed):
+    """Submit :func:`serve_wave`'s prompts and drain them; returns
+    (engine, request ids, stats). The prefix cache is on, as by default,
+    and must find nothing to share."""
+    wave = serve_wave(model.cfg.vocab_size, num_requests, prompt_range,
+                      long_prompt, max_new, seed)
     eng, reqs, stats = drive(model, cfg_kw, wave)
     if eng.prefix_hits or eng.prefill_tokens_skipped:
         raise AssertionError(f"random prompts hit {eng.prefix_hits} cached "
@@ -1427,6 +1457,214 @@ def serve_shared_phase(model, cpu_model, serve_kw, smi):
         crosscheck=rows,
         sampling_host=sampling_ms(model.cfg.vocab_size, kw["num_slots"]),
         **{k: v for k, v in stats.items() if k != "prompt_lens"})
+    return line, launches
+
+
+# ------------------------------------------------------------- serve_spec
+
+SPEC_K = 3
+#: the kernels a draft step and a verify call must launch, on serve's
+#: routes (K1 row, K4 SIMT, K7 split); verify launches no K2
+DRAFT_KERNELS = ("layer_norm", "mlp", "decode_attention")
+VERIFY_KERNELS = ("layer_norm", "mlp")
+SPEC_ROUTES = {"layer_norm": "row", "mlp": "simt", "decode_attention": "split"}
+
+
+def device_ms(fn, top=6):
+    """The device time of one call of ``fn``: ``(ms, {kernel name: ms})``,
+    the sum of the durations of the CUDA kernels it launched (they run on
+    one stream and do not overlap) and the ``top`` largest by name, from
+    ``torch.profiler``. Warmed up once first."""
+    import collections
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    return sum(by_name.values()), dict(by_name.most_common(top))
+
+
+def launched(fn):
+    """``(launches, routes)`` of one call of ``fn``: every kernel's count,
+    and the routes of the kernels that have more than one."""
+    from paddle_tpu_torch.ops.cuda import core
+    torch.cuda.synchronize()
+    core.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return core.launch_counts(), core.route_counts()
+
+
+def check_spec_call(what, launches, routes, kernels):
+    """Each of ``kernels`` launched in the call, every launch on
+    SPEC_ROUTES' route; and no flash attention (K2) launch."""
+    for k in kernels:
+        n = launches[k]
+        on = routes[k][SPEC_ROUTES[k]]
+        if n == 0 or on != n:
+            raise AssertionError(f"{what}: {k} launched {n} times, {on} on "
+                                 f"the {SPEC_ROUTES[k]} route")
+    if launches["flash_attention"]:
+        raise AssertionError(f"{what}: launched flash attention")
+
+
+def spec_probe(model, serve_kw, wave):
+    """One draft step and one verify call at the serve shapes (8 live
+    slots of the wave, a window of SPEC_K + 1): launches and routes of
+    each, checked by :func:`check_spec_call`, and the device ms of each
+    (:func:`device_ms`). The calls write into a throwaway engine's
+    pools at the positions the next round would."""
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    eng = ServingEngine(model, ServeConfig(**dict(serve_kw, draft=True,
+                                                  spec_k=SPEC_K)))
+    for prompt, _, kw in wave[:serve_kw["num_slots"]]:
+        eng.submit(prompt, max_new=64, **kw)
+    eng.step()                     # admission and one round
+    if not eng._active.all():
+        raise AssertionError("spec probe: not every slot is live")
+    s = serve_kw["num_slots"]
+    table = eng._dev(eng._page_table)
+    lengths = eng._dev(eng._lengths)
+    active = eng._dev(eng._active)
+    tok = eng._dev(eng._last_tokens).long()
+    win = torch.full((s,), SPEC_K + 1, dtype=torch.int32, device=tok.device)
+    starts = eng._host(eng._lengths)
+    window = torch.stack([tok] * (SPEC_K + 1), dim=1)
+    draft = eng._draft_model
+
+    def draft_step():
+        logits, _ = draft.paged_decode_step(tok, eng._draft_caches, table,
+                                            lengths, active)
+        return torch.argmax(logits, dim=-1)
+
+    def verify():
+        hidden, _ = model.paged_verify_chunk(window, starts, win,
+                                             eng._caches, table)
+        return [torch.argmax(model.verify_head(hidden[:, i]), dim=-1)
+                for i in range(SPEC_K + 1)]
+
+    out = {}
+    for name, fn, kernels in (("draft_step", draft_step, DRAFT_KERNELS),
+                              ("verify", verify, VERIFY_KERNELS)):
+        launches, routes = launched(fn)
+        check_spec_call(name, launches, routes, kernels)
+        ms, by_kernel = device_ms(fn)
+        out[name] = dict(
+            device_ms=ms, top_kernels_ms=by_kernel,
+            launches={k: n for k, n in launches.items() if n},
+            routes={k: routes[k] for k in SPEC_ROUTES})
+    out["verify"]["rows"] = s * (SPEC_K + 1)
+    return out
+
+
+def cut_draft(model, layers):
+    """A draft of ``layers`` blocks cut from the target: its config, and
+    its weights (the target's embeddings, first ``layers`` blocks and
+    ``ln_f``) as the reference's param tree, exported through the
+    bridge."""
+    import copy
+
+    from paddle_tpu_torch import bridge
+    cfg = copy.deepcopy(model.cfg)
+    cfg.num_layers = layers
+    tree = bridge.export_params(model)
+    tree["blocks"] = {str(i): tree["blocks"][str(i)] for i in range(layers)}
+    return cfg, {"params": tree}
+
+
+def held_tokens(model, cpu_model, reqs, reference, serve_kw):
+    """The serve_shared rule: a request equal to ``reference`` (id ->
+    tokens) token for token passes; one that is not is held by
+    ``crosscheck`` against it (logits within SERVE_LOGIT_TOL of the
+    CPU's, and for a greedy request each token the CPU's argmax and the
+    reference's but for a near tie). Returns (exact count, crosscheck
+    rows)."""
+    diff = [r for r in reqs if r.tokens != list(reference[r.id])]
+    rows = crosscheck(model, cpu_model, diff, serve_kw["page_size"],
+                      serve_kw["prefill_len"], reference=reference)
+    return len(reqs) - len(diff), rows
+
+
+def spec_run_line(eng, stats, exact, rows):
+    return dict(spec=eng.spec_stats(), latency=eng.latency_stats(),
+                token_exact=exact, crosscheck=rows,
+                **{k: v for k, v in stats.items() if k != "prompt_lens"})
+
+
+def serve_spec_phase(model, cpu_model, serve_kw, smi, off_tokens,
+                     off_stats):
+    """The serve_spec phase: the serve phase's traffic through
+    speculative decoding (SPEC_K proposals a round). Runs, each against a
+    spec-off run of the same prompts by :func:`held_tokens`: greedy
+    self-draft (against the serve phase's tokens; the launch counts are
+    zeroed just before it and read just after, and every serving kernel
+    must launch on serve's routes), a sampled wave with odd ids sampled
+    (spec off, then self-draft), and a 2-layer draft cut from the target
+    (greedy). Then :func:`spec_probe`. Returns (the phase line,
+    launches)."""
+    from paddle_tpu_torch.ops.cuda import core
+    vocab = model.cfg.vocab_size
+    greedy = serve_wave(vocab, 16, (64, 512), 700, 64, seed=0)
+    sampled = serve_wave(vocab, 16, (64, 512), 700, 64, seed=0,
+                         sampled=True)
+    spec_kw = dict(serve_kw, draft=True, spec_k=SPEC_K)
+    drive(model, spec_kw, greedy[:2])                        # warm-up
+    torch.cuda.synchronize()
+    core.reset_launches()
+    eng, reqs, stats = drive(model, spec_kw, greedy)
+    launches = core.launch_counts()
+    routes = core.route_counts()
+    torch.cuda.synchronize()
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve_spec: kernels not launched {missing}")
+    check_routes("serve_spec", routes, "simt", SERVE_ROUTED)
+    check_path_routes("serve_spec", routes, ("layer_norm",
+                                             "decode_attention"))
+    if eng.spec_stats()["rounds"] == 0 or eng.decode_steps:
+        raise AssertionError("serve_spec: the run did not speculate")
+    exact, rows = held_tokens(model, cpu_model, reqs, off_tokens, serve_kw)
+    runs = {"greedy_self_draft": spec_run_line(eng, stats, exact, rows)}
+
+    s_off, s_off_reqs, s_off_stats = drive(model, serve_kw, sampled)
+    s_eng, s_reqs, s_stats = drive(model, spec_kw, sampled)
+    exact, rows = held_tokens(model, cpu_model, s_reqs,
+                              {r.id: r.tokens for r in s_off_reqs},
+                              serve_kw)
+    runs["sampled_self_draft"] = spec_run_line(s_eng, s_stats, exact, rows)
+    runs["sampled_self_draft"]["spec_off"] = {
+        k: s_off_stats[k] for k in ("decoded_tokens_per_s", "p50_step_ms",
+                                    "p50_ttft_ms")}
+
+    dcfg, dvars = cut_draft(model, 2)
+    c_eng, c_reqs, c_stats = drive(model, dict(
+        serve_kw, spec_k=SPEC_K, draft_spec=dcfg, draft_variables=dvars),
+        greedy)
+    exact, rows = held_tokens(model, cpu_model, c_reqs, off_tokens,
+                              serve_kw)
+    runs["greedy_cut_draft"] = spec_run_line(c_eng, c_stats, exact, rows)
+    runs["greedy_cut_draft"]["draft_layers"] = dcfg.num_layers
+    del eng, s_eng, s_off, c_eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    probe = spec_probe(model, serve_kw, greedy)
+    line = dict(
+        phase="serve_spec", config="GPTConfig.small()", spec_k=SPEC_K,
+        **{k: v for k, v in serve_kw.items() if k != "cache_dtype"},
+        cache_dtype="bfloat16", nvidia_smi=smi, launches=launches,
+        routes={k: routes[k] for k in SERVE_ROUTED + tuple(PATH_ROUTE)},
+        runs=runs, probe=probe,
+        per_round_device_ms=SPEC_K * probe["draft_step"]["device_ms"]
+        + probe["verify"]["device_ms"],
+        spec_off={k: off_stats[k] for k in ("decoded_tokens_per_s",
+                                            "p50_step_ms", "p50_ttft_ms",
+                                            "steps")})
     return line, launches
 
 
@@ -2096,7 +2334,8 @@ def kernel_table(by_kernel, paths):
     K3) under the kernel's name, the tc one (GPT training's) as
     "<name>.tc"; K5 and K6 one row, their bf16 tensor-core kernels; the
     others one SIMT row. ``paths`` holds each path's launch counts
-    (serve, train, train_crosscheck, bert, bert_large, trainer)."""
+    (serve, serve_spec, train, train_crosscheck, bert, bert_large,
+    trainer)."""
     from paddle_tpu_torch.ops.cuda import core
     table = []
     for name, kernel in core.KERNELS.items():
@@ -2124,6 +2363,7 @@ def kernel_table(by_kernel, paths):
                 source=kernel.route_sources.get(variant, kernel.source),
                 replaces=kernel.replaces, launches=paths[path][name],
                 launches_path=path,
+                launches_serve_spec=paths["serve_spec"][name],
                 launches_train=paths["train"][name],
                 launches_bert=paths["bert"][name],
                 launches_bert_large=paths["bert_large"][name],
@@ -2222,6 +2462,11 @@ def main():
     shared_line, _ = serve_shared_phase(model, cpu_model, serve_kw, smi)
     emit(shared_line)
 
+    spec_line, spec_launches = serve_spec_phase(
+        model, cpu_model, serve_kw, smi,
+        {r: eng.requests[r].tokens for r in rids}, stats)
+    emit(spec_line)
+
     int8_kw = dict(serve_kw, kv_dtype=torch.int8)
     core.reset_launches()
     _, _, stats8 = serve(model, 4, (64, 512), 600, 16, int8_kw, seed=2)
@@ -2271,7 +2516,8 @@ def main():
     _, trainer_launches = trainer_phase(smi, bert_stats)
 
     table = kernel_table(by_kernel, {
-        "serve": launches, "train": train_launches,
+        "serve": launches, "serve_spec": spec_launches,
+        "train": train_launches,
         "train_crosscheck": crosscheck_launches, "bert": bert_launches,
         "bert_large": large_launches, "trainer": trainer_launches})
     emit({"kernels": table})

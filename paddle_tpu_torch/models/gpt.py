@@ -241,7 +241,9 @@ class GPTDecoder(GPT):
         num_pages, _, page_size, _ = caches[0]["k"].shape
         p_max = page_rows.shape[1]
         chunked = starts.cpu() > 0
-        starts = starts.to(dev).long()
+        # non-blocking: from pinned memory the copy does not wait for the
+        # work queued before it (a blocking copy synchronizes the stream)
+        starts = starts.to(dev, non_blocking=True).long()
         chunk_lengths = chunk_lengths.to(dev).long()
         rel = torch.arange(lp, device=dev)
         pos = starts[:, None] + rel[None, :]                  # [B, Lp]
@@ -260,3 +262,24 @@ class GPTDecoder(GPT):
             x, _ = blk.paged_prefill_chunk(x, pool, page_ids, offsets,
                                            page_rows, pos, chunked)
         return self.ln_f(x), caches
+
+    def paged_verify_chunk(self, window, starts, win_lengths, caches,
+                           page_rows):
+        """Speculative-decoding verify (ref: ``models/gpt.py:371``): score
+        every position of a ``[B, W]`` token window at absolute positions
+        ``starts[b] .. starts[b] + win_lengths[b] - 1`` against the paged
+        cache, through the chunked prefill's path (a live slot has
+        ``starts >= 1``, so its rows take the continuation branch: the
+        slot's whole cached prefix plus the window, causally). The
+        window's K/V is written into the slot's pages; rejecting a
+        proposal is the caller's length edit. ``starts`` is read on the
+        host. Returns (hidden ``[B, W, H]``, caches); the caller applies
+        :meth:`verify_head` one position at a time, so no ``[B, W, V]``
+        logits exist."""
+        return self._paged_chunk_hidden(window, starts, win_lengths, caches,
+                                        page_rows)
+
+    def verify_head(self, hidden_row):
+        """Vocab logits of one window position: ``[B, H] -> [B, V]`` (the
+        tied head; ref: ``models/gpt.py:388``)."""
+        return pnn.tied_vocab_head(self.tok_emb, hidden_row)

@@ -212,13 +212,18 @@ class MultiHeadAttention(nn.Module):
                         v.reshape(b * t, self.num_heads, hd),
                         page_ids.reshape(b * t), offsets.reshape(b * t))
         q, k, v = (y.transpose(1, 2) for y in (q, k, v))  # [B, H, T, hd]
-        ctx = torch.empty_like(q)
         flags = [bool(c) for c in chunked]
         first = [i for i, c in enumerate(flags) if not c]
         cont = [i for i, c in enumerate(flags) if c]
-        if first:
+        if not cont:
+            ctx = self._causal(q, k, v)
+        elif not first:
+            # no row selection: a list index is a copy to the card, which
+            # waits for the work queued before it
+            ctx = self._gathered(q, pool, page_rows, q_pos).to(q.dtype)
+        else:
+            ctx = torch.empty_like(q)
             ctx[first] = self._causal(q[first], k[first], v[first])
-        if cont:
             ctx[cont] = self._gathered(q[cont], pool, page_rows[cont],
                                        q_pos[cont]).to(ctx.dtype)
         out = ctx.transpose(1, 2).reshape(b, t, e)

@@ -33,13 +33,34 @@ What is ported:
     error is re-raised. Recovery never switches a kernel to its plain
     version.
 
+  * speculative decoding (``ServeConfig.draft``): a draft model (the
+    target itself by default, or ``draft_spec`` with its own weights)
+    proposes ``spec_k`` tokens per slot in decode-shaped calls, then one
+    batched verify call scores every slot's window ``[pending token,
+    proposals]`` against the paged cache and draws each position with
+    the key the plain path would use, so the emitted tokens are the
+    target's own: greedy output equals the spec-off engine's, and a
+    sampled request draws the same tokens. The accepted prefix of
+    matching proposals plus one target token is emitted; a rejection is
+    a length edit. The draft keeps its own pools, indexed by the same
+    page table, and every write to the target pools is mirrored there;
+  * the accounting: the ``serve.*`` metrics of the reference (see
+    ``observability/metrics.py``), SLO classification at retirement
+    (``slo_ttft_s``, ``slo_token_latency_s``), ``goodput()``,
+    ``slo_stats()``, ``latency_stats()``, ``spec_stats()`` and
+    ``reset_stats()``, and with ``ServeConfig.run_log`` a JSONL record
+    per step plus the lifecycle events of every request (submitted,
+    admitted, prefill_done, first_token, preempted, resumed, requeued,
+    retired). None of it reads the device.
+
 Terminal statuses: done | rejected | shed | cancelled | failed.
 
-Not ported: speculation, the fleet (``adopt``, ``export_inflight``,
-``prefix_lookup_depth``), run logs, metrics, the watchdog and traces.
-The scheduler state (page table, lengths, active mask, pending tokens,
-sampling knobs) is host numpy, copied to the model's device for each
-call; the page pools live on the device and are updated in place.
+Not ported: the fleet (``adopt``, ``export_inflight``,
+``prefix_lookup_depth``), the ``/metrics`` exporter, the watchdog, the
+flight recorder, fleet traces and prompt prefetch. The scheduler state
+(page table, lengths, active mask, pending tokens, sampling knobs) is
+host numpy, copied to the model's device before each call's launches;
+the page pools live on the device and are updated in place.
 """
 
 import collections
@@ -47,16 +68,29 @@ import dataclasses
 import itertools
 import time
 import typing
+import uuid
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.retry import RetryBudget, RetryPolicy
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability.runlog import RunLog
 from paddle_tpu_torch.ops.attention import copy_pages
 from paddle_tpu_torch.serving.prefix_cache import PrefixCache
 from paddle_tpu_torch.serving.sampling import sample
 from paddle_tpu_torch.testing.chaos import fault_point
+
+#: the reference's serve.* metrics, registered when an engine is built
+_COUNTERS = ("serve.tokens", "serve.requests", "serve.page_stalls",
+             "serve.preemptions", "serve.slo_violations", "serve.recoveries",
+             "serve.shed", "serve.prefix_hits", "serve.prefix_misses",
+             "serve.cow_copies", "serve.spec_proposed", "serve.spec_accepted",
+             "serve.spec_rollbacks")
+_GAUGES = ("serve.queue_depth", "serve.active_slots", "serve.goodput",
+           "serve.pages_shared", "serve.kv_quant_pages")
+_HISTOGRAMS = ("serve.ttft_s", "serve.token_latency_s")
 
 
 @dataclasses.dataclass
@@ -80,8 +114,28 @@ class ServeConfig:
     queue_limit: int = 0         # 0 = unbounded queue
     default_deadline_s: float = 0.0   # 0 = no deadline
     step_retries: int = 3        # consecutive failed steps recovered
+    run_log: typing.Any = None   # JSONL path, or an open RunLog
+    slo_ttft_s: float = 0.0      # 0 = unbounded
+    slo_token_latency_s: float = 0.0   # 0 = unbounded
+    model_version: str = None    # "model_id@version", in slo_stats()
+    # speculative decoding (serve_draft, serve_spec_k)
+    draft: bool = False
+    spec_k: int = 3              # draft proposals per slot per round
+    draft_spec: typing.Any = None       # the draft's GPTConfig; None with
+    #                                     draft=True: the target drafts
+    draft_variables: typing.Any = None  # {"params": reference-layout tree
+    #                                     of numpy arrays} (bridge)
+    draft_checkpoint: str = None  # else the newest step of this
+    #                               CheckpointManager directory, whose
+    #                               state is {"params": {name: tensor}}
 
     def resolve(self):
+        if self.draft_spec is not None or self.draft_checkpoint:
+            self.draft = True    # an explicit draft model implies draft
+        if self.draft:
+            enforce(self.spec_k >= 1,
+                    f"spec_k={self.spec_k}: speculative decoding needs at "
+                    "least one draft proposal per round")
         pages_per_slot = -(-self.max_len // self.page_size)
         if self.num_pages is None:
             self.num_pages = self.num_slots * pages_per_slot
@@ -124,6 +178,11 @@ class Request:
     priority: int = 0             # higher admits first, is evicted last
     deadline_t: float = None      # absolute clock() deadline, or None
     retriable: bool = False       # rejected, worth resubmitting
+    slo_ok: bool = None           # every configured SLO met at retirement
+    spec_tokens: int = 0          # tokens beyond one per target step
+    #                               (accepted draft proposals emitted)
+    trace_id: str = None          # the run log's lifecycle trace id
+    trace: list = dataclasses.field(default_factory=list)  # (event, t)
 
     @property
     def output(self):
@@ -146,8 +205,15 @@ class ServingEngine:
         self._model = model.eval()
         self._device = model.device
         self._clock = clock
+        self.version = cfg.model_version
         self._pages_per_slot = -(-cfg.max_len // cfg.page_size)
         self._caches = self._new_caches()
+        # speculation: the draft keeps its own pools with the target's page
+        # count and size, so one page table indexes both
+        self._spec_on = bool(cfg.draft)
+        self._draft_model = self._resolve_draft() if self._spec_on else None
+        self._draft_caches = (self._new_caches(self._draft_model)
+                              if self._spec_on else None)
         s = cfg.num_slots
         self._page_table = np.zeros((s, self._pages_per_slot), np.int32)
         self._lengths = np.zeros(s, np.int32)
@@ -178,6 +244,31 @@ class ServingEngine:
         self.cow_copies = 0
         self.preemptions = 0
         self.recoveries = 0
+        self.spec_proposed = 0        # draft tokens offered to verify
+        self.spec_accepted = 0        # proposals the target confirmed
+        self.spec_rollbacks = 0       # proposals rejected (a length edit)
+        self.spec_rounds = 0          # speculative rounds run
+        self.spec_slot_rounds = 0     # slots that took part, summed
+        self.target_steps = 0         # target-model steps (decode or
+        #                               verify)
+        self._step_no = 0
+        self._run_log = None
+        self._own_run_log = False
+        if cfg.run_log:
+            self._own_run_log = isinstance(cfg.run_log, str)
+            self._run_log = (RunLog(cfg.run_log) if self._own_run_log
+                             else cfg.run_log)
+        for name in _COUNTERS:            # listed in a snapshot from the
+            _metrics.counter(name)        # start, as in the reference
+        for name in _GAUGES:
+            _metrics.gauge(name)
+        for name in _HISTOGRAMS:
+            _metrics.histogram(name)
+        self._retired = 0
+        self._retired_ok = 0
+        self._viol_base = dict(
+            _metrics.counter("serve.slo_violations").snapshot())
+        self._trace_run = uuid.uuid4().hex[:8]
 
     def _cache_count(self, name):
         return getattr(self._prefix_cache, name) if self._prefix_cache else 0
@@ -196,11 +287,41 @@ class ServingEngine:
     def evictions(self):
         return self._cache_count("evictions")
 
-    def _new_caches(self):
+    def _new_caches(self, model=None):
+        """Page pools for ``model`` (default: the target)."""
         cfg = self.cfg
-        return self._model.init_paged_caches(
+        return (model or self._model).init_paged_caches(
             cfg.num_pages, cfg.page_size, dtype=cfg.cache_dtype,
             kv_dtype=cfg.kv_dtype)
+
+    def _resolve_draft(self):
+        """The draft model. No ``draft_spec``: the target drafts for
+        itself (the plumbing probe). Else a
+        ``GPTDecoder(draft_spec)`` on the target's device with the weights
+        of ``cfg.draft_variables``, else of the newest healthy step under
+        ``cfg.draft_checkpoint`` (the verified restore; a directory with
+        no step raises), else drawn from ``cfg.seed``."""
+        cfg = self.cfg
+        if cfg.draft_spec is None:
+            return self._model
+        from paddle_tpu_torch import bridge
+        from paddle_tpu_torch.io.checkpoint import CheckpointManager
+        from paddle_tpu_torch.models.gpt import GPTDecoder
+        draft = GPTDecoder(cfg.draft_spec, device=self._device,
+                           seed=cfg.seed)
+        if cfg.draft_variables is not None:
+            bridge.load_params(draft, cfg.draft_variables["params"])
+        elif cfg.draft_checkpoint:
+            named = dict(draft.named_parameters())
+            state, _ = CheckpointManager(cfg.draft_checkpoint).restore(
+                {"params": named})
+            enforce(state is not None,
+                    f"draft_checkpoint={cfg.draft_checkpoint!r} holds no "
+                    "restorable step")
+            with torch.no_grad():
+                for name, p in named.items():
+                    p.copy_(state["params"][name])
+        return draft.eval()
 
     def _dev(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(self._device)
@@ -233,8 +354,17 @@ class ServingEngine:
                       eos_id=eos_id if eos_id is not None else cfg.eos_id,
                       priority=int(priority))
         self._resolve_sampling(req, temperature, top_k, top_p, seed)
-        req.submit_t = self._clock()
+        req.trace_id = f"{self._trace_run}/{req.id}"
         self.requests[req.id] = req
+        extra = {}
+        if priority:
+            extra["priority"] = int(priority)
+        if deadline_s is not None:
+            extra["deadline_s"] = float(deadline_s)
+        req.submit_t = self._trace_event(req, "submitted",
+                                         prompt_len=int(prompt.size),
+                                         max_new=int(max_new), **extra)
+        _metrics.counter("serve.requests").inc(status="submitted")
         if deadline_s is None and cfg.default_deadline_s > 0:
             deadline_s = cfg.default_deadline_s
         if deadline_s is not None:
@@ -246,6 +376,7 @@ class ServingEngine:
             self._reject(req, "queue_full")
             return req.id
         self._queue.append(req)
+        _metrics.gauge("serve.queue_depth").set(len(self._queue))
         return req.id
 
     def cancel(self, request_id):
@@ -259,7 +390,10 @@ class ServingEngine:
             self._queue.remove(req)
         else:
             self._free_slot_state(req)
-        self._retire_terminal(req, "cancelled", "cancelled")
+        # the client walked away: not counted against goodput
+        self._retire_terminal(req, "cancelled", "cancelled", account=False)
+        _metrics.gauge("serve.queue_depth").set(len(self._queue))
+        _metrics.gauge("serve.active_slots").set(len(self._running))
         return True
 
     @torch.inference_mode()
@@ -267,13 +401,15 @@ class ServingEngine:
         """One scheduling round: shed expired queued requests, admit
         queued prompts into free slots (prefill-on-admit), grow page
         tables where the next token opens a page (preempting while every
-        running slot is stalled), run one decode step over all slots,
-        and retire requests that hit EOS or their token budget. Returns
-        the requests finished this round."""
+        running slot is stalled), run one decode step over all slots (or,
+        with speculation, one draft-and-verify round), and retire
+        requests that hit EOS or their token budget. Returns the requests
+        finished this round."""
+        t0 = self._clock()
         finished = []
         if not self._caches:
             # a spent recovery budget left the pools unbuilt
-            self._caches = self._new_caches()
+            self._build_pools()
         self._shed_expired(finished)
         self._admit(finished)
         stalled = self._grow_pages()
@@ -284,28 +420,108 @@ class ServingEngine:
                          key=self._victim_key)
             self._preempt(victim)
             stalled = self._grow_pages()
-        toks = None
+        new_tokens = 0
+        toks = spec = None
+        spec_proposed = spec_accepted = None
         if self._active.any():
+            use_spec = self._spec_on
+            if use_spec:
+                try:
+                    fault_point("spec.verify")
+                except Exception:
+                    # a verify fault degrades this round to one plain
+                    # decode step, which draws the same tokens
+                    use_spec = False
             try:
                 fault_point("serve.step")
-                toks = self._decode()
+                if use_spec:
+                    spec = self._spec_round()
+                else:
+                    toks = self._decode()
             except Exception as e:
                 self._recover("serve.step", e)
-        if toks is not None:
+        if spec is not None:
+            # per slot: accept the leading run of proposals equal to the
+            # target's own draws and emit accepted + 1 of those draws;
+            # rejected rows stay written past the length, to be
+            # overwritten later
             self._retry_budget.success()
-            self.decode_steps += 1
+            self.spec_rounds += 1
+            self.target_steps += 1
+            dt = self._clock() - t0
+            lat = _metrics.histogram("serve.token_latency_s")
+            sampled, props, win = spec
+            spec_proposed = spec_accepted = 0
             for slot, req in list(self._running.items()):
                 if not self._active[slot]:
                     continue                   # page-stalled this round
-                self._lengths[slot] += 1       # pending token now cached
-                tok = int(toks[slot])
-                req.tokens.append(tok)
-                self._gen_counts[slot] += 1    # the next draw's index
-                self._last_tokens[slot] = tok
-                reason = self._done_reason(req, tok)
-                if reason:
-                    self._release(req, finished, reason)
+                w = int(win[slot])
+                self.spec_slot_rounds += 1
+                a = 0
+                while a < w - 1 and props[slot, a] == sampled[slot, a]:
+                    a += 1
+                m = a + 1                      # tokens safe to emit
+                spec_proposed += w - 1
+                spec_accepted += a
+                emitted = 0
+                for j in range(m):
+                    emitted += 1
+                    lat.observe(dt / m)
+                    if self._emit(req, slot, int(sampled[slot, j]),
+                                  finished):
+                        break
+                new_tokens += emitted
+                req.spec_tokens += emitted - 1
+            self.spec_proposed += spec_proposed
+            self.spec_accepted += spec_accepted
+            self.spec_rollbacks += spec_proposed - spec_accepted
+            _metrics.counter("serve.spec_proposed").inc(spec_proposed)
+            _metrics.counter("serve.spec_accepted").inc(spec_accepted)
+            _metrics.counter("serve.spec_rollbacks").inc(
+                spec_proposed - spec_accepted)
+        elif toks is not None:
+            self._retry_budget.success()
+            self.decode_steps += 1
+            self.target_steps += 1
+            dt = self._clock() - t0
+            lat = _metrics.histogram("serve.token_latency_s")
+            for slot, req in list(self._running.items()):
+                if not self._active[slot]:
+                    continue                   # page-stalled this round
+                lat.observe(dt)
+                new_tokens += 1
+                self._emit(req, slot, int(toks[slot]), finished)
+        _metrics.counter("serve.tokens").inc(new_tokens)
+        _metrics.gauge("serve.active_slots").set(len(self._running))
+        _metrics.gauge("serve.queue_depth").set(len(self._queue))
+        if self.cfg.kv_dtype is not None:
+            _metrics.gauge("serve.kv_quant_pages").set(
+                self.cfg.num_pages - len(self._free_pages))
+        wall_s = self._clock() - t0
+        if self._run_log is not None:
+            rec = {"phase": "serve", "step": self._step_no,
+                   "wall_s": wall_s, "new_tokens": new_tokens,
+                   "active": len(self._running),
+                   "queue_depth": len(self._queue),
+                   "goodput": round(self.goodput(), 4)}
+            if spec_proposed is not None:
+                rec["spec_proposed"] = spec_proposed
+                rec["spec_accepted"] = spec_accepted
+            self._run_log.write(rec)
+        self._step_no += 1
         return finished
+
+    def _emit(self, req, slot, tok, finished):
+        """Append one generated token, whose K/V the step just cached;
+        retire the request when it is done. Returns True if it was."""
+        self._lengths[slot] += 1
+        req.tokens.append(tok)
+        self._gen_counts[slot] += 1        # the next draw's index
+        self._last_tokens[slot] = tok
+        reason = self._done_reason(req, tok)
+        if reason:
+            self._release(req, finished, reason)
+        return bool(reason)
 
     def drain(self, max_steps=100000):
         """Run step() until every submitted request is terminal; returns
@@ -319,7 +535,22 @@ class ServingEngine:
             raise RuntimeError(
                 f"drain: {len(self._queue)} queued / {len(self._running)} "
                 f"running requests left after {max_steps} steps")
+        if self._run_log is not None:
+            snap = _metrics.snapshot()
+            self._run_log.write({"final": True, "phase": "serve",
+                                 "kv_dtype": self.kv_dtype_name(),
+                                 "kv_pool_bytes": self.kv_pool_bytes(),
+                                 "counters": snap.get("counters", {}),
+                                 "gauges": snap.get("gauges", {}),
+                                 "slo": self.slo_stats()})
         return out
+
+    def close(self):
+        """Close the run log the engine opened (one it was handed stays
+        open)."""
+        if self._run_log is not None and self._own_run_log:
+            self._run_log.close()
+        self._run_log = None
 
     def shed_queued(self, cause="overload"):
         """Load shedding: shed every expired queued request; when none is
@@ -332,12 +563,104 @@ class ServingEngine:
             shed = [(min(self._queue, key=self._victim_key), cause)]
         for req, why in shed:
             self._queue.remove(req)
+            _metrics.counter("serve.shed").inc(cause=cause)
             self._retire_terminal(req, "shed", why)
+        _metrics.gauge("serve.queue_depth").set(len(self._queue))
         return [req.id for req, _ in shed]
 
+    def kv_dtype_name(self):
+        """"int8" for a quantized page pool, else "f32" (the reference's
+        label, whatever the float dtype)."""
+        return "int8" if self.cfg.kv_dtype is not None else "f32"
+
     def kv_pool_bytes(self):
+        """Bytes of the target's page pools (the draft's are not
+        counted, as in the reference)."""
         return sum(t.numel() * t.element_size()
                    for pool in self._caches for t in pool.values())
+
+    # --- accounting ---
+
+    def spec_stats(self):
+        """Speculation accounting. Each active slot costs one target-model
+        step a round (decode or verify); a slot's speculative round emits
+        1 + accepted tokens."""
+        prop, acc = self.spec_proposed, self.spec_accepted
+        sr = self.spec_slot_rounds
+        return {
+            "enabled": self._spec_on,
+            "spec_k": self.cfg.spec_k if self._spec_on else 0,
+            "rounds": self.spec_rounds,
+            "target_steps": self.target_steps,
+            "proposed": prop,
+            "accepted": acc,
+            "rollbacks": self.spec_rollbacks,
+            "acceptance_rate": round(acc / prop, 4) if prop else None,
+            "tokens_per_target_step":
+                round((sr + acc) / sr, 4) if sr else None}
+
+    def goodput(self):
+        """Fraction of retired requests that met every configured SLO
+        (1.0 before the first retirement)."""
+        return self._retired_ok / self._retired if self._retired else 1.0
+
+    def slo_stats(self):
+        """Goodput, the targets, and SLO violations since construction or
+        :meth:`reset_stats`."""
+        viol = _metrics.counter("serve.slo_violations").snapshot()
+        delta = {k.split("=", 1)[1]: v - self._viol_base.get(k, 0)
+                 for k, v in viol.items()}
+        return {"goodput": round(self.goodput(), 4),
+                "retired": self._retired,
+                "version": self.version,
+                "slo_ttft_s": self.cfg.slo_ttft_s or None,
+                "slo_token_latency_s": self.cfg.slo_token_latency_s or None,
+                "violations": {"ttft": delta.get("ttft", 0),
+                               "token_latency":
+                                   delta.get("token_latency", 0)}}
+
+    def reset_stats(self):
+        """Zero the serve latency histograms (process-wide, as in the
+        reference), this engine's SLO tallies and its speculation
+        counters, so a warm-up stays out of a timed window."""
+        for name in _HISTOGRAMS:
+            _metrics.histogram(name).reset()
+        self.spec_proposed = self.spec_accepted = 0
+        self.spec_rollbacks = self.spec_rounds = 0
+        self.spec_slot_rounds = self.target_steps = 0
+        self._retired = self._retired_ok = 0
+        self._viol_base = dict(
+            _metrics.counter("serve.slo_violations").snapshot())
+        _metrics.gauge("serve.goodput").set(1.0)
+
+    def latency_stats(self):
+        """``{"ttft_ms": {p50, p95, n}, "token_ms": {...}}`` from the
+        registry's histograms."""
+        out = {}
+        for name, hist in (("ttft_ms", "serve.ttft_s"),
+                           ("token_ms", "serve.token_latency_s")):
+            st = _metrics.histogram(hist).stats()
+            if st:
+                out[name] = {"p50": round(st["p50"] * 1e3, 3),
+                             "p95": round(st["p95"] * 1e3, 3),
+                             "n": st["count"]}
+        return out
+
+    def _trace_event(self, req, event, **extra):
+        """One lifecycle event: a clock read, an append to ``req.trace``
+        and, with a run log, one JSONL record. Returns the time."""
+        t = self._clock()
+        req.trace.append((event, t))
+        if self._run_log is not None:
+            rec = {"event": event, "req": req.id, "trace": req.trace_id,
+                   "t": t, "at_step": self._step_no}
+            if req.slot is not None:
+                rec["slot"] = req.slot
+            if self.version is not None:
+                rec["version"] = self.version
+            rec.update(extra)
+            self._run_log.write(rec)
+        return t
 
     # --- device calls ---
 
@@ -350,15 +673,20 @@ class ServingEngine:
             return None
         return tuple(self._dev(a) for a in (temps,) + rest)
 
-    def _tokens(self, logits, knobs):
-        """Tokens of logits ``[B, V]`` as host numpy: plain argmax when
-        every row is greedy, else :func:`sample`."""
+    def _draw(self, logits, knobs, offset=0):
+        """Tokens of logits ``[B, V]`` on the device: plain argmax when
+        every row is greedy, else :func:`sample` with each row's count
+        moved on by ``offset`` (the draw ``offset`` tokens ahead)."""
         if knobs is None:
-            toks = torch.argmax(logits, dim=-1)
-        else:
-            toks = sample(logits, *knobs, base_seed=self.cfg.seed)
-        # the one sync per call: the scheduler needs the tokens
-        return toks.cpu().numpy()
+            return torch.argmax(logits, dim=-1)
+        temps, top_ks, top_ps, seeds, counts = knobs
+        return sample(logits, temps, top_ks, top_ps, seeds, counts + offset,
+                      base_seed=self.cfg.seed)
+
+    def _tokens(self, logits, knobs):
+        """:meth:`_draw` as host numpy: the one sync per call, since the
+        scheduler needs the tokens."""
+        return self._draw(logits, knobs).cpu().numpy()
 
     def _decode(self):
         knobs = self._knobs(self._temps, self._top_ks, self._top_ps,
@@ -369,6 +697,72 @@ class ServingEngine:
             self._dev(self._active))
         return self._tokens(logits, knobs)
 
+    def _spec_round(self):
+        """One speculative round (ref: ``_spec_round``). Window sizing:
+        ``win[slot] = min(spec_k + 1, tokens left)``, with pages taken for
+        the window; in a pool famine the window shrinks to the pages the
+        slot owns, never below 1 (``_grow_pages`` made the pending
+        position writable). The draft then makes ``spec_k`` decode-shaped
+        calls with ``lengths + i``, ``counts + i`` and ``active & (win >
+        i + 1)``, each proposal fed back on the device; one verify call
+        scores the window ``[pending token, proposals]`` and position
+        ``i`` is drawn with count ``counts + i``, the key the plain path
+        would use. Every host array goes to the card before the first
+        launch, and the round reads the device once: proposals and draws
+        together. Returns host ``(draws [S, W], proposals [S, K], win
+        [S])``."""
+        cfg = self.cfg
+        ps = cfg.page_size
+        k = cfg.spec_k
+        win = np.zeros(cfg.num_slots, np.int32)
+        for slot, req in self._running.items():
+            if not self._active[slot]:
+                continue                   # page-stalled this round
+            w = min(k + 1, req.max_new - len(req.tokens))
+            ln = int(self._lengths[slot])
+            while w > 1:
+                owned = len(req.shared_pages) + len(req.pages)
+                if (ln + w - 1) // ps < owned:
+                    break                  # the window is covered
+                page = self._alloc_page()
+                if page is None:
+                    w = owned * ps - ln    # famine: what the slot owns
+                    break
+                req.pages.append(page)
+                self._page_table[slot, owned] = page
+            win[slot] = w
+        knobs = self._knobs(self._temps, self._top_ks, self._top_ps,
+                            self._seeds, self._gen_counts)
+        table = self._dev(self._page_table)
+        lengths = self._dev(self._lengths)
+        active = self._dev(self._active)
+        win_dev = self._dev(win)
+        pending = self._dev(self._last_tokens).long()
+        # a row with no window writes nothing and its draws are dropped;
+        # starting it at 1 or later keeps every row on the continuation
+        # branch (no first-chunk flash launch in verify)
+        starts = self._host(np.maximum(self._lengths, 1))
+        tok, props = pending, []
+        for i in range(k):
+            logits, self._draft_caches = self._draft_model.paged_decode_step(
+                tok, self._draft_caches, table, lengths + i,
+                active & (win_dev > i + 1))
+            tok = self._draw(logits, knobs, i)
+            props.append(tok)
+        hidden, self._caches = self._model.paged_verify_chunk(
+            torch.stack([pending] + props, dim=1), starts, win_dev,
+            self._caches, table)
+        draws = [self._draw(self._model.verify_head(hidden[:, i]), knobs, i)
+                 for i in range(k + 1)]
+        out = torch.stack(props + draws, dim=1).cpu().numpy()
+        return out[:, k:], out[:, :k], win
+
+    def _host(self, array):
+        """A host tensor the model moves to the card without waiting on
+        the queue: pinned when the model is on a card."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        return t.pin_memory() if self._device.type == "cuda" else t
+
     def _prefill_chunk(self, req, seq, start, clen, floor):
         cfg = self.cfg
         # a chunk with no row at or above the floor would send every
@@ -378,11 +772,17 @@ class ServingEngine:
         window = np.zeros((1, cfg.prefill_len), np.int32)
         window[0, :clen] = seq[start:start + clen]
         knobs = self._knobs(*self._sampling_rows(req))
+        args = (self._dev(window), torch.tensor([start], dtype=torch.int32),
+                torch.tensor([clen], dtype=torch.int32))
+        row = self._dev(self._page_table[req.slot][None, :])
+        floors = self._dev(np.asarray([floor], np.int32))
         logits, self._caches = self._model.paged_prefill_chunk(
-            self._dev(window), torch.tensor([start], dtype=torch.int32),
-            torch.tensor([clen], dtype=torch.int32), self._caches,
-            self._dev(self._page_table[req.slot][None, :]),
-            write_floor=self._dev(np.asarray([floor], np.int32)))
+            *args, self._caches, row, write_floor=floors)
+        if self._spec_on:
+            # the same chunk into the draft pools, with the same floor, so
+            # the first round finds the draft's cache warm
+            _, self._draft_caches = self._draft_model.paged_prefill_chunk(
+                *args, self._draft_caches, row, write_floor=floors)
         self.prefill_calls += 1
         return int(self._tokens(logits, knobs)[0])
 
@@ -417,6 +817,8 @@ class ServingEngine:
             if self._prefix_cache is not None:
                 self._free_pages.extend(
                     self._prefix_cache.release(req.shared_pages))
+                _metrics.gauge("serve.pages_shared").set(
+                    self._prefix_cache.pages_shared())
             else:
                 self._free_pages.extend(req.shared_pages)
             req.shared_pages = []
@@ -438,6 +840,9 @@ class ServingEngine:
         except Exception:
             shared, matched = [], 0
             cache.misses += req.prompt.size // self.cfg.page_size
+        full = req.prompt.size // self.cfg.page_size
+        _metrics.counter("serve.prefix_hits").inc(len(shared))
+        _metrics.counter("serve.prefix_misses").inc(full - len(shared))
         if not shared:
             return 0
         cache.acquire(shared)
@@ -450,24 +855,27 @@ class ServingEngine:
             drop = req.shared_pages.pop()
             self._free_pages.extend(cache.release([drop]))
             matched -= matched % self.cfg.page_size
+        _metrics.gauge("serve.pages_shared").set(cache.pages_shared())
         return matched
 
     def _cow_last_shared(self, req):
         """Copy-on-write: duplicate the request's last shared page into a
-        fresh private page in every layer's pool and remap the table
-        row. False when no page is allocatable."""
+        fresh private page in every layer's pool (the draft's too: its
+        pools are indexed by the same page ids) and remap the table row.
+        False when no page is allocatable."""
         dst = self._alloc_page()
         if dst is None:
             return False
         src = req.shared_pages.pop()     # held: its refcount protects it
         src_t = torch.tensor([src], dtype=torch.int64, device=self._device)
         dst_t = torch.tensor([dst], dtype=torch.int64, device=self._device)
-        for pool in self._caches:
+        for pool in self._caches + (self._draft_caches or []):
             copy_pages(pool, src_t, dst_t)
         self._free_pages.extend(self._prefix_cache.release([src]))
         req.pages.append(dst)
         self._page_table[req.slot, len(req.shared_pages)] = dst
         self.cow_copies += 1
+        _metrics.counter("serve.cow_copies").inc()
         return True
 
     def _publish_prefix(self, req):
@@ -481,6 +889,8 @@ class ServingEngine:
         for page in self._prefix_cache.insert(req.prompt, row[:full]):
             req.pages.remove(page)
             req.shared_pages.append(page)
+        _metrics.gauge("serve.pages_shared").set(
+            self._prefix_cache.pages_shared())
 
     # --- per-request sampling ---
 
@@ -525,10 +935,12 @@ class ServingEngine:
             total = req.prompt.size + len(req.tokens)  # recovery replays
             first = min(cfg.prefill_len, total)
             if -(-first // cfg.page_size) > self._pages_available():
+                _metrics.counter("serve.page_stalls").inc(where="admit")
                 break                      # head of line waits for pages
             self._queue.remove(req)
             if not self._prefill_request(req, total, finished):
                 break          # mid-admission page stall or a recovery
+        _metrics.gauge("serve.queue_depth").set(len(self._queue))
 
     def _prefill_request(self, req, total, finished):
         """Admit one request: take a slot, map the cached leading pages of
@@ -543,6 +955,9 @@ class ServingEngine:
         ps = cfg.page_size
         slot = self._free_slots.pop()
         req.slot = slot
+        self._trace_event(req, "resumed" if (req.preemptions
+                                             or req.recoveries)
+                          else "admitted")
         self._page_table[slot] = 0
         req.pages = []
         req.shared_pages = []
@@ -560,6 +975,7 @@ class ServingEngine:
                 page = self._alloc_page()
                 if page is None:
                     # pool drained between chunks: undo and wait
+                    _metrics.counter("serve.page_stalls").inc(where="admit")
                     self._abort_admission(req)
                     return False
                 self._page_table[
@@ -574,8 +990,11 @@ class ServingEngine:
         self.prefill_tokens_skipped += skipped
         self._publish_prefix(req)
         self._lengths[slot] = total
+        self._trace_event(req, "prefill_done")
+        t = self._trace_event(req, "first_token")
         if req.first_token_t is None:     # a replay keeps the first
-            req.first_token_t = self._clock()
+            req.first_token_t = t
+            _metrics.histogram("serve.ttft_s").observe(t - req.submit_t)
         req.tokens.append(tok)
         req.status = "running"
         self._running[slot] = req
@@ -586,6 +1005,7 @@ class ServingEngine:
         self._gen_counts[slot] = len(req.tokens)
         self._last_tokens[slot] = tok
         self._active[slot] = True
+        _metrics.counter("serve.tokens").inc()
         reason = self._done_reason(req, tok)
         if reason:
             self._release(req, finished, reason)
@@ -617,6 +1037,7 @@ class ServingEngine:
                 req.pages.append(page)
                 self._page_table[slot, ln // ps] = page
             else:
+                _metrics.counter("serve.page_stalls").inc(where="decode")
                 self._active[slot] = False
                 stalled.append(slot)
         return stalled
@@ -642,6 +1063,7 @@ class ServingEngine:
         """Recompute preemption: drop the request's pages and tokens and
         requeue it at the front; it re-prefills its prompt and
         regenerates (greedy exactly; sampled from the same stream)."""
+        self._trace_event(req, "preempted", tokens_dropped=len(req.tokens))
         self._free_slot_state(req)
         req.slot = None
         req.tokens = []
@@ -649,12 +1071,14 @@ class ServingEngine:
         req.preemptions += 1
         self.preemptions += 1
         self._queue.appendleft(req)
+        _metrics.counter("serve.preemptions").inc()
 
     def _recover(self, where, exc, pending=None):
-        """Crash-isolated recovery from a failed decode step or prefill
-        chunk: the pools may hold partial writes, so they are rebuilt
-        (every reference to the old ones dropped first, so the card
-        never holds two sets), the scheduler arrays zeroed, the prefix
+        """Crash-isolated recovery from a failed decode step (or
+        speculative round) or prefill chunk: the pools, the draft's too,
+        may hold partial writes, so they are rebuilt (every reference to
+        the old ones dropped first, so the card never holds two sets),
+        the scheduler arrays zeroed, the prefix
         cache cleared, and every in-flight request requeued in id order
         to replay its prompt + generated tokens. The kernels stay on:
         nothing here switches to a plain version. After
@@ -664,12 +1088,20 @@ class ServingEngine:
         the frames of the failed call may hold the old pools' tensors."""
         cfg = self.cfg
         self.recoveries += 1
+        _metrics.counter("serve.recoveries").inc(where=where)
         victims = sorted(self._running.values(), key=lambda r: r.id)
         if pending is not None:
             victims.append(pending)
-        for pool in self._caches:
+        if self._run_log is not None:
+            self._run_log.write({
+                "phase": "serve", "recovery": where,
+                "step": self._step_no, "in_flight": len(victims),
+                "error": f"{type(exc).__name__}: {exc}"[:200]})
+        for pool in self._caches + (self._draft_caches or []):
             pool.clear()           # drop the old tensors before the new
         self._caches = []
+        if self._spec_on:
+            self._draft_caches = []
         self._page_table[:] = 0
         self._lengths[:] = 0
         self._active[:] = False
@@ -683,6 +1115,7 @@ class ServingEngine:
         self._free_pages = collections.deque(range(cfg.num_pages))
         if self._prefix_cache is not None:
             self._prefix_cache.clear()     # its ids point at zeroed pages
+            _metrics.gauge("serve.pages_shared").set(0)
         self._running = {}
         for req in reversed(victims):      # appendleft keeps id order
             req.slot = None
@@ -690,7 +1123,11 @@ class ServingEngine:
             req.shared_pages = []
             req.status = "queued"
             req.recoveries += 1
+            self._trace_event(req, "requeued", cause=where,
+                              tokens_kept=len(req.tokens))
             self._queue.appendleft(req)
+        _metrics.gauge("serve.active_slots").set(0)
+        _metrics.gauge("serve.queue_depth").set(len(self._queue))
         try:
             self._retry_budget.failure(exc)   # backoff sleep, or raise
         except Exception:
@@ -699,7 +1136,13 @@ class ServingEngine:
         while exc is not None:                # the chained ones too
             exc.__traceback__ = None
             exc = exc.__cause__ or exc.__context__
+        self._build_pools()
+
+    def _build_pools(self):
+        """New target pools, and draft pools when speculation is on."""
         self._caches = self._new_caches()
+        if self._spec_on:
+            self._draft_caches = self._new_caches(self._draft_model)
 
     def _fail_all(self):
         """Recovery budget spent: retire every queued and running request
@@ -710,15 +1153,28 @@ class ServingEngine:
             if req.slot is not None:
                 self._free_slot_state(req)
             self._retire_terminal(req, "failed", "engine_error")
+        _metrics.gauge("serve.queue_depth").set(0)
+        _metrics.gauge("serve.active_slots").set(0)
 
     # --- terminal statuses ---
 
-    def _retire_terminal(self, req, status, why, finished=None):
+    def _retire_terminal(self, req, status, why, finished=None,
+                         account=True):
         """Retire a request on a path other than completion (rejected |
-        shed | cancelled | failed)."""
+        shed | cancelled | failed). ``account`` counts it as a retirement
+        that missed its SLO (the engine failed the client); cancel passes
+        False."""
         req.status = status
         req.retire_reason = why
         req.done_t = self._clock()
+        if account:
+            req.slo_ok = False
+            self._retired += 1
+            _metrics.gauge("serve.goodput").set(self.goodput())
+        self._trace_event(req, "retired", reason=status, why=why,
+                          tokens=len(req.tokens), slo_ok=bool(req.slo_ok),
+                          preemptions=req.preemptions)
+        _metrics.counter("serve.requests").inc(status=status)
         if finished is not None:
             finished.append(req)
 
@@ -736,6 +1192,7 @@ class ServingEngine:
         for req in [r for r in self._queue
                     if r.deadline_t is not None and now > r.deadline_t]:
             self._queue.remove(req)
+            _metrics.counter("serve.shed").inc(cause="deadline")
             self._retire_terminal(req, "shed", "deadline_expired", finished)
 
     def _done_reason(self, req, tok):
@@ -746,9 +1203,37 @@ class ServingEngine:
             return "length"
         return None
 
+    def _account_slo(self, req):
+        """Classify one retirement against the configured SLOs (0 is
+        unbounded) and refresh ``serve.goodput``."""
+        cfg = self.cfg
+        ok = True
+        if req.first_token_t is not None:
+            ttft = req.first_token_t - req.submit_t
+            if cfg.slo_ttft_s and ttft > cfg.slo_ttft_s:
+                _metrics.counter("serve.slo_violations").inc(kind="ttft")
+                ok = False
+            if cfg.slo_token_latency_s and len(req.tokens) > 1:
+                per_tok = ((req.done_t - req.first_token_t)
+                           / (len(req.tokens) - 1))
+                if per_tok > cfg.slo_token_latency_s:
+                    _metrics.counter("serve.slo_violations").inc(
+                        kind="token_latency")
+                    ok = False
+        req.slo_ok = ok
+        self._retired += 1
+        self._retired_ok += int(ok)
+        _metrics.gauge("serve.goodput").set(self.goodput())
+
     def _release(self, req, finished, reason="length"):
         self._free_slot_state(req)
         req.status = "done"
         req.retire_reason = reason
         req.done_t = self._clock()
+        self._account_slo(req)
+        self._trace_event(req, "retired", reason=reason,
+                          tokens=len(req.tokens), slo_ok=req.slo_ok,
+                          preemptions=req.preemptions,
+                          spec_tokens=req.spec_tokens)
         finished.append(req)
+        _metrics.counter("serve.requests").inc(status="completed")

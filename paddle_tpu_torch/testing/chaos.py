@@ -8,8 +8,11 @@ checkpoints need).
     assert plan.fired() == 1
 
 The hooks are ``fault_point(name)``: the engine's ``serve.step`` (before
-each decode step), ``serve.prefill`` (before each prefill chunk) and
-``serve.prefix_cache`` (before each prefix-cache match); the Trainer's
+each decode step or speculative round), ``serve.prefill`` (before each
+prefill chunk), ``serve.prefix_cache`` (before each prefix-cache match)
+and, with speculation on, ``spec.verify`` (before ``serve.step`` each
+round: a fault there runs that round as one plain decode step); the
+Trainer's
 ``trainer.ingest`` (each item a reader yields), ``trainer.step`` (before
 each step) and ``trainer.rollback`` (each guardian rollback); the
 checkpoint's ``checkpoint.save`` (after a step's file is written, before

@@ -471,6 +471,53 @@ def test_sampled_wave_repeats_on_card(cuda):
     assert outs[0] == outs[1]
 
 
+def test_verify_call_on_card_matches_cpu(cuda):
+    """One speculative verify call (3 slots with windows of 4, 2 and 4,
+    bf16 pools on the card, f32 on the CPU, the same prompts prefilled on
+    both): each position's ``verify_head`` logits within 5e-2 of the
+    CPU plain path's, K1 launched on its row route and K4 on SIMT, and no
+    flash attention (every row takes the continuation branch)."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.ops.cuda import core
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=4, intermediate_size=1024, max_position=256,
+                    dropout=0.0)
+    rs = np.random.RandomState(6)
+    rows = np.asarray([[0, 1, 2], [3, 4, 5], [6, 7, 8]], np.int32)
+    lengths = np.asarray([37, 9, 60], np.int32)
+    window = rs.randint(0, 512, (3, 4)).astype(np.int32)
+    wins = np.asarray([4, 2, 4], np.int32)
+    logits = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        model = GPTDecoder(cfg, device=dev, seed=2).eval()
+        pools = model.init_paged_caches(9, 32, dtype=dtype)
+        table = torch.from_numpy(rows).to(dev)
+        with torch.no_grad():
+            for s, n in enumerate(lengths):
+                prompt = np.zeros((1, 64), np.int32)
+                prompt[0, :n] = np.random.RandomState(s).randint(0, 512, n)
+                model.paged_prefill_chunk(
+                    torch.from_numpy(prompt).to(dev),
+                    torch.zeros(1, dtype=torch.int32),
+                    torch.tensor([int(n)], dtype=torch.int32), pools,
+                    table[s:s + 1])
+            core.reset_launches()
+            hidden, _ = model.paged_verify_chunk(
+                torch.from_numpy(window).to(dev), torch.from_numpy(lengths),
+                torch.from_numpy(wins).to(dev), pools, table)
+            logits[dev] = torch.stack([model.verify_head(hidden[:, i])
+                                       for i in range(4)], 1).float().cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts, routes = core.launch_counts(), core.route_counts()
+    live = torch.from_numpy(np.arange(4)[None, :] < wins[:, None])
+    err = (logits["cuda"] - logits["cpu"]).abs().amax(-1)[live]
+    assert float(err.max()) <= 5e-2, err
+    assert counts["flash_attention"] == 0
+    assert counts["layer_norm"] == routes["layer_norm"]["row"] == 5
+    assert counts["mlp"] == routes["mlp"]["simt"] == 2
+
+
 def test_sampling_uniforms_equal_on_cpu_and_card(cuda):
     """The Philox uniforms are bit-identical on the CPU and the card, and
     so are the sampled tokens of the same logits."""

@@ -126,9 +126,52 @@ def test_port_serving_features_run_with_reference_and_triton_blocked():
     assert "SERVED FEATURES [24, 27, 29, 31]" in proc.stdout
 
 
+_SERVE_SPEC_BLOCKED = _SERVE_BLOCKED.split("cfg = GPTConfig.tiny()")[0] \
+    + r"""
+import os, tempfile
+from paddle_tpu_torch.observability import metrics
+from paddle_tpu_torch.observability.runlog import read_records
+cfg = GPTConfig.tiny()
+cfg.dropout = 0.0
+draft = GPTConfig.tiny()
+draft.dropout = 0.0
+draft.num_layers = 1
+log = os.path.join(tempfile.mkdtemp(), "serve.jsonl")
+for spec in (dict(draft=True, spec_k=3), dict(draft_spec=draft)):
+    eng = ServingEngine(GPTDecoder(cfg, device="cpu"), ServeConfig(
+        num_slots=2, page_size=8, max_len=40, prefill_len=16, run_log=log,
+        slo_ttft_s=1.0, **spec))
+    rs = np.random.RandomState(0)
+    for n in (5, 20, 9):
+        eng.submit(rs.randint(0, 512, n), max_new=6)
+    done = eng.drain()
+    eng.close()
+    assert len(done) == 3 and all(len(r.tokens) == 6 for r in done)
+    assert eng.spec_stats()["rounds"] > 0 and eng.latency_stats()
+assert metrics.counter("serve.spec_proposed").total() > 0
+assert sum("event" in r for r in read_records(log)) > 0
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("SERVED SPECULATIVELY", sorted(len(r.output) for r in done))
+"""
+
+
+def test_port_serves_speculatively_with_reference_and_triton_blocked():
+    """Speculative serving (self-draft and a separate draft) with metrics
+    and a run log, in a process that cannot import jax."""
+    code = _SERVE_SPEC_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "SERVED SPECULATIVELY [11, 15, 26]" in proc.stdout
+
+
 @pytest.mark.parametrize("module", [
     "serving/prefix_cache.py", "serving/sampling.py", "core/retry.py",
-    "testing/chaos.py", "serving/engine.py"])
+    "testing/chaos.py", "serving/engine.py", "observability/metrics.py",
+    "observability/runlog.py"])
 def test_ast_scan_covers_the_serving_feature_modules(module):
     path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
     assert path in _port_files()
