@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving, GPT training, BERT pretraining and
-Trainer paths on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving, GPT training, BERT pretraining,
+Trainer and translation paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -31,7 +31,10 @@ Phases, each printing one JSON line:
    (decode_cases, held_decode) also at lengths on and one past its
    splits' boundaries, 0 and 1, hd 128, 40 and 36 (the simt route), and at
    a long context (32 slots x 2048 tokens, timed), each split-route case
-   bitwise equal in two launches.
+   bitwise equal in two launches. K8 also as the bf16 policy's
+   Transformer calls it (transformer_kernel_cases): f32 rows with bf16
+   scale and bias at [32 x 256, 1024] (timed) and at 8189 rows, and a bf16
+   x beside an f32 h must raise.
 4. serve   — GPTConfig.small() at full width (random weights from a
    seed) behind ServingEngine(num_slots=8, page_size=64, max_len=1024,
    prefill_len=512, bf16 cache): 16 prompts uniform in [64, 512] plus one
@@ -119,6 +122,29 @@ Phases, each printing one JSON line:
    after: K1-K6 and K8 at bert_train's counts on their routes. Records tokens/s,
    the p50 step, every run's losses, checkpoint bytes, seconds per save
    and restore, and peak memory with and without recompute.
+15. transformer_big — bench.py's Transformer row on the card:
+   TransformerConfig.big() (d 1024, 16 heads, FFN 4096, 6 + 6 layers,
+   vocab 32000; dropout 0, weights from a seed), Transformer.loss (label
+   smoothing 0.1, pad 0) under amp.decorate(Adam(1e-4), bf16_policy()),
+   one fixed seeded batch of 32 x 256; 2 warm-up and 5 timed steps with
+   the launch counts zeroed just before. K8 must launch 30 times a step
+   and no other kernel (the reference's attention is dense, its FFN
+   unfused and its hv loss chunked XLA); the activations must be f32 (the
+   reference promotes them so under the policy); every loss finite and
+   falling. Records tokens/s, the p50 step and peak memory.
+16. transformer_crosscheck — one f32 step (TF32 off) of
+   TransformerConfig.big() at 2 x 64 with a padded source row and pad ids
+   in tgt_out, on the card and on the CPU plain path: loss and every
+   gradient must agree; then the bf16-policy loss within 1e-3.
+17. seq2seq — Seq2SeqConfig() (vocab 1024, embed 64, hidden 128,
+   bidirectional GRU encoder): 5 f32 Adam steps teacher-forced on a batch
+   of 64 (sources of 8-32 tokens padded to 32, targets of 32), the loss
+   finite and falling; greedy_decode and beam_decode (beam 4) to 32
+   tokens on the card and on the CPU from the trained weights, each row
+   equal or held at a near tie (held_greedy, held_beams), every card
+   hypothesis's score the CPU model's for it. No kernel of the port runs
+   there, as none of the reference's does. Records the step ms and each
+   decoder's tokens/s.
 
 K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
 and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
@@ -137,8 +163,11 @@ own path: serve for K1 (its row route), K7 (its split route) and the SIMT
 rows of K2 and K4, beside serve_spec's greedy run's,
 train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
 ("flash_attention.tc", "flash_attention_bwd_dq.tc",
-"flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8;
-"variant" names the route), the nvidia-smi line, and the contract line
+"flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8, and
+transformer_big for the "add_layer_norm.mixed" row (K8 at f32 rows with
+bf16 parameters); "variant" names the route; every row also has each
+path's count, launches_transformer among them), the nvidia-smi line, and
+the contract line
 {"ok": true, "device": {...}}.
 Any failed phase raises, and the script exits non-zero without the
 contract line.
@@ -179,6 +208,13 @@ TRAIN_LOSS_TOL = 1e-4    # f32 train step, card vs CPU plain path
 TRAIN_GRAD_TOL = 1e-3    # relative L2 of each parameter's gradient: sums
                          # in other orders, embedding gradients by atomics
                          # in an order that changes from run to run
+TRANSLATE_BF16_LOSS_TOL = 1e-3  # the Transformer's bf16-policy loss, card
+                                # vs CPU: f32 activations, bf16 weights
+RELU_FLIP_TOL = 1e-4      # a pre-activation whose sign differs between the
+                          # card and the CPU: f32 rounding, about 1e-6
+SEQ2SEQ_LOGIT_TOL = 1e-4  # f32 seq2seq, card vs CPU: a near tie of two
+                          # tokens' logits (or beam candidates' scores)
+SEQ2SEQ_SCORE_TOL = 1e-4  # beam scores: sums of 32 f32 log-probs
 
 #: the kernels each path must launch
 SERVE_KERNELS = ("layer_norm", "flash_attention", "mlp", "decode_attention")
@@ -1751,14 +1787,15 @@ def check_launches(what, launches, steps, want):
                              f"{wrong}")
 
 
-def train_crosscheck(make_model, loss_fn, args):
+def train_crosscheck(make_model, loss_fn, args, around=None):
     """One f32 Adam step of ``loss_fn`` on the card and on the CPU plain
     path, each on a model from ``make_model(device)`` (the same weights):
     (loss card, loss CPU, per-parameter gradient errors, the card run's
     launches). A parameter whose gradient is 0 in exact arithmetic (the
     key bias, which softmax cancels) carries only rounding noise, so each
     error is relative to the larger of its own gradient's norm and 1e-3
-    of the largest one."""
+    of the largest one. ``around(device)``, when given, is a context
+    entered around each device's step (:class:`ReluReplay`)."""
     from paddle_tpu_torch.ops.cuda import core
     from paddle_tpu_torch.optimizer import Adam
     out = {}
@@ -1766,8 +1803,9 @@ def train_crosscheck(make_model, loss_fn, args):
         model = make_model(dev)
         opt = Adam(model.parameters(), 1e-4)
         core.reset_launches()
-        loss = float(opt.minimize(model, loss_fn,
-                                  *(a.to(dev) for a in args)))
+        with around(dev) if around else contextlib.nullcontext():
+            loss = float(opt.minimize(model, loss_fn,
+                                      *(a.to(dev) for a in args)))
         out[dev] = (loss, {n: p.grad.detach().cpu()
                            for n, p in model.named_parameters()},
                     core.launch_counts())
@@ -2277,14 +2315,433 @@ def trainer_phase(smi, bert_stats):
     return line, launches_a
 
 
+# ------------------------------------------------------------ translate
+
+def transformer_launches_per_step(cfg):
+    """K8's launches a Transformer step: 2 post-norm residuals per encoder
+    layer, 3 per decoder layer. Nothing else of the port launches: the
+    attention is dense, the FFN unfused and the loss the hv layout, as in
+    the reference."""
+    return {"add_layer_norm": 2 * cfg.enc_layers + 3 * cfg.dec_layers}
+
+
+def transformer_kernel_cases(dev):
+    """K8 as the bf16 policy's Transformer calls it: f32 rows with bf16
+    scale and bias, at TransformerConfig.big()'s [32 x 256, 1024] (timed
+    beside its plain version, F.layer_norm(x + h) and its bound) and at a
+    ragged row count; a bf16 x with an f32 h must still raise."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    cases = []
+    for r_, c_ in ((32 * 256, 1024), (8189, 1024)):
+        x, h = randn(r_, c_, scale=3.0), randn(r_, c_)
+        gam = randn(c_, scale=0.1, dtype=torch.bfloat16) + 1.0
+        bet = randn(c_, scale=0.1, dtype=torch.bfloat16)
+        got = ln.add_layer_norm_kernel(x, h, gam, bet, 1e-5)
+        case = dict(kernel="add_layer_norm", variant="mixed",
+                    shape=[r_, c_], dtype=str(torch.float32),
+                    params_dtype=str(torch.bfloat16),
+                    config="TransformerConfig.big()",
+                    **held(f"add_layer_norm mixed {[r_, c_]}", got,
+                           ln.add_layer_norm_plain(x, h, gam, bet, 1e-5),
+                           torch.float32))
+        if not cases:
+            gf, bf = gam.float(), bet.float()
+            case.update(
+                kernel_ms=time_ms(lambda: ln.add_layer_norm_kernel(
+                    x, h, gam, bet, 1e-5)),
+                plain_ms=time_ms(lambda: ln.add_layer_norm_plain(
+                    x, h, gam, bet, 1e-5)),
+                library_ms=time_ms(lambda: F.layer_norm(
+                    x + h, (c_,), gf, bf, 1e-5)),
+                library="F.layer_norm(x + h, gamma.float(), beta.float())")
+            case["bound_ms"], case["bound_by"] = bound_ms(
+                nbytes(x, h, gam, bet, *got), 10 * x.numel(), torch.float32)
+        cases.append(case)
+    try:
+        ln.add_layer_norm_kernel(x.to(torch.bfloat16), h, gam, bet, 1e-5)
+    except TypeError as err:
+        cases[-1]["x_bf16_h_f32_raises"] = str(err)
+    else:
+        raise AssertionError("add_layer_norm: bf16 x with f32 h launched")
+    return cases
+
+
+def transformer_batch(rs, vocab, batch, seq):
+    """``bench.py``'s Transformer batch: src, tgt_in and tgt_out uniform in
+    ``[1, vocab)``, drawn in that order."""
+    return tuple(torch.from_numpy(rs.randint(1, vocab, (batch, seq)))
+                 for _ in range(3))
+
+
+def transformer_phase(smi):
+    """``bench.py:380 bench_transformer`` on the card:
+    TransformerConfig.big() (d 1024, 16 heads, FFN 4096, 6 + 6 layers,
+    vocab 32000; dropout 0, weights from seed 0), Transformer.loss
+    (label smoothing 0.1, pad 0) under amp.decorate(Adam(1e-4),
+    bf16_policy()) on one fixed batch of 32 x 256; 2 warm-up and 5 timed
+    steps with the launch counts zeroed just before. K8 launches 30 a
+    step and nothing else of the port; the activations are f32 (the
+    reference promotes them so); every loss is finite and falls. Returns
+    (stats, launches)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig)
+    from paddle_tpu_torch.optimizer import Adam
+    batch, seq, warmup, steps = 32, 256, 2, 5
+    cfg = TransformerConfig.big()
+    cfg.dropout = 0.0
+    model = Transformer(cfg, device="cuda", seed=0)
+    opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+    args = tuple(a.cuda() for a in transformer_batch(
+        np.random.RandomState(0), cfg.tgt_vocab, batch, seq))
+    seen = {}
+
+    def record(name):
+        def hook(module, inputs, out):
+            seen.setdefault(name, out.dtype)   # returns None: out unchanged
+        return hook
+
+    hooks = [layer.register_forward_hook(record(name))
+             for name, layer in (("encoder", model.enc_layers[0]),
+                                 ("decoder", model.dec_layers[-1]))]
+    try:
+        losses, times, launches, _ = train(
+            model, opt, lambda m, *a: m.loss(*a), args, warmup, steps)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    if set(seen.values()) != {torch.float32}:
+        raise AssertionError(f"transformer_big: activations {seen}, the "
+                             "reference's are float32")
+    want = transformer_launches_per_step(cfg)
+    check_launches("transformer_big", launches, steps, want)
+    others = {k: n for k, n in launches.items() if n and k not in want}
+    if others:
+        raise AssertionError(f"transformer_big: other kernels launched "
+                             f"{others}")
+    stats = step_stats("transformer_big", "TransformerConfig.big()", batch,
+                       seq, losses, times, launches, smi)
+    return dict(stats, label_smoothing=0.1, activations=str(torch.float32),
+                params=sum(p.numel() for p in model.parameters())), launches
+
+
+class ReluReplay:
+    """The card's ReLU branches, replayed on the CPU. ReLU's derivative
+    jumps at 0, so a pre-activation that rounds to the other side of 0 on
+    one device (f32 sums in another order: about 1e-6) gives that unit's
+    whole outer product to one device's weight gradient and not to the
+    other's: about 1.4e-3 relative L2 of an FFN weight of the
+    Transformer's crosscheck per such entry. ``around("cuda")`` records
+    each ``ops.activations.relu`` call's mask in order; ``around("cpu")``
+    computes ``where(card mask, x, 0)`` instead, so both devices
+    differentiate the same piecewise-linear function, and counts the
+    entries where the CPU's own sign disagrees: each must lie within
+    RELU_FLIP_TOL of 0, or the replay raises."""
+
+    def __init__(self):
+        self.masks, self.flips, self.worst = [], 0, 0.0
+
+    @contextlib.contextmanager
+    def __call__(self, dev):
+        from paddle_tpu_torch.ops import activations
+        real, calls = activations.relu, iter(range(10 ** 9))
+
+        def record(x):
+            self.masks.append(x > 0)
+            return real(x)
+
+        def replay(x):
+            mask = self.masks[next(calls)].to(x.device)
+            flipped = mask != (x > 0)
+            if bool(flipped.any()):
+                self.flips += int(flipped.sum())
+                self.worst = max(self.worst,
+                                 float(x.detach()[flipped].abs().max()))
+            return torch.where(mask, x, torch.zeros_like(x))
+
+        activations.relu = record if dev == "cuda" else replay
+        try:
+            yield
+        finally:
+            activations.relu = real
+        if dev != "cuda" and self.worst > RELU_FLIP_TOL:
+            raise AssertionError(f"relu replay: a pre-activation {self.worst}"
+                                 f" from 0 has another sign on the card "
+                                 f"(tol {RELU_FLIP_TOL})")
+
+    def summary(self):
+        return dict(relu_calls=len(self.masks), relu_flips=self.flips,
+                    relu_flip_worst=self.worst, relu_flip_tol=RELU_FLIP_TOL)
+
+
+def transformer_crosscheck_phase():
+    """One f32 step (TF32 off) of TransformerConfig.big() at batch 2 x 64
+    on the card and on the CPU plain path from the same weights, row 1's
+    source padded after 40 tokens (``src_mask``) and pad ids in
+    ``tgt_out``: the loss within TRAIN_LOSS_TOL, every gradient within
+    TRAIN_GRAD_TOL relative L2, the CPU taking the card's ReLU branches
+    (:class:`ReluReplay`: the entries where the two differ, each within
+    RELU_FLIP_TOL of 0, are counted in the line). Then the same batch under the bf16 policy
+    (f32 activations, bf16 weights): the card's loss within 1e-3 of the
+    CPU's. Returns the f32 step's launches."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig)
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adam
+    cfg = TransformerConfig.big()
+    cfg.dropout = 0.0
+    src, tgt_in, tgt_out = transformer_batch(np.random.RandomState(6),
+                                             cfg.tgt_vocab, 2, 64)
+    src_mask = torch.ones(2, 64)
+    src_mask[1, 40:] = 0.0
+    src[1, 40:] = 0
+    tgt_out[0, 50:] = 0
+    tgt_out[1, 30:] = 0
+    args = (src, tgt_in, tgt_out, src_mask)
+    launches = crosscheck_phase(
+        "transformer_crosscheck", "TransformerConfig.big()",
+        lambda dev: Transformer(cfg, device=dev, seed=0),
+        lambda m, *a: m.loss(*a), args, 2, 64, ("add_layer_norm",),
+        around=ReluReplay(), src_mask="row 1 padded after 40 tokens",
+        tgt_out_pads=int((tgt_out == 0).sum()))
+    bf16 = {}
+    for dev in ("cuda", "cpu"):
+        model = Transformer(cfg, device=dev, seed=0)
+        opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+        core.reset_launches()
+        bf16[dev] = float(opt.minimize(model, lambda m, *a: m.loss(*a),
+                                       *(a.to(dev) for a in args)))
+        del model, opt
+    emit(dict(phase="transformer_crosscheck_bf16", loss_card=bf16["cuda"],
+              loss_cpu=bf16["cpu"], tol=TRANSLATE_BF16_LOSS_TOL))
+    check("transformer_crosscheck bf16 loss", abs(bf16["cuda"] - bf16["cpu"]),
+          TRANSLATE_BF16_LOSS_TOL)
+    return launches
+
+
+class _Margins:
+    """Records the CPU beam search's near ties: ``ops.rnn.top_k`` wrapped
+    so that each selection step keeps, per batch row, the smallest gap
+    between neighbouring candidates among the k + 1 best live ones (a
+    gap that decides which hypotheses survive and in what order)."""
+
+    def __init__(self, rnn):
+        self.rnn, self.real = rnn, rnn.top_k
+        self.rows = None
+
+    def __enter__(self):
+        def top_k(x, k):
+            vals, _ = self.real(x, min(k + 1, x.shape[-1]))
+            live = vals > self.rnn.NEG_INF / 2
+            gaps = torch.where(live[:, 1:] & live[:, :-1],
+                               vals[:, :-1] - vals[:, 1:],
+                               torch.full_like(vals[:, 1:], float("inf")))
+            low = gaps.min(dim=1).values
+            self.rows = low if self.rows is None else torch.minimum(
+                self.rows, low)
+            return self.real(x, k)
+
+        self.rnn.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.rnn.top_k = self.real
+
+
+def seq2seq_batch(rs, vocab, batch, src_len, tgt_len, lo, bos=1):
+    """Sources of lengths uniform in ``[lo, src_len]`` padded to
+    ``src_len``, targets of ``tgt_len`` (ids in ``[3, vocab)``), the
+    BOS-prefixed decoder inputs and the target lengths."""
+    lengths = rs.randint(lo, src_len + 1, batch)
+    src = rs.randint(3, vocab, (batch, src_len))
+    src[np.arange(src_len)[None, :] >= lengths[:, None]] = 0
+    tgt = rs.randint(3, vocab, (batch, tgt_len))
+    tgt_in = np.concatenate([np.full((batch, 1), bos), tgt[:, :-1]], 1)
+    return tuple(torch.from_numpy(a) for a in (
+        src, lengths, tgt_in, tgt, np.full(batch, tgt_len)))
+
+
+def seq2seq_phase(smi):
+    """The attention seq2seq at Seq2SeqConfig()'s own widths (vocab 1024,
+    embed 64, hidden 128, bidirectional GRU encoder) on the card: 5 f32
+    Adam(3e-2) steps teacher-forced with ``seq2seq.nmt_loss`` on one
+    batch of 64 (sources of lengths uniform in [8, 32] padded to 32,
+    targets of 32), the loss finite and falling; then greedy_decode
+    (max_len 32) and beam_decode (beam 4, max_len 32) on the card and on
+    the CPU from the trained weights (the large rate makes the trained
+    distributions peaked enough that few choices are near ties). Greedy
+    rows: equal to the CPU's, or
+    each card token (to the row's first eos) within SEQ2SEQ_LOGIT_TOL of
+    the CPU's argmax when the card's tokens are teacher-forced through the
+    CPU model. Beams: every card hypothesis's score that of the CPU model
+    for it; each row equal to the CPU's with scores within
+    SEQ2SEQ_SCORE_TOL, or the CPU's search met a near tie (two of the
+    k + 1 best live candidates within SEQ2SEQ_LOGIT_TOL) in that row. The
+    path launches no kernel of the port (the reference runs none)."""
+    from paddle_tpu_torch.models import seq2seq as s2s
+    from paddle_tpu_torch.ops import rnn
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adam
+    batch, src_len, tgt_len, steps, beam, max_len = 64, 32, 32, 5, 4, 32
+    bos, eos = 1, 2
+    cfg = s2s.Seq2SeqConfig()
+    model = s2s.AttentionSeq2Seq(cfg, device="cuda", seed=0)
+    opt = Adam(model.parameters(), 3e-2)
+    src, lengths, tgt_in, tgt, tgt_lengths = (a.cuda() for a in seq2seq_batch(
+        np.random.RandomState(9), cfg.tgt_vocab, batch, src_len, tgt_len, 8))
+
+    def loss_fn(m, src, lengths, tgt_in, tgt, tgt_lengths):
+        return s2s.nmt_loss(m(src, lengths, tgt_in), tgt, tgt_lengths)
+
+    core.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(opt.minimize(model, loss_fn, src, lengths,
+                                         tgt_in, tgt, tgt_lengths)))
+        times.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"seq2seq: losses {losses}")
+    cpu = s2s.AttentionSeq2Seq(cfg, device="cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    def timed(fn, *a):
+        """``(fn(*a), seconds)``, the card's queue drained before and
+        after."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    decoded = {}
+    for name, dev_model in (("cuda", model), ("cpu", cpu)):
+        a = (src.to(dev_model.device), lengths.to(dev_model.device))
+        with torch.no_grad():
+            greedy, greedy_s = timed(dev_model.greedy_decode, *a, bos, eos,
+                                     max_len)
+            with (_Margins(rnn) if name == "cpu"
+                  else contextlib.nullcontext()) as margins:
+                (seqs, scores), beam_s = timed(dev_model.beam_decode, *a,
+                                               bos, eos, beam, max_len)
+        decoded[name] = dict(greedy=greedy.cpu(), seqs=seqs.cpu(),
+                             scores=scores.cpu(), greedy_s=greedy_s,
+                             beam_s=beam_s, margins=margins)
+    launches = core.launch_counts()
+    if sum(launches.values()):
+        raise AssertionError(f"seq2seq: kernels launched {launches}")
+    card, host = decoded["cuda"], decoded["cpu"]
+    greedy_rows = held_greedy(cpu, src.cpu(), lengths.cpu(), card["greedy"],
+                              host["greedy"], bos, eos)
+    beam_rows = held_beams(cpu, src.cpu(), lengths.cpu(), card, host, bos,
+                           eos)
+    return dict(config="Seq2SeqConfig()", batch=batch, src_len=src_len,
+                tgt_len=tgt_len, optimizer="Adam(3e-2)", dtype="float32",
+                losses=losses, p50_step_ms=float(np.median(times)) * 1e3,
+                greedy=dict(max_len=max_len, ms=card["greedy_s"] * 1e3,
+                            tokens_per_s=batch * max_len / card["greedy_s"],
+                            **greedy_rows),
+                beam=dict(beam=beam, max_len=max_len, ms=card["beam_s"] * 1e3,
+                          tokens_per_s=batch * max_len / card["beam_s"],
+                          **beam_rows),
+                tokens_counted="batch x max_len (one output row a source)",
+                launches=launches, card=smi)
+
+
+def held_greedy(cpu, src, lengths, card, host, bos, eos):
+    """Greedy rows equal to the CPU's, or held: the card's tokens
+    teacher-forced through the CPU model, each (to the row's first eos)
+    the CPU's argmax or within SEQ2SEQ_LOGIT_TOL of it."""
+    diff = [int(i) for i in torch.nonzero((card != host).any(1))[:, 0]]
+    worst = 0.0
+    if diff:
+        tgt_in = torch.cat([torch.full((card.shape[0], 1), bos,
+                                       dtype=card.dtype), card[:, :-1]], 1)
+        with torch.no_grad():
+            logits = cpu(src, lengths, tgt_in.long())
+        picked = logits.gather(2, card.long()[..., None])[..., 0]
+        short = logits.max(-1).values - picked
+        for row in diff:
+            toks = card[row].tolist()
+            end = toks.index(eos) + 1 if eos in toks else len(toks)
+            worst = max(worst, float(short[row, :end].max()))
+        if worst > SEQ2SEQ_LOGIT_TOL:
+            raise AssertionError(f"seq2seq greedy: a card token is {worst} "
+                                 "below the CPU's argmax (tol "
+                                 f"{SEQ2SEQ_LOGIT_TOL})")
+    return dict(rows_exact=card.shape[0] - len(diff), rows_held=len(diff),
+                worst_short=worst, tol=SEQ2SEQ_LOGIT_TOL)
+
+
+def beam_scores_on(model, src, lengths, seqs, bos, eos):
+    """The score of each hypothesis ``seqs`` ``[B, K, T]`` under
+    ``model``, teacher-forced: the sum of the log-probs of its tokens up
+    to and including its first eos (a finished beam extends with eos at
+    zero cost)."""
+    b, k, t = seqs.shape
+    flat = seqs.reshape(b * k, t).long()
+    tgt_in = torch.cat([torch.full((b * k, 1), bos, dtype=flat.dtype),
+                        flat[:, :-1]], 1)
+    with torch.no_grad():
+        logp = torch.log_softmax(model(
+            torch.repeat_interleave(src, k, 0),
+            torch.repeat_interleave(lengths, k, 0), tgt_in), -1)
+    picked = logp.gather(2, flat[..., None])[..., 0]
+    is_eos = (flat == eos).long()
+    before = torch.cumsum(is_eos, 1) - is_eos        # eos seen before t
+    return (picked * (before == 0)).sum(1).reshape(b, k)
+
+
+def held_beams(cpu, src, lengths, card, host, bos, eos):
+    """Every card hypothesis scored as the card scored it when the CPU
+    model rescores it (within SEQ2SEQ_SCORE_TOL and the rounding of a sum
+    of T f32 terms); each batch row's
+    beams equal to the CPU's (scores within SEQ2SEQ_SCORE_TOL), or held by
+    a near tie that the CPU's search met in that row (two of its k + 1
+    best live candidates within SEQ2SEQ_LOGIT_TOL at some step)."""
+    rescored = beam_scores_on(cpu, src, lengths, card["seqs"], bos, eos)
+    own = float((rescored - card["scores"]).abs().max())
+    # the two sums take their T terms in other orders: each of the T
+    # additions rounds by up to one f32 ulp of the running sum
+    steps = card["seqs"].shape[-1]
+    own_tol = (SEQ2SEQ_SCORE_TOL + steps * 2.0 ** -23
+               * float(card["scores"].abs().max()))
+    check("seq2seq beam scores rescored on the CPU", own, own_tol)
+    diff = (card["seqs"] != host["seqs"]).flatten(1).any(1)
+    same = ~diff
+    err = float((card["scores"][same] - host["scores"][same]).abs().max()) \
+        if bool(same.any()) else 0.0
+    check("seq2seq beam scores", err, SEQ2SEQ_SCORE_TOL)
+    margins = host["margins"].rows
+    untied = [int(r) for r in torch.nonzero(diff)[:, 0]
+              if float(margins[r]) > SEQ2SEQ_LOGIT_TOL]
+    if untied:
+        raise AssertionError(f"seq2seq beam: rows {untied} differ from the "
+                             "CPU's with no near tie there")
+    return dict(rows_exact=int(same.sum()), rows_held=int(diff.sum()),
+                rows_near_tie=int((margins <= SEQ2SEQ_LOGIT_TOL).sum()),
+                score_max_abs_err=err, rescored_max_abs_err=own,
+                rescored_tol=own_tol, score_tol=SEQ2SEQ_SCORE_TOL,
+                tie_tol=SEQ2SEQ_LOGIT_TOL)
+
+
 def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
-                     kernels, **extra):
+                     kernels, around=None, **extra):
     """One f32 step on the card against the CPU plain path (see
     ``train_crosscheck``); emits the phase line, then raises if the loss
     or a gradient is outside its tolerance, or if one of ``kernels`` did
     not launch on the card. Returns the card run's launches."""
-    loss_card, loss_cpu, errs, launches = train_crosscheck(make_model,
-                                                           loss_fn, args)
+    loss_card, loss_cpu, errs, launches = train_crosscheck(
+        make_model, loss_fn, args, around)
+    if around is not None:
+        extra.update(around.summary())
     worst = max(errs, key=errs.get)
     emit(dict(phase=phase, config=config, batch=batch, seq=seq,
               dtype="float32", allow_tf32=False, **extra,
@@ -2368,6 +2825,7 @@ def kernel_table(by_kernel, paths):
                 launches_bert=paths["bert"][name],
                 launches_bert_large=paths["bert_large"][name],
                 launches_trainer=paths["trainer"][name],
+                launches_transformer=paths["transformer"][name],
                 max_abs_err=case["max_abs_err"],
                 ms=case["kernel_ms"], plain_ms=case["plain_ms"],
                 bound_ms=case["bound_ms"],
@@ -2375,7 +2833,28 @@ def kernel_table(by_kernel, paths):
                 library_ms=case["library_ms"],
                 shape=case.get("shape", case.get("lengths")),
                 dtype=case.get("dtype")))
+        if name == "add_layer_norm":
+            table.append(mixed_row(kernel, by_kernel[name], paths))
     return table
+
+
+def mixed_row(kernel, cases, paths):
+    """K8's row at the Transformer's shape and types (f32 rows, bf16 scale
+    and bias), with the transformer_big path's launches."""
+    case = next(c for c in cases if c.get("variant") == "mixed"
+                and "kernel_ms" in c)
+    row = dict(name="add_layer_norm.mixed", route="cuda", variant="mixed",
+               source=kernel.source, replaces=kernel.replaces,
+               launches=paths["transformer"][kernel.name],
+               launches_path="transformer",
+               **{f"launches_{p}": paths[p][kernel.name] for p in (
+                   "serve_spec", "train", "bert", "bert_large", "trainer",
+                   "transformer")})
+    row.update({k: case[k] for k in (
+        "max_abs_err", "bound_ms", "bound_by", "library_ms", "shape",
+        "dtype", "params_dtype")}, ms=case["kernel_ms"],
+        plain_ms=case["plain_ms"])
+    return row
 
 
 def main():
@@ -2413,6 +2892,7 @@ def main():
     results = kernel_cases(dev)
     results.update(train_kernel_cases(dev))
     results.update(bert_kernel_cases(dev))
+    results["transformer_shapes"] = transformer_kernel_cases(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     by_kernel = {}
@@ -2515,11 +2995,20 @@ def main():
     torch.cuda.empty_cache()
     _, trainer_launches = trainer_phase(smi, bert_stats)
 
+    torch.cuda.empty_cache()
+    transformer_stats, transformer_launches = transformer_phase(smi)
+    emit(dict(phase="transformer_big", **transformer_stats))
+    torch.cuda.empty_cache()
+    transformer_crosscheck_phase()
+    torch.cuda.empty_cache()
+    emit(dict(phase="seq2seq", **seq2seq_phase(smi)))
+
     table = kernel_table(by_kernel, {
         "serve": launches, "serve_spec": spec_launches,
         "train": train_launches,
         "train_crosscheck": crosscheck_launches, "bert": bert_launches,
-        "bert_large": large_launches, "trainer": trainer_launches})
+        "bert_large": large_launches, "trainer": trainer_launches,
+        "transformer": transformer_launches})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

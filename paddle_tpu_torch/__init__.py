@@ -8,10 +8,12 @@ kernel on the ported path is a hand-written Hopper kernel under
 ``ops/cuda`` (sources in ``csrc/``), beside its plain PyTorch version.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
-The models: GPT (serving and training), BERT and ERNIE (pretraining).
+The models: GPT (serving and training), BERT and ERNIE (pretraining), the
+NMT Transformer and the attention seq2seq (translation).
 """
 
-from paddle_tpu_torch.models import (GPT, BertConfig,  # noqa: F401
-                                     BertForPretraining, ErnieConfig,
-                                     ErnieForPretraining, GPTConfig,
-                                     GPTDecoder)
+from paddle_tpu_torch.models import (GPT, AttentionSeq2Seq,  # noqa: F401
+                                     BertConfig, BertForPretraining,
+                                     ErnieConfig, ErnieForPretraining,
+                                     GPTConfig, GPTDecoder, Seq2SeqConfig,
+                                     Transformer, TransformerConfig)

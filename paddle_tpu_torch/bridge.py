@@ -61,14 +61,22 @@ def _unstack(flat, own):
     return out
 
 
+#: the leaves weight-only int8 quantization writes in place of a Linear's
+#: or Embedding's ``weight`` and of attention's ``w{q,k,v,o}``
+#: (``paddle_tpu/quant/weight_only.py:90``); a model's own params such as
+#: the seq2seq's ``att_q`` are not among them
+_INT8_LEAVES = {f"{w}_{s}" for w in ("weight", "wq", "wk", "wv", "wo")
+                for s in ("q", "scale")}
+
+
 def load_params(model, params):
     """Copy a JAX param tree (numpy leaves) into ``model``'s parameters,
     on the model's device and in its dtype; a scan-stacked subtree loads
     into the unrolled layers. Every parameter must be present and no
     extra leaf may be left over. Weight-only int8 trees (``weight_q`` /
-    ``w*_q`` leaves) raise ``NotImplementedError``."""
+    ``wq_q`` ... leaves) raise ``NotImplementedError``."""
     flat = flatten(params)
-    quant = [k for k in flat if k.endswith(("_q", "_scale"))]
+    quant = [k for k in flat if k.rsplit(".", 1)[-1] in _INT8_LEAVES]
     if quant:
         raise NotImplementedError(
             f"weight-only int8 params are not ported: {quant[:3]}")

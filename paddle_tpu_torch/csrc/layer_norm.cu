@@ -208,6 +208,11 @@ void launch(const void* x, const void* g, const void* b, void* y, void* mean,
 // within each 32-pack chunk (element i of lane l at i * 32 + l): the
 // lanes of a warp touch 32 consecutive words, free of bank conflicts.
 // The row buffer is C rounded up to kColPad, whole chunks of any pack.
+// The scale and bias have a storage type P of their own (a template
+// parameter): the Transformer under the bf16 policy normalizes f32 rows
+// with bf16 parameters, and the TPU kernel widens every operand to f32 in
+// the same way. They are read VEC elements at a time, a pack of VEC * size
+// of P bytes, and widened exactly; no f32 operand is ever rounded.
 
 constexpr int kColPad = 32 * 8;  // 32 lanes x the widest pack (8 bf16)
 
@@ -215,14 +220,16 @@ __host__ __device__ inline int padded_cols(int C) {
   return (C + kColPad - 1) / kColPad * kColPad;
 }
 
-template <typename T, int VEC>
+template <typename T, typename PT, int VEC>
 __global__ void __launch_bounds__(kThreads)
     add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
-                      const T* __restrict__ gamma, const T* __restrict__ beta,
-                      T* __restrict__ y, float* __restrict__ mean,
-                      float* __restrict__ rstd, int R, int C, float eps) {
+                      const PT* __restrict__ gamma,
+                      const PT* __restrict__ beta, T* __restrict__ y,
+                      float* __restrict__ mean, float* __restrict__ rstd,
+                      int R, int C, float eps) {
   extern __shared__ float srow[];  // [kRowsPerBlock, padded C] f32 sums
   using P = Pack<T, VEC>;
+  using PP = Pack<PT, VEC>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kRowsPerBlock + warp;
@@ -254,8 +261,8 @@ __global__ void __launch_bounds__(kThreads)
   var = warp_sum(var) / C;
   const float r = 1.0f / sqrtf(var + eps);
   for (int c = lane * VEC; c < C; c += 32 * VEC) {
-    const P gv = *reinterpret_cast<const P*>(gamma + c);
-    const P bv = *reinterpret_cast<const P*>(beta + c);
+    const PP gv = *reinterpret_cast<const PP*>(gamma + c);
+    const PP bv = *reinterpret_cast<const PP*>(beta + c);
     P out;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
@@ -272,7 +279,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, typename PT>
 cudaError_t launch_add(const void* x, const void* h, const void* g,
                        const void* b, void* y, void* mean, void* rstd, int R,
                        int C, float eps, cudaStream_t stream) {
@@ -282,17 +289,33 @@ cudaError_t launch_add(const void* x, const void* h, const void* g,
   const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
   const bool packed = C % kVec == 0 && aligned16(x) && aligned16(h) &&
                       aligned16(g) && aligned16(b) && aligned16(y);
-  using Kernel = void (*)(const T*, const T*, const T*, const T*, T*, float*,
-                          float*, int, int, float);
-  Kernel kernel = add_ln_fwd_kernel<T, 1>;
-  if (packed) kernel = add_ln_fwd_kernel<T, kVec>;
+  using Kernel = void (*)(const T*, const T*, const PT*, const PT*, T*,
+                          float*, float*, int, int, float);
+  Kernel kernel = add_ln_fwd_kernel<T, PT, 1>;
+  if (packed) kernel = add_ln_fwd_kernel<T, PT, kVec>;
   const cudaError_t err = ptt_set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(h),
-      static_cast<const T*>(g), static_cast<const T*>(b), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), R, C, eps);
+      static_cast<const PT*>(g), static_cast<const PT*>(b),
+      static_cast<T*>(y), static_cast<float*>(mean),
+      static_cast<float*>(rstd), R, C, eps);
   return cudaSuccess;
+}
+
+// K8 for rows of type T with the scale and bias of the type pdtype names
+// (f32 or bf16, either beside either row type).
+template <typename T>
+cudaError_t launch_add_params(int pdtype, const void* x, const void* h,
+                              const void* g, const void* b, void* y,
+                              void* mean, void* rstd, int R, int C, float eps,
+                              cudaStream_t st) {
+  if (pdtype == PTT_F32)
+    return launch_add<T, float>(x, h, g, b, y, mean, rstd, R, C, eps, st);
+  if (pdtype == PTT_BF16)
+    return launch_add<T, __nv_bfloat16>(x, h, g, b, y, mean, rstd, R, C, eps,
+                                        st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -336,17 +359,21 @@ extern "C" int ptt_add_layer_norm_smem_bytes(int C) {
   return kRowsPerBlock * padded_cols(C) * static_cast<int>(sizeof(float));
 }
 
-extern "C" int ptt_add_layer_norm(int dtype, const void* x, const void* h,
-                                  const void* gamma, const void* beta,
-                                  void* y, void* mean, void* rstd, int R,
-                                  int C, float eps, void* stream) {
+// dtype: the storage type of x, h and y; pdtype: that of the scale and
+// bias (f32 or bf16, independently of dtype).
+extern "C" int ptt_add_layer_norm(int dtype, int pdtype, const void* x,
+                                  const void* h, const void* gamma,
+                                  const void* beta, void* y, void* mean,
+                                  void* rstd, int R, int C, float eps,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == PTT_F32) {
-    err = launch_add<float>(x, h, gamma, beta, y, mean, rstd, R, C, eps, st);
+    err = launch_add_params<float>(pdtype, x, h, gamma, beta, y, mean, rstd,
+                                   R, C, eps, st);
   } else if (dtype == PTT_BF16) {
-    err = launch_add<__nv_bfloat16>(x, h, gamma, beta, y, mean, rstd, R, C,
-                                    eps, st);
+    err = launch_add_params<__nv_bfloat16>(pdtype, x, h, gamma, beta, y,
+                                           mean, rstd, R, C, eps, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -7,3 +7,7 @@ from paddle_tpu_torch.models.ernie import (ErnieConfig,  # noqa: F401
                                            knowledge_mask)
 from paddle_tpu_torch.models.gpt import (GPT, GPTBlock,  # noqa: F401
                                          GPTConfig, GPTDecoder)
+from paddle_tpu_torch.models.seq2seq import (AttentionSeq2Seq,  # noqa: F401
+                                             Seq2SeqConfig)
+from paddle_tpu_torch.models.transformer import (  # noqa: F401
+    Transformer, TransformerConfig)

@@ -1,4 +1,7 @@
-from paddle_tpu_torch.nn.layers import (Dropout, Embedding,  # noqa: F401
-                                        LayerNorm, Linear,
+from paddle_tpu_torch.nn.layers import (GRU, LSTM, Dropout,  # noqa: F401
+                                        Embedding, LayerNorm, Linear,
                                         MultiHeadAttention, fused_ffn,
                                         tied_vocab_head)
+from paddle_tpu_torch.nn.rnn import (RNN, BeamSearchDecoder,  # noqa: F401
+                                     Decoder, GRUCell, LSTMCell, RNNCell,
+                                     dynamic_decode)

@@ -16,6 +16,7 @@ from torch import nn
 from paddle_tpu_torch.ops import activations as A
 from paddle_tpu_torch.ops import attention as att
 from paddle_tpu_torch.ops import nn as F
+from paddle_tpu_torch.ops import rnn as R
 from paddle_tpu_torch.ops.cuda.layer_norm import add_layer_norm_fused
 from paddle_tpu_torch.ops.cuda.mlp import fused_mlp
 
@@ -44,7 +45,7 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        out = x @ self.weight
+        out = F.matmul(x, self.weight)
         if self.bias is not None:
             out = out + self.bias
         return _act(self.act, out)
@@ -127,10 +128,103 @@ class Dropout(nn.Module):
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
+def _rnn_params(module, input_size, hidden_size, num_layers, ndir, gates,
+                biases, gen, dtype):
+    """The reference's per-layer, per-direction parameters
+    ``w_ih_l{i}d{d}`` ``[in, gates * H]``, ``w_hh_l{i}d{d}`` ``[H, gates *
+    H]`` (xavier) and the zero biases named by ``biases``."""
+    for layer in range(num_layers):
+        isz = input_size if layer == 0 else hidden_size * ndir
+        for d in range(ndir):
+            sfx = f"l{layer}d{d}"
+            setattr(module, f"w_ih_{sfx}", _xavier(
+                (isz, gates * hidden_size), gen, dtype))
+            setattr(module, f"w_hh_{sfx}", _xavier(
+                (hidden_size, gates * hidden_size), gen, dtype))
+            for b in biases:
+                setattr(module, f"{b}_{sfx}", nn.Parameter(
+                    torch.zeros(gates * hidden_size, dtype=dtype)))
+
+
+class LSTM(nn.Module):
+    """Multi-layer LSTM, optionally bidirectional (ref: ``nn/layers.py:395``).
+    ``forward(x [B, T, I], lengths=None)`` -> ``(out [B, T, H * ndir],
+    (h, c))`` with h and c ``[layers * ndir, B, H]``."""
+
+    def __init__(self, input_size, hidden_size, num_layers=1,
+                 bidirectional=False, gen=None, dtype=torch.float32):
+        super().__init__()
+        self.hidden_size, self.num_layers = hidden_size, num_layers
+        self.bidirectional = bidirectional
+        _rnn_params(self, input_size, hidden_size, num_layers,
+                    2 if bidirectional else 1, 4, ("b",), gen, dtype)
+
+    def _dir(self, x, h0, c0, sfx, lengths, reverse=False):
+        w = [getattr(self, f"{n}_{sfx}") for n in ("w_ih", "w_hh", "b")]
+        return R.lstm(x, h0, c0, *w, lengths=lengths, reverse=reverse)
+
+    def forward(self, x, lengths=None):
+        b = x.shape[0]
+        h0 = torch.zeros((b, self.hidden_size), dtype=x.dtype,
+                         device=x.device)
+        c0 = torch.zeros_like(h0)
+        out, last_h, last_c = x, [], []
+        for layer in range(self.num_layers):
+            of, (hf, cf) = self._dir(out, h0, c0, f"l{layer}d0", lengths)
+            if self.bidirectional:
+                ob, (hb, cb) = self._dir(out, h0, c0, f"l{layer}d1", lengths,
+                                         reverse=True)
+                out = torch.cat([of, ob], -1)
+                last_h += [hf, hb]
+                last_c += [cf, cb]
+            else:
+                out = of
+                last_h.append(hf)
+                last_c.append(cf)
+        return out, (torch.stack(last_h), torch.stack(last_c))
+
+
+class GRU(nn.Module):
+    """Multi-layer GRU, optionally bidirectional (ref: ``nn/layers.py:441``).
+    ``forward(x [B, T, I], lengths=None)`` -> ``(out [B, T, H * ndir], h
+    [layers * ndir, B, H])``."""
+
+    def __init__(self, input_size, hidden_size, num_layers=1,
+                 bidirectional=False, gen=None, dtype=torch.float32):
+        super().__init__()
+        self.hidden_size, self.num_layers = hidden_size, num_layers
+        self.bidirectional = bidirectional
+        _rnn_params(self, input_size, hidden_size, num_layers,
+                    2 if bidirectional else 1, 3, ("b_ih", "b_hh"), gen,
+                    dtype)
+
+    def _dir(self, x, h0, sfx, lengths, reverse=False):
+        w = [getattr(self, f"{n}_{sfx}")
+             for n in ("w_ih", "w_hh", "b_ih", "b_hh")]
+        return R.gru(x, h0, *w, lengths=lengths, reverse=reverse)
+
+    def forward(self, x, lengths=None):
+        h0 = torch.zeros((x.shape[0], self.hidden_size), dtype=x.dtype,
+                         device=x.device)
+        out, last = x, []
+        for layer in range(self.num_layers):
+            of, hf = self._dir(out, h0, f"l{layer}d0", lengths)
+            if self.bidirectional:
+                ob, hb = self._dir(out, h0, f"l{layer}d1", lengths,
+                                   reverse=True)
+                out = torch.cat([of, ob], -1)
+                last += [hf, hb]
+            else:
+                out = of
+                last.append(hf)
+        return out, torch.stack(last)
+
+
 class MultiHeadAttention(nn.Module):
     """ref: ``nn/layers.py:488`` — q/k/v/o projections ``[E, E]``, the
-    full forward and the paged serving methods. The paged methods update
-    the pool **in place** and return it."""
+    full forward (self- or cross-attention) and the paged serving
+    methods. The paged methods update the pool **in place** and return
+    it."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, use_flash=False,
                  gen=None, dtype=torch.float32, dropout_gen=None):
@@ -145,13 +239,15 @@ class MultiHeadAttention(nn.Module):
                     nn.Parameter(torch.zeros(embed_dim, dtype=dtype)))
 
     def _project(self, x, n):
-        return x @ getattr(self, f"w{n}") + getattr(self, f"b{n}")
+        return F.matmul(x, getattr(self, f"w{n}")) + getattr(self, f"b{n}")
 
-    def forward(self, x, mask=None, causal=False):
+    def forward(self, x, kv=None, mask=None, causal=False):
+        """Self-attention over x, or cross-attention of x over ``kv``
+        ``[B, Tk, E]`` (ref: ``nn/layers.py:566``)."""
         return att.multihead_attention(
             x, self.wq, self.wk, self.wv, self.wo, self.bq, self.bk,
             self.bv, self.bo, self.num_heads, mask=mask, causal=causal,
-            dropout_rate=self.dropout_rate, training=self.training,
+            kv=kv, dropout_rate=self.dropout_rate, training=self.training,
             use_flash=self.use_flash, dropout_gen=self.dropout_gen)
 
     def init_page_pool(self, num_pages, page_size, dtype=torch.float32,

@@ -3,6 +3,16 @@
 import torch
 
 
+def relu(x):
+    """ref: ``ops/activations.py:17`` (the Transformer's FFN)."""
+    return torch.relu(x)
+
+
+def sigmoid(x):
+    """ref: ``ops/activations.py:53`` (the RNN cells' gates)."""
+    return torch.sigmoid(x)
+
+
 def gelu(x, approximate=False):
     """Gelu; the exact erf form by default, as ``jax.nn.gelu(x,
     approximate=False)`` in the reference (``ops/activations.py:48``).

@@ -22,6 +22,7 @@ from paddle_tpu_torch.core.enforce import EnforceError
 from paddle_tpu_torch.ops.cuda.decode_attention import (  # noqa: F401
     NEG_INF, paged_decode_attention)
 from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+from paddle_tpu_torch.ops.nn import matmul
 
 
 def dropout_mask(shape, rate, gen, device):
@@ -95,22 +96,30 @@ def _as_key_padding_mask(mask, batch, tk):
     return m.bool()
 
 
-def multihead_attention(x, wq, wk, wv, wo, bq, bk, bv, bo, num_heads,
-                        mask=None, causal=False, dropout_rate=0.0,
-                        training=False, use_flash=False, dropout_gen=None):
-    """Self-attention forward (ref: ``ops/attention.py:266``). x
-    ``[B, T, E]``; w* ``[E, E]`` stored ``[in, out]`` for ``x @ W``. With
-    ``use_flash`` and no attention dropout, a call without a mask or with
-    a mask of key-padding form rides flash attention (K2 forward, K3
-    backward on the card) with that mask as ``kv_mask``; any other mask
-    takes the dense path."""
+def multihead_attention(x, wq, wk, wv, wo, bq=None, bk=None, bv=None,
+                        bo=None, num_heads=8, mask=None, causal=False,
+                        kv=None, dropout_rate=0.0, training=False,
+                        use_flash=False, dropout_gen=None):
+    """Multi-head attention forward (ref: ``ops/attention.py:266``). x
+    ``[B, Tq, E]``; w* ``[E, E]`` stored ``[in, out]`` for ``x @ W``;
+    the biases are optional. Keys and values are projected from ``kv``
+    ``[B, Tk, E]`` when given (cross-attention, Tk may differ from Tq),
+    else from x. Products promote as jnp does (:func:`ops.nn.matmul`):
+    f32 activations with bf16 weights give f32. With ``use_flash`` and no
+    attention dropout, a call without a mask or with a mask of key-padding
+    form rides flash attention (K2 forward, K3 backward on the card) with
+    that mask as ``kv_mask``; any other mask takes the dense path."""
     b, t, e = x.shape
     hd = e // num_heads
+    kv = x if kv is None else kv
 
-    def proj(w, bias):
-        return (x @ w + bias).reshape(b, t, num_heads, hd).transpose(1, 2)
+    def proj(inp, w, bias):
+        out = matmul(inp, w)
+        if bias is not None:
+            out = out + bias
+        return out.reshape(b, -1, num_heads, hd).transpose(1, 2)
 
-    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
+    q, k, v = proj(x, wq, bq), proj(kv, wk, bk), proj(kv, wv, bv)
     no_dropout = dropout_rate == 0.0 or not training
     kv_mask = _as_key_padding_mask(mask, b, k.shape[2])
     if use_flash and (mask is None or kv_mask is not None) and no_dropout:
@@ -121,7 +130,8 @@ def multihead_attention(x, wq, wk, wv, wo, bq, bk, bv, bo, num_heads,
                                            dropout_rate=dropout_rate,
                                            training=training,
                                            dropout_gen=dropout_gen)
-    return ctx.transpose(1, 2).reshape(b, t, e) @ wo + bo
+    out = matmul(ctx.transpose(1, 2).reshape(b, t, e), wo)
+    return out if bo is None else out + bo
 
 
 # --- paged KV cache --------------------------------------------------------

@@ -19,7 +19,10 @@ formed once in f32 and kept in shared memory for the three passes, never
 rounded to the storage type (the reference's XLA twin ``_stats_add``
 rounds it to x's dtype first; in f32 the two agree, in bf16 they differ
 by that one rounding). Bound on the H100: bytes (one read of x and h, one
-write of y).
+write of y). The scale and bias may have another type than the rows (f32
+rows with bf16 parameters: the Transformer under the bf16 policy, whose
+activations the reference promotes to f32); the kernel widens them to f32
+as the Pallas kernel does (``:175-188``), and rounds no f32 operand.
 
 The backwards are the reference's ``_ln_bwd`` (:131) and ``_aln_bwd``
 (:245) in plain torch, from the saved mean and rstd: the JAX package has
@@ -41,8 +44,8 @@ KERNEL = core.register(
                      core.VP, core.I32, core.I32, core.F32_ARG, core.VP])})
 KERNEL_ADD = core.register(
     "add_layer_norm", "ptt_add_layer_norm",
-    [core.I32] + [core.VP] * 7 + [core.I32, core.I32, core.F32_ARG,
-                                  core.VP],
+    [core.I32, core.I32] + [core.VP] * 7 + [core.I32, core.I32,
+                                            core.F32_ARG, core.VP],
     replaces="paddle_tpu/ops/pallas/layer_norm.py:175",
     source="paddle_tpu_torch/csrc/layer_norm.cu")
 
@@ -184,14 +187,20 @@ def add_layer_norm_plain(x2d, h2d, gamma, beta, epsilon):
 
 
 def add_layer_norm_kernel(x2d, h2d, gamma, beta, epsilon):
-    """Launch K8 on CUDA tensors; same outputs as the plain version. x, h,
-    scale and bias share one dtype (f32 or bf16); the rows must fit one
+    """Launch K8 on CUDA tensors; same outputs as the plain version. x and
+    h share one dtype (f32 or bf16), and so do scale and bias (f32 or
+    bf16, either beside either row type: the bf16 policy's Transformer
+    normalizes f32 rows with bf16 parameters); the rows must fit one
     block's shared memory (8 rows of C f32 sums, C padded to 256)."""
-    code = core.dtype_code(x2d, (torch.float32, torch.bfloat16))
-    for name, t in (("h", h2d), ("scale", gamma), ("bias", beta)):
-        if t.dtype != x2d.dtype:
-            raise TypeError(f"add_layer_norm kernel: {name} is {t.dtype}, "
-                            f"x is {x2d.dtype}")
+    types = (torch.float32, torch.bfloat16)
+    code = core.dtype_code(x2d, types)
+    pcode = core.dtype_code(gamma, types)
+    if h2d.dtype != x2d.dtype:
+        raise TypeError(f"add_layer_norm kernel: h is {h2d.dtype}, x is "
+                        f"{x2d.dtype} (the sum x + h takes one row type)")
+    if beta.dtype != gamma.dtype:
+        raise TypeError(f"add_layer_norm kernel: bias is {beta.dtype}, "
+                        f"scale is {gamma.dtype}")
     core.require_contiguous(x=x2d, h=h2d, gamma=gamma, beta=beta)
     r_, c_ = x2d.shape
     if h2d.shape != x2d.shape:
@@ -208,7 +217,7 @@ def add_layer_norm_kernel(x2d, h2d, gamma, beta, epsilon):
     rstd = torch.empty((r_, 1), dtype=torch.float32, device=x2d.device)
     if r_ == 0 or c_ == 0:
         return y, mean, rstd
-    KERNEL_ADD(code, core.ptr(x2d), core.ptr(h2d), core.ptr(gamma),
+    KERNEL_ADD(code, pcode, core.ptr(x2d), core.ptr(h2d), core.ptr(gamma),
                core.ptr(beta), core.ptr(y), core.ptr(mean), core.ptr(rstd),
                r_, c_, float(epsilon), core.stream(x2d))
     return y, mean, rstd

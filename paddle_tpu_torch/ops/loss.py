@@ -3,12 +3,18 @@
 import torch
 
 
-def softmax_with_cross_entropy(logits, label, ignore_index=-100):
-    """Hard-label softmax cross entropy in the stable logsumexp form (ref:
-    ``ops/loss.py:42``). ``label`` holds class ids with a trailing 1
-    (``[..., 1]``) or without; rows whose label is ``ignore_index`` give
-    0. Returns ``[..., 1]``. The soft-label form and other axes are not
-    ported."""
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100):
+    """Softmax cross entropy over the last axis in the stable logsumexp
+    form (ref: ``ops/loss.py:42``). Hard labels: ``label`` holds class ids
+    with a trailing 1 (``[..., 1]``) or without; rows whose label is
+    ``ignore_index`` give 0. Soft labels (``soft_label=True``): ``label``
+    is a distribution of logits' shape and the loss is ``-sum(label *
+    (logits - logz))``. Returns ``[..., 1]``. Other axes and
+    ``return_softmax`` are not ported."""
+    if soft_label:
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        return -(label * (logits - logz)).sum(dim=-1, keepdim=True)
     if label.ndim > 1 and label.shape[-1] == 1:
         label = label.squeeze(-1)
     logz = torch.logsumexp(logits, dim=-1)

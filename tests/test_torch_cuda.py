@@ -863,3 +863,110 @@ def test_bert_card_loss_backward_gives_the_cpu_gradients(cuda):
     for name, g in gc.items():
         err = float((g - gp[name]).norm())
         assert err <= 1e-3 * max(float(gp[name].norm()), 1e-3 * scale), name
+
+
+@pytest.mark.parametrize("dtype,pdtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_add_layer_norm_kernel_with_parameters_of_another_type(cuda, dtype,
+                                                               pdtype):
+    """K8 with the scale and bias in another type than the rows (the bf16
+    policy's Transformer: f32 rows, bf16 parameters), widened exactly: on
+    16-byte packs, element-wise rows and a ragged row count; a mix of x
+    and h still raises."""
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    g = torch.Generator().manual_seed(8)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for rows, cols, offset in ((8192, 1024, 0), (8189, 1024, 0),
+                               (13, 768, 0), (70, 100, 0), (11, 256, 1)):
+        x = _randn(g, rows * cols + offset, scale=3.0,
+                   dtype=dtype)[offset:].view(rows, cols)
+        h = _randn(g, rows, cols, dtype=dtype)
+        gam = _randn(g, cols, scale=0.1, dtype=pdtype) + 1.0
+        bet = _randn(g, cols, scale=0.1, dtype=pdtype)
+        got = ln.add_layer_norm_kernel(x, h, gam, bet, 1e-5)
+        want = ln.add_layer_norm_plain(x, h, gam, bet, 1e-5)
+        assert got[0].dtype == dtype
+        _held(got, want, tol)
+    with pytest.raises(TypeError):
+        ln.add_layer_norm_kernel(x.to(torch.bfloat16), h.float(), gam, bet,
+                                 1e-5)
+
+
+def _transformer_batch(vocab, b=2, s=24, t=20, seed=12):
+    rs = np.random.RandomState(seed)
+    src = torch.from_numpy(rs.randint(1, vocab, (b, s)))
+    src_mask = torch.ones(b, s)
+    src_mask[1, 15:] = 0.0
+    tgt_in = torch.from_numpy(rs.randint(1, vocab, (b, t)))
+    tgt_out = torch.from_numpy(rs.randint(1, vocab, (b, t)))
+    tgt_out[0, 17:] = 0
+    return src, tgt_in, tgt_out, src_mask
+
+
+def test_transformer_card_step_gives_the_cpu_gradients(cuda):
+    """Transformer.loss at TransformerConfig.tiny()'s widths on the card
+    (K8 on the post-norm residuals: 2 per encoder layer and 3 per decoder
+    layer) gives the CPU plain path's loss and every gradient (f32, TF32
+    off); under the bf16 policy (f32 rows, bf16 parameters) its loss is
+    the CPU's within 1e-3 and K8 launches the same count."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig)
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adam
+    cfg = TransformerConfig.tiny()
+    cfg.dropout = 0.0
+    args = _transformer_batch(cfg.src_vocab)
+    per_step = 2 * cfg.enc_layers + 3 * cfg.dec_layers
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = Transformer(cfg, device=dev, seed=0)
+        core.reset_launches()
+        loss = model.loss(*(a.to(dev) for a in args))
+        loss.backward()
+        out[dev] = (loss.item(), {k: p.grad.cpu()
+                                  for k, p in model.named_parameters()},
+                    core.launch_counts())
+    (lc, gc, counts), (lp, gp, _) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= F32_TOL
+    assert counts["add_layer_norm"] == per_step
+    assert sum(counts.values()) == per_step, counts
+    scale = max(float(g.norm()) for g in gp.values())
+    for name, g in gc.items():
+        err = float((g - gp[name]).norm())
+        assert err <= 1e-3 * max(float(gp[name].norm()), 1e-3 * scale), name
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = Transformer(cfg, device=dev, seed=0)
+        opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+        core.reset_launches()
+        losses[dev] = float(opt.minimize(model, lambda m, *a: m.loss(*a),
+                                         *(a.to(dev) for a in args)))
+        if dev == "cuda":
+            assert core.launch_counts()["add_layer_norm"] == per_step
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3
+
+
+def test_seq2seq_decodes_on_card_as_on_cpu(cuda):
+    """AttentionSeq2Seq.tiny(): greedy and beam tokens on the card equal
+    the CPU's, beam scores within 1e-4; the path runs no kernel of the
+    port (the reference runs none)."""
+    from paddle_tpu_torch.models.seq2seq import (AttentionSeq2Seq,
+                                                 Seq2SeqConfig)
+    from paddle_tpu_torch.ops.cuda import core
+    rs = np.random.RandomState(3)
+    src = torch.from_numpy(rs.randint(3, 64, (4, 9)))
+    lengths = torch.tensor([9, 5, 1, 7])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = AttentionSeq2Seq(Seq2SeqConfig.tiny(), device=dev, seed=0)
+        core.reset_launches()
+        with torch.no_grad():
+            g = model.greedy_decode(src.to(dev), lengths.to(dev), 1, 2, 10)
+            s, sc = model.beam_decode(src.to(dev), lengths.to(dev), 1, 2, 4,
+                                      10)
+        out[dev] = (g.cpu(), s.cpu(), sc.cpu(), core.launch_counts())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert float((out["cuda"][2] - out["cpu"][2]).abs().max()) <= 1e-4
+    assert sum(out["cuda"][3].values()) == 0

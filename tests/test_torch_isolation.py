@@ -323,3 +323,70 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                           env=env, stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True, timeout=300)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "models/transformer.py", "models/seq2seq.py", "ops/rnn.py", "nn/rnn.py",
+    "ops/fused.py", "ops/nn.py"])
+def test_ast_scan_covers_the_translation_modules(module):
+    path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+_TRANSLATE_BLOCKED = _SERVE_BLOCKED.split("from paddle_tpu_torch.models")[0] \
+    + r"""
+from paddle_tpu_torch import amp
+from paddle_tpu_torch.models import (AttentionSeq2Seq, Seq2SeqConfig,
+                                     Transformer, TransformerConfig)
+from paddle_tpu_torch.ops.cuda import core
+from paddle_tpu_torch.optimizer import Adam
+rs = np.random.RandomState(0)
+cfg = TransformerConfig.tiny()
+cfg.dropout = 0.0
+model = Transformer(cfg, device="cpu")
+src, tgt_in, tgt_out = (torch.from_numpy(rs.randint(1, 1000, (2, 12)))
+                        for _ in range(3))
+mask = torch.ones(2, 12)
+mask[1, 7:] = 0.0
+loss = model.loss(src, tgt_in, tgt_out, mask)
+loss.backward()
+assert all(p.grad is not None for p in model.parameters())
+opt = amp.decorate(Adam(model.parameters(), 1e-3), amp.bf16_policy())
+opt.minimize(model, lambda m, *a: m.loss(*a), src, tgt_in, tgt_out, mask)
+s2s = AttentionSeq2Seq(Seq2SeqConfig.tiny(), device="cpu")
+seqs, scores = s2s.beam_decode(torch.from_numpy(rs.randint(3, 64, (3, 9))),
+                               torch.tensor([9, 4, 1]), 1, 2, 4, 8)
+assert tuple(seqs.shape) == (3, 4, 8) and bool(torch.isfinite(scores).all())
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("TRANSLATED", tuple(seqs.shape))
+"""
+
+
+def test_port_translates_with_reference_and_triton_blocked():
+    """A Transformer loss, its backward and a bf16 Adam step, and a
+    seq2seq beam decode, in a process that cannot import jax."""
+    code = _TRANSLATE_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "TRANSLATED (3, 4, 8)" in proc.stdout
+
+
+def test_translation_models_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.models import (AttentionSeq2Seq, Seq2SeqConfig,
+                                         Transformer, TransformerConfig)
+    with pytest.raises(EnforceError):
+        Transformer(TransformerConfig.tiny())
+    with pytest.raises(EnforceError):
+        AttentionSeq2Seq(Seq2SeqConfig.tiny())
+    assert Transformer(TransformerConfig.tiny(),
+                       device="cpu").device == torch.device("cpu")
+    assert AttentionSeq2Seq(Seq2SeqConfig.tiny(),
+                            device="cpu").device == torch.device("cpu")

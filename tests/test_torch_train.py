@@ -228,12 +228,20 @@ def test_fused_xent_value_and_grad_match_jax(rng, flags_guard, mode, ls):
 
 
 def test_fused_xent_refuses_what_is_not_ported():
+    """The vocab-sharded path raises in both layouts. The ``[H, V]``
+    layout "hv" is ported (the Transformer's loss): on the transposed
+    weight it gives the "vh" loss."""
     from paddle_tpu_torch.ops.fused import fused_xent
-    h, w, y = torch.zeros(3, 8), torch.zeros(5, 8), torch.zeros(3).long()
-    with pytest.raises(NotImplementedError):
-        fused_xent(h, w.T, y, weight_layout="hv")
-    with pytest.raises(NotImplementedError):
-        fused_xent(h, w, y, vocab_axis="tp")
+    g = torch.Generator().manual_seed(0)
+    h, w = torch.randn(3, 8, generator=g), torch.randn(5, 8, generator=g)
+    y = torch.tensor([0, 4, 2])
+    torch.testing.assert_close(fused_xent(h, w.T, y, weight_layout="hv"),
+                               fused_xent(h, w, y), rtol=1e-5, atol=1e-5)
+    for layout, weight in (("vh", w), ("hv", w.T)):
+        for kw in (dict(vocab_axis="tp"), dict(batch_axis="dp"),
+                   dict(mesh="mesh")):
+            with pytest.raises(NotImplementedError):
+                fused_xent(h, weight, y, weight_layout=layout, **kw)
 
 
 # ------------------------------------------------- LN and MLP backward

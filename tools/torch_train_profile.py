@@ -1,7 +1,8 @@
 """Where the time of the PyTorch port's training step goes, on one card.
 
-    python3 tools/torch_train_profile.py [--model gpt|bert|bert_large]
-                                         [--steps 5] [--out DIR]
+    python3 tools/torch_train_profile.py
+        [--model gpt|bert|bert_large|transformer|seq2seq] [--steps 5]
+        [--out DIR]
 
 Builds the training step chip_smoke.py drives under
 amp.decorate(Adam(1e-4), bf16_policy()), dropout 0 and weights from a
@@ -10,7 +11,11 @@ fixed seeded batch of 16 x 512; ``--model bert`` BertForPretraining.loss
 of BertConfig.base() on one fixed seeded batch of 64 x 512 with 76
 masked positions per row (chip_smoke.py's bert_train phase);
 ``--model bert_large`` BertConfig.large() on chip_smoke.py's bert_large
-batch of 8 x 512. It runs 2
+batch of 8 x 512; ``--model transformer`` Transformer.loss of
+TransformerConfig.big() on chip_smoke.py's transformer_big batch of
+32 x 256; ``--model seq2seq`` the seq2seq phase's f32 Adam(3e-2) step of
+Seq2SeqConfig() on its batch of 64 (no amp: that phase trains in f32).
+It runs 2
 warm-up steps, and profiles ``--steps`` steady steps
 with torch.profiler: host wall time per step, device time per step (the
 sum of the CUDA kernels, which run on one stream and do not overlap), the
@@ -57,7 +62,8 @@ def _kernel_times(prof):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("gpt", "bert", "bert_large"),
+    ap.add_argument("--model", choices=("gpt", "bert", "bert_large",
+                                        "transformer", "seq2seq"),
                     default="gpt")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out")
@@ -82,6 +88,28 @@ def main():
 
         def loss_fn(m, x):
             return m.loss(x)
+    elif args.model == "transformer":
+        from paddle_tpu_torch.models.transformer import (Transformer,
+                                                         TransformerConfig)
+        cfg, batch, seq = TransformerConfig.big(), 32, 256
+        config = "TransformerConfig.big()"
+        cfg.dropout = 0.0
+        model = Transformer(cfg, device="cuda", seed=0)
+        data = tuple(a.cuda() for a in chip_smoke.transformer_batch(
+            np.random.RandomState(0), cfg.tgt_vocab, batch, seq))
+
+        def loss_fn(m, *a):
+            return m.loss(*a)
+    elif args.model == "seq2seq":
+        from paddle_tpu_torch.models import seq2seq as s2s
+        cfg, batch, seq = s2s.Seq2SeqConfig(), 64, 32
+        config = "Seq2SeqConfig()"
+        model = s2s.AttentionSeq2Seq(cfg, device="cuda", seed=0)
+        data = tuple(a.cuda() for a in chip_smoke.seq2seq_batch(
+            np.random.RandomState(9), cfg.tgt_vocab, batch, seq, seq, 8))
+
+        def loss_fn(m, src, lengths, tgt_in, tgt, tgt_lengths):
+            return s2s.nmt_loss(m(src, lengths, tgt_in), tgt, tgt_lengths)
     else:
         from paddle_tpu_torch.models.bert import (BertConfig,
                                                   BertForPretraining)
@@ -99,7 +127,12 @@ def main():
 
         def loss_fn(m, *a):
             return m.loss(*a, mask_positions=pos)
-    opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+    if args.model == "seq2seq":
+        opt, policy = Adam(model.parameters(), 3e-2), "f32"
+    else:
+        opt = amp.decorate(Adam(model.parameters(), 1e-4),
+                           amp.bf16_policy())
+        policy = "bf16"
 
     def step():
         return float(opt.minimize(model, loss_fn, *data))
@@ -128,7 +161,7 @@ def main():
         timeout=60).stdout.strip()
     print(json.dumps(dict(
         part="train_step", device=torch.cuda.get_device_name(0), card=smi,
-        config=config, batch=batch, seq=seq, policy="bf16",
+        config=config, batch=batch, seq=seq, policy=policy,
         steps=per, losses=losses, step_ms=wall / per * 1e3,
         device_ms_per_step=(busy_us / per / 1e3) if busy_us else None,
         idle_share=(1 - busy_us / 1e6 / wall) if busy_us else None,
