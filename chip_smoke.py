@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's serving, GPT training, BERT pretraining,
-Trainer and translation paths on one NVIDIA H100.
+Trainer, translation and image-classification paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -145,6 +145,29 @@ Phases, each printing one JSON line:
    hypothesis's score the CPU model's for it. No kernel of the port runs
    there, as none of the reference's does. Records the step ms and each
    decoder's tokens/s.
+18. resnet50 — bench.py's ResNet row on the card: resnet50(1000)
+   (weights from a seed; NHWC compute as channels_last over the
+   reference's HWIO kernels, the NCHW batch transposed once at the
+   stem; cuDNN convolutions, the reference's batch norm in plain torch),
+   mean softmax cross entropy of the bf16 logits under
+   amp.decorate(Momentum(0.1, 0.9), bf16_policy()) with f32 velocity and
+   the running statistics updated in bf16 and stored in f32, one fixed
+   seeded batch of 128 f32 images at 224 x 224; 2 warm-up and 10 timed
+   steps with the launch counts zeroed just before (no kernel of the port
+   may launch: the reference's convolutions, pools and batch norms are
+   XLA's), then untimed steps to 60 in all: every loss finite, the last
+   below the first, every running statistic moved. Records images/s, the
+   p50 step, peak memory, the share of the bf16 peak by bench.py's count
+   ("mfu_bf16_peak") and one profiled step (device ms in convolutions
+   and the fc GEMM, in the optimizer, in batch norm and the other
+   elementwise work; idle share; launches).
+19. resnet_crosscheck — one f32 step (TF32 off) of resnet50(1000) at
+   2 x 3 x 224 x 224 on the card and on the CPU plain path from the same
+   weights (the CPU taking the card's ReLU branches): loss, every
+   gradient and every updated running statistic within their bars.
+20. vision_cls — three bf16 Momentum steps of se_resnext50(1000) at 32
+   x 224 x 224 and of vgg16(10) at 128 x 32 x 32: finite losses, no
+   kernel of the port, the step times.
 
 K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
 and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
@@ -166,17 +189,20 @@ train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
 "flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8, and
 transformer_big for the "add_layer_norm.mixed" row (K8 at f32 rows with
 bf16 parameters); "variant" names the route; every row also has each
-path's count, launches_transformer among them), the nvidia-smi line, and
+path's count, launches_transformer among them, and launches_resnet,
+which is 0), the nvidia-smi line, and
 the contract line
 {"ok": true, "device": {...}}.
 Any failed phase raises, and the script exits non-zero without the
 contract line.
 """
 
+import collections
 import contextlib
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -208,6 +234,16 @@ TRAIN_LOSS_TOL = 1e-4    # f32 train step, card vs CPU plain path
 TRAIN_GRAD_TOL = 1e-3    # relative L2 of each parameter's gradient: sums
                          # in other orders, embedding gradients by atomics
                          # in an order that changes from run to run
+RESNET_STATS_TOL = 5e-5  # ResNet-50's running statistics after one f32
+                         # step at batch 2, card vs CPU, relative to each
+                         # leaf's max: the reference's batch norm takes its
+                         # statistics in f32 whatever x's type, over 98
+                         # values a channel in the last stage, so even
+                         # the step in f64 on both sides parts them by
+                         # about 1e-5 (resnet_crosscheck_f64's line)
+RESNET_RELU_FLIP_TOL = 1e-3  # ResNet-50 at batch 2: that batch norm
+                             # moves the deep pre-activations by a few
+                             # 1e-4 between the card and the CPU in f32
 TRANSLATE_BF16_LOSS_TOL = 1e-3  # the Transformer's bf16-policy loss, card
                                 # vs CPU: f32 activations, bf16 weights
 RELU_FLIP_TOL = 1e-4      # a pre-activation whose sign differs between the
@@ -1510,20 +1546,9 @@ def device_ms(fn, top=6):
     """The device time of one call of ``fn``: ``(ms, {kernel name: ms})``,
     the sum of the durations of the CUDA kernels it launched (they run on
     one stream and do not overlap) and the ``top`` largest by name, from
-    ``torch.profiler``. Warmed up once first."""
-    import collections
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name = collections.Counter()
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
-    return sum(by_name.values()), dict(by_name.most_common(top))
+    ``torch.profiler`` (:func:`kernel_profile`). Warmed up once first."""
+    ms, _, by_name = kernel_profile(fn)
+    return ms, {k[:60]: v for k, v in by_name.most_common(top)}
 
 
 def launched(fn):
@@ -1790,12 +1815,15 @@ def check_launches(what, launches, steps, want):
 def train_crosscheck(make_model, loss_fn, args, around=None):
     """One f32 Adam step of ``loss_fn`` on the card and on the CPU plain
     path, each on a model from ``make_model(device)`` (the same weights):
-    (loss card, loss CPU, per-parameter gradient errors, the card run's
-    launches). A parameter whose gradient is 0 in exact arithmetic (the
-    key bias, which softmax cancels) carries only rounding noise, so each
-    error is relative to the larger of its own gradient's norm and 1e-3
-    of the largest one. ``around(device)``, when given, is a context
-    entered around each device's step (:class:`ReluReplay`)."""
+    (loss card, loss CPU, per-parameter gradient errors, per-buffer
+    errors, the card run's launches). A parameter whose gradient is 0 in
+    exact arithmetic (the key bias, which softmax cancels) carries only
+    rounding noise, so each error is relative to the larger of its own
+    gradient's norm and 1e-3 of the largest one. A buffer's error (batch
+    norm's running statistics, updated by the step) is its largest
+    difference over its largest CPU value. ``around(device)``, when
+    given, is a context entered around each device's step
+    (:class:`ReluReplay`)."""
     from paddle_tpu_torch.ops.cuda import core
     from paddle_tpu_torch.optimizer import Adam
     out = {}
@@ -1808,12 +1836,224 @@ def train_crosscheck(make_model, loss_fn, args, around=None):
                                       *(a.to(dev) for a in args)))
         out[dev] = (loss, {n: p.grad.detach().cpu()
                            for n, p in model.named_parameters()},
+                    {n: b.detach().cpu() for n, b in model.named_buffers()},
                     core.launch_counts())
-    (lc, gc, launches), (lp, gp, _) = out["cuda"], out["cpu"]
+    (lc, gc, bc, launches), (lp, gp, bp, _) = out["cuda"], out["cpu"]
     top = max(float(g.norm()) for g in gp.values())
     errs = {n: float((gc[n] - gp[n]).norm())
             / max(float(gp[n].norm()), 1e-3 * top) for n in gp}
-    return lc, lp, errs, launches
+    stat_errs = {n: float((bc[n] - bp[n]).abs().max())
+                 / float(bp[n].abs().max()) for n in bp}
+    return lc, lp, errs, stat_errs, launches
+
+
+# ------------------------------------------------------------------ vision
+
+#: bench.py:1284's count: ResNet-50's forward is 4.089 GMACs an image at
+#: 224 x 224, two operations a MAC, and a training step three forwards
+RESNET50_STEP_OPS = 3 * 2 * 4.089e9
+#: a kernel name that is a convolution's (cuDNN's implicit GEMMs, its
+#: wgrad/dgrad kernels and layout transposes) or a GEMM's (the fc)
+CONV_KERNEL = re.compile(r"conv|xmma|cudnn|implicit|wgrad|dgrad|fprop|"
+                         r"cutlass|gemm|nchwToNhwc|nhwcToNchw", re.I)
+
+
+#: the resnet50 phase's steps in all: at bench's rate (0.1, momentum 0.9,
+#: no warm-up) the loss of one fixed batch first falls, then rises for
+#: about ten steps and comes back down, so the timed steps run on to here
+#: before the loss is held to have fallen; the line records every step's
+#: loss
+RESNET50_STEPS = 60
+
+
+def xent_mean(model, images, labels):
+    """bench.py's ResNet loss: ``mean(softmax_with_cross_entropy(out,
+    labels))`` on the logits as they come (bf16 under the policy)."""
+    from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
+    return softmax_with_cross_entropy(model(images), labels).mean()
+
+
+def image_batch(rs, batch, size, classes):
+    """``bench.py``'s batch: f32 NCHW images uniform in [0, 1), then int32
+    labels ``[batch, 1]``."""
+    images = rs.rand(batch, 3, size, size).astype(np.float32)
+    labels = rs.randint(0, classes, (batch, 1)).astype(np.int32)
+    return torch.from_numpy(images), torch.from_numpy(labels)
+
+
+def check_no_launches(what, launches):
+    """No kernel of the port ran: the path's convolutions, pools and batch
+    norms are the reference's XLA ops, none of them a Pallas kernel."""
+    ran = {k: n for k, n in launches.items() if n}
+    if ran:
+        raise AssertionError(f"{what}: kernels of the port launched {ran}")
+
+
+def kernel_profile(fn):
+    """One call of ``fn`` (warmed up once first) under torch.profiler:
+    ``(device ms, kernel launches, {kernel name: ms})``, the device time
+    the sum of the CUDA kernels' durations (one stream: they do not
+    overlap); memory copies and sets are counted in the time, not as
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, launches = collections.Counter(), 0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            launches += not e.name.startswith(("Memcpy", "Memset"))
+    return sum(by_name.values()), launches, by_name
+
+
+def train_images(model, opt, args, warmup, steps, smi, what, config):
+    """``train`` of :func:`xent_mean` with the image phases' checks: every
+    loss finite, no kernel of the port launched. Returns the line's
+    statistics and the launches."""
+    losses, times, launches, _ = train(model, opt, xent_mean, args, warmup,
+                                       steps)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    check_no_launches(what, launches)
+    batch = args[0].shape[0]
+    return dict(config=config, batch=batch,
+                image=list(args[0].shape[1:]), policy="bf16",
+                optimizer="Momentum(0.1, 0.9)", warmup=warmup, steps=steps,
+                losses=losses, images_per_s=batch * steps / sum(times),
+                p50_step_ms=float(np.median(times)) * 1e3,
+                mean_step_ms=float(np.mean(times)) * 1e3,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                card=smi), launches
+
+
+def resnet50_phase(smi):
+    """``bench.py:1228 bench_resnet`` at its defaults on the card:
+    resnet50(1000) (weights from seed 0, NHWC compute as channels_last
+    with HWIO storage, one transpose of the NCHW batch at the stem),
+    ``mean(softmax_with_cross_entropy)``, amp.decorate(Momentum(0.1,
+    0.9), bf16_policy()) with f32 velocity, the BN running statistics
+    updated in bf16 by every step and stored in f32; one fixed seeded
+    batch of 128 f32 NCHW images at 224 x 224. 2 warm-up and 10 timed
+    steps with the launch counts zeroed just before (no kernel of the
+    port launched), then untimed steps to RESNET50_STEPS: every loss
+    finite, the last below the first, every BN buffer moved. Then one
+    profiled step: device ms in convolutions (with the fc's GEMM), in the
+    optimizer (an update profiled alone),
+    in batch norm and the other elementwise work (the rest), the idle
+    share against the p50 step, launches per step. Returns (line,
+    launches)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.optimizer import Momentum
+    batch, warmup, steps = 128, 2, 10
+    model = resnet50(1000, device="cuda", seed=0)
+    initial = {k: b.clone() for k, b in model.named_buffers()}
+    opt = amp.decorate(Momentum(model.parameters(), 0.1, 0.9),
+                       amp.bf16_policy())
+    args = tuple(a.cuda() for a in image_batch(np.random.RandomState(0),
+                                               batch, 224, 1000))
+    line, launches = train_images(model, opt, args, warmup, steps, smi,
+                                  "resnet50", "resnet50(1000)")
+    losses = line["losses"] + [float(opt.minimize(model, xent_mean, *args))
+                               for _ in range(RESNET50_STEPS - len(
+                                   line["losses"]))]
+    line["losses"] = losses
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"resnet50: loss did not fall {losses}")
+    still = [k for k, b in model.named_buffers() if torch.equal(b,
+                                                                initial[k])]
+    if still:
+        raise AssertionError(f"resnet50: running statistics not updated "
+                             f"{still[:5]}")
+    if any(b.dtype != torch.float32 for b in model.buffers()):
+        raise AssertionError("resnet50: running statistics not stored f32")
+    step_ms, step_launches, by_name = kernel_profile(
+        lambda: opt.minimize(model, xent_mean, *args))
+    opt_ms, _, _ = kernel_profile(opt.apply_gradients)
+    conv_ms = sum(ms for name, ms in by_name.items() if CONV_KERNEL.search(
+        name))
+    step_s = line["p50_step_ms"] / 1e3
+    line.update(
+        mfu_bf16_peak=RESNET50_STEP_OPS * batch / step_s
+        / PEAK_OPS[torch.bfloat16],
+        flops_per_step=RESNET50_STEP_OPS * batch,
+        params=sum(p.numel() for p in model.parameters()),
+        bn_buffers=len(initial),
+        launches=launches,
+        profile=dict(
+            device_ms=step_ms, conv_gemm_ms=conv_ms, optimizer_ms=opt_ms,
+            bn_elementwise_ms=step_ms - conv_ms - opt_ms,
+            idle_share=1.0 - step_ms / line["p50_step_ms"],
+            launches_per_step=step_launches,
+            top_kernels={k[:60]: v for k, v in by_name.most_common(8)}))
+    return line, launches
+
+
+def resnet_crosscheck_phase():
+    """One f32 step (TF32 off, cuDNN's too) of resnet50(1000) at 2 x 3 x
+    224 x 224 on the card and on the CPU plain path from the same
+    weights, the CPU taking the card's ReLU branches
+    (:class:`ReluReplay`, each differing pre-activation within
+    RESNET_RELU_FLIP_TOL of 0): the loss within TRAIN_LOSS_TOL, every
+    gradient within TRAIN_GRAD_TOL relative L2, every updated running
+    statistic within RESNET_STATS_TOL of its leaf's largest; no kernel of
+    the port launched. Then the same step in f64 on both sides (ReLU
+    branches replayed, no bar): its line gives the floor that the
+    statistics' f32 rounding sets under those bars. Returns the f32 card
+    run's launches."""
+    from paddle_tpu_torch.models import resnet50
+    launches = crosscheck_phase(
+        "resnet_crosscheck", "resnet50(1000)",
+        lambda dev: resnet50(1000, device=dev, seed=0), xent_mean,
+        image_batch(np.random.RandomState(6), 2, 224, 1000), 2, None, (),
+        around=ReluReplay(RESNET_RELU_FLIP_TOL), stats_tol=RESNET_STATS_TOL,
+        image=[3, 224, 224])
+    check_no_launches("resnet_crosscheck", launches)
+    replay = ReluReplay(tol=None)
+    images, labels = image_batch(np.random.RandomState(6), 2, 224, 1000)
+    loss_card, loss_cpu, errs, stat_errs, _ = train_crosscheck(
+        lambda dev: resnet50(1000, device=dev, seed=0).double(), xent_mean,
+        (images.double(), labels), replay)
+    grad_worst = max(errs, key=errs.get)
+    stat_worst = max(stat_errs, key=stat_errs.get)
+    emit(dict(phase="resnet_crosscheck_f64", what="the same step in f64 on "
+              "both (the statistics still f32, as the formula takes them): "
+              "the floor under the f32 bars", **replay.summary(),
+              loss_diff=abs(loss_card - loss_cpu),
+              grad_rel_err_max=errs[grad_worst], grad_rel_err_worst=grad_worst,
+              stats_rel_err_max=stat_errs[stat_worst],
+              stats_rel_err_worst=stat_worst))
+    return launches
+
+
+def vision_cls_phase(smi):
+    """Three amp.decorate(Momentum(0.1, 0.9), bf16_policy()) steps (one
+    warm-up, two timed) of se_resnext50(1000) at 32 x 224 x 224 and of
+    vgg16(10) (dropout 0.5 from its generator) at 128 x 32 x 32, each on
+    one fixed seeded batch: every loss finite, no kernel of the port
+    launched. Returns the line."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import se_resnext50, vgg16
+    from paddle_tpu_torch.optimizer import Momentum
+    out = {}
+    for what, make, batch, size, classes in (
+            ("se_resnext50", lambda: se_resnext50(1000, device="cuda"), 32,
+             224, 1000),
+            ("vgg16", lambda: vgg16(10, device="cuda"), 128, 32, 10)):
+        model = make()
+        opt = amp.decorate(Momentum(model.parameters(), 0.1, 0.9),
+                           amp.bf16_policy())
+        args = tuple(a.cuda() for a in image_batch(
+            np.random.RandomState(7), batch, size, classes))
+        out[what], _ = train_images(model, opt, args, 1, 2, smi, what,
+                                    f"{what}({classes})")
+        del model, opt
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -2443,10 +2683,11 @@ class ReluReplay:
     computes ``where(card mask, x, 0)`` instead, so both devices
     differentiate the same piecewise-linear function, and counts the
     entries where the CPU's own sign disagrees: each must lie within
-    RELU_FLIP_TOL of 0, or the replay raises."""
+    ``tol`` (RELU_FLIP_TOL unless given; None: no bar) of 0, or the replay
+    raises."""
 
-    def __init__(self):
-        self.masks, self.flips, self.worst = [], 0, 0.0
+    def __init__(self, tol=RELU_FLIP_TOL):
+        self.masks, self.flips, self.worst, self.tol = [], 0, 0.0, tol
 
     @contextlib.contextmanager
     def __call__(self, dev):
@@ -2471,14 +2712,14 @@ class ReluReplay:
             yield
         finally:
             activations.relu = real
-        if dev != "cuda" and self.worst > RELU_FLIP_TOL:
+        if dev != "cuda" and self.tol is not None and self.worst > self.tol:
             raise AssertionError(f"relu replay: a pre-activation {self.worst}"
                                  f" from 0 has another sign on the card "
-                                 f"(tol {RELU_FLIP_TOL})")
+                                 f"(tol {self.tol})")
 
     def summary(self):
         return dict(relu_calls=len(self.masks), relu_flips=self.flips,
-                    relu_flip_worst=self.worst, relu_flip_tol=RELU_FLIP_TOL)
+                    relu_flip_worst=self.worst, relu_flip_tol=self.tol)
 
 
 def transformer_crosscheck_phase():
@@ -2733,15 +2974,21 @@ def held_beams(cpu, src, lengths, card, host, bos, eos):
 
 
 def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
-                     kernels, around=None, **extra):
+                     kernels, around=None, stats_tol=None, **extra):
     """One f32 step on the card against the CPU plain path (see
     ``train_crosscheck``); emits the phase line, then raises if the loss
-    or a gradient is outside its tolerance, or if one of ``kernels`` did
-    not launch on the card. Returns the card run's launches."""
-    loss_card, loss_cpu, errs, launches = train_crosscheck(
+    or a gradient is outside its tolerance (or, for a model with buffers,
+    a running statistic outside ``stats_tol``), or if one of ``kernels``
+    did not launch on the card. Returns the card run's launches."""
+    loss_card, loss_cpu, errs, stat_errs, launches = train_crosscheck(
         make_model, loss_fn, args, around)
     if around is not None:
         extra.update(around.summary())
+    if stat_errs:
+        stat_worst = max(stat_errs, key=stat_errs.get)
+        extra.update(stats_rel_err_max=stat_errs[stat_worst],
+                     stats_rel_err_worst=stat_worst, stats_tol=stats_tol,
+                     stats=len(stat_errs))
     worst = max(errs, key=errs.get)
     emit(dict(phase=phase, config=config, batch=batch, seq=seq,
               dtype="float32", allow_tf32=False, **extra,
@@ -2751,6 +2998,9 @@ def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
               launches={k: launches[k] for k in kernels}))
     check(f"{phase} loss", abs(loss_card - loss_cpu), TRAIN_LOSS_TOL)
     check(f"{phase} gradient of {worst}", errs[worst], TRAIN_GRAD_TOL)
+    if stat_errs:
+        check(f"{phase} running statistic {stat_worst}",
+              stat_errs[stat_worst], stats_tol)
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{phase}: kernels not launched {missing}")
@@ -2792,7 +3042,7 @@ def kernel_table(by_kernel, paths):
     "<name>.tc"; K5 and K6 one row, their bf16 tensor-core kernels; the
     others one SIMT row. ``paths`` holds each path's launch counts
     (serve, serve_spec, train, train_crosscheck, bert, bert_large,
-    trainer)."""
+    trainer, transformer, resnet: the last is 0 for every kernel)."""
     from paddle_tpu_torch.ops.cuda import core
     table = []
     for name, kernel in core.KERNELS.items():
@@ -2826,6 +3076,7 @@ def kernel_table(by_kernel, paths):
                 launches_bert_large=paths["bert_large"][name],
                 launches_trainer=paths["trainer"][name],
                 launches_transformer=paths["transformer"][name],
+                launches_resnet=paths["resnet"][name],
                 max_abs_err=case["max_abs_err"],
                 ms=case["kernel_ms"], plain_ms=case["plain_ms"],
                 bound_ms=case["bound_ms"],
@@ -2849,7 +3100,7 @@ def mixed_row(kernel, cases, paths):
                launches_path="transformer",
                **{f"launches_{p}": paths[p][kernel.name] for p in (
                    "serve_spec", "train", "bert", "bert_large", "trainer",
-                   "transformer")})
+                   "transformer", "resnet")})
     row.update({k: case[k] for k in (
         "max_abs_err", "bound_ms", "bound_by", "library_ms", "shape",
         "dtype", "params_dtype")}, ms=case["kernel_ms"],
@@ -3003,12 +3254,21 @@ def main():
     torch.cuda.empty_cache()
     emit(dict(phase="seq2seq", **seq2seq_phase(smi)))
 
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    resnet_line, resnet_launches = resnet50_phase(smi)
+    emit(dict(phase="resnet50", **resnet_line))
+    torch.cuda.empty_cache()
+    resnet_crosscheck_phase()
+    torch.cuda.empty_cache()
+    emit(dict(phase="vision_cls", **vision_cls_phase(smi)))
+
     table = kernel_table(by_kernel, {
         "serve": launches, "serve_spec": spec_launches,
         "train": train_launches,
         "train_crosscheck": crosscheck_launches, "bert": bert_launches,
         "bert_large": large_launches, "trainer": trainer_launches,
-        "transformer": transformer_launches})
+        "transformer": transformer_launches, "resnet": resnet_launches})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,11 +9,16 @@ kernel on the ported path is a hand-written Hopper kernel under
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
 The models: GPT (serving and training), BERT and ERNIE (pretraining), the
-NMT Transformer and the attention seq2seq (translation).
+NMT Transformer and the attention seq2seq (translation), ResNet, VGG and
+SE-ResNeXt (image classification) and the MNIST book models.
 """
 
-from paddle_tpu_torch.models import (GPT, AttentionSeq2Seq,  # noqa: F401
-                                     BertConfig, BertForPretraining,
+from paddle_tpu_torch.models import (GPT, MLP, VGG,  # noqa: F401
+                                     AttentionSeq2Seq, BertConfig,
+                                     BertForPretraining, ConvNet,
                                      ErnieConfig, ErnieForPretraining,
-                                     GPTConfig, GPTDecoder, Seq2SeqConfig,
-                                     Transformer, TransformerConfig)
+                                     GPTConfig, GPTDecoder, LinearRegression,
+                                     ResNet, SEResNeXt, Seq2SeqConfig,
+                                     SoftmaxRegression, Transformer,
+                                     TransformerConfig, resnet18, resnet50,
+                                     se_resnext50, vgg16)

@@ -6,8 +6,8 @@ comes back in f32, and the gradients reach the masters in f32. This is
 the reference's whole-model cast, not ``torch.autocast`` (which picks a
 dtype per op): ``minimize`` evaluates the loss through
 ``torch.func.functional_call`` with the cast copies in place of the
-parameters, so autograd carries the gradient through the casts to the
-masters.
+parameters and floating buffers, so autograd carries the gradient through
+the casts to the masters.
 
 bf16 needs no loss scaling. The fp16 dynamic ``LossScaler`` is not ported
 and raises.
@@ -99,16 +99,25 @@ class MixedPrecisionOptimizer(Minimizer):
 
     def _minimize(self, model, loss_fn, args, kwargs, gate=None):
         """``loss_fn(model, *args, **kwargs)`` with every floating
-        parameter cast to the compute dtype (floating inputs too), the
-        loss cast to f32, its backward into the masters, and one update
-        of the inner optimizer. Gradients stay on the masters after the
-        step."""
+        parameter and buffer cast to the compute dtype (floating inputs
+        too), the loss cast to f32, its backward into the masters, and one
+        update of the inner optimizer. Gradients stay on the masters after
+        the step. A buffer the loss updates in place (batch norm's running
+        statistics) is updated in the compute dtype and stored back at
+        its own: the reference passes the state as an argument, which
+        ``amp.py:179`` casts and ``amp.py:182`` casts back."""
         self.inner.zero_grad(set_to_none=True)
         params = {"model." + name: self.policy.cast_to_compute(p)
                   for name, p in model.named_parameters()}
+        buffers = {"model." + name: (b, self.policy.cast_to_compute(b))
+                   for name, b in model.named_buffers()}
         loss = torch.func.functional_call(
-            _Bound(model, loss_fn), params,
+            _Bound(model, loss_fn),
+            {**params, **{k: c for k, (_, c) in buffers.items()}},
             tuple(self.policy.cast_to_compute(list(args))), kwargs)
+        with torch.no_grad():
+            for buf, cast in buffers.values():
+                buf.copy_(cast)
         loss = loss.to(torch.float32)
         loss.backward()
         loss = loss.detach()

@@ -1,5 +1,6 @@
 """The one weight bridge between the JAX package's params and the port:
-parameters, and the optimizer's state beside them.
+parameters, the model's state (batch norm's running statistics, the
+port's buffers), and the optimizer's state beside them.
 
 The JAX package's params are a nested dict (lists for repeated blocks)
 whose leaves the caller has turned into **numpy** arrays, with paths such
@@ -81,20 +82,26 @@ def load_params(model, params):
         raise NotImplementedError(
             f"weight-only int8 params are not ported: {quant[:3]}")
     own = dict(model.named_parameters())
-    flat = _unstack(flat, own)
+    _copy_into(own, _unstack(flat, own), "param")
+    return model
+
+
+def _copy_into(own, flat, what):
+    """Copy each ``flat`` array into the tensor of ``own`` of its name (in
+    that tensor's dtype, on its device); the names must be the same sets
+    and each shape the tensor's."""
     missing = sorted(set(own) - set(flat))
     extra = sorted(set(flat) - set(own))
     if missing or extra:
-        raise KeyError(f"param trees differ: missing {missing[:5]}, "
+        raise KeyError(f"{what} trees differ: missing {missing[:5]}, "
                        f"extra {extra[:5]}")
     with torch.no_grad():
-        for name, p in own.items():
+        for name, t in own.items():
             arr = np.asarray(flat[name])
-            if tuple(arr.shape) != tuple(p.shape):
+            if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: shape {arr.shape} vs "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr)))
-    return model
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(arr)))
 
 
 def _nest(flat_items):
@@ -116,6 +123,23 @@ def export_params(model):
     package's own tree holds them)."""
     return _nest((name, p.detach().cpu().numpy())
                  for name, p in model.named_parameters())
+
+
+def load_state(model, state):
+    """Copy the JAX package's ``"state"`` collection (``variables["state"]``:
+    batch norm's ``mean`` and ``variance``, numpy leaves) into ``model``'s
+    buffers of the same names, as :func:`load_params` copies the params:
+    in the buffers' dtype and on their device, no transposes. Every buffer
+    must be present and no extra leaf may be left over."""
+    _copy_into(dict(model.named_buffers()), flatten(state), "state")
+    return model
+
+
+def export_state(model):
+    """The port's buffers as the JAX package's nested ``"state"`` tree of
+    numpy arrays."""
+    return _nest((name, b.detach().cpu().numpy())
+                 for name, b in model.named_buffers())
 
 
 def _to_torch(arr):

@@ -1,0 +1,59 @@
+"""Parameter initializers (ref: ``paddle_tpu/initializer.py``), the ones
+the port's layers use.
+
+Each initializer is ``fn(shape, gen, dtype) -> tensor``: it draws on the
+CPU from the explicit ``torch.Generator`` ``gen`` (the reference's
+explicit PRNG key), never from torch's global generator. The draws are
+torch's, so they differ from the reference's; weights that must agree with
+it come through ``paddle_tpu_torch/bridge.py``.
+"""
+
+import math
+
+import torch
+from torch import nn
+
+
+def _fans(shape):
+    """(fan_in, fan_out) as the reference computes them (ref:
+    ``initializer.py:18``): a conv kernel is read as OIHW."""
+    if len(shape) == 0:
+        return 1, 1
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
+
+
+def uniform(low=-1.0, high=1.0):
+    """U(low, high) (ref: ``initializer.py:46``)."""
+    def init(shape, gen=None, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype).uniform_(low, high,
+                                                        generator=gen)
+    return init
+
+
+def xavier():
+    """Glorot uniform, ``limit = sqrt(6 / (fan_in + fan_out))`` (ref:
+    ``initializer.py:65``)."""
+    def init(shape, gen=None, dtype=torch.float32):
+        w = torch.empty(shape, dtype=dtype)
+        nn.init.xavier_uniform_(w, generator=gen)
+        return w
+    return init
+
+
+def msra(uniform_=False, fan_in=None):
+    """Kaiming/He (ref: ``initializer.py:80``): N(0, 2 / fan_in), or
+    U(-sqrt(6 / fan_in), sqrt(6 / fan_in)) with ``uniform_``; the fan of a
+    conv kernel on its OIHW view."""
+    def init(shape, gen=None, dtype=torch.float32):
+        fi = fan_in if fan_in is not None else _fans(shape)[0]
+        w = torch.empty(shape, dtype=dtype)
+        if uniform_:
+            limit = math.sqrt(6.0 / fi)
+            return w.uniform_(-limit, limit, generator=gen)
+        return w.normal_(0.0, math.sqrt(2.0 / fi), generator=gen)
+    return init

@@ -7,7 +7,15 @@ from paddle_tpu_torch.models.ernie import (ErnieConfig,  # noqa: F401
                                            knowledge_mask)
 from paddle_tpu_torch.models.gpt import (GPT, GPTBlock,  # noqa: F401
                                          GPTConfig, GPTDecoder)
+from paddle_tpu_torch.models.mnist import (MLP, ConvNet,  # noqa: F401
+                                           LinearRegression,
+                                           SoftmaxRegression)
+from paddle_tpu_torch.models.resnet import (ResNet, resnet18,  # noqa: F401
+                                            resnet50)
 from paddle_tpu_torch.models.seq2seq import (AttentionSeq2Seq,  # noqa: F401
                                              Seq2SeqConfig)
 from paddle_tpu_torch.models.transformer import (  # noqa: F401
     Transformer, TransformerConfig)
+from paddle_tpu_torch.models.vision_cls import (VGG,  # noqa: F401
+                                                SEResNeXt, se_resnext50,
+                                                vgg16)

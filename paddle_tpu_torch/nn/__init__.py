@@ -1,6 +1,7 @@
-from paddle_tpu_torch.nn.layers import (GRU, LSTM, Dropout,  # noqa: F401
+from paddle_tpu_torch.nn.layers import (GRU, LSTM,  # noqa: F401
+                                        BatchNorm, Conv2D, Dropout,
                                         Embedding, LayerNorm, Linear,
-                                        MultiHeadAttention, fused_ffn,
+                                        MultiHeadAttention, Pool2D, fused_ffn,
                                         tied_vocab_head)
 from paddle_tpu_torch.nn.rnn import (RNN, BeamSearchDecoder,  # noqa: F401
                                      Decoder, GRUCell, LSTMCell, RNNCell,

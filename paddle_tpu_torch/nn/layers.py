@@ -1,9 +1,11 @@
 """Layers of the slice (ref: ``paddle_tpu/nn/layers.py``).
 
 Weights keep the reference's layout: a projection stores ``[in, out]``
-and computes ``x @ W``, so the weight bridge (``paddle_tpu_torch/bridge.py``)
+and computes ``x @ W``, a convolution stores OIHW (NCHW) or HWIO (NHWC),
+so the weight bridge (``paddle_tpu_torch/bridge.py``)
 copies arrays without transposing them. Parameter names match the
-reference's param-tree keys (``weight``, ``bias``, ``scale``, ``wq`` ...).
+reference's param-tree keys (``weight``, ``bias``, ``scale``, ``wq`` ...),
+and batch norm's buffers its ``state`` keys (``mean``, ``variance``).
 
 Weights are created on the CPU from a ``torch.Generator`` and moved by the
 owning model; the weight-only int8 variants of the reference (``weight_q``)
@@ -13,6 +15,7 @@ are not ported and the bridge refuses them.
 import torch
 from torch import nn
 
+from paddle_tpu_torch import initializer as I
 from paddle_tpu_torch.ops import activations as A
 from paddle_tpu_torch.ops import attention as att
 from paddle_tpu_torch.ops import nn as F
@@ -22,9 +25,7 @@ from paddle_tpu_torch.ops.cuda.mlp import fused_mlp
 
 
 def _xavier(shape, gen, dtype):
-    w = torch.empty(shape, dtype=dtype)
-    nn.init.xavier_uniform_(w, generator=gen)
-    return nn.Parameter(w)
+    return nn.Parameter(I.xavier()(shape, gen, dtype))
 
 
 def _act(name, x):
@@ -33,14 +34,16 @@ def _act(name, x):
 
 class Linear(nn.Module):
     """ref: ``nn/layers.py:37`` — ``act(x @ weight + bias)``, weight
-    ``[in, out]``; ``bias=False`` has no bias parameter, ``act`` names an
-    activation of ``ops/activations.py`` (``"gelu"``, ``"tanh"``)."""
+    ``[in, out]`` drawn by ``weight_init`` (xavier by default);
+    ``bias=False`` has no bias parameter, ``act`` names an activation of
+    ``ops/activations.py`` (``"gelu"``, ``"relu"``, ``"sigmoid"``)."""
 
     def __init__(self, in_features, out_features, bias=True, act=None,
-                 gen=None, dtype=torch.float32):
+                 gen=None, dtype=torch.float32, weight_init=None):
         super().__init__()
         self.act = act
-        self.weight = _xavier((in_features, out_features), gen, dtype)
+        self.weight = nn.Parameter((weight_init or I.xavier())(
+            (in_features, out_features), gen, dtype))
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype))
                      if bias else None)
 
@@ -87,6 +90,83 @@ class LayerNorm(nn.Module):
                                         epsilon=self.epsilon)
         return F.layer_norm(x, self.scale, self.bias, begin_norm_axis=begin,
                             epsilon=self.epsilon)
+
+
+class Conv2D(nn.Module):
+    """ref: ``nn/layers.py:79`` — ``act(conv2d(x, weight) + bias)``. The
+    weight is stored as the reference stores it: OIHW for NCHW, HWIO for
+    NHWC (drawn on the OIHW view and transposed, so the initializer's fan
+    is the OIHW one either way); ``bias`` is zeros."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, bias=True, act=None,
+                 weight_init=None, gen=None, dtype=torch.float32,
+                 data_format="NCHW"):
+        super().__init__()
+        k = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+             else tuple(kernel_size))
+        self.stride, self.padding, self.dilation, self.groups = \
+            stride, padding, dilation, groups
+        self.act = act
+        self.data_format = data_format
+        w = (weight_init or I.msra())(
+            (out_channels, in_channels // groups) + k, gen, dtype)
+        if data_format == "NHWC":
+            w = w.permute(2, 3, 1, 0).contiguous()
+        self.weight = nn.Parameter(w)
+        self.bias = (nn.Parameter(torch.zeros(out_channels, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x):
+        out = F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                       self.dilation, self.groups,
+                       data_format=self.data_format)
+        return _act(self.act, out)
+
+
+class BatchNorm(nn.Module):
+    """ref: ``nn/layers.py:147`` — parameters ``scale`` (ones) and
+    ``bias`` (zeros); the running statistics ``mean`` (zeros) and
+    ``variance`` (ones) are f32 buffers, the reference's ``state``
+    collection. In training mode (``model.train()``, the reference's
+    ``apply(training=True)``) each call normalizes with the batch's
+    statistics and writes the updated running ones into the buffers in
+    place; in eval mode it normalizes with the buffers."""
+
+    def __init__(self, num_channels, momentum=0.9, epsilon=1e-5, act=None,
+                 data_format="NCHW", dtype=torch.float32):
+        super().__init__()
+        self.momentum, self.epsilon, self.act = momentum, epsilon, act
+        self.data_format = data_format
+        self.scale = nn.Parameter(torch.ones(num_channels, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(num_channels, dtype=dtype))
+        self.register_buffer("mean", torch.zeros(num_channels))
+        self.register_buffer("variance", torch.ones(num_channels))
+
+    def forward(self, x):
+        out, new_mean, new_var = F.batch_norm(
+            x, self.scale, self.bias, self.mean, self.variance, self.epsilon,
+            self.momentum, training=self.training,
+            data_format=self.data_format)
+        if self.training:
+            with torch.no_grad():
+                self.mean.copy_(new_mean)
+                self.variance.copy_(new_var)
+        return _act(self.act, out)
+
+
+class Pool2D(nn.Module):
+    """ref: ``nn/layers.py:319`` — :func:`ops.nn.pool2d` over NCHW."""
+
+    def __init__(self, pool_size=2, pool_type="max", pool_stride=None,
+                 pool_padding=0, global_pooling=False):
+        super().__init__()
+        self.args = (pool_size, pool_type, pool_stride, pool_padding,
+                     global_pooling)
+
+    def forward(self, x):
+        ps, pt, st, pd, gp = self.args
+        return F.pool2d(x, ps, pt, st, pd, global_pooling=gp)
 
 
 class Embedding(nn.Module):

@@ -6,7 +6,8 @@ Submodules (the reference's ``paddle_tpu/ops`` names):
   attention     attention, cross-attention and the paged KV cache
   fused         the fused vocab cross-entropy (vh: K5/K6; hv: chunked)
   loss          softmax cross entropy (hard and soft labels)
-  nn            layer norm, embedding lookup, promoting matmul
+  nn            layer norm, embedding lookup, promoting matmul; conv2d,
+                pool2d, adaptive_pool2d, batch_norm
   rnn           LSTM/GRU cells and scans, beam search
 """
 

@@ -1,11 +1,14 @@
-"""Activation ops (the slice's subset of ``paddle_tpu/ops/activations.py``)."""
+"""Activation ops (the port's subset of ``paddle_tpu/ops/activations.py``)."""
 
 import torch
 
 
 def relu(x):
-    """ref: ``ops/activations.py:17`` (the Transformer's FFN)."""
-    return torch.relu(x)
+    """``maximum(x, 0)``, as the reference writes it (ref:
+    ``ops/activations.py:17``). Its gradient at exactly 0 is 0.5, the
+    reference's (a max splits its gradient at a tie); ``torch.relu``'s is
+    0, which bf16 batch-norm outputs, exactly 0 often, would show."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def sigmoid(x):

@@ -31,6 +31,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -970,3 +971,47 @@ def test_seq2seq_decodes_on_card_as_on_cpu(cuda):
     assert torch.equal(out["cuda"][1], out["cpu"][1])
     assert float((out["cuda"][2] - out["cpu"][2]).abs().max()) <= 1e-4
     assert sum(out["cuda"][3].values()) == 0
+
+
+@pytest.mark.parametrize("dtype,loss_tol,grad_tol,stats_tol", [
+    (torch.float32, 1e-4, 1e-2, 1e-5),
+    (torch.float64, 1e-6, 1e-5, 1e-6)])
+def test_resnet_card_step_gives_the_cpu_gradients_and_statistics(
+        cuda, dtype, loss_tol, grad_tol, stats_tol):
+    """One Momentum step of ResNet-18 (CIFAR stem, NHWC compute as
+    channels_last, cuDNN convolutions) at 4 x 3 x 32 x 32 on the card and
+    on the CPU from the same weights: the loss, every gradient (relative
+    L2) and every updated running statistic (relative to its leaf's
+    largest) within the bars; no kernel of the port launches (the
+    reference's convolutions, pools and batch norms are XLA's). f64 holds
+    the card's path to the CPU's at 1e-5; in f32 (TF32 off) cuDNN's
+    convolution algorithms round otherwise than the CPU's, and the batch
+    norms' bias gradients (sums over 4096 positions that cancel) carry
+    it, so f32 is held at 1e-2."""
+    from paddle_tpu_torch.models import resnet18
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+    rs = np.random.RandomState(5)
+    images = torch.from_numpy(rs.rand(4, 3, 32, 32).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, 10, (4, 1)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = resnet18(10, small_input=True, device=dev, seed=0).to(dtype)
+        opt = Momentum(model.parameters(), 0.1, 0.9)
+        core.reset_launches()
+        loss = opt.minimize(model, lambda m, x, y: softmax_with_cross_entropy(
+            m(x), y).mean(), images.to(dev, dtype), labels.to(dev))
+        out[dev] = (float(loss), {k: p.grad.cpu() for k, p in
+                                  model.named_parameters()},
+                    {k: b.cpu() for k, b in model.named_buffers()},
+                    core.launch_counts())
+    (lc, gc, bc, counts), (lp, gp, bp, _) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= loss_tol
+    assert sum(counts.values()) == 0, counts
+    for name, g in gc.items():
+        assert float((g - gp[name]).norm()) <= grad_tol * float(
+            gp[name].norm()), name
+    for name, b in bc.items():
+        assert float((b - bp[name]).abs().max()) <= stats_tol * float(
+            bp[name].abs().max()), name

@@ -390,3 +390,65 @@ def test_translation_models_default_to_the_card_and_raise_without_one():
                        device="cpu").device == torch.device("cpu")
     assert AttentionSeq2Seq(Seq2SeqConfig.tiny(),
                             device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("module", [
+    "models/resnet.py", "models/vision_cls.py", "models/mnist.py",
+    "initializer.py", "nn/layers.py", "amp.py", "bridge.py"])
+def test_ast_scan_covers_the_vision_modules(module):
+    path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+_VISION_BLOCKED = _SERVE_BLOCKED.split("from paddle_tpu_torch.models")[0] \
+    + r"""
+from paddle_tpu_torch import amp, bridge
+from paddle_tpu_torch.models import ConvNet, VGG, resnet18
+from paddle_tpu_torch.ops.cuda import core
+from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
+from paddle_tpu_torch.optimizer import Momentum
+rs = np.random.RandomState(0)
+images = torch.from_numpy(rs.rand(4, 3, 32, 32).astype(np.float32))
+labels = torch.from_numpy(rs.randint(0, 10, (4, 1)))
+model = resnet18(10, small_input=True, device="cpu")
+before = dict((k, b.clone()) for k, b in model.named_buffers())
+opt = amp.decorate(Momentum(model.parameters(), 0.01, 0.9), amp.bf16_policy())
+xent = lambda m, x, y: softmax_with_cross_entropy(m(x), y).mean()
+losses = [float(opt.minimize(model, xent, images, labels)) for _ in range(3)]
+assert losses[-1] < losses[0], losses
+assert all(not torch.equal(b, before[k]) for k, b in model.named_buffers())
+assert len(bridge.flatten(bridge.export_state(model))) == 40
+vgg = VGG(11, 10, device="cpu")
+Momentum(vgg.parameters(), 0.01).minimize(vgg, xent, images, labels)
+ConvNet(device="cpu").eval()(torch.zeros(2, 1, 28, 28))
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("CLASSIFIED", len(losses))
+"""
+
+
+def test_port_trains_resnet_with_reference_and_triton_blocked():
+    """Three bf16-policy Momentum steps of ResNet-18 (running statistics
+    moved), a VGG step and a ConvNet forward, in a process that cannot
+    import jax."""
+    code = _VISION_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "CLASSIFIED 3" in proc.stdout
+
+
+def test_vision_models_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.models import (MLP, VGG, ConvNet, SEResNeXt,
+                                         resnet50)
+    for make in (resnet50, VGG, lambda: SEResNeXt((1, 1, 1, 1)), ConvNet,
+                 MLP):
+        with pytest.raises(EnforceError):
+            make()
+    assert resnet50(device="cpu").device == torch.device("cpu")
