@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's serving, GPT training, BERT pretraining,
-Trainer, translation and image-classification paths on one NVIDIA H100.
+Trainer, translation, image-classification and CTR paths on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -168,6 +169,31 @@ Phases, each printing one JSON line:
 20. vision_cls — three bf16 Momentum steps of se_resnext50(1000) at 32
    x 224 x 224 and of vgg16(10) at 128 x 32 x 32: finite losses, no
    kernel of the port, the step times.
+21. ctr — bench.py's CTR row on the card: DeepFM(sparse_tables=True) at
+   CTRConfig(26, 13, 100000, 16, (400, 400, 400)) (493,215 head
+   parameters from a seed) under Adam(1e-3), the [2.6 M, 16] embedding
+   and [2.6 M, 1] first-order SparseTables on the card, each under its
+   own Adagrad(0.05) row update, all f32, through
+   make_sparse_deepfm_train_step on one fixed seeded batch of 512; 5
+   warm-up and 50 timed steps with the launch counts zeroed just before:
+   every loss finite, the last below the first, every touched row of
+   both tables and both moments moved, every other row bit-identical,
+   no kernel of the port launched (the reference's gathers, scatters,
+   MLP and FM terms are XLA's). Records examples/s, the p50 step, peak
+   memory, unique rows a step and one profiled step (device ms in
+   gathers, scatters and the unique, in GEMMs, in the head's Adam and
+   the rest; idle share; launches).
+22. ctr_crosscheck — one f32 step (TF32 off) of that model and those
+   tables at 512 on the card and on the CPU from the same draws: the
+   loss within 1e-6 relative, every head parameter, touched table row
+   and (relative to its largest) Adagrad moment within 1e-5, untouched
+   rows equal.
+23. ctr_host — the same model with both tables as HostTables in host
+   RAM, trained through Trainer(sparse_tables=...) over a synthetic_ctr
+   stream in batches of 512 for 20 steps: finite losses, touched rows
+   moved, the rest bit-identical, no kernel of the port; records
+   examples/s, the host ms of each table's pull and push a step, the
+   bytes over PCIe a step and the tables' nbytes().
 
 K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
 and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
@@ -189,8 +215,8 @@ train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
 "flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8, and
 transformer_big for the "add_layer_norm.mixed" row (K8 at f32 rows with
 bf16 parameters); "variant" names the route; every row also has each
-path's count, launches_transformer among them, and launches_resnet,
-which is 0), the nvidia-smi line, and
+path's count, launches_transformer among them, and launches_resnet and
+launches_ctr, which are 0), the nvidia-smi line, and
 the contract line
 {"ok": true, "device": {...}}.
 Any failed phase raises, and the script exits non-zero without the
@@ -1883,7 +1909,8 @@ def image_batch(rs, batch, size, classes):
 
 def check_no_launches(what, launches):
     """No kernel of the port ran: the path's convolutions, pools and batch
-    norms are the reference's XLA ops, none of them a Pallas kernel."""
+    norms (or the CTR path's gathers, scatters, unique and GEMMs) are the
+    reference's XLA ops, none of them a Pallas kernel."""
     ran = {k: n for k, n in launches.items() if n}
     if ran:
         raise AssertionError(f"{what}: kernels of the port launched {ran}")
@@ -2054,6 +2081,323 @@ def vision_cls_phase(smi):
         del model, opt
         torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------- ctr
+
+CTR_BATCH = 512          # bench.py's bench_ctr default
+CTR_WARMUP = 5
+CTR_STEPS = 50
+CTR_HOST_STEPS = 20
+CTR_LOSS_TOL = 1e-6      # one f32 step, card vs CPU, relative
+CTR_PARAM_TOL = 1e-5     # every head parameter, touched table row and
+                         # (relative to its table's largest) Adagrad moment
+                         # after that step, card vs CPU
+#: a kernel name that is a GEMM's (cuBLAS's or CUTLASS's); checked first
+GEMM_KERNEL = re.compile(r"gemm|cutlass|xmma|cublas|splitk|gemv", re.I)
+#: a kernel name that is a gather, scatter or the unique's sort and scan
+#: (torch's index kernels, cub's radix sort and scans)
+GATHER_KERNEL = re.compile(r"index|gather|scatter|unique|sort|radix|"
+                           r"onesweep|histogram|scan|select|adjacent|"
+                           r"compact|cub::|thrust", re.I)
+
+
+def ctr_config():
+    """``bench.py:1309 bench_ctr``'s model: 26 sparse fields of 100,000
+    ids each (one shared table of 2.6 M rows), 13 dense, embed 16, DNN
+    400-400-400."""
+    from paddle_tpu_torch.models.ctr import CTRConfig
+    return CTRConfig(num_sparse_fields=26, num_dense_fields=13,
+                     vocab_size=100_000, embed_dim=16,
+                     hidden=(400, 400, 400))
+
+
+def ctr_name(cfg):
+    return (f"CTRConfig({cfg.num_sparse_fields}, {cfg.num_dense_fields}, "
+            f"{cfg.vocab_size}, {cfg.embed_dim}, {tuple(cfg.hidden)})")
+
+
+def ctr_batch(cfg, batch, rs):
+    """bench_ctr's batch, drawn in its order: dense f32 uniform in [0,
+    1), per-field int32 ids, 0/1 f32 labels ``[batch, 1]``."""
+    dense = rs.rand(batch, cfg.num_dense_fields).astype(np.float32)
+    sparse = rs.randint(0, cfg.vocab_size, (batch, cfg.num_sparse_fields),
+                        dtype=np.int32)
+    labels = rs.randint(0, 2, (batch, 1), dtype=np.int32).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (dense, sparse, labels))
+
+
+def ctr_setup(cfg, device):
+    """bench_ctr's state on ``device``: DeepFM(cfg, sparse_tables=True)
+    from seed 0 under Adam(1e-3), and the [2.6 M, 16] and [2.6 M, 1]
+    SparseTables from seeds 1 and 2, each under its own Adagrad(0.05).
+    Returns (model, opt, tables, states, step)."""
+    from paddle_tpu_torch.models.ctr import (DeepFM,
+                                             make_sparse_deepfm_train_step)
+    from paddle_tpu_torch.optimizer import Adagrad, Adam
+    from paddle_tpu_torch.parallel import SparseTable
+    model = DeepFM(cfg, sparse_tables=True, device=device, seed=0)
+    opt = Adam(model.parameters(), 1e-3)
+    tbls = [SparseTable(cfg.total_vocab, dim,
+                        lambda ps: Adagrad(ps, 0.05))
+            for dim in (cfg.embed_dim, 1)]
+    states = [tb.init(seed=1 + i, device=device)
+              for i, tb in enumerate(tbls)]
+    step = make_sparse_deepfm_train_step(model, opt, *tbls, *states)
+    return model, opt, tbls, states, step
+
+
+def table_leaves(state):
+    """A SparseTable state's table and slots, by name."""
+    return {"table": state["table"], **state["slots"]}
+
+
+def check_rows(what, leaves, initial, touched):
+    """Every touched row of every leaf (table and moments) moved; every
+    other row bit-identical to its initial value."""
+    for name, now in leaves.items():
+        moved = (now != initial[name]).reshape(now.shape[0], -1).any(dim=1)
+        if not bool(moved[touched].all()):
+            raise AssertionError(f"{what} {name}: "
+                                 f"{int((~moved[touched]).sum())} touched "
+                                 "rows did not move")
+        if bool(moved[~touched].any()):
+            raise AssertionError(f"{what} {name}: {int(moved[~touched].sum())}"
+                                 " untouched rows changed")
+
+
+def ctr_phase(smi):
+    """``bench.py:1309 bench_ctr`` at its defaults on the card: the
+    sparse-row DeepFM step (unique ids, pull, loss through the pulled
+    rows, Adam on the 493,215 head parameters, Adagrad row updates pushed
+    into both SparseTables) on one fixed seeded batch of 512, all f32.
+    CTR_WARMUP steps, then CTR_STEPS timed steps with the launch counts
+    zeroed just before, each ending with a host read of the loss: every
+    loss finite, the last below the first, every touched row of both
+    tables and both moments moved and every other row bit-identical, no
+    kernel of the port launched. Then one profiled step: device ms in the
+    MLP's GEMMs (GEMM_KERNEL), in gathers, scatters and the unique's sort
+    (GATHER_KERNEL, of the others), in the head's Adam update (profiled
+    alone) and the rest (the FM terms, the row updates and other
+    elementwise work),
+    the idle share against the p50 step, launches per step. Returns
+    (line, launches)."""
+    from paddle_tpu_torch.models.ctr import _offset_ids
+    from paddle_tpu_torch.ops.cuda import core
+    cfg = ctr_config()
+    model, opt, tbls, states, step = ctr_setup(cfg, "cuda")
+    initial = [{k: v.clone() for k, v in table_leaves(s).items()}
+               for s in states]
+    args = tuple(a.cuda() for a in ctr_batch(cfg, CTR_BATCH,
+                                             np.random.RandomState(0)))
+    ids = _offset_ids(cfg, args[1])
+    touched = torch.zeros(cfg.total_vocab, dtype=torch.bool,
+                          device=ids.device)
+    touched[ids.reshape(-1)] = True
+    losses, times = [], []
+    for i in range(CTR_WARMUP + CTR_STEPS):
+        if i == CTR_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            core.reset_launches()
+        t0 = time.perf_counter()
+        losses.append(float(step(*args)))
+        if i >= CTR_WARMUP:
+            times.append(time.perf_counter() - t0)
+    launches = core.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"ctr: loss did not fall {losses}")
+    check_no_launches("ctr", launches)
+    for what, s, init in zip(("embed", "fm_linear"), states, initial):
+        check_rows(f"ctr {what}", table_leaves(s), init, touched)
+    step_ms, step_launches, by_name = kernel_profile(lambda: step(*args))
+    opt_ms, _, _ = kernel_profile(opt.apply_gradients)
+    gemm_ms = sum(ms for k, ms in by_name.items() if GEMM_KERNEL.search(k))
+    gather_ms = sum(ms for k, ms in by_name.items()
+                    if GATHER_KERNEL.search(k) and not GEMM_KERNEL.search(k))
+    p50 = float(np.median(times)) * 1e3
+    line = dict(
+        config=ctr_name(cfg), model="DeepFM(sparse_tables=True)",
+        batch=CTR_BATCH, dtype="float32", allow_tf32=False,
+        optimizer="Adam(1e-3)",
+        tables=f"2 x SparseTable({cfg.total_vocab}, {cfg.embed_dim} | 1), "
+        "Adagrad(0.05) each",
+        head_params=sum(p.numel() for p in model.parameters()),
+        table_bytes=sum(t.numel() * t.element_size() for s in states
+                        for t in table_leaves(s).values()),
+        unique_rows_per_step=int(touched.sum()),
+        ids_per_step=int(ids.numel()),
+        warmup=CTR_WARMUP, steps=CTR_STEPS, losses=losses,
+        examples_per_s=CTR_BATCH / float(np.mean(times)),
+        p50_step_ms=p50, mean_step_ms=float(np.mean(times)) * 1e3,
+        peak_memory_gb=peak, launches=launches,
+        profile=dict(
+            device_ms=step_ms, gather_scatter_unique_ms=gather_ms,
+            gemm_ms=gemm_ms, optimizer_ms=opt_ms,
+            other_elementwise_ms=step_ms - gather_ms - gemm_ms - opt_ms,
+            idle_share=1.0 - step_ms / p50,
+            launches_per_step=step_launches,
+            top_kernels={k[:60]: v for k, v in by_name.most_common(10)}),
+        card=smi)
+    return line, launches
+
+
+def ctr_crosscheck_phase():
+    """One f32 step (TF32 off) of ctr_phase's model and tables from the
+    same weights and table draws, on the card and on the CPU plain path,
+    on a seeded batch of CTR_BATCH: the loss within CTR_LOSS_TOL
+    relative; every head parameter and both tables' touched rows within
+    CTR_PARAM_TOL; both Adagrad moments within CTR_PARAM_TOL of their
+    largest value; untouched rows equal; no kernel of the port launched
+    on the card."""
+    from paddle_tpu_torch.models.ctr import _offset_ids
+    from paddle_tpu_torch.ops.cuda import core
+    cfg = ctr_config()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, _, _, states, step = ctr_setup(cfg, dev)
+        args = tuple(a.to(dev) for a in ctr_batch(
+            cfg, CTR_BATCH, np.random.RandomState(5)))
+        core.reset_launches()
+        loss = float(step(*args))
+        out[dev] = (loss, {k: p.detach().cpu()
+                           for k, p in model.named_parameters()},
+                    [{k: v.cpu() for k, v in table_leaves(s).items()}
+                     for s in states], core.launch_counts())
+        del model, states, step
+    (lc, pc, tc, launches), (lp, pp, tp, _) = out["cuda"], out["cpu"]
+    check_no_launches("ctr_crosscheck", launches)
+    sparse = ctr_batch(cfg, CTR_BATCH, np.random.RandomState(5))[1]
+    touched = torch.zeros(cfg.total_vocab, dtype=torch.bool)
+    touched[_offset_ids(cfg, sparse).reshape(-1)] = True
+    param_err = {k: float((pc[k] - pp[k]).abs().max()) for k in pp}
+    table_err, moment_err, untouched_equal = {}, {}, True
+    for what, c, p in zip(("embed", "fm_linear"), tc, tp):
+        table_err[what] = float((c["table"][touched]
+                                 - p["table"][touched]).abs().max())
+        moment_err[what] = float((c["moment"] - p["moment"]).abs().max()
+                                 / p["moment"].abs().max())
+        untouched_equal &= all(torch.equal(c[k][~touched], p[k][~touched])
+                               for k in c)
+    worst = max(param_err, key=param_err.get)
+    emit(dict(phase="ctr_crosscheck", config=ctr_name(cfg),
+              batch=CTR_BATCH, dtype="float32",
+              allow_tf32=False, loss_card=lc, loss_cpu=lp,
+              loss_rel_err=abs(lc - lp) / abs(lp), loss_tol=CTR_LOSS_TOL,
+              param_err_max=param_err[worst], param_err_worst=worst,
+              table_err=table_err, moment_rel_err=moment_err,
+              untouched_equal=untouched_equal, tol=CTR_PARAM_TOL))
+    check("ctr_crosscheck loss", abs(lc - lp) / abs(lp), CTR_LOSS_TOL)
+    check(f"ctr_crosscheck parameter {worst}", param_err[worst],
+          CTR_PARAM_TOL)
+    for what in table_err:
+        check(f"ctr_crosscheck {what} rows", table_err[what], CTR_PARAM_TOL)
+        check(f"ctr_crosscheck {what} moment", moment_err[what],
+              CTR_PARAM_TOL)
+    if not untouched_equal:
+        raise AssertionError("ctr_crosscheck: untouched rows differ")
+
+
+class HostTimer:
+    """Wraps a HostTable's pull and push: each call's host ms, rows and
+    the bytes it moves over PCIe (the pulled rows to the card, the row
+    gradient back)."""
+
+    def __init__(self, table):
+        self.pull_ms, self.push_ms, self.rows, self.bytes = [], [], [], []
+        pull, push = table.pull, table.push
+
+        def timed_pull(ids, device="cuda"):
+            t0 = time.perf_counter()
+            rows, uniq = pull(ids, device)
+            self.pull_ms.append((time.perf_counter() - t0) * 1e3)
+            self.rows.append(len(uniq))
+            self.bytes.append(nbytes(rows))
+            return rows, uniq
+
+        def timed_push(uniq, row_grad):
+            t0 = time.perf_counter()
+            push(uniq, row_grad)
+            self.push_ms.append((time.perf_counter() - t0) * 1e3)
+            self.bytes[-1] += nbytes(row_grad)
+
+        table.pull, table.push = timed_pull, timed_push
+
+
+def ctr_host_phase(smi):
+    """ctr_phase's model with both tables as HostTables (host RAM,
+    Adagrad(0.05) each, seeds 1 and 2), driven through
+    Trainer(sparse_tables=...) over a synthetic_ctr stream (100,000 ids a
+    field) in batches of CTR_BATCH for CTR_HOST_STEPS steps, two
+    ingestion threads: every loss finite, every row the stream touched
+    moved in both tables, every other row bit-identical, no kernel of
+    the port launched. Records examples/s, the host ms of each table's
+    pull and push per step, the bytes over PCIe per step (pulled rows,
+    the inverse maps and the row gradients) and the tables' nbytes()."""
+    from paddle_tpu_torch.data import InMemoryDataset, synthetic_ctr
+    from paddle_tpu_torch.models.ctr import DeepFM, ctr_loss
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adagrad, Adam
+    from paddle_tpu_torch.parallel import HostTable
+    from paddle_tpu_torch.static import Trainer, TrainerConfig
+    cfg = ctr_config()
+    F, K = cfg.num_sparse_fields, cfg.embed_dim
+    offsets = np.arange(F) * cfg.vocab_size
+    model = DeepFM(cfg, sparse_tables=True, device="cuda", seed=0)
+    tbls = [HostTable(cfg.total_vocab, dim, lambda ps: Adagrad(ps, 0.05),
+                      seed=1 + i) for i, dim in enumerate((K, 1))]
+    initial = [tb.table.copy() for tb in tbls]
+    timers = [HostTimer(tb) for tb in tbls]
+
+    def loss_fn(m, dense, sparse, labels, erows, einv, lrows, linv):
+        b = dense.shape[0]
+        return ctr_loss(m.forward_from_emb(
+            dense, erows[einv].reshape(b, F, K),
+            lrows[linv].reshape(b, F, 1)), labels)
+    samples = list(synthetic_ctr(CTR_BATCH * CTR_HOST_STEPS, F,
+                                 cfg.num_dense_fields, cfg.vocab_size,
+                                 seed=3))
+    tr = Trainer(model, Adam(model.parameters(), 1e-3), loss_fn,
+                 TrainerConfig(num_ingest_threads=2, log_every=1),
+                 sparse_tables=[(tb, lambda b: b[1] + offsets)
+                                for tb in tbls], device="cuda")
+    torch.cuda.synchronize()
+    core.reset_launches()
+    stats = tr.train(InMemoryDataset(samples), batch_size=CTR_BATCH)
+    launches = core.launch_counts()
+    losses = [v for _, v in tr.history]
+    if stats["steps"] != CTR_HOST_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"ctr_host: {stats['steps']} steps, losses "
+                             f"{losses}")
+    check_no_launches("ctr_host", launches)
+    touched = np.zeros(cfg.total_vocab, bool)
+    touched[(np.stack([s[1] for s in samples]) + offsets).reshape(-1)] = True
+    for what, tb, init in zip(("embed", "fm_linear"), tbls, initial):
+        moved = (tb.table != init).any(axis=1)
+        if not moved[touched].all() or moved[~touched].any():
+            raise AssertionError(
+                f"ctr_host {what}: {int((~moved[touched]).sum())} touched "
+                f"rows still, {int(moved[~touched].sum())} untouched moved")
+    inv_bytes = 2 * CTR_BATCH * F * 8
+    return dict(
+        config=ctr_name(cfg),
+        tables=f"2 x HostTable({cfg.total_vocab}, {K} | 1), Adagrad(0.05) "
+        "each",
+        batch=CTR_BATCH, steps=stats["steps"], ingest_threads=2,
+        losses=losses, examples_per_s=CTR_BATCH * stats["steps_per_s"],
+        wall_s=stats["wall_s"],
+        unique_rows_per_step=float(np.mean(timers[0].rows)),
+        pull_ms_per_step={w: float(np.mean(t.pull_ms))
+                          for w, t in zip(("embed", "fm_linear"), timers)},
+        push_ms_per_step={w: float(np.mean(t.push_ms))
+                          for w, t in zip(("embed", "fm_linear"), timers)},
+        pcie_bytes_per_step=float(np.mean(
+            [a + b for a, b in zip(timers[0].bytes, timers[1].bytes)]))
+        + inv_bytes,
+        nbytes={w: tb.nbytes() for w, tb in zip(("embed", "fm_linear"),
+                                                  tbls)},
+        launches=launches, card=smi)
 
 
 # ------------------------------------------------------------------- main
@@ -3042,7 +3386,8 @@ def kernel_table(by_kernel, paths):
     "<name>.tc"; K5 and K6 one row, their bf16 tensor-core kernels; the
     others one SIMT row. ``paths`` holds each path's launch counts
     (serve, serve_spec, train, train_crosscheck, bert, bert_large,
-    trainer, transformer, resnet: the last is 0 for every kernel)."""
+    trainer, transformer, resnet, ctr: the last two are 0 for every
+    kernel)."""
     from paddle_tpu_torch.ops.cuda import core
     table = []
     for name, kernel in core.KERNELS.items():
@@ -3077,6 +3422,7 @@ def kernel_table(by_kernel, paths):
                 launches_trainer=paths["trainer"][name],
                 launches_transformer=paths["transformer"][name],
                 launches_resnet=paths["resnet"][name],
+                launches_ctr=paths["ctr"][name],
                 max_abs_err=case["max_abs_err"],
                 ms=case["kernel_ms"], plain_ms=case["plain_ms"],
                 bound_ms=case["bound_ms"],
@@ -3100,7 +3446,7 @@ def mixed_row(kernel, cases, paths):
                launches_path="transformer",
                **{f"launches_{p}": paths[p][kernel.name] for p in (
                    "serve_spec", "train", "bert", "bert_large", "trainer",
-                   "transformer", "resnet")})
+                   "transformer", "resnet", "ctr")})
     row.update({k: case[k] for k in (
         "max_abs_err", "bound_ms", "bound_by", "library_ms", "shape",
         "dtype", "params_dtype")}, ms=case["kernel_ms"],
@@ -3263,12 +3609,21 @@ def main():
     torch.cuda.empty_cache()
     emit(dict(phase="vision_cls", **vision_cls_phase(smi)))
 
+    torch.cuda.empty_cache()
+    ctr_line, ctr_launches = ctr_phase(smi)
+    emit(dict(phase="ctr", **ctr_line))
+    torch.cuda.empty_cache()
+    ctr_crosscheck_phase()
+    torch.cuda.empty_cache()
+    emit(dict(phase="ctr_host", **ctr_host_phase(smi)))
+
     table = kernel_table(by_kernel, {
         "serve": launches, "serve_spec": spec_launches,
         "train": train_launches,
         "train_crosscheck": crosscheck_launches, "bert": bert_launches,
         "bert_large": large_launches, "trainer": trainer_launches,
-        "transformer": transformer_launches, "resnet": resnet_launches})
+        "transformer": transformer_launches, "resnet": resnet_launches,
+        "ctr": ctr_launches})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,15 +10,22 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 
 The models: GPT (serving and training), BERT and ERNIE (pretraining), the
 NMT Transformer and the attention seq2seq (translation), ResNet, VGG and
-SE-ResNeXt (image classification) and the MNIST book models.
+SE-ResNeXt (image classification), the MNIST book models, DeepFM and
+Wide&Deep (CTR, with the sparse-row tables of ``parallel/``), the
+recommender and word2vec's N-gram LM.
 """
 
 from paddle_tpu_torch.models import (GPT, MLP, VGG,  # noqa: F401
                                      AttentionSeq2Seq, BertConfig,
-                                     BertForPretraining, ConvNet,
-                                     ErnieConfig, ErnieForPretraining,
+                                     BertForPretraining, ConvNet, CTRConfig,
+                                     DeepFM, ErnieConfig, ErnieForPretraining,
                                      GPTConfig, GPTDecoder, LinearRegression,
-                                     ResNet, SEResNeXt, Seq2SeqConfig,
+                                     RecConfig, RecommenderNet, ResNet,
+                                     SEResNeXt, Seq2SeqConfig,
                                      SoftmaxRegression, Transformer,
-                                     TransformerConfig, resnet18, resnet50,
-                                     se_resnext50, vgg16)
+                                     TransformerConfig, WideAndDeep, Word2Vec,
+                                     ctr_loss, make_sparse_deepfm_train_step,
+                                     resnet18, resnet50, se_resnext50, vgg16)
+from paddle_tpu_torch.parallel import (FeatureTable,  # noqa: F401
+                                       HostTable, ShardedHostTable,
+                                       SparseTable)

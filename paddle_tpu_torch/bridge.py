@@ -22,10 +22,16 @@ averages. The port's objects hold the same trees keyed by parameter name
 (``state_tree(named)``); :func:`load_opt_state` and
 :func:`export_opt_state` convert between the two, so both sides can
 continue from the same state.
+
+A ``SparseTable``'s state (``parallel/sparse.py``) crosses the same way:
+``{"table": [V, D], "step": int, "slots": {name: [V, ...]}}`` on both
+sides (:func:`load_table_state`, :func:`export_table_state`).
 """
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.core.device import resolve_device
 
 
 def flatten(params, prefix=""):
@@ -233,3 +239,38 @@ def export_opt_state(opt, model):
     optimizer would start it with."""
     named = dict(model.named_parameters())
     return _to_jax(opt.state_tree(named), set(named))
+
+
+def load_table_state(tbl, state, device="cuda"):
+    """A JAX ``SparseTable`` state (numpy or array leaves) as the port's
+    state for ``tbl`` on ``device``: the table and every slot in the
+    table's dtype, the step an int32 0-d tensor. The slot names must be
+    those ``tbl``'s optimizer keeps, and every shape ``[V, ...]``."""
+    dev = resolve_device(device)
+    want = sorted(tbl.opt.slots(torch.zeros((1, tbl.dim))))
+    if sorted(state["slots"]) != want:
+        raise KeyError(f"table slots {sorted(state['slots'])}, the "
+                       f"optimizer keeps {want}")
+    shape = (tbl.vocab_size, tbl.dim)
+
+    def leaf(name, arr):
+        t = _to_torch(arr)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} vs {shape}")
+        return t.to(dev, tbl.dtype).clone()
+
+    return {"table": leaf("table", state["table"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "slots": {n: leaf(n, v) for n, v in state["slots"].items()}}
+
+
+def export_table_state(state):
+    """The port's ``SparseTable`` state as the JAX package's (numpy
+    leaves, the step an int32 scalar). The leaves are copies: a CPU
+    tensor's ``.numpy()`` shares its memory, and the port's push writes
+    the table in place."""
+    return {"table": _to_numpy(state["table"]).copy(),
+            "step": np.int32(int(state["step"])),
+            "slots": {n: _to_numpy(v).copy()
+                      for n, v in state["slots"].items()}}

@@ -27,6 +27,27 @@ def _fans(shape):
     return shape[1] * receptive, shape[0] * receptive
 
 
+def constant(value=0.0):
+    """Every entry ``value`` (ref: ``initializer.py:32``); draws nothing
+    from ``gen``."""
+    def init(shape, gen=None, dtype=torch.float32):
+        return torch.full(shape, value, dtype=dtype)
+    return init
+
+
+def zeros():
+    """ref: ``initializer.py:38``."""
+    return constant(0.0)
+
+
+def normal(loc=0.0, scale=1.0):
+    """N(loc, scale^2) (ref: ``initializer.py:52``)."""
+    def init(shape, gen=None, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype).normal_(loc, scale,
+                                                       generator=gen)
+    return init
+
+
 def uniform(low=-1.0, high=1.0):
     """U(low, high) (ref: ``initializer.py:46``)."""
     def init(shape, gen=None, dtype=torch.float32):

@@ -170,18 +170,19 @@ class Pool2D(nn.Module):
 
 
 class Embedding(nn.Module):
-    """ref: ``nn/layers.py:266`` — table ``[num_embeddings, dim]``,
-    initialized N(0, 0.02)."""
+    """ref: ``nn/layers.py:266`` — table ``[num_embeddings, dim]`` drawn by
+    ``weight_init`` (N(0, 0.02) by default); ids equal to ``padding_idx``
+    look up zeros."""
 
-    def __init__(self, num_embeddings, embedding_dim, gen=None,
-                 dtype=torch.float32):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 weight_init=None, gen=None, dtype=torch.float32):
         super().__init__()
-        w = torch.empty((num_embeddings, embedding_dim), dtype=dtype)
-        w.normal_(0.0, 0.02, generator=gen)
-        self.weight = nn.Parameter(w)
+        self.padding_idx = padding_idx
+        self.weight = nn.Parameter((weight_init or I.normal(0.0, 0.02))(
+            (num_embeddings, embedding_dim), gen, dtype))
 
     def forward(self, ids):
-        return F.lookup_table(ids, self.weight)
+        return F.lookup_table(ids, self.weight, self.padding_idx)
 
 
 def tied_vocab_head(emb, x):

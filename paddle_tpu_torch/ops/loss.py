@@ -23,3 +23,26 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     loss = torch.where(label == ignore_index, torch.zeros_like(logz),
                        logz - picked)
     return loss[..., None]
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False):
+    """Elementwise logistic loss in the reference's stable form (ref:
+    ``ops/loss.py:66``): ``max(x, 0) - x * label + log1p(exp(-|x|))``;
+    entries whose label is ``ignore_index`` give 0, and ``normalize``
+    divides by the count of the others (at least 1).
+
+    The gradient at exactly ``x == 0`` is the reference's: ``jnp.maximum``
+    splits its gradient there (0.5, as ``torch.maximum`` does) and
+    ``jnp.abs``'s gradient at 0 is +1, where ``torch.abs``'s is 0; so
+    ``|x|`` is written as ``where(x >= 0, x, -x)``. With label 1 the
+    gradient at 0 is -1.0 and with label 0 it is 0.0 (``torch.abs`` or
+    ``binary_cross_entropy_with_logits`` give -0.5 and 0.5)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    abs_x = torch.where(x >= 0, x, -x)
+    loss = torch.maximum(x, zero) - x * label + torch.log1p(torch.exp(-abs_x))
+    valid = label != ignore_index
+    loss = torch.where(valid, loss, zero)
+    if normalize:
+        loss = loss / torch.clamp(valid.to(loss.dtype).sum(), min=1.0)
+    return loss

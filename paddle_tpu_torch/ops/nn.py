@@ -29,12 +29,17 @@ def layer_norm(x, scale=None, bias=None, begin_norm_axis=1, epsilon=1e-5):
                             epsilon=epsilon)
 
 
-def lookup_table(ids, table):
+def lookup_table(ids, table, padding_idx=None):
     """Embedding lookup (ref: ``paddle_tpu/ops/nn.py:448``), including
-    the reference's trailing-1 squeeze of the ids."""
+    the reference's trailing-1 squeeze of the ids; rows of ids equal to
+    ``padding_idx`` are zeros (the reference's mask, so they take no
+    gradient)."""
     if ids.ndim > 1 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    return table[ids.long()]
+    out = table[ids.long()]
+    if padding_idx is not None:
+        out = out * (ids != padding_idx)[..., None].to(out.dtype)
+    return out
 
 
 # ---------------------------------------------------------------- conv

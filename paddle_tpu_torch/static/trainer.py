@@ -17,8 +17,13 @@ The reference's step is a function of a state tree; the port's state is
 the model and the optimizer, which the step updates in place, so
 ``Trainer`` takes them and the loss function instead of a step function.
 
-Not ported, and refused when set: heartbeats, telemetry, the watchdog,
-``mesh_plan`` and ``sparse_tables``.
+``sparse_tables`` is DownpourWorker's cycle (ref: ``trainer.py:716``):
+each step pulls every table's rows for its ids, passes ``(rows, inv)``
+per table after the batch to the loss, and after the optimizer's step
+pushes each table's row gradient.
+
+Not ported, and refused when set: heartbeats, telemetry, the watchdog
+and ``mesh_plan``.
 """
 
 import dataclasses
@@ -27,6 +32,7 @@ import signal
 import threading
 import time
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.core import random as _random
@@ -118,14 +124,19 @@ class Trainer:
     dataset: anything with ``.readers(n)`` or ``.reader()`` returning a
     callable that yields batches (tuples of numpy arrays), or such a
     callable; ``.seek(step)`` makes it resumable and replayable.
-    ``device`` is where batches are staged; it must hold the model."""
+    ``device`` is where batches are staged; it must hold the model.
+
+    sparse_tables: ``[(table, ids_fn), ...]``, each table a host tier
+    (``HostTable``: ``pull(ids, device) -> (rows, uniq)`` and
+    ``push(uniq, row_grad)``) and ``ids_fn(batch)`` its ids in the host
+    batch. The loss is then ``loss_fn(model, *batch, rows_1, inv_1, ...)``
+    with each ``rows`` a leaf ``[k, D]`` that requires grad and ``inv``
+    (``np.searchsorted(uniq, ids.reshape(-1))``) on the device; the
+    tables take no checkpoint, as in the reference."""
 
     def __init__(self, model, optimizer, loss_fn, config=None,
                  sparse_tables=None, device="cuda"):
-        if sparse_tables:
-            raise NotImplementedError(
-                "Trainer(sparse_tables=...) is not ported to "
-                "paddle_tpu_torch")
+        self.sparse_tables = list(sparse_tables or [])
         self.cfg = config or TrainerConfig()
         self.cfg.check_ported()
         self.device = resolve_device(device)
@@ -245,6 +256,24 @@ class Trainer:
             return t
         return tuple(put(a) for a in batch)
 
+    def _sparse_step(self, staged, host):
+        """DownpourWorker's cycle (ref: ``trainer.py:716``): pull each
+        table's rows for ``ids_fn(host)``, step through them, push each
+        table's row gradient. Returns the loss."""
+        pulls, extra = [], []
+        for table, ids_fn in self.sparse_tables:
+            ids = np.asarray(ids_fn(host))
+            rows, uniq = table.pull(ids, device=self.device)
+            rows.requires_grad_(True)
+            inv = np.searchsorted(uniq, ids.reshape(-1))
+            extra += [rows, self._stage((inv,))[0]]
+            pulls.append((table, uniq, rows))
+        loss = self.optimizer.minimize(self.model, self.loss_fn, *staged,
+                                       *extra)
+        for table, uniq, rows in pulls:
+            table.push(uniq, rows.grad)
+        return loss
+
     def train(self, dataset, batch_size=None, num_workers=None,
               worker_id=None):
         """Drain the dataset (or ``max_steps``); returns stats.
@@ -262,6 +291,11 @@ class Trainer:
         if cfg.guardian:
             from paddle_tpu_torch.static.guardian import (GuardianConfig,
                                                           TrainGuardian)
+            enforce(not self.sparse_tables,
+                    "TrainerConfig.guardian does not support "
+                    "sparse_tables (the sparse step's pull/push cycle "
+                    "has host-side state the skip-apply gate cannot "
+                    "contain)")
             guard = TrainGuardian(
                 cfg.guardian if isinstance(cfg.guardian, GuardianConfig)
                 else None)
@@ -361,10 +395,13 @@ class Trainer:
                 if cfg.ingest_fail_fast and errors:
                     break    # a reader died: stop now, raise below
                 staged = self._stage(nxt)
+                host = nxt
                 if cfg.prefetch:
                     nxt = next_batch()
                 fault_point("trainer.step")
-                if guard is not None:
+                if self.sparse_tables:
+                    loss = self._sparse_step(staged, host)
+                elif guard is not None:
                     loss, applied = self.optimizer.minimize_gated(
                         guard.gate, self.model, self.loss_fn, *staged)
                 else:
@@ -424,7 +461,7 @@ class Trainer:
 
 
 def train_from_dataset(model, optimizer, loss_fn, dataset, config=None,
-                       batch_size=None, device="cuda"):
+                       batch_size=None, device="cuda", sparse_tables=None):
     """Functional one-call form (ref: executor.py:1107)."""
-    return Trainer(model, optimizer, loss_fn, config,
+    return Trainer(model, optimizer, loss_fn, config, sparse_tables,
                    device=device).train(dataset, batch_size=batch_size)

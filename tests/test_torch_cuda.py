@@ -1015,3 +1015,82 @@ def test_resnet_card_step_gives_the_cpu_gradients_and_statistics(
     for name, b in bc.items():
         assert float((b - bp[name]).abs().max()) <= stats_tol * float(
             bp[name].abs().max()), name
+
+
+def test_sparse_deepfm_step_on_card_gives_the_cpu_step(cuda):
+    """Two sparse-row DeepFM steps (CTRConfig.tiny(), Adam on the head,
+    Adagrad on both SparseTables, duplicate ids) on the card and on the
+    CPU from the same weights and table draws: the losses, the head and
+    both tables with their moments within 1e-5 (the backward of the
+    gather sums duplicate rows atomically, in no fixed order); no kernel
+    of the port launches (the reference's path is XLA gathers, scatters
+    and GEMMs)."""
+    from paddle_tpu_torch.models.ctr import (CTRConfig, DeepFM,
+                                             make_sparse_deepfm_train_step)
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adagrad, Adam
+    from paddle_tpu_torch.parallel import SparseTable
+    cfg = CTRConfig.tiny()
+    rs = np.random.RandomState(0)
+    dense = torch.from_numpy(rs.rand(32, 3).astype(np.float32))
+    sparse = torch.from_numpy(rs.randint(0, 100, (32, 4)).astype(np.int32))
+    sparse[:, 2] = 7
+    labels = torch.from_numpy(rs.randint(0, 2, (32, 1)).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = DeepFM(cfg, sparse_tables=True, device=dev, seed=0)
+        tbls = [SparseTable(cfg.total_vocab, d, lambda ps: Adagrad(ps, 0.05))
+                for d in (cfg.embed_dim, 1)]
+        states = [tb.init(seed=1 + i, device=dev) for i, tb in
+                  enumerate(tbls)]
+        step = make_sparse_deepfm_train_step(
+            model, Adam(model.parameters(), 1e-2), *tbls, *states)
+        core.reset_launches()
+        losses = [float(step(dense.to(dev), sparse.to(dev), labels.to(dev)))
+                  for _ in range(2)]
+        out[dev] = (losses, {k: p.detach().cpu() for k, p in
+                             model.named_parameters()},
+                    [{"table": s["table"].cpu(), **{
+                        k: v.cpu() for k, v in s["slots"].items()}}
+                     for s in states], core.launch_counts())
+    (lc, pc, tc, launches), (lp, pp, tp, _) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lc, lp, rtol=1e-5)
+    for k in pp:
+        np.testing.assert_allclose(pc[k].numpy(), pp[k].numpy(), atol=1e-5,
+                                   err_msg=k)
+    for c, p in zip(tc, tp):
+        for k in p:
+            np.testing.assert_allclose(c[k].numpy(), p[k].numpy(),
+                                       atol=1e-5, err_msg=k)
+    assert sum(launches.values()) == 0
+
+
+def test_host_table_pulls_through_pinned_memory_to_the_card(cuda):
+    """HostTable.pull stages the gathered rows in pinned host memory and
+    copies them without blocking: the rows on the card equal the host
+    table's; a push of the card's row gradient updates the host rows;
+    FeatureTable and ShardedHostTable pulls land on the card too."""
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel import (FeatureTable, HostTable,
+                                           ShardedHostTable)
+    tbl = HostTable(1000, 16, lambda ps: SGD(ps, 0.5), seed=2)
+    ids = np.random.RandomState(1).randint(0, 1000, (64, 8))
+    rows, uniq = tbl.pull(ids, device="cuda")
+    assert rows.is_cuda
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(rows.cpu().numpy(), tbl.table[uniq])
+    before = tbl.table[uniq].copy()
+    tbl.push(uniq, torch.ones_like(rows))
+    np.testing.assert_allclose(tbl.table[uniq], before - 0.5, atol=1e-6)
+    prefetched = tbl.prefetch(ids, tag="t", device="cuda")
+    prefetched.join()
+    rows2, _ = tbl.take_prefetched("t")
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(rows2.cpu().numpy(), tbl.table[uniq])
+    frows, fu, _ = FeatureTable(4, 32).pull(np.array([5, 9, 5]),
+                                             device="cuda")
+    assert frows.is_cuda and tuple(frows.shape) == (2, 4)
+    buf = ShardedHostTable(4, 8, 0, 2).pull_local(np.array([2, 3, 4]),
+                                                  device="cuda")
+    torch.cuda.synchronize()
+    assert buf.is_cuda and float(buf[1].abs().sum()) == 0.0

@@ -452,3 +452,70 @@ def test_vision_models_default_to_the_card_and_raise_without_one():
         with pytest.raises(EnforceError):
             make()
     assert resnet50(device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/__init__.py", "parallel/sparse.py", "models/ctr.py",
+    "models/recommender.py", "models/word2vec.py", "metrics.py",
+    "data/dataset.py", "static/trainer.py"])
+def test_ast_scan_covers_the_ctr_modules(module):
+    path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+_CTR_BLOCKED = _SERVE_BLOCKED.split("from paddle_tpu_torch.models")[0] \
+    + r"""
+from paddle_tpu_torch.data import InMemoryDataset, synthetic_ctr
+from paddle_tpu_torch.metrics import Auc
+from paddle_tpu_torch.models import (CTRConfig, DeepFM, WideAndDeep,
+                                     ctr_loss, make_sparse_deepfm_train_step)
+from paddle_tpu_torch.ops.cuda import core
+from paddle_tpu_torch.optimizer import Adagrad, Adam
+from paddle_tpu_torch.parallel import HostTable, SparseTable
+from paddle_tpu_torch.static import Trainer, TrainerConfig
+cfg = CTRConfig.tiny()
+rs = np.random.RandomState(0)
+dense = torch.from_numpy(rs.rand(16, 3).astype(np.float32))
+sparse = torch.from_numpy(rs.randint(0, 100, (16, 4)).astype(np.int32))
+labels = torch.from_numpy(rs.randint(0, 2, (16, 1)).astype(np.float32))
+model = DeepFM(cfg, sparse_tables=True, device="cpu")
+tbls = [SparseTable(cfg.total_vocab, d, lambda ps: Adagrad(ps, 0.05))
+        for d in (cfg.embed_dim, 1)]
+states = [tb.init(device="cpu") for tb in tbls]
+step = make_sparse_deepfm_train_step(model, Adam(model.parameters(), 1e-2),
+                                     *tbls, *states)
+losses = [float(step(dense, sparse, labels)) for _ in range(3)]
+assert losses[-1] < losses[0], losses
+wd = WideAndDeep(cfg, device="cpu")
+auc = Auc()
+auc.update(torch.sigmoid(wd(dense, sparse)), labels)
+host = HostTable(cfg.total_vocab, 1, seed=1)
+offsets = np.arange(4) * cfg.vocab_size
+head = DeepFM(CTRConfig(4, 3, 100, 1, (8,)), sparse_tables=True,
+              device="cpu")
+def loss_fn(m, d, s, y, rows, inv):
+    first = rows[inv].reshape(d.shape[0], 4, 1)
+    return ctr_loss(m.forward_from_emb(d, first, first), y)
+Trainer(head, Adam(head.parameters(), 1e-2), loss_fn, TrainerConfig(),
+        sparse_tables=[(host, lambda b: b[1] + offsets)],
+        device="cpu").train(InMemoryDataset(synthetic_ctr(32, 4, 3, 100)),
+                            batch_size=8)
+assert host.step == 4
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("CTR TRAINED", len(losses))
+"""
+
+
+def test_port_trains_ctr_with_reference_and_triton_blocked():
+    """Three sparse-row DeepFM steps, Wide&Deep into an Auc, and the
+    Trainer's Downpour cycle through a HostTable, in a process that
+    cannot import jax."""
+    code = _CTR_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "CTR TRAINED 3" in proc.stdout

@@ -566,8 +566,7 @@ UNPORTED = {
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED) + [
-    "sparse_tables", "mirror", "strict_mirror", "scaler_state_fn",
-    "num_workers"])
+    "mirror", "strict_mirror", "scaler_state_fn", "num_workers"])
 def test_unported_option_raises(field, tmp_path):
     from paddle_tpu_torch.io import CheckpointManager
     from paddle_tpu_torch.static import (GuardianConfig, TrainerConfig,
@@ -575,12 +574,6 @@ def test_unported_option_raises(field, tmp_path):
     with pytest.raises(NotImplementedError):
         if field in UNPORTED:
             _port_trainer(TrainerConfig(**{field: UNPORTED[field]}))
-        elif field == "sparse_tables":
-            from paddle_tpu_torch.optimizer import SGD
-            from paddle_tpu_torch.static import Trainer
-            m = LinReg()
-            Trainer(m, SGD(m.parameters(), 0.1), _linreg_loss,
-                    sparse_tables=[object()], device="cpu")
         elif field == "mirror":
             CheckpointManager("mem://ck")
         elif field == "strict_mirror":
