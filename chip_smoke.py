@@ -1,6 +1,7 @@
-"""Drive the PyTorch/CUDA port's serving, GPT training, BERT pretraining,
-Trainer, translation, image-classification and CTR paths on one NVIDIA
-H100.
+"""Drive the PyTorch/CUDA port's serving, GPT decoding (float and
+weight-only int8), GPT training (unrolled, scan-over-layers with remat,
+mixture of experts), BERT pretraining, Trainer, translation,
+image-classification and CTR paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -76,6 +77,23 @@ Phases, each printing one JSON line:
    latency_stats() beside the spec-off serve phase.
 8. int8    — a short serve with an int8 KV pool; every K7 launch on the
    split route.
+8b. gpt_decode — bench.py:461's row through GPTDecoder.generate:
+   GPTConfig.small() (f32 weights from seed 0), 16 prompts of 128
+   tokens, 128 new tokens, bf16 KV cache. One call with the launch
+   counts zeroed just before and read just after (K1, K2, K4 launched,
+   K7 not), 3 timed calls chained as bench chains them, a profiled call
+   (device ms, idle share) and one decode step (launches, device ms,
+   bound: parameters and padded cache over 3.35 TB/s); two rows
+   teacher-forced on the card (bf16 cache) and the CPU (f32 cache),
+   logits within 5e-2 and every token the CPU's argmax or a near tie.
+8c. gpt_decode_int8 — the same model after quantize_weights_int8: 2L +
+   4L + 2 int8 leaves, the full forward's logits within 5 % of the float
+   model's largest, no K4 launch, the same row's numbers and its greedy
+   agreement with the float run.
+8d. serve_int8 — the serve traffic through ServingEngine over the int8
+   weights (K1, K2, K7; no K4): every greedy request equals generate on
+   its prompt alone, or parts where generate's logits of the two tokens
+   are a near tie (within 5e-2).
 9. train   — the GPT training step at full width (GPTConfig.small(),
    dropout 0, weights from a seed): GPT.loss, its backward and
    amp.decorate(Adam(1e-4), bf16_policy()), batch 16 x seq 512 of one
@@ -86,6 +104,19 @@ Phases, each printing one JSON line:
 10. train crosscheck — one f32 step (TF32 off) of GPTConfig.small() at
    batch 2 x seq 128 on the card and on the CPU plain path from the same
    weights: loss and every parameter's gradient must agree.
+10b. scan_remat — the train step, 2 + 5 steps, by the unrolled model
+   and then with scan_layers=True under each remat policy (nothing,
+   dots_saveable, full), in turn: per-step launches (the blocks' K1, K2
+   and K4 twice under a recomputing policy), losses within 1e-6
+   relative of the unrolled run's, tokens/s, and peak memory falling
+   from nothing to full.
+10c. moe_train — the train step with moe_experts=8, moe_k=2 (GShard's
+   top-2 at capacity factor 1.25), 2 + 5 bf16 Adam steps: per-step
+   launches (no K4), finite falling losses, a profiled step's device ms
+   split (one-hot dispatch/combine and experts timed alone at the
+   step's shapes, the rest), and the bf16 slot collisions a layer.
+10d. moe_crosscheck — one f32 step of that model at 2 x 128 on the card
+   and the CPU: loss within 1e-4, gradients within 1e-3 relative L2.
 11. bert_train — bench.py's BERT row on the card: BertConfig.base()
    (dropout 0, weights from a seed), BertForPretraining.loss with 76
    gathered MLM positions per row, its backward and
@@ -215,8 +246,10 @@ train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
 "flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8, and
 transformer_big for the "add_layer_norm.mixed" row (K8 at f32 rows with
 bf16 parameters); "variant" names the route; every row also has each
-path's count, launches_transformer among them, and launches_resnet and
-launches_ctr, which are 0), the nvidia-smi line, and
+path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
+launches_gpt_decode_int8, launches_serve_int8, launches_moe_train and
+launches_scan_<policy> among them, and launches_resnet and launches_ctr,
+which are 0), the nvidia-smi line, and
 the contract line
 {"ok": true, "device": {...}}.
 Any failed phase raises, and the script exits non-zero without the
@@ -225,6 +258,7 @@ contract line.
 
 import collections
 import contextlib
+import dataclasses
 import glob
 import json
 import os
@@ -3351,6 +3385,422 @@ def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
     return launches
 
 
+# ------------------------------------------ decode, int8, MoE and scan
+
+DECODE_BATCH = 16        # bench.py:461's row: batch 16,
+DECODE_PROMPT = 128      # prompt seq // 4 at seq 512,
+DECODE_NEW = 128         # 128 new tokens a call
+DECODE_CALLS = 3         # timed calls, chained as bench chains them
+#: the kernels a generate call launches (the prefill's K1, K2, K4 and each
+#: decode step's K1, K4; the cache's attention is a dense einsum) and
+#: those it must not (K7 reads paged pools only)
+DECODE_KERNELS = ("layer_norm", "flash_attention", "mlp")
+#: the reference's bar for int8 logits: within 5 % of the float model's
+#: largest (tests/test_quant.py:332)
+INT8_LOGIT_TOL = 0.05
+#: the MoE row: GShard's top-2 over 8 experts at the gating's own
+#: capacity factor 1.25, the repo's own choice (no published MoE config)
+MOE_EXPERTS, MOE_K = 8, 2
+MOE_STEPS = 5
+SCAN_STEPS = 5
+SCAN_LOSS_TOL = 1e-6     # a scan model's losses against the unrolled
+#                          model's: the same kernels in the same order
+
+
+def decode_bytes(model, batch, total, cache_dtype):
+    """bench.py's count of the bytes one decode step reads: every
+    parameter once, and the whole padded K/V cache of every layer.
+    ``(param bytes, cache bytes)``."""
+    cfg = model.cfg
+    cache = (cfg.num_layers * 2 * batch * total * cfg.hidden_size
+             * torch.empty((), dtype=cache_dtype).element_size())
+    return sum(nbytes(p) for p in model.parameters()), cache
+
+
+@torch.inference_mode()
+def decode_teacher_forced(model, prompt, tokens, cache_dtype):
+    """The logits generate's path gives each of ``tokens`` ``[B, N]``
+    after ``prompt`` ``[B, Tp]`` (on the model's device): the prefill,
+    then one decode step a token, fed the given tokens. ``[B, N, V]`` f32
+    on the CPU."""
+    dev = model.device
+    prompt, tokens = prompt.to(dev), tokens.to(dev)
+    tp, n = prompt.shape[1], tokens.shape[1]
+    logits, caches = model.prefill(prompt, tp + n, cache_dtype)
+    out = [logits]
+    for i in range(n - 1):
+        logits, caches = model.decode_step(tokens[:, i:i + 1], caches,
+                                           tp + i)
+        out.append(logits)
+    return torch.cat(out, 1).float().cpu()
+
+
+def decode_crosscheck(card_model, cpu_model, prompt, tokens):
+    """generate's tokens of the rows of ``prompt`` teacher-forced on the
+    card (bf16 cache) and on the CPU plain path (f32 cache): the logits
+    within SERVE_LOGIT_TOL, and every token the CPU's argmax or within
+    SERVE_LOGIT_TOL of it (a near tie the bf16 cache may flip)."""
+    card = decode_teacher_forced(card_model, prompt, tokens, torch.bfloat16)
+    cpu = decode_teacher_forced(cpu_model, prompt.cpu(), tokens.cpu(),
+                                torch.float32)
+    rows = []
+    for r in range(prompt.shape[0]):
+        err = float((card[r] - cpu[r]).abs().max())
+        toks = tokens[r].cpu().long()
+        short = cpu[r].max(-1).values - cpu[r].gather(1, toks[:, None])[:, 0]
+        check(f"gpt_decode crosscheck row {r}", err, SERVE_LOGIT_TOL)
+        worst = float(short.max())
+        if worst > SERVE_LOGIT_TOL:
+            raise AssertionError(
+                f"gpt_decode crosscheck row {r}: token {int(short.argmax())}"
+                f" is {worst} below the CPU's argmax (tol "
+                f"{SERVE_LOGIT_TOL})")
+        rows.append(dict(row=r, logits_max_abs_err=err, tol=SERVE_LOGIT_TOL,
+                         tokens=int(toks.numel()),
+                         near_ties=int((short > 0).sum())))
+    return rows
+
+
+def check_absent(what, launches, kernels):
+    ran = {k: launches[k] for k in kernels if launches[k]}
+    if ran:
+        raise AssertionError(f"{what}: launched {ran}")
+
+
+def decode_run(model, what, prompt, smi, kernels, absent):
+    """bench.py's gpt_decode row on ``model``: a warm-up generate call
+    (whose tokens it returns), one call with the launch counts zeroed
+    just before and read just after (each of ``kernels`` launched, none
+    of ``absent``), DECODE_CALLS timed calls chained as bench chains them
+    (the next prompt is the last output's tail; each ends in a host read),
+    a profiled call (device ms, launches, idle share against the p50
+    call), and one decode step after the prefill (its launches, its
+    device ms and its bound: the parameters and the padded cache over
+    PEAK_BYTES). ``(line, launches of the call, tokens)``."""
+    cache = torch.bfloat16
+    total = DECODE_PROMPT + DECODE_NEW
+
+    def gen(p):
+        return model.generate(p, DECODE_NEW, cache_dtype=cache)
+    out = gen(prompt)
+    torch.cuda.synchronize()
+    launches, routes = launched(lambda: gen(prompt))
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched {missing}")
+    check_absent(what, launches, absent)
+    check_path_routes(what, routes, ("layer_norm",))
+    times, p = [], prompt
+    for _ in range(DECODE_CALLS):
+        t0 = time.perf_counter()
+        nxt = gen(p)
+        int(nxt[0, -1])
+        times.append(time.perf_counter() - t0)
+        p = nxt[:, -DECODE_PROMPT:]
+    call_ms, call_launches, _ = kernel_profile(lambda: gen(prompt))
+    p50 = float(np.median(times)) * 1e3
+    with torch.inference_mode():
+        logits, caches = model.prefill(prompt, total, cache)
+        tok = torch.argmax(logits[:, 0], -1).to(prompt.dtype)[:, None]
+
+        def step():
+            model.decode_step(tok, caches, DECODE_PROMPT)
+        step_launches, _ = launched(step)
+        step_ms, step_kernels, by_name = kernel_profile(step)
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    params, cache_bytes = decode_bytes(model, DECODE_BATCH, total, cache)
+    mean_s = float(np.mean(times))
+    line = dict(
+        config="GPTConfig.small()", batch=DECODE_BATCH,
+        prompt_len=DECODE_PROMPT, max_new=DECODE_NEW, cache_dtype="bfloat16",
+        calls=DECODE_CALLS,
+        decoded_tokens_per_s=DECODE_BATCH * DECODE_NEW / mean_s,
+        p50_call_ms=p50, call_ms=[t * 1e3 for t in times],
+        call_device_ms=call_ms, call_kernel_launches=call_launches,
+        idle_share=1.0 - call_ms / p50,
+        launches_per_call=launches,
+        step_device_ms=step_ms, step_kernel_launches=step_kernels,
+        step_wall_p50_ms=float(np.median(walls)) * 1e3,
+        step_launches={k: n for k, n in step_launches.items() if n},
+        step_top_kernels={k[:60]: v for k, v in by_name.most_common(6)},
+        param_bytes=params, cache_bytes=cache_bytes,
+        step_bound_ms=(params + cache_bytes) / PEAK_BYTES * 1e3,
+        bandwidth_share=(DECODE_NEW * (params + cache_bytes) / mean_s
+                         / PEAK_BYTES),
+        card=smi)
+    return line, launches, out
+
+
+def decode_prompt(vocab):
+    return torch.from_numpy(np.random.RandomState(0).randint(
+        0, vocab, (DECODE_BATCH, DECODE_PROMPT)).astype(np.int32)).cuda()
+
+
+def gpt_decode_phase(model, cpu_model, smi):
+    """``gpt_decode``: bench.py:461's row through ``generate`` (f32
+    weights, bf16 cache), then two rows teacher-forced against the CPU.
+    ``(line, launches, prompt, tokens, float logits of the prompt)``."""
+    prompt = decode_prompt(model.cfg.vocab_size)
+    line, launches, out = decode_run(model, "gpt_decode", prompt, smi,
+                                     DECODE_KERNELS, ("decode_attention",))
+    line["crosscheck"] = decode_crosscheck(
+        model, cpu_model, prompt[:2], out[:2, DECODE_PROMPT:])
+    with torch.inference_mode():
+        logits = model(prompt)
+    return line, launches, prompt, out, logits
+
+
+def gpt_decode_int8_phase(model, prompt, float_out, float_logits, smi):
+    """``gpt_decode_int8``: the same row after quantize_weights_int8 (in
+    place): 2L + 4L + 2 int8 leaves, the full forward's logits within
+    INT8_LOGIT_TOL of the float model's largest, no K4 launch (the
+    reference's rule: an int8 layer takes the unfused FFN), greedy
+    agreement with the float run."""
+    from paddle_tpu_torch.quant import quantize_weights_int8
+    layers = model.cfg.num_layers
+    quantize_weights_int8(model)
+    q8 = [p for p in model.parameters() if p.dtype == torch.int8]
+    if len(q8) != 2 * layers + 4 * layers + 2:
+        raise AssertionError(f"gpt_decode_int8: {len(q8)} int8 leaves, "
+                             f"want {6 * layers + 2}")
+    with torch.inference_mode():
+        logits = model(prompt)
+    gap = float((logits - float_logits).abs().max()
+                / float_logits.abs().max())
+    check("gpt_decode_int8 logits relative gap", gap, INT8_LOGIT_TOL)
+    line, launches, out = decode_run(
+        model, "gpt_decode_int8", prompt, smi, ("layer_norm",
+                                                "flash_attention"),
+        ("mlp", "decode_attention"))
+    same = out[:, DECODE_PROMPT:] == float_out[:, DECODE_PROMPT:]
+    first = [int(r.logical_not().nonzero()[0]) if not bool(r.all())
+             else DECODE_NEW for r in same]
+    line.update(int8_leaves=len(q8), int8_bytes=nbytes(*q8),
+                logits_rel_gap=gap, logits_tol=INT8_LOGIT_TOL,
+                greedy_agreement=float(same.float().mean()),
+                rows_equal=int(same.all(1).sum()),
+                first_parting_step=first)
+    return line, launches
+
+
+def serve_int8_phase(model, serve_kw, smi):
+    """``serve_int8``: the serve wave through ServingEngine over the int8
+    weights (K1, K2, K7; no K4), each greedy request against generate on
+    its prompt alone: token-exact, or parting where generate's own
+    logits of the two tokens are a near tie (within SERVE_LOGIT_TOL: the
+    engine's K7 over the bf16 pool and generate's dense einsum sum in
+    other orders)."""
+    from paddle_tpu_torch.ops.cuda import core
+    core.reset_launches()
+    eng, rids, stats = serve(model, 16, (64, 512), 700, 64, serve_kw, seed=0)
+    torch.cuda.synchronize()
+    launches, routes = core.launch_counts(), core.route_counts()
+    missing = [k for k in ("layer_norm", "flash_attention",
+                           "decode_attention") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve_int8: kernels not launched {missing}")
+    check_absent("serve_int8", launches, ("mlp",))
+    check_path_routes("serve_int8", routes, ("layer_norm",
+                                             "decode_attention"))
+    exact, parted = 0, []
+    for rid in rids:
+        req = eng.requests[rid]
+        prompt = torch.from_numpy(req.prompt.astype(np.int32))[None].to(
+            model.device)
+        want = model.generate(prompt, len(req.tokens),
+                              cache_dtype=torch.bfloat16)[0, prompt.shape[1]:]
+        got = torch.tensor(req.tokens, dtype=want.dtype, device=want.device)
+        if torch.equal(got, want):
+            exact += 1
+            continue
+        part = int((got != want).nonzero()[0])
+        logits = decode_teacher_forced(model, prompt, got[None],
+                                       torch.bfloat16)[0, part]
+        gap = float(logits[int(want[part])] - logits[int(got[part])])
+        parted.append(dict(request=rid, parts_at=part, gap_there=gap))
+        if gap > SERVE_LOGIT_TOL:
+            raise AssertionError(f"serve_int8 request {rid}: parts from "
+                                 f"generate at token {part}, gap {gap} "
+                                 f"(tol {SERVE_LOGIT_TOL})")
+    line = dict(config="GPTConfig.small()", weights="int8",
+                **{k: v for k, v in serve_kw.items() if k != "cache_dtype"},
+                cache_dtype="bfloat16", launches=launches,
+                token_exact_vs_generate=exact, parted_at_near_tie=parted,
+                **{k: v for k, v in stats.items() if k != "prompt_lens"},
+                card=smi)
+    return line, launches
+
+
+def moe_config(base):
+    cfg = dataclasses.replace(base, moe_experts=MOE_EXPERTS, moe_k=MOE_K)
+    cfg.dropout = 0.0
+    return cfg
+
+
+def moe_parts_ms(cfg, tokens):
+    """The device ms, forward and backward, of one MoE layer's two parts
+    at the step's bf16 shapes (``time_ms`` over plain calls): the gating
+    with the one-hot dispatch and combine einsums around no experts, and
+    the experts' FFN over the ``[E, C, D]`` buffers."""
+    from paddle_tpu_torch.nn import moe
+    gen = torch.Generator().manual_seed(0)
+    layer = moe.MoE(cfg.hidden_size, cfg.intermediate_size, cfg.moe_experts,
+                    k=cfg.moe_k, gen=gen).to("cuda", torch.bfloat16)
+    cap = layer.capacity(tokens)
+    x = torch.randn(tokens, cfg.hidden_size, generator=gen).to(
+        "cuda", torch.bfloat16).requires_grad_()
+    buf = torch.randn(cfg.moe_experts, cap, cfg.hidden_size,
+                      generator=gen).to("cuda", torch.bfloat16
+                                        ).requires_grad_()
+
+    def dispatch_combine():
+        d, c, _ = moe.top_k_gating(x @ layer.w_gate, layer.k, cap)
+        y = moe._einsum("ecd,tec->td", moe._einsum("td,tec->ecd", x, d), c)
+        y.backward(torch.ones_like(y))
+
+    def experts():
+        h = moe._einsum("ecd,edh->ech", buf, layer.w1) + layer.b1[:, None]
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+        y = moe._einsum("ech,ehd->ecd", h, layer.w2) + layer.b2[:, None]
+        y.backward(torch.ones_like(y))
+    return (time_ms(dispatch_combine, iters=5, graph=False),
+            time_ms(experts, iters=5, graph=False), cap)
+
+
+def moe_collisions(model, ids):
+    """Per layer, the tokens that share an (expert, slot) with an earlier
+    token in the bf16 forward (the cumsum of one-hots rounds past 256 in
+    bf16, in both packages): one no-grad forward of bf16 copies of the
+    weights, each MoE's gating recomputed from its input."""
+    from paddle_tpu_torch.nn import moe
+    counts = []
+
+    def hook(mod, args, out):
+        x = args[0].reshape(-1, mod.dim)
+        d, _, _ = moe.top_k_gating(x @ mod.w_gate, mod.k,
+                                   mod.capacity(x.shape[0]))
+        per_slot = d.float().sum(0)
+        counts.append(int((per_slot - 1).clamp(min=0).sum()))
+    hooks = [blk.mlp.register_forward_hook(hook) for blk in model.blocks]
+    params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+    try:
+        with torch.no_grad():
+            torch.func.functional_call(model, params, (ids,))
+    finally:
+        for h in hooks:
+            h.remove()
+    return counts
+
+
+def moe_train_phase(smi):
+    """``moe_train``: bench.py:1155's GPT step (16 x 512, bf16 Adam) with
+    MoE FFNs, 2 + 5 steps: per-step launches (no K4), losses finite and
+    falling, a profiled step's device ms split into the one-hot dispatch
+    and combine, the experts and the rest (the parts timed alone at the
+    step's shapes, times the layers), the bf16 slot collisions."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.optimizer import Adam
+    cfg = moe_config(GPTConfig.small())
+    batch, seq = 16, 512
+    model = GPT(cfg, device="cuda", seed=0)
+    opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    losses, times, launches, routes = train(model, opt, loss_of, (ids,), 2,
+                                            MOE_STEPS)
+    want = dict(train_launches_per_step(cfg.num_layers), mlp=0)
+    check_launches("moe_train", launches, MOE_STEPS, want)
+    check_routes("moe_train", routes, "tc",
+                 tuple(k for k in TC_KERNELS if k != "mlp"))
+    check_path_routes("moe_train", routes, ("layer_norm",))
+    stats = step_stats("moe_train", "GPTConfig.small() + moe_experts=8, "
+                       "moe_k=2", batch, seq, losses, times, launches, smi)
+    step_ms, step_launches, by_name = kernel_profile(
+        lambda: opt.minimize(model, loss_of, ids))
+    collisions = moe_collisions(model, ids)
+    del model, opt
+    torch.cuda.empty_cache()
+    dc, ex, cap = moe_parts_ms(cfg, batch * seq)
+    layers = cfg.num_layers
+    stats.update(
+        experts=MOE_EXPERTS, k=MOE_K, capacity_factor=1.25, capacity=cap,
+        routes=routes, step_device_ms=step_ms,
+        step_kernel_launches=step_launches,
+        step_idle_share=1.0 - step_ms / stats["p50_step_ms"],
+        device_ms_split=dict(
+            dispatch_combine=layers * dc, experts=layers * ex,
+            rest=step_ms - layers * (dc + ex),
+            per_layer_dispatch_combine=dc, per_layer_experts=ex,
+            how="parts timed alone (time_ms, fwd + bwd) x layers; rest = "
+                "profiled step - parts"),
+        step_top_kernels={k[:60]: v for k, v in by_name.most_common(6)},
+        bf16_slot_collisions=collisions)
+    return stats, launches
+
+
+def scan_remat_phase(smi):
+    """``scan_remat``: bench.py:1155's GPT step, 2 + SCAN_STEPS steps, by
+    the unrolled model and then with scan_layers=True under each remat
+    policy, in turn in one process: the per-step launches (the blocks'
+    K1, K2 and K4 twice under a recomputing policy), every scan run's
+    losses within SCAN_LOSS_TOL of the unrolled run's (same seed, batch
+    and optimizer), tokens/s and peak memory, which must fall from
+    ``nothing`` to ``full``. Emits a line per run; returns (peak GB by
+    run, launches by policy)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import REMAT_POLICIES
+    from paddle_tpu_torch.optimizer import Adam
+    batch, seq = 16, 512
+    peaks, launches_by, ref = {}, {}, None
+    for policy in ("unrolled",) + REMAT_POLICIES:
+        cfg = GPTConfig.small()
+        cfg.dropout = 0.0
+        if policy != "unrolled":
+            cfg.scan_layers, cfg.remat = True, policy
+        model = GPT(cfg, device="cuda", seed=0)
+        opt = amp.decorate(Adam(model.parameters(), 1e-4),
+                           amp.bf16_policy())
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (batch, seq))).cuda()
+        losses, times, launches, routes = train(model, opt, loss_of, (ids,),
+                                                2, SCAN_STEPS)
+        del model, opt
+        torch.cuda.empty_cache()
+        layers = cfg.num_layers
+        want = train_launches_per_step(layers)
+        if policy in ("dots_saveable", "full"):  # the blocks' kernels rerun
+            want.update(layer_norm=4 * layers + 1, flash_attention=2 * layers,
+                        mlp=2 * layers)
+        what = f"scan_remat {policy}"
+        check_launches(what, launches, SCAN_STEPS, want)
+        check_routes(what, routes, "tc")
+        check_path_routes(what, routes, ("layer_norm",))
+        ref = losses if ref is None else ref
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        stats = step_stats(what, f"GPTConfig.small() {policy}", batch, seq,
+                           losses, times, launches, smi)
+        stats.update(remat=policy, loss_rel_err_vs_unrolled=rel,
+                     loss_tol=SCAN_LOSS_TOL,
+                     bitwise_equal_to_unrolled=losses == ref)
+        emit(dict(phase="scan_remat", **stats))
+        peaks[policy] = stats["peak_memory_gb"]
+        if policy != "unrolled":
+            launches_by[policy] = launches
+        check(f"{what} losses against the unrolled model's", rel,
+              SCAN_LOSS_TOL)
+    if not peaks["full"] < peaks["nothing"]:
+        raise AssertionError(f"scan_remat: peak memory did not fall from "
+                             f"nothing to full: {peaks}")
+    return peaks, launches_by
+
+
 def expected_route(kernel, case):
     """The route a kernel case must take: K2 and K3 by
     :func:`flash_route` (bf16 with D = 64 or 128 on the tensor cores);
@@ -3373,6 +3823,14 @@ def expected_route(kernel, case):
     return "tc" if bf16 else "simt"
 
 
+#: the paths whose launches every row of the kernels line lists beside
+#: its own path's (``launches_<path>``), the scan step under each remat
+#: policy among them
+LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
+                "transformer", "resnet", "ctr", "gpt_decode",
+                "gpt_decode_int8", "serve_int8", "moe_train", "scan_nothing",
+                "scan_dots_saveable", "scan_full")
+
 #: the kernels with a row per route in the kernels line
 ROUTED_ROWS = ("flash_attention", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv", "mlp")
@@ -3384,10 +3842,9 @@ def kernel_table(by_kernel, paths):
     the SIMT one (serve's for K2 and K4, train_crosscheck's f32 step for
     K3) under the kernel's name, the tc one (GPT training's) as
     "<name>.tc"; K5 and K6 one row, their bf16 tensor-core kernels; the
-    others one SIMT row. ``paths`` holds each path's launch counts
-    (serve, serve_spec, train, train_crosscheck, bert, bert_large,
-    trainer, transformer, resnet, ctr: the last two are 0 for every
-    kernel)."""
+    others one SIMT row. ``paths`` holds each path's launch counts:
+    serve and train_crosscheck (a row's own path only) and
+    :data:`LISTED_PATHS` (resnet and ctr are 0 for every kernel)."""
     from paddle_tpu_torch.ops.cuda import core
     table = []
     for name, kernel in core.KERNELS.items():
@@ -3415,14 +3872,7 @@ def kernel_table(by_kernel, paths):
                 source=kernel.route_sources.get(variant, kernel.source),
                 replaces=kernel.replaces, launches=paths[path][name],
                 launches_path=path,
-                launches_serve_spec=paths["serve_spec"][name],
-                launches_train=paths["train"][name],
-                launches_bert=paths["bert"][name],
-                launches_bert_large=paths["bert_large"][name],
-                launches_trainer=paths["trainer"][name],
-                launches_transformer=paths["transformer"][name],
-                launches_resnet=paths["resnet"][name],
-                launches_ctr=paths["ctr"][name],
+                **{f"launches_{p}": paths[p][name] for p in LISTED_PATHS},
                 max_abs_err=case["max_abs_err"],
                 ms=case["kernel_ms"], plain_ms=case["plain_ms"],
                 bound_ms=case["bound_ms"],
@@ -3444,9 +3894,8 @@ def mixed_row(kernel, cases, paths):
                source=kernel.source, replaces=kernel.replaces,
                launches=paths["transformer"][kernel.name],
                launches_path="transformer",
-               **{f"launches_{p}": paths[p][kernel.name] for p in (
-                   "serve_spec", "train", "bert", "bert_large", "trainer",
-                   "transformer", "resnet", "ctr")})
+               **{f"launches_{p}": paths[p][kernel.name]
+                  for p in LISTED_PATHS})
     row.update({k: case[k] for k in (
         "max_abs_err", "bound_ms", "bound_by", "library_ms", "shape",
         "dtype", "params_dtype")}, ms=case["kernel_ms"],
@@ -3555,6 +4004,16 @@ def main():
               routes={"decode_attention": routes8["decode_attention"]},
               **{k: v for k, v in stats8.items() if k != "prompt_lens"}))
 
+    decode_line, decode_launches, prompt, float_out, float_logits = \
+        gpt_decode_phase(model, cpu_model, smi)
+    emit(dict(phase="gpt_decode", **decode_line))
+    decode8_line, decode8_launches = gpt_decode_int8_phase(
+        model, prompt, float_out, float_logits, smi)
+    emit(dict(phase="gpt_decode_int8", **decode8_line))
+    del float_logits
+    serve8_line, serve8_launches = serve_int8_phase(model, serve_kw, smi)
+    emit(dict(phase="serve_int8", **serve8_line))
+
     del model, eng
     torch.cuda.empty_cache()
     train_stats, train_launches = train_phase(cfg, smi)
@@ -3568,6 +4027,19 @@ def main():
         "train_crosscheck", "GPTConfig.small()",
         lambda dev: GPT(small, device=dev, seed=0), loss_of, (ids,), 2, 128,
         TRAIN_KERNELS)
+
+    torch.cuda.empty_cache()
+    scan_peaks, scan_launches = scan_remat_phase(smi)
+    emit(dict(phase="scan_remat", peak_memory_gb=scan_peaks, card=smi))
+    torch.cuda.empty_cache()
+    moe_line, moe_launches = moe_train_phase(smi)
+    emit(dict(phase="moe_train", **moe_line))
+    torch.cuda.empty_cache()
+    moe_small = moe_config(small)
+    crosscheck_phase(
+        "moe_crosscheck", "GPTConfig.small() + moe_experts=8, moe_k=2",
+        lambda dev: GPT(moe_small, device=dev, seed=0), loss_of, (ids,), 2,
+        128, tuple(k for k in TRAIN_KERNELS if k != "mlp"))
 
     torch.cuda.empty_cache()
     bert_stats, bert_launches = bert_train_phase(smi)
@@ -3623,7 +4095,10 @@ def main():
         "train_crosscheck": crosscheck_launches, "bert": bert_launches,
         "bert_large": large_launches, "trainer": trainer_launches,
         "transformer": transformer_launches, "resnet": resnet_launches,
-        "ctr": ctr_launches})
+        "ctr": ctr_launches, "gpt_decode": decode_launches,
+        "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
+        "moe_train": moe_launches,
+        **{f"scan_{p}": n for p, n in scan_launches.items()}})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,8 +11,12 @@ names its parameters the same way, joined with dots, and keeps the same
 copies arrays without transposing any. A scan-stacked subtree (the JAX
 package's ``ScanLayers``, ``scan_layers=True``: ``encoder/layers/layer/
 <leaf>`` with a leading layer axis) loads into the port's unrolled
-layers ``encoder.layers.<i>.<leaf>``; :func:`export_params` writes the
-unrolled tree. The bridge imports neither jax nor ``paddle_tpu``.
+layers ``encoder.layers.<i>.<leaf>``, and as it is into a scan model
+(``scan_layers=True``, whose parameters are that tree's);
+:func:`export_params` writes the model's own layout. A weight-only int8
+tree (``fc1.weight_q`` / ``fc1.weight_scale``, ``attn.wq_q`` ...) loads
+into a float model, whose layers it makes int8, and exports back as it
+came. The bridge imports neither jax nor ``paddle_tpu``.
 
 Optimizer state has the JAX package's shape: ``{"step": int, "slots":
 <param tree of slot dicts>}`` for an optimizer, ``{"inner": ...}``
@@ -68,25 +72,50 @@ def _unstack(flat, own):
     return out
 
 
-#: the leaves weight-only int8 quantization writes in place of a Linear's
-#: or Embedding's ``weight`` and of attention's ``w{q,k,v,o}``
-#: (``paddle_tpu/quant/weight_only.py:90``); a model's own params such as
-#: the seq2seq's ``att_q`` are not among them
-_INT8_LEAVES = {f"{w}_{s}" for w in ("weight", "wq", "wk", "wv", "wo")
-                for s in ("q", "scale")}
+#: the weights weight-only int8 quantization replaces by ``<name>_q`` and
+#: ``<name>_scale`` (``paddle_tpu/quant/weight_only.py:90``): a Linear's or
+#: Embedding's ``weight`` and attention's ``w{q,k,v,o}``
+_INT8_WEIGHTS = ("weight", "wq", "wk", "wv", "wo")
+
+
+def _take_int8_layout(model, flat):
+    """Give each layer whose tree leaves are a weight-only int8 pair
+    (``<path>.weight_q`` and ``<path>.weight_scale``) that layout in
+    ``model`` (:func:`quant.weight_only.set_int8`), so that the pair loads
+    into it; a layer already int8 is left as it is."""
+    from paddle_tpu_torch.quant.weight_only import set_int8
+    for name in flat:
+        path, _, leaf = name.rpartition(".")
+        base = leaf[:-2] if leaf.endswith("_q") else None
+        if base not in _INT8_WEIGHTS:
+            continue
+        scale = f"{path}.{base}_scale" if path else f"{base}_scale"
+        if scale not in flat:
+            raise KeyError(f"{name}: an int8 weight without its scale "
+                           f"{scale}")
+        module = model.get_submodule(path)
+        w = module._parameters.get(base)
+        if w is None:
+            continue
+        q, s = _to_torch(flat[name]), _to_torch(flat[scale])
+        if tuple(q.shape) != tuple(w.shape) or q.dtype != torch.int8:
+            raise ValueError(f"{name}: {q.dtype} {tuple(q.shape)}, the "
+                             f"weight is {tuple(w.shape)}")
+        set_int8(module, base, q.to(w.device),
+                 s.to(w.device, w.dtype).clone())
 
 
 def load_params(model, params):
     """Copy a JAX param tree (numpy leaves) into ``model``'s parameters,
-    on the model's device and in its dtype; a scan-stacked subtree loads
-    into the unrolled layers. Every parameter must be present and no
-    extra leaf may be left over. Weight-only int8 trees (``weight_q`` /
-    ``wq_q`` ... leaves) raise ``NotImplementedError``."""
+    on the model's device and in its dtype. A scan-stacked subtree loads
+    as it is into a scan model's stacked layers, or into an unrolled
+    model's layers one by one. A weight-only int8 pair (the JAX package's
+    ``quantize_weights_int8`` tree: ``weight_q`` / ``weight_scale``,
+    ``wq_q`` / ``wq_scale`` ...) turns its layer int8 and loads into it.
+    Every parameter must be present and no extra leaf may be left
+    over."""
     flat = flatten(params)
-    quant = [k for k in flat if k.rsplit(".", 1)[-1] in _INT8_LEAVES]
-    if quant:
-        raise NotImplementedError(
-            f"weight-only int8 params are not ported: {quant[:3]}")
+    _take_int8_layout(model, flat)
     own = dict(model.named_parameters())
     _copy_into(own, _unstack(flat, own), "param")
     return model
@@ -103,11 +132,11 @@ def _copy_into(own, flat, what):
                        f"extra {extra[:5]}")
     with torch.no_grad():
         for name, t in own.items():
-            arr = np.asarray(flat[name])
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{name}: shape {arr.shape} vs "
+            src = _to_torch(flat[name])
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} vs "
                                  f"{tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.array(arr)))
+            t.copy_(src)
 
 
 def _nest(flat_items):
@@ -126,7 +155,9 @@ def _nest(flat_items):
 def export_params(model):
     """The port's parameters as the JAX package's nested param tree of
     numpy arrays (lists become dicts keyed by the block index, as the JAX
-    package's own tree holds them)."""
+    package's own tree holds them; a scan model's stacked layers stay
+    stacked under ``layer``; a weight-only int8 pair exports as the pair,
+    int8 and its scale)."""
     return _nest((name, p.detach().cpu().numpy())
                  for name, p in model.named_parameters())
 

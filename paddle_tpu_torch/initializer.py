@@ -56,13 +56,20 @@ def uniform(low=-1.0, high=1.0):
     return init
 
 
-def xavier():
+def xavier(fan_in=None, fan_out=None):
     """Glorot uniform, ``limit = sqrt(6 / (fan_in + fan_out))`` (ref:
-    ``initializer.py:65``)."""
+    ``initializer.py:65``); ``fan_in`` / ``fan_out`` override the fans of
+    the shape (the MoE's per-expert ``[E, D, H]`` kernels)."""
     def init(shape, gen=None, dtype=torch.float32):
         w = torch.empty(shape, dtype=dtype)
-        nn.init.xavier_uniform_(w, generator=gen)
-        return w
+        if fan_in is None and fan_out is None:
+            nn.init.xavier_uniform_(w, generator=gen)
+            return w
+        fi, fo = _fans(shape)
+        fi = fan_in if fan_in is not None else fi
+        fo = fan_out if fan_out is not None else fo
+        limit = math.sqrt(6.0 / (fi + fo))
+        return w.uniform_(-limit, limit, generator=gen)
     return init
 
 

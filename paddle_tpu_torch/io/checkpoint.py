@@ -23,6 +23,7 @@ import json
 import os
 import shutil
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.testing.chaos import fault_point
@@ -116,6 +117,64 @@ def load_persistables(path, template, step=None):
                              f"checkpoint, the template has {like.dtype} "
                              f"{tuple(like.shape)}")
     return _unflatten_like(template, flat)
+
+
+def _stack_leaves(subs):
+    """Stack the leaves of same-structured trees along a new axis 0
+    (torch tensors with ``torch.stack``, arrays with ``np.stack``)."""
+    first = subs[0]
+    if isinstance(first, dict):
+        return {k: _stack_leaves([s[k] for s in subs]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.stack(subs)
+    return np.stack(subs)
+
+
+def _index_leaves(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_leaves(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        if not tree:
+            return None
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def stack_layer_tree(tree):
+    """A per-layer param tree in the scan-over-layers layout (ref:
+    ``io/checkpoint.py:110``): wherever a dict's keys are exactly
+    ``"0".."n-1"`` and each value is a dict, the per-index subtrees are
+    stacked leaf-wise along a new leading layer axis and the dict becomes
+    ``{"layer": stacked}`` (:class:`nn.ScanLayers`' layout). Leaves may be
+    numpy arrays or torch tensors."""
+    if not isinstance(tree, dict) or not tree:
+        return tree
+    idx = [str(i) for i in range(len(tree))]
+    if sorted(tree) == sorted(idx) and all(isinstance(tree[i], dict)
+                                           for i in idx):
+        return {"layer": _stack_leaves([stack_layer_tree(tree[i])
+                                        for i in idx])}
+    return {k: stack_layer_tree(v) for k, v in tree.items()}
+
+
+def unstack_layer_tree(tree):
+    """The inverse of :func:`stack_layer_tree` (ref:
+    ``io/checkpoint.py:132``): every ``{"layer": stacked}`` subtree splits
+    into ``{"0": ..., "n-1": ...}``, for paths that step layers one by one
+    (``GPTDecoder``'s KV caches)."""
+    if not isinstance(tree, dict):
+        return tree
+    if set(tree) == {"layer"} and isinstance(tree["layer"], dict):
+        leaf = _first_leaf(tree["layer"])
+        if leaf is not None:
+            return {str(i): unstack_layer_tree(_index_leaves(tree["layer"],
+                                                             i))
+                    for i in range(leaf.shape[0])}
+    return {k: unstack_layer_tree(v) for k, v in tree.items()}
 
 
 def latest_step(path):

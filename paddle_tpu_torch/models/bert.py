@@ -8,6 +8,9 @@ cross-entropy, K5 forward and K6 backward on the card).
 Parameter names match the JAX package's param tree
 (``encoder.layers.<i>.attn.wq``, ``mlm_bias``, ``pooler.weight`` ...), so
 ``paddle_tpu_torch/bridge.py`` carries weights across in both directions.
+With ``scan_layers`` the encoder's layers are one :class:`nn.ScanLayers`
+(``encoder.layers.layer.<param>`` with a leading layer axis, the JAX
+package's scan tree) under ``remat``.
 """
 
 import dataclasses
@@ -17,6 +20,7 @@ from torch import nn
 
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.nn.layers import is_int8
 from paddle_tpu_torch.ops.fused import fused_xent
 from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
 
@@ -32,8 +36,8 @@ class BertConfig:
     type_vocab_size: int = 2
     dropout: float = 0.1
     use_flash: bool = True
-    scan_layers: bool = False  # stacked layers under scan: not ported
-    remat: str = None          # rematerialization policy: not ported
+    scan_layers: bool = False  # stacked layer params, one layer at a time
+    remat: str = None          # nothing|dots_saveable|full (None: nothing)
 
     @staticmethod
     def base():
@@ -51,12 +55,8 @@ class BertConfig:
                           intermediate_size=4096)
 
     def check_ported(self):
-        for name, on in (("scan_layers", bool(self.scan_layers)),
-                         ("remat", self.remat is not None)):
-            if on:
-                raise NotImplementedError(
-                    f"{type(self).__name__}.{name} is not ported to "
-                    "paddle_tpu_torch")
+        """Validates ``remat``; every option of the config is ported."""
+        pnn.resolve_remat(self.remat)
 
 
 class TransformerLayer(nn.Module):
@@ -97,8 +97,14 @@ class BertEncoder(nn.Module):
                                      gen=gen)
         self.emb_ln = pnn.LayerNorm(cfg.hidden_size)
         self.drop = pnn.Dropout(cfg.dropout, gen=dropout_gen)
-        self.layers = nn.ModuleList(TransformerLayer(cfg, gen, dropout_gen)
-                                    for _ in range(cfg.num_layers))
+        layers = [TransformerLayer(cfg, gen, dropout_gen)
+                  for _ in range(cfg.num_layers)]
+        if cfg.scan_layers:
+            self.layers = pnn.ScanLayers(
+                layers, remat=cfg.remat,
+                gens=(dropout_gen,) if cfg.dropout > 0 else ())
+        else:
+            self.layers = nn.ModuleList(layers)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         """``[B, T, H]`` hidden states. ``attention_mask`` ``[B, T]`` (1 =
@@ -113,6 +119,8 @@ class BertEncoder(nn.Module):
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :]
+        if self.cfg.scan_layers:
+            return self.layers(x, mask=mask)
         for layer in self.layers:
             x = layer(x, mask=mask)
         return x
@@ -179,12 +187,19 @@ class BertForPretraining(nn.Module):
         cross-entropy against the tied embedding and ``mlm_bias`` (K5
         forward, K6 backward on the card), so no ``[B, M, V]`` logits
         exist; the masked mean over ``mlm_mask`` plus the mean NSP
-        cross-entropy. The vocab-sharded loss waits for multi-GPU."""
+        cross-entropy. Over an int8 table it is :func:`pretrain_loss` of
+        the logits, as in the reference. The vocab-sharded loss waits for
+        multi-GPU."""
         if any(a is not None for a in (vocab_axis, batch_axis, mesh,
                                         mesh_plan)):
             raise NotImplementedError(
                 "BertForPretraining.loss: the vocab-sharded loss "
                 "(vocab_axis, batch_axis, mesh, mesh_plan) is not ported")
+        if is_int8(self.encoder.tok_emb):
+            mlm_logits, nsp_logits = self.forward(
+                input_ids, token_type_ids, attention_mask, mask_positions)
+            return pretrain_loss(mlm_logits, nsp_logits, mlm_labels,
+                                 nsp_labels, mlm_mask)
         h = self.encoder(input_ids, token_type_ids, attention_mask)
         ce = fused_xent(self._mlm_hidden(h, mask_positions),
                         self.encoder.tok_emb.weight, mlm_labels,

@@ -1,11 +1,15 @@
 """Decoder-only causal LM (GPT-style) — the port of
-``paddle_tpu/models/gpt.py``: the config, the pre-norm blocks, the full
-forward, the training loss (``GPT.loss``, the fused cross-entropy against
-the tied embedding), and the paged serving methods of ``GPTDecoder``.
+``paddle_tpu/models/gpt.py``: the config, the pre-norm blocks (a dense or
+a mixture-of-experts FFN), the full forward, unrolled or as a scan over
+stacked layers with remat, the training loss (``GPT.loss``, the fused
+cross-entropy against the tied embedding), and ``GPTDecoder``'s
+incremental decoding: the padded KV cache (``init_caches``,
+``decode_step``, ``generate``) and the paged serving methods.
 
-Pools are updated in place by the paged methods (the reference donates
-them to its jitted step and gets new ones back); each method still
-returns the list of pools so that call sites read like the reference's.
+Caches and pools are updated in place (the reference returns new ones
+from its jitted step); each method still returns them, so that call
+sites read like the reference's. Every weight may be weight-only int8
+(``quant.quantize_weights_int8``, or an int8 tree through the bridge).
 """
 
 import dataclasses
@@ -16,6 +20,7 @@ from torch import nn
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.nn.layers import is_int8
 from paddle_tpu_torch.ops.fused import fused_xent
 from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
 
@@ -31,8 +36,11 @@ class GPTConfig:
     dropout: float = 0.1
     use_flash: bool = True
     seq_axis: str = None       # ring sequence parallelism: not ported
-    moe_experts: int = 0       # MoE FFN: not ported
-    scan_layers: bool = False  # stacked layers under scan: not ported
+    moe_experts: int = 0       # >0: MoE FFN with this many experts
+    moe_k: int = 2
+    moe_ep_axis: str = None    # expert parallelism: not ported
+    scan_layers: bool = False  # stacked block params, one layer at a time
+    remat: str = None          # nothing|dots_saveable|full (None: nothing)
 
     @staticmethod
     def small():
@@ -45,12 +53,14 @@ class GPTConfig:
                          max_position=128)
 
     def check_ported(self):
-        for name, on in (("seq_axis", self.seq_axis is not None),
-                         ("moe_experts", bool(self.moe_experts)),
-                         ("scan_layers", bool(self.scan_layers))):
-            if on:
+        """The multi-GPU options raise: ring sequence parallelism and
+        expert parallelism."""
+        for name in ("seq_axis", "moe_ep_axis"):
+            if getattr(self, name) is not None:
                 raise NotImplementedError(
-                    f"GPTConfig.{name} is not ported to paddle_tpu_torch")
+                    f"GPTConfig.{name} needs several GPUs and is not "
+                    "ported to paddle_tpu_torch")
+        pnn.resolve_remat(self.remat)
 
 
 class GPTBlock(nn.Module):
@@ -63,19 +73,39 @@ class GPTBlock(nn.Module):
                                            use_flash=cfg.use_flash, gen=gen,
                                            dropout_gen=dropout_gen)
         self.ln2 = pnn.LayerNorm(cfg.hidden_size)
-        self.fc1 = pnn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                              gen=gen)
-        self.fc2 = pnn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                              gen=gen)
+        if cfg.moe_experts:
+            self.mlp = pnn.MoE(cfg.hidden_size, cfg.intermediate_size,
+                               cfg.moe_experts, k=cfg.moe_k,
+                               ep_axis=cfg.moe_ep_axis, gen=gen)
+        else:
+            self.fc1 = pnn.Linear(cfg.hidden_size, cfg.intermediate_size,
+                                  gen=gen)
+            self.fc2 = pnn.Linear(cfg.intermediate_size, cfg.hidden_size,
+                                  gen=gen)
         self.drop = pnn.Dropout(cfg.dropout, gen=dropout_gen)
 
     def _ffn(self, x):
+        if self.cfg.moe_experts:
+            return self.mlp(x)
         return pnn.fused_ffn(self.fc1, self.fc2, x)
 
     def forward(self, x):
         # pre-norm residual blocks (GPT-2 style)
         x = x + self.drop(self.attn(self.ln1(x), causal=True))
         return x + self.drop(self._ffn(self.ln2(x)))
+
+    def decode_step(self, x, cache, pos):
+        """The incremental twin of forward through the KV cache (no
+        dropout)."""
+        h, cache = self.attn.decode_step(self.ln1(x), cache, pos)
+        x = x + h
+        return x + self._ffn(self.ln2(x)), cache
+
+    def prefill(self, x, cache, start=0):
+        """Whole-prompt cache fill: one causal forward (no dropout)."""
+        h, cache = self.attn.prefill(self.ln1(x), cache, start)
+        x = x + h
+        return x + self._ffn(self.ln2(x)), cache
 
     def paged_decode_step(self, x, pool, page_table, att_lengths,
                           write_pages, write_offsets):
@@ -99,7 +129,11 @@ class GPT(nn.Module):
     the same weights on every machine) and moved to ``device``, which
     defaults to the card and raises when there is none. Dropout masks
     come from ``dropout_gen``, a generator on ``device`` seeded with
-    ``seed``."""
+    ``seed``. With ``cfg.scan_layers`` the blocks are one
+    :class:`nn.ScanLayers` (``blocks.layer.<param>`` with a leading layer
+    axis, the reference's scan tree) under ``cfg.remat``; they are drawn
+    as the unrolled blocks are, so both layouts of one seed hold the same
+    weights."""
 
     def __init__(self, cfg: GPTConfig, device="cuda", seed=0):
         super().__init__()
@@ -113,22 +147,31 @@ class GPT(nn.Module):
         self.pos_emb = pnn.Embedding(cfg.max_position, cfg.hidden_size,
                                      gen=gen)
         self.drop = pnn.Dropout(cfg.dropout, gen=self.dropout_gen)
-        self.blocks = nn.ModuleList(GPTBlock(cfg, gen, self.dropout_gen)
-                                    for _ in range(cfg.num_layers))
+        blocks = [GPTBlock(cfg, gen, self.dropout_gen)
+                  for _ in range(cfg.num_layers)]
+        if cfg.scan_layers:
+            self.blocks = pnn.ScanLayers(
+                blocks, remat=cfg.remat,
+                gens=(self.dropout_gen,) if cfg.dropout > 0 else ())
+        else:
+            self.blocks = nn.ModuleList(blocks)
         self.ln_f = pnn.LayerNorm(cfg.hidden_size)
         self.to(dev)
 
     @property
     def device(self):
-        return self.tok_emb.weight.device
+        return self.ln_f.scale.device
 
     def hidden(self, input_ids, pos_offset=0):
         """Final post-LN hidden states ``[B, T, H]``."""
         _, t = input_ids.shape
         pos = pos_offset + torch.arange(t, device=self.device)[None, :]
         x = self.drop(self.tok_emb(input_ids) + self.pos_emb(pos))
-        for blk in self.blocks:
-            x = blk(x)
+        if self.cfg.scan_layers:
+            x = self.blocks(x)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         return self.ln_f(x)
 
     def forward(self, input_ids, pos_offset=0):
@@ -140,11 +183,16 @@ class GPT(nn.Module):
         ``models/gpt.py:174``): the fused cross-entropy against the tied
         embedding table (K5 forward, K6 backward on the card), so no
         ``[B, T, V]`` logits exist. ``pad_id`` averages over the
-        positions whose label is not ``pad_id``. Vocab and batch sharding
-        wait for multi-GPU."""
+        positions whose label is not ``pad_id``. Over an int8 table the
+        loss is :func:`lm_loss` of the logits, as in the reference. Vocab
+        and batch sharding wait for multi-GPU. A MoE model's aux loss is
+        not added, as in the reference."""
         if labels is None:
             labels = input_ids
         h = self.hidden(input_ids)
+        if is_int8(self.tok_emb):
+            return lm_loss(pnn.tied_vocab_head(self.tok_emb, h), labels,
+                           pad_id)
         ce = fused_xent(h[:, :-1], self.tok_emb.weight, labels[:, 1:])
         return _masked_mean(ce, labels[:, 1:], pad_id)
 
@@ -166,7 +214,85 @@ def lm_loss(logits, labels, pad_id=None):
 
 
 class GPTDecoder(GPT):
-    """GPT plus the paged serving methods the serving engine drives."""
+    """GPT plus incremental decoding: the padded KV cache of
+    :meth:`generate` and the paged serving methods the serving engine
+    drives. It steps per-layer caches, so it refuses ``scan_layers``;
+    a scan model's tree converts with ``io.unstack_layer_tree``."""
+
+    def __init__(self, cfg: GPTConfig, device="cuda", seed=0):
+        enforce(not cfg.scan_layers,
+                "GPTDecoder steps per-layer KV caches and needs unrolled "
+                "blocks (scan_layers=False); train params saved from a "
+                "scan model convert via io.checkpoint.unstack_layer_tree")
+        super().__init__(cfg, device=device, seed=seed)
+
+    def init_caches(self, batch, max_len, dtype=torch.float32):
+        """Per-layer KV caches ``{"k", "v"}`` ``[B, H, max_len, hd]`` on
+        the model's device (ref: ``models/gpt.py:254``)."""
+        return [blk.attn.init_cache(batch, max_len, dtype)
+                for blk in self.blocks]
+
+    def decode_step(self, token, caches, pos):
+        """One incremental forward of ``token`` ``[B, 1]`` at position
+        ``pos`` (an int) through every block's KV cache -> ``(logits [B,
+        1, V], caches)``, the caches written in place (ref:
+        ``models/gpt.py:219``; the reshape undoes lookup_table's
+        trailing-1 squeeze)."""
+        b = token.shape[0]
+        pos_ids = torch.full(token.shape, pos, dtype=torch.long,
+                             device=token.device)
+        x = (self.tok_emb(token) + self.pos_emb(pos_ids)).reshape(
+            b, 1, self.cfg.hidden_size)
+        for blk, cache in zip(self.blocks, caches):
+            x, _ = blk.decode_step(x, cache, pos)
+        return pnn.tied_vocab_head(self.tok_emb, self.ln_f(x)), caches
+
+    def prefill(self, prompt, max_len, cache_dtype=torch.float32):
+        """generate's batched prefill: one causal forward of ``prompt``
+        ``[B, Tp]`` fills new caches of ``max_len`` positions -> ``(logits
+        of the last prompt position [B, 1, V], caches)``."""
+        tp = prompt.shape[1]
+        caches = self.init_caches(prompt.shape[0], max_len, dtype=cache_dtype)
+        x = self.tok_emb(prompt) + self.pos_emb(
+            torch.arange(tp, device=prompt.device)[None, :])
+        for blk, cache in zip(self.blocks, caches):
+            x, _ = blk.prefill(x, cache, start=0)
+        return (pnn.tied_vocab_head(self.tok_emb, self.ln_f(x[:, -1:, :])),
+                caches)
+
+    @torch.no_grad()
+    def generate(self, prompt, max_new, temperature=0.0, generator=None,
+                 cache_dtype=torch.float32):
+        """Greedy (``temperature`` 0) or sampled generation (ref:
+        ``models/gpt.py:394``): one batched prefill of the ``[B, Tp]``
+        prompt fills every layer's cache, then ``max_new`` decode steps,
+        each drawing the next token from the last logits (argmax, or a
+        categorical draw at ``logits / temperature`` from the explicit
+        ``generator`` on the model's device, which sampling requires).
+        ``cache_dtype`` is the caches' storage type (bf16 halves the bytes
+        each decode step reads). Returns ``[B, Tp + max_new]``, the
+        prompt included."""
+        enforce(temperature <= 0.0 or generator is not None,
+                "sampled generation (temperature > 0) requires a "
+                "torch.Generator")
+        enforce(prompt.device == self.device,
+                f"prompt on {prompt.device}, model on {self.device}")
+        b, tp = prompt.shape
+        enforce(tp + max_new <= self.cfg.max_position,
+                f"prompt {tp} + max_new {max_new} > max_position "
+                f"{self.cfg.max_position}")
+        logits, caches = self.prefill(prompt, tp + max_new, cache_dtype)
+        new = []
+        for t in range(max_new):
+            if temperature <= 0.0:
+                tok = torch.argmax(logits[:, 0], dim=-1)
+            else:
+                probs = torch.softmax(logits[:, 0].float() / temperature, -1)
+                tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            tok = tok.to(prompt.dtype)[:, None]
+            new.append(tok)
+            logits, caches = self.decode_step(tok, caches, tp + t)
+        return torch.cat([prompt] + new, dim=1)
 
     def init_paged_caches(self, num_pages, page_size, dtype=torch.float32,
                           kv_dtype=None):

@@ -137,7 +137,7 @@ class ResNet(nn.Module):
 
     @property
     def device(self):
-        return self.fc.weight.device
+        return next(self.parameters()).device
 
     def forward(self, x):
         if self.data_format == "NHWC" and self.input_layout == "NCHW":

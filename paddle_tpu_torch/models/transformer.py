@@ -25,6 +25,7 @@ from torch import nn
 
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.nn.layers import is_int8
 from paddle_tpu_torch.ops import activations as A
 from paddle_tpu_torch.ops.fused import fused_xent
 from paddle_tpu_torch.ops.loss import softmax_with_cross_entropy
@@ -139,7 +140,7 @@ class Transformer(nn.Module):
 
     @property
     def device(self):
-        return self.out_proj.weight.device
+        return next(self.parameters()).device
 
     def _embed(self, emb, ids):
         pe = positional_encoding(ids.shape[1], self.cfg.d_model, ids.device)
@@ -179,8 +180,9 @@ class Transformer(nn.Module):
         ``[B, T, V]`` logits or one-hot labels exist; the mean over the
         positions whose ``tgt_out`` is not ``pad_id``. The reference's
         ``PT_FUSED_XENT=0`` switch has no counterpart (:func:`nmt_loss`
-        is the parity composition); the vocab-sharded loss waits for
-        multi-GPU."""
+        is the parity composition, and the loss over a weight-only int8
+        ``out_proj``, as in the reference); the vocab-sharded loss waits
+        for multi-GPU."""
         if any(a is not None for a in (vocab_axis, batch_axis, mesh,
                                         mesh_plan)):
             raise NotImplementedError(
@@ -188,6 +190,9 @@ class Transformer(nn.Module):
                 "batch_axis, mesh, mesh_plan) is not ported")
         memory = self.encode(src, src_mask)
         h = self.decode_hidden(tgt_in, memory, src_mask)
+        if is_int8(self.out_proj):
+            return nmt_loss(self.out_proj(h), tgt_out, pad_id,
+                            label_smoothing)
         ce = fused_xent(h, self.out_proj.weight, tgt_out, weight_layout="hv",
                         label_smoothing=label_smoothing)
         valid = (tgt_out != pad_id).to(torch.float32)

@@ -54,7 +54,7 @@ class VGG(nn.Module):
 
     @property
     def device(self):
-        return self.head.weight.device
+        return next(self.parameters()).device
 
     def forward(self, x):
         i = 0
@@ -138,7 +138,7 @@ class SEResNeXt(nn.Module):
 
     @property
     def device(self):
-        return self.head.weight.device
+        return next(self.parameters()).device
 
     def forward(self, x):
         x = self.stem(x)

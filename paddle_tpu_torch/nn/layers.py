@@ -8,8 +8,12 @@ reference's param-tree keys (``weight``, ``bias``, ``scale``, ``wq`` ...),
 and batch norm's buffers its ``state`` keys (``mean``, ``variance``).
 
 Weights are created on the CPU from a ``torch.Generator`` and moved by the
-owning model; the weight-only int8 variants of the reference (``weight_q``)
-are not ported and the bridge refuses them.
+owning model. After ``quant.quantize_weights_int8`` a layer holds the
+reference's weight-only int8 pair in place of a weight (``weight_q`` int8
+and ``weight_scale``, or ``wq_q`` / ``wq_scale`` ...), and ``Linear``,
+``Embedding``, :func:`tied_vocab_head` and attention's projections read it
+as the reference does (``nn/layers.py:26-33``, ``:51-56``, ``:277-301``,
+``:502-521``).
 """
 
 import torch
@@ -32,6 +36,23 @@ def _act(name, x):
     return x if name is None else getattr(A, name)(x)
 
 
+def is_int8(module, name="weight"):
+    """True when ``module``'s ``name`` is held as weight-only int8
+    (``<name>_q`` and ``<name>_scale``)."""
+    return f"{name}_q" in module._parameters
+
+
+def _int8_dot(x, q, scale, rhs_axis=0):
+    """``x`` contracted over its last axis with the int8 kernel ``q``'s
+    ``rhs_axis``, the per-channel scale applied to the output (ref:
+    ``nn/layers.py:26``): exact, since the scale's axis is the one not
+    contracted. The reference's ``dot_general`` reads int8 in a mixed-type
+    dot; torch has none, so the kernel is cast to ``x``'s dtype first
+    (exact: every int8 value is a bf16 and an f32)."""
+    w = q.to(x.dtype)
+    return (x @ (w if rhs_axis == 0 else w.T)) * scale.to(x.dtype)
+
+
 class Linear(nn.Module):
     """ref: ``nn/layers.py:37`` — ``act(x @ weight + bias)``, weight
     ``[in, out]`` drawn by ``weight_init`` (xavier by default);
@@ -48,7 +69,10 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        out = F.matmul(x, self.weight)
+        if is_int8(self):
+            out = _int8_dot(x, self.weight_q, self.weight_scale)
+        else:
+            out = F.matmul(x, self.weight)
         if self.bias is not None:
             out = out + self.bias
         return _act(self.act, out)
@@ -57,7 +81,13 @@ class Linear(nn.Module):
 def fused_ffn(fc1, fc2, x, act="gelu"):
     """``fc2(gelu(fc1(x)))`` through the fused MLP (K4 on the card): the
     ``[rows, intermediate]`` activation never reaches device memory
-    (ref: ``nn/layers.py:63``)."""
+    (ref: ``nn/layers.py:63``). The reference's dispatch rule keeps the
+    unfused ``fc2(act(fc1(x)))`` when either layer is weight-only int8
+    (its int8 dot is a kernel of its own) or carries an activation of its
+    own; that is which function the call computes, not a fallback."""
+    if (is_int8(fc1) or is_int8(fc2) or fc1.act is not None
+            or fc2.act is not None):
+        return fc2(_act(act, fc1(x)))
     if act != "gelu":
         raise NotImplementedError(f"fused_ffn: act={act!r} (the port has "
                                   "the exact-gelu MLP only)")
@@ -182,12 +212,25 @@ class Embedding(nn.Module):
             (num_embeddings, embedding_dim), gen, dtype))
 
     def forward(self, ids):
+        if is_int8(self):
+            # int8 table, per-row scale: gather the int8 rows, dequantize
+            # the gathered rows only; ids lose lookup_table's trailing 1
+            # once, so the row and the scale gathers index alike (ref:
+            # nn/layers.py:277)
+            idx = (ids.squeeze(-1) if ids.ndim > 1 and ids.shape[-1] == 1
+                   else ids)
+            rows = F.lookup_table(idx, self.weight_q, self.padding_idx)
+            s = self.weight_scale
+            return rows.to(s.dtype) * s[idx.long()][..., None]
         return F.lookup_table(ids, self.weight, self.padding_idx)
 
 
 def tied_vocab_head(emb, x):
     """Weight-tied vocab projection ``x @ W.T`` (ref:
-    ``nn/layers.py:292``)."""
+    ``nn/layers.py:292``); over an int8 table the row scale lands on the
+    logit axis, ``(x @ q.T) * s``."""
+    if is_int8(emb):
+        return _int8_dot(x, emb.weight_q, emb.weight_scale, rhs_axis=1)
     return x @ emb.weight.T
 
 
@@ -319,25 +362,106 @@ class MultiHeadAttention(nn.Module):
             setattr(self, f"b{n}",
                     nn.Parameter(torch.zeros(embed_dim, dtype=dtype)))
 
+    def _w(self, n):
+        """Projection kernel ``w{n}``, dequantized when weight-only int8:
+        the full forward runs once a sequence, so it materializes the
+        float kernel; the cached and paged steps read int8 through
+        :meth:`_project` (ref: ``nn/layers.py:502``)."""
+        if is_int8(self, f"w{n}"):
+            q, s = getattr(self, f"w{n}_q"), getattr(self, f"w{n}_scale")
+            return q.to(s.dtype) * s[None, :]
+        return getattr(self, f"w{n}")
+
     def _project(self, x, n):
-        return F.matmul(x, getattr(self, f"w{n}")) + getattr(self, f"b{n}")
+        """``x @ w{n} + b{n}``, through the int8 dot when the kernel is
+        weight-only int8 (ref: ``nn/layers.py:511``)."""
+        if is_int8(self, f"w{n}"):
+            out = _int8_dot(x, getattr(self, f"w{n}_q"),
+                            getattr(self, f"w{n}_scale"))
+        else:
+            out = F.matmul(x, getattr(self, f"w{n}"))
+        return out + getattr(self, f"b{n}")
+
+    @property
+    def embed_dim(self):
+        return self.bq.shape[0]
 
     def forward(self, x, kv=None, mask=None, causal=False):
         """Self-attention over x, or cross-attention of x over ``kv``
         ``[B, Tk, E]`` (ref: ``nn/layers.py:566``)."""
         return att.multihead_attention(
-            x, self.wq, self.wk, self.wv, self.wo, self.bq, self.bk,
-            self.bv, self.bo, self.num_heads, mask=mask, causal=causal,
-            kv=kv, dropout_rate=self.dropout_rate, training=self.training,
-            use_flash=self.use_flash, dropout_gen=self.dropout_gen)
+            x, self._w("q"), self._w("k"), self._w("v"), self._w("o"),
+            self.bq, self.bk, self.bv, self.bo, self.num_heads, mask=mask,
+            causal=causal, kv=kv, dropout_rate=self.dropout_rate,
+            training=self.training, use_flash=self.use_flash,
+            dropout_gen=self.dropout_gen)
+
+    def init_cache(self, batch, max_len, dtype=torch.float32):
+        """KV cache for incremental decoding, on the layer's device:
+        ``{"k", "v"}`` zeros ``[B, H, Tmax, hd]`` (ref:
+        ``nn/layers.py:579``)."""
+        shape = (batch, self.num_heads, max_len,
+                 self.embed_dim // self.num_heads)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.bq.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.bq.device)}
+
+    def prefill(self, x, cache, start=0):
+        """Batched cache fill (ref: ``nn/layers.py:523``): project the
+        whole prompt ``x`` ``[B, T, E]`` once, write its K/V into the
+        cache at ``[0, T)`` (in the cache's dtype, in place) and return
+        ``(causal self-attention output [B, T, E], cache)``: flash
+        attention (K2 on the card) when ``use_flash``, over the projected
+        K/V as they come, not the cache's rounding of them. Only ``start
+        = 0`` is supported, as in the reference."""
+        if start != 0:
+            raise NotImplementedError(
+                "MultiHeadAttention.prefill only supports start=0 "
+                "(whole-prompt prefill); decode_step handles the rest")
+        b, t, e = x.shape
+        q, k, v = (self._heads(self._project(x, n)).transpose(1, 2)
+                   for n in "qkv")                     # [B, H, T, hd]
+        cache["k"][:, :, :t] = k.to(cache["k"].dtype)
+        cache["v"][:, :, :t] = v.to(cache["v"].dtype)
+        ctx = self._causal(q, k, v)
+        return self._project(ctx.transpose(1, 2).reshape(b, t, e), "o"), \
+            cache
+
+    def decode_step(self, x_t, cache, pos, causal=True):
+        """One incremental step (ref: ``nn/layers.py:587``): project the
+        new token ``x_t`` ``[B, 1, E]``, write its K/V into the cache at
+        ``pos`` (in place) and attend over the padded cache, positions
+        past ``pos`` masked to ``-1e9``, ``probs = exp(scores -
+        logsumexp(scores))``. Queries and cache meet in their promoted
+        type, as jnp promotes an f32 query against a bf16 cache. Returns
+        ``(out [B, 1, E], cache)``."""
+        b, _, e = x_t.shape
+        hd = e // self.num_heads
+        q, k_t, v_t = (self._heads(self._project(x_t, n)).transpose(1, 2)
+                       for n in "qkv")                 # [B, H, 1, hd]
+        cache["k"][:, :, pos:pos + 1] = k_t.to(cache["k"].dtype)
+        cache["v"][:, :, pos:pos + 1] = v_t.to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+        dt = torch.promote_types(q.dtype, k.dtype)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q.to(dt), k.to(dt)) \
+            / (hd ** 0.5)
+        if causal:
+            valid = torch.arange(k.shape[2], device=k.device) <= pos
+            scores = torch.where(valid[None, None, None, :], scores,
+                                 torch.full((), -1e9, dtype=scores.dtype,
+                                            device=scores.device))
+        probs = torch.exp(scores - torch.logsumexp(scores, -1, keepdim=True))
+        dt = torch.promote_types(probs.dtype, v.dtype)
+        ctx = torch.einsum("bhqk,bhkd->bhqd", probs.to(dt), v.to(dt))
+        return self._project(ctx.transpose(1, 2).reshape(b, 1, e), "o"), \
+            cache
 
     def init_page_pool(self, num_pages, page_size, dtype=torch.float32,
                        kv_dtype=None):
         """This layer's page pool, on the layer's device."""
-        hd = self.wq.shape[0] // self.num_heads
+        hd = self.embed_dim // self.num_heads
         return att.init_page_pool(num_pages, self.num_heads, page_size, hd,
                                   dtype, kv_dtype=kv_dtype,
-                                  device=self.wq.device)
+                                  device=self.bq.device)
 
     def _heads(self, y):
         b, t, e = y.shape

@@ -391,11 +391,17 @@ def test_bert_from_a_scan_stacked_tree(rng):
 
 
 def test_bert_refuses_what_is_not_ported():
+    """scan_layers and remat are ported (tests/test_torch_scan.py): an
+    unknown remat policy raises; the vocab-sharded loss and an int8
+    weight without its scale raise."""
     from paddle_tpu_torch import bridge
+    from paddle_tpu_torch.core.enforce import EnforceError
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     for over in (dict(scan_layers=True), dict(remat="full")):
-        with pytest.raises(NotImplementedError):
-            BertForPretraining(BertConfig(**dict(KW, **over)), device="cpu")
+        BertForPretraining(BertConfig(**dict(KW, **over)), device="cpu")
+    with pytest.raises(EnforceError):
+        BertForPretraining(BertConfig(**dict(KW, remat="most")),
+                           device="cpu")
     m = BertForPretraining(BertConfig(**KW), device="cpu")
     ids = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError):
@@ -403,7 +409,7 @@ def test_bert_refuses_what_is_not_ported():
                vocab_axis="tp")
     tree = bridge.export_params(m)
     tree["encoder"]["tok_emb"]["weight_q"] = np.zeros((300, 128), np.int8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError):
         bridge.load_params(m, tree)
 
 

@@ -1094,3 +1094,91 @@ def test_host_table_pulls_through_pinned_memory_to_the_card(cuda):
                                                   device="cuda")
     torch.cuda.synchronize()
     assert buf.is_cuda and float(buf[1].abs().sum()) == 0.0
+
+
+def test_decode_step_on_card_matches_cpu(cuda):
+    """generate's prefill (K1, K2 on its SIMT route at f32, K4) and a
+    decode step (K1, K4; the attention over the padded cache is plain
+    torch) on the card give the CPU's logits and caches, f32 cache."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.ops.cuda import core
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    card = GPTDecoder(cfg, device="cuda", seed=0)
+    cpu = GPTDecoder(cfg, device="cpu", seed=0)
+    prompt = torch.randint(0, 512, (3, 12),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    core.reset_launches()
+    for name, m in (("card", card), ("cpu", cpu)):
+        with torch.no_grad():
+            first, caches = m.prefill(prompt.to(m.device), 20)
+            logits, caches = m.decode_step(prompt[:, :1].to(m.device),
+                                           caches, 12)
+        out[name] = (torch.cat([first, logits], 1).cpu(),
+                     [c["k"].cpu() for c in caches])
+    counts = core.launch_counts()
+    assert all(counts[k] > 0 for k in ("layer_norm", "flash_attention",
+                                       "mlp")), counts
+    assert counts["decode_attention"] == 0
+    assert float((out["card"][0] - out["cpu"][0]).abs().max()) <= F32_TOL
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= F32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_linear_on_card(cuda, dtype):
+    """A weight-only int8 Linear on the card (``Module.to`` casts the
+    scale and bias, not the int8 values) equals its dequantized float
+    product ``x @ (q * s) + b``, and in f32 the CPU's int8 Linear."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.quant import quantize_weights_int8
+    g = torch.Generator().manual_seed(2)
+    lin = quantize_weights_int8(pnn.Linear(768, 3072, gen=g))
+    x = _randn(g, 16, 768, dev="cpu")
+    want_cpu = lin(x).detach()
+    lin = lin.to(cuda, dtype)
+    assert lin.weight_q.dtype == torch.int8
+    assert lin.weight_scale.dtype == dtype
+    xc = x.to(cuda, dtype)
+    got = lin(xc)
+    ref = xc @ (lin.weight_q.to(dtype) * lin.weight_scale[None, :]) \
+        + lin.bias
+    assert got.dtype == dtype
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    scale = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+    if dtype == torch.float32:
+        assert float((got.cpu() - want_cpu).abs().max()) <= F32_TOL * scale
+
+
+@pytest.mark.parametrize("remat", ["nothing", "dots_saveable", "full"])
+def test_remat_step_relaunches_the_forward_kernels(cuda, remat):
+    """A scan GPT's bf16 step under each remat policy launches K2 and K4
+    once a layer in the forward, and again in the backward under the
+    recomputing policies; K3 once a layer either way; the loss equals
+    the unrolled model's."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adam
+    layers = 3
+    kw = dict(vocab_size=512, hidden_size=128, num_layers=layers,
+              num_heads=2, intermediate_size=512, max_position=128,
+              dropout=0.0)
+    ids = torch.randint(0, 512, (2, 128),
+                        generator=torch.Generator().manual_seed(3)).to(cuda)
+    losses = {}
+    for scan in (False, True):
+        model = GPT(GPTConfig(**kw, scan_layers=scan, remat=remat),
+                    device="cuda", seed=0)
+        opt = amp.decorate(Adam(model.parameters(), 1e-4), amp.bf16_policy())
+        core.reset_launches()
+        losses[scan] = float(opt.minimize(model, lambda m, x: m.loss(x),
+                                          ids))
+        counts = core.launch_counts()
+    again = 1 if remat == "nothing" else 2
+    assert counts["flash_attention"] == again * layers, counts
+    assert counts["mlp"] == again * layers, counts
+    assert counts["flash_attention_bwd_dq"] == layers, counts
+    assert abs(losses[True] - losses[False]) <= 1e-6 * abs(losses[False])

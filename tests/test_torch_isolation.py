@@ -519,3 +519,65 @@ def test_port_trains_ctr_with_reference_and_triton_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout
     assert "CTR TRAINED 3" in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "quant/__init__.py", "quant/ops.py", "quant/weight_only.py",
+    "nn/moe.py", "nn/scan.py", "io/checkpoint.py", "models/gpt.py",
+    "nn/layers.py", "bridge.py"])
+def test_ast_scan_covers_the_gpt_feature_modules(module):
+    path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+_GPT_FEATURES_BLOCKED = _SERVE_BLOCKED.split(
+    "from paddle_tpu_torch.models")[0] + r"""
+from paddle_tpu_torch import amp
+from paddle_tpu_torch.io import unstack_layer_tree
+from paddle_tpu_torch.bridge import export_params, load_params
+from paddle_tpu_torch.models import GPT, GPTConfig, GPTDecoder
+from paddle_tpu_torch.ops.cuda import core
+from paddle_tpu_torch.optimizer import Adam
+from paddle_tpu_torch.quant import quantize_weights_int8
+from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+rs = np.random.RandomState(0)
+cfg = GPTConfig.tiny()
+cfg.dropout = 0.0
+dec = GPTDecoder(cfg, device="cpu")
+prompt = torch.from_numpy(rs.randint(0, 512, (2, 6)).astype(np.int32))
+out = dec.generate(prompt, 5, cache_dtype=torch.bfloat16)
+quantize_weights_int8(dec)
+eng = ServingEngine(dec, ServeConfig(num_slots=2, page_size=8, max_len=32,
+                                     prefill_len=16))
+eng.submit(prompt[0].numpy(), max_new=5)
+served = eng.drain()[0].tokens
+assert served == dec.generate(prompt[:1], 5)[0, 6:].tolist()
+ids = torch.from_numpy(rs.randint(0, 512, (2, 16)).astype(np.int32))
+scan = GPTConfig.tiny()
+scan.scan_layers, scan.remat, scan.moe_experts = True, "full", 4
+model = GPT(scan, device="cpu")
+opt = amp.decorate(Adam(model.parameters(), 1e-3), amp.bf16_policy())
+loss = opt.minimize(model, lambda m, x: m.loss(x), ids)
+assert bool(torch.isfinite(loss))
+flat = GPTConfig.tiny()
+flat.moe_experts = 4
+load_params(GPTDecoder(flat, device="cpu"),
+            unstack_layer_tree(export_params(model)))
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("GPT FEATURES", tuple(out.shape), len(served))
+"""
+
+
+def test_port_decodes_quantizes_and_scans_with_reference_blocked():
+    """generate over a bf16 cache, weight-only int8 serving held against
+    generate, and a bf16 Adam step of a scan + remat + MoE GPT whose
+    tree unstacks into a decoder, in a process that cannot import jax."""
+    code = _GPT_FEATURES_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "GPT FEATURES (2, 11) 5" in proc.stdout

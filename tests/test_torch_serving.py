@@ -65,8 +65,10 @@ def test_bridge_round_trip_and_refusals():
         np.testing.assert_array_equal(back[k], want[k])
     assert pm.blocks[0].attn.wq.shape == tuple(
         tree["blocks"]["0"]["attn"]["wq"].shape)    # [in, out]: no transpose
+    # an int8 weight must come with its scale (int8 trees load since the
+    # port has weight-only int8)
     bad = dict(tree, tok_emb={"weight_q": tree["tok_emb"]["weight"]})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError):
         bridge.load_params(pm, bad)
     missing = {k: val for k, val in tree.items() if k != "ln_f"}
     with pytest.raises(KeyError):
@@ -242,11 +244,17 @@ def test_engine_eos_and_refusals(rng):
 
 
 def test_unported_branches_raise():
+    """The multi-GPU options raise; the decoder refuses scan_layers, as
+    the reference's does (MoE and scan_layers are ported)."""
+    from paddle_tpu_torch.core.enforce import EnforceError
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
-    for kw in ({"moe_experts": 4}, {"seq_axis": "sp"},
-               {"scan_layers": True}):
+    for kw in ({"seq_axis": "sp"}, {"moe_experts": 4, "moe_ep_axis": "ep"}):
         cfg = GPTConfig.tiny()
         for k, val in kw.items():
             setattr(cfg, k, val)
         with pytest.raises(NotImplementedError):
             GPTDecoder(cfg, device="cpu")
+    cfg = GPTConfig.tiny()
+    cfg.scan_layers = True
+    with pytest.raises(EnforceError):
+        GPTDecoder(cfg, device="cpu")
