@@ -1,7 +1,8 @@
-"""Drive the PyTorch/CUDA port's serving, GPT decoding (float and
-weight-only int8), GPT training (unrolled, scan-over-layers with remat,
-mixture of experts), BERT pretraining, Trainer, translation,
-image-classification and CTR paths on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving (one engine and the fleet
+router), GPT decoding (float and weight-only int8), GPT training
+(unrolled, scan-over-layers with remat, mixture of experts), BERT
+pretraining, Trainer, translation, image-classification and CTR paths
+on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -77,6 +78,24 @@ Phases, each printing one JSON line:
    latency_stats() beside the spec-off serve phase.
 8. int8    — a short serve with an int8 KV pool; every K7 launch on the
    split route.
+8a. serve_fleet — bench.py:717's gpt_serve_fleet row through the
+   FleetRouter: GPTConfig.small() (the serve phase's float weights, one
+   module shared by every replica), 4 slots a replica, page 64, a
+   64-token shared prefix on half the prompts, prefill_len 256, 64 new
+   tokens, bf16 pools, prompts from np.random.RandomState(0); 1, 2 and
+   4 replicas (4n warm-up, 16n timed requests; a rolling deploy of the
+   same weights as v1 in the warm-up at 2, the busiest replica killed
+   mid-stream at 4), then a disaggregated run (prefill_replicas=1, half
+   the prompts longer than prefill_len) at 2. Every request must be done
+   and equal one ServingEngine under the same ServeConfig token for
+   token (or part from it at a near tie, crosscheck's reference rule);
+   failovers and handoffs >= 1; the launch counts are zeroed after the
+   single engine's reference runs, just before the fleet runs, and read
+   just after them, before any check launches a kernel; K1, K2, K4 and
+   K7 must launch on serve's routes. Records per replica count tokens/s,
+   goodput, the prefix hit rate, affinity hits, failovers, the failover
+   round's ms, the p50 round and 8 profiled decode rounds of the warm-up
+   (device ms, idle share, launches a round).
 8b. gpt_decode — bench.py:461's row through GPTDecoder.generate:
    GPTConfig.small() (f32 weights from seed 0), 16 prompts of 128
    tokens, 128 new tokens, bf16 KV cache. One call with the launch
@@ -247,7 +266,8 @@ train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
 transformer_big for the "add_layer_norm.mixed" row (K8 at f32 rows with
 bf16 parameters); "variant" names the route; every row also has each
 path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
-launches_gpt_decode_int8, launches_serve_int8, launches_moe_train and
+launches_gpt_decode_int8, launches_serve_int8, launches_serve_fleet,
+launches_moe_train and
 launches_scan_<policy> among them, and launches_resnet and launches_ctr,
 which are 0), the nvidia-smi line, and
 the contract line
@@ -266,6 +286,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -329,7 +350,14 @@ SERVE_ROUTED = ("mlp", "flash_attention")
 PATH_ROUTE = {"layer_norm": "row", "decode_attention": "split"}
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also says when it was printed
+    (``t_s``, seconds since the script started)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -3636,6 +3664,316 @@ def serve_int8_phase(model, serve_kw, smi):
     return line, launches
 
 
+# ------------------------------------------------------------ serve_fleet
+
+# bench.py's gpt_serve_fleet row (bench.py:717) at seq 512: 4 slots a
+# replica, page 64, a 64-token shared prefix on half the prompts,
+# prefill_len = seq // 2, prompts of [seq // 8, prefill_len] tokens after
+# the prefix, 64 new tokens each, bf16 pools, SLOs of 2 s to the first
+# token and 0.5 s a token; replica counts 1, 2 and 4, 4n warm-up and 16n
+# timed requests each
+FLEET_SLOTS = 4
+FLEET_PAGE = 64
+FLEET_SHARED = 64
+FLEET_PREFILL = 256
+FLEET_MIN_PROMPT = 64
+FLEET_NEW = 64
+FLEET_COUNTS = (1, 2, 4)
+FLEET_KILL_AT = 4        # the replica count whose run kills a replica
+FLEET_DEPLOY_AT = 2      # the replica count whose warm-up deploys v1
+FLEET_PROFILE_ROUNDS = 8
+FLEET_DISAGG = 12        # requests of the disaggregated run (half long)
+
+
+def fleet_serve_kw(max_len=None):
+    return dict(num_slots=FLEET_SLOTS, page_size=FLEET_PAGE,
+                max_len=max_len or FLEET_SHARED + FLEET_PREFILL + FLEET_NEW,
+                prefill_len=FLEET_PREFILL, cache_dtype=torch.bfloat16,
+                slo_ttft_s=2.0, slo_token_latency_s=0.5)
+
+
+def fleet_stream(vocab, n):
+    """bench.py:921-937's prompts: ``np.random.RandomState(0)`` draws the
+    shared prefix, then each prompt's length, tokens and whether it opens
+    with the prefix. Every replica count draws from a fresh stream, so a
+    shorter run's prompts are the longer run's first ones."""
+    rng = np.random.RandomState(0)
+    shared = rng.randint(0, vocab, (FLEET_SHARED,), dtype=np.int32)
+    out = []
+    for _ in range(n):
+        plen = int(rng.randint(FLEET_MIN_PROMPT, FLEET_PREFILL + 1))
+        ids = rng.randint(0, vocab, (plen,), dtype=np.int32)
+        if rng.random_sample() < 0.5:
+            ids = np.concatenate([shared, ids])
+        out.append(ids)
+    return out
+
+
+def disagg_stream(vocab, n):
+    """bench.py's disaggregation stream: odd requests longer than
+    prefill_len (a two-chunk admission), even ones of [seq // 8,
+    prefill_len]."""
+    rng = np.random.RandomState(0)
+    out = []
+    for j in range(n):
+        lo, hi = ((FLEET_PREFILL + 1, 2 * FLEET_PREFILL) if j % 2
+                  else (FLEET_MIN_PROMPT, FLEET_PREFILL + 1))
+        out.append(rng.randint(0, vocab, (int(rng.randint(lo, hi)),),
+                               dtype=np.int32))
+    return out
+
+
+def alone_tokens(model, prompts, serve_kw):
+    """Each prompt's greedy tokens from one ServingEngine under the same
+    ServeConfig serving the prompts in order."""
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    eng = ServingEngine(model, ServeConfig(**serve_kw))
+    rids = [eng.submit(p, max_new=FLEET_NEW) for p in prompts]
+    eng.drain()
+    if any(eng.requests[r].status != "done" for r in rids):
+        raise AssertionError("serve_fleet: the single engine left requests")
+    return [eng.requests[r].tokens for r in rids]
+
+
+def settle(router):
+    """Step the router (never drain, which would refuse the next
+    submissions) until every request is terminal; returns each round's
+    wall seconds."""
+    from paddle_tpu_torch.serving.fleet import _TERMINAL
+    times = []
+    while any(r.status not in _TERMINAL for r in router.requests.values()):
+        s0 = time.perf_counter()
+        router.step()
+        times.append(time.perf_counter() - s0)
+    return times
+
+
+def fleet_held(what, model, cpu_model, requests, reference, serve_kw):
+    """Every request of a router's ``requests`` is done and equals
+    ``reference`` (fid -> the single engine's tokens) token for token, or
+    parts from it at a near tie of the CPU's logits (crosscheck's
+    reference rule: a failover or handoff replays prompt + tokens through
+    a prefill chunk where the single engine ran decode steps). Returns
+    (exact, crosscheck rows)."""
+    recs = sorted(requests.values(), key=lambda r: r.id)
+    bad = [r.id for r in recs if r.status != "done"]
+    if bad:
+        raise AssertionError(f"{what}: requests not done {bad}")
+    diff = [types.SimpleNamespace(id=r.id, prompt=r.prompt,
+                                  tokens=list(r.tokens), temperature=0)
+            for r in recs if list(r.tokens) != list(reference[r.id])]
+    rows = crosscheck(model, cpu_model, diff, serve_kw["page_size"],
+                      serve_kw["prefill_len"], reference=reference)
+    return len(recs) - len(diff), rows
+
+
+def prefix_stats(router):
+    hits = miss = skipped = 0
+    for h in router._replicas:
+        eng = h.engine
+        hits += eng.prefix_hits
+        miss += eng.prefix_misses
+        skipped += eng.prefill_tokens_skipped
+    return hits, miss, skipped
+
+
+def fleet_round_profile(router, rounds):
+    """``rounds`` router rounds under torch.profiler: the wall ms and
+    device ms of a round (the CUDA kernels' durations summed: one stream,
+    no overlap), the device's idle share and each port kernel's launches
+    a round (its wrapper's counter)."""
+    from paddle_tpu_torch.ops.cuda import core
+    before = core.launch_counts()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            router.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms = 0.0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            busy_ms += e.time_range.elapsed_us() / 1e3
+    after = core.launch_counts()
+    return dict(rounds=rounds, round_ms=wall / rounds * 1e3,
+                device_ms_per_round=busy_ms / rounds,
+                idle_share=1 - busy_ms / 1e3 / wall,
+                launches_per_round={k: (after[k] - before[k]) / rounds
+                                    for k in after if after[k] > before[k]})
+
+
+def fleet_run(model, n, stream, serve_kw, kill=False, deploy=False):
+    """bench.py's run at ``n`` replicas: a warm-up of 4n requests settled,
+    then 16n timed; with ``kill``, three healthy rounds, the busiest
+    replica killed and the failover round timed. FLEET_PROFILE_ROUNDS
+    decode rounds of the warm-up (every slot live, after the admission
+    round) run under :func:`fleet_round_profile`, outside the timed
+    window, whose wall the profiler would stretch. With ``deploy``, a
+    rolling deploy of the same weights as v1 follows them, the warm-up's
+    requests in flight, and the timed requests must all be served by v1.
+    Returns the router and the run's line."""
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.serving import (FleetConfig, FleetRouter,
+                                          ServeConfig)
+    from paddle_tpu_torch.serving.fleet import _TERMINAL
+    router = FleetRouter(model, FleetConfig(num_replicas=n,
+                                            heartbeat_s=60.0),
+                         serve_config=ServeConfig(**serve_kw))
+    warm = 4 * n
+    for p in stream[:warm]:
+        router.submit(p, max_new=FLEET_NEW)
+    router.step()                         # the warm-up's admissions
+    line = dict(replicas=n, requests=16 * n,
+                profile=fleet_round_profile(router, FLEET_PROFILE_ROUNDS))
+    if deploy:
+        s0 = time.perf_counter()
+        router.deploy({"params": dict(model.named_parameters())},
+                      version="v1")
+        line["deploy_s"] = time.perf_counter() - s0
+    settle(router)
+    hits0, miss0, skip0 = prefix_stats(router)
+    aff0 = metrics.counter("fleet.affinity_hits").total()
+    for p in stream[warm:warm + 16 * n]:
+        router.submit(p, max_new=FLEET_NEW)
+    rounds, healthy = 0, []
+    t0 = time.perf_counter()
+    if kill:
+        for _ in range(3):
+            s0 = time.perf_counter()
+            router.step()
+            healthy.append(time.perf_counter() - s0)
+        victim = max(range(n), key=lambda i: router._replicas[i].load())
+        router.kill_replica(victim)
+        s0 = time.perf_counter()
+        router.step()
+        line.update(killed=victim,
+                    failover_round_ms=(time.perf_counter() - s0) * 1e3,
+                    mean_healthy_round_ms=float(np.mean(healthy)) * 1e3)
+        rounds += 4
+    times = settle(router)
+    rounds += len(times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = [r for r in router.requests.values() if r.id >= warm]
+    if any(r.status not in _TERMINAL for r in timed):
+        raise AssertionError(f"serve_fleet n={n}: requests left")
+    hits1, miss1, skip1 = prefix_stats(router)
+    tel = router.telemetry()
+    if deploy:
+        if tel["versions"] != ["v1"] * n or any(r.version != "v1"
+                                                 for r in timed):
+            raise AssertionError(f"serve_fleet deploy: {tel['versions']}")
+        line.update(ops=[e["event"] for e in tel["ops_log"]],
+                    version_stats=tel["version_stats"])
+    line.update(
+        completed=sum(r.status == "done" for r in timed),
+        tokens_per_s=sum(len(r.tokens) for r in timed
+                         if r.status == "done") / wall,
+        wall_s=wall, rounds=rounds,
+        p50_round_ms=float(np.median(times)) * 1e3,
+        goodput=router.goodput(),
+        prefix_hit_rate=(hits1 - hits0) / max(hits1 - hits0
+                                               + miss1 - miss0, 1),
+        prefill_tokens_skipped=skip1 - skip0,
+        affinity_hits=metrics.counter("fleet.affinity_hits").total()
+        - aff0,
+        failovers=router.failovers, rerouted=tel["rerouted"],
+        states=tel["states"],
+        kv_pool_bytes=sum(h.engine.kv_pool_bytes()
+                          for h in router._replicas))
+    return router, line
+
+
+def serve_fleet_phase(model, cpu_model, smi):
+    """``serve_fleet``: bench.py's gpt_serve_fleet row through the port's
+    FleetRouter on one card, every replica a ServingEngine over the one
+    GPTConfig.small() module. Replica counts FLEET_COUNTS (the busiest
+    replica killed mid-stream at FLEET_KILL_AT, a rolling deploy of the
+    same weights as v1 in the warm-up at FLEET_DEPLOY_AT), then a
+    disaggregated run (prefill_replicas=1) at 2 replicas with half the
+    prompts longer than prefill_len. The launch counts are zeroed after
+    the single engine's reference runs and read as the last router
+    closes, before any check launches a kernel of its own: they count the
+    fleet's launches alone. Every request must be done and equal one
+    ServingEngine under the same ServeConfig token for token (or part
+    from it at a near tie: :func:`fleet_held`); failovers and handoffs
+    >= 1; K1, K2, K4 and K7 launched, on serve's routes. Returns (the
+    phase line, launches)."""
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.serving import FleetConfig, FleetRouter
+    from paddle_tpu_torch.serving import ServeConfig
+    vocab = model.cfg.vocab_size
+    kw = fleet_serve_kw()
+    stream = fleet_stream(vocab, 20 * max(FLEET_COUNTS))
+    dkw = fleet_serve_kw(max_len=2 * FLEET_PREFILL + FLEET_NEW)
+    dstream = disagg_stream(vocab, FLEET_DISAGG)
+    t0 = time.perf_counter()
+    reference = alone_tokens(model, stream, kw)
+    alone_s = time.perf_counter() - t0
+    dref = alone_tokens(model, dstream, dkw)
+    torch.cuda.synchronize()
+    core.reset_launches()
+    runs, served = [], []
+    for n in FLEET_COUNTS:
+        router, line = fleet_run(model, n, stream, kw,
+                                 kill=n == FLEET_KILL_AT,
+                                 deploy=n == FLEET_DEPLOY_AT)
+        runs.append(line)
+        served.append((f"serve_fleet n={n}", router.requests, reference,
+                       kw, line))
+        router.close()
+
+    # prefill/decode disaggregation
+    router = FleetRouter(model, FleetConfig(num_replicas=2,
+                                            heartbeat_s=60.0,
+                                            prefill_replicas=1),
+                         serve_config=ServeConfig(**dkw))
+    s0 = time.perf_counter()
+    for p in dstream:
+        router.submit(p, max_new=FLEET_NEW)
+    settle(router)
+    dwall = time.perf_counter() - s0
+    tel = router.telemetry()
+    disagg_line = dict(replicas=2, roles=tel["roles"], requests=len(dstream),
+                       handoffs=tel["handoffs"], wall_s=dwall,
+                       tokens_per_s=sum(len(r.tokens) for r in
+                                        router.requests.values()) / dwall,
+                       goodput=router.goodput())
+    served.append(("serve_fleet disagg", router.requests, dref, dkw,
+                   disagg_line))
+    router.close()
+    torch.cuda.synchronize()
+    launches, routes = core.launch_counts(), core.route_counts()
+
+    for what, requests, ref, serve_kw, line in served:
+        exact, rows = fleet_held(what, model, cpu_model, requests, ref,
+                                 serve_kw)
+        line.update(token_exact=exact, crosscheck=rows)
+    if not any(r["failovers"] for r in runs):
+        raise AssertionError("serve_fleet: no failover happened")
+    long = sum(p.size > FLEET_PREFILL for p in dstream)
+    if tel["handoffs"] != long:
+        raise AssertionError(f"serve_fleet disagg: {tel['handoffs']} "
+                             f"handoffs, {long} long prompts")
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve_fleet: kernels not launched {missing}")
+    check_routes("serve_fleet", routes, "simt", SERVE_ROUTED)
+    check_path_routes("serve_fleet", routes, ("layer_norm",
+                                              "decode_attention"))
+    line = dict(
+        phase="serve_fleet", config="GPTConfig.small()",
+        **{k: v for k, v in kw.items() if k != "cache_dtype"},
+        cache_dtype="bfloat16", shared_prefix=FLEET_SHARED, max_new=FLEET_NEW,
+        card=smi, single_engine_s=alone_s, runs=runs, disagg=disagg_line,
+        launches=launches,
+        routes={k: routes[k] for k in SERVE_ROUTED + tuple(PATH_ROUTE)})
+    return line, launches
+
+
 def moe_config(base):
     cfg = dataclasses.replace(base, moe_experts=MOE_EXPERTS, moe_k=MOE_K)
     cfg.dropout = 0.0
@@ -3828,8 +4166,8 @@ def expected_route(kernel, case):
 #: policy among them
 LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
                 "transformer", "resnet", "ctr", "gpt_decode",
-                "gpt_decode_int8", "serve_int8", "moe_train", "scan_nothing",
-                "scan_dots_saveable", "scan_full")
+                "gpt_decode_int8", "serve_int8", "serve_fleet", "moe_train",
+                "scan_nothing", "scan_dots_saveable", "scan_full")
 
 #: the kernels with a row per route in the kernels line
 ROUTED_ROWS = ("flash_attention", "flash_attention_bwd_dq",
@@ -4004,6 +4342,10 @@ def main():
               routes={"decode_attention": routes8["decode_attention"]},
               **{k: v for k, v in stats8.items() if k != "prompt_lens"}))
 
+    fleet_line, fleet_launches = serve_fleet_phase(model, cpu_model, smi)
+    emit(fleet_line)
+    torch.cuda.empty_cache()
+
     decode_line, decode_launches, prompt, float_out, float_logits = \
         gpt_decode_phase(model, cpu_model, smi)
     emit(dict(phase="gpt_decode", **decode_line))
@@ -4097,7 +4439,7 @@ def main():
         "transformer": transformer_launches, "resnet": resnet_launches,
         "ctr": ctr_launches, "gpt_decode": decode_launches,
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
-        "moe_train": moe_launches,
+        "serve_fleet": fleet_launches, "moe_train": moe_launches,
         **{f"scan_{p}": n for p, n in scan_launches.items()}})
     emit({"kernels": table})
     print(smi, flush=True)

@@ -51,21 +51,38 @@ What is ported:
     ``reset_stats()``, and with ``ServeConfig.run_log`` a JSONL record
     per step plus the lifecycle events of every request (submitted,
     admitted, prefill_done, first_token, preempted, resumed, requeued,
-    retired). None of it reads the device.
+    retired). None of it reads the device;
+  * the hooks the fleet router (``serving/fleet.py``) drives:
+    ``adopt`` (a token-exact replay of prompt + tokens with the caller's
+    submit, first-token and absolute deadline times and its trace
+    context), ``export_inflight`` (the router's failover mirror),
+    ``prefix_lookup_depth`` (its affinity probe), ``anomaly_sink`` (the
+    watchdog's uplink) and ``replica`` (stamped on every trace event);
+  * the live plane: ``ServeConfig.metrics_port`` starts the ``/metrics``
+    exporter, ``ServeConfig.watchdog`` the anomaly watchdog (a goodput
+    collapse sheds queued load), every trace event feeds the flight
+    recorder's ring, and a standalone engine dumps a flight bundle when
+    its watchdog fires; ``chunked_prefill=False`` refuses prompts longer
+    than ``prefill_len``.
 
 Terminal statuses: done | rejected | shed | cancelled | failed.
 
-Not ported: the fleet (``adopt``, ``export_inflight``,
-``prefix_lookup_depth``), the ``/metrics`` exporter, the watchdog, the
-flight recorder, fleet traces and prompt prefetch. The scheduler state
-(page table, lengths, active mask, pending tokens, sampling knobs) is
-host numpy, copied to the model's device before each call's launches;
-the page pools live on the device and are updated in place.
+Not ported: prompt prefetch and the AOT hooks (``compiled_decode``,
+``compiled_verify``, ``export_decode``). The scheduler state (page
+table, lengths, active mask, pending tokens, sampling knobs) is host
+numpy, copied to the model's device before each call's launches; the
+page pools live on the device and are updated in place.
+
+One re-entrant lock guards the request tables: clients may ``submit``,
+``adopt`` or ``cancel`` from their own threads while ``step`` runs, and
+the watchdog's mitigation re-enters ``shed_queued`` from inside a step.
+A fleet router takes its own lock before an engine's, never after.
 """
 
 import collections
 import dataclasses
 import itertools
+import threading
 import time
 import typing
 import uuid
@@ -75,8 +92,13 @@ import torch
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.retry import RetryBudget, RetryPolicy
+from paddle_tpu_torch.observability import catalog as _catalog
+from paddle_tpu_torch.observability import flight as _flight
 from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability import trace as _trace
+from paddle_tpu_torch.observability.exporter import start_metrics_server
 from paddle_tpu_torch.observability.runlog import RunLog
+from paddle_tpu_torch.observability.watchdog import maybe_watchdog
 from paddle_tpu_torch.ops.attention import copy_pages
 from paddle_tpu_torch.serving.prefix_cache import PrefixCache
 from paddle_tpu_torch.serving.sampling import sample
@@ -117,6 +139,9 @@ class ServeConfig:
     run_log: typing.Any = None   # JSONL path, or an open RunLog
     slo_ttft_s: float = 0.0      # 0 = unbounded
     slo_token_latency_s: float = 0.0   # 0 = unbounded
+    metrics_port: int = 0        # serve /metrics on this port; 0 = off
+    watchdog: typing.Any = None  # True or a WatchdogConfig; None = off
+    chunked_prefill: bool = True  # False refuses prompts > prefill_len
     model_version: str = None    # "model_id@version", in slo_stats()
     # speculative decoding (serve_draft, serve_spec_k)
     draft: bool = False
@@ -181,7 +206,10 @@ class Request:
     slo_ok: bool = None           # every configured SLO met at retirement
     spec_tokens: int = 0          # tokens beyond one per target step
     #                               (accepted draft proposals emitted)
-    trace_id: str = None          # the run log's lifecycle trace id
+    trace_id: str = None          # lifecycle trace id: engine-scoped,
+    #                               or the fleet's when adopted with one
+    span_id: str = None           # this hop's span in the fleet trace
+    parent_span_id: str = None    # the causal parent hop
     trace: list = dataclasses.field(default_factory=list)  # (event, t)
 
     @property
@@ -230,6 +258,7 @@ class ServingEngine:
         self._prefix_cache = (
             PrefixCache(cfg.page_size, max_idle_pages=cfg.prefix_pages)
             if cfg.prefix_cache else None)
+        self._lock = threading.RLock()
         self._queue = collections.deque()
         self._running = {}
         self.requests = {}
@@ -252,23 +281,30 @@ class ServingEngine:
         self.target_steps = 0         # target-model steps (decode or
         #                               verify)
         self._step_no = 0
+        self.anomaly_sink = None      # the fleet router's watchdog uplink
+        self.replica = None           # fleet replica index, stamped on
+        #                               every trace event once set
         self._run_log = None
         self._own_run_log = False
         if cfg.run_log:
             self._own_run_log = isinstance(cfg.run_log, str)
             self._run_log = (RunLog(cfg.run_log) if self._own_run_log
                              else cfg.run_log)
-        for name in _COUNTERS:            # listed in a snapshot from the
-            _metrics.counter(name)        # start, as in the reference
-        for name in _GAUGES:
-            _metrics.gauge(name)
-        for name in _HISTOGRAMS:
-            _metrics.histogram(name)
+            # the fleet-trace merge rebases this log's clock with it
+            _trace.write_anchor(self._run_log,
+                                model_version=cfg.model_version)
+        # listed (with help text) in a snapshot and on /metrics from the
+        # start, as in the reference
+        _catalog.preregister(_COUNTERS + _GAUGES + _HISTOGRAMS
+                             + ("jit.retraces",))
         self._retired = 0
         self._retired_ok = 0
         self._viol_base = dict(
             _metrics.counter("serve.slo_violations").snapshot())
         self._trace_run = uuid.uuid4().hex[:8]
+        self._metrics_server = start_metrics_server(cfg.metrics_port)
+        self._watchdog = maybe_watchdog(cfg.watchdog, run_log=self._run_log,
+                                        action=self._on_anomaly)
 
     def _cache_count(self, name):
         return getattr(self._prefix_cache, name) if self._prefix_cache else 0
@@ -345,11 +381,27 @@ class ServingEngine:
         cfg = self.cfg
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         max_new = max_new if max_new is not None else cfg.default_max_new
-        enforce(1 <= prompt.size <= cfg.max_len,
-                f"prompt length {prompt.size} not in [1, {cfg.max_len}]")
+        self._check_lengths(prompt, max_new)
+        with self._lock:
+            return self._submit(prompt, max_new, eos_id, deadline_s,
+                                priority, temperature, top_k, top_p, seed)
+
+    def _check_lengths(self, prompt, max_new):
+        """A prompt of at most ``max_len`` tokens (``prefill_len`` with
+        ``chunked_prefill`` off) whose ``max_new`` tokens fit too."""
+        cfg = self.cfg
+        cap = cfg.max_len if cfg.chunked_prefill else cfg.prefill_len
+        enforce(1 <= prompt.size <= cap,
+                f"prompt length {prompt.size} not in [1, {cap}]"
+                + ("" if cfg.chunked_prefill
+                   else " (prefill_len; chunked_prefill is off)"))
         enforce(prompt.size + max_new <= cfg.max_len,
                 f"prompt {prompt.size} + max_new {max_new} exceeds "
                 f"max_len {cfg.max_len}")
+
+    def _submit(self, prompt, max_new, eos_id, deadline_s, priority,
+                temperature, top_k, top_p, seed):
+        cfg = self.cfg
         req = Request(id=next(self._ids), prompt=prompt, max_new=max_new,
                       eos_id=eos_id if eos_id is not None else cfg.eos_id,
                       priority=int(priority))
@@ -379,24 +431,97 @@ class ServingEngine:
         _metrics.gauge("serve.queue_depth").set(len(self._queue))
         return req.id
 
+    def adopt(self, prompt, tokens=(), max_new=None, eos_id=None,
+              priority=0, deadline_t=None, submit_t=None,
+              first_token_t=None, origin="fleet", temperature=None,
+              top_k=None, top_p=None, seed=None, trace=None):
+        """The fleet router's dispatch and failover entry: queue a request
+        whose generation may already be ``tokens`` deep. ``submit_t``,
+        ``first_token_t`` and the absolute ``deadline_t`` are kept as
+        given, so TTFT and SLO accounting land on the engine that
+        completes the request. Admission replays prompt + tokens as a
+        step recovery does, so a greedy adoption finishes token-exact.
+        No ``queue_limit`` check: the router bounds its own dispatch, and
+        a failover must not be rejected. ``trace`` is the router's
+        :class:`~paddle_tpu_torch.observability.trace.TraceContext` wire
+        dict: the request keeps its trace id across the hop. Returns the
+        request id."""
+        cfg = self.cfg
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        tokens = [int(t) for t in tokens]
+        max_new = max_new if max_new is not None else cfg.default_max_new
+        self._check_lengths(prompt, max_new)
+        enforce(len(tokens) <= max_new,
+                f"adopted with {len(tokens)} tokens > max_new {max_new}")
+        with self._lock:
+            req = Request(id=next(self._ids), prompt=prompt,
+                          max_new=max_new,
+                          eos_id=eos_id if eos_id is not None
+                          else cfg.eos_id,
+                          priority=int(priority))
+            self._resolve_sampling(req, temperature, top_k, top_p, seed)
+            req.tokens = tokens
+            req.deadline_t = deadline_t
+            req.first_token_t = first_token_t
+            ctx = _trace.TraceContext.from_wire(trace) if trace else None
+            if ctx is not None:
+                req.trace_id = ctx.trace_id
+                req.span_id = ctx.span_id
+                req.parent_span_id = ctx.parent_span_id
+            else:
+                req.trace_id = f"{self._trace_run}/{req.id}"
+            self.requests[req.id] = req
+            t = self._trace_event(req, "adopted", origin=origin,
+                                  prompt_len=int(prompt.size),
+                                  tokens_kept=len(tokens))
+            req.submit_t = submit_t if submit_t is not None else t
+            _metrics.counter("serve.requests").inc(status="adopted")
+            self._queue.append(req)
+            _metrics.gauge("serve.queue_depth").set(len(self._queue))
+            return req.id
+
+    def export_inflight(self):
+        """Every non-terminal request's host state, queued ones first
+        then running ones by id: the router's failover mirror, read each
+        healthy round (no device read)."""
+        with self._lock:
+            live = list(self._queue) + sorted(self._running.values(),
+                                              key=lambda r: r.id)
+            return [dict(rid=req.id, status=req.status,
+                         tokens=list(req.tokens),
+                         prompt_len=int(req.prompt.size),
+                         priority=req.priority, submit_t=req.submit_t,
+                         first_token_t=req.first_token_t,
+                         deadline_t=req.deadline_t) for req in live]
+
+    def prefix_lookup_depth(self, prompt):
+        """Leading full prompt pages the prefix cache holds: the fleet
+        router's affinity probe (read-only)."""
+        with self._lock:
+            if self._prefix_cache is None:
+                return 0
+            prompt = np.asarray(prompt, np.int32).reshape(-1)
+            return self._prefix_cache.lookup_depth(prompt)
+
     def cancel(self, request_id):
         """Client-initiated cancellation. A queued request leaves the
         queue; a running one frees its slot and pages at once. Returns
         False when the id is unknown or already terminal."""
-        req = self.requests.get(request_id)
-        if req is None or req.status not in ("queued", "running"):
-            return False
-        if req.status == "queued":
-            self._queue.remove(req)
-        else:
-            self._free_slot_state(req)
-        # the client walked away: not counted against goodput
-        self._retire_terminal(req, "cancelled", "cancelled", account=False)
-        _metrics.gauge("serve.queue_depth").set(len(self._queue))
-        _metrics.gauge("serve.active_slots").set(len(self._running))
-        return True
+        with self._lock:
+            req = self.requests.get(request_id)
+            if req is None or req.status not in ("queued", "running"):
+                return False
+            if req.status == "queued":
+                self._queue.remove(req)
+            else:
+                self._free_slot_state(req)
+            # the client walked away: not counted against goodput
+            self._retire_terminal(req, "cancelled", "cancelled",
+                                  account=False)
+            _metrics.gauge("serve.queue_depth").set(len(self._queue))
+            _metrics.gauge("serve.active_slots").set(len(self._running))
+            return True
 
-    @torch.inference_mode()
     def step(self):
         """One scheduling round: shed expired queued requests, admit
         queued prompts into free slots (prefill-on-admit), grow page
@@ -405,6 +530,11 @@ class ServingEngine:
         with speculation, one draft-and-verify round), and retire
         requests that hit EOS or their token budget. Returns the requests
         finished this round."""
+        with self._lock:
+            return self._step()
+
+    @torch.inference_mode()
+    def _step(self):
         t0 = self._clock()
         finished = []
         if not self._caches:
@@ -508,6 +638,10 @@ class ServingEngine:
                 rec["spec_proposed"] = spec_proposed
                 rec["spec_accepted"] = spec_accepted
             self._run_log.write(rec)
+        if self._watchdog is not None:
+            self._watchdog.tick(self._step_no, wall_s=wall_s,
+                                goodput=self.goodput(),
+                                retired=self._retired)
         self._step_no += 1
         return finished
 
@@ -527,8 +661,12 @@ class ServingEngine:
         """Run step() until every submitted request is terminal; returns
         the requests finished (or shed) in order."""
         out = []
+        # the lock is released between rounds, so client threads can
+        # still submit or cancel while the drain runs
         for _ in range(max_steps):
-            if not (self._queue or self._running):
+            with self._lock:
+                more = bool(self._queue or self._running)
+            if not more:
                 break
             out.extend(self.step())
         else:
@@ -546,8 +684,11 @@ class ServingEngine:
         return out
 
     def close(self):
-        """Close the run log the engine opened (one it was handed stays
-        open)."""
+        """Stop the exporter and close the run log the engine opened (one
+        it was handed stays open)."""
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
+            self._metrics_server = None
         if self._run_log is not None and self._own_run_log:
             self._run_log.close()
         self._run_log = None
@@ -555,18 +696,47 @@ class ServingEngine:
     def shed_queued(self, cause="overload"):
         """Load shedding: shed every expired queued request; when none is
         expired, the single lowest-priority / latest-deadline one.
-        Returns the shed ids."""
-        now = self._clock()
-        shed = [(r, "deadline_expired") for r in self._queue
-                if r.deadline_t is not None and now > r.deadline_t]
-        if not shed and self._queue:
-            shed = [(min(self._queue, key=self._victim_key), cause)]
-        for req, why in shed:
-            self._queue.remove(req)
-            _metrics.counter("serve.shed").inc(cause=cause)
-            self._retire_terminal(req, "shed", why)
-        _metrics.gauge("serve.queue_depth").set(len(self._queue))
-        return [req.id for req, _ in shed]
+        Returns the shed ids. The watchdog's mitigation."""
+        with self._lock:
+            now = self._clock()
+            shed = [(r, "deadline_expired") for r in self._queue
+                    if r.deadline_t is not None and now > r.deadline_t]
+            if not shed and self._queue:
+                shed = [(min(self._queue, key=self._victim_key), cause)]
+            for req, why in shed:
+                self._queue.remove(req)
+                _metrics.counter("serve.shed").inc(cause=cause)
+                self._retire_terminal(req, "shed", why)
+            _metrics.gauge("serve.queue_depth").set(len(self._queue))
+            return [req.id for req, _ in shed]
+
+    def _on_anomaly(self, event):
+        """The watchdog's action: note the anomaly in the flight ring; a
+        goodput collapse or ingest stall sheds queued load; then the
+        event goes up ``anomaly_sink`` when a fleet router owns this
+        engine (the router writes the fleet's flight bundle), else this
+        engine writes its own bundle."""
+        fl = _flight.recorder()
+        if fl is not None:
+            fl.note_event("anomaly", **{k: v for k, v in event.items()
+                                        if k not in ("event", "t")})
+        if event.get("anomaly") in ("goodput_collapse", "ingest_stall"):
+            self.shed_queued(cause=event["anomaly"])
+        if self.anomaly_sink is not None:
+            self.anomaly_sink(event)
+        elif fl is not None:
+            _flight.dump_bundle(
+                reason=str(event.get("anomaly", "anomaly")),
+                run_logs=(self._run_log,) if self._run_log else (),
+                config=dict(serve_config=self.config_summary(),
+                            model_version=self.version),
+                extra=dict(anomaly=event))
+
+    def config_summary(self):
+        """The ServeConfig's fields as a dict (the flight bundle's config
+        section; non-scalar values are written as their repr)."""
+        return {f.name: getattr(self.cfg, f.name)
+                for f in dataclasses.fields(self.cfg)}
 
     def kv_dtype_name(self):
         """"int8" for a quantized page pool, else "f32" (the reference's
@@ -647,19 +817,30 @@ class ServingEngine:
         return out
 
     def _trace_event(self, req, event, **extra):
-        """One lifecycle event: a clock read, an append to ``req.trace``
-        and, with a run log, one JSONL record. Returns the time."""
+        """One lifecycle event: a clock read, an append to ``req.trace``,
+        with a run log one JSONL record, and with the flight recorder on
+        an append to its ring. Returns the time."""
         t = self._clock()
         req.trace.append((event, t))
+        fl = _flight.recorder()
+        if self._run_log is None and fl is None:
+            return t
+        rec = {"event": event, "req": req.id, "trace": req.trace_id,
+               "t": t, "at_step": self._step_no}
+        if req.slot is not None:
+            rec["slot"] = req.slot
+        if self.version is not None:
+            rec["version"] = self.version
+        if self.replica is not None:
+            rec["replica"] = self.replica
+        if req.span_id is not None:
+            rec["span"] = req.span_id
+            rec["parent_span"] = req.parent_span_id
+        rec.update(extra)
         if self._run_log is not None:
-            rec = {"event": event, "req": req.id, "trace": req.trace_id,
-                   "t": t, "at_step": self._step_no}
-            if req.slot is not None:
-                rec["slot"] = req.slot
-            if self.version is not None:
-                rec["version"] = self.version
-            rec.update(extra)
             self._run_log.write(rec)
+        if fl is not None:           # a deque append: no I/O, no sync
+            fl.note(rec)
         return t
 
     # --- device calls ---

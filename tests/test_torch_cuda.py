@@ -1182,3 +1182,42 @@ def test_remat_step_relaunches_the_forward_kernels(cuda, remat):
     assert counts["mlp"] == again * layers, counts
     assert counts["flash_attention_bwd_dq"] == layers, counts
     assert abs(losses[True] - losses[False]) <= 1e-6 * abs(losses[False])
+
+
+def test_fleet_kill_on_card_gives_the_cpu_fleets_tokens(cuda):
+    """Two replicas on the card (one module, the K7 ticket buffer of the
+    device shared by both engines, stepped one after the other on one
+    stream) with one killed mid-stream: every request is done with the
+    tokens the same fleet gives on the CPU, and every serving kernel
+    launched."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.serving import (FleetConfig, FleetRouter,
+                                          ServeConfig)
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(0, cfg.vocab_size, n) for n in (5, 30, 12, 20,
+                                                          9, 3)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        router = FleetRouter(
+            GPTDecoder(cfg, device=dev, seed=6),
+            FleetConfig(num_replicas=2, heartbeat_s=60.0),
+            serve_config=ServeConfig(num_slots=2, page_size=8, max_len=48,
+                                     prefill_len=16))
+        core.reset_launches()
+        fids = [router.submit(p, max_new=10) for p in prompts]
+        for _ in range(3):
+            router.step()
+        router.kill_replica(max((0, 1),
+                                key=lambda i: router._replicas[i].load()))
+        router.drain()
+        assert router.failovers == 1
+        assert all(router.requests[f].status == "done" for f in fids)
+        outs[dev] = [router.requests[f].tokens for f in fids]
+        if dev == "cuda":
+            counts = core.launch_counts()
+            assert all(counts[k] > 0 for k in SERVE_KERNELS), counts
+        router.close()
+    assert outs["cuda"] == outs["cpu"]

@@ -581,3 +581,68 @@ def test_port_decodes_quantizes_and_scans_with_reference_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout
     assert "GPT FEATURES (2, 11) 5" in proc.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "serving/fleet.py", "parallel/heartbeat.py", "observability/catalog.py",
+    "observability/trace.py", "observability/flight.py",
+    "observability/watchdog.py", "observability/exporter.py"])
+def test_ast_scan_covers_the_fleet_modules(module):
+    path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+_FLEET_BLOCKED = _SERVE_BLOCKED.split("cfg = GPTConfig.tiny()")[0] + r"""
+import copy
+from paddle_tpu_torch.observability import exporter, flight, watchdog
+from paddle_tpu_torch.serving import FleetConfig, FleetRouter
+cfg = GPTConfig.tiny()
+cfg.dropout = 0.0
+model = GPTDecoder(cfg, device="cpu")
+sc = ServeConfig(num_slots=2, page_size=8, max_len=64, prefill_len=16)
+rs = np.random.RandomState(0)
+prompts = [rs.randint(0, 512, n) for n in (5, 20, 9, 30, 12, 7)]
+router = FleetRouter(model, FleetConfig(num_replicas=3, prefill_replicas=1),
+                     serve_config=sc, sleep=lambda s: None)
+fids = [router.submit(p, max_new=6) for p in prompts]
+for _ in range(2):
+    router.step()
+router.kill_replica(max((1, 2), key=lambda i: router._replicas[i].load()))
+router.deploy(copy.deepcopy(model), version="v1")
+router.drain()
+alone = ServingEngine(model, sc)
+rids = [alone.submit(p, max_new=6) for p in prompts]
+alone.drain()
+assert [router.requests[f].tokens for f in fids] \
+    == [alone.requests[r].tokens for r in rids]
+tel = router.telemetry()
+assert router.failovers == 1 and tel["handoffs"] == 2
+assert tel["versions"] == ["v1"] * 3
+assert "fleet_replicas" in exporter.render_prometheus()
+router.close()
+assert sum(core.launch_counts().values()) == 0      # CPU: plain versions
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("FLEET SERVED", tel["states"], tel["handoffs"])
+"""
+
+
+def test_port_fleet_serves_with_reference_and_triton_blocked():
+    """Three replicas (one prefill) with a kill, handoffs and a rolling
+    deploy, token-exact against one engine, in a process that cannot
+    import jax."""
+    code = _FLEET_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "FLEET SERVED ['draining', 'draining', 'draining'] 2" \
+        in proc.stdout
+
+
+def test_fleet_router_needs_a_model():
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.serving import FleetRouter
+    with pytest.raises(EnforceError):
+        FleetRouter()
