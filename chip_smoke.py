@@ -1256,15 +1256,18 @@ def bert_kernel_cases(dev):
                                                **case))
         torch.cuda.empty_cache()
 
-    # K5 and K6: 64 x 76 gathered rows against the tied [30522, H] table
-    # and the f32 MLM bias, at BertConfig.base()'s H = 768 and
-    # BertConfig.large()'s H = 1024
-    for width, config in ((hid, "BertConfig.base()"),
-                          (1024, "BertConfig.large()")):
-        for name, case in xent_cases(dev, g, n_mask, vocab, width, bf16,
-                                     timed=True).items():
+    # K5 and K6: 64 x 76 gathered rows against the tied [V, H] table and
+    # the f32 MLM bias, at BertConfig.base()'s V = 30522, H = 768 and
+    # BertConfig.large()'s H = 1024 (timed), and ErnieConfig.base()'s
+    # 18000-token vocabulary at H = 768
+    for width, vocab_, config, timed in (
+            (hid, vocab, "BertConfig.base()", True),
+            (1024, vocab, "BertConfig.large()", True),
+            (hid, 18000, "ErnieConfig.base()", False)):
+        for name, case in xent_cases(dev, g, n_mask, vocab_, width, bf16,
+                                     timed=timed).items():
             results["bert_shapes"].append(dict(kernel=name, config=config,
-                                               **case))
+                                               vocab=vocab_, **case))
     return results
 
 
@@ -2679,7 +2682,7 @@ def trainer_recipe(model):
 
 
 def state_bits(model, opt):
-    """Copies of every parameter, slot and step count, by name."""
+    """Copies of every parameter, slot, step count and buffer, by name."""
     named = dict(model.named_parameters())
     out = {}
 
@@ -2690,7 +2693,8 @@ def state_bits(model, opt):
             else:
                 out[f"{prefix}{k}"] = v.detach().clone()
     with torch.no_grad():
-        walk({"params": named, "opt": opt.state_tree(named)}, "")
+        walk({"params": named, "opt": opt.state_tree(named),
+              "buffers": dict(model.named_buffers())}, "")
     return out
 
 
@@ -2704,45 +2708,54 @@ def bits_diff(a, b):
 
 
 def trainer_run(model, init, data, ckpt_dir, max_steps, guardian=True,
-                poison=None, snap_calls=(), reset=True):
-    """One ``Trainer`` run of :func:`trainer_recipe` on ``data``
-    (restarted at 0). ``reset`` puts back the weights ``init`` and the
-    dropout generator's seed first. The loss function records the host
-    time and the loss of every call, copies the whole state at the calls
-    in ``snap_calls`` (before that call's step: after the previous
-    step), and makes the loss non-finite where the FaultPlan ``poison``
-    fires."""
+                poison=None, snap_calls=(), reset=True, runtime=None,
+                recipe=trainer_recipe, loss=trainer_loss,
+                every=TRAINER_EVERY, warmup=TRAINER_WARMUP):
+    """One ``Trainer`` run of ``recipe`` (:func:`trainer_recipe`) over
+    ``loss`` on ``data`` (restarted at 0). ``reset`` puts back the
+    weights and buffers ``init`` and the dropout generator's seed first.
+    The loss function records the host time and the loss of every call,
+    copies the whole state at the calls in ``snap_calls`` (before that
+    call's step: after the previous step), and makes the loss non-finite
+    where the FaultPlan ``poison`` fires. ``runtime``: more TrainerConfig
+    fields (telemetry, watchdog, heartbeats); the run then trains as
+    worker 0 of 1."""
     from paddle_tpu_torch.static import Trainer, TrainerConfig
     if reset:
         with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(init[name])
-        model.dropout_gen.manual_seed(0)
-    opt = trainer_recipe(model)
+            for name, t in list(model.named_parameters()) + list(
+                    model.named_buffers()):
+                t.copy_(init[name])
+        if hasattr(model, "dropout_gen"):
+            model.dropout_gen.manual_seed(0)
+    opt = recipe(model)
     times, losses, snaps = [], [], {}
 
     def loss_fn(m, *batch):
+        if batch[0].is_meta:         # the telemetry's FLOP count: no step
+            return loss(m, *batch)
         times.append(time.perf_counter())
         if len(times) in snap_calls:
             snaps[len(times)] = state_bits(model, opt)
-        loss = trainer_loss(m, *batch)
+        out = loss(m, *batch)
         if poison is not None and poison.check("loss"):
-            loss = loss * float("nan")
-        losses.append(loss.detach().float())
-        return loss
+            out = out * float("nan")
+        losses.append(out.detach().float())
+        return out
 
     data.seek(0)
     tr = Trainer(model, opt, loss_fn, TrainerConfig(
         max_steps=max_steps, num_ingest_threads=1,
-        checkpoint_dir=ckpt_dir, checkpoint_every=TRAINER_EVERY
-        if ckpt_dir else 0, guardian=guardian or None),
-        device="cuda")
-    tr.train(data)
+        checkpoint_dir=ckpt_dir, checkpoint_every=every if ckpt_dir else 0,
+        guardian=guardian or None, **(runtime or {})), device="cuda")
+    tr.train(data, **(dict(num_workers=1, worker_id=0) if runtime else {}))
     torch.cuda.synchronize()
     times.append(time.perf_counter())
-    steps = np.diff(times)[TRAINER_WARMUP:]
+    step_ms = np.diff(times) * 1e3
+    steps = step_ms[warmup:] / 1e3
     return dict(trainer=tr, opt=opt, snaps=snaps,
                 losses=torch.stack(losses).tolist(),
+                step_ms=step_ms.tolist(),
                 p50_step_ms=float(np.median(steps)) * 1e3,
                 mean_step_ms=float(np.mean(steps)) * 1e3)
 
@@ -2799,17 +2812,120 @@ def recompute_check(model, data, ckpt_dir):
             (m0, m1), (n0, n1))
 
 
+def counter_totals(names):
+    from paddle_tpu_torch.observability import metrics as M
+    return {n: M.counter(n).total() for n in names}
+
+
+GUARD_COUNTERS = ("trainer.nonfinite_skips", "trainer.loss_spikes",
+                  "trainer.rollbacks")
+
+
+def runtime_fields(root):
+    """Run A's runtime: step telemetry every 4 steps into a RunLog,
+    the watchdog (its flight bundles under ``root``) and heartbeats in a
+    directory of ``root``."""
+    from paddle_tpu_torch.observability import TelemetryConfig
+    return dict(telemetry=TelemetryConfig(
+        enabled=True, run_log=os.path.join(root, "telemetry.jsonl"),
+        every_n_steps=4), watchdog=True, heartbeat=True,
+        heartbeat_dir=os.path.join(root, "heartbeat"))
+
+
+def telemetry_summary(tr, p50_step_ms, tokens):
+    """The telemetry's records beside the arithmetic they should match:
+    each record's mfu, the counted FLOPs a step, the peak, the MFU that
+    tokens/s at the p50 step and the counted FLOPs a token give, the
+    last record's device memory, and the span table's top rows."""
+    from paddle_tpu_torch.observability import perf, span_summary
+    tele = tr.telemetry
+    recs = [r for r in tele.records if "step" in r and not r.get("final")]
+    flops = tele.flops_per_step
+    peak = perf.peak_flops()
+    tokens_per_s = tokens / p50_step_ms * 1e3
+    return dict(
+        records=len(recs), record_steps=[r["step"] for r in recs],
+        record_mfu=[r["mfu"] for r in recs],
+        record_tokens_per_s=[r["tokens_per_s"] for r in recs],
+        record_loss=[r["loss"] for r in recs],
+        counted_flops_per_step=flops, peak_flops=peak,
+        mfu_from_p50=(tokens_per_s * (flops / tokens) / peak
+                      if flops and peak else None),
+        memory=recs[-1]["memory"] if recs else None,
+        final_record=bool(tele.records and tele.records[-1].get("final")),
+        spans_top=[{k: r[k] for k in ("name", "calls", "total_s",
+                                      "p50_ms")}
+                   for r in span_summary()[:6]],
+        watchdog_anomalies=[e["anomaly"] for e in tr.watchdog.anomalies],
+        stalled_peers=sorted(tr.stalled_peers))
+
+
+class SaveClock:
+    """Times each ``CheckpointManager.save`` that saves, for the runs
+    inside the scope: ``[(step, host seconds the caller was held)]``."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.io.checkpoint import CheckpointManager
+        self.cls, self.orig, self.saves = (CheckpointManager,
+                                           CheckpointManager.save, [])
+        orig, saves = self.orig, self.saves
+
+        def timed(mgr, step, *a, **kw):
+            t0 = time.perf_counter()
+            saved = orig(mgr, step, *a, **kw)
+            if saved:
+                saves.append((int(step), time.perf_counter() - t0))
+            return saved
+        self.cls.save = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save = self.orig
+        return False
+
+
+def save_timings(tr, root):
+    """One save of the whole state: the host time a background ``save()``
+    holds the caller, its ``wait()``, and a synchronous save's time."""
+    from paddle_tpu_torch.io import CheckpointManager
+    out = {}
+    for background in (True, False):
+        mgr = CheckpointManager(os.path.join(root, f"timing_{background}"),
+                                background=background)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(TRAINER_STEPS, tr.state(), force=True)
+        t1 = time.perf_counter()
+        mgr.wait()
+        t2 = time.perf_counter()
+        mgr.close()
+        if background:
+            out.update(save_block_s=t1 - t0, wait_s=t2 - t1)
+        else:
+            out.update(sync_save_s=t1 - t0)
+    t0 = time.perf_counter()
+    state, _ = mgr.restore(tr.state(), step=TRAINER_STEPS)
+    tr.load_state(state)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    return out
+
+
 def trainer_phase(smi, bert_stats):
     """BERT-base pretraining through ``Trainer`` (the JAX package's
     ``examples/pretrain_bert_flash.py`` at bench's size, dropout 0.0 as
-    it sets it): runs A, A' (no guardian), R (stop at 10, resume to 16)
-    and G (the loss poisoned at steps 10-12), and a recompute check at
-    dropout 0.0 and 0.1. The launch counts are zeroed just before A and
-    read just after. Returns (line, A's launches)."""
+    it sets it): run A with the whole runtime (background saves, step
+    telemetry, the watchdog, heartbeats, the loop's spans), A0 with none
+    of it and synchronous saves (bitwise A), A' (no guardian), R (stop at
+    10, resume to 16 from a mirror on a fresh staging directory) and G
+    (the loss poisoned at steps 10-12), and a recompute check at dropout
+    0.0 and 0.1. The launch counts are zeroed just before A and read just
+    after. Returns (line, A's launches)."""
     import shutil
     import tempfile
-    from paddle_tpu_torch.io import CheckpointManager
+    from paddle_tpu_torch.io import CheckpointManager, checkpoint, fs
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.observability import flight, perf, reset_spans
     from paddle_tpu_torch.ops.cuda import core
     from paddle_tpu_torch.testing.chaos import FaultPlan
     t_phase = time.perf_counter()
@@ -2821,11 +2937,20 @@ def trainer_phase(smi, bert_stats):
     per_step = bert_launches_per_step(cfg.num_layers)
     dense = dict(per_step, **{k: 0 for k in FLASH_KERNELS})
     root = tempfile.mkdtemp(prefix="trainer_phase_")
+    flight_before = flight.configure()
+    flight.configure(directory=os.path.join(root, "flight"))
+    mirror = f"trainerphase{os.getpid()}"
+    fs.register_filesystem(mirror, fs.MemFS())
     try:
+        reset_spans()
         core.reset_launches()
-        a = trainer_run(model, init, data, os.path.join(root, "A"),
-                        TRAINER_STEPS)
+        with SaveClock() as clock_a:
+            a = trainer_run(model, init, data, os.path.join(root, "A"),
+                            TRAINER_STEPS, runtime=runtime_fields(root))
         launches_a, routes_a = core.launch_counts(), core.route_counts()
+        t0 = time.perf_counter()
+        perf.device_memory_stats()
+        memory_stats_ms = (time.perf_counter() - t0) * 1e3
         bits_a = state_bits(model, a["opt"])
         ckpt_bytes = os.path.getsize(os.path.join(
             root, "A", str(TRAINER_STEPS), "state.pt"))
@@ -2833,30 +2958,50 @@ def trainer_phase(smi, bert_stats):
         check_launches("trainer A", launches_a, TRAINER_STEPS, per_step)
         check_routes("trainer A", routes_a, "tc")
         check_path_routes("trainer A", routes_a, ("layer_norm",))
+        runtime = telemetry_summary(a["trainer"], a["p50_step_ms"],
+                                    data.b * data.t)
+        checkpoint.configure(background=False)
+        try:
+            with SaveClock() as clock_a0:
+                a0 = trainer_run(model, init, data,
+                                 os.path.join(root, "A0"), TRAINER_STEPS)
+        finally:
+            checkpoint.configure(background=True)
+        shutil.rmtree(os.path.join(root, "A0"))
+        a0_equal, a0_state = bits_diff(bits_a, state_bits(model, a0["opt"]))
+        a0_loss_equal = a0["losses"] == a["losses"]
         a2 = trainer_run(model, init, data, None, TRAINER_STEPS,
                          guardian=False)
         rep_equal, rep_state = bits_diff(bits_a, state_bits(model,
                                                             a2["opt"]))
         rep_loss = max(abs(x - y) for x, y in zip(a["losses"],
                                                     a2["losses"]))
-        ckpt_r = os.path.join(root, "R")
+        ckpt_r = f"{mirror}://trainer/R"
         r1 = trainer_run(model, init, data, ckpt_r, TRAINER_STOP)
+        mirrored = sorted(n for n in fs.listdir(ckpt_r) if n.isdigit()
+                          and fs.fs_exists(f"{ckpt_r}/{n}/COMMIT"))
+        staging = CheckpointManager(ckpt_r).path
         recompute = {}
         for rate in (cfg.dropout, PUBLISHED_DROPOUT):
             set_dropout(model, rate)
             recompute[rate] = recompute_check(model, data, ckpt_r)
         set_dropout(model, cfg.dropout)
+        shutil.rmtree(staging)                   # a fresh host
         with torch.no_grad():                    # the resume must restore
             for p in model.parameters():
                 p.zero_()
         r2 = trainer_run(model, init, data, ckpt_r, TRAINER_STEPS,
                          reset=False)
         r_equal, r_state = bits_diff(bits_a, state_bits(model, r2["opt"]))
-        shutil.rmtree(ckpt_r)
+        fs.remove_tree(ckpt_r)
+        shutil.rmtree(staging, ignore_errors=True)
         plan = FaultPlan().poison("loss", nth=TRAINER_POISON, times=3)
+        g_before = counter_totals(GUARD_COUNTERS)
         g = trainer_run(model, init, data, os.path.join(root, "G"),
                         TRAINER_STEPS, poison=plan,
                         snap_calls=(TRAINER_POISON, TRAINER_POISON + 1))
+        g_counts = {k: v - g_before[k]
+                    for k, v in counter_totals(GUARD_COUNTERS).items()}
         g_equal, g_state = bits_diff(bits_a, state_bits(model, g["opt"]))
         skip_equal, _ = bits_diff(g["snaps"][TRAINER_POISON],
                                   g["snaps"][TRAINER_POISON + 1])
@@ -2869,22 +3014,17 @@ def trainer_phase(smi, bert_stats):
         g_losses = g["losses"][at:]              # steps restored + 1 ..
         del g, bits_a
         shutil.rmtree(os.path.join(root, "G"))
-        mgr = CheckpointManager(os.path.join(root, "timing"))
         tr = r2["trainer"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mgr.save(TRAINER_STEPS, tr.state(), force=True)
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        state, _ = mgr.restore(tr.state(), step=TRAINER_STEPS)
-        tr.load_state(state)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
+        saves = save_timings(tr, root)
         r_losses = r2["losses"]                  # steps 9 .. 16 (from 8)
-        del state, tr, r2
+        del tr, r2
     finally:
+        flight._SETTINGS.update(flight_before)
+        fs._REGISTRY.pop(mirror, None)
         shutil.rmtree(root, ignore_errors=True)
     a_losses = a["losses"]
+    pre = slice(TRAINER_WARMUP, TRAINER_EVERY - 1)     # steps 3 .. 7
+    post = slice(TRAINER_EVERY, TRAINER_STEPS - 1)     # steps 9 .. 15
     last_save = TRAINER_STOP // TRAINER_EVERY * TRAINER_EVERY
     r_loss = max(abs(x - y) for x, y in zip(r_losses,
                                               a_losses[last_save:]))
@@ -2898,31 +3038,50 @@ def trainer_phase(smi, bert_stats):
                   "biases), bf16): linear_lr_warmup(4, 0 -> 1e-4) into "
                   "polynomial_decay(1e-4, 16, 0), ClipByGlobalNorm(1.0)",
         steps=TRAINER_STEPS, checkpoint_every=TRAINER_EVERY,
+        runtime_a="background saves, telemetry every 4 steps to a RunLog, "
+                  "watchdog, heartbeats (worker 0 of 1), spans",
         tokens_per_s=data.b * data.t / a["p50_step_ms"] * 1e3,
         p50_step_ms=a["p50_step_ms"], mean_step_ms=a["mean_step_ms"],
+        a0_p50_step_ms=a0["p50_step_ms"], a0_mean_step_ms=a0["mean_step_ms"],
+        runtime_ms=float(np.median(a["step_ms"][pre]) - np.median(
+            a0["step_ms"][pre])),
+        runtime_note="median of steps 3-7 (before the first save), A less "
+                     "A0",
+        write_window_ms=float(np.sum(np.array(a["step_ms"][post]) - np.median(
+            a["step_ms"][pre]))),
+        write_window_note="steps 9-15 (the background write of step 8 "
+                          "beside them), each less A's median of steps 3-7",
+        step_ms_a=a["step_ms"], step_ms_a0=a0["step_ms"],
+        save_held_s_a=clock_a.saves, save_held_s_a0=clock_a0.saves,
+        memory_stats_ms=memory_stats_ms,
+        a0_bitwise=a0_equal and a0_loss_equal, a0_max_state_diff=a0_state,
         unguarded_p50_step_ms=a2["p50_step_ms"],
         unguarded_mean_step_ms=a2["mean_step_ms"],
         gate_ms=a["p50_step_ms"] - a2["p50_step_ms"],
         bert_train_tokens_per_s=bert_stats["tokens_per_s"],
         bert_train_p50_step_ms=bert_stats["p50_step_ms"],
-        losses_a=a_losses, losses_a2=a2["losses"],
+        telemetry=runtime,
+        losses_a=a_losses, losses_a0=a0["losses"], losses_a2=a2["losses"],
         losses_r_first=r1["losses"], losses_r_resumed=r_losses,
         losses_g_replayed=g_losses,
         repeatable=rep_equal, repeat_max_loss_diff=rep_loss,
         repeat_max_state_diff=rep_state,
+        mirror="MemFS under a scheme of the run; R resumed on an empty "
+               "staging directory", mirrored_steps=mirrored,
         resume_equal=r_equal, resume_max_loss_diff=r_loss,
         resume_max_state_diff=r_state,
         rollback_equal=g_equal, rollback_max_loss_diff=g_loss,
         rollback_max_state_diff=g_state,
         skip_bit_identical=skip_equal, guardian_actions=actions,
         guardian_skips=guard.skips, guardian_rollbacks=guard.rollbacks,
+        guardian_counters=g_counts,
         rollback_at=at, restored_step=restored, poison_fired=plan.fired(),
         recompute={f"dropout {rate}": dict(
             losses=rc[0], bitwise=rc[1], max_grad_diff=rc[2],
             peak_memory_gb=rc[3][0], recompute_peak_memory_gb=rc[3][1],
             launches={kk: rc[4][1][kk] for kk in per_step})
             for rate, rc in recompute.items()},
-        checkpoint_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s,
+        checkpoint_bytes=ckpt_bytes, **saves,
         launches_a_per_step={kk: launches_a[kk] / TRAINER_STEPS
                              for kk in per_step},
         routes_a={kk: routes_a[kk] for kk in TC_KERNELS},
@@ -2930,6 +3089,15 @@ def trainer_phase(smi, bert_stats):
     emit(line)
     if not all(np.isfinite(a_losses)):
         raise AssertionError("trainer: a non-finite loss in A")
+    if not (a0_equal and a0_loss_equal):
+        raise AssertionError(f"trainer A0: the runtime changed a number "
+                             f"(state differs by {a0_state})")
+    if (runtime["records"] != TRAINER_STEPS // 4 or not runtime[
+            "final_record"] or not runtime["counted_flops_per_step"]
+            or runtime["memory"] is None):
+        raise AssertionError(f"trainer A: telemetry incomplete {runtime}")
+    if mirrored != [str(TRAINER_EVERY)]:
+        raise AssertionError(f"trainer R: mirrored steps {mirrored}")
     # R and G equal A as far as A' (a second uninterrupted run) does:
     # bitwise when A' is bitwise equal, else within A''s differences
     for what, equal, dl, ds in (("resume", r_equal, r_loss, r_state),
@@ -2942,10 +3110,14 @@ def trainer_phase(smi, bert_stats):
         raise AssertionError("trainer G: the refused step changed the "
                              "state")
     if (actions != ["skip", "reread", "rollback"] or guard.rollbacks != 1
-            or restored != TRAINER_EVERY or plan.fired() != 3):
+            or restored != TRAINER_EVERY or plan.fired() != 3
+            or g_counts != {"trainer.nonfinite_skips": 3,
+                            "trainer.loss_spikes": 0,
+                            "trainer.rollbacks": 1}):
         raise AssertionError(f"trainer G: ladder {actions}, rollbacks "
                              f"{guard.rollbacks}, restored {restored}, "
-                             f"poison fired {plan.fired()}")
+                             f"poison fired {plan.fired()}, counters "
+                             f"{g_counts}")
     for rate, (_, rc_equal, rc_worst, _, rc_launches) in recompute.items():
         if not rc_equal:
             raise AssertionError(
@@ -2959,6 +3131,161 @@ def trainer_phase(smi, bert_stats):
                        {kk: n * (2 if kk in FORWARD_KERNELS else 1)
                         for kk, n in want.items()})
     return line, launches_a
+
+
+# ------------------------------------------------ the Trainer on ResNet
+
+RESNET_TRAINER_BATCH = 64
+RESNET_TRAINER_STEPS = 12
+RESNET_TRAINER_EVERY = 4
+RESNET_TRAINER_STOP = 6      # R's first run stops here: its last save is 4
+RESNET_TRAINER_POISON = 6    # G's loss is non-finite at steps 6, 7 and 8
+
+
+class ImageData:
+    """A seekable stream of :func:`image_batch` batches: batch ``i`` from
+    ``RandomState(seed * 100003 + i)``."""
+
+    def __init__(self, batch, size=224, classes=1000, seed=0):
+        self.b, self.size, self.classes, self.seed = batch, size, classes, seed
+        self.pos = 0
+
+    def seek(self, step):
+        self.pos = int(step)
+
+    def batch(self, i):
+        images, labels = image_batch(np.random.RandomState(
+            self.seed * 100003 + i), self.b, self.size, self.classes)
+        return images.numpy(), labels.numpy()
+
+    def reader(self):
+        def feed():
+            i = self.pos
+            while True:
+                yield self.batch(i)
+                i += 1
+        return feed
+
+
+def resnet_recipe(model):
+    """``bench.py:1228``'s optimizer: decorate(Momentum(0.1, 0.9),
+    bf16_policy())."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import Momentum
+    return amp.decorate(Momentum(model.parameters(), 0.1, 0.9),
+                        amp.bf16_policy())
+
+
+def trainer_resnet_phase(smi):
+    """resnet50(1000) through ``Trainer`` at 64 x 224², checkpoints every
+    4 steps, the guardian on, 12 steps, cuDNN deterministic: run A; A'
+    (no guardian) for the run-to-run difference; R (stop at 6, resume
+    from 4 onto zeroed weights and reset buffers) bitwise A; G (the loss
+    non-finite at steps 6-8: skip, re-read, roll back to 4) with the BN
+    statistics after the refused step bitwise the ones before it, and
+    the final state equal to A's as far as A' is. No kernel of the port
+    launches. Returns (line, launches)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.testing.chaos import FaultPlan
+    t_phase = time.perf_counter()
+    model = resnet50(1000, device="cuda", seed=0)
+    init = {k: t.detach().clone() for k, t in list(
+        model.named_parameters()) + list(model.named_buffers())}
+    data = ImageData(RESNET_TRAINER_BATCH)
+    kw = dict(recipe=resnet_recipe, loss=xent_mean,
+              every=RESNET_TRAINER_EVERY, warmup=2)
+    root = tempfile.mkdtemp(prefix="trainer_resnet_")
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        core.reset_launches()
+        with SaveClock() as clock:
+            a = trainer_run(model, init, data, os.path.join(root, "A"),
+                            RESNET_TRAINER_STEPS, **kw)
+        bits_a = state_bits(model, a["opt"])
+        a2 = trainer_run(model, init, data, None, RESNET_TRAINER_STEPS,
+                         guardian=False, **kw)
+        rep_equal, rep_state = bits_diff(bits_a, state_bits(model,
+                                                            a2["opt"]))
+        ckpt_r = os.path.join(root, "R")
+        trainer_run(model, init, data, ckpt_r, RESNET_TRAINER_STOP, **kw)
+        with torch.no_grad():                    # the resume must restore
+            for p in model.parameters():
+                p.zero_()
+            for name, b in model.named_buffers():
+                b.fill_(1.0 if name.endswith("variance") else 0.0)
+        r2 = trainer_run(model, init, data, ckpt_r, RESNET_TRAINER_STEPS,
+                         reset=False, **kw)
+        r_equal, r_state = bits_diff(bits_a, state_bits(model, r2["opt"]))
+        plan = FaultPlan().poison("loss", nth=RESNET_TRAINER_POISON, times=3)
+        g_before = counter_totals(GUARD_COUNTERS)
+        g = trainer_run(model, init, data, os.path.join(root, "G"),
+                        RESNET_TRAINER_STEPS, poison=plan,
+                        snap_calls=(RESNET_TRAINER_POISON,
+                                    RESNET_TRAINER_POISON + 1), **kw)
+        g_counts = {k: v - g_before[k]
+                    for k, v in counter_totals(GUARD_COUNTERS).items()}
+        launches = core.launch_counts()
+        g_equal, g_state = bits_diff(bits_a, state_bits(model, g["opt"]))
+        before, after = (g["snaps"][RESNET_TRAINER_POISON],
+                         g["snaps"][RESNET_TRAINER_POISON + 1])
+        bn_keys = [k for k in before if k.startswith("buffers/")]
+        bn_equal = all(torch.equal(before[k], after[k]) for k in bn_keys)
+        skip_equal, _ = bits_diff(before, after)
+        guard = g["trainer"].guardian
+        actions = [rec["action"] for rec in guard.log if "action" in rec]
+        restored = next(rec["restored_step"] for rec in guard.log
+                        if rec["guardian"] == "rollback_done")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = bench
+        shutil.rmtree(root, ignore_errors=True)
+    line = dict(
+        phase="trainer_resnet", config="resnet50(1000)",
+        batch=RESNET_TRAINER_BATCH, image=[3, 224, 224], policy="bf16",
+        optimizer="decorate(Momentum(0.1, 0.9), bf16_policy())",
+        steps=RESNET_TRAINER_STEPS, checkpoint_every=RESNET_TRAINER_EVERY,
+        cudnn_deterministic=True,
+        images_per_s=RESNET_TRAINER_BATCH / a["p50_step_ms"] * 1e3,
+        p50_step_ms=a["p50_step_ms"], mean_step_ms=a["mean_step_ms"],
+        unguarded_p50_step_ms=a2["p50_step_ms"],
+        step_ms_a=a["step_ms"], step_ms_a2=a2["step_ms"],
+        save_held_s_a=clock.saves,
+        losses_a=a["losses"], losses_a2=a2["losses"],
+        repeatable=rep_equal, repeat_max_state_diff=rep_state,
+        resume_equal=r_equal, resume_max_state_diff=r_state,
+        rollback_equal=g_equal, rollback_max_state_diff=g_state,
+        bn_buffers=len(bn_keys), bn_unchanged_by_refused_step=bn_equal,
+        skip_bit_identical=skip_equal, guardian_actions=actions,
+        guardian_counters=g_counts, restored_step=restored,
+        poison_fired=plan.fired(), launches={k: n for k, n in
+                                             launches.items() if n},
+        seconds=time.perf_counter() - t_phase, card=smi)
+    emit(line)
+    check_no_launches("trainer_resnet", launches)
+    if not all(np.isfinite(a["losses"])):
+        raise AssertionError("trainer_resnet: a non-finite loss in A")
+    if not r_equal:
+        raise AssertionError(f"trainer_resnet R: differs from A by "
+                             f"{r_state}")
+    if (rep_equal and not g_equal) or g_state > rep_state:
+        raise AssertionError(f"trainer_resnet G: differs from A by "
+                             f"{g_state}, beyond A''s {rep_state}")
+    if not (bn_keys and bn_equal and skip_equal):
+        raise AssertionError("trainer_resnet G: the refused step changed "
+                             "the state or the BN statistics")
+    if (actions != ["skip", "reread", "rollback"]
+            or restored != RESNET_TRAINER_EVERY or plan.fired() != 3
+            or g_counts != {"trainer.nonfinite_skips": 3,
+                            "trainer.loss_spikes": 0,
+                            "trainer.rollbacks": 1}):
+        raise AssertionError(f"trainer_resnet G: ladder {actions}, "
+                             f"restored {restored}, counters {g_counts}")
+    return line, launches
 
 
 # ------------------------------------------------------------ translate
@@ -4165,7 +4492,8 @@ def expected_route(kernel, case):
 #: its own path's (``launches_<path>``), the scan step under each remat
 #: policy among them
 LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
-                "transformer", "resnet", "ctr", "gpt_decode",
+                "transformer", "resnet", "trainer_resnet", "ctr",
+                "gpt_decode",
                 "gpt_decode_int8", "serve_int8", "serve_fleet", "moe_train",
                 "scan_nothing", "scan_dots_saveable", "scan_full")
 
@@ -4246,6 +4574,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig, GPTDecoder
     from paddle_tpu_torch.ops.cuda import core
 
@@ -4400,6 +4729,18 @@ def main():
         token_type_ids="segment B from position 60", mask_positions=19)
 
     torch.cuda.empty_cache()
+    ernie = ErnieConfig.base()
+    ernie.dropout = 0.0
+    batch = bert_batch(np.random.RandomState(5), ernie.vocab_size, 2, 128,
+                       19, pad_row0=90, segment_b=60)
+    crosscheck_phase(
+        "ernie_crosscheck", "ErnieConfig.base()",
+        lambda dev: ErnieForPretraining(ernie, device=dev, seed=0),
+        bert_loss_of, batch, 2, 128, BERT_KERNELS, vocab=ernie.vocab_size,
+        attention_mask="row 0 padded after 90 tokens",
+        token_type_ids="segment B from position 60", mask_positions=19)
+
+    torch.cuda.empty_cache()
     large_stats, large_launches = bert_large_phase(smi)
     emit(dict(phase="bert_large", **large_stats))
 
@@ -4421,6 +4762,8 @@ def main():
     torch.cuda.empty_cache()
     resnet_crosscheck_phase()
     torch.cuda.empty_cache()
+    _, trainer_resnet_launches = trainer_resnet_phase(smi)
+    torch.cuda.empty_cache()
     emit(dict(phase="vision_cls", **vision_cls_phase(smi)))
 
     torch.cuda.empty_cache()
@@ -4437,6 +4780,7 @@ def main():
         "train_crosscheck": crosscheck_launches, "bert": bert_launches,
         "bert_large": large_launches, "trainer": trainer_launches,
         "transformer": transformer_launches, "resnet": resnet_launches,
+        "trainer_resnet": trainer_resnet_launches,
         "ctr": ctr_launches, "gpt_decode": decode_launches,
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
         "serve_fleet": fleet_launches, "moe_train": moe_launches,

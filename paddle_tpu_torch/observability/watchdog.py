@@ -24,7 +24,8 @@ check on the counter are kept so a caller's own probe still works.
 
 The reference's flags become :class:`WatchdogConfig` defaults (the
 ``watchdog*`` flags': window 64, slow_factor 3.0, stall_s 1.0,
-goodput_min 0.5; the watchdog itself is off unless asked for).
+goodput_min 0.5), and its ``watchdog`` flag (off) a module setting that
+a config's None reads: change it with :func:`configure`.
 """
 
 import collections
@@ -34,6 +35,17 @@ import time
 
 from paddle_tpu_torch.observability import metrics as _metrics
 from paddle_tpu_torch.observability.catalog import help_for as _help
+
+_SETTINGS = {"watchdog": False}
+
+
+def configure(watchdog=None):
+    """Set whether a loop whose config leaves ``watchdog`` None runs one;
+    None leaves the setting as it is. Returns the settings."""
+    if watchdog is not None:
+        _SETTINGS["watchdog"] = bool(watchdog)
+    return dict(_SETTINGS)
+
 
 KINDS = ("slow_step", "ingest_stall", "retrace", "goodput_collapse",
          "ingest_error", "loss_spike")
@@ -196,10 +208,12 @@ class Watchdog:
 
 
 def maybe_watchdog(setting, run_log=None, registry=None, action=None):
-    """A ServeConfig ``watchdog`` field as a Watchdog or None: a
-    WatchdogConfig is used as is, True builds the defaults, None and
-    False (the ``watchdog`` flag's default) build none. ``action`` is
-    called with each fired event."""
+    """A config's ``watchdog`` field as a Watchdog or None: a
+    WatchdogConfig is used as is, True builds the defaults, False builds
+    none and None follows the ``watchdog`` setting (off by default).
+    ``action`` is called with each fired event."""
+    if setting is None:
+        setting = _SETTINGS["watchdog"]
     if not setting:
         return None
     cfg = setting if isinstance(setting, WatchdogConfig) else None

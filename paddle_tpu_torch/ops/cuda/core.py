@@ -16,7 +16,9 @@ JAX package's single ``pl.pallas_call`` site. It owns:
 * a plain-integer launch count per kernel (:attr:`Kernel.launches`);
 * the device rule (:func:`on_card`): tensors on the CPU take the kernel's
   plain PyTorch version, tensors on a CUDA device take the kernel, and
-  anything else raises. There is no flag and no fallback: a kernel that
+  anything else raises, but for tensors on the ``meta`` device inside
+  :func:`shapes_only` (no data: the plain version's shapes and products,
+  which ``observability/perf.py cost_flops`` counts). There is no flag and no fallback: a kernel that
   fails on the card raises.
 
 The online-softmax (m, l, acc) combiner of ``core.py:220-269`` lives in
@@ -26,6 +28,7 @@ partials of its splits in the last block of each to finish), with the
 same rule that a fully masked row gives exactly 0.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -51,6 +54,7 @@ MAX_SMEM = 232448
 
 _lib = None
 _lib_lock = threading.Lock()
+_TLS = threading.local()
 
 
 def _nvcc():
@@ -222,16 +226,31 @@ def wave_busy(blocks, sms):
     return blocks / (-(-blocks // sms) * sms)
 
 
+@contextlib.contextmanager
+def shapes_only():
+    """On this thread, inside: tensors all on the ``meta`` device take the
+    plain version (they hold no data, so nothing runs), for counting a
+    step's products."""
+    prev = getattr(_TLS, "shapes_only", False)
+    _TLS.shapes_only = True
+    try:
+        yield
+    finally:
+        _TLS.shapes_only = prev
+
+
 def on_card(*tensors):
     """The device rule. False when every tensor lies on the CPU (the
     caller runs the plain PyTorch version), True when every tensor lies
     on one CUDA device (the caller launches the kernel); raises for
-    anything else, such as a mix of devices. ``None`` entries are
-    skipped."""
+    anything else, such as a mix of devices, or the ``meta`` device
+    outside :func:`shapes_only`. ``None`` entries are skipped."""
     devs = {t.device for t in tensors if t is not None}
     if not devs:
         raise ValueError("on_card: no tensors given")
-    if all(d.type == "cpu" for d in devs):
+    if all(d.type == "cpu" for d in devs) or (
+            getattr(_TLS, "shapes_only", False)
+            and all(d.type == "meta" for d in devs)):
         return False
     if len(devs) == 1 and next(iter(devs)).type == "cuda":
         return True

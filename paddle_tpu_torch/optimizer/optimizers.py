@@ -18,7 +18,8 @@ the device, so no step reads the host. A gated step (``gate=``, the
 training guardian's containment) computes every new parameter and slot
 first, then commits them only where ``isfinite(loss) & isfinite(global
 update norm)`` holds on the device: a refused step leaves every
-parameter, slot and the step count bit-identical, and still reads
+parameter, slot, floating buffer of the model (``minimize_gated`` holds
+a copy of each) and the step count bit-identical, and still reads
 nothing on the host. ``check_nan_inf`` is the reference's eager mode: it
 raises ``EnforceError`` naming the non-finite gradients before anything
 changes.
@@ -74,9 +75,14 @@ def _update_sq_norm(news, olds, device):
 class Gate:
     """What a gated step checks before it commits: the loss is always
     checked; ``check_update_norm`` adds the global norm of the update
-    (every new parameter and slot minus its old value, in f32)."""
+    (every new parameter, slot and held buffer minus its old value, in
+    f32). ``held`` are ``(buffer, value before the step)`` pairs that the
+    commit keeps or puts back with the parameters: the model's floating
+    buffers, which the forward wrote in place (batch norm's running
+    statistics), as the reference gates every leaf of the new state."""
 
     check_update_norm: bool = True
+    held: tuple = ()
 
 
 def _split_named(params):
@@ -100,9 +106,15 @@ class Minimizer:
 
     def minimize_gated(self, gate, model, loss_fn, *args, **kwargs):
         """:meth:`minimize` with the commit gated by ``gate``
-        (:class:`Gate`). Returns ``(loss, applied)``, ``applied`` a 0-d
-        bool tensor on the device that nothing here reads."""
-        return self._minimize(model, loss_fn, args, kwargs, gate)
+        (:class:`Gate`). The model's floating buffers are copied first and
+        held by the gate, so a refused step leaves them bit-identical too.
+        Returns ``(loss, applied)``, ``applied`` a 0-d bool tensor on the
+        device that nothing here reads."""
+        with torch.no_grad():
+            held = tuple((b, b.clone()) for b in model.buffers()
+                         if b.is_floating_point())
+        return self._minimize(model, loss_fn, args, kwargs,
+                              dataclasses.replace(gate, held=held))
 
     def _minimize(self, model, loss_fn, args, kwargs, gate=None):
         self.zero_grad(set_to_none=True)
@@ -207,10 +219,13 @@ class Optimizer(Minimizer, torch.optim.Optimizer):
         news = [t for _, n, _, ns in pending for t in [n] + list(ns.values())]
         ok = torch.isfinite(loss)
         if gate.check_update_norm:
-            ok = ok & torch.isfinite(_update_sq_norm(news, olds,
-                                                     self._step.device))
+            ok = ok & torch.isfinite(_update_sq_norm(
+                news + [b for b, _ in gate.held],
+                olds + [old for _, old in gate.held], self._step.device))
         for n, o in zip(news, olds):
             torch.where(ok, n, o, out=o)
+        for b, old in gate.held:
+            torch.where(ok, b, old, out=b)
         self._step += ok.to(torch.int32)
         return ok
 

@@ -27,8 +27,12 @@ scalars and processes those parked one step earlier; reading them on the
 host (``.item()``) waits only for that earlier step, never for the one
 just dispatched.
 
-The reference's counters, watchdog and run log are not ported; what it
-writes to the run log the port keeps in :attr:`TrainGuardian.log`.
+:meth:`TrainGuardian.attach` wires the run's observability plane: the
+guardian's records (each skip, spike, rollback) go to the attached
+RunLog, or to :attr:`TrainGuardian.log` when none is attached; a latched
+loss spike alerts the attached watchdog; and the registry counts
+``trainer.nonfinite_skips``, ``trainer.loss_spikes`` and
+``trainer.rollbacks``.
 """
 
 import collections
@@ -36,6 +40,8 @@ import dataclasses
 import math
 
 from paddle_tpu_torch.core.retry import RetryBudget, RetryPolicy
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability.catalog import help_for as _help
 from paddle_tpu_torch.optimizer.optimizers import Gate
 from paddle_tpu_torch.testing.chaos import fault_point
 
@@ -92,7 +98,31 @@ class TrainGuardian:
         self.skips = 0              # non-finite steps refused
         self.spikes = 0             # loss-spike episodes latched
         self.rollbacks = 0          # rollbacks performed
-        self.log = []               # the reference's run-log records
+        self.log = []               # the records, when no RunLog is
+        #                             attached
+        self._run_log = None
+        self._wd = None
+        self._reg = _metrics.registry()
+
+    def attach(self, run_log=None, watchdog=None, registry=None):
+        """Wire the run's observability plane (the Trainer calls this once
+        its telemetry and watchdog exist): a RunLog for the records, a
+        Watchdog for loss-spike alerts, a metrics registry (the
+        process-wide one by default) for the counters."""
+        self._run_log = run_log
+        self._wd = watchdog
+        if registry is not None:
+            self._reg = registry
+        return self
+
+    def _count(self, name):
+        self._reg.counter(name, _help(name)).inc()
+
+    def _log(self, record):
+        if self._run_log is not None:
+            self._run_log.write(record)
+        else:
+            self.log.append(record)
 
     # -- per-step host logic (trailing) ------------------------------------
     def observe_step(self, step, loss, applied):
@@ -119,27 +149,34 @@ class TrainGuardian:
         """Pure-host triage of one processed step."""
         if not applied_v:
             self.skips += 1
+            self._count("trainer.nonfinite_skips")
             kind = "nonfinite"
         elif self._is_spike(loss_v):
             if not self._spike_latched:
                 self._spike_latched = True
                 self.spikes += 1
+                self._count("trainer.loss_spikes")
+                if self._wd is not None:
+                    self._wd.alert("loss_spike", step, loss=loss_v,
+                                   median=self._median())
             kind = "spike"
         else:
             if math.isfinite(loss_v):
                 self._window.append(loss_v)
             self.episode = 0
             self.episode_start = None
-            self._spike_latched = False
+            if self._spike_latched:
+                self._spike_latched = False
+                if self._wd is not None:
+                    self._wd.resolve("loss_spike")
             return None
         self.episode += 1
         if self.episode == 1:
             self.episode_start = step
         action = (None if self.episode == 1
                   else "reread" if self.episode == 2 else "rollback")
-        self.log.append({"guardian": kind, "step": step, "loss": loss_v,
-                         "episode": self.episode,
-                         "action": action or "skip"})
+        self._log({"guardian": kind, "step": step, "loss": loss_v,
+                   "episode": self.episode, "action": action or "skip"})
         return action
 
     def _median(self):
@@ -175,8 +212,8 @@ class TrainGuardian:
             f"({self.cfg.rollback_budget}) is exhausted"))
         fault_point("trainer.rollback")
         self.rollbacks += 1
-        self.log.append({"guardian": "rollback", "step": int(at_step),
-                         **detail})
+        self._count("trainer.rollbacks")
+        self._log({"guardian": "rollback", "step": int(at_step), **detail})
         # the episode ends; the window stays (the replay walks the same
         # healthy trajectory, and a persistent divergence must re-trip it)
         self.episode = 0
@@ -184,8 +221,8 @@ class TrainGuardian:
         self._pending = None
 
     def note_rollback_done(self, restored_step):
-        self.log.append({"guardian": "rollback_done",
-                         "restored_step": int(restored_step)})
+        self._log({"guardian": "rollback_done",
+                   "restored_step": int(restored_step)})
 
     def note_checkpoint(self, step):
         """A checkpoint landed while healthy: the rollback streak resets."""

@@ -5,13 +5,29 @@ the batch on the device (pinned host memory, copied on the default
 stream, so the step's kernels see it after the copy lands) and, with
 ``prefetch``, collates the next batch while the step runs. The step is
 ``optimizer.minimize(model, loss_fn, *batch)``, or its gated form under
-the guardian. The Trainer saves ``{"params", "opt"}`` keyed by parameter
-name every ``checkpoint_every`` steps, with the data cursor, the states
-of the generators the step draws from (``core/random.py``) and the
-guardian's state in the step's meta, and resumes from the newest healthy
-step (``dataset.seek(step)`` replays the stream). Under the guardian a
-non-finite step is refused in place, and the ladder re-reads or rolls
-back to the last good checkpoint and replays the stream to its cursor.
+the guardian (which also holds the model's floating buffers, batch
+norm's running statistics, so a refused step leaves them as they were).
+The Trainer saves ``{"params", "opt", "buffers"}`` keyed by name every
+``checkpoint_every`` steps, with the data cursor, the states of the
+generators the step draws from (``core/random.py``) and the guardian's
+state in the step's meta, and resumes from the newest healthy step
+(``dataset.seek(step)`` replays the stream); a checkpoint without
+``"buffers"`` (written before they were saved) restores with the
+model's current buffers and a warning. Saves run in the background
+(``io/checkpoint.py``): a rollback and a preemption wait for them, and
+the run's end closes the manager. Under the guardian a non-finite step
+is refused in place, and the ladder re-reads or rolls back to the last
+good checkpoint and replays the stream to its cursor.
+
+The run's observability, each opt-in: ``telemetry`` (a
+``TelemetryConfig``, or the ``telemetry`` setting) writes step records to
+a RunLog (the FLOPs of a step counted once, on the first); ``watchdog``
+ticks with each step's wall and ingest-wait time, alerts on a dead
+reader, and dumps a flight bundle on each anomaly; ``heartbeat`` pings a
+shared directory (``parallel/heartbeat.py FileHeartbeat``) and a monitor
+thread flags silent peers (``on_peer_stall``, ``stalled_peers``,
+``heartbeat.missed``). The loop's ``ingest``, ``stage`` and ``step``
+spans feed ``observability/spans.py``.
 
 The reference's step is a function of a state tree; the port's state is
 the model and the optimizer, which the step updates in place, so
@@ -22,8 +38,9 @@ each step pulls every table's rows for its ids, passes ``(rows, inv)``
 per table after the batch to the loss, and after the optimizer's step
 pushes each table's row gradient.
 
-Not ported, and refused when set: heartbeats, telemetry, the watchdog
-and ``mesh_plan``.
+Not ported, and refused when set: the coordination-service heartbeat
+transport (``heartbeat_transport="kv"``, ``heartbeat_kv_client``) and
+``mesh_plan``.
 """
 
 import dataclasses
@@ -39,6 +56,10 @@ from paddle_tpu_torch.core import random as _random
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.data.loader import _collate
+from paddle_tpu_torch.observability import flight as _flight
+from paddle_tpu_torch.observability import metrics as _metrics
+from paddle_tpu_torch.observability import trace as _trace
+from paddle_tpu_torch.observability.spans import span
 from paddle_tpu_torch.testing.chaos import fault_point
 
 # "rescheduleable interruption" exit status (BSD EX_TEMPFAIL)
@@ -72,38 +93,37 @@ class TrainerConfig:
     prefetch: bool = True          # collate batch t+1 during step t
     log_every: int = 0             # 0 = silent
     max_steps: int = None          # None = drain the dataset
-    heartbeat: bool = None         # not ported
-    heartbeat_transport: str = "file"  # not ported
-    heartbeat_dir: str = None      # not ported
-    heartbeat_timeout_s: float = None  # not ported
-    heartbeat_interval_s: float = None  # not ported
+    # liveness: None = on when train(num_workers > 1) and a heartbeat_dir
+    # is given
+    heartbeat: bool = None
+    heartbeat_transport: str = "file"  # "kv" is not ported
+    heartbeat_dir: str = None      # the directory every worker reaches
+    heartbeat_timeout_s: float = None   # None: heartbeat.TIMEOUT_S
+    heartbeat_interval_s: float = None  # None: heartbeat.INTERVAL_S
     heartbeat_kv_client: object = None  # not ported
-    on_peer_stall: object = None   # not ported
+    on_peer_stall: object = None   # (worker, age_s) -> None
     checkpoint_dir: str = None     # None = checkpointing off
     checkpoint_every: int = 0      # steps between saves (0 = off)
     resume: bool = True            # restore the newest checkpoint first
     handle_preemption: bool = False
     preemption_signals: tuple = None  # default (SIGTERM, SIGINT)
-    telemetry: object = None       # not ported
-    watchdog: object = None        # not ported
+    telemetry: object = None       # TelemetryConfig; None: the setting
+    watchdog: object = None        # True / WatchdogConfig; None: setting
     mesh_plan: object = None       # not ported
     guardian: object = None        # True or a GuardianConfig
     ingest_fail_fast: bool = INGEST_FAIL_FAST
 
     def check_ported(self):
         """Raise NotImplementedError for any field set to a value the port
-        does not implement."""
-        defaults = TrainerConfig.__dataclass_fields__
-        for name in ("heartbeat_transport", "heartbeat_dir",
-                     "heartbeat_timeout_s", "heartbeat_interval_s",
-                     "heartbeat_kv_client", "on_peer_stall", "telemetry",
-                     "mesh_plan"):
-            if getattr(self, name) != defaults[name].default:
-                raise NotImplementedError(
-                    f"TrainerConfig.{name} is not ported to "
-                    "paddle_tpu_torch")
-        for name in ("heartbeat", "watchdog"):
-            if getattr(self, name):
+        does not implement: the KV heartbeat transport and a mesh plan."""
+        enforce(self.heartbeat_transport in ("file", "kv"),
+                "heartbeat_transport must be 'file' or 'kv', got "
+                f"{self.heartbeat_transport!r}")
+        for name, unported in (
+                ("heartbeat_transport", self.heartbeat_transport == "kv"),
+                ("heartbeat_kv_client", self.heartbeat_kv_client is not None),
+                ("mesh_plan", self.mesh_plan is not None)):
+            if unported:
                 raise NotImplementedError(
                     f"TrainerConfig.{name} is not ported to "
                     "paddle_tpu_torch")
@@ -148,6 +168,8 @@ class Trainer:
         self.loss_fn = loss_fn
         self.history = []
         self.guardian = None     # TrainGuardian after train() when armed
+        self.telemetry = None    # StepTelemetry after train() when on
+        self.watchdog = None     # Watchdog after train() when on
         self._ingest_threads = []
 
     # -- the state a checkpoint holds --------------------------------------
@@ -155,23 +177,31 @@ class Trainer:
         return dict(self.model.named_parameters())
 
     def state(self):
-        """``{"params": {name: tensor}, "opt": <optimizer state>}``, the
-        live tensors (a checkpoint copies them)."""
+        """``{"params": {name: tensor}, "opt": <optimizer state>,
+        "buffers": {name: tensor}}``, the live tensors (a checkpoint
+        copies them)."""
         named = self._named()
-        return {"params": named, "opt": self.optimizer.state_tree(named)}
+        return {"params": named, "opt": self.optimizer.state_tree(named),
+                "buffers": dict(self.model.named_buffers())}
 
     @torch.no_grad()
     def load_state(self, state):
+        """Copy a state of :meth:`state`'s form into the model and the
+        optimizer; a state without ``"buffers"`` leaves the buffers."""
         named = self._named()
         for name, p in named.items():
             p.copy_(state["params"][name].to(p.device))
         self.optimizer.load_state_tree(named, state["opt"])
+        buffers = state.get("buffers") or {}
+        for name, b in self.model.named_buffers():
+            if name in buffers:
+                b.copy_(buffers[name].to(b.device))
 
     def _generators(self):
         return _random.step_generators(self.model, self.optimizer)
 
     # -- DataFeed channel --------------------------------------------------
-    def _start_ingest(self, readers):
+    def _start_ingest(self, readers, on_error=None):
         chan = queue.Queue(maxsize=self.cfg.channel_capacity)
         counts = {"live": len(readers)}
         lock = threading.Lock()
@@ -194,9 +224,16 @@ class Trainer:
                     if not put(item):
                         return  # trainer stopped early (max_steps)
             except BaseException as e:    # noqa: B036 - raised by train()
-                # a dead reader is never silent: train() raises it (at
-                # once under ingest_fail_fast, else at the end)
+                # a dead reader is never silent: counted, alerted, and
+                # raised by train() (at once under ingest_fail_fast, else
+                # at the end)
                 errors.append(e)
+                _metrics.counter(
+                    "trainer.ingest_errors",
+                    "Ingest reader threads that died, by exception "
+                    "type.").inc(reason=type(e).__name__)
+                if on_error is not None:
+                    on_error(e)
             finally:
                 with lock:
                     counts["live"] -= 1
@@ -245,6 +282,112 @@ class Trainer:
 
         return requested, restore
 
+    # -- liveness ----------------------------------------------------------
+    def _start_heartbeat(self, num_workers=None, worker_id=None):
+        """Ping ``<heartbeat_dir>/worker_<id>.hb`` (at most once an
+        interval) and scan the peers' files from a monitor thread,
+        flagging each RUNNING peer silent past the timeout once
+        (``on_peer_stall(worker, age_s)``, ``stalled_peers``,
+        ``heartbeat.missed``). Returns ``(ping, finish)``; ``finish(ok)``
+        writes the done marker on a clean exit only (a crashed worker
+        must look stalled to its peers). No-ops when off."""
+        cfg = self.cfg
+        nw = num_workers if num_workers is not None else 1
+        enabled = cfg.heartbeat
+        if enabled is None:
+            enabled = nw > 1 and cfg.heartbeat_dir is not None
+        if not enabled:
+            return (lambda: None), (lambda ok=True: None)
+        enforce(cfg.heartbeat_dir is not None,
+                "TrainerConfig(heartbeat=True) requires heartbeat_dir (a "
+                "directory every worker can reach)")
+        from paddle_tpu_torch.parallel import heartbeat as _hb
+        wid = worker_id if worker_id is not None else 0
+        timeout = (cfg.heartbeat_timeout_s if cfg.heartbeat_timeout_s
+                   is not None else _hb.TIMEOUT_S)
+        interval = (cfg.heartbeat_interval_s if cfg.heartbeat_interval_s
+                    is not None else _hb.INTERVAL_S)
+        hb = _hb.FileHeartbeat(cfg.heartbeat_dir, wid)
+        hb.ping()
+        last_ping = [time.monotonic()]
+
+        def ping():
+            # throttled: the monitor samples once an interval anyway
+            now = time.monotonic()
+            if now - last_ping[0] >= min(interval, timeout / 4):
+                hb.ping()
+                last_ping[0] = now
+
+        stop = threading.Event()
+        stalled = self.stalled_peers = set()
+
+        def monitor():
+            while not stop.wait(interval):
+                scan = _hb.FileHeartbeat.scan(cfg.heartbeat_dir, nw, timeout)
+                for w, (st, age) in scan.items():
+                    if w != wid and st == _hb.STALLED and w not in stalled:
+                        stalled.add(w)
+                        _metrics.counter("heartbeat.missed").inc(worker=w)
+                        if cfg.on_peer_stall is not None:
+                            cfg.on_peer_stall(w, age)
+                        else:
+                            print(f"[trainer] WARNING: worker {w} silent "
+                                  f"for {age:.1f}s (> {timeout}s)")
+
+        t = threading.Thread(target=monitor, daemon=True,
+                             name="trainer-heartbeat")
+        t.start()
+
+        def finish(ok=True):
+            if ok:
+                hb.complete()
+            stop.set()
+            t.join(timeout=5)
+
+        return ping, finish
+
+    # -- observability -------------------------------------------------------
+    def _start_telemetry(self):
+        """A StepTelemetry when ``TrainerConfig.telemetry`` is given or the
+        ``telemetry`` setting is on (kept on :attr:`telemetry`); None
+        means no telemetry work in the loop."""
+        from paddle_tpu_torch.observability import telemetry as _tele
+        tcfg = self.cfg.telemetry
+        if tcfg is None and not _tele.setting("telemetry"):
+            return None
+        tele = _tele.StepTelemetry(tcfg if tcfg is not None
+                                   else _tele.TelemetryConfig())
+        self.telemetry = tele
+        return tele if tele.enabled else None
+
+    def _start_watchdog(self, tele):
+        """A Watchdog when ``TrainerConfig.watchdog`` (or the setting)
+        asks for one; its events ride the telemetry's RunLog, and each
+        one dumps a flight bundle."""
+        from paddle_tpu_torch.observability.watchdog import maybe_watchdog
+        log = getattr(tele, "_log", None)
+        wd = maybe_watchdog(self.cfg.watchdog, run_log=log,
+                            action=lambda event: self._on_anomaly(event,
+                                                                  log))
+        self.watchdog = wd
+        return wd
+
+    def _on_anomaly(self, event, run_log=None):
+        """A watchdog anomaly becomes a flight bundle: the metrics
+        snapshot, the event ring (the loop's spans linked to the run's
+        trace context) and the telemetry RunLog's tail, with the
+        Trainer's config. Nothing when recording is off."""
+        fl = _flight.recorder()
+        if fl is None:
+            return
+        fl.note_event("anomaly", **{k: v for k, v in event.items()
+                                    if k not in ("event", "t")})
+        _flight.dump_bundle(
+            reason=str(event.get("anomaly", "anomaly")),
+            run_logs=(run_log,) if run_log is not None else (),
+            config=dict(trainer_config=repr(self.cfg)),
+            extra=dict(anomaly=event))
+
     def _stage(self, batch):
         """Each array of the batch on the device: pinned host memory,
         copied without blocking the host on the default stream (torch
@@ -280,11 +423,9 @@ class Trainer:
 
         With ``batch_size`` the readers yield samples and the loop
         collates ``batch_size`` of them per step off the merged channel
-        (dropping the last partial batch)."""
-        if num_workers is not None or worker_id is not None:
-            raise NotImplementedError(
-                "Trainer.train(num_workers=, worker_id=): multi-process "
-                "heartbeats are not ported")
+        (dropping the last partial batch). ``num_workers`` and
+        ``worker_id`` name this worker among the processes that share
+        ``heartbeat_dir``."""
         cfg = self.cfg
         step = 0
         guard = None
@@ -307,7 +448,8 @@ class Trainer:
             ckpt_mgr = CheckpointManager(
                 cfg.checkpoint_dir, save_interval_steps=cfg.checkpoint_every)
             if cfg.resume:
-                restored, at = ckpt_mgr.restore(self.state())
+                restored, at = ckpt_mgr.restore(self.state(),
+                                                optional=("buffers",))
                 if restored is not None:
                     self.load_state(restored)
                     step = int(at)
@@ -318,9 +460,33 @@ class Trainer:
                     if hasattr(dataset, "seek"):
                         dataset.seek(step)
                     print(f"[trainer] resumed from step {step}")
+            ckpt_mgr.reserve(self.state())
         start_step = step
         preempt, restore_signals = self._install_preemption_handler()
-        chan, stop, errors = self._start_ingest(self._split_readers(dataset))
+        tele = self._start_telemetry()
+        if tele is not None and tele._log is not None:
+            # clock anchor for the fleet-trace merge
+            _trace.write_anchor(tele._log, role="trainer")
+        wd = self._start_watchdog(tele)
+        if guard is not None:
+            guard.attach(run_log=getattr(tele, "_log", None), watchdog=wd)
+
+        def on_ingest_error(e):
+            if wd is not None:
+                wd.alert("ingest_error", step, latch=False,
+                         error=f"{type(e).__name__}: {e}"[:200])
+
+        chan, stop, errors = self._start_ingest(
+            self._split_readers(dataset), on_error=on_ingest_error)
+        hb_ping, hb_finish = self._start_heartbeat(num_workers, worker_id)
+        stall_ctr = _metrics.counter(
+            "trainer.ingest_stall_s",
+            "Wall time the device loop spent blocked on the ingest "
+            "channel.")
+        depth_gauge = _metrics.gauge(
+            "trainer.channel_depth",
+            "Ingest channel occupancy sampled at each dequeue.")
+        stall_acc = {"t": 0.0}   # this step's ingest wait, for the watchdog
 
         def ckpt_meta():
             m = {"cursor": int(step), "rng": _random.get_state(gens)}
@@ -328,13 +494,22 @@ class Trainer:
                 m["guardian"] = guard.state_dict()
             return m
 
+        def get_item():
+            tw0 = time.perf_counter()
+            item = chan.get()
+            dt = time.perf_counter() - tw0
+            stall_ctr.inc(dt)
+            stall_acc["t"] += dt
+            depth_gauge.set(chan.qsize())
+            return item
+
         def next_batch():
             if batch_size is None:
-                item = chan.get()
+                item = get_item()
                 return None if isinstance(item, _EndOfData) else item
             buf = []
             while len(buf) < batch_size:
-                item = chan.get()
+                item = get_item()
                 if isinstance(item, _EndOfData):
                     return None  # drop_last on the merged stream
                 buf.append(item)
@@ -355,14 +530,15 @@ class Trainer:
             stop.set()
             for t in self._ingest_threads:
                 t.join(timeout=10)
+            ckpt_mgr.wait()                 # the queued saves land first
             cands = [s for s in ckpt_mgr.steps()
                      if bound is None or s <= bound]
             restored = at = None
             while cands:
                 target = cands.pop()        # newest safe step first
                 try:
-                    restored, at = ckpt_mgr.restore(self.state(),
-                                                    step=target)
+                    restored, at = ckpt_mgr.restore(
+                        self.state(), step=target, optional=("buffers",))
                     break
                 except Exception as e:      # degrade to the previous step
                     print(f"[trainer] rollback: step {target} "
@@ -380,52 +556,84 @@ class Trainer:
             guard.note_rollback_done(step)
             dataset.seek(step)
             chan, stop, errors = self._start_ingest(
-                self._split_readers(dataset))
+                self._split_readers(dataset), on_error=on_ingest_error)
             print(f"[trainer] guardian rollback: restored step {step}, "
                   "stream replayed")
 
         t0 = time.perf_counter()
         loss = None
+        clean = False
         preempted_sig = None
+        # one trace context covers the loop: its spans link into it
+        # through the flight ring, so an anomaly bundle shows where in
+        # the step the run was
+        scope = _trace.activate(_trace.TraceContext(
+            f"{_trace.mint_run()}/train", span_id="train"))
+        scope.__enter__()
         try:
-            nxt = next_batch()
+            with span("ingest"):
+                nxt = next_batch()
+            first = True
+            it_t = time.perf_counter()
             while nxt is not None:
                 if cfg.max_steps is not None and step >= cfg.max_steps:
                     break
                 if cfg.ingest_fail_fast and errors:
                     break    # a reader died: stop now, raise below
-                staged = self._stage(nxt)
+                with span("stage"):
+                    staged = self._stage(nxt)
                 host = nxt
                 if cfg.prefetch:
-                    nxt = next_batch()
-                fault_point("trainer.step")
-                if self.sparse_tables:
-                    loss = self._sparse_step(staged, host)
-                elif guard is not None:
-                    loss, applied = self.optimizer.minimize_gated(
-                        guard.gate, self.model, self.loss_fn, *staged)
-                else:
-                    loss = self.optimizer.minimize(self.model, self.loss_fn,
-                                                   *staged)
+                    with span("ingest"):
+                        nxt = next_batch()
+                if first and tele is not None and not self.sparse_tables:
+                    tele.maybe_estimate_flops(self.loss_fn, self.model,
+                                              *staged)
+                first = False
+                with span("step"):
+                    fault_point("trainer.step")
+                    if self.sparse_tables:
+                        loss = self._sparse_step(staged, host)
+                    elif guard is not None:
+                        loss, applied = self.optimizer.minimize_gated(
+                            guard.gate, self.model, self.loss_fn, *staged)
+                    else:
+                        loss = self.optimizer.minimize(
+                            self.model, self.loss_fn, *staged)
                 step += 1
+                now = time.perf_counter()
+                if tele is not None:
+                    # the loss is parked, never read here
+                    tele.on_step(step, staged, loss, self.model,
+                                 wall_s=now - it_t)
+                if wd is not None:
+                    wd.tick(step, wall_s=now - it_t, stall_s=stall_acc["t"])
+                stall_acc["t"] = 0.0
+                it_t = now
                 if guard is not None:
                     # parks this step's device scalars and judges the
                     # previous step's
                     act = guard.observe_step(step, loss, applied)
                     if act == "reread":
                         # drop the batch at the cursor, take the next one
-                        fresh = next_batch()
+                        with span("ingest"):
+                            fresh = next_batch()
                         if cfg.prefetch or fresh is None:
                             nxt = fresh
                     elif act == "rollback":
                         do_rollback()
-                        nxt = next_batch()
+                        with span("ingest"):
+                            nxt = next_batch()
+                        it_t = time.perf_counter()
                         continue
+                hb_ping()
                 if preempt["signum"] is not None:
                     if ckpt_mgr is not None:
                         ckpt_mgr.save(step, self.state(), force=True,
                                       meta=ckpt_meta())
+                        ckpt_mgr.wait()     # landed before Preempted
                     preempted_sig = preempt["signum"]
+                    _metrics.counter("trainer.preempted").inc()
                     print(f"[trainer] preemption signal {preempted_sig}: "
                           f"checkpointed step {step}, exiting for resume")
                     break
@@ -441,12 +649,28 @@ class Trainer:
                     self.history.append((step, lv))
                     print(f"[trainer] step {step} loss {lv:.6f}")
                 if not cfg.prefetch:
-                    nxt = next_batch()
+                    with span("ingest"):
+                        nxt = next_batch()
+            clean = preempted_sig is None
         finally:
+            scope.__exit__(None, None, None)
             stop.set()  # release producers even when the step raises
             restore_signals()
-            if guard is not None:
-                guard.flush_trailing()
+            hb_finish(clean)    # no done marker unless the run ended well
+            try:
+                if ckpt_mgr is not None:
+                    ckpt_mgr.close()
+            finally:
+                if guard is not None:
+                    guard.flush_trailing()
+                if tele is not None:
+                    extra = {"steps": step,
+                             "preempted": preempted_sig is not None}
+                    if guard is not None:
+                        extra.update(nonfinite_skips=guard.skips,
+                                     loss_spikes=guard.spikes,
+                                     rollbacks=guard.rollbacks)
+                    tele.finish(extra)
         if preempted_sig is not None:
             raise Preempted(step, preempted_sig)
         run_steps = step - start_step

@@ -16,8 +16,10 @@ Trainer's
 ``trainer.ingest`` (each item a reader yields), ``trainer.step`` (before
 each step) and ``trainer.rollback`` (each guardian rollback); the
 checkpoint's ``checkpoint.save`` (after a step's file is written, before
-it is renamed into place) and ``checkpoint.verify`` (before each verified
-restore). Each is a no-op unless a plan is active. All hooks are events
+it is renamed into place), ``checkpoint.verify`` (before each verified
+restore), ``checkpoint.mirror`` (before each push to a remote tree) and
+``checkpoint.fetch`` (before a remote step is pulled into staging). Each
+is a no-op unless a plan is active. All hooks are events
 of the one op ``"fault_point"`` whose path is the hook's name, so a
 rule's ``nth`` counts every hook's events, as in the reference.
 
@@ -26,6 +28,9 @@ Besides raising, a rule may poison (:meth:`FaultPlan.poison`):
 corrupts its own value, as the reference's torn-write rules corrupt a
 write instead of failing it. A training drill's loss function calls
 ``plan.check("loss")`` and makes its loss non-finite when it fires.
+
+:class:`ChaosFS` wraps a filesystem of ``io/fs.py`` and consults a plan
+before each of its primitives.
 """
 
 import contextlib
@@ -115,3 +120,40 @@ def fault_point(name):
     if _ACTIVE is not None:
         return _ACTIVE.check("fault_point", name)
     return None
+
+
+class ChaosFS:
+    """A filesystem (``io/fs.py``'s six primitives) that consults a plan
+    before each: ops ``open`` (a read), ``write`` (a write or append
+    open), ``exists``, ``isdir``, ``listdir``, ``makedirs``, ``remove``.
+    Register it in place of the real one:
+    ``fs.register_filesystem("mem", ChaosFS(fs.MemFS(), plan))``."""
+
+    def __init__(self, inner, plan):
+        self.inner = inner
+        self.plan = plan
+
+    def open(self, path, mode="rb"):
+        self.plan.check("write" if "w" in mode or "a" in mode else "open",
+                        path)
+        return self.inner.open(path, mode)
+
+    def exists(self, path):
+        self.plan.check("exists", path)
+        return self.inner.exists(path)
+
+    def isdir(self, path):
+        self.plan.check("isdir", path)
+        return self.inner.isdir(path)
+
+    def listdir(self, path):
+        self.plan.check("listdir", path)
+        return self.inner.listdir(path)
+
+    def makedirs(self, path):
+        self.plan.check("makedirs", path)
+        return self.inner.makedirs(path)
+
+    def remove(self, path):
+        self.plan.check("remove", path)
+        return self.inner.remove(path)

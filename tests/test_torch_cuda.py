@@ -1221,3 +1221,101 @@ def test_fleet_kill_on_card_gives_the_cpu_fleets_tokens(cuda):
             assert all(counts[k] > 0 for k in SERVE_KERNELS), counts
         router.close()
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_ernie_card_loss_backward_gives_the_cpu_gradients(cuda):
+    """ErnieForPretraining.loss over ERNIE's 18000-token vocabulary on the
+    card (K5/K6 meet its vocab tail) gives the CPU plain path's loss and
+    every parameter's gradient (f32, TF32 off)."""
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.ops.cuda import core
+    cfg = ErnieConfig(hidden_size=128, num_layers=2, num_heads=2,
+                      intermediate_size=256, max_position=64, dropout=0.0)
+    assert cfg.vocab_size == 18000
+    rs = np.random.RandomState(12)
+    ids = torch.from_numpy(rs.randint(0, 18000, (2, 40)))
+    att = torch.ones(2, 40)
+    att[1, 25:] = 0.0
+    types = torch.zeros(2, 40, dtype=torch.long)
+    types[:, 20:] = 1
+    pos = torch.from_numpy(np.sort(np.stack([rs.choice(25, 6, replace=False)
+                                             for _ in range(2)]), 1))
+    args = (ids, torch.from_numpy(rs.randint(0, 18000, (2, 6))),
+            torch.from_numpy(rs.randint(0, 2, 2)), torch.ones(2, 6))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = ErnieForPretraining(cfg, device=dev, seed=0)
+        core.reset_launches()
+        loss = model.loss(*(a.to(dev) for a in args),
+                          token_type_ids=types.to(dev),
+                          attention_mask=att.to(dev),
+                          mask_positions=pos.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), {k: p.grad.cpu()
+                                  for k, p in model.named_parameters()},
+                    core.launch_counts())
+    (lc, gc, counts), (lp, gp, _) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= F32_TOL
+    for k in ("xent_stats", "xent_bwd_dh", "xent_bwd_dwb"):
+        assert counts[k] == 1, counts
+    scale = max(float(g.norm()) for g in gp.values())
+    for name, g in gc.items():
+        err = float((g - gp[name]).norm())
+        assert err <= 1e-3 * max(float(gp[name].norm()), 1e-3 * scale), name
+
+
+def test_cost_flops_on_card_is_the_cpu_count_and_launches_nothing(cuda):
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.observability.perf import cost_flops
+    from paddle_tpu_torch.ops.cuda import core
+    cfg = BertConfig(vocab_size=300, hidden_size=128, num_layers=2,
+                     num_heads=2, intermediate_size=256, max_position=64,
+                     dropout=0.0)
+    ids = torch.from_numpy(np.random.RandomState(3).randint(0, 300, (2, 40)))
+
+    def loss_fn(m, ids):
+        mlm, nsp = m(ids)
+        return mlm.float().square().mean() + nsp.float().sum()
+
+    counts = []
+    for dev in ("cuda", "cpu"):
+        model = BertForPretraining(cfg, device=dev, seed=0)
+        core.reset_launches()
+        counts.append(cost_flops(loss_fn, model, ids.to(dev)))
+        assert not any(core.launch_counts().values())
+    assert counts[0] == counts[1] > 0
+
+
+@pytest.mark.parametrize("room", [True, False])
+def test_background_save_copies_before_the_next_update(cuda, monkeypatch,
+                                                       room):
+    """A save's copy (a device clone, or pinned host memory when the card
+    has no room for one) is ordered before an in-place update queued
+    right after ``save()`` returns: the checkpoint holds the pre-update
+    bytes."""
+    import tempfile
+    from paddle_tpu_torch.io import CheckpointManager
+    if not room:
+        total = torch.cuda.mem_get_info()[1]
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda device=None: (0, total))
+    state = {"w": torch.randn(4096, 1024, device="cuda"),
+             "h": torch.randn(333, 7, device="cuda").bfloat16(),
+             "step": torch.tensor(3, dtype=torch.int32, device="cuda"),
+             "b": torch.randn(5, device="cuda")}
+    want = {k: t.cpu() for k, t in state.items()}
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        for step in (1, 2):             # the second reuses the staging
+            mgr.save(step, state)
+            for _ in range(20):         # the next steps, in place
+                state["w"].mul_(1.5).add_(1.0)
+                state["h"].add_(1.0)
+                state["step"].add_(1)
+            mgr.wait()
+            got, _ = mgr.restore({k: torch.zeros_like(t) for k, t in
+                                  want.items()}, step=step)
+            for k, t in want.items():
+                assert torch.equal(got[k], t), (step, k)
+            want = {k: t.cpu() for k, t in state.items()}
+        mgr.close()

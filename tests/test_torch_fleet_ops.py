@@ -42,9 +42,9 @@ def checkpoint_deploy(side, ck):
             mgr.save(2, side.weights(1), force=True, version="bad")
     else:
         state = {"params": dict(side.weights(1).named_parameters())}
-        mgr = side.checkpoint.CheckpointManager(ck)
-        mgr.save(1, state, force=True, meta={"model_version": "good"})
-        mgr.save(2, state, force=True, meta={"model_version": "bad"})
+        with side.checkpoint.CheckpointManager(ck) as mgr:
+            mgr.save(1, state, force=True, version="good")
+            mgr.save(2, state, force=True, version="bad")
     meta_path = os.path.join(ck, "2.meta.json")
     with open(meta_path) as f:
         meta = json.load(f)

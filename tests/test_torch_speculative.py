@@ -292,6 +292,7 @@ def test_draft_checkpoint_restore_and_empty_directory(rng, tmp_path):
     mgr.save(1, {"params": {k: torch.zeros_like(p)
                             for k, p in named.items()}})
     mgr.save(2, {"params": named})
+    mgr.close()                    # both saves land before the engine reads
     eng = _port_engine(draft_spec=pdcfg, draft_checkpoint=str(
         tmp_path / "draft"))
     assert eng.cfg.draft and eng.cfg.spec_k == 3

@@ -280,6 +280,7 @@ def test_checkpoint_manifest_and_meta_round_trip(tmp_path):
     assert mgr.save(2, state, meta={"cursor": 2, "rng": {"g": [1, 2]}})
     assert not mgr.save(3, state)              # interval gate
     assert mgr.save(3, state, force=True)      # force bypasses it
+    mgr.wait()                                 # the saves land
     assert mgr.read_meta(2) == {"cursor": 2, "rng": {"g": [1, 2]}}
     assert mgr.read_meta(99) == {}
     assert mgr.steps() == [2, 3]
@@ -292,6 +293,7 @@ def test_checkpoint_manifest_and_meta_round_trip(tmp_path):
     assert man["params/enc.w"]["dtype"] == "torch.bfloat16"
     for s in (4, 6, 8):
         mgr.save(s, state)
+    mgr.wait()
     assert mgr.steps() == [4, 6, 8]            # max_to_keep = 3
     assert sorted(p for p in os.listdir(tmp_path / "ck")
                   if p.endswith(".meta.json")) == [
@@ -308,6 +310,7 @@ def test_corrupt_leaf_degrades_to_previous_step(tmp_path):
     mgr = CheckpointManager(str(tmp_path / "ck"))
     mgr.save(1, _ck_state(1.0))
     mgr.save(2, _ck_state(2.0))
+    mgr.wait()
     # silent bit rot: a valid file, plausible values, wrong bytes
     _corrupt(str(tmp_path / "ck" / "2"), "params/enc.w", lambda x: x + 0.5)
     restored, at = mgr.restore(_ck_state(0.0))
@@ -320,6 +323,7 @@ def test_every_candidate_corrupt_raises(tmp_path):
     from paddle_tpu_torch.io import CheckpointManager
     mgr = CheckpointManager(str(tmp_path / "ck"))
     mgr.save(1, _ck_state(1.0))
+    mgr.wait()
     _corrupt(str(tmp_path / "ck" / "1"), "params/b", lambda x: x * 3.0)
     with pytest.raises(RuntimeError, match="integrity"):
         mgr.restore(_ck_state(0.0))
@@ -334,15 +338,20 @@ def test_fault_mid_save_leaves_no_listed_step(tmp_path):
     from paddle_tpu_torch.testing import chaos
     mgr = CheckpointManager(str(tmp_path / "ck"))
     mgr.save(1, _ck_state(1.0))
+    mgr.wait()
     plan = chaos.FaultPlan().fail("fault_point", path=r"^checkpoint\.save$")
-    with chaos.active(plan), pytest.raises(chaos.InjectedFault):
-        mgr.save(2, _ck_state(2.0))
+    with chaos.active(plan):
+        mgr.save(2, _ck_state(2.0))            # the write runs behind
+        with pytest.raises(chaos.InjectedFault):
+            mgr.wait()                         # and its failure surfaces
     assert plan.fired() == 1
     assert mgr.steps() == [1]
     assert not [p for p in os.listdir(tmp_path / "ck") if p.startswith(".")]
     restored, at = mgr.restore(_ck_state(0.0))
     assert at == 1
-    assert mgr.save(2, _ck_state(2.0)) and mgr.steps() == [1, 2]
+    assert mgr.save(2, _ck_state(2.0))
+    mgr.wait()
+    assert mgr.steps() == [1, 2]
 
 
 def test_generator_state_is_json_safe():
@@ -563,26 +572,54 @@ UNPORTED = {
     "heartbeat_kv_client": object(), "on_peer_stall": print,
     "telemetry": object(), "watchdog": True, "mesh_plan": object(),
 }
+#: of the options the port refused before its Trainer runtime landed,
+#: these still raise; every other one is ported and must run
+STILL_UNPORTED = ("heartbeat_transport", "heartbeat_kv_client", "mesh_plan",
+                  "scaler_state_fn")
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED) + [
     "mirror", "strict_mirror", "scaler_state_fn", "num_workers"])
 def test_unported_option_raises(field, tmp_path):
-    from paddle_tpu_torch.io import CheckpointManager
+    """Each option that is still not ported raises NotImplementedError;
+    each one ported since runs a two-step Trainer (or a mirrored save)."""
+    from paddle_tpu_torch.io import CheckpointManager, fs
+    from paddle_tpu_torch.observability import TelemetryConfig
     from paddle_tpu_torch.static import (GuardianConfig, TrainerConfig,
                                          TrainGuardian)
-    with pytest.raises(NotImplementedError):
-        if field in UNPORTED:
-            _port_trainer(TrainerConfig(**{field: UNPORTED[field]}))
-        elif field == "mirror":
-            CheckpointManager("mem://ck")
-        elif field == "strict_mirror":
-            CheckpointManager(str(tmp_path), strict_mirror=True)
-        elif field == "scaler_state_fn":
-            TrainGuardian(GuardianConfig(scaler_state_fn=lambda s: s))
-        else:
-            _port_trainer(TrainerConfig()).train(_SeekableDS(4),
-                                                 num_workers=2)
+    if field in STILL_UNPORTED:
+        with pytest.raises(NotImplementedError):
+            if field in UNPORTED:
+                _port_trainer(TrainerConfig(**{field: UNPORTED[field]}))
+            else:
+                TrainGuardian(GuardianConfig(scaler_state_fn=lambda s: s))
+        return
+    hb = str(tmp_path / "hb")
+    ported = {"heartbeat": dict(heartbeat=True, heartbeat_dir=hb),
+              "heartbeat_dir": dict(heartbeat_dir=hb),
+              "heartbeat_timeout_s": dict(heartbeat=True, heartbeat_dir=hb,
+                                          heartbeat_timeout_s=1.0),
+              "heartbeat_interval_s": dict(heartbeat=True, heartbeat_dir=hb,
+                                           heartbeat_interval_s=1.0),
+              "on_peer_stall": dict(heartbeat=True, heartbeat_dir=hb,
+                                    on_peer_stall=print),
+              "telemetry": dict(telemetry=TelemetryConfig(enabled=True)),
+              "watchdog": dict(watchdog=True)}
+    if field == "mirror":
+        fs.register_filesystem("ptmirror", fs.MemFS())
+        url = f"ptmirror://{tmp_path.name}/ck"
+        with CheckpointManager(url) as mgr:
+            mgr.save(1, _ck_state(1.0))
+        assert fs.fs_exists(f"{url}/1/COMMIT")
+        return
+    if field == "strict_mirror":
+        with CheckpointManager(str(tmp_path), strict_mirror=True) as mgr:
+            assert mgr.strict_mirror
+        return
+    tr = _port_trainer(TrainerConfig(num_ingest_threads=1, max_steps=2,
+                                     **ported.get(field, {})))
+    kw = dict(num_workers=2, worker_id=0) if field == "num_workers" else {}
+    assert tr.train(_SeekableDS(4), **kw)["steps"] == 2
 
 
 def test_trainer_needs_the_card_unless_asked_for_the_cpu():
@@ -595,3 +632,233 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu():
     with pytest.raises(EnforceError, match="CUDA"):
         Trainer(m, SGD(m.parameters(), 0.1), _linreg_loss)
     assert math.isfinite(float(m.w))
+
+
+# ------------------------------------- batch-norm state (fault 11)
+
+def _bn_batch(i, poison=None):
+    rs = np.random.RandomState(2000 + i)
+    x = (rs.randn(8, 4) * 2.0 + 1.0).astype(np.float32)
+    y = rs.randn(8, 4).astype(np.float32)
+    if poison == "nan":
+        x[0, 0] = np.nan
+    return x, y
+
+
+def _bn_loss(m, x, y):
+    return torch.mean((m(x) - y) ** 2)
+
+
+def _bn_trainer(cfg, seed_buffers=False):
+    from paddle_tpu_torch.nn import BatchNorm
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.static import Trainer
+    model = BatchNorm(4)
+    return Trainer(model, SGD(model.parameters(), 0.1), _bn_loss, cfg,
+                   device="cpu")
+
+
+def test_refused_step_keeps_batch_norm_statistics_as_jax_does():
+    """A NaN in the batch of step 3: both Trainers refuse the step, and
+    the port's running statistics equal the JAX Trainer's state (which
+    gates every leaf) within 1e-6 and stay finite."""
+    import paddle_tpu as pt
+    from paddle_tpu.static import Trainer, TrainerConfig
+    from paddle_tpu_torch.static import TrainerConfig as PConfig
+    bn = pt.nn.BatchNorm(4)
+    v = bn.init(jax.random.PRNGKey(0))
+    opt = pt.optimizer.SGD(0.1)
+
+    def step(st, x, y):
+        def lf(p):
+            out, ns = bn.apply({"params": p, "state": st["bn"]}, x,
+                               training=True)
+            return jnp.mean((out - y) ** 2), ns
+        (loss, ns), g = jax.value_and_grad(lf, has_aux=True)(st["params"])
+        p, o = opt.apply_gradients(st["params"], g, st["opt"])
+        return loss, {"params": p, "opt": o, "bn": ns}
+
+    kw = dict(num_ingest_threads=1, prefetch=False, max_steps=6,
+              guardian=True)
+    jtr = Trainer(step, TrainerConfig(**kw))
+    jst, _ = jtr.train({"params": v["params"], "opt": opt.init(v["params"]),
+                        "bn": v["state"]},
+                       _SeekableDS(6, {2: "nan"}, make=_bn_batch))
+    ptr = _bn_trainer(PConfig(**kw))
+    ptr.train(_SeekableDS(6, {2: "nan"}, make=_bn_batch))
+    assert ptr.guardian.skips == jtr.guardian.skips == 1
+    for name in ("mean", "variance"):
+        got = getattr(ptr.model, name)
+        assert torch.isfinite(got).all(), name
+        np.testing.assert_allclose(got.numpy(), np.asarray(jst["bn"][name]),
+                                   rtol=1e-6, atol=1e-6)
+    for name in ("scale", "bias"):
+        np.testing.assert_allclose(
+            getattr(ptr.model, name).detach().numpy(),
+            np.asarray(jst["params"][name]), rtol=1e-6, atol=1e-6)
+
+
+def test_batch_norm_statistics_resume_bitwise(tmp_path):
+    """Saved at 4, resumed onto a fresh model and run to 8: the running
+    statistics equal the uninterrupted run's bit for bit."""
+    from paddle_tpu_torch.static import TrainerConfig
+    ref = _bn_trainer(TrainerConfig(num_ingest_threads=1, max_steps=8))
+    ref.train(_SeekableDS(20, make=_bn_batch))
+    ck = str(tmp_path / "ck")
+    kw = dict(num_ingest_threads=1, checkpoint_dir=ck, checkpoint_every=4)
+    _bn_trainer(TrainerConfig(max_steps=6, **kw)).train(
+        _SeekableDS(20, make=_bn_batch))
+    again = _bn_trainer(TrainerConfig(max_steps=8, **kw))
+    assert sorted(again.state()) == ["buffers", "opt", "params"]
+    again.train(_SeekableDS(20, make=_bn_batch))
+    for name, b in ref.model.named_buffers():
+        assert torch.equal(b, dict(again.model.named_buffers())[name]), name
+    for name, p in ref.model.named_parameters():
+        assert torch.equal(p, dict(again.model.named_parameters())[name])
+
+
+def test_checkpoint_without_buffers_restores_with_a_warning(tmp_path,
+                                                            capsys):
+    from paddle_tpu_torch.io import CheckpointManager
+    from paddle_tpu_torch.static import TrainerConfig
+    ck = str(tmp_path / "ck")
+    old = _bn_trainer(TrainerConfig())
+    with torch.no_grad():
+        old.model.scale.fill_(2.0)
+    st = old.state()
+    with CheckpointManager(ck) as mgr:   # a checkpoint of the older form
+        mgr.save(4, {"params": st["params"], "opt": st["opt"]})
+    tr = _bn_trainer(TrainerConfig(num_ingest_threads=1, max_steps=4,
+                                   checkpoint_dir=ck, checkpoint_every=4))
+    with torch.no_grad():
+        tr.model.mean.fill_(0.25)
+    assert tr.train(_SeekableDS(20, make=_bn_batch))["steps"] == 4
+    assert float(tr.model.scale[0]) == 2.0
+    assert torch.equal(tr.model.mean, torch.full((4,), 0.25))
+    assert "holds no 'buffers'" in capsys.readouterr().out
+
+
+def test_guardian_counters_match_the_jax_guardian(tmp_path):
+    """The same poisoned run (NaN at 4-6: skip, re-read, roll back; then
+    a spike) through both Trainers: the registries' skip, spike and
+    rollback counters move by the same amounts."""
+    from paddle_tpu.observability import metrics as JM
+    from paddle_tpu.static import GuardianConfig as JG
+    from paddle_tpu.static import Trainer, TrainerConfig
+    from paddle_tpu_torch.observability import metrics as PM
+    from paddle_tpu_torch.static import GuardianConfig, TrainerConfig as PC
+    names = ("trainer.nonfinite_skips", "trainer.loss_spikes",
+             "trainer.rollbacks")
+    faults = {4: "nan", 5: "nan", 6: "nan", 14: "spike"}
+
+    class Once(_SeekableDS):
+        """Each fault fires once: the replay after a rollback is clean
+        (a channel of 2 keeps the readers from running far ahead)."""
+
+        def __init__(self):
+            super().__init__(40, dict(faults))
+            self.make = self._make
+
+        def _make(self, i, poison):
+            self.faults.pop(i, None)
+            return _batch(i, poison)
+
+    def deltas(reg, run):
+        before = [reg.counter(n).total() for n in names]
+        run()
+        return [reg.counter(n).total() - b for n, b in zip(names, before)]
+
+    kw = dict(num_ingest_threads=1, prefetch=False, max_steps=18,
+              checkpoint_every=2, channel_capacity=2)
+    jtr = Trainer(_linreg_step(), TrainerConfig(
+        checkpoint_dir=str(tmp_path / "j"), guardian=JG(min_samples=4),
+        **kw))
+    j = deltas(JM, lambda: jtr.train(_jax_state0(), Once()))
+    ptr = _port_trainer(PC(checkpoint_dir=str(tmp_path / "p"),
+                           guardian=GuardianConfig(min_samples=4), **kw))
+    p = deltas(PM, lambda: ptr.train(Once()))
+    assert j == p
+    assert p[0] == 3 and p[1] >= 1 and p[2] >= 1
+    assert [r["guardian"] for r in ptr.guardian.log][:5] == [
+        "nonfinite", "nonfinite", "nonfinite", "rollback", "rollback_done"]
+    assert (ptr.guardian.skips, ptr.guardian.spikes, ptr.guardian.rollbacks
+            ) == (jtr.guardian.skips, jtr.guardian.spikes,
+                  jtr.guardian.rollbacks)
+
+
+# ---------------------------------------- heartbeats and the watchdog
+
+def test_killed_peer_detected(tmp_path):
+    import time as _time
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel.heartbeat import FileHeartbeat
+    from paddle_tpu_torch.static import Trainer, TrainerConfig
+    hbdir = str(tmp_path / "hb")
+    peer = FileHeartbeat(hbdir, 1)      # pinged once, then died
+    peer.ping()
+    old = _time.time() - 60.0
+    os.utime(peer.path, (old, old))
+    stalls = []
+
+    def slow_reader():
+        for i in range(6):
+            _time.sleep(0.05)
+            yield _batch(i)
+
+    model = LinReg()
+    tr = Trainer(model, SGD(model.parameters(), 0.05), _linreg_loss,
+                 TrainerConfig(heartbeat=True, heartbeat_dir=hbdir,
+                               heartbeat_timeout_s=0.5,
+                               heartbeat_interval_s=0.05,
+                               on_peer_stall=lambda w, age: stalls.append(
+                                   (w, age)),
+                               num_ingest_threads=1), device="cpu")
+    stats = tr.train(lambda: slow_reader(), num_workers=2, worker_id=0)
+    assert stats["steps"] == 6
+    assert stalls and stalls[0][0] == 1 and stalls[0][1] > 0.5
+    assert tr.stalled_peers == {1}
+    assert os.path.exists(os.path.join(hbdir, "worker_0.hb.done"))
+
+
+def test_heartbeat_off_by_default_single_process():
+    from paddle_tpu_torch.static import TrainerConfig
+    tr = _port_trainer(TrainerConfig(num_ingest_threads=1))
+    assert tr.train(lambda: iter([_batch(0)]))["steps"] == 1
+    assert not hasattr(tr, "stalled_peers")
+
+
+def test_slow_step_anomaly_writes_a_flight_bundle(tmp_path):
+    import time as _time
+    from paddle_tpu_torch.observability import flight
+    from paddle_tpu_torch.observability.watchdog import WatchdogConfig
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.static import Trainer, TrainerConfig
+    calls = []
+
+    def loss_fn(m, x, y):
+        calls.append(1)
+        if len(calls) == 7:
+            _time.sleep(0.5)            # one step far above the median
+        return _linreg_loss(m, x, y)
+
+    old = flight.configure()
+    flight.configure(directory=str(tmp_path / "flight"))
+    try:
+        model = LinReg()
+        tr = Trainer(model, SGD(model.parameters(), 0.05), loss_fn,
+                     TrainerConfig(num_ingest_threads=1, max_steps=10,
+                                   watchdog=WatchdogConfig(min_samples=4)),
+                     device="cpu")
+        tr.train(_SeekableDS(20))
+    finally:
+        flight._SETTINGS.update(old)
+    slow = [e for e in tr.watchdog.anomalies
+            if e["anomaly"] == "slow_step" and e["wall_s"] >= 0.5]
+    assert len(slow) == 1 and slow[0]["step"] == 7
+    bundles = flight.list_bundles(str(tmp_path / "flight"))
+    assert len(bundles) == len(tr.watchdog.anomalies) >= 1
+    assert sorted(flight.read_manifest(b)["reason"] for b in bundles) == \
+        sorted(e["anomaly"] for e in tr.watchdog.anomalies)
+    for bundle in bundles:
+        with open(os.path.join(bundle, "config.json")) as f:
+            assert "TrainerConfig(" in json.load(f)["trainer_config"]
