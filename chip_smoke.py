@@ -1,10 +1,14 @@
-"""Drive the PyTorch/CUDA port's serving (one engine and the fleet
-router), GPT decoding (float and weight-only int8), GPT training
+"""Drive the PyTorch/CUDA port's serving (one engine, the fleet router
+over in-process replicas and over child processes), the DataLoader, GPT
+decoding (float and weight-only int8), GPT training
 (unrolled, scan-over-layers with remat, mixture of experts), BERT
 pretraining, Trainer, translation, image-classification and CTR paths
 on one NVIDIA H100.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --fleet-worker SPEC`` is the serve_fleet_proc
+phase's child replica, started by the script itself.)
 
 Phases, each printing one JSON line:
 
@@ -44,7 +48,9 @@ Phases, each printing one JSON line:
    of 700 tokens (chunked prefill), 64 new tokens each. The launch counts
    are zeroed just before and read just after; each serving kernel (K1,
    K2, K4, K7) must have run, every K1 launch on its row route and every
-   K7 launch on its split route.
+   K7 launch on its split route. Every prefill call of every serving run
+   must read a prompt chunk staged at submit (staged_prefills ==
+   prefill_calls).
 5. crosscheck — two of those requests replayed teacher-forced on the
    card and on the CPU (plain path, f32 cache, same weights); logits must
    agree within the stated tolerance.
@@ -85,7 +91,7 @@ Phases, each printing one JSON line:
    tokens, bf16 pools, prompts from np.random.RandomState(0); 1, 2 and
    4 replicas (4n warm-up, 16n timed requests; a rolling deploy of the
    same weights as v1 in the warm-up at 2, the busiest replica killed
-   mid-stream at 4), then a disaggregated run (prefill_replicas=1, half
+   mid-stream at 4), after a disaggregated run (prefill_replicas=1, half
    the prompts longer than prefill_len) at 2. Every request must be done
    and equal one ServingEngine under the same ServeConfig token for
    token (or part from it at a near tie, crosscheck's reference rule);
@@ -95,7 +101,34 @@ Phases, each printing one JSON line:
    K7 must launch on serve's routes. Records per replica count tokens/s,
    goodput, the prefix hit rate, affinity hits, failovers, the failover
    round's ms, the p50 round and 8 profiled decode rounds of the warm-up
-   (device ms, idle share, launches a round).
+   (device ms, idle share, launches a round). Then bench.py:1004-1039's
+   untraced window in ABBA order: the 4-replica run, the same run twice
+   with trace_fleet off and the flight ring at 0 (no trace id minted,
+   the same bar), and once more traced; the untraced tokens/s,
+   trace_overhead (untraced / traced tokens/s) and the two pairs'
+   ratios. The window's launches are not counted.
+8a'. serve_fleet_proc — the same model, serve config and prompts behind
+   a FleetRouter over 2 SubprocessReplica children on the card, each a
+   fresh interpreter (python3 chip_smoke.py --fleet-worker SPEC) loading
+   the weights the parent wrote once with torch.save. A kill drill (8
+   warm-up requests, 32 timed, the busier child killed -9 after 3
+   rounds) and a device-assert drill (8 requests; one child, armed by
+   PT_SMOKE_ASSERT_AT, indexes a card tensor out of range at its 12th
+   engine step and dies; its handle's timeout is 3 s meanwhile): every
+   request done and token-exact against serve_fleet's single engine (or
+   at a near tie), each dead child respawned at generation 1, the other
+   child at generation 0 and the parent's context alive; one merged
+   RunLog timeline in which every re-routed request keeps its trace id
+   across the killed child's log and another process's. Records tokens/s,
+   the p50 round beside serve_fleet's 2-replica in-process p50, each
+   child's start-up split, the failover rounds and the time to detect
+   each death; the children's launch counts (each child writes them when
+   it stops) must show K1, K2, K4 and K7, on serve's routes, and no
+   child may build the kernels.
+8a''. loader — DataLoader.from_generator at examples/train_resnet.py:44's
+   shapes (20 batches of 32 CIFAR-sized images and labels) on the card,
+   bitwise equal to the CPU's batches; an early break leaves no prefetch
+   thread.
 8b. gpt_decode — bench.py:461's row through GPTDecoder.generate:
    GPTConfig.small() (f32 weights from seed 0), 16 prompts of 128
    tokens, 128 new tokens, bf16 KV cache. One call with the launch
@@ -267,7 +300,7 @@ transformer_big for the "add_layer_norm.mixed" row (K8 at f32 rows with
 bf16 parameters); "variant" names the route; every row also has each
 path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
 launches_gpt_decode_int8, launches_serve_int8, launches_serve_fleet,
-launches_moe_train and
+launches_serve_fleet_proc (the children's), launches_moe_train and
 launches_scan_<policy> among them, and launches_resnet and launches_ctr,
 which are 0), the nvidia-smi line, and
 the contract line
@@ -1306,6 +1339,9 @@ def drive(model, cfg_kw, submissions, plan=None):
     if plan is None and eng.recoveries:
         raise AssertionError(f"{eng.recoveries} steps recovered in a run "
                              "without injected faults")
+    if not 0 < eng.staged_prefills == eng.prefill_calls:
+        raise AssertionError(f"{eng.staged_prefills} of {eng.prefill_calls} "
+                             "prefill calls read a staged prompt chunk")
     gen = sum(len(r.tokens) for r in reqs)
     ttft = sorted((r.first_token_t - r.submit_t) * 1e3 for r in reqs)
     stats = dict(requests=len(reqs),
@@ -1316,6 +1352,7 @@ def drive(model, cfg_kw, submissions, plan=None):
                  p50_step_ms=float(np.median(steps)) * 1e3,
                  steps=len(steps), decode_steps=eng.decode_steps,
                  prefill_calls=eng.prefill_calls,
+                 staged_prefills=eng.staged_prefills,
                  kv_pool_bytes=eng.kv_pool_bytes())
     return eng, reqs, stats
 
@@ -4219,19 +4256,28 @@ def serve_fleet_phase(model, cpu_model, smi):
     FleetRouter on one card, every replica a ServingEngine over the one
     GPTConfig.small() module. Replica counts FLEET_COUNTS (the busiest
     replica killed mid-stream at FLEET_KILL_AT, a rolling deploy of the
-    same weights as v1 in the warm-up at FLEET_DEPLOY_AT), then a
+    same weights as v1 in the warm-up at FLEET_DEPLOY_AT), after a
     disaggregated run (prefill_replicas=1) at 2 replicas with half the
     prompts longer than prefill_len. The launch counts are zeroed after
-    the single engine's reference runs and read as the last router
-    closes, before any check launches a kernel of its own: they count the
-    fleet's launches alone. Every request must be done and equal one
-    ServingEngine under the same ServeConfig token for token (or part
+    the single engine's reference runs and read as the largest count's
+    router closes, before the untraced window and before any check
+    launches a kernel of its own: they count these fleet runs alone.
+    Every request must be done and equal one ServingEngine under the
+    same ServeConfig token for token (or part
     from it at a near tie: :func:`fleet_held`); failovers and handoffs
-    >= 1; K1, K2, K4 and K7 launched, on serve's routes. Returns (the
-    phase line, launches)."""
+    >= 1; K1, K2, K4 and K7 launched, on serve's routes. Then
+    bench.py:1004-1039's untraced window, in ABBA order: the largest
+    count's run (traced), the same run twice with ``trace_fleet`` off and
+    the flight ring at 0 (no trace id minted), and once more traced, all
+    held by the same bar. The line gives the untraced runs' mean tokens/s,
+    ``trace_overhead`` (the untraced runs' tokens/s over the traced ones')
+    and the two pairs' ratios (untraced second, then untraced first).
+    Returns (the phase line, launches, the single engine's tokens of
+    each prompt of the stream)."""
+    from paddle_tpu_torch.observability import flight
     from paddle_tpu_torch.ops.cuda import core
     from paddle_tpu_torch.serving import FleetConfig, FleetRouter
-    from paddle_tpu_torch.serving import ServeConfig
+    from paddle_tpu_torch.serving import ServeConfig, fleet
     vocab = model.cfg.vocab_size
     kw = fleet_serve_kw()
     stream = fleet_stream(vocab, 20 * max(FLEET_COUNTS))
@@ -4244,16 +4290,9 @@ def serve_fleet_phase(model, cpu_model, smi):
     torch.cuda.synchronize()
     core.reset_launches()
     runs, served = [], []
-    for n in FLEET_COUNTS:
-        router, line = fleet_run(model, n, stream, kw,
-                                 kill=n == FLEET_KILL_AT,
-                                 deploy=n == FLEET_DEPLOY_AT)
-        runs.append(line)
-        served.append((f"serve_fleet n={n}", router.requests, reference,
-                       kw, line))
-        router.close()
 
-    # prefill/decode disaggregation
+    # prefill/decode disaggregation, first: the largest count's traced run
+    # then leads the untraced window at once
     router = FleetRouter(model, FleetConfig(num_replicas=2,
                                             heartbeat_s=60.0,
                                             prefill_replicas=1),
@@ -4272,8 +4311,44 @@ def serve_fleet_phase(model, cpu_model, smi):
     served.append(("serve_fleet disagg", router.requests, dref, dkw,
                    disagg_line))
     router.close()
+
+    for n in FLEET_COUNTS:
+        router, line = fleet_run(model, n, stream, kw,
+                                 kill=n == FLEET_KILL_AT,
+                                 deploy=n == FLEET_DEPLOY_AT)
+        runs.append(line)
+        served.append((f"serve_fleet n={n}", router.requests, reference,
+                       kw, line))
+        router.close()
     torch.cuda.synchronize()
     launches, routes = core.launch_counts(), core.route_counts()
+
+    # bench.py:1004-1039's untraced window, run ABBA at the largest count:
+    # the traced run above, two with trace_fleet off and the flight ring
+    # at 0, one traced again
+    nmax = max(FLEET_COUNTS)
+    window = [runs[-1]]
+    was_trace = fleet.configure()["trace_fleet"]
+    was_ring = flight.configure()["ring"]
+    for traced in (False, False, True):
+        if not traced:
+            fleet.configure(trace_fleet=False)
+            flight.configure(ring=0)
+        try:
+            router, line = fleet_run(model, nmax, stream, kw,
+                                     kill=nmax == FLEET_KILL_AT)
+        finally:
+            fleet.configure(trace_fleet=was_trace)
+            flight.configure(ring=was_ring)
+        if not traced and any(r.trace_id is not None
+                              for r in router.requests.values()):
+            raise AssertionError("serve_fleet untraced: a trace id was "
+                                 "minted")
+        served.append((f"serve_fleet window {len(window)}", router.requests,
+                       reference, kw, line))
+        window.append(line)
+        router.close()
+    torch.cuda.synchronize()
 
     for what, requests, ref, serve_kw, line in served:
         exact, rows = fleet_held(what, model, cpu_model, requests, ref,
@@ -4291,14 +4366,465 @@ def serve_fleet_phase(model, cpu_model, smi):
     check_routes("serve_fleet", routes, "simt", SERVE_ROUTED)
     check_path_routes("serve_fleet", routes, ("layer_norm",
                                               "decode_attention"))
+    t1, u1, u2, t2 = (r["tokens_per_s"] for r in window)
     line = dict(
         phase="serve_fleet", config="GPTConfig.small()",
         **{k: v for k, v in kw.items() if k != "cache_dtype"},
         cache_dtype="bfloat16", shared_prefix=FLEET_SHARED, max_new=FLEET_NEW,
         card=smi, single_engine_s=alone_s, runs=runs, disagg=disagg_line,
+        untraced=window[1:3], retraced=window[3],
+        trace_window_tokens_per_s=[t1, u1, u2, t2],
+        untraced_tokens_per_s=(u1 + u2) / 2,
+        trace_overhead=(u1 + u2) / (t1 + t2),
+        trace_overhead_pairs=[u1 / t1, u2 / t2],
         launches=launches,
         routes={k: routes[k] for k in SERVE_ROUTED + tuple(PATH_ROUTE)})
+    return line, launches, reference
+
+
+FLEET_PROC_N = 2          # child replicas
+FLEET_PROC_WARM = 8       # warm-up requests (4n), settled before timing
+FLEET_PROC_TIMED = 32     # the kill drill's timed requests
+FLEET_PROC_KILL_AFTER = 3  # healthy timed rounds before the kill -9
+FLEET_PROC_ASSERT = 8     # the device-assert drill's requests
+FLEET_PROC_ASSERT_AT = 12  # the asserting child's engine step
+FLEET_PROC_TIMEOUT_S = 120.0  # a handle's exchange timeout: it covers a
+#                               child's start-up (interpreter, torch, CUDA
+#                               context, weights, kernel library)
+FLEET_PROC_DETECT_S = 3.0  # the asserting handle's timeout in its drill
+FLEET_PROC_IDLE_S = 300.0  # a worker's wait for the router's next command:
+#                             the assert drill's children idle through the
+#                             kill drill (under 2 minutes)
+#: the variable that arms a worker's device-side assert:
+#: "<generation>:<engine step>"
+ASSERT_ENV = "PT_SMOKE_ASSERT_AT"
+
+
+def fleet_worker(spec_path):
+    """``python3 chip_smoke.py --fleet-worker SPEC``: the child process of
+    :func:`serve_fleet_proc_phase` (a fresh interpreter per replica and
+    generation). It loads the parent's GPTConfig.small() weights from the
+    ``torch.save`` file the spec names (the module is first drawn from
+    another seed, so only the file can make its tokens the parent's),
+    builds a ServingEngine on the card with a RunLog of its own, writes a
+    ready file (start-up split, whether the kernel library was already
+    built) and serves through ``replica_worker_loop`` until the router's
+    ``stop``; then it writes its kernels' launch and route counts and its
+    engine steps' times. With :data:`ASSERT_ENV` naming its generation,
+    its engine's step of that number first indexes a card tensor out of
+    range: a device-side assert, which loses this process's CUDA context
+    and ends it. A worker whose parent dies exits within a second. Its
+    stdout goes to stderr: the parent's stdout carries the script's
+    result."""
+    import threading
+    import traceback
+    os.dup2(2, 1)
+    t_main = time.time()
+    parent = os.getppid()
+
+    def orphaned():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(4)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.serving import (ServeConfig, ServingEngine,
+                                          replica_worker_loop)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    tag = (f"{spec['run']}.r{os.environ['PT_FLEET_REPLICA']}"
+           f".g{os.environ['PT_FLEET_GENERATION']}")
+    gen = int(os.environ["PT_FLEET_GENERATION"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prebuilt = os.path.exists(os.path.join(core.build_dir(), core.LIB_NAME))
+    core.library()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    cfg = GPTConfig.small()
+    cfg.dropout = 0.0
+    model = GPTDecoder(cfg, device="cuda", seed=1)
+    model.load_state_dict(torch.load(spec["state"], map_location="cuda",
+                                     weights_only=True))
+    torch.cuda.synchronize()
+    t_weights = time.time()
+    kw = dict(spec["serve"], cache_dtype=getattr(torch, spec["cache_dtype"]))
+    eng = ServingEngine(model, ServeConfig(
+        run_log=os.path.join(spec["out"], f"serve.{tag}.jsonl"), **kw))
+    step_s = []
+    real_step = eng.step
+    armed = os.environ.get(ASSERT_ENV)
+    fire_at = (int(armed.split(":")[1])
+               if armed and int(armed.split(":")[0]) == gen else None)
+
+    def step():
+        if len(step_s) + 1 == fire_at:
+            with open(os.path.join(spec["out"], f"fired.{tag}.json"),
+                      "w") as f:
+                json.dump(dict(wall=time.time()), f)
+            bad = torch.tensor([1 << 20], device="cuda")
+            torch.zeros(8, device="cuda")[bad]
+            torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        real_step()
+        step_s.append(time.perf_counter() - s0)
+
+    eng.step = step
+    core.reset_launches()
+    with open(os.path.join(spec["out"], f"ready.{tag}.json"), "w") as f:
+        json.dump(dict(ready=time.time(), main=t_main, cuda=t_cuda,
+                       weights=t_weights, prebuilt=prebuilt), f)
+    try:
+        replica_worker_loop(eng, timeout_s=spec["idle_s"])
+        torch.cuda.synchronize()
+    except Exception:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(3)              # no teardown of a context that is lost
+    eng.close()
+    with open(os.path.join(spec["out"], f"done.{tag}.json"), "w") as f:
+        json.dump(dict(launches=core.launch_counts(),
+                       routes=core.route_counts(), steps=len(step_s),
+                       p50_step_ms=float(np.median(step_s)) * 1e3
+                       if step_s else None,
+                       staged_prefills=eng.staged_prefills,
+                       prefill_calls=eng.prefill_calls), f)
+    return 0
+
+
+def proc_handles(argv, xdir, spawned, env=None):
+    """FLEET_PROC_N SubprocessReplica handles, each starting ``argv``
+    at once (``env``: replica -> its extra environment); ``spawned`` gets
+    each (replica, generation)'s start wall time."""
+    from paddle_tpu_torch.serving import SubprocessReplica
+
+    class Timed(SubprocessReplica):
+        def respawn(self):
+            spawned[(self.replica, self.generation + 1)] = time.time()
+            super().respawn()
+
+    return [Timed(argv, xdir, replica=i, env=(env or {}).get(i),
+                  timeout_s=FLEET_PROC_TIMEOUT_S)
+            for i in range(FLEET_PROC_N)]
+
+
+def proc_router(handles, kw):
+    from paddle_tpu_torch.serving import (FleetConfig, FleetRouter,
+                                          ServeConfig)
+    return FleetRouter(config=FleetConfig(num_replicas=len(handles),
+                                          heartbeat_s=60.0),
+                       serve_config=ServeConfig(**kw), replicas=handles)
+
+
+def timed_rounds(router, after=None):
+    """:func:`settle` that also returns the round in which the router
+    failed a replica over (its index, end wall time and ms); ``after`` is
+    called after every round."""
+    from paddle_tpu_torch.serving.fleet import _TERMINAL
+    times, failover = [], None
+    while any(r.status not in _TERMINAL for r in router.requests.values()):
+        before = router.failovers
+        s0 = time.perf_counter()
+        router.step()
+        times.append(time.perf_counter() - s0)
+        if router.failovers > before and failover is None:
+            failover = dict(round=len(times) - 1, wall=time.time(),
+                            ms=times[-1] * 1e3)
+        if after is not None:
+            after()
+    return times, failover
+
+
+def read_json(root, prefix):
+    """{tag: the JSON of each ``<prefix>.<tag>.json`` under ``root``}."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(root, f"{prefix}.*.json"))):
+        with open(path) as f:
+            out[os.path.basename(path)[len(prefix) + 1:-5]] = json.load(f)
+    return out
+
+
+def serve_fleet_proc_phase(model, cpu_model, smi, reference, inproc_p50_ms):
+    """``serve_fleet_proc``: serve_fleet's GPTConfig.small() traffic
+    (fleet_serve_kw, fleet_stream) through a FleetRouter over
+    FLEET_PROC_N SubprocessReplica children on the card, each a fresh
+    interpreter running :func:`fleet_worker` on the module's weights,
+    written once with ``torch.save``.
+
+    Kill drill: FLEET_PROC_WARM warm-up requests settled (the children's
+    start-up inside), then FLEET_PROC_TIMED timed ones; after
+    FLEET_PROC_KILL_AFTER rounds the busier child is killed -9. The
+    children's RunLogs are merged (``trace.merge_fleet_trace``): every
+    re-routed request keeps its trace id across the killed child's log and
+    another process's. Device-assert drill: two more children, started
+    with the first two and idle until then, the second armed to assert
+    on the card at its engine step FLEET_PROC_ASSERT_AT, with
+    FLEET_PROC_DETECT_S as its handle's timeout meanwhile: that child
+    dies mid-round, the router waits out the timeout, fails its requests
+    over and respawns it; the other child stays at generation 0 and the
+    parent's own context still computes. Every request of both drills
+    must be done and equal serve_fleet's single engine token for token
+    (or part from it at a near tie: :func:`fleet_held`); each killed
+    handle's generation >= 1; every child loads the kernel library the
+    build phase made. The launch counts are the children's, summed from
+    the children that stopped cleanly: K1, K2, K4 and K7 above 0, on
+    serve's routes. Returns (the phase line, launches)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.observability.runlog import read_records
+    from paddle_tpu_torch.ops.cuda import core
+    kw = fleet_serve_kw()
+    stream = fleet_stream(model.cfg.vocab_size, FLEET_PROC_WARM
+                          + FLEET_PROC_TIMED + FLEET_PROC_ASSERT)
+    root = tempfile.mkdtemp(prefix="serve_fleet_proc")
+    spawned = {"kill": {}, "assert": {}}
+    children = []
+    try:
+        state = os.path.join(root, "gpt_small.pt")
+        s0 = time.perf_counter()
+        torch.save(model.state_dict(), state)
+        save_s = time.perf_counter() - s0
+        argv = {}
+        for run in ("kill", "assert"):
+            spec = os.path.join(root, f"{run}.json")
+            with open(spec, "w") as f:
+                json.dump(dict(run=run, state=state, out=root,
+                               idle_s=FLEET_PROC_IDLE_S,
+                               cache_dtype="bfloat16",
+                               serve={k: v for k, v in kw.items()
+                                      if k != "cache_dtype"}), f)
+            argv[run] = [sys.executable, os.path.abspath(__file__),
+                         "--fleet-worker", spec]
+
+        # all four children start together (the assert drill's wait for
+        # their router in their first exchange)
+        armed = FLEET_PROC_N - 1
+        handles = proc_handles(argv["kill"], os.path.join(root, "xk"),
+                               spawned["kill"])
+        armed_handles = proc_handles(
+            argv["assert"], os.path.join(root, "xa"), spawned["assert"],
+            env={armed: {ASSERT_ENV: f"0:{FLEET_PROC_ASSERT_AT}"}})
+        children += handles + armed_handles
+
+        # kill drill
+        router = proc_router(handles, kw)
+        warm = FLEET_PROC_WARM
+        s0 = time.perf_counter()
+        for p in stream[:warm]:
+            router.submit(p, max_new=FLEET_NEW)
+        settle(router)
+        warm_s = time.perf_counter() - s0
+        for p in stream[warm:warm + FLEET_PROC_TIMED]:
+            router.submit(p, max_new=FLEET_NEW)
+        healthy = []
+        t0 = time.perf_counter()
+        for _ in range(FLEET_PROC_KILL_AFTER):
+            s0 = time.perf_counter()
+            router.step()
+            healthy.append(time.perf_counter() - s0)
+        victim = max(range(FLEET_PROC_N), key=lambda i: handles[i].load())
+        killed_at = time.time()
+        handles[victim].kill()
+        times, failover = timed_rounds(router)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if failover is None or failover["round"] != 0:
+            raise AssertionError(f"serve_fleet_proc: the kill was not "
+                                 f"caught in the next round: {failover}")
+        timed = [r for r in router.requests.values() if r.id >= warm]
+        tokens = sum(len(r.tokens) for r in timed if r.status == "done")
+        kill_line = dict(
+            requests=len(timed), killed=victim,
+            generations=[h.generation for h in handles],
+            failovers=router.failovers,
+            rerouted=sum(r.reroutes for r in router.requests.values()),
+            tokens_per_s=tokens / wall,
+            # less the failover round and the respawned child's first
+            # (its start-up)
+            tokens_per_s_healthy=tokens / (wall - sum(times[:2])),
+            wall_s=wall, warmup_s=warm_s,
+            rounds=len(healthy) + len(times),
+            p50_round_ms=float(np.median(healthy + times)) * 1e3,
+            inproc_p50_round_ms=inproc_p50_ms,
+            failover_round_ms=failover["ms"],
+            kill_detect_s=failover["wall"] - killed_at,
+            respawn_round_ms=times[1] * 1e3 if len(times) > 1 else None,
+            goodput=router.goodput())
+        crossed = [r for r in router.requests.values() if r.reroutes]
+        kill_requests = router.requests
+        router.close()
+        if handles[victim].generation < 1 or not crossed:
+            raise AssertionError(f"serve_fleet_proc: generations "
+                                 f"{kill_line['generations']}, "
+                                 f"{len(crossed)} re-routed")
+
+        # one timeline across the processes
+        logs = {os.path.basename(p)[6:-6]: read_records(p) for p in
+                sorted(glob.glob(os.path.join(root, "serve.kill.*.jsonl")))}
+        merged = trace.merge_fleet_trace(logs)
+        groups = trace.group_by_trace(merged["events"])
+        dead_src = f"kill.r{victim}.g0"
+        spans = []
+        for r in crossed:
+            srcs = {e["source"] for e in groups.get(r.trace_id, [])}
+            if dead_src not in srcs or len(srcs) < 2:
+                raise AssertionError(f"serve_fleet_proc: trace {r.trace_id}"
+                                     f" spans {sorted(srcs)}")
+            spans.append(len(srcs))
+        if not all(s["anchored"] for s in merged["skew"].values()):
+            raise AssertionError(f"serve_fleet_proc: {merged['skew']}")
+        kill_line.update(merged_events=len(merged["events"]),
+                         merged_sources=sorted(logs),
+                         crossed_traces=len(spans),
+                         max_skew_s=max(abs(s["skew_s"]) for s in
+                                        merged["skew"].values()))
+
+        # device-assert drill
+        handles = armed_handles
+        router = proc_router(handles, kw)
+        lo = warm + FLEET_PROC_TIMED
+        for p in stream[lo:]:
+            router.submit(p, max_new=FLEET_NEW)
+        router.step()                     # waits out any start-up left
+        handles[armed].timeout_s = FLEET_PROC_DETECT_S
+
+        def restore():
+            if handles[armed].generation > 0:
+                handles[armed].timeout_s = FLEET_PROC_TIMEOUT_S
+
+        t0 = time.perf_counter()
+        times, failover = timed_rounds(router, after=restore)
+        wall = time.perf_counter() - t0
+        fired = read_json(root, "fired")
+        if failover is None or list(fired) != [f"assert.r{armed}.g0"]:
+            raise AssertionError(f"serve_fleet_proc: assert {fired}, "
+                                 f"failover {failover}")
+        alive = torch.arange(1024, device="cuda", dtype=torch.float32)
+        if float(alive.sum()) != 1023 * 512:        # the parent's context
+            raise AssertionError("serve_fleet_proc: parent context lost")
+        if handles[0].generation != 0 or handles[armed].generation < 1:
+            raise AssertionError("serve_fleet_proc: generations "
+                                 f"{[h.generation for h in handles]}")
+        assert_line = dict(
+            requests=len(stream) - lo, armed=armed,
+            assert_at_step=FLEET_PROC_ASSERT_AT,
+            generations=[h.generation for h in handles],
+            failovers=router.failovers, wall_s=wall, rounds=len(times),
+            failover_round_ms=failover["ms"],
+            assert_detect_s=failover["wall"]
+            - fired[f"assert.r{armed}.g0"]["wall"],
+            detect_timeout_s=FLEET_PROC_DETECT_S,
+            tokens_per_s=sum(len(r.tokens) for r in
+                             router.requests.values()) / wall)
+        assert_requests = router.requests
+        router.close()
+        torch.cuda.synchronize()
+
+        ready, done = read_json(root, "ready"), read_json(root, "done")
+        if not all(r["prebuilt"] for r in ready.values()):
+            raise AssertionError(f"serve_fleet_proc: a child built the "
+                                 f"kernels: {ready}")
+        startup = {}
+        for tag, r in ready.items():
+            run, rep, gen = tag.split(".")
+            t = spawned[run][(int(rep[1:]), int(gen[1:]))]
+            startup[tag] = dict(interpreter_s=r["main"] - t,
+                                cuda_s=r["cuda"] - r["main"],
+                                weights_s=r["weights"] - r["cuda"],
+                                engine_s=r["ready"] - r["weights"],
+                                ready_s=r["ready"] - t)
+        launches = {k: sum(d["launches"][k] for d in done.values())
+                    for k in core.KERNELS}
+        routes = {k: {rt: sum(d["routes"][k][rt] for d in done.values())
+                      for rt in rts} for k, rts in core.route_counts().items()}
+        if any(d["staged_prefills"] != d["prefill_calls"]
+               for d in done.values()):
+            raise AssertionError(f"serve_fleet_proc: unstaged prefills "
+                                 f"{done}")
+    finally:
+        for h in children:                # stop what is still running
+            h.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    for what, requests, ref in (("serve_fleet_proc kill", kill_requests,
+                                 reference),
+                                ("serve_fleet_proc assert", assert_requests,
+                                 reference[lo:])):
+        exact, rows = fleet_held(what, model, cpu_model, requests, ref, kw)
+        (kill_line if "kill" in what else assert_line).update(
+            token_exact=exact, crosscheck=rows)
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"serve_fleet_proc: children launched no "
+                             f"{missing}")
+    check_routes("serve_fleet_proc", routes, "simt", SERVE_ROUTED)
+    check_path_routes("serve_fleet_proc", routes, ("layer_norm",
+                                                   "decode_attention"))
+    step_ms = {tag: d["p50_step_ms"] for tag, d in done.items()}
+    kill_steps = [v for t, v in step_ms.items()
+                  if t.startswith("kill") and v is not None]
+    line = dict(
+        phase="serve_fleet_proc", config="GPTConfig.small()",
+        replicas=FLEET_PROC_N,
+        **{k: v for k, v in kw.items() if k != "cache_dtype"},
+        cache_dtype="bfloat16", max_new=FLEET_NEW, card=smi,
+        state_save_s=save_s, kill=kill_line, device_assert=assert_line,
+        startup=startup, child_p50_step_ms=step_ms,
+        wire_ms_per_round=kill_line["p50_round_ms"] - FLEET_PROC_N
+        * float(np.median(kill_steps)) if kill_steps else None,
+        reporting_children=sorted(done), launches=launches,
+        routes={k: routes[k] for k in SERVE_ROUTED + tuple(PATH_ROUTE)})
     return line, launches
+
+
+LOADER_SAMPLES = 20 * 32   # examples/train_resnet.py: 20 steps of batch 32
+LOADER_BATCH = 32
+
+
+def loader_phase(smi):
+    """``loader``: DataLoader.from_generator at examples/train_resnet.py:44's
+    shapes (CIFAR-sized [3, 32, 32] f32 images and [1] int64 labels, the
+    JAX package's synthetic_images stream, batch 32) on the card: every
+    batch arrives on the card bitwise equal to the same loader's batch on
+    the CPU, and an early ``break`` leaves no prefetch thread alive."""
+    import threading
+    from paddle_tpu_torch.data import loader as dl
+
+    def images():
+        rng = np.random.RandomState(0)
+        for _ in range(LOADER_SAMPLES):
+            yield (rng.rand(3, 32, 32).astype(np.float32),
+                   rng.randint(10, size=(1,)).astype(np.int64))
+
+    host = list(dl.DataLoader.from_generator(images, LOADER_BATCH,
+                                             device="cpu"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = [tuple(t.clone() for t in b) for b in dl.DataLoader.from_generator(
+        images, LOADER_BATCH)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not len(card) == len(host) == LOADER_SAMPLES // LOADER_BATCH:
+        raise AssertionError(f"loader: {len(card)} batches")
+    for i, (c, h) in enumerate(zip(card, host)):
+        for a, b in zip(c, h):
+            if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"loader: batch {i} differs")
+    for _ in dl.DataLoader.from_generator(images, LOADER_BATCH):
+        break
+    left = [t for t in threading.enumerate()
+            if t.name == dl.THREAD_NAME and t.is_alive()]
+    if left:
+        raise AssertionError(f"loader: {len(left)} threads after a break")
+    nbytes = sum(t.numel() * t.element_size() for b in host for t in b)
+    return dict(phase="loader", batches=len(card), batch=LOADER_BATCH,
+                shapes=[list(t.shape) for t in host[0]], bitwise=True,
+                bytes=nbytes, wall_s=wall, card=smi,
+                prefetch=dl.configure()["reader_queue_size"])
 
 
 def moe_config(base):
@@ -4494,7 +5020,8 @@ def expected_route(kernel, case):
 LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
                 "transformer", "resnet", "trainer_resnet", "ctr",
                 "gpt_decode",
-                "gpt_decode_int8", "serve_int8", "serve_fleet", "moe_train",
+                "gpt_decode_int8", "serve_int8", "serve_fleet",
+                "serve_fleet_proc", "moe_train",
                 "scan_nothing", "scan_dots_saveable", "scan_full")
 
 #: the kernels with a row per route in the kernels line
@@ -4671,8 +5198,15 @@ def main():
               routes={"decode_attention": routes8["decode_attention"]},
               **{k: v for k, v in stats8.items() if k != "prompt_lens"}))
 
-    fleet_line, fleet_launches = serve_fleet_phase(model, cpu_model, smi)
+    fleet_line, fleet_launches, fleet_reference = serve_fleet_phase(
+        model, cpu_model, smi)
     emit(fleet_line)
+    torch.cuda.empty_cache()
+    proc_line, proc_launches = serve_fleet_proc_phase(
+        model, cpu_model, smi, fleet_reference,
+        fleet_line["runs"][FLEET_COUNTS.index(FLEET_PROC_N)]["p50_round_ms"])
+    emit(proc_line)
+    emit(loader_phase(smi))
     torch.cuda.empty_cache()
 
     decode_line, decode_launches, prompt, float_out, float_logits = \
@@ -4783,7 +5317,8 @@ def main():
         "trainer_resnet": trainer_resnet_launches,
         "ctr": ctr_launches, "gpt_decode": decode_launches,
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
-        "serve_fleet": fleet_launches, "moe_train": moe_launches,
+        "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,
+        "moe_train": moe_launches,
         **{f"scan_{p}": n for p, n in scan_launches.items()}})
     emit({"kernels": table})
     print(smi, flush=True)
@@ -4793,4 +5328,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(fleet_worker(sys.argv[2]))
     sys.exit(main())

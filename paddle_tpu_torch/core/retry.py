@@ -49,11 +49,12 @@ class RetryPolicy:
     multiplier ** (n - 1)``, at most ``backoff_max_s``, scaled by a
     uniform factor in ``[1 - jitter, 1 + jitter]``; a call gives up
     rather than start a sleep that would end past ``deadline_s`` (0:
-    none). ``sleep`` is injectable for tests."""
+    none). ``retryable`` (default :func:`default_retryable`) says which
+    exceptions are retried. ``sleep`` is injectable for tests."""
 
     def __init__(self, max_attempts=4, backoff_s=0.05, sleep=None,
                  backoff_max_s=None, multiplier=2.0, jitter=0.0,
-                 deadline_s=0.0):
+                 deadline_s=0.0, retryable=None):
         self.max_attempts = max(1, int(max_attempts))
         self.backoff_s = float(backoff_s)
         self.backoff_max_s = (float("inf") if backoff_max_s is None
@@ -61,6 +62,7 @@ class RetryPolicy:
         self.multiplier = float(multiplier)
         self.jitter = float(jitter)
         self.deadline_s = float(deadline_s)
+        self.retryable = retryable or default_retryable
         self._sleep = sleep or time.sleep
 
     def delay_s(self, attempt):
@@ -85,7 +87,7 @@ class RetryPolicy:
                 return fn(*args, **kwargs)
             except Exception as e:
                 failures += 1
-                if not default_retryable(e):
+                if not self.retryable(e):
                     raise
                 _metrics.counter("retry.attempts").inc(op=op)
                 if failures >= self.max_attempts:

@@ -67,11 +67,21 @@ What is ported:
 
 Terminal statuses: done | rejected | shed | cancelled | failed.
 
-Not ported: prompt prefetch and the AOT hooks (``compiled_decode``,
-``compiled_verify``, ``export_decode``). The scheduler state (page
-table, lengths, active mask, pending tokens, sampling knobs) is host
-numpy, copied to the model's device before each call's launches; the
-page pools live on the device and are updated in place.
+Prompt staging (the reference's prompt prefetch): ``submit`` and
+``adopt`` stage the replay sequence onto the model's device as
+``ceil(len / prefill_len)`` padded ``[1, prefill_len]`` int32 chunks
+through a :class:`~paddle_tpu_torch.data.loader.Stager` (on the card:
+pinned memory, a copy stream of the stager's own and an event the
+prefill's stream waits on, so a client thread's submit never queues the
+copy on the stepping thread's stream); a recovery restages prompt +
+generated tokens, and retirement drops the chunks. Each prefill call
+reads its chunk, ``staged_prefills`` counts them.
+
+Not ported: the AOT hooks (``compiled_decode``, ``compiled_verify``,
+``export_decode``). The scheduler state (page table, lengths, active
+mask, pending tokens, sampling knobs) is host numpy, copied to the
+model's device before each call's launches; the page pools live on the
+device and are updated in place.
 
 One re-entrant lock guards the request tables: clients may ``submit``,
 ``adopt`` or ``cancel`` from their own threads while ``step`` runs, and
@@ -92,6 +102,7 @@ import torch
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.retry import RetryBudget, RetryPolicy
+from paddle_tpu_torch.data.loader import Stager
 from paddle_tpu_torch.observability import catalog as _catalog
 from paddle_tpu_torch.observability import flight as _flight
 from paddle_tpu_torch.observability import metrics as _metrics
@@ -210,6 +221,8 @@ class Request:
     #                               or the fleet's when adopted with one
     span_id: str = None           # this hop's span in the fleet trace
     parent_span_id: str = None    # the causal parent hop
+    device_prompt: typing.Any = None  # staged [1, prefill_len] chunks of
+    #                                   the replay sequence
     trace: list = dataclasses.field(default_factory=list)  # (event, t)
 
     @property
@@ -267,6 +280,10 @@ class ServingEngine:
             RetryPolicy(max_attempts=cfg.step_retries + 1, sleep=sleep))
         self.decode_steps = 0
         self.prefill_calls = 0
+        self.staged_prefills = 0      # prefill calls that read a staged
+        #                               chunk
+        # host-to-device prompt staging
+        self._stager = Stager(self._device)
         # the reference's serve.* counters, kept as attributes (the prefix
         # cache's own are read through the properties below)
         self.prefill_tokens_skipped = 0   # covered by prefix-cache hits
@@ -427,6 +444,7 @@ class ServingEngine:
         if cfg.queue_limit and len(self._queue) >= cfg.queue_limit:
             self._reject(req, "queue_full")
             return req.id
+        req.device_prompt = self._stage_chunks(prompt)
         self._queue.append(req)
         _metrics.gauge("serve.queue_depth").set(len(self._queue))
         return req.id
@@ -476,6 +494,8 @@ class ServingEngine:
                                   tokens_kept=len(tokens))
             req.submit_t = submit_t if submit_t is not None else t
             _metrics.counter("serve.requests").inc(status="adopted")
+            req.device_prompt = self._stage_chunks(req.output if tokens
+                                                   else prompt)
             self._queue.append(req)
             _metrics.gauge("serve.queue_depth").set(len(self._queue))
             return req.id
@@ -944,16 +964,33 @@ class ServingEngine:
         t = torch.from_numpy(np.ascontiguousarray(array))
         return t.pin_memory() if self._device.type == "cuda" else t
 
-    def _prefill_chunk(self, req, seq, start, clen, floor):
+    def _stage_chunks(self, seq):
+        """``seq`` staged on the device as ``ceil(len / prefill_len)``
+        zero-padded ``[1, prefill_len]`` int32 chunks. Staging more than
+        an admission needs is harmless: each prefill call drops the rows
+        past its chunk length, so a preempted request (tokens dropped)
+        reuses its chunks."""
+        lp = self.cfg.prefill_len
+        seq = np.asarray(seq, np.int32).reshape(-1)
+        n = max(1, -(-seq.size // lp))
+        padded = np.zeros((n * lp,), np.int32)
+        padded[:seq.size] = seq
+        return [self._stager.place(padded[i * lp:(i + 1) * lp][None, :])
+                for i in range(n)]
+
+    def _prefill_chunk(self, req, start, clen, floor):
         cfg = self.cfg
         # a chunk with no row at or above the floor would send every
         # write to the first row's page, which may be a shared one
         enforce(start + clen > floor, f"prefill chunk [{start}, "
                 f"{start + clen}) lies wholly below its write floor {floor}")
-        window = np.zeros((1, cfg.prefill_len), np.int32)
-        window[0, :clen] = seq[start:start + clen]
+        # starts are whole chunks: chunk start // prefill_len, waited for
+        # on this thread's stream
+        window = self._stager.ready(
+            req.device_prompt[start // cfg.prefill_len])
+        self.staged_prefills += 1
         knobs = self._knobs(*self._sampling_rows(req))
-        args = (self._dev(window), torch.tensor([start], dtype=torch.int32),
+        args = (window, torch.tensor([start], dtype=torch.int32),
                 torch.tensor([clen], dtype=torch.int32))
         row = self._dev(self._page_table[req.slot][None, :])
         floors = self._dev(np.asarray([floor], np.int32))
@@ -1143,7 +1180,6 @@ class ServingEngine:
         req.pages = []
         req.shared_pages = []
         matched = self._map_prefix(req, total)
-        seq = req.output
         tok = None
         skipped = 0
         for start in range(0, total, cfg.prefill_len):
@@ -1164,7 +1200,7 @@ class ServingEngine:
                 req.pages.append(page)
             try:
                 fault_point("serve.prefill")
-                tok = self._prefill_chunk(req, seq, start, clen, matched)
+                tok = self._prefill_chunk(req, start, clen, matched)
             except Exception as e:
                 self._recover("serve.prefill", e, pending=req)
                 return False
@@ -1304,6 +1340,10 @@ class ServingEngine:
             req.shared_pages = []
             req.status = "queued"
             req.recoveries += 1
+            if req.tokens or req.device_prompt is None:
+                # the staged chunks hold the prompt only: restage the
+                # replay sequence (prompt + generated tokens)
+                req.device_prompt = self._stage_chunks(req.output)
             self._trace_event(req, "requeued", cause=where,
                               tokens_kept=len(req.tokens))
             self._queue.appendleft(req)
@@ -1348,6 +1388,7 @@ class ServingEngine:
         req.status = status
         req.retire_reason = why
         req.done_t = self._clock()
+        req.device_prompt = None
         if account:
             req.slo_ok = False
             self._retired += 1
@@ -1411,6 +1452,7 @@ class ServingEngine:
         req.status = "done"
         req.retire_reason = reason
         req.done_t = self._clock()
+        req.device_prompt = None
         self._account_slo(req)
         self._trace_event(req, "retired", reason=reason,
                           tokens=len(req.tokens), slo_ok=req.slo_ok,

@@ -56,13 +56,24 @@ engine's step recovery, then failover and respawn, then ``_fail_all``):
 nothing switches to a plain version. Replicas step one after another on
 the one stream of the host thread (K7's per-device ticket buffer is
 shared safely so). The reference's ``fleet_*`` flags become
-:class:`FleetConfig` defaults; ``trace_fleet`` keeps its default (on): every
-request gets its durable trace id.
+:class:`FleetConfig` defaults.
 
-Not ported: ``SubprocessReplica`` and ``replica_worker_loop`` (an engine
-in a child process over ``parallel/launch.py``'s file
-``host_allgather``). ``FleetRouter(replicas=...)`` still takes
-caller-built in-process handles.
+``trace_fleet`` is a module setting (:func:`configure`), on by default
+and off with ``PT_FLAGS_trace_fleet=0``: on, ``submit()`` mints each
+request's durable trace id and every dispatch carries a child span of
+it; off, no id is minted and dispatch passes no context (the engine
+falls back to its own run-scoped ids). bench.py's untraced window turns
+it off together with the flight ring (``flight.configure(ring=0)``).
+
+Replicas are in-process by default. :class:`SubprocessReplica` and
+:func:`replica_worker_loop` run an engine in a child process, a fresh
+interpreter started with ``subprocess.Popen(argv)``, over the file
+transport of ``parallel/launch.py host_allgather``: one command/response
+exchange a round, generation-suffixed so a respawned worker never reads
+its dead predecessor's files. A child on the card has a CUDA context of
+its own, so a sticky CUDA error there (a device-side assert, an illegal
+address) ends that process alone, and the router fails its work over as
+for any replica death.
 
     router = FleetRouter(GPTDecoder(cfg), FleetConfig(num_replicas=3))
     fid = router.submit([1, 2, 3], max_new=32)
@@ -73,6 +84,9 @@ import collections
 import copy
 import dataclasses
 import itertools
+import json
+import os
+import subprocess
 import threading
 import time
 
@@ -81,22 +95,35 @@ import torch
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.retry import RetryBudget, RetryPolicy
+from paddle_tpu_torch.core.settings import env_default
 from paddle_tpu_torch.observability import catalog as _catalog
 from paddle_tpu_torch.observability import flight as _flight
 from paddle_tpu_torch.observability import metrics as _metrics
 from paddle_tpu_torch.observability import trace as _trace
 from paddle_tpu_torch.observability.exporter import start_metrics_server
+from paddle_tpu_torch.parallel import launch as _launch
 from paddle_tpu_torch.parallel.heartbeat import STALLED, HeartBeatMonitor
 from paddle_tpu_torch.serving.engine import ServeConfig, ServingEngine
 from paddle_tpu_torch.testing.chaos import fault_point
 
 _TERMINAL = ("done", "rejected", "shed", "cancelled", "failed")
 
+#: the reference's ``trace_fleet`` flag as a module setting
+_SETTINGS = {"trace_fleet": env_default("trace_fleet", True)}
+
 _FLEET_METRICS = (
     "fleet.replicas", "fleet.failovers", "fleet.rerouted",
     "fleet.dispatch_depth", "fleet.respawns", "fleet.affinity_hits",
     "fleet.version_retirements", "fleet.deploys", "fleet.scale_events",
     "fleet.canary_aborts", "fleet.handoffs")
+
+
+def configure(trace_fleet=None):
+    """Set ``trace_fleet`` (None leaves it as it is); returns the
+    settings."""
+    if trace_fleet is not None:
+        _SETTINGS["trace_fleet"] = bool(trace_fleet)
+    return dict(_SETTINGS)
 
 
 class ReplicaDead(RuntimeError):
@@ -176,7 +203,8 @@ class FleetRequest:
     retire_reason: str = None
     slo_ok: bool = None
     retriable: bool = False
-    trace_id: str = None          # durable fleet trace id, minted at submit
+    trace_id: str = None          # durable fleet trace id, minted at
+    #                               submit while trace_fleet is on
     next_span: int = 0            # each dispatch is span "hop<N>"
 
     @property
@@ -288,6 +316,257 @@ class InProcessReplica:
     def close(self):
         if self.engine is not None:
             self.engine.close()
+
+
+def _pack(obj):
+    return np.frombuffer(json.dumps(obj).encode(), dtype=np.uint8).copy()
+
+
+def _unpack(arr):
+    return json.loads(bytes(np.asarray(arr, np.uint8).tolist()).decode())
+
+
+class SubprocessReplica:
+    """A replica whose engine runs in a child process (a replica kill is a
+    process kill), driven over the ``host_allgather`` file transport: one
+    command/response exchange a round (rank 0 the router, rank 1 the
+    worker). ``generation`` (the respawn count) suffixes every exchange
+    file, so a respawned worker that restarts its sequence at 0 never
+    reads its dead predecessor's payloads.
+
+    ``argv`` starts the worker (a script ending in
+    ``replica_worker_loop(ServingEngine(...))``) as a fresh interpreter;
+    the child inherits this process's environment, ``env`` on top, and
+    ``PT_FLEET_XDIR``, ``PT_FLEET_REPLICA`` and ``PT_FLEET_GENERATION``.
+    Wire times are relative (ages, seconds remaining): the child's
+    ``perf_counter`` shares no epoch with the router's, so absolute
+    router times are converted at this boundary in both directions. A
+    child that does not answer within ``timeout_s`` is dead
+    (``ReplicaDead``); one that has exited is caught by ``alive()`` before
+    the exchange."""
+
+    def __init__(self, argv, exchange_dir, replica=0, env=None,
+                 timeout_s=60.0, clock=time.perf_counter):
+        self.argv = list(argv)
+        self.exchange_dir = exchange_dir
+        self.replica = replica
+        self.timeout_s = timeout_s
+        self._clock = clock
+        self._env = dict(env or {})
+        self.generation = -1
+        self._proc = None
+        self._seq = 0
+        self._lids = itertools.count()
+        self._outbox = []            # wire specs awaiting the next round
+        self._rid_to_lid = {}
+        self._counts = (0, 0)        # (queued, active) from last response
+        self.respawn()
+
+    def respawn(self):
+        if self._proc is not None and self._proc.poll() is None:
+            self._proc.kill()
+            self._proc.wait()
+        self.generation += 1
+        self._seq = 0
+        self._outbox = []
+        self._rid_to_lid = {}
+        self._counts = (0, 0)
+        env = dict(os.environ)
+        env.update(self._env)
+        env.update({
+            "PT_FLEET_XDIR": self.exchange_dir,
+            "PT_FLEET_REPLICA": str(self.replica),
+            "PT_FLEET_GENERATION": str(self.generation),
+        })
+        self._proc = subprocess.Popen(self.argv, env=env)
+
+    def alive(self):
+        return self._proc is not None and self._proc.poll() is None
+
+    def kill(self):
+        if self._proc is not None and self._proc.poll() is None:
+            self._proc.kill()
+            self._proc.wait()     # reaped: alive() is False from here on
+
+    def dispatch(self, specs):
+        lids = []
+        now = self._clock()
+        for spec in specs:
+            lid = next(self._lids)
+            self._outbox.append(dict(
+                key=lid,
+                prompt=np.asarray(spec["prompt"]).astype(int).tolist(),
+                tokens=[int(t) for t in spec["tokens"]],
+                max_new=int(spec["max_new"]),
+                eos_id=(None if spec["eos_id"] is None
+                        else int(spec["eos_id"])),
+                priority=int(spec["priority"]),
+                origin=spec.get("origin", "fleet"),
+                temperature=(None if spec.get("temperature") is None
+                             else float(spec["temperature"])),
+                top_k=(None if spec.get("top_k") is None
+                       else int(spec["top_k"])),
+                top_p=(None if spec.get("top_p") is None
+                       else float(spec["top_p"])),
+                seed=(None if spec.get("seed") is None
+                      else int(spec["seed"])),
+                deadline_in_s=(None if spec["deadline_t"] is None
+                               else spec["deadline_t"] - now),
+                submit_age_s=(0.0 if spec["submit_t"] is None
+                              else now - spec["submit_t"]),
+                first_token_age_s=(None if spec["first_token_t"] is None
+                                   else now - spec["first_token_t"]),
+                trace=spec.get("trace")))   # already a JSON-safe dict
+            lids.append(lid)
+        return lids
+
+    def cancel(self, rid):
+        return False                  # not carried over the wire
+
+    def _exchange(self, tag, payload):
+        gathered = _launch.host_allgather(
+            payload, 0, 2, self.exchange_dir, f"p{self.replica}.{tag}",
+            timeout=self.timeout_s, generation=self.generation,
+            ragged=True)
+        return gathered[1]
+
+    def step(self):
+        if not self.alive():
+            raise ReplicaDead(
+                f"subprocess replica {self.replica} exited "
+                f"rc={self._proc.returncode}")
+        cmd = {"op": "round", "submit": self._outbox}
+        seq = self._seq
+        try:
+            self._exchange(f"q{seq}", _pack(cmd))
+            resp = _unpack(self._exchange(f"r{seq}", _pack({})))
+        except TimeoutError as e:
+            raise ReplicaDead(
+                f"subprocess replica {self.replica} unresponsive: "
+                f"{e}") from e
+        self._seq += 1
+        self._outbox = []
+        now = self._clock()
+
+        def abs_t(age):
+            return None if age is None else now - age
+
+        for sub in resp.get("submitted", []):
+            self._rid_to_lid[sub["rid"]] = sub["key"]
+        report = {"finished": [], "inflight": [],
+                  "queued": int(resp.get("queued", 0)),
+                  "active": int(resp.get("active", 0))}
+        for fin in resp.get("finished", []):
+            lid = self._rid_to_lid.pop(fin["rid"], None)
+            if lid is None:
+                continue
+            report["finished"].append(dict(
+                rid=lid, status=fin["status"], reason=fin["reason"],
+                tokens=fin["tokens"], slo_ok=fin["slo_ok"],
+                first_token_t=abs_t(fin.get("first_token_age_s"))))
+        for inf in resp.get("inflight", []):
+            lid = self._rid_to_lid.get(inf["rid"])
+            if lid is None:
+                continue
+            report["inflight"].append(dict(
+                rid=lid, status=inf["status"], tokens=inf["tokens"],
+                first_token_t=abs_t(inf.get("first_token_age_s"))))
+        self._counts = (report["queued"], report["active"])
+        return report
+
+    def queued(self):
+        return self._counts[0] + len(self._outbox)
+
+    def load(self):
+        return self._counts[0] + self._counts[1] + len(self._outbox)
+
+    def telemetry(self):
+        return dict(alive=self.alive(), generation=self.generation,
+                    queued=self._counts[0], active=self._counts[1])
+
+    def close(self):
+        """Send ``stop`` (the worker finishes its round and returns
+        without a response) and wait for the child; kill it if it does
+        not exit within ``timeout_s``."""
+        if self.alive():
+            try:
+                self._exchange(f"q{self._seq}",
+                               _pack({"op": "stop", "submit": []}))
+                self._proc.wait(timeout=self.timeout_s)
+            except Exception:
+                self.kill()
+        self._proc = None
+
+
+def replica_worker_loop(engine, exchange_dir=None, replica=None,
+                        generation=None, timeout_s=60.0,
+                        clock=time.perf_counter):
+    """The child's side of :class:`SubprocessReplica`: gather one command
+    a round, ``adopt()`` its submissions and ``step()`` the engine, then
+    publish the response; return on ``stop`` without one. The arguments
+    default to the ``PT_FLEET_*`` environment the parent set, so a worker
+    script ends in ``replica_worker_loop(ServingEngine(...))``.
+    ``timeout_s`` bounds each wait for the router's next command."""
+    xdir = exchange_dir or os.environ["PT_FLEET_XDIR"]
+    rep = int(os.environ.get("PT_FLEET_REPLICA", 0)
+              if replica is None else replica)
+    gen = int(os.environ.get("PT_FLEET_GENERATION", 0)
+              if generation is None else generation)
+    engine.replica = rep          # stamped on every trace event
+    seq = 0
+    reported = set()
+    while True:
+        gathered = _launch.host_allgather(
+            _pack({}), 1, 2, xdir, f"p{rep}.q{seq}", timeout=timeout_s,
+            generation=gen, ragged=True)
+        cmd = _unpack(gathered[0])
+        now = clock()
+        submitted = []
+        for spec in cmd.get("submit", []):
+            rid = engine.adopt(
+                np.asarray(spec["prompt"], np.int32),
+                tokens=spec["tokens"], max_new=spec["max_new"],
+                eos_id=spec["eos_id"], priority=spec["priority"],
+                deadline_t=(None if spec["deadline_in_s"] is None
+                            else now + spec["deadline_in_s"]),
+                submit_t=now - spec["submit_age_s"],
+                first_token_t=(None if spec["first_token_age_s"] is None
+                               else now - spec["first_token_age_s"]),
+                origin=spec.get("origin", "fleet"),
+                temperature=spec.get("temperature"),
+                top_k=spec.get("top_k"), top_p=spec.get("top_p"),
+                seed=spec.get("seed"), trace=spec.get("trace"))
+            submitted.append({"key": spec["key"], "rid": rid})
+        if engine._queue or engine._running:
+            engine.step()
+        if cmd.get("op") == "stop":
+            return                # close() gathers no response: one
+            #                       published here would wait for a
+            #                       router file that never comes
+        fin = _newly_terminal(engine, reported)
+        now = clock()
+
+        def age(t):
+            return None if t is None else now - t
+
+        resp = {
+            "submitted": submitted,
+            "finished": [dict(rid=r.id, status=r.status,
+                              reason=r.retire_reason,
+                              tokens=list(r.tokens), slo_ok=r.slo_ok,
+                              first_token_age_s=age(r.first_token_t))
+                         for r in fin],
+            "inflight": [dict(rid=e["rid"], status=e["status"],
+                              tokens=e["tokens"],
+                              first_token_age_s=age(e["first_token_t"]))
+                         for e in engine.export_inflight()],
+            "queued": len(engine._queue),
+            "active": len(engine._running),
+        }
+        _launch.host_allgather(_pack(resp), 1, 2, xdir, f"p{rep}.r{seq}",
+                               timeout=timeout_s, generation=gen,
+                               ragged=True)
+        seq += 1
 
 
 class FleetRouter:
@@ -453,9 +732,10 @@ class FleetRouter:
             rec.top_p = top_p
             rec.seed = ((1_000_003 * rec.id + 12_345) & 0xFFFFFFFF
                         if seed is None else int(seed) & 0xFFFFFFFF)
-            # the durable context, minted once; every hop derives a child
-            # span of it
-            rec.trace_id = f"{self._trace_run}/{rec.id}"
+            if _SETTINGS["trace_fleet"]:
+                # the durable context, minted once; every hop derives a
+                # child span of it
+                rec.trace_id = f"{self._trace_run}/{rec.id}"
             rec.submit_t = self._clock()
             self.requests[rec.id] = rec
             _metrics.counter("serve.requests").inc(status="submitted")
@@ -831,13 +1111,15 @@ class FleetRouter:
             self._by_replica[(i, rid)] = rec.id
 
     def _spec_of(self, rec, origin="fleet"):
-        # hop0 = first dispatch, hop1 = the next (failover, handoff); the
-        # trace id never changes
-        trace = _trace.TraceContext(
-            rec.trace_id, span_id=f"hop{rec.next_span}",
-            parent_span_id="root" if rec.next_span == 0
-            else f"hop{rec.next_span - 1}").to_wire()
-        rec.next_span += 1
+        trace = None
+        if rec.trace_id is not None:
+            # hop0 = first dispatch, hop1 = the next (failover, handoff);
+            # the trace id never changes
+            trace = _trace.TraceContext(
+                rec.trace_id, span_id=f"hop{rec.next_span}",
+                parent_span_id="root" if rec.next_span == 0
+                else f"hop{rec.next_span - 1}").to_wire()
+            rec.next_span += 1
         max_new = rec.max_new
         if rec.reroutes:
             origin = "failover"

@@ -1319,3 +1319,71 @@ def test_background_save_copies_before_the_next_update(cuda, monkeypatch,
                 assert torch.equal(got[k], t), (step, k)
             want = {k: t.cpu() for k, t in state.items()}
         mgr.close()
+
+
+def _stall(stream, ms=50):
+    """Queue about ``ms`` of spinning on ``stream`` (at ~2 GHz), so work
+    queued behind it on that stream lands late."""
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(int(ms * 2e6))
+
+
+def test_staged_batch_is_ordered_before_its_first_use(cuda):
+    """A batch placed from another thread while the loader's copy stream
+    is stalled: the consumer's stream waits on the copy's event, so what
+    it reads is the host batch, and the batch's tensors were allocated on
+    the copy stream (the reason ``ready`` records their use on the
+    consumer's)."""
+    import threading
+    from paddle_tpu_torch.data.loader import DataLoader, Staged
+    loader = DataLoader(None)
+    host = (np.arange(4096, dtype=np.int32).reshape(4, 1024),
+            np.full((3, 5), 7.5, np.float32))
+    _stall(loader._stager._copy_stream())
+    box = {}
+    t = threading.Thread(target=lambda: box.update(p=loader.place(host)))
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    staged = box["p"]
+    assert isinstance(staged, Staged)
+    assert not loader._stager._copy_stream().query()     # the copies still queued
+    assert all(t.device.type == "cuda" for t in staged.batch)
+    ids, x = DataLoader.ready(staged)
+    got_ids, got_x = ids.clone(), x * 1.0      # queued on this stream
+    assert torch.equal(got_ids.cpu(), torch.from_numpy(host[0]))
+    assert torch.equal(got_x.cpu(), torch.from_numpy(host[1]))
+
+
+def test_submit_from_another_thread_stages_before_the_prefill(cuda):
+    """``submit`` from a client thread while the stager's copy stream is
+    stalled: the prefill on the stepping thread's stream waits for the
+    staged chunk (its event), so the engine's tokens equal an engine's
+    whose copies were not stalled, and every prefill read a staged
+    chunk."""
+    import threading
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    model = GPTDecoder(cfg, device="cuda", seed=7)
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, cfg.vocab_size, n) for n in (5, 30, 12, 20)]
+    kw = dict(num_slots=2, page_size=8, max_len=48, prefill_len=16)
+    calm = ServingEngine(model, ServeConfig(**kw))
+    rids = [calm.submit(p, max_new=8) for p in prompts]
+    calm.drain()
+    want = [calm.requests[r].tokens for r in rids]
+
+    eng = ServingEngine(model, ServeConfig(**kw))
+    _stall(eng._stager._copy_stream(), ms=200)
+    got = []
+    t = threading.Thread(target=lambda: got.extend(
+        eng.submit(p, max_new=8) for p in prompts))
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive() and len(got) == len(prompts)
+    assert not eng._stager._copy_stream().query()   # copies still queued
+    eng.drain()
+    assert [eng.requests[r].tokens for r in got] == want
+    assert eng.staged_prefills == eng.prefill_calls == calm.prefill_calls

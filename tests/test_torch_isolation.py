@@ -646,3 +646,76 @@ def test_fleet_router_needs_a_model():
     from paddle_tpu_torch.serving import FleetRouter
     with pytest.raises(EnforceError):
         FleetRouter()
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/launch.py", "data/loader.py", "serving/engine.py",
+    "serving/fleet.py", "core/retry.py"])
+def test_ast_scan_covers_the_process_fleet_modules(module):
+    path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+def test_chip_smoke_fleet_worker_imports_nothing_of_the_reference():
+    """chip_smoke.py's subprocess replica worker is chip_smoke.py itself
+    (``--fleet-worker``): the scan of the whole file covers it, and the
+    worker function's own imports name no blocked package."""
+    path = os.path.join(ROOT, "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    worker = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "fleet_worker"]
+    assert len(worker) == 1
+    roots = set()
+    for node in ast.walk(worker[0]):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "paddle_tpu_torch" in roots
+    assert not roots & set(BLOCKED)
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+_PROCESS_FLEET_BLOCKED = _SERVE_BLOCKED.split("cfg = GPTConfig.tiny()")[0] \
+    + r"""
+import tempfile, threading
+from paddle_tpu_torch.data import DataLoader
+from paddle_tpu_torch.parallel import launch
+from paddle_tpu_torch.serving import fleet
+cfg = GPTConfig.tiny()
+cfg.dropout = 0.0
+eng = ServingEngine(GPTDecoder(cfg, device="cpu"), ServeConfig(
+    num_slots=2, page_size=8, max_len=48, prefill_len=8))
+rs = np.random.RandomState(0)
+for n in (5, 20, 9):
+    eng.submit(rs.randint(0, 512, n), max_new=4)
+done = eng.drain()
+assert eng.staged_prefills == eng.prefill_calls == 6
+batches = list(DataLoader.from_generator(
+    lambda: ((np.full(3, i, np.float32),) for i in range(10)), 4,
+    shuffle=True, shuffle_buffer=4, device="cpu"))
+xdir = tempfile.mkdtemp()
+peer = threading.Thread(target=launch.host_allgather, args=(
+    fleet._pack({{"ok": 1}}), 1, 2, xdir, "t"), kwargs=dict(ragged=True))
+peer.start()
+got = launch.host_allgather(fleet._pack({{}}), 0, 2, xdir, "t",
+                            ragged=True)
+peer.join()
+assert fleet._unpack(got[1]) == {{"ok": 1}}
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("PROCESS FLEET PARTS", len(done), len(batches))
+"""
+
+
+def test_process_fleet_parts_run_with_reference_and_triton_blocked():
+    """Staged prompts, the DataLoader and the file all-gather with the
+    fleet's wire, in a process that cannot import jax."""
+    code = _PROCESS_FLEET_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "PROCESS FLEET PARTS 3 2" in proc.stdout

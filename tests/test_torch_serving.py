@@ -258,3 +258,68 @@ def test_unported_branches_raise():
     cfg.scan_layers = True
     with pytest.raises(EnforceError):
         GPTDecoder(cfg, device="cpu")
+
+
+@pytest.fixture
+def fast_retry(flags_guard):
+    """The JAX engine's recovery backoff in microseconds."""
+    set_flags({"retry_backoff_base_s": 0.001, "retry_jitter": 0.0})
+
+
+def test_staged_prompts_token_exact_vs_jax_through_preemption_and_recovery(
+        rng, fast_retry):
+    """Prompts are staged at submit as ceil(len / prefill_len) chunks and
+    every prefill call reads its chunk: through chunked prefill (prompts
+    up to 3 chunks), preemption at a pool of 5 pages and an injected
+    ``serve.step`` fault whose recovery restages each victim's prompt +
+    generated tokens, the greedy tokens equal the JAX engine's (which
+    stages too) under the same plan. Retirement drops the chunks."""
+    from paddle_tpu.serving import ServeConfig as JServe
+    from paddle_tpu.serving import ServingEngine as JEngine
+    from paddle_tpu.testing import chaos as jchaos
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    from paddle_tpu_torch.testing import chaos
+    jm, v, pm = _pair(seed=1)
+    kw = dict(num_slots=2, page_size=8, max_len=40, prefill_len=8,
+              num_pages=5, step_retries=3)
+    je = JEngine(jm, v, JServe(**kw))
+    pe = ServingEngine(pm, ServeConfig(**kw), sleep=lambda s: None)
+    staged = []
+    real_stage = pe._stage_chunks
+    pe._stage_chunks = lambda seq: (staged.append(np.array(seq)),
+                                    real_stage(seq))[1]
+    specs = [(19, 12), (11, 16), (5, 14), (22, 10)]
+    prompts = [rng.randint(0, 512, (n,)).astype(np.int32) for n, _ in specs]
+    for p, (_, mn) in zip(prompts, specs):
+        je.submit(p, max_new=mn)
+        pe.submit(p, max_new=mn)
+    assert [len(q) for q in staged] == [n for n, _ in specs]
+    assert [len(pe.requests[i].device_prompt) for i in range(4)] == \
+        [3, 2, 1, 3]
+    jplan = jchaos.FaultPlan(seed=0).fail("fault_point",
+                                          path=r"^serve\.step$", nth=30)
+    with jchaos.active(jplan):
+        je.drain()
+    plan = chaos.FaultPlan().fail("fault_point", path=r"^serve\.step$",
+                                  nth=30)
+    with chaos.active(plan):
+        pe.drain()
+    je.close()
+    assert plan.fired() == jplan.fired() == 1
+    assert pe.recoveries == je.recoveries == 1
+    assert pe.preemptions >= 1
+    assert pe.preemptions == sum(r.preemptions
+                                 for r in je.requests.values())
+    # each restage is a recovered request's prompt + the tokens it had
+    restaged = staged[len(specs):]
+    assert restaged
+    for seq in restaged:
+        owner = [r for r in pe.requests.values() if r.recoveries
+                 and len(seq) > r.prompt.size
+                 and np.array_equal(r.output[:len(seq)], seq)]
+        assert len(owner) == 1, seq
+    for rid in range(len(specs)):
+        got = pe.requests[rid]
+        np.testing.assert_array_equal(got.output, je.requests[rid].output)
+        assert got.status == "done" and got.device_prompt is None
+    assert pe.staged_prefills == pe.prefill_calls > len(specs)
