@@ -8,7 +8,8 @@ on one NVIDIA H100.
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --fleet-worker SPEC`` is the serve_fleet_proc
-phase's child replica, started by the script itself.)
+phase's child replica, and ``--export-worker SPEC`` the export phase's
+loader, both started by the script itself.)
 
 Phases, each printing one JSON line:
 
@@ -54,6 +55,22 @@ Phases, each printing one JSON line:
 5. crosscheck — two of those requests replayed teacher-forced on the
    card and on the CPU (plain path, f32 cache, same weights); logits must
    agree within the stated tolerance.
+5a. export — ``torch.library.opcheck`` of the ten kernels' ops (schema,
+   fake implementation against the real outputs, autograd registration,
+   AOT dispatch) at small shapes on every route each has; then a
+   GPTConfig.small() engine at the serve phase's width with 8 running
+   requests takes a live decode step and ``export_decode`` writes its
+   step; ``python3 chip_smoke.py --export-worker SPEC``, a fresh
+   interpreter that imports ``paddle_tpu_torch.io`` and no model code,
+   loads it and runs 16 steps (tokens fed back, lengths advanced on the
+   host), which must equal the engine's next 16 greedy tokens in every
+   slot and launch K1, K4 and K7 as often a step as the engine's steps
+   do (``launches_export``); ``compiled_decode()`` must hold one K7 op a
+   layer and ``compiled_verify()`` none (nor K2); a QAT-calibrated,
+   frozen ConvNet written by ``save_int8_inference_model`` and loaded
+   back must match the eager float twin over the frozen weights within
+   1e-6; and the op layer's host cost: K1 at [8, 768] a call through
+   its op and through its CUDA implementation called directly.
 6. serve_shared — the engine as the JAX engine serves by default: 4
    system prompts of 576 tokens (9 pages), each followed by 6 requests
    with unique suffixes of 16-192 tokens and 2 repeating it bare (32
@@ -316,6 +333,7 @@ import glob
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1548,6 +1566,335 @@ def sampling_ms(vocab, slots, iters=50):
 
 SHARED_COUNTERS = ("prefix_hits", "prefill_tokens_skipped", "cow_copies",
                    "evictions", "preemptions")
+
+
+#: the export phase: the loaded decode program's steps held token-exact
+#: against the engine's, the kernels whose launches it counts there, and
+#: the calls of the op layer's host-cost reading
+EXPORT_STEPS = 16
+EXPORT_KERNELS = ("layer_norm", "mlp", "decode_attention")
+OP_COST_CALLS = 2000
+
+
+def opcheck_cases(dev):
+    """``(op name, route, args)``: each of the ten ops at small shapes on
+    every route it has (K6 has one registered route, taken at f32 and at
+    bf16, whose plans differ), with the op's own argument order."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import xent
+    gen = torch.Generator().manual_seed(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def r(*shape, dtype=f32, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    cases = [
+        ("layer_norm", "row", (r(8, 768), r(768), r(768), 1e-5)),
+        ("layer_norm", "simt", (r(9, 771), r(771), r(771), 1e-5)),
+        ("add_layer_norm", "simt", (r(8, 768), r(8, 768), r(768), r(768),
+                                    1e-5)),
+        ("mlp", "simt", (r(8, 64), r(64, 256, scale=0.1), r(256),
+                         r(256, 64, scale=0.1), r(64))),
+        ("mlp", "tc", (r(128, 64, dtype=bf16),
+                       r(64, 256, dtype=bf16, scale=0.1), r(256, dtype=bf16),
+                       r(256, 64, dtype=bf16, scale=0.1), r(64, dtype=bf16)))]
+    for route, dtype, t in (("simt", f32, 64), ("tc", bf16, 128)):
+        q, k, v = (r(1, 2, t, 64, dtype=dtype) for _ in range(3))
+        mask = (torch.arange(t, device=dev) < t - 5)[None].contiguous()
+        cases.append(("flash_attention", route, (q, k, v, mask, 0.125, True)))
+        out, lse = fa.flash_attention_kernel(q, k, v, 0.125, True, mask)
+        do = r(1, 2, t, 64, dtype=dtype)
+        delta = (do.float() * out.float()).sum(-1)
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            cases.append((name, route, (q, k, v, do, lse, delta, mask, 0.125,
+                                        True)))
+    for route, dtype, n, vocab in (("simt", f32, 16, 1000),
+                                   ("tc", bf16, 128, 1024)):
+        h, w = r(n, 64, dtype=dtype), r(vocab, 64, dtype=dtype, scale=0.1)
+        b = r(vocab)
+        labels = torch.randint(0, vocab, (n,), generator=gen).to(dev)
+        cases.append(("xent_stats", route, (h, w, b, labels)))
+        m, s, _, _ = xent.xent_stats_kernel(h, w, b, labels)
+        logz = m + torch.log(s)
+        for name in ("xent_bwd_dh", "xent_bwd_dwb"):
+            cases.append((name, "simt", (h, w, b, labels, logz, r(n), 0.001,
+                                         0.9)))
+    for route, hd, pool in (("split", 64, f32), ("split", 64, torch.int8),
+                            ("simt", 12, f32)):
+        n_pages, ps = 24, 16
+        kp, vp = (r(n_pages, 2, ps, hd, scale=40.0).to(pool)
+                  for _ in range(2))
+        scales = ((r(n_pages, ps).abs() * 0.01, r(n_pages, ps).abs() * 0.01)
+                  if pool == torch.int8 else (None, None))
+        table = torch.randint(0, n_pages, (4, 6), generator=gen).to(
+            dev, torch.int32)
+        lengths = torch.tensor([1, 0, 50, 96], dtype=torch.int32, device=dev)
+        cases.append(("decode_attention", route,
+                      (r(4, 2, hd), kp, vp, table, lengths, 0.3, *scales)))
+    return cases
+
+
+def opcheck_ops(dev):
+    """``torch.library.opcheck`` (schema, fake implementation against the
+    real outputs, autograd registration, AOT dispatch with dynamic
+    shapes) of each case of :func:`opcheck_cases`; each must launch on
+    its route. Returns ``{op: [routes]}``."""
+    from paddle_tpu_torch.ops.cuda import core
+    checked = {}
+    for name, route, args in opcheck_cases(dev):
+        kernel = core.KERNELS[name]
+        before = dict(kernel.route_launches)
+        torch.library.opcheck(kernel.op, args)
+        grown = {r for r, n in kernel.route_launches.items()
+                 if n > before[r]}
+        if grown != {route}:
+            raise AssertionError(f"opcheck of {name}: launched on "
+                                 f"{sorted(grown)}, not {route}")
+        checked.setdefault(name, []).append(route)
+    torch.cuda.synchronize()
+    return checked
+
+
+def op_cost_us(dev):
+    """Host wall time per call of K1 at ``[8, 768]`` f32 through its op and
+    through its CUDA implementation called directly (the ctypes launch
+    the op wraps), in turn, twice: µs per call over
+    :data:`OP_COST_CALLS` calls, the card synchronized around each loop
+    (the kernel takes a few µs of device time, so the host sets the
+    rate)."""
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    gen = torch.Generator().manual_seed(12)
+    x, g, b = (torch.randn(*shape, generator=gen).to(dev)
+               for shape in ((8, 768), (768,), (768,)))
+
+    def per_call(fn):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(OP_COST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / OP_COST_CALLS * 1e6
+
+    op, direct = [], []
+    with torch.inference_mode():
+        for _ in range(2):
+            op.append(per_call(lambda: ln.layer_norm_kernel(x, g, b, 1e-5)))
+            direct.append(per_call(
+                lambda: ln._layer_norm_cuda(x, g, b, 1e-5)))
+    return dict(shape=[8, 768], dtype="float32", calls=OP_COST_CALLS,
+                op_us=op, direct_us=direct)
+
+
+def op_counts(ep):
+    """``{op: nodes}`` of the ``paddle_tpu_torch`` ops in a program's
+    graph."""
+    return dict(collections.Counter(
+        str(n.target).split(".")[1] for n in ep.graph.nodes
+        if str(n.target).startswith("paddle_tpu_torch.")))
+
+
+def int8_artifact(root):
+    """A QAT-calibrated, frozen ``ConvNet`` (the MNIST book model) written
+    by ``save_int8_inference_model`` and loaded back on the card: its
+    outputs against the eager float twin over the frozen weights."""
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.io import load_inference_model, read_params_bin
+    from paddle_tpu_torch.models.mnist import ConvNet
+    rs = np.random.RandomState(31)
+    batches = [torch.from_numpy(rs.rand(64, 1, 28, 28).astype(
+        np.float32)).cuda() for _ in range(4)]
+    qmodel = quant.quantize_model(ConvNet(device="cuda", seed=0),
+                                  quant.QuantConfig())
+    quant.freeze(quant.calibrate(qmodel, batches[:3]))
+    twin = ConvNet(device="cuda", seed=0)
+    twin.load_state_dict({k: v for k, v in qmodel.state_dict().items()
+                          if "input_quant" not in k})
+    path = quant.save_int8_inference_model(
+        os.path.join(root, "int8"), qmodel, (batches[3],), float_model=twin)
+    got = load_inference_model(path)(batches[3])
+    with torch.inference_mode():
+        want = twin(batches[3])
+    err = max_err(got, want)
+    check("int8 artifact vs the eager frozen model", err, 1e-6)
+    leaves = read_params_bin(os.path.join(path, "params.bin"))
+    return dict(model="ConvNet", batch=[64, 1, 28, 28], max_abs_err=err,
+                int8_leaves=sum(a.dtype == np.int8 for a in leaves),
+                params_bin_bytes=os.path.getsize(
+                    os.path.join(path, "params.bin")))
+
+
+def export_worker(spec_path):
+    """``python3 chip_smoke.py --export-worker SPEC``: the export phase's
+    fresh interpreter. It imports ``paddle_tpu_torch.io`` and no model
+    code, loads the exported decode step, its state (``params.bin``, in
+    the dtypes of ``signature.json``) and the live batch the parent saved
+    beside it, and runs the program for the spec's steps as a C++ loop
+    would: each step's tokens fed back, the host adding one to the length
+    of each active slot, the state outputs fed back as ``feedback``
+    pairs them. Writes the tokens, each step's wall ms and launch counts,
+    and the model modules it imported (none)."""
+    import paddle_tpu_torch.io as io
+    from paddle_tpu_torch.ops.cuda import core
+    with open(spec_path) as f:
+        spec = json.load(f)
+    path = spec["path"]
+    with open(os.path.join(path, "signature.json")) as f:
+        sig = json.load(f)
+    prog = io.load_program(path, device="cuda")
+    state = [torch.from_numpy(np.array(a)).to("cuda", getattr(torch,
+                                                              s["dtype"]))
+             for a, s in zip(io.read_params_bin(
+                 os.path.join(path, "params.bin")), sig["params"])]
+    batch = np.load(os.path.join(path, "batch.npz"))
+    tok = torch.from_numpy(batch["tokens"]).cuda()
+    table = torch.from_numpy(batch["table"]).cuda()
+    active = torch.from_numpy(batch["active"]).cuda()
+    lengths, step_on = batch["lengths"].copy(), batch["active"].astype(
+        batch["lengths"].dtype)
+    tokens, step_ms, launches = [], [], []
+    for _ in range(spec["steps"]):
+        core.reset_launches()
+        t = time.perf_counter()
+        out = prog(*state, tok, table, torch.from_numpy(lengths).cuda(),
+                   active)
+        tok = out[0]
+        tokens.append(tok.cpu().tolist())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(core.launch_counts())
+        for o, i in sig["feedback"]:
+            state[i] = out[o]
+        lengths = lengths + step_on
+    models = sorted(m for m in sys.modules
+                    if m.split(".")[:2] in (["paddle_tpu_torch", "models"],
+                                            ["paddle_tpu_torch", "nn"],
+                                            ["paddle_tpu_torch", "serving"]))
+    with open(spec["out"], "w") as f:
+        json.dump(dict(tokens=tokens, step_ms=step_ms, launches=launches,
+                       model_modules=models), f)
+    return 0
+
+
+def export_phase(model, serve_kw, smi, serve_p50_step_ms):
+    """The export phase (see the module docstring): opcheck of the ten
+    ops, ``export_decode`` of a live GPTConfig.small() engine loaded and
+    run in a fresh interpreter token-exact against the engine's next
+    :data:`EXPORT_STEPS` steps, the launches of both, the ops of
+    ``compiled_decode()`` and ``compiled_verify()``, the int8 artifact
+    and the op layer's host cost. Returns (line, the loaded program's
+    launches over its steps)."""
+    import tempfile
+
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    checked = opcheck_ops(dev)
+    opcheck_s = time.perf_counter() - t0
+    cfg = model.cfg
+    ps = serve_kw["page_size"]
+    eng = ServingEngine(model, ServeConfig(**serve_kw))
+    rs = np.random.RandomState(21)
+    # every slot's next EXPORT_STEPS positions stay inside its last page
+    lens = [int(ps * rs.randint(1, 7) + rs.randint(1, ps - EXPORT_STEPS - 3))
+            for _ in range(serve_kw["num_slots"])]
+    for n in lens:
+        eng.submit(rs.randint(0, cfg.vocab_size, n).astype(np.int32),
+                   max_new=EXPORT_STEPS + 8)
+    while eng._queue:
+        eng.step()
+    eng.step()                                  # a live decode step
+    torch.cuda.synchronize()
+    root = tempfile.mkdtemp(prefix="export_phase_")
+    snap = dict(tokens=eng._last_tokens.copy(), table=eng._page_table.copy(),
+                lengths=eng._lengths.copy(), active=eng._active.copy())
+    t1 = time.perf_counter()
+    path = eng.export_decode(os.path.join(root, "decode"))
+    export_s = time.perf_counter() - t1
+    np.savez(os.path.join(path, "batch.npz"), **snap)
+    before = {slot: len(req.tokens) for slot, req in eng._running.items()}
+    core.reset_launches()
+    eng_ms = []
+    for _ in range(EXPORT_STEPS):
+        s0 = time.perf_counter()
+        eng.step()
+        eng_ms.append((time.perf_counter() - s0) * 1e3)
+    torch.cuda.synchronize()
+    eng_launches = core.launch_counts()
+    if not np.array_equal(eng._page_table, snap["table"]):
+        raise AssertionError("export: the engine took a page in the window")
+    reference = {slot: req.tokens[before[slot]:before[slot] + EXPORT_STEPS]
+                 for slot, req in eng._running.items()}
+    spec_path = os.path.join(root, "worker_spec.json")
+    out_path = os.path.join(root, "worker.json")
+    with open(spec_path, "w") as f:
+        json.dump(dict(path=path, steps=EXPORT_STEPS, out=out_path), f)
+    t2 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--export-worker", spec_path],
+                          capture_output=True, text=True, timeout=600)
+    worker_s = time.perf_counter() - t2
+    if proc.returncode != 0:
+        raise AssertionError(f"export worker exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(out_path) as f:
+        res = json.load(f)
+    if res["model_modules"]:
+        raise AssertionError(f"export worker imported model code: "
+                             f"{res['model_modules']}")
+    loaded = np.asarray(res["tokens"])                      # [steps, S]
+    for slot, want in reference.items():
+        if loaded[:, slot].tolist() != want:
+            raise AssertionError(f"export: slot {slot} loaded tokens "
+                                 f"{loaded[:, slot].tolist()} != engine "
+                                 f"{want}")
+    per_step = {k: eng_launches[k] / EXPORT_STEPS for k in EXPORT_KERNELS}
+    for i, counts in enumerate(res["launches"]):
+        for k in EXPORT_KERNELS:
+            if counts[k] == 0 or counts[k] != per_step[k]:
+                raise AssertionError(f"export: loaded step {i} launched {k} "
+                                     f"{counts[k]} times, the engine "
+                                     f"{per_step[k]} a step")
+    loaded_launches = {k: sum(c[k] for c in res["launches"])
+                       for k in core.KERNELS}
+    t3 = time.perf_counter()
+    decode_ops = op_counts(eng.compiled_decode())
+    spec_eng = ServingEngine(model, ServeConfig(**serve_kw, draft=True,
+                                                spec_k=3))
+    verify_ops = op_counts(spec_eng.compiled_verify())
+    compile_s = time.perf_counter() - t3
+    del spec_eng
+    if decode_ops.get("decode_attention") != cfg.num_layers:
+        raise AssertionError(f"compiled_decode holds {decode_ops}: not one "
+                             "decode_attention op a layer")
+    if "decode_attention" in verify_ops or "flash_attention" in verify_ops:
+        raise AssertionError(f"compiled_verify holds {verify_ops}")
+    del eng
+    torch.cuda.empty_cache()
+    int8 = int8_artifact(root)
+    cost = op_cost_us(dev)
+    torch.cuda.synchronize()
+    line = dict(
+        phase="export", config="GPTConfig.small()",
+        **{k: v for k, v in serve_kw.items() if k != "cache_dtype"},
+        cache_dtype="bfloat16", opcheck=checked, opcheck_s=opcheck_s,
+        export_s=export_s, artifact_bytes={
+            f: os.path.getsize(os.path.join(path, f))
+            for f in sorted(os.listdir(path))},
+        steps=EXPORT_STEPS, slots_token_exact=len(reference),
+        loaded_step_ms=res["step_ms"],
+        loaded_p50_step_ms=float(np.median(res["step_ms"][1:])),
+        engine_step_ms=eng_ms,
+        engine_p50_step_ms=float(np.median(eng_ms)),
+        serve_p50_step_ms=serve_p50_step_ms,
+        launches_per_step={"loaded": res["launches"][-1],
+                           "engine": per_step},
+        worker_s=worker_s, compiled_decode_ops=decode_ops,
+        compiled_verify_ops=verify_ops, compile_s=compile_s, int8=int8,
+        op_cost=cost, seconds=time.perf_counter() - t0, card=smi)
+    shutil.rmtree(root, ignore_errors=True)
+    return line, loaded_launches
 
 
 def serve_shared_phase(model, cpu_model, serve_kw, smi):
@@ -5021,7 +5368,7 @@ LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
                 "transformer", "resnet", "trainer_resnet", "ctr",
                 "gpt_decode",
                 "gpt_decode_int8", "serve_int8", "serve_fleet",
-                "serve_fleet_proc", "moe_train",
+                "serve_fleet_proc", "moe_train", "export",
                 "scan_nothing", "scan_dots_saveable", "scan_full")
 
 #: the kernels with a row per route in the kernels line
@@ -5179,6 +5526,10 @@ def main():
     torch.cuda.synchronize()
     emit(dict(phase="crosscheck", rows=rows))
 
+    export_line, export_launches = export_phase(model, serve_kw, smi,
+                                                stats["p50_step_ms"])
+    emit(export_line)
+
     shared_line, _ = serve_shared_phase(model, cpu_model, serve_kw, smi)
     emit(shared_line)
 
@@ -5318,7 +5669,7 @@ def main():
         "ctr": ctr_launches, "gpt_decode": decode_launches,
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
         "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,
-        "moe_train": moe_launches,
+        "moe_train": moe_launches, "export": export_launches,
         **{f"scan_{p}": n for p, n in scan_launches.items()}})
     emit({"kernels": table})
     print(smi, flush=True)
@@ -5330,4 +5681,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-worker"]:
         sys.exit(fleet_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--export-worker"]:
+        sys.exit(export_worker(sys.argv[2]))
     sys.exit(main())

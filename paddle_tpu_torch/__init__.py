@@ -13,19 +13,40 @@ NMT Transformer and the attention seq2seq (translation), ResNet, VGG and
 SE-ResNeXt (image classification), the MNIST book models, DeepFM and
 Wide&Deep (CTR, with the sparse-row tables of ``parallel/``), the
 recommender and word2vec's N-gram LM.
+
+The package imports its modules on first use (PEP 562): ``import
+paddle_tpu_torch.io`` loads the export and checkpoint modules and the
+kernels' ops, and no model code, so a process that only runs an
+exported program stays that small.
 """
 
-from paddle_tpu_torch.models import (GPT, MLP, VGG,  # noqa: F401
-                                     AttentionSeq2Seq, BertConfig,
-                                     BertForPretraining, ConvNet, CTRConfig,
-                                     DeepFM, ErnieConfig, ErnieForPretraining,
-                                     GPTConfig, GPTDecoder, LinearRegression,
-                                     RecConfig, RecommenderNet, ResNet,
-                                     SEResNeXt, Seq2SeqConfig,
-                                     SoftmaxRegression, Transformer,
-                                     TransformerConfig, WideAndDeep, Word2Vec,
-                                     ctr_loss, make_sparse_deepfm_train_step,
-                                     resnet18, resnet50, se_resnext50, vgg16)
-from paddle_tpu_torch.parallel import (FeatureTable,  # noqa: F401
-                                       HostTable, ShardedHostTable,
-                                       SparseTable)
+import importlib
+
+#: the names the package exports, by the module that defines them
+_EXPORTS = {
+    "paddle_tpu_torch.models": (
+        "GPT", "MLP", "VGG", "AttentionSeq2Seq", "BertConfig",
+        "BertForPretraining", "ConvNet", "CTRConfig", "DeepFM",
+        "ErnieConfig", "ErnieForPretraining", "GPTConfig", "GPTDecoder",
+        "LinearRegression", "RecConfig", "RecommenderNet", "ResNet",
+        "SEResNeXt", "Seq2SeqConfig", "SoftmaxRegression", "Transformer",
+        "TransformerConfig", "WideAndDeep", "Word2Vec", "ctr_loss",
+        "make_sparse_deepfm_train_step", "resnet18", "resnet50",
+        "se_resnext50", "vgg16"),
+    "paddle_tpu_torch.parallel": (
+        "FeatureTable", "HostTable", "ShardedHostTable", "SparseTable"),
+}
+_WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name):
+    if name in _WHERE:
+        return getattr(importlib.import_module(_WHERE[name]), name)
+    try:
+        return importlib.import_module(f"{__name__}.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{__name__}.{name}":
+            raise
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}") from None

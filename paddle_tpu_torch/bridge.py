@@ -162,6 +162,14 @@ def export_params(model):
                  for name, p in model.named_parameters())
 
 
+def param_tree(model):
+    """The model's parameters themselves (tensors, not copies) as the JAX
+    package's nested param tree, laid out as :func:`export_params` lays
+    it out: the tree ``io.save_inference_model`` flattens in the JAX
+    package's order."""
+    return _nest(model.named_parameters())
+
+
 def load_state(model, state):
     """Copy the JAX package's ``"state"`` collection (``variables["state"]``:
     batch norm's ``mean`` and ``variance``, numpy leaves) into ``model``'s

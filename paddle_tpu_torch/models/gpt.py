@@ -355,18 +355,21 @@ class GPTDecoder(GPT):
         return pnn.tied_vocab_head(self.tok_emb, x_last), caches
 
     def _paged_chunk_hidden(self, prompt, starts, chunk_lengths, caches,
-                            page_rows, write_floor=None):
+                            page_rows, write_floor=None, chunked=None):
         """Run the window through every block; returns the post-``ln_f``
         hidden states ``[B, Lp, H]`` and the caches. Positions outside the
         chunk, and below ``write_floor``, write to page ``num_pages``,
-        which drops them."""
+        which drops them. ``chunked`` (``B`` host bools: each row's
+        branch, continuation where True) is read from ``starts`` on the
+        host when None."""
         dev = self.device
         enforce(prompt.device == dev, f"prompt on {prompt.device}, model "
                 f"on {dev}")
         b, lp = prompt.shape
         num_pages, _, page_size, _ = caches[0]["k"].shape
         p_max = page_rows.shape[1]
-        chunked = starts.cpu() > 0
+        if chunked is None:
+            chunked = starts.cpu() > 0
         # non-blocking: from pinned memory the copy does not wait for the
         # work queued before it (a blocking copy synchronizes the stream)
         starts = starts.to(dev, non_blocking=True).long()
@@ -390,7 +393,7 @@ class GPTDecoder(GPT):
         return self.ln_f(x), caches
 
     def paged_verify_chunk(self, window, starts, win_lengths, caches,
-                           page_rows):
+                           page_rows, chunked=None):
         """Speculative-decoding verify (ref: ``models/gpt.py:371``): score
         every position of a ``[B, W]`` token window at absolute positions
         ``starts[b] .. starts[b] + win_lengths[b] - 1`` against the paged
@@ -399,11 +402,13 @@ class GPTDecoder(GPT):
         slot's whole cached prefix plus the window, causally). The
         window's K/V is written into the slot's pages; rejecting a
         proposal is the caller's length edit. ``starts`` is read on the
-        host. Returns (hidden ``[B, W, H]``, caches); the caller applies
-        :meth:`verify_head` one position at a time, so no ``[B, W, V]``
-        logits exist."""
+        host, unless ``chunked`` (``B`` host bools) gives each row's
+        branch: a traced verify passes it, since a host read of a traced
+        tensor has no value. Returns (hidden ``[B, W, H]``, caches); the
+        caller applies :meth:`verify_head` one position at a time, so no
+        ``[B, W, V]`` logits exist."""
         return self._paged_chunk_hidden(window, starts, win_lengths, caches,
-                                        page_rows)
+                                        page_rows, chunked=chunked)
 
     def verify_head(self, hidden_row):
         """Vocab logits of one window position: ``[B, H] -> [B, V]`` (the

@@ -194,7 +194,8 @@ def _drop_redirect(page_ids, offsets, num_pages):
     ``src[i]``."""
     keep = (page_ids >= 0) & (page_ids < num_pages)
     first = torch.argmax(keep.to(torch.int32))
-    any_kept = keep[first]
+    # not keep[first]: a 0-d index tensor is read on the host
+    any_kept = keep.any()
     idx = torch.arange(page_ids.shape[0], device=page_ids.device)
     src = torch.where(keep, idx, first)
     pages = torch.where(any_kept, page_ids[src], torch.zeros_like(page_ids))

@@ -14,12 +14,27 @@ JAX package's single ``pl.pallas_call`` site. It owns:
 * the launch check: every C entry returns ``cudaGetLastError()`` and
   :class:`Kernel` raises when it is not 0;
 * a plain-integer launch count per kernel (:attr:`Kernel.launches`);
+* the op layer (:func:`define_op`): every kernel is the ``torch.library``
+  op ``torch.ops.paddle_tpu_torch.<name>``, defined with
+  ``Library.define``/``impl`` for the CUDA key and a fake (meta)
+  implementation, so that ``torch.export`` and ``make_fx`` trace the card
+  path (on fake CUDA tensors where there is no card) and a loaded program
+  calls the same kernels. The op's CUDA implementation is the only caller
+  of :class:`Kernel`: it holds everything that needs real memory or a
+  real device (pointers, alignment, the SM count, route plans, scratch),
+  and the launch counts are taken there, so a loaded program's launches
+  count too. Its schema mutates no argument. ``Library`` rather than
+  ``torch.library.custom_op``: both trace and export alike, and the
+  ``Library`` op costs less host time a call (``PERF.md``,
+  ``tools/torch_op_overhead.py``);
 * the device rule (:func:`on_card`): tensors on the CPU take the kernel's
   plain PyTorch version, tensors on a CUDA device take the kernel, and
   anything else raises, but for tensors on the ``meta`` device inside
   :func:`shapes_only` (no data: the plain version's shapes and products,
-  which ``observability/perf.py cost_flops`` counts). There is no flag and no fallback: a kernel that
-  fails on the card raises.
+  which ``observability/perf.py cost_flops`` counts; the ops' fake
+  implementations give shapes but no products, since
+  ``FlopCounterMode`` has no formula for an op of this package). There
+  is no flag and no fallback: a kernel that fails on the card raises.
 
 The online-softmax (m, l, acc) combiner of ``core.py:220-269`` lives in
 device code, in the kernels themselves (``csrc/flash_attention.cu``;
@@ -55,6 +70,10 @@ MAX_SMEM = 232448
 _lib = None
 _lib_lock = threading.Lock()
 _TLS = threading.local()
+
+#: the ops' namespace: ``torch.ops.paddle_tpu_torch.<kernel name>``
+OP_NAMESPACE = "paddle_tpu_torch"
+_OPS = torch.library.Library(OP_NAMESPACE, "DEF")
 
 
 def _nvcc():
@@ -165,6 +184,9 @@ class Kernel:
         self.launches = 0
         self.route_launches = dict.fromkeys(self.routes, 0)
         self._fns = {}
+        #: the kernel's op (``torch.ops.paddle_tpu_torch.<name>.default``),
+        #: set by :func:`define_op`
+        self.op = None
 
     def _entry(self, route):
         if route not in self._fns:
@@ -201,6 +223,24 @@ def register(name, symbol, argtypes, replaces, source, routes=None,
                     replaces, source, route_sources)
     KERNELS[name] = kernel
     return kernel
+
+
+def define_op(kernel, schema, cuda, fake):
+    """Define ``kernel`` as the op ``paddle_tpu_torch::<kernel.name>``
+    with ``schema`` (the argument list and the returns, e.g. ``"(Tensor
+    x, float eps) -> Tensor"``): ``cuda`` is its implementation for CUDA
+    tensors (the one caller of the kernel's entries), ``fake`` its fake
+    implementation, which returns outputs of the shapes and dtypes
+    ``cuda`` returns, without data. No implementation is registered for
+    the CPU: the wrappers take the plain versions there (the device rule).
+    Returns the op's default overload, also kept as ``kernel.op``."""
+    _OPS.define(kernel.name + schema)
+    _OPS.impl(kernel.name, cuda, "CUDA")
+    torch.library.register_fake(f"{OP_NAMESPACE}::{kernel.name}", fake,
+                                lib=_OPS)
+    kernel.op = getattr(getattr(torch.ops, OP_NAMESPACE),
+                        kernel.name).default
+    return kernel.op
 
 
 def reset_launches():
@@ -242,7 +282,9 @@ def shapes_only():
 def on_card(*tensors):
     """The device rule. False when every tensor lies on the CPU (the
     caller runs the plain PyTorch version), True when every tensor lies
-    on one CUDA device (the caller launches the kernel); raises for
+    on one CUDA device, real or fake (the caller calls the kernel's op:
+    a fake CUDA tensor, as ``torch.export`` traces with where there is no
+    card, reaches its fake implementation); raises for
     anything else, such as a mix of devices, or the ``meta`` device
     outside :func:`shapes_only`. ``None`` entries are skipped."""
     devs = {t.device for t in tensors if t is not None}

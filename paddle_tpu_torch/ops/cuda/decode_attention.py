@@ -27,6 +27,13 @@ Two routes, chosen by :func:`decode_route` from the head dim alone:
 The plain version is the reference's ``_paged_attention_xla``
 (``ops/attention.py:190``): it gathers every table page densely and masks
 by length.
+
+On the card the kernel is reached through its op,
+``torch.ops.paddle_tpu_torch.decode_attention`` (``core.define_op``),
+with the int8 pools' scales as ``Tensor?``. The route, the split plan
+(which reads the SM count), the 16-byte checks of the pools, the split
+workspace and the tickets all live inside the op, so a traced program
+holds one op per layer and nothing of the plan.
 """
 
 import math
@@ -131,11 +138,10 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, scale,
     return out.to(q.dtype)
 
 
-def paged_decode_kernel(q, k_pages, v_pages, page_table, lengths, scale,
-                        k_scale=None, v_scale=None):
-    """Launch K7 on CUDA tensors -> ``[S, H, hd]`` f32, on the route
-    :func:`decode_route` picks. q is f32; pools are f32, bf16, or int8
-    with both scales."""
+def _decode_cuda(q, k_pages, v_pages, page_table, lengths, scale,
+                 k_scale, v_scale):
+    """K7's op on CUDA tensors: one launch on the route
+    :func:`decode_route` picks."""
     if q.dtype != torch.float32:
         raise TypeError(f"decode kernel: q must be float32, got {q.dtype}")
     code = core.dtype_code(k_pages,
@@ -197,6 +203,22 @@ def paged_decode_kernel(q, k_pages, v_pages, page_table, lengths, scale,
            core.ptr(lens), core.ptr(out), s_slots, n, h, ps, hd, pmax,
            float(scale), core.stream(q))
     return out
+
+
+DECODE_OP = core.define_op(
+    KERNEL, "(Tensor q, Tensor k_pages, Tensor v_pages, Tensor page_table, "
+    "Tensor lengths, float scale, Tensor? k_scale, Tensor? v_scale) -> "
+    "Tensor", _decode_cuda,
+    lambda q, k_pages, v_pages, page_table, lengths, scale, k_scale,
+    v_scale: torch.empty_like(q))
+
+
+def paged_decode_kernel(q, k_pages, v_pages, page_table, lengths, scale,
+                        k_scale=None, v_scale=None):
+    """K7 on CUDA tensors, through its op -> ``[S, H, hd]`` f32. q is f32;
+    pools are f32, bf16, or int8 with both scales."""
+    return DECODE_OP(q, k_pages, v_pages, page_table, lengths, float(scale),
+                     k_scale, v_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,

@@ -32,6 +32,13 @@ rules: bottom-right causal offset ``tk - tq``, key-padding mask, fully
 masked rows exactly 0) and ``_flash_attention_bwd_tpu``'s math for the
 backward. :class:`FlashAttentionFunction` pairs K2 and K3 (or the two
 plain versions on CPU tensors) as one differentiable op.
+
+On the card the three kernels are reached through their ops
+(``core.define_op``): ``torch.ops.paddle_tpu_torch.flash_attention``
+returns ``(out, lse)``, ``.flash_attention_bwd_dq`` dq and
+``.flash_attention_bwd_dkv`` ``(dk, dv)``. The ops take the key mask as
+``Tensor?``; the copies TMA's alignment needs, the int32 mask and the
+launch happen inside them.
 """
 
 import math
@@ -149,9 +156,9 @@ def chunked_attention(q, k, v, scale=None, causal=False, kv_mask=None,
     return out
 
 
-def flash_attention_kernel(q, k, v, scale, causal=False, kv_mask=None):
-    """Launch K2 on CUDA tensors -> ``(out [B, H, Tq, D], lse
-    [B, H, Tq] f32)``."""
+def _flash_fwd_cuda(q, k, v, kv_mask, scale, causal):
+    """K2's op on CUDA tensors: one launch on the route
+    :func:`flash_route` picks."""
     b, h, tq, tk, d, code = _check_qkv(q, k, v, kv_mask, "flash kernel")
     core.require_contiguous(q=q, k=k, v=v)
     mask = (kv_mask.to(torch.int32).contiguous() if kv_mask is not None
@@ -169,6 +176,20 @@ def flash_attention_kernel(q, k, v, scale, causal=False, kv_mask=None):
             core.ptr(mask), core.ptr(out), core.ptr(lse), b, h, tq, tk, d,
             float(scale), int(bool(causal)), core.stream(q))
     return out, lse
+
+
+FLASH_OP = core.define_op(
+    KERNEL, "(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, float scale, "
+    "bool causal) -> (Tensor, Tensor)", _flash_fwd_cuda,
+    lambda q, k, v, kv_mask, scale, causal: (
+        torch.empty_like(q),
+        q.new_empty(q.shape[:3], dtype=torch.float32)))
+
+
+def flash_attention_kernel(q, k, v, scale, causal=False, kv_mask=None):
+    """K2 on CUDA tensors, through its op -> ``(out [B, H, Tq, D], lse
+    [B, H, Tq] f32)``."""
+    return FLASH_OP(q, k, v, kv_mask, float(scale), bool(causal))
 
 
 def _check_qkv(q, k, v, kv_mask, what):
@@ -248,10 +269,8 @@ def _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask, scale):
     return code, route, ptrs, dims, operands
 
 
-def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
-                                  causal=False, kv_mask=None):
-    """Launch K3's dq kernel on CUDA tensors -> dq like q. ``delta`` is
-    ``rowsum(dO * O)`` ``[B, H, Tq]`` f32."""
+def _flash_dq_cuda(q, k, v, do, lse, delta, kv_mask, scale, causal):
+    """K3's dq op on CUDA tensors: one launch."""
     code, route, ptrs, dims, operands = _bwd_setup(
         q, k, v, do, lse, delta, causal, kv_mask, scale)
     dq = torch.empty_like(q)
@@ -262,9 +281,8 @@ def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
     return dq
 
 
-def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, scale,
-                                   causal=False, kv_mask=None):
-    """Launch K3's dk/dv kernel on CUDA tensors -> ``(dk, dv)`` like k."""
+def _flash_dkv_cuda(q, k, v, do, lse, delta, kv_mask, scale, causal):
+    """K3's dk/dv op on CUDA tensors: one launch."""
     code, route, ptrs, dims, operands = _bwd_setup(
         q, k, v, do, lse, delta, causal, kv_mask, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -274,6 +292,34 @@ def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, scale,
             *dims)
     del operands                     # enqueued: stream order protects them
     return dk, dv
+
+
+_BWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+               "Tensor delta, Tensor? kv_mask, float scale, bool causal)")
+FLASH_DQ_OP = core.define_op(
+    KERNEL_BWD_DQ, _BWD_SCHEMA + " -> Tensor", _flash_dq_cuda,
+    lambda q, k, v, do, lse, delta, kv_mask, scale, causal:
+    torch.empty_like(q))
+FLASH_DKV_OP = core.define_op(
+    KERNEL_BWD_DKV, _BWD_SCHEMA + " -> (Tensor, Tensor)", _flash_dkv_cuda,
+    lambda q, k, v, do, lse, delta, kv_mask, scale, causal:
+    (torch.empty_like(k), torch.empty_like(v)))
+
+
+def flash_attention_bwd_dq_kernel(q, k, v, do, lse, delta, scale,
+                                  causal=False, kv_mask=None):
+    """K3's dq kernel on CUDA tensors, through its op -> dq like q.
+    ``delta`` is ``rowsum(dO * O)`` ``[B, H, Tq]`` f32."""
+    return FLASH_DQ_OP(q, k, v, do, lse, delta, kv_mask, float(scale),
+                       bool(causal))
+
+
+def flash_attention_bwd_dkv_kernel(q, k, v, do, lse, delta, scale,
+                                   causal=False, kv_mask=None):
+    """K3's dk/dv kernel on CUDA tensors, through its op -> ``(dk, dv)``
+    like k."""
+    return FLASH_DKV_OP(q, k, v, do, lse, delta, kv_mask, float(scale),
+                        bool(causal))
 
 
 def flash_attention_bwd_kernel(q, k, v, out, lse, do, scale, causal=False,

@@ -27,6 +27,14 @@ as the Pallas kernel does (``:175-188``), and rounds no f32 operand.
 The backwards are the reference's ``_ln_bwd`` (:131) and ``_aln_bwd``
 (:245) in plain torch, from the saved mean and rstd: the JAX package has
 no backward kernel for layer norm, so neither has the port.
+
+On the card both kernels are reached through their ops,
+``torch.ops.paddle_tpu_torch.layer_norm`` and ``.add_layer_norm``
+(``core.define_op``), which return ``(y, mean, rstd)`` as the plain
+versions do. The gradients stay with :class:`LayerNormFunction` and
+:class:`AddLayerNormFunction` around the ops, as the reference's
+custom_vjps are: ``make_fx`` records their backward ops and
+``torch.export`` inlines their forward.
 """
 
 import torch
@@ -76,9 +84,16 @@ def layer_norm_plain(x2d, gamma, beta, epsilon):
     return y.to(x2d.dtype), m, r
 
 
-def layer_norm_kernel(x2d, gamma, beta, epsilon):
-    """Launch K1 on CUDA tensors, on the route :func:`ln_route` picks;
-    same outputs as the plain version."""
+def _stats_like(x2d):
+    """The fake outputs of K1 and K8: ``y`` like ``x2d``, mean and rstd
+    ``[R, 1]`` f32."""
+    stat = x2d.new_empty((x2d.shape[0], 1), dtype=torch.float32)
+    return torch.empty_like(x2d), stat, torch.empty_like(stat)
+
+
+def _layer_norm_cuda(x2d, gamma, beta, epsilon):
+    """K1's op on CUDA tensors: launch on the route :func:`ln_route`
+    picks."""
     code = core.dtype_code(x2d, (torch.float32, torch.bfloat16))
     if gamma.dtype != x2d.dtype or beta.dtype != x2d.dtype:
         raise TypeError("layer_norm kernel: scale and bias must have x's "
@@ -102,6 +117,18 @@ def layer_norm_kernel(x2d, gamma, beta, epsilon):
            core.ptr(y), core.ptr(mean), core.ptr(rstd), r_, c_,
            float(epsilon), core.stream(x2d), route=route)
     return y, mean, rstd
+
+
+LAYER_NORM_OP = core.define_op(
+    KERNEL, "(Tensor x, Tensor gamma, Tensor beta, float epsilon) -> "
+    "(Tensor, Tensor, Tensor)", _layer_norm_cuda,
+    lambda x2d, gamma, beta, epsilon: _stats_like(x2d))
+
+
+def layer_norm_kernel(x2d, gamma, beta, epsilon):
+    """K1 on CUDA tensors, through its op; same outputs as the plain
+    version."""
+    return LAYER_NORM_OP(x2d, gamma, beta, float(epsilon))
 
 
 def layer_norm_rows(x2d, gamma, beta, epsilon=1e-5):
@@ -186,8 +213,8 @@ def add_layer_norm_plain(x2d, h2d, gamma, beta, epsilon):
     return y.to(x2d.dtype), m, r
 
 
-def add_layer_norm_kernel(x2d, h2d, gamma, beta, epsilon):
-    """Launch K8 on CUDA tensors; same outputs as the plain version. x and
+def _add_layer_norm_cuda(x2d, h2d, gamma, beta, epsilon):
+    """K8's op on CUDA tensors: one launch. x and
     h share one dtype (f32 or bf16), and so do scale and bias (f32 or
     bf16, either beside either row type: the bf16 policy's Transformer
     normalizes f32 rows with bf16 parameters); the rows must fit one
@@ -221,6 +248,18 @@ def add_layer_norm_kernel(x2d, h2d, gamma, beta, epsilon):
                core.ptr(beta), core.ptr(y), core.ptr(mean), core.ptr(rstd),
                r_, c_, float(epsilon), core.stream(x2d))
     return y, mean, rstd
+
+
+ADD_LAYER_NORM_OP = core.define_op(
+    KERNEL_ADD, "(Tensor x, Tensor h, Tensor gamma, Tensor beta, "
+    "float epsilon) -> (Tensor, Tensor, Tensor)", _add_layer_norm_cuda,
+    lambda x2d, h2d, gamma, beta, epsilon: _stats_like(x2d))
+
+
+def add_layer_norm_kernel(x2d, h2d, gamma, beta, epsilon):
+    """K8 on CUDA tensors, through its op; same outputs as the plain
+    version."""
+    return ADD_LAYER_NORM_OP(x2d, h2d, gamma, beta, float(epsilon))
 
 
 def add_layer_norm_rows(x2d, h2d, gamma, beta, epsilon=1e-5):

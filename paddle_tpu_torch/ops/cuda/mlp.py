@@ -23,7 +23,12 @@ the widths:
   bytes at decode. Gelu is the exact erf form
   (``paddle_tpu/ops/pallas/mlp.py:43``) on both routes.
 
-A CUDA launch that fails raises; no route gives way to another.
+A CUDA launch that fails raises; no route gives way to another. On the
+card the kernel is reached through its op,
+``torch.ops.paddle_tpu_torch.mlp`` (``core.define_op``), over ``[R, H]``
+rows; the route plans (which read the SM count), the tc route's
+``[R, I]`` scratch and the simt route's split partials are made inside
+it. The gradient stays with :class:`MLPFunction` around the op.
 """
 
 import torch
@@ -110,10 +115,9 @@ def _mlp_tc(x2, w1, b1, w2, b2, out):
     return out
 
 
-def mlp_kernel(x2, w1, b1, w2, b2):
-    """Launch K4 on CUDA tensors. x2 ``[R, H]``, w1 ``[H, I]``, b1 ``[I]``,
-    w2 ``[I, Hout]``, b2 ``[Hout]``, all of one dtype -> ``[R, Hout]``, on
-    the route :func:`mlp_route` picks."""
+def _mlp_cuda(x2, w1, b1, w2, b2):
+    """K4's op on CUDA tensors: the launch on the route :func:`mlp_route`
+    picks."""
     code = core.dtype_code(x2, (torch.float32, torch.bfloat16))
     for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t.dtype != x2.dtype:
@@ -145,6 +149,19 @@ def mlp_kernel(x2, w1, b1, w2, b2):
            core.ptr(b2), core.ptr(out), core.ptr(part), rows, hidden, inter,
            hout, nsplit, per, core.stream(x2))
     return out
+
+
+MLP_OP = core.define_op(
+    KERNEL, "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> "
+    "Tensor", _mlp_cuda,
+    lambda x2, w1, b1, w2, b2: x2.new_empty((x2.shape[0], w2.shape[1])))
+
+
+def mlp_kernel(x2, w1, b1, w2, b2):
+    """K4 on CUDA tensors, through its op. x2 ``[R, H]``, w1 ``[H, I]``,
+    b1 ``[I]``, w2 ``[I, Hout]``, b2 ``[Hout]``, all of one dtype ->
+    ``[R, Hout]``."""
+    return MLP_OP(x2, w1, b1, w2, b2)
 
 
 def mlp_bwd(x, w1, b1, w2, g):

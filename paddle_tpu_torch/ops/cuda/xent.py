@@ -25,6 +25,15 @@ to the f32 route. The limits are shared memory: each plan raises for a
 hidden size whose tiles do not fit in :data:`core.MAX_SMEM`, and the bf16
 route needs ``H % 8 == 0`` (TMA rows are whole 16-byte units).
 
+On the card the kernels are reached through their ops
+(``core.define_op``): ``torch.ops.paddle_tpu_torch.xent_stats`` returns
+the four statistics as the rows of one ``[4, N]`` f32 tensor (the
+kernel writes them into one buffer, and a custom op's outputs may not
+alias one another), which :func:`xent_stats_kernel` splits;
+``.xent_bwd_dh`` returns dh and ``.xent_bwd_dwb`` ``(dw, db)``. The
+launch plans (which read the SM count) and the split partials are made
+inside the ops.
+
 The plain versions are the reference's chunked XLA formulation:
 ``_xent_stats_parts`` (``paddle_tpu/ops/fused.py:75``) and the chunk loop
 of ``_xent_bwd_impl`` (:159-186), over vocab chunks of :data:`CHUNK`.
@@ -263,16 +272,16 @@ def _stats_tc(h, w, b, lbl, out, n, v, hid):
     KERNEL_STATS(core.ptr(h), core.ptr(w), core.ptr(b), core.ptr(lbl),
                  core.ptr(out), core.ptr(part), n, v, hid, nsplit, per, grid,
                  core.stream(h), route="tc")
-    return tuple(out)
+    return out
 
 
-def xent_stats_kernel(h, w, b, labels):
-    """Launch K5 on CUDA tensors, on the route :func:`stats_route` picks;
-    same outputs as the plain version."""
+def _xent_stats_cuda(h, w, b, labels):
+    """K5's op on CUDA tensors: one launch on the route
+    :func:`stats_route` picks -> ``[4, N]`` f32."""
     code, n, v, hid = _check(h, w, b, labels, "xent_stats kernel")
     out = torch.empty((4, n), dtype=torch.float32, device=h.device)
     if n == 0 or v == 0:
-        return tuple(out)
+        return out
     lbl = labels.to(torch.int32).contiguous()
     if stats_route(h.dtype, hid) == "tc":
         return _stats_tc(h, w, b, lbl, out, n, v, hid)
@@ -284,7 +293,20 @@ def xent_stats_kernel(h, w, b, labels):
     KERNEL_STATS(code, core.ptr(h), core.ptr(w), core.ptr(b), core.ptr(lbl),
                  core.ptr(out), core.ptr(part), n, v, hid, nsplit, per,
                  core.stream(h))
-    return tuple(out)
+    return out
+
+
+XENT_STATS_OP = core.define_op(
+    KERNEL_STATS, "(Tensor h, Tensor w, Tensor? b, Tensor labels) -> "
+    "Tensor", _xent_stats_cuda,
+    lambda h, w, b, labels: h.new_empty((4, h.shape[0]),
+                                        dtype=torch.float32))
+
+
+def xent_stats_kernel(h, w, b, labels):
+    """K5 on CUDA tensors, through its op; same outputs as the plain
+    version: ``(m, s, picked, sum_logits)``, each ``[N]`` f32."""
+    return tuple(XENT_STATS_OP(h, w, b, labels))
 
 
 def xent_stats(h, w, b, labels):
@@ -342,8 +364,8 @@ def _plan_args(plan):
     return plan["splits"], plan["per"], plan["chunks"], plan["stages"]
 
 
-def xent_bwd_dh_kernel(h, w, b, labels, logz, g, sn, sp):
-    """Launch K6's dh kernel on CUDA tensors -> dh ``[N, H]`` f32."""
+def _xent_dh_cuda(h, w, b, labels, logz, g, sn, sp):
+    """K6's dh op on CUDA tensors: one launch -> dh ``[N, H]`` f32."""
     code, n, v, hid, plan, ptrs, operands = _bwd_setup(
         h, w, b, labels, logz, g, "xent_bwd_dh kernel", "rows")
     dh = torch.empty((n, hid), dtype=torch.float32, device=h.device)
@@ -357,8 +379,8 @@ def xent_bwd_dh_kernel(h, w, b, labels, logz, g, sn, sp):
     return dh
 
 
-def xent_bwd_dwb_kernel(h, w, b, labels, logz, g, sn, sp):
-    """Launch K6's dw/db kernel on CUDA tensors -> ``(dw [V, H], db
+def _xent_dwb_cuda(h, w, b, labels, logz, g, sn, sp):
+    """K6's dw/db op on CUDA tensors: one launch -> ``(dw [V, H], db
     [V])`` f32."""
     code, n, v, hid, plan, ptrs, operands = _bwd_setup(
         h, w, b, labels, logz, g, "xent_bwd_dwb kernel", "vocab")
@@ -377,6 +399,31 @@ def xent_bwd_dwb_kernel(h, w, b, labels, logz, g, sn, sp):
                float(sp), core.stream(h))
     del operands                     # enqueued: stream order protects them
     return dw, db
+
+
+_BWD_SCHEMA = ("(Tensor h, Tensor w, Tensor? b, Tensor labels, Tensor logz, "
+               "Tensor g, float sn, float sp)")
+XENT_DH_OP = core.define_op(
+    KERNEL_DH, _BWD_SCHEMA + " -> Tensor", _xent_dh_cuda,
+    lambda h, w, b, labels, logz, g, sn, sp: h.new_empty(
+        h.shape, dtype=torch.float32))
+XENT_DWB_OP = core.define_op(
+    KERNEL_DWB, _BWD_SCHEMA + " -> (Tensor, Tensor)", _xent_dwb_cuda,
+    lambda h, w, b, labels, logz, g, sn, sp: (
+        w.new_empty(w.shape, dtype=torch.float32),
+        w.new_empty(w.shape[:1], dtype=torch.float32)))
+
+
+def xent_bwd_dh_kernel(h, w, b, labels, logz, g, sn, sp):
+    """K6's dh kernel on CUDA tensors, through its op -> dh ``[N, H]``
+    f32."""
+    return XENT_DH_OP(h, w, b, labels, logz, g, float(sn), float(sp))
+
+
+def xent_bwd_dwb_kernel(h, w, b, labels, logz, g, sn, sp):
+    """K6's dw/db kernel on CUDA tensors, through its op -> ``(dw [V, H],
+    db [V])`` f32."""
+    return XENT_DWB_OP(h, w, b, labels, logz, g, float(sn), float(sp))
 
 
 def xent_bwd_kernel(h, w, b, labels, logz, g, sn, sp):

@@ -77,11 +77,16 @@ copy on the stepping thread's stream); a recovery restages prompt +
 generated tokens, and retirement drops the chunks. Each prefill call
 reads its chunk, ``staged_prefills`` counts them.
 
-Not ported: the AOT hooks (``compiled_decode``, ``compiled_verify``,
-``export_decode``). The scheduler state (page table, lengths, active
-mask, pending tokens, sampling knobs) is host numpy, copied to the
-model's device before each call's launches; the page pools live on the
-device and are updated in place.
+The AOT hooks: ``compiled_decode`` and ``compiled_verify`` return the
+``torch.export`` program of one decode step and of one speculative
+verify over the engine's state shapes (on the card's path: traced on
+fake CUDA tensors where there is no card, so the graph's kernel ops can
+be inspected on any machine), and ``export_decode`` writes one greedy
+step through ``io.save_train_program``'s state-feedback contract. The
+scheduler state (page table, lengths, active mask, pending tokens,
+sampling knobs) is host numpy, copied to the model's device before each
+call's launches; the page pools live on the device and are updated in
+place, in the exported programs too.
 
 One re-entrant lock guards the request tables: clients may ``submit``,
 ``adopt`` or ``cancel`` from their own threads while ``step`` runs, and
@@ -100,9 +105,12 @@ import uuid
 import numpy as np
 import torch
 
+from paddle_tpu_torch import bridge
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.retry import RetryBudget, RetryPolicy
 from paddle_tpu_torch.data.loader import Stager
+from paddle_tpu_torch.io.inference import (call_with_params, export_program,
+                                           save_train_program)
 from paddle_tpu_torch.observability import catalog as _catalog
 from paddle_tpu_torch.observability import flight as _flight
 from paddle_tpu_torch.observability import metrics as _metrics
@@ -357,7 +365,6 @@ class ServingEngine:
         cfg = self.cfg
         if cfg.draft_spec is None:
             return self._model
-        from paddle_tpu_torch import bridge
         from paddle_tpu_torch.io.checkpoint import CheckpointManager
         from paddle_tpu_torch.models.gpt import GPTDecoder
         draft = GPTDecoder(cfg.draft_spec, device=self._device,
@@ -757,6 +764,110 @@ class ServingEngine:
         section; non-scalar values are written as their repr)."""
         return {f.name: getattr(self.cfg, f.name)
                 for f in dataclasses.fields(self.cfg)}
+
+    # --- AOT hooks (ref: engine.py:948-1043) ---
+
+    def _aot_device(self, device):
+        return torch.device(device) if device is not None else self._device
+
+    def _params_tree(self):
+        return bridge.param_tree(self._model)
+
+    def _knob_arrays(self):
+        return (self._temps, self._top_ks, self._top_ps, self._seeds,
+                self._gen_counts)
+
+    def compiled_decode(self, device=None):
+        """The ``torch.export`` program of one decode step over the
+        engine's state shapes, with the sampling knobs (ref:
+        ``compiled_decode``): inputs ``(params, pools, tokens, page_table,
+        lengths, active, temps, top_ks, top_ps, seeds, counts)``, flat in
+        the JAX package's order; output the drawn tokens ``[S]`` (a greedy
+        row, temperature 0, takes the argmax). ``device`` (default the
+        engine's): ``"cuda"`` traces the card path, on fake CUDA tensors
+        where there is no card; ``"cpu"`` the plain versions. Nothing
+        runs and no state changes."""
+        s = self.cfg.num_slots
+
+        def step(params, caches, tokens, page_table, lengths, active,
+                 *knobs):
+            logits, _ = call_with_params(
+                self._model, params,
+                lambda m, *a: m.paged_decode_step(*a), tokens, caches,
+                page_table, lengths, active)
+            return self._draw(logits, knobs)
+
+        return export_program(step, (
+            self._params_tree(), self._caches, np.zeros(s, np.int32),
+            self._page_table, np.zeros(s, np.int32), np.zeros(s, bool),
+            *self._knob_arrays()), self._aot_device(device))
+
+    def compiled_verify(self, device=None):
+        """The ``torch.export`` program of one speculative verify (ref:
+        ``compiled_verify``; needs ``draft=True``): ``paged_verify_chunk``
+        of the ``[S, spec_k + 1]`` window and the ``spec_k + 1``
+        ``verify_head`` calls and draws of ``_spec_round``, from the
+        stacked window to the draws ``[S, spec_k + 1]``. Inputs ``(params,
+        pools, window, starts, win_lengths, page_table, temps, top_ks,
+        top_ps, seeds, counts)``. A live verify reads ``starts`` on the
+        host to pick each row's attention branch; a trace cannot, so the
+        program is the continuation branch, ``starts >= 1`` in every
+        row, as ``_spec_round`` arranges (it starts a row with no window
+        at 1). ``device`` as :meth:`compiled_decode`'s."""
+        enforce(self._spec_on, "compiled_verify() needs draft=True")
+        s, w = self.cfg.num_slots, self.cfg.spec_k + 1
+        continuation = [True] * s
+
+        def verify(m, window, starts, win_lengths, caches, page_table,
+                   knobs):
+            hidden, _ = m.paged_verify_chunk(window, starts, win_lengths,
+                                             caches, page_table,
+                                             chunked=continuation)
+            return torch.stack([self._draw(m.verify_head(hidden[:, i]),
+                                           knobs, i) for i in range(w)],
+                               dim=1)
+
+        def step(params, caches, window, starts, win_lengths, page_table,
+                 *knobs):
+            return call_with_params(self._model, params, verify, window,
+                                    starts, win_lengths, caches, page_table,
+                                    knobs)
+
+        return export_program(step, (
+            self._params_tree(), self._caches, np.zeros((s, w), np.int32),
+            np.ones(s, np.int32), np.ones(s, np.int32), self._page_table,
+            *self._knob_arrays()), self._aot_device(device))
+
+    def export_decode(self, path):
+        """Export ONE greedy serve step through
+        ``io.inference.save_train_program``'s state-feedback contract
+        (ref: ``export_decode``): state ``(params, page pools)``, batch
+        ``(tokens, page_table, lengths, active)``, outputs ``[next tokens
+        int32, *flat(state)]``, so a loop with no model code runs the
+        continuous-batching decode, the host only rewriting the small
+        batch inputs between steps. The program writes the K/V of the
+        step into the pools **in place**, as the engine does (no pool
+        copy a step): ``signature.json``'s ``inplace`` lists the pool
+        inputs, and the outputs that ``feedback`` pairs with them are
+        those same tensors. Exported for the engine's device, from the
+        live state (the pools as they are now go to ``params.bin``)."""
+        s = self.cfg.num_slots
+
+        def step(state, tokens, page_table, lengths, active):
+            params, caches = state
+            logits, caches = call_with_params(
+                self._model, params,
+                lambda m, *a: m.paged_decode_step(*a), tokens, caches,
+                page_table, lengths, active)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            return nxt, (params, caches)
+
+        example = tuple(self._dev(a) for a in (
+            np.zeros(s, np.int32), self._page_table, np.zeros(s, np.int32),
+            np.zeros(s, bool)))
+        return save_train_program(path, step,
+                                  (self._params_tree(), self._caches),
+                                  example)
 
     def kv_dtype_name(self):
         """"int8" for a quantized page pool, else "f32" (the reference's

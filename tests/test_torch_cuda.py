@@ -1387,3 +1387,74 @@ def test_submit_from_another_thread_stages_before_the_prefill(cuda):
     eng.drain()
     assert [eng.requests[r].tokens for r in got] == want
     assert eng.staged_prefills == eng.prefill_calls == calm.prefill_calls
+
+
+def test_opcheck_each_op_on_each_route(cuda):
+    """torch.library.opcheck of the ten ops (schema, the fake
+    implementation against the real outputs, autograd registration, AOT
+    dispatch with dynamic shapes), each on every route it has
+    (chip_smoke.py's cases)."""
+    import chip_smoke
+    from paddle_tpu_torch.ops.cuda import core
+    checked = chip_smoke.opcheck_ops(cuda)
+    assert sorted(checked) == sorted(core.KERNELS)
+    for name, routes in checked.items():
+        assert set(routes) == set(core.KERNELS[name].routes), name
+
+
+def test_export_decode_on_card_is_token_exact(cuda, tmp_path):
+    """export_decode of a live engine on the card, loaded back: 4 steps,
+    each token fed back and the lengths advanced on the host, give the
+    engine's next 4 greedy tokens in every running slot, and launch the
+    decode kernels as many times a step as the engine's steps do."""
+    import json
+    import os
+
+    from paddle_tpu_torch.io import load_program, read_params_bin
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    model = GPTDecoder(cfg, device="cuda", seed=0)
+    eng = ServingEngine(model, ServeConfig(num_slots=2, page_size=16,
+                                           max_len=64, prefill_len=16))
+    rs = np.random.RandomState(0)
+    for n in (5, 20):
+        eng.submit(rs.randint(0, cfg.vocab_size, n).astype(np.int32),
+                   max_new=10)
+    while eng._queue:
+        eng.step()
+    eng.step()
+    tok, table, lengths, active = (eng._last_tokens.copy(),
+                                   eng._page_table.copy(),
+                                   eng._lengths.copy(), eng._active.copy())
+    path = eng.export_decode(str(tmp_path / "decode"))
+    sig = json.load(open(os.path.join(path, "signature.json")))
+    state = [torch.from_numpy(np.array(a)).to(cuda, getattr(torch, s["dtype"]))
+             for a, s in zip(read_params_bin(os.path.join(path, "params.bin")),
+                             sig["params"])]
+    before = {s: len(r.tokens) for s, r in eng._running.items()}
+    core.reset_launches()
+    for _ in range(4):
+        eng.step()
+    per_step = {k: n / 4 for k, n in core.launch_counts().items()}
+    prog = load_program(path, device="cuda")
+    got = []
+    tok_d = torch.from_numpy(tok).to(cuda)
+    for _ in range(4):
+        core.reset_launches()
+        out = prog(*state, tok_d, torch.from_numpy(table).to(cuda),
+                   torch.from_numpy(lengths).to(cuda),
+                   torch.from_numpy(active).to(cuda))
+        tok_d = out[0]
+        got.append(tok_d.cpu().numpy())
+        for o, i in sig["feedback"]:
+            state[i] = out[o]
+        lengths = lengths + active.astype(lengths.dtype)
+        for k in ("layer_norm", "mlp", "decode_attention"):
+            assert core.launch_counts()[k] == per_step[k] > 0, k
+    got = np.stack(got)
+    for slot, req in eng._running.items():
+        assert got[:, slot].tolist() == \
+            req.tokens[before[slot]:before[slot] + 4]
