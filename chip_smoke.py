@@ -119,11 +119,12 @@ Phases, each printing one JSON line:
    goodput, the prefix hit rate, affinity hits, failovers, the failover
    round's ms, the p50 round and 8 profiled decode rounds of the warm-up
    (device ms, idle share, launches a round). Then bench.py:1004-1039's
-   untraced window in ABBA order: the 4-replica run, the same run twice
-   with trace_fleet off and the flight ring at 0 (no trace id minted,
-   the same bar), and once more traced; the untraced tokens/s,
-   trace_overhead (untraced / traced tokens/s) and the two pairs'
-   ratios. The window's launches are not counted.
+   untraced window in ABA order: the 4-replica run, the same run with
+   trace_fleet off and the flight ring at 0 (no trace id minted, the
+   same bar), and once more traced; the untraced tokens/s,
+   trace_overhead (untraced / mean traced tokens/s) and the ratios to
+   each traced run (tools/torch_trace_overhead.py repeats the window
+   ABBA). The window's launches are not counted.
 8a'. serve_fleet_proc — the same model, serve config and prompts behind
    a FleetRouter over 2 SubprocessReplica children on the card, each a
    fresh interpreter (python3 chip_smoke.py --fleet-worker SPEC) loading
@@ -394,8 +395,11 @@ BERT_KERNELS = TRAIN_KERNELS + ("add_layer_norm",)
 #: every launch of the training paths takes it
 TC_KERNELS = ("mlp", "xent_stats", "flash_attention",
               "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-#: the serve path's kernels of those, every launch on the SIMT route (f32)
-SERVE_ROUTED = ("mlp", "flash_attention")
+#: the serve path's kernels of those and the routes their f32 launches
+#: take there: K4 the split route (decode, draft and verify rows) and the
+#: gemm route (prefill chunks), K2 the SIMT one
+SERVE_ROUTES = {"mlp": ("split", "gemm"), "flash_attention": ("simt",)}
+SERVE_ROUTED = tuple(SERVE_ROUTES)
 #: K1's and K7's second routes, which every launch of every path takes
 #: (the kernels line has one row for each, on that route)
 PATH_ROUTE = {"layer_norm": "row", "decode_attention": "split"}
@@ -1020,10 +1024,60 @@ def decode_cases(dev, randn):
     return cases
 
 
+#: K4's f32 cases (rows, I), each taken on the route mlp_route gives:
+#: decode (8 rows), verify (32: 8 slots x a window of 4), serve's 512-row
+#: and serve_fleet's 256-row prefill chunks at 768/3072, all timed;
+#: then ragged rows and I on both sides of the split/gemm threshold
+MLP_TIMED = ((8, 3072), (32, 3072), (512, 3072), (256, 3072))
+MLP_RAGGED = ((13, 3000), (33, 3000), (300, 3000), (1, 72))
+
+
+def mlp_cases(randn, timed=True):
+    """K4 at :data:`MLP_TIMED` and :data:`MLP_RAGGED` in f32 and at 40
+    rows in bf16 (the tc route), each held against the plain version
+    (in f32) within F32_TOL in f32 and BF16_TOL in bf16, its route
+    recorded; the timed cases (``timed``) with the kernel's, the plain
+    version's and ``F.linear`` + gelu + ``F.linear``'s times and the
+    bound. ``randn(*shape, dtype=, scale=)`` draws on the card."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import mlp
+    cases = []
+    for rows, inter, dtype in ([(r, i, torch.float32) for r, i in
+                                MLP_TIMED + MLP_RAGGED]
+                               + [(40, 3072, torch.bfloat16)]):
+        x = randn(rows, 768, dtype=dtype)
+        w1 = randn(768, inter, dtype=dtype, scale=0.036)
+        b1 = randn(inter, dtype=dtype, scale=0.02)
+        w2 = randn(inter, 768, dtype=dtype, scale=0.036)
+        b2 = randn(768, dtype=dtype, scale=0.02)
+        out, route = route_of("mlp", mlp.mlp_kernel, x, w1, b1, w2, b2)
+        ref = mlp.mlp_plain(x.float(), w1.float(), b1.float(), w2.float(),
+                            b2.float())
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        err = max_err(out, ref)
+        check(f"mlp {rows}x768x{inter} {dtype} ({route})", err, tol)
+        case = dict(shape=[rows, 768, inter, 768], dtype=str(dtype),
+                    route=route, max_abs_err=err, tol=tol)
+        if timed and (rows, inter) in MLP_TIMED and dtype == torch.float32:
+            w1t, w2t = w1.t(), w2.t()
+            case["kernel_ms"] = time_ms(
+                lambda: mlp.mlp_kernel(x, w1, b1, w2, b2))
+            case["plain_ms"] = time_ms(
+                lambda: mlp.mlp_plain(x, w1, b1, w2, b2))
+            case["library_ms"] = time_ms(
+                lambda: F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2))
+            case["bound_ms"], case["bound_by"] = bound_ms(
+                nbytes(x, w1, b1, w2, b2, out),
+                2.0 * rows * inter * (768 + 768), dtype)
+        cases.append(case)
+    return cases
+
+
 def kernel_cases(dev):
     """Per kernel: the serving path's shapes first (the case reported in
     the kernels line), then the ragged set."""
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa, mlp
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
@@ -1077,43 +1131,7 @@ def kernel_cases(dev):
         cases.append(case)
     results["flash_attention"] = cases
 
-    # K4 fused MLP: decode rows (8), verify rows (32: 8 slots x a window
-    # of 4) and prefill rows (512) at 768/3072
-    cases = []
-    for rows, inter, dtype in ((8, 3072, torch.float32),
-                               (32, 3072, torch.float32),
-                               (512, 3072, torch.float32),
-                               (13, 3000, torch.float32),
-                               (40, 3072, torch.bfloat16)):
-        x = randn(rows, 768, dtype=dtype)
-        w1 = randn(768, inter, dtype=dtype, scale=0.036)
-        b1 = randn(inter, dtype=dtype, scale=0.02)
-        w2 = randn(inter, 768, dtype=dtype, scale=0.036)
-        b2 = randn(768, dtype=dtype, scale=0.02)
-        out, route = route_of("mlp", mlp.mlp_kernel, x, w1, b1, w2, b2)
-        ref = mlp.mlp_plain(x.float(), w1.float(), b1.float(), w2.float(),
-                            b2.float())
-        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        err = max_err(out, ref)
-        check(f"mlp {rows}x768x{inter} {dtype}", err, tol)
-        case = dict(shape=[rows, 768, inter, 768], dtype=str(dtype),
-                    route=route, max_abs_err=err, tol=tol)
-        if dtype == torch.float32 and inter == 3072 and rows in (8, 32,
-                                                                  512):
-            w1t, w2t = w1.t(), w2.t()
-            case["kernel_ms"] = time_ms(
-                lambda: mlp.mlp_kernel(x, w1, b1, w2, b2))
-            case["plain_ms"] = time_ms(
-                lambda: mlp.mlp_plain(x, w1, b1, w2, b2))
-            case["library_ms"] = time_ms(
-                lambda: torch.nn.functional.linear(
-                    torch.nn.functional.gelu(
-                        torch.nn.functional.linear(x, w1t, b1)), w2t, b2))
-            case["bound_ms"], case["bound_by"] = bound_ms(
-                nbytes(x, w1, b1, w2, b2, out),
-                2.0 * rows * inter * (768 + 768), dtype)
-        cases.append(case)
-    results["mlp"] = cases
+    results["mlp"] = mlp_cases(randn)
 
     results["decode_attention"] = decode_cases(dev, randn)
     return results
@@ -1593,12 +1611,15 @@ def opcheck_cases(dev):
         ("layer_norm", "simt", (r(9, 771), r(771), r(771), 1e-5)),
         ("add_layer_norm", "simt", (r(8, 768), r(8, 768), r(768), r(768),
                                     1e-5)),
-        ("mlp", "simt", (r(8, 64), r(64, 256, scale=0.1), r(256),
+        ("mlp", "split", (r(8, 64), r(64, 256, scale=0.1), r(256),
+                          r(256, 64, scale=0.1), r(64))),
+        ("mlp", "gemm", (r(100, 64), r(64, 256, scale=0.1), r(256),
                          r(256, 64, scale=0.1), r(64))),
         ("mlp", "tc", (r(128, 64, dtype=bf16),
                        r(64, 256, dtype=bf16, scale=0.1), r(256, dtype=bf16),
                        r(256, 64, dtype=bf16, scale=0.1), r(64, dtype=bf16)))]
-    for route, dtype, t in (("simt", f32, 64), ("tc", bf16, 128)):
+    # the simt route at 200 rows: a split plan, so its merge runs too
+    for route, dtype, t in (("simt", f32, 200), ("tc", bf16, 128)):
         q, k, v = (r(1, 2, t, 64, dtype=dtype) for _ in range(3))
         mask = (torch.arange(t, device=dev) < t - 5)[None].contiguous()
         cases.append(("flash_attention", route, (q, k, v, mask, 0.125, True)))
@@ -1924,7 +1945,7 @@ def serve_shared_phase(model, cpu_model, serve_kw, smi):
     missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"serve_shared: kernels not launched {missing}")
-    check_routes("serve_shared", routes, "simt", SERVE_ROUTED)
+    check_serve_routes("serve_shared", routes)
     check_path_routes("serve_shared", routes, ("layer_norm",
                                                "decode_attention"))
     counters = {k: getattr(eng, k) for k in SHARED_COUNTERS}
@@ -2011,10 +2032,11 @@ def serve_shared_phase(model, cpu_model, serve_kw, smi):
 
 SPEC_K = 3
 #: the kernels a draft step and a verify call must launch, on serve's
-#: routes (K1 row, K4 SIMT, K7 split); verify launches no K2
+#: routes (K1 row, K4 split, K7 split); verify launches no K2
 DRAFT_KERNELS = ("layer_norm", "mlp", "decode_attention")
 VERIFY_KERNELS = ("layer_norm", "mlp")
-SPEC_ROUTES = {"layer_norm": "row", "mlp": "simt", "decode_attention": "split"}
+SPEC_ROUTES = {"layer_norm": "row", "mlp": "split",
+               "decode_attention": "split"}
 
 
 def device_ms(fn, top=6):
@@ -2160,7 +2182,7 @@ def serve_spec_phase(model, cpu_model, serve_kw, smi, off_tokens,
     missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"serve_spec: kernels not launched {missing}")
-    check_routes("serve_spec", routes, "simt", SERVE_ROUTED)
+    check_serve_routes("serve_spec", routes)
     check_path_routes("serve_spec", routes, ("layer_norm",
                                              "decode_attention"))
     if eng.spec_stats()["rounds"] == 0 or eng.decode_steps:
@@ -2270,6 +2292,19 @@ def check_routes(what, routes, route, kernels=None):
     if wrong:
         raise AssertionError(f"{what}: launches not all on the {route} "
                              f"route: {wrong}")
+
+
+def check_serve_routes(what, routes, kernels=SERVE_ROUTED):
+    """Every launch of ``kernels`` (of :data:`SERVE_ROUTES`) in a run took
+    one of the routes SERVE_ROUTES names for it, and each of those routes
+    launched at least once."""
+    wrong = {k: routes[k] for k in kernels
+             if any(routes[k][r] == 0 for r in SERVE_ROUTES[k])
+             or sum(routes[k].values())
+             != sum(routes[k][r] for r in SERVE_ROUTES[k])}
+    if wrong:
+        raise AssertionError(f"{what}: launches not on the serve routes "
+                             f"{SERVE_ROUTES}: {wrong}")
 
 
 def check_path_routes(what, routes, kernels):
@@ -4229,6 +4264,8 @@ def decode_run(model, what, prompt, smi, kernels, absent):
         raise AssertionError(f"{what}: kernels not launched {missing}")
     check_absent(what, launches, absent)
     check_path_routes(what, routes, ("layer_norm",))
+    check_serve_routes(what, routes, [k for k in SERVE_ROUTED
+                                      if k in kernels])
     times, p = [], prompt
     for _ in range(DECODE_CALLS):
         t0 = time.perf_counter()
@@ -4613,12 +4650,12 @@ def serve_fleet_phase(model, cpu_model, smi):
     same ServeConfig token for token (or part
     from it at a near tie: :func:`fleet_held`); failovers and handoffs
     >= 1; K1, K2, K4 and K7 launched, on serve's routes. Then
-    bench.py:1004-1039's untraced window, in ABBA order: the largest
-    count's run (traced), the same run twice with ``trace_fleet`` off and
-    the flight ring at 0 (no trace id minted), and once more traced, all
-    held by the same bar. The line gives the untraced runs' mean tokens/s,
-    ``trace_overhead`` (the untraced runs' tokens/s over the traced ones')
-    and the two pairs' ratios (untraced second, then untraced first).
+    bench.py:1004-1039's untraced window, in ABA order: the largest
+    count's run (traced), the same run with ``trace_fleet`` off and the
+    flight ring at 0 (no trace id minted), and once more traced, all
+    held by the same bar. The line gives the untraced run's tokens/s,
+    ``trace_overhead`` (the untraced run's tokens/s over the traced
+    runs' mean) and its ratios to the traced run before and after it.
     Returns (the phase line, launches, the single engine's tokens of
     each prompt of the stream)."""
     from paddle_tpu_torch.observability import flight
@@ -4670,14 +4707,14 @@ def serve_fleet_phase(model, cpu_model, smi):
     torch.cuda.synchronize()
     launches, routes = core.launch_counts(), core.route_counts()
 
-    # bench.py:1004-1039's untraced window, run ABBA at the largest count:
-    # the traced run above, two with trace_fleet off and the flight ring
+    # bench.py:1004-1039's untraced window, run ABA at the largest count:
+    # the traced run above, one with trace_fleet off and the flight ring
     # at 0, one traced again
     nmax = max(FLEET_COUNTS)
     window = [runs[-1]]
     was_trace = fleet.configure()["trace_fleet"]
     was_ring = flight.configure()["ring"]
-    for traced in (False, False, True):
+    for traced in (False, True):
         if not traced:
             fleet.configure(trace_fleet=False)
             flight.configure(ring=0)
@@ -4710,20 +4747,20 @@ def serve_fleet_phase(model, cpu_model, smi):
     missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"serve_fleet: kernels not launched {missing}")
-    check_routes("serve_fleet", routes, "simt", SERVE_ROUTED)
+    check_serve_routes("serve_fleet", routes)
     check_path_routes("serve_fleet", routes, ("layer_norm",
                                               "decode_attention"))
-    t1, u1, u2, t2 = (r["tokens_per_s"] for r in window)
+    t1, u, t2 = (r["tokens_per_s"] for r in window)
     line = dict(
         phase="serve_fleet", config="GPTConfig.small()",
         **{k: v for k, v in kw.items() if k != "cache_dtype"},
         cache_dtype="bfloat16", shared_prefix=FLEET_SHARED, max_new=FLEET_NEW,
         card=smi, single_engine_s=alone_s, runs=runs, disagg=disagg_line,
-        untraced=window[1:3], retraced=window[3],
-        trace_window_tokens_per_s=[t1, u1, u2, t2],
-        untraced_tokens_per_s=(u1 + u2) / 2,
-        trace_overhead=(u1 + u2) / (t1 + t2),
-        trace_overhead_pairs=[u1 / t1, u2 / t2],
+        untraced=window[1], retraced=window[2],
+        trace_window_tokens_per_s=[t1, u, t2],
+        untraced_tokens_per_s=u,
+        trace_overhead=2 * u / (t1 + t2),
+        trace_overhead_pairs=[u / t1, u / t2],
         launches=launches,
         routes={k: routes[k] for k in SERVE_ROUTED + tuple(PATH_ROUTE)})
     return line, launches, reference
@@ -5108,7 +5145,7 @@ def serve_fleet_proc_phase(model, cpu_model, smi, reference, inproc_p50_ms):
     if missing:
         raise AssertionError(f"serve_fleet_proc: children launched no "
                              f"{missing}")
-    check_routes("serve_fleet_proc", routes, "simt", SERVE_ROUTED)
+    check_serve_routes("serve_fleet_proc", routes)
     check_path_routes("serve_fleet_proc", routes, ("layer_norm",
                                                    "decode_attention"))
     step_ms = {tag: d["p50_step_ms"] for tag, d in done.items()}
@@ -5344,12 +5381,14 @@ def expected_route(kernel, case):
     :func:`flash_route` (bf16 with D = 64 or 128 on the tensor cores);
     K1 by :func:`ln_route` (the row route for C of whole 16-byte packs, at
     most 8 a lane); K7 by :func:`decode_route` (the split route for head
-    dims that are multiples of 8 up to 256); K4 and K5 the tensor cores
-    in bf16 (every case here has widths that are multiples of 8) and the
-    SIMT kernel in f32."""
+    dims that are multiples of 8 up to 256); K4 by :func:`mlp_route`
+    (bf16 here the tensor cores: every case has widths that are multiples
+    of 8; f32 the split route up to 32 rows, the gemm route past them);
+    K5 the tensor cores in bf16 and the SIMT kernel in f32."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    from paddle_tpu_torch.ops.cuda import mlp
     bf16 = case.get("dtype") in ("bf16", str(torch.bfloat16))
     dtype = torch.bfloat16 if bf16 else torch.float32
     if kernel.startswith("flash"):
@@ -5358,6 +5397,9 @@ def expected_route(kernel, case):
         return ln.ln_route(dtype, case["shape"][-1])
     if kernel == "decode_attention":
         return da.decode_route(case["shape"][2])
+    if kernel == "mlp":
+        rows, hid, inter, hout = case["shape"]
+        return mlp.mlp_route(dtype, hid, inter, hout, rows)
     return "tc" if bf16 else "simt"
 
 
@@ -5371,25 +5413,31 @@ LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
                 "serve_fleet_proc", "moe_train", "export",
                 "scan_nothing", "scan_dots_saveable", "scan_full")
 
-#: the kernels with a row per route in the kernels line
-ROUTED_ROWS = ("flash_attention", "flash_attention_bwd_dq",
-               "flash_attention_bwd_dkv", "mlp")
+#: the kernels with a row per route in the kernels line, their routes
+#: (the first row under the kernel's name, the others "<name>.<route>")
+ROUTED_ROWS = {"flash_attention": ("simt", "tc"),
+               "flash_attention_bwd_dq": ("simt", "tc"),
+               "flash_attention_bwd_dkv": ("simt", "tc"),
+               "mlp": ("split", "gemm", "tc")}
 
 
-def kernel_table(by_kernel, paths):
+def kernel_table(by_kernel, paths, routes):
     """The rows of the {"kernels": [...]} line, each at its kernel's first
-    timed case on the row's route. K2, K3 and K4 have a row per route:
-    the SIMT one (serve's for K2 and K4, train_crosscheck's f32 step for
-    K3) under the kernel's name, the tc one (GPT training's) as
-    "<name>.tc"; K5 and K6 one row, their bf16 tensor-core kernels; the
-    others one SIMT row. ``paths`` holds each path's launch counts:
-    serve and train_crosscheck (a row's own path only) and
-    :data:`LISTED_PATHS` (resnet and ctr are 0 for every kernel)."""
+    timed case on the row's route. K2, K3 and K4 have a row per route
+    (:data:`ROUTED_ROWS`): the SIMT ones (serve's for K2 and K4: K4's
+    split route at decode's 8 rows under the kernel's name and its gemm
+    route at a 512-row prefill chunk as "mlp.gemm"; train_crosscheck's f32
+    step for K3) and the tc one (GPT training's) as "<name>.tc"; K5 and
+    K6 one row, their bf16 tensor-core kernels; the others one SIMT row.
+    ``paths`` holds each path's launch counts: serve and train_crosscheck
+    (a row's own path only) and :data:`LISTED_PATHS` (resnet and ctr are
+    0 for every kernel); ``routes`` the route counts of the paths that
+    have them, from which a routed row's ``launches`` are its route's."""
     from paddle_tpu_torch.ops.cuda import core
     table = []
     for name, kernel in core.KERNELS.items():
         if name in ROUTED_ROWS:
-            variants = ("simt", "tc")
+            variants = ROUTED_ROWS[name]
         elif name in PATH_ROUTE:
             variants = (PATH_ROUTE[name],)
         else:
@@ -5405,12 +5453,14 @@ def kernel_table(by_kernel, paths):
                 path = "train_crosscheck"
             else:
                 path = "bert"
+            launches = paths[path][name]
+            if name in ROUTED_ROWS and path in routes:
+                launches = routes[path][name][variant]
             table.append(dict(
-                name=name if name not in ROUTED_ROWS or variant == "simt"
-                else f"{name}.tc",
+                name=name if variant == variants[0] else f"{name}.{variant}",
                 route="cuda", variant=variant,
                 source=kernel.route_sources.get(variant, kernel.source),
-                replaces=kernel.replaces, launches=paths[path][name],
+                replaces=kernel.replaces, launches=launches,
                 launches_path=path,
                 **{f"launches_{p}": paths[p][name] for p in LISTED_PATHS},
                 max_abs_err=case["max_abs_err"],
@@ -5511,7 +5561,7 @@ def main():
     if missing:
         raise AssertionError(f"kernels not launched on the serve path: "
                              f"{missing}")
-    check_routes("serve", serve_routes, "simt", SERVE_ROUTED)
+    check_serve_routes("serve", serve_routes)
     check_path_routes("serve", serve_routes, ("layer_norm",
                                               "decode_attention"))
     emit(dict(phase="serve", config="GPTConfig.small()",
@@ -5670,7 +5720,8 @@ def main():
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
         "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,
         "moe_train": moe_launches, "export": export_launches,
-        **{f"scan_{p}": n for p, n in scan_launches.items()}})
+        **{f"scan_{p}": n for p, n in scan_launches.items()}},
+        {"serve": serve_routes})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -75,6 +75,66 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return t;
 }
 
+// ------------------------------------------------------------ cp.async
+// Asynchronous global -> shared copies (sm_80+), for the CUDA-core
+// kernels' rings of tiles: 16 bytes (both addresses 16-byte aligned) or
+// 4 bytes.
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `kPending` of this thread's committed groups are in
+// flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four consecutive elements of a row into shared memory as f32 (`dst`
+// 16-byte aligned): the first `valid` of them (at most 4; 0 or less for
+// none) from `src`, the rest zero. f32 elements that start on 16 bytes
+// take one 16-byte cp.async, other f32 elements one 4-byte cp.async each;
+// zeros and bf16 (converted in registers) are plain stores, visible to
+// the block after its next barrier, as the copies are after their wait.
+__device__ __forceinline__ void load4(float* dst, const float* src,
+                                      int valid) {
+  if (valid >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async16(dst, src);
+  } else if (valid <= 0) {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < valid)
+        cp_async4(dst + e, src + e);
+      else
+        dst[e] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void load4(float* dst, const __nv_bfloat16* src,
+                                      int valid) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    dst[e] = e < valid ? __bfloat162float(src[e]) : 0.f;
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t ptt_set_smem(K kernel, size_t bytes) {
@@ -82,4 +142,31 @@ inline cudaError_t ptt_set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// ptt_set_smem, and the SM's whole unified L1 / shared memory as shared
+// memory, so that as many of the kernel's blocks as fit in 228 KB can be
+// resident at once (left to itself, CUDA may pick a carveout that holds
+// one).
+template <typename K>
+inline cudaError_t ptt_set_smem_resident(K kernel, size_t bytes) {
+  cudaError_t err = ptt_set_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The blocks of `kernel` that one SM holds at once with `threads` a block
+// and `bytes` of dynamic shared memory, under ptt_set_smem_resident's
+// settings: the CUDA occupancy calculator's count, which the wrappers'
+// plans read (through an entry of the kernel's source) as the card's
+// block slots.
+template <typename K>
+inline cudaError_t ptt_resident_blocks(K kernel, int threads, size_t bytes,
+                                       int* out) {
+  cudaError_t err = ptt_set_smem_resident(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads,
+                                                       bytes);
 }

@@ -166,19 +166,22 @@ class Kernel:
     """One kernel of the port: its C entries, one per route, and its
     launch counts.
 
-    ``routes`` maps a route's name to its ``(symbol, argtypes)``; a kernel
-    with one entry has the single route ``"simt"``. ``__call__(*args,
-    route=...)`` forwards the arguments to that route's entry, raises if
-    the entry returns a CUDA error, and only then adds one to
-    :attr:`launches` and to :attr:`route_launches` of the route."""
+    ``routes`` maps a route's name to its ``(symbol, argtypes)``; the
+    first is the base route (``"simt"`` unless the kernel names it
+    otherwise), and a kernel with one entry has only that one.
+    ``__call__(*args, route=...)`` forwards the arguments to that route's
+    entry (the base route's by default), raises if the entry returns a
+    CUDA error, and only then adds one to :attr:`launches` and to
+    :attr:`route_launches` of the route."""
 
     def __init__(self, name, routes, replaces, source, route_sources=None):
         self.name = name
         self.routes = {r: (sym, list(types))
                        for r, (sym, types) in routes.items()}
+        self.base_route = next(iter(self.routes))
         self.replaces = replaces      # file:line of the TPU kernel
         self.source = source          # the CUDA source in this repo
-        #: each route's CUDA source (the simt route's is ``source``)
+        #: each route's CUDA source (the base route's is ``source``)
         self.route_sources = {r: (route_sources or {}).get(r, source)
                               for r in self.routes}
         self.launches = 0
@@ -197,7 +200,8 @@ class Kernel:
             self._fns[route] = fn
         return self._fns[route]
 
-    def __call__(self, *args, route="simt"):
+    def __call__(self, *args, route=None):
+        route = route or self.base_route
         err = self._entry(route)(*args)
         if err != 0:
             text = library().ptt_error_string(err).decode()
@@ -213,13 +217,14 @@ KERNELS = {}
 
 
 def register(name, symbol, argtypes, replaces, source, routes=None,
-             route_sources=None):
-    """Register a kernel whose ``"simt"`` route is the C entry ``symbol``
-    in ``source``. ``routes`` adds further named routes, ``{route:
-    (symbol, argtypes)}`` (the tensor cores' ``"tc"``, K1's ``"row"``,
-    K7's ``"split"``), whose sources are ``route_sources[route]`` where
-    they have files of their own."""
-    kernel = Kernel(name, {"simt": (symbol, argtypes), **(routes or {})},
+             route_sources=None, route="simt"):
+    """Register a kernel whose base route (``route``, ``"simt"`` unless
+    given) is the C entry ``symbol`` in ``source``. ``routes`` adds
+    further named routes, ``{route: (symbol, argtypes)}`` (the tensor
+    cores' ``"tc"``, K1's ``"row"``, K7's ``"split"``, K4's ``"gemm"``),
+    whose sources are ``route_sources[route]`` where they have files of
+    their own."""
+    kernel = Kernel(name, {route: (symbol, argtypes), **(routes or {})},
                     replaces, source, route_sources)
     KERNELS[name] = kernel
     return kernel
@@ -258,6 +263,34 @@ def route_counts():
     route."""
     return {name: dict(k.route_launches) for name, k in KERNELS.items()
             if len(k.routes) > 1}
+
+
+_resident = {}
+
+
+def resident_slots(symbol, *args):
+    """The resident block slots of one kernel instantiation on the
+    current card: its SM count times the blocks an SM holds, as the C
+    entry ``symbol(*args, int* out)`` reads them from the CUDA occupancy
+    calculator under the launch's own shared-memory settings (the route
+    plans size their work split by it). Raises if the entry fails; read
+    once a process for each card and arguments."""
+    dev = torch.cuda.current_device()
+    key = (symbol, args, dev)
+    if key not in _resident:
+        fn = getattr(library(), symbol)
+        fn.argtypes = [ctypes.c_int] * len(args) + [
+            ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        n = ctypes.c_int(0)
+        err = fn(*args, ctypes.byref(n))
+        if err != 0 or n.value < 1:
+            text = library().ptt_error_string(err).decode()
+            raise RuntimeError(f"{symbol}{args}: CUDA error {err} ({text}), "
+                               f"{n.value} blocks an SM")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _resident[key] = sms * n.value
+    return _resident[key]
 
 
 def wave_busy(blocks, sms):

@@ -22,7 +22,12 @@ and the head dim:
   copied (TMA's alignment).
 * ``"simt"`` — f32 at every head dim and bf16 at D = 16 or 32 (serving's
   f32 prefill, the crosschecks): the CUDA cores in f32
-  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
+  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``). K2's
+  simt kernel walks work items of :func:`flash_plan`: a query tile's kv
+  tiles cut into chunks where the heads' tiles alone would leave the
+  card's block slots idle, longest items first, the chunks' (m, l, acc)
+  partials merged in a fixed order by a second kernel of the same
+  launch.
 
 A CUDA launch that fails raises; no route gives way to another.
 
@@ -41,6 +46,7 @@ returns ``(out, lse)``, ``.flash_attention_bwd_dq`` dq and
 launch happen inside them.
 """
 
+import ctypes
 import math
 
 import torch
@@ -48,11 +54,14 @@ import torch
 from paddle_tpu_torch.ops.cuda import core
 
 # every entry takes (dtype code, on the simt route only), the operand
-# pointers, B, H, Tq, Tk, D, scale, causal and the stream
+# pointers, B, H, Tq, Tk, D, scale, causal and the stream; K2's simt entry
+# also its partials' scratch and its plan (chunk, item count, items)
 _FWD_ARGS = [core.VP] * 6 + [core.I32] * 5 + [core.F32_ARG, core.I32,
                                               core.VP]
+_FWD_SIMT_ARGS = ([core.I32] + [core.VP] * 7 + [core.I32] * 5
+                  + [core.F32_ARG] + [core.I32] * 3 + [core.VP] * 2)
 KERNEL = core.register(
-    "flash_attention", "ptt_flash_attention", [core.I32] + _FWD_ARGS,
+    "flash_attention", "ptt_flash_attention", _FWD_SIMT_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:64",
     source="paddle_tpu_torch/csrc/flash_attention.cu",
     routes={"tc": ("ptt_flash_attention_tc", _FWD_ARGS)},
@@ -83,6 +92,12 @@ CHUNK = 512
 HEAD_DIMS = (16, 32, 64, 128)
 #: the head dims of the tc route: one or two [64, 64] TMA boxes per row
 TC_HEAD_DIMS = (64, 128)
+#: K2's simt route (csrc/flash_attention.cu): query rows of an item, keys
+#: of a kv tile, the most items of a split plan
+FLASH_ROWS, FLASH_KEYS, FLASH_MAX_ITEMS = 64, 64, 512
+#: the query tiles and kv tiles an item's code can name: 12 bits for the
+#: query tile, 10 for each kv tile bound (the end one may equal the count)
+FLASH_CODE_Q_TILES, FLASH_CODE_KV_TILES = 1 << 12, (1 << 10) - 1
 
 
 def flash_route(dtype, d):
@@ -92,6 +107,61 @@ def flash_route(dtype, d):
     if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         return "tc"
     return "simt"
+
+
+def flash_kv_tiles(tq, tk, causal):
+    """The kv tiles each query tile of K2's simt route walks: all of
+    them, or (causal) those up to the tile that holds the diagonal key of
+    its last real row."""
+    nq, nk = -(-tq // FLASH_ROWS), -(-tk // FLASH_KEYS)
+    if not causal:
+        return [nk] * nq
+    out = []
+    for qi in range(nq):
+        last = min(qi * FLASH_ROWS + FLASH_ROWS - 1, tq - 1) + tk - tq
+        out.append(0 if last < 0 else min(nk, last // FLASH_KEYS + 1))
+    return out
+
+
+def flash_plan(bh, tq, tk, causal, slots):
+    """K2's simt work split: ``(chunk, items)``. Each query tile's kv
+    tiles are cut into chunks of at most ``chunk`` tiles: the kv tiles of
+    all ``bh`` heads over the card's resident block ``slots`` for the
+    kernel (``core.resident_slots``), rounded up, so that no item is
+    longer than a slot's share. ``items`` lists each head's ``(query tile, first
+    kv tile, end kv tile)`` longest first (then the later query tile
+    first, then the earlier chunk); a query tile with no kv tile is one
+    empty item. Where the chunk covers every query tile's tiles, or the
+    list would pass :data:`FLASH_MAX_ITEMS`, or its tiles would not fit
+    an item's code (:func:`flash_item_code`), the plan does not split:
+    ``items`` is None and item r is query tile ``nq - 1 - r`` over all its
+    tiles, which is also longest first."""
+    tiles = flash_kv_tiles(tq, tk, causal)
+    longest = max(tiles)
+    if (len(tiles) > FLASH_CODE_Q_TILES
+            or -(-tk // FLASH_KEYS) > FLASH_CODE_KV_TILES):
+        return max(1, longest), None
+    chunk = max(1, -(-bh * sum(max(1, n) for n in tiles) // slots))
+    if chunk >= longest:
+        return max(1, longest), None
+    items = sorted(((min(n, j + chunk) - j, qi, j)
+                    for qi, n in enumerate(tiles)
+                    for j in (range(0, n, chunk) if n else (0,))),
+                   key=lambda e: (-e[0], -e[1], e[2]))
+    if len(items) > FLASH_MAX_ITEMS:
+        return longest, None
+    return chunk, [(qi, j, j + size) for size, qi, j in items]
+
+
+def flash_item_code(qi, t0, t1):
+    """A split plan's item as the kernel reads it: ``qi << 20 | t0 << 10
+    | t1``; raises for tiles that the code cannot hold (the plan keeps
+    such shapes unsplit)."""
+    if not (0 <= qi < FLASH_CODE_Q_TILES
+            and 0 <= t0 <= t1 <= FLASH_CODE_KV_TILES):
+        raise ValueError(f"flash plan item ({qi}, {t0}, {t1}) does not fit "
+                         "its code")
+    return (qi << 20) | (t0 << 10) | t1
 
 
 def _launch(kernel, code, route, *args):
@@ -172,9 +242,29 @@ def _flash_fwd_cuda(q, k, v, kv_mask, scale, causal):
         # no key: every row is fully masked (out 0, lse the sentinel, as
         # chunked_attention gives them)
         return out.zero_(), lse.fill_(NEG_INF)
-    _launch(KERNEL, code, route, core.ptr(q), core.ptr(k), core.ptr(v),
-            core.ptr(mask), core.ptr(out), core.ptr(lse), b, h, tq, tk, d,
-            float(scale), int(bool(causal)), core.stream(q))
+    if route == "tc":
+        KERNEL(core.ptr(q), core.ptr(k), core.ptr(v), core.ptr(mask),
+               core.ptr(out), core.ptr(lse), b, h, tq, tk, d, float(scale),
+               int(bool(causal)), core.stream(q), route="tc")
+        return out, lse
+    chunk, items = flash_plan(
+        b * h, tq, tk, causal,
+        core.resident_slots("ptt_flash_attention_resident", code, d))
+    part = codes = None
+    if items:
+        # a (query tile, chunk) slot per row of partials, as the kernel
+        # lays them out: [b * h, nq, ceil(nk / chunk), 64] x (D + 2)
+        nq, nk = -(-tq // FLASH_ROWS), -(-tk // FLASH_KEYS)
+        part = torch.empty(b * h * nq * -(-nk // chunk) * FLASH_ROWS
+                           * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        codes = (ctypes.c_uint * len(items))(
+            *(flash_item_code(*item) for item in items))
+    KERNEL(code, core.ptr(q), core.ptr(k), core.ptr(v), core.ptr(mask),
+           core.ptr(out), core.ptr(lse), core.ptr(part), b, h, tq, tk, d,
+           float(scale), int(bool(causal)), chunk,
+           len(items) if items else 0, codes, core.stream(q))
+    del part                 # enqueued: stream order protects the scratch
     return out, lse
 
 

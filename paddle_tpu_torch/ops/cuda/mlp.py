@@ -8,27 +8,37 @@ composition, recomputing ``h = x @ w1 + b1`` (its products go to
 ``torch.matmul``, as the reference leaves them to XLA).
 Source: ``paddle_tpu_torch/csrc/mlp.cu`` (its header says why).
 
-Two routes, chosen by :func:`mlp_route`, a rule on the storage type and
-the widths:
+Three routes, chosen by :func:`mlp_route`, a rule on the storage type,
+the widths and the rows:
 
 * ``"tc"`` — bf16 with H, I and Hout multiples of 8 (the training paths):
   two tensor-core passes on the shared TMA + wgmma mainloop
   (``csrc/gemm.cuh``), ``a = bf16(gelu(x @ w1 + b1))`` into an ``[R, I]``
   scratch that lives only for the call, then ``a @ w2 + b2``; tile widths
   from :func:`gemm_plan`. Bound by operations.
-* ``"simt"`` — f32 and every other shape (serving, the crosschecks): the
-  CUDA cores in full f32; the I axis is split across blocks as well as
-  the rows (:func:`split_plan`), so that decode's 8 rows fill the card,
-  and the ``[R, I]`` activation never reaches device memory. Bound by
-  bytes at decode. Gelu is the exact erf form
-  (``paddle_tpu/ops/pallas/mlp.py:43``) on both routes.
+* ``"split"`` — f32 at most :data:`SPLIT_ROWS` rows (serving's decode,
+  draft and verify calls), and bf16 at other widths: one pass on the CUDA
+  cores in full f32 (``csrc/mlp_simt.cu``). The I axis is cut into about
+  one block per SM (:func:`split_plan`); each block streams its slices of
+  W1 and W2 once, keeps its activation in shared memory 32 columns at a
+  time and writes an f32 partial of the output, which a second kernel
+  sums in a fixed order with b2. Bound by bytes: the weights are read
+  once.
+* ``"gemm"`` — f32 at more rows (prefill chunks, generate's prefill, the
+  f32 crosschecks): two register-blocked SIMT GEMM passes in full f32
+  (``csrc/mlp_simt.cu``), ``act = gelu(x @ w1 + b1)`` into an f32
+  ``[R, I]`` scratch, then ``act @ w2 + b2``, pass 2 split over I where
+  its tiles alone would leave SMs idle (:func:`simt_gemm_plan`), the
+  partials summed in a fixed order. Bound by operations.
+
+Gelu is the exact erf form (``paddle_tpu/ops/pallas/mlp.py:43``) on every
+route; no route uses TF32.
 
 A CUDA launch that fails raises; no route gives way to another. On the
 card the kernel is reached through its op,
 ``torch.ops.paddle_tpu_torch.mlp`` (``core.define_op``), over ``[R, H]``
-rows; the route plans (which read the SM count), the tc route's
-``[R, I]`` scratch and the simt route's split partials are made inside
-it. The gradient stays with :class:`MLPFunction` around the op.
+rows; the route plans (which read the SM count) and every route's
+scratch (the ``[R, I]`` activation, the partials) are made inside it. The gradient stays with :class:`MLPFunction` around the op.
 """
 
 import torch
@@ -37,15 +47,23 @@ from paddle_tpu_torch.ops.activations import gelu
 from paddle_tpu_torch.ops.cuda import core
 
 KERNEL = core.register(
-    "mlp", "ptt_mlp",
+    "mlp", "ptt_mlp_split",
     [core.I32] + [core.VP] * 7 + [core.I32] * 6 + [core.VP],
     replaces="paddle_tpu/ops/pallas/mlp.py:51",
-    source="paddle_tpu_torch/csrc/mlp.cu",
-    routes={"tc": ("ptt_mlp_tc", [core.VP] * 7 + [core.I32] * 8
-                   + [core.VP])})
+    source="paddle_tpu_torch/csrc/mlp_simt.cu", route="split",
+    routes={"gemm": ("ptt_mlp_gemm", [core.VP] * 8 + [core.I32] * 7
+                     + [core.VP]),
+            "tc": ("ptt_mlp_tc", [core.VP] * 7 + [core.I32] * 8
+                   + [core.VP])},
+    route_sources={"tc": "paddle_tpu_torch/csrc/mlp.cu"})
 
-#: the simt route: rows per tile and intermediate columns per chunk
-BLOCK_ROWS, BLOCK_I = 16, 32
+#: the split route: the most f32 rows it takes, its row tiles, the I
+#: columns of a unit of a slice, and the columns of a block's activation
+#: at a time (the widest slice at one row tile)
+SPLIT_ROWS, SPLIT_TILES, SPLIT_UNIT, SPLIT_WIDEST = 32, (8, 16, 32), 8, 32
+#: the gemm route (csrc/mlp_simt.cu): the tile rows it has, its tile
+#: columns, k per stage, the most splits of pass 2's depth
+SIMT_ROWS, SIMT_COLS, SIMT_BK, SIMT_MAX_SPLITS = (128, 64), 96, 32, 8
 #: the tc route (csrc/gemm.cuh): rows per tile, the tile widths it has
 TC_ROWS, TC_WIDTHS = 128, (256, 192, 128)
 #: the share of the waves' SM slots a tile width must keep busy
@@ -58,24 +76,83 @@ def mlp_plain(x, w1, b1, w2, b2):
     return gelu(x @ w1 + b1) @ w2 + b2
 
 
-def split_plan(rows, inter, num_sms):
-    """``(splits, chunks_per_split)`` of the I axis: enough blocks for two
-    per SM when the row tiles alone are too few, each split a whole
-    number of 32-column chunks."""
-    row_tiles = -(-rows // BLOCK_ROWS)
-    n_chunks = -(-inter // BLOCK_I)
-    want = max(1, -(-2 * num_sms // row_tiles))
-    per = -(-n_chunks // min(n_chunks, want))
-    return -(-n_chunks // per), per
+def split_plan(rows, inter, sms):
+    """The split route's ``(row tile, splits)``: the row tile is the
+    smallest of :data:`SPLIT_TILES` that holds the rows (the largest, in
+    a grid of row tiles, past it); the I axis's units of
+    :data:`SPLIT_UNIT` columns are cut into the fewest slices whose
+    blocks (slices x row tiles) number at least one an SM and at least
+    one for each :data:`SPLIT_WIDEST` columns of I, and never more
+    slices than units. At one row tile (serving's 8 and 32 rows) that is
+    one slice per SM, none wider than SPLIT_WIDEST; at many row tiles
+    (bf16 at widths the tensor cores cannot take) it falls to one, so
+    the ``[splits, rows, Hout]`` partials stay near the output's size,
+    and a block walks its wider slice SPLIT_WIDEST columns at a time."""
+    tile = next((t for t in SPLIT_TILES if rows <= t), SPLIT_TILES[-1])
+    row_tiles = -(-rows // tile)
+    units = -(-inter // SPLIT_UNIT)
+    return tile, min(units, max(
+        -(-sms // row_tiles),
+        -(-units // (SPLIT_WIDEST // SPLIT_UNIT * row_tiles))))
 
 
-def mlp_route(dtype, hidden, inter, hout):
+def split_slices(inter, splits):
+    """``[(i0, i1)]``: the I columns of each split, as the kernel cuts
+    them (split s takes units ``s * units // splits`` up to the next
+    split's first)."""
+    units = -(-inter // SPLIT_UNIT)
+    return [(s * units // splits * SPLIT_UNIT,
+             min(inter, (s + 1) * units // splits * SPLIT_UNIT))
+            for s in range(splits)]
+
+
+def simt_issue_share(bm):
+    """The share of a gemm-route thread's issued instructions that are
+    FMAs: per four k, ``4 * (bm / 16) * 6`` FMAs against ``bm / 16``
+    16-byte reads of A and twelve 8-byte reads of B."""
+    fmas = 4 * (bm // 16) * (SIMT_COLS // 16)
+    return fmas / (fmas + bm // 16 + 4 * (SIMT_COLS // 32))
+
+
+def simt_gemm_plan(rows, cols, depth, slots, split=False):
+    """One gemm-route pass's ``(tile rows, splits, blocks)`` for an
+    ``[rows, cols]`` output over ``depth``: of the tile rows in
+    :data:`SIMT_ROWS` and (``split``: pass 2) 1 to
+    :data:`SIMT_MAX_SPLITS` splits of the depth's k tiles, the one whose
+    waves (over ``slots[bm]``, the card's resident block slots at that
+    tile height: ``core.resident_slots``) times a block's rows and k
+    tiles, over :func:`simt_issue_share`, are least; ties keep the
+    larger tile and the fewer splits."""
+    kts = -(-depth // SIMT_BK)
+    best = None
+    for bm in SIMT_ROWS:
+        tiles = -(-rows // bm) * -(-cols // SIMT_COLS)
+        for splits in range(1, (min(SIMT_MAX_SPLITS, kts) if split else 1)
+                            + 1):
+            blocks = tiles * splits
+            cost = (-(-blocks // slots[bm]) * bm * -(-kts // splits)
+                    / simt_issue_share(bm))
+            if best is None or cost < best[0]:
+                best = (cost, bm, splits, blocks)
+    return best[1:]
+
+
+def simt_k_ranges(depth, splits):
+    """``[(k0, k1)]``: the k tiles of each split of a gemm-route pass, as
+    the kernel cuts them; the partials are summed in this order."""
+    kts = -(-depth // SIMT_BK)
+    return [(z * kts // splits, (z + 1) * kts // splits)
+            for z in range(splits)]
+
+
+def mlp_route(dtype, hidden, inter, hout, rows):
     """``"tc"`` for bf16 with H, I and Hout all multiples of 8 (a TMA row
-    is a whole number of 16-byte units), else ``"simt"``."""
-    if dtype == torch.bfloat16 and not (hidden % 8 or inter % 8
-                                        or hout % 8):
-        return "tc"
-    return "simt"
+    is a whole number of 16-byte units), ``"split"`` for other bf16 and
+    for f32 at most :data:`SPLIT_ROWS` rows, ``"gemm"`` for f32 at more
+    rows."""
+    if dtype == torch.bfloat16:
+        return "split" if hidden % 8 or inter % 8 or hout % 8 else "tc"
+    return "split" if rows <= SPLIT_ROWS else "gemm"
 
 
 def gemm_plan(rows, cols, sms):
@@ -116,8 +193,9 @@ def _mlp_tc(x2, w1, b1, w2, b2, out):
 
 
 def _mlp_cuda(x2, w1, b1, w2, b2):
-    """K4's op on CUDA tensors: the launch on the route :func:`mlp_route`
-    picks."""
+    """K4's op on CUDA tensors: one launch on the route :func:`mlp_route`
+    picks (the routes' second kernels, the merge and the split-K sum,
+    are part of it)."""
     code = core.dtype_code(x2, (torch.float32, torch.bfloat16))
     for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t.dtype != x2.dtype:
@@ -133,21 +211,32 @@ def _mlp_cuda(x2, w1, b1, w2, b2):
                          f"{tuple(b1.shape)} w2 {tuple(w2.shape)} b2 "
                          f"{tuple(b2.shape)}")
     out = torch.empty((rows, hout), dtype=x2.dtype, device=x2.device)
-    if mlp_route(x2.dtype, hidden, inter, hout) == "tc":
-        return _mlp_tc(x2, w1, b1, w2, b2, out) if rows else out
-    smem = core.library().ptt_mlp_smem_bytes(hidden, hout)
-    if smem > core.MAX_SMEM:
-        raise ValueError(f"mlp kernel: H={hidden}, Hout={hout} need {smem} "
-                         f"bytes of shared memory (max {core.MAX_SMEM})")
+    route = mlp_route(x2.dtype, hidden, inter, hout, rows)
     if rows == 0:
         return out
+    if route == "tc":
+        return _mlp_tc(x2, w1, b1, w2, b2, out)
+    f32 = torch.float32
+    if route == "gemm":
+        slots = {bm: core.resident_slots("ptt_mlp_gemm_resident", bm)
+                 for bm in SIMT_ROWS}
+        bm1, _, _ = simt_gemm_plan(rows, inter, hidden, slots)
+        bm2, splits, _ = simt_gemm_plan(rows, hout, inter, slots, split=True)
+        act = torch.empty((rows, inter), dtype=f32, device=x2.device)
+        part = (torch.empty((splits, rows, hout), dtype=f32,
+                            device=x2.device) if splits > 1 else None)
+        KERNEL(core.ptr(x2), core.ptr(w1), core.ptr(b1), core.ptr(w2),
+               core.ptr(b2), core.ptr(act), core.ptr(part), core.ptr(out),
+               rows, hidden, inter, hout, bm1, bm2, splits, core.stream(x2),
+               route="gemm")
+        del act, part        # enqueued: stream order protects the scratch
+        return out
     sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    nsplit, per = split_plan(rows, inter, sms)
-    part = torch.empty((nsplit, rows, hout), dtype=torch.float32,
-                       device=x2.device)
+    tile, splits = split_plan(rows, inter, sms)
+    part = torch.empty((splits, rows, hout), dtype=f32, device=x2.device)
     KERNEL(code, core.ptr(x2), core.ptr(w1), core.ptr(b1), core.ptr(w2),
-           core.ptr(b2), core.ptr(out), core.ptr(part), rows, hidden, inter,
-           hout, nsplit, per, core.stream(x2))
+           core.ptr(b2), core.ptr(part), core.ptr(out), rows, hidden, inter,
+           hout, tile, splits, core.stream(x2), route="split")
     return out
 
 

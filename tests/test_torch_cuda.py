@@ -164,7 +164,19 @@ FLASH_BF16_TOL = 2.0 ** -6
 _FLASH_CASES = {
     torch.float32: [(2, 3, 70, 70, 64, True, False),
                     (1, 2, 30, 100, 32, True, False),
-                    (2, 2, 65, 65, 128, False, True)],
+                    (2, 2, 65, 65, 128, False, True),
+                    # the simt route's split plans (chunks merged): the
+                    # serve shape, Tq not a multiple of 64 with Tk > Tq
+                    # and masked rows, D = 16 and 128, Tq > Tk
+                    (1, 12, 512, 512, 64, True, False),
+                    (3, 2, 200, 330, 64, True, True),
+                    (2, 2, 190, 190, 16, True, True),
+                    (1, 2, 250, 120, 128, True, False),
+                    (2, 3, 100, 260, 32, False, True),
+                    # few heads over many keys: 1023 kv tiles (the most
+                    # an item's code names) split, 1094 not
+                    (1, 12, 64, 65472, 64, False, False),
+                    (1, 12, 64, 70000, 64, False, False)],
     torch.bfloat16: [(2, 3, 70, 70, 64, True, False),
                      (1, 4, 100, 300, 64, True, False),
                      (1, 2, 300, 100, 128, True, False),
@@ -226,16 +238,27 @@ _MLP_TC_SHAPES = [(rows, hid, inter) for rows in (1, 13, 130, 8197)
                   for inter in (3000, 3072, 4096) for hid in (768, 1024)]
 
 
+# K4's f32 routes: rows on both sides of the split/gemm threshold (32)
+# and of the split route's row tiles (8, 16, 32), a gemm tile's 64 and 128
+# rows and pass 2's splits; I = 3000 (a partial unit, k tile and column
+# tile) and 3072; and narrow widths
+_MLP_F32_SHAPES = ([(1, 64, 40), (17, 96, 200), (33, 768, 3072)]
+                   + [(rows, 768, inter)
+                      for rows in (1, 8, 9, 31, 32, 33, 255, 256, 513, 2048)
+                      for inter in (3000, 3072)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mlp_kernel_row_and_intermediate_tails(cuda, dtype):
-    """K4 against its plain version in f32. f32 takes the SIMT route
-    (abs, or relative beyond 1); bf16 takes the tensor cores (each launch
-    counted on the tc route), its output held at BF16_TOL on its own
-    scale: one bf16 rounding of the activation and of the output."""
+    """K4 against its plain version in f32. f32 takes the split route up
+    to 32 rows and the gemm route past them (abs, or relative beyond 1);
+    bf16 takes the tensor cores, its output held at BF16_TOL on its own
+    scale: one bf16 rounding of the activation and of the output. Each
+    launch is counted on the route mlp_route gives, and on no other."""
     from paddle_tpu_torch.ops.cuda import core, mlp
     g = torch.Generator().manual_seed(2)
-    shapes = (((1, 64, 40), (17, 96, 200), (33, 768, 3072))
-              if dtype == torch.float32 else _MLP_TC_SHAPES)
+    shapes = (_MLP_F32_SHAPES if dtype == torch.float32
+              else _MLP_TC_SHAPES)
     for rows, hid, inter in shapes:
         x = _randn(g, rows, hid, dtype=dtype)
         w1 = _randn(g, hid, inter, scale=hid ** -0.5, dtype=dtype)
@@ -245,15 +268,62 @@ def test_mlp_kernel_row_and_intermediate_tails(cuda, dtype):
         before = dict(core.KERNELS["mlp"].route_launches)
         got = mlp.mlp_kernel(x, w1, b1, w2, b2)
         want = mlp.mlp_plain(*(t.float() for t in (x, w1, b1, w2, b2)))
-        route = "simt" if dtype == torch.float32 else "tc"
-        assert (core.KERNELS["mlp"].route_launches[route]
-                == before[route] + 1), (rows, hid, inter)
+        route = mlp.mlp_route(dtype, hid, inter, hid, rows)
+        assert route == ("tc" if dtype == torch.bfloat16 else
+                         "split" if rows <= 32 else "gemm")
+        after = core.KERNELS["mlp"].route_launches
+        assert {r: n - before[r] for r, n in after.items()} == {
+            r: int(r == route) for r in after}, (rows, hid, inter)
         assert got.dtype == dtype and got.shape == (rows, hid)
         if dtype == torch.float32:
             assert float((got - want).abs().max()) <= F32_TOL * max(
                 1.0, float(want.abs().max()))
         else:
             _held([got], [want], BF16_TOL)
+
+
+@pytest.mark.parametrize("rows", [64, 2048, 8192])
+def test_mlp_split_route_at_many_rows(cuda, rows):
+    """bf16 K4 at widths the tensor cores cannot take (H = 100, I = 3004)
+    runs the split route at any rows; at many rows its plan falls to few
+    splits, each block walking a wide slice 32 columns at a time, and
+    the output is held at BF16_TOL against the f32 plain version."""
+    from paddle_tpu_torch.ops.cuda import core, mlp
+    g = torch.Generator().manual_seed(13)
+    hid, inter, bf16 = 100, 3004, torch.bfloat16
+    x = _randn(g, rows, hid, dtype=bf16)
+    w1 = _randn(g, hid, inter, scale=hid ** -0.5, dtype=bf16)
+    b1 = _randn(g, inter, scale=0.1, dtype=bf16)
+    w2 = _randn(g, inter, hid, scale=inter ** -0.5, dtype=bf16)
+    b2 = _randn(g, hid, scale=0.1, dtype=bf16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits = mlp.split_plan(rows, inter, sms)
+    assert splits == 1 or rows < 8192
+    assert mlp.mlp_route(bf16, hid, inter, hid, rows) == "split"
+    before = core.KERNELS["mlp"].route_launches["split"]
+    got = mlp.mlp_kernel(x, w1, b1, w2, b2)
+    assert core.KERNELS["mlp"].route_launches["split"] == before + 1
+    _held([got], [mlp.mlp_plain(*(t.float() for t in (x, w1, b1, w2,
+                                                      b2)))], BF16_TOL)
+
+
+def test_resident_slots_are_the_h100s(cuda):
+    """The blocks an SM holds, as the plans read them from the occupancy
+    calculator, are those the CPU plan tests take as the H100's
+    (test_torch_kernels.py H100_GEMM_SLOTS and H100_FLASH_SLOTS): the gemm
+    route's kernel 2 at either tile height, K2's simt kernel 4, 3, 2 and
+    1 by head dim (f32; bf16 at 16 and 32 as f32)."""
+    from paddle_tpu_torch.ops.cuda import core
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gemm = {bm: core.resident_slots("ptt_mlp_gemm_resident", bm) // sms
+            for bm in (128, 64)}
+    assert gemm == {128: 2, 64: 2}
+    f32 = {d: core.resident_slots("ptt_flash_attention_resident", core.F32,
+                                  d) // sms for d in (16, 32, 64, 128)}
+    assert f32 == {16: 4, 32: 3, 64: 2, 128: 1}
+    assert {d: core.resident_slots("ptt_flash_attention_resident",
+                                   core.BF16, d) // sms
+            for d in (16, 32)} == {16: 4, 32: 3}
 
 
 @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
@@ -516,7 +586,7 @@ def test_verify_call_on_card_matches_cpu(cuda):
     assert float(err.max()) <= 5e-2, err
     assert counts["flash_attention"] == 0
     assert counts["layer_norm"] == routes["layer_norm"]["row"] == 5
-    assert counts["mlp"] == routes["mlp"]["simt"] == 2
+    assert counts["mlp"] == routes["mlp"]["split"] == 2
 
 
 def test_sampling_uniforms_equal_on_cpu_and_card(cuda):
@@ -703,8 +773,9 @@ def test_xent_stats_tensor_core_route(cuda, n, v, hid):
 
 def test_k4_k5_take_the_tensor_core_route_by_the_rule(cuda):
     """bf16 K4 and K5 with widths that are multiples of 8 launch on the
-    tc route (its count rises, the simt count does not); H = 100 in bf16
-    and f32 take the simt route, each still right."""
+    tc route (its count rises, no other route's does); H = 100 in bf16
+    takes K4's split route and K5's simt route, f32 at 40 rows K4's gemm
+    route and K5's simt route, each still right."""
     from paddle_tpu_torch.ops.cuda import core, mlp, xent
     g = torch.Generator().manual_seed(12)
 
@@ -722,21 +793,20 @@ def test_k4_k5_take_the_tensor_core_route_by_the_rule(cuda):
                 _randn(g, 300, hid, scale=0.05, dtype=dtype),
                 _randn(g, 300, scale=0.1), labels)
 
-    for hid, dtype, route in ((128, torch.bfloat16, "tc"),
-                              (100, torch.bfloat16, "simt"),
-                              (128, torch.float32, "simt")):
+    for hid, dtype, routes in ((128, torch.bfloat16, ("tc", "tc")),
+                               (100, torch.bfloat16, ("split", "simt")),
+                               (128, torch.float32, ("gemm", "simt"))):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        for name, fn, plain, case in (
-                ("mlp", mlp.mlp_kernel, mlp.mlp_plain, mlp_case),
+        for name, fn, plain, case, route in (
+                ("mlp", mlp.mlp_kernel, mlp.mlp_plain, mlp_case, routes[0]),
                 ("xent_stats", xent.xent_stats_kernel,
-                 xent.xent_stats_plain, stats_case)):
+                 xent.xent_stats_plain, stats_case, routes[1])):
             args = case(hid, dtype)
             before = dict(core.KERNELS[name].route_launches)
             got = fn(*args)
             after = core.KERNELS[name].route_launches
-            other = "simt" if route == "tc" else "tc"
-            assert after[route] == before[route] + 1, (name, hid, dtype)
-            assert after[other] == before[other], (name, hid, dtype)
+            assert {r: n - before[r] for r, n in after.items()} == {
+                r: int(r == route) for r in after}, (name, hid, dtype)
             if name == "mlp":
                 _held([got], [plain(*(t.float() for t in args))], tol)
             else:

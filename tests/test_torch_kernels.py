@@ -101,12 +101,248 @@ def test_fused_mlp_matches_jax_xla_and_interpret(rng, flags_guard, rows,
     np.testing.assert_allclose(got, ref_int, **TOL)
 
 
-def test_mlp_split_plan_covers_every_chunk():
-    from paddle_tpu_torch.ops.cuda.mlp import BLOCK_I, split_plan
-    for rows, inter in ((8, 3072), (512, 3072), (13, 3000), (1, 40)):
-        nsplit, per = split_plan(rows, inter, 132)
-        chunks = -(-inter // BLOCK_I)
-        assert (nsplit - 1) * per < chunks <= nsplit * per
+@pytest.mark.parametrize("rows,inter,sms", [
+    (8, 3072, 132), (32, 3072, 132), (13, 3000, 132), (1, 40, 132),
+    (17, 200, 132), (8, 4096, 132), (2048, 100, 132), (8, 3072, 1),
+    (8, 30000, 132), (40, 3072, 16)])
+def test_mlp_split_plan_covers_every_chunk(rows, inter, sms):
+    """The split route's plan: the row tile holds the rows (the largest
+    tile past it, in a grid of tiles); the slices cover every I column
+    exactly once, in whole 8-column units but the last, none empty; at
+    one row tile one slice per SM wherever the units allow, none wider
+    than SPLIT_WIDEST; at more, the fewest slices whose blocks reach one
+    an SM and one for each SPLIT_WIDEST columns."""
+    from paddle_tpu_torch.ops.cuda import mlp
+    tile, splits = mlp.split_plan(rows, inter, sms)
+    assert tile in mlp.SPLIT_TILES
+    assert rows <= tile or tile == mlp.SPLIT_TILES[-1]
+    assert all(t < rows for t in mlp.SPLIT_TILES if t < tile)
+    slices = mlp.split_slices(inter, splits)
+    covered = [i for i0, i1 in slices for i in range(i0, i1)]
+    assert covered == list(range(inter))
+    units = -(-inter // mlp.SPLIT_UNIT)
+    row_tiles = -(-rows // tile)
+    for i0, i1 in slices:
+        assert i0 % mlp.SPLIT_UNIT == 0 and 0 < i1 - i0
+        assert row_tiles > 1 or i1 - i0 <= mlp.SPLIT_WIDEST
+        assert (i1 - i0) % mlp.SPLIT_UNIT == 0 or i1 == inter
+    if row_tiles == 1:
+        assert splits == min(units, max(sms, -(-units // 4)))
+    blocks = splits * row_tiles
+    assert splits == units or (blocks >= sms and 4 * blocks >= units)
+    fewer = (splits - 1) * row_tiles
+    assert splits == 1 or fewer < sms or 4 * fewer < units
+
+
+@pytest.mark.parametrize("rows", [33, 100, 512, 2048, 8192])
+@pytest.mark.parametrize("inter", [3004, 3072, 16384])
+def test_mlp_split_plan_keeps_the_partials_near_the_output(rows, inter):
+    """The split route at many rows (bf16 at widths the tensor cores
+    cannot take): the splits fall as the row tiles grow, so the f32
+    partials ``[splits, rows, Hout]`` hold, beyond the output's own rows,
+    fewer than a row tile for each SM or each SPLIT_WIDEST columns of I;
+    8192 rows at GPT's I take one split."""
+    from paddle_tpu_torch.ops.cuda import mlp
+    sms = 132
+    tile, splits = mlp.split_plan(rows, inter, sms)
+    units = -(-inter // mlp.SPLIT_UNIT)
+    assert (splits - 1) * rows < max(sms, -(-units // 4)) * tile
+    if rows == 8192 and inter < 4096:
+        assert splits == 1
+
+
+#: the H100's resident block slots, which the plans read on the card
+#: (``core.resident_slots``: 132 SMs x the blocks an SM holds, by the CUDA
+#: occupancy calculator): the gemm route's kernel 2 at either tile height,
+#: K2's simt kernel 4, 3, 2 and 1 by head dim. The gpu test
+#: ``test_resident_slots_are_the_h100s`` holds the card to them.
+H100_GEMM_SLOTS = {128: 2 * 132, 64: 2 * 132}
+H100_FLASH_SLOTS = {16: 4 * 132, 32: 3 * 132, 64: 2 * 132, 128: 132}
+
+
+#: (rows, cols, depth) of the gemm route's passes: prefill chunks of 512
+#: and 256 rows, generate's 2048-row prefill, the f32 crosschecks, tails
+_SIMT_PASSES = [(512, 3072, 768), (512, 768, 3072), (256, 3072, 768),
+                (256, 768, 3072), (2048, 3072, 768), (2048, 768, 3072),
+                (33, 3000, 768), (33, 768, 3000), (513, 200, 96),
+                (100, 40, 64), (8197, 1024, 4096)]
+
+
+@pytest.mark.parametrize("rows,cols,depth", _SIMT_PASSES)
+@pytest.mark.parametrize("split", [False, True])
+def test_mlp_simt_gemm_plan_covers_every_tile_once(rows, cols, depth,
+                                                   split):
+    """A gemm-route pass: BM x 96 tiles of a tile height the kernel has,
+    every (row tile, column tile, k tile) in exactly one block, the k
+    splits in ascending contiguous ranges (the order the partials are
+    summed in), pass 1 never split, and no other choice of the plan's
+    costing cheaper."""
+    from paddle_tpu_torch.ops.cuda import mlp
+    slots = H100_GEMM_SLOTS
+    bm, splits, blocks = mlp.simt_gemm_plan(rows, cols, depth, slots, split)
+    assert bm in mlp.SIMT_ROWS
+    assert 1 <= splits <= (mlp.SIMT_MAX_SPLITS if split else 1)
+    mt, nt = -(-rows // bm), -(-cols // mlp.SIMT_COLS)
+    kts = -(-depth // mlp.SIMT_BK)
+    assert blocks == mt * nt * splits
+    ranges = mlp.simt_k_ranges(depth, splits)
+    assert [k for k0, k1 in ranges for k in range(k0, k1)] == list(
+        range(kts))
+    assert all(k1 > k0 for k0, k1 in ranges)
+    walked = sorted((m, n_, k) for m in range(mt) for n_ in range(nt)
+                    for k0, k1 in ranges for k in range(k0, k1))
+    assert len(walked) == len(set(walked)) == mt * nt * kts
+
+    def cost(bm_, s_):
+        b_ = -(-rows // bm_) * nt * s_
+        return (-(-b_ // slots[bm_]) * bm_
+                * -(-kts // s_) / mlp.simt_issue_share(bm_))
+    assert all(cost(bm, splits) <= cost(b_, s_) for b_ in mlp.SIMT_ROWS
+               for s_ in range(1, (min(mlp.SIMT_MAX_SPLITS, kts)
+                                   if split else 1) + 1))
+
+
+def test_mlp_simt_plans_at_the_serving_shapes():
+    """At GPTConfig.small()'s widths on 132 SMs (two blocks an SM): a
+    512-row prefill chunk runs pass 1 as 256 tiles of 64 x 96 and pass 2
+    as 32 tiles of 128 x 96 split 8 ways (256 blocks), the choices the
+    H100 read fastest among every tile height and split (PERF.md); a
+    256-row chunk pass 1 as 128 tiles of 64 x 96, pass 2 as 32 of them
+    split 8 ways; generate's 2048 rows split pass 2 in two; decode's 8
+    rows and verify's 32 take the split route at one slice per SM."""
+    from paddle_tpu_torch.ops.cuda import mlp
+    slots = H100_GEMM_SLOTS
+    assert mlp.simt_gemm_plan(512, 3072, 768, slots) == (64, 1, 256)
+    assert mlp.simt_gemm_plan(512, 768, 3072, slots, True) == (128, 8, 256)
+    assert mlp.simt_gemm_plan(256, 3072, 768, slots) == (64, 1, 128)
+    assert mlp.simt_gemm_plan(256, 768, 3072, slots, True) == (64, 8, 256)
+    assert mlp.simt_gemm_plan(2048, 3072, 768, slots) == (128, 1, 512)
+    assert mlp.simt_gemm_plan(2048, 768, 3072, slots, True) == (128, 2,
+                                                                256)
+    assert mlp.split_plan(8, 3072, 132) == (8, 132)
+    assert mlp.split_plan(32, 3072, 132) == (32, 132)
+
+
+@pytest.mark.parametrize("dtype,rows,route", [
+    (torch.float32, 1, "split"), (torch.float32, 8, "split"),
+    (torch.float32, 32, "split"), (torch.float32, 33, "gemm"),
+    (torch.float32, 256, "gemm"), (torch.float32, 512, "gemm"),
+    (torch.float32, 2048, "gemm"), (torch.bfloat16, 8, "tc"),
+    (torch.bfloat16, 512, "tc")])
+def test_mlp_route_rule_by_rows(dtype, rows, route):
+    """K4's route at GPTConfig.small()'s widths: f32 takes the split
+    route up to SPLIT_ROWS rows (decode 8, verify 32) and the gemm route
+    past them (prefill chunks of 256 and 512, generate's 2048); bf16
+    takes the tensor cores at any rows."""
+    from paddle_tpu_torch.ops.cuda import mlp
+    assert mlp.mlp_route(dtype, 768, 3072, 768, rows) == route
+
+
+def _split_mlp_plain(x, w1, b1, w2, b2, splits, fault=None):
+    """The split route's algorithm in plain torch (``csrc/mlp_simt.cu``
+    split::): each split's I slice, its gelu activation and its partial
+    of the output; the partials summed as split_merge_kernel sums them
+    (eight fixed groups, then the groups in order), plus b2. ``fault``
+    plants one of the faults the card check must catch: ``"drop_b1"``
+    (split 1 leaves out b1), ``"row_shift"`` (each row's partial written
+    one row down), ``"twice"`` (split 0's partial summed twice)."""
+    from paddle_tpu_torch.ops.activations import gelu
+    from paddle_tpu_torch.ops.cuda import mlp
+    parts = []
+    for s_, (i0, i1) in enumerate(mlp.split_slices(w1.shape[1], splits)):
+        # a block's slice, SPLIT_WIDEST columns at a time, in order
+        p = 0
+        for c0 in range(i0, i1, mlp.SPLIT_WIDEST):
+            c1 = min(i1, c0 + mlp.SPLIT_WIDEST)
+            h = x @ w1[:, c0:c1]
+            if not (fault == "drop_b1" and s_ == 1):
+                h = h + b1[c0:c1]
+            p = p + gelu(h) @ w2[c0:c1]
+        if fault == "row_shift":
+            p = torch.cat([p[:1] * 0, p[:-1]])
+        parts.append(p)
+    if fault == "twice":
+        parts.append(parts[0])
+    groups = [sum(parts[g::8], torch.zeros_like(parts[0]))
+              for g in range(8)]
+    return sum(groups, torch.zeros_like(parts[0])) + b2
+
+
+def _gemm_mlp_plain(x, w1, b1, w2, b2, splits, fault=None):
+    """The gemm route's algorithm in plain torch: pass 1's activation,
+    pass 2's partials over the k ranges ``simt_k_ranges`` gives, summed
+    in split order with b2. ``fault``: ``"drop_b1"`` (pass 1's second
+    column tile without b1), ``"row_shift"`` (pass 2 stores each row one
+    row down), ``"twice"`` (split 0's partial summed twice)."""
+    from paddle_tpu_torch.ops.activations import gelu
+    from paddle_tpu_torch.ops.cuda import mlp
+    bias = b1.clone()
+    if fault == "drop_b1":
+        bias[mlp.SIMT_COLS:2 * mlp.SIMT_COLS] = 0
+    act = gelu(x @ w1 + bias)
+    parts = [act[:, k0 * mlp.SIMT_BK:k1 * mlp.SIMT_BK]
+             @ w2[k0 * mlp.SIMT_BK:k1 * mlp.SIMT_BK]
+             for k0, k1 in mlp.simt_k_ranges(w1.shape[1], splits)]
+    if fault == "twice":
+        parts.append(parts[0])
+    out = sum(parts, torch.zeros_like(parts[0])) + b2
+    if fault == "row_shift":
+        out = torch.cat([out[:1] * 0, out[:-1]])
+    return out
+
+
+@pytest.mark.parametrize("route,rows,inter,splits", [
+    ("split", 8, 200, 25), ("split", 13, 3000, 132), ("split", 32, 72, 9),
+    ("split", 100, 3000, 3),
+    ("gemm", 40, 200, 3), ("gemm", 130, 3000, 8), ("gemm", 33, 72, 1)])
+def test_mlp_simt_algorithms_match_jax(rng, route, rows, inter, splits):
+    """The split and gemm routes' split-and-sum, in plain torch, against
+    the JAX fused MLP (XLA path) at 1e-5: ragged I slices and k ranges,
+    I not a multiple of the unit or of 16. W2 is drawn at I^-0.5, so
+    outputs are of order 1 at every I."""
+    from paddle_tpu.ops.pallas.mlp import fused_mlp
+    h = 48
+    x = rng.randn(rows, h).astype(np.float32)
+    w1 = (rng.randn(h, inter) * 0.2).astype(np.float32)
+    b1 = (rng.randn(inter) * 0.1).astype(np.float32)
+    w2 = (rng.randn(inter, h) * inter ** -0.5).astype(np.float32)
+    b2 = (rng.randn(h) * 0.1).astype(np.float32)
+    fn = _split_mlp_plain if route == "split" else _gemm_mlp_plain
+    got = n(fn(t(x), t(w1), t(b1), t(w2), t(b2), splits))
+    ref = np.asarray(fused_mlp(*map(jnp.asarray, (x, w1, b1, w2, b2))))
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("route", ["split", "gemm"])
+@pytest.mark.parametrize("fault", ["none", "drop_b1", "row_shift", "twice"])
+def test_mlp_card_check_fails_each_planted_fault(route, fault):
+    """chip_smoke.py's K4 check (max |kernel - plain| <= F32_TOL) on the
+    CPU at its serving shapes (8 rows on the split route, 132 slices; 512
+    rows on the gemm route, pass 2 split 4 ways), with its inputs: the
+    routes' split-and-sum passes it, and each planted fault fails it."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from paddle_tpu_torch.ops.cuda import mlp
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    rows, splits = (8, 132) if route == "split" else (512, 4)
+    x = randn(rows, 768)
+    w1, b1 = randn(768, 3072, scale=0.036), randn(3072, scale=0.02)
+    w2, b2 = randn(3072, 768, scale=0.036), randn(768, scale=0.02)
+    fn = _split_mlp_plain if route == "split" else _gemm_mlp_plain
+    got = fn(x, w1, b1, w2, b2, splits, None if fault == "none" else fault)
+    err = chip_smoke.max_err(got, mlp.mlp_plain(x, w1, b1, w2, b2))
+    if fault == "none":
+        chip_smoke.check("mlp", err, chip_smoke.F32_TOL)
+        return
+    with pytest.raises(AssertionError):
+        chip_smoke.check(f"mlp {fault}", err, chip_smoke.F32_TOL)
 
 
 # ----------------------------------------- K4 / K5 tensor-core route plans
@@ -202,17 +438,19 @@ def test_xent_stats_tc_plan_covers_every_tile_once(n, v):
     (torch.bfloat16, (768, 3072, 768), "tc", "tc"),
     (torch.bfloat16, (1024, 4096, 1024), "tc", "tc"),
     (torch.bfloat16, (96, 200, 96), "tc", "tc"),
-    (torch.bfloat16, (100, 3072, 100), "simt", "simt"),
-    (torch.bfloat16, (768, 3004, 768), "simt", "tc"),
-    (torch.bfloat16, (768, 3072, 100), "simt", "tc"),
-    (torch.float32, (768, 3072, 768), "simt", "simt"),
+    (torch.bfloat16, (100, 3072, 100), "split", "simt"),
+    (torch.bfloat16, (768, 3004, 768), "split", "tc"),
+    (torch.bfloat16, (768, 3072, 100), "split", "tc"),
+    (torch.float32, (768, 3072, 768), "split", "simt"),
 ])
 def test_k4_k5_route_rule(dtype, widths, route, k5_route):
     """K4's and K5's route: bf16 with every width a multiple of 8 (whole
     16-byte TMA rows; K4 has H, I and Hout, K5 only H) takes the tensor
-    cores; any other width in bf16, and f32 always, the SIMT kernel."""
+    cores; any other width in bf16 K4's split route and K5's SIMT
+    kernel; f32 at 8 rows K4's split route (the gemm route takes f32
+    past 32 rows: test_mlp_route_rule_by_rows) and K5's SIMT kernel."""
     from paddle_tpu_torch.ops.cuda import mlp, xent
-    assert mlp.mlp_route(dtype, *widths) == route
+    assert mlp.mlp_route(dtype, *widths, 8) == route
     assert xent.stats_route(dtype, widths[0]) == k5_route
 
 
@@ -374,6 +612,204 @@ def test_flash_matches_jax_xla_and_interpret(rng, flags_guard, tq, tk,
     entry = port_flash(t(q), t(k), t(v), scale=scale, causal=causal,
                        kv_mask=None if mask is None else t(mask))
     np.testing.assert_allclose(n(entry), got, **TOL)
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,causal", [
+    (12, 512, 512, 64, True), (192, 512, 512, 64, True),
+    (6, 200, 200, 64, True), (4, 100, 300, 32, True),
+    (4, 300, 100, 128, True), (4, 130, 130, 128, False),
+    (2, 70, 70, 16, True), (1, 1, 1, 64, True), (24, 4096, 4096, 64, True),
+    (3, 65, 1000, 64, False), (12, 64, 65472, 64, False),
+    (12, 64, 70000, 64, False)])
+def test_flash_plan_covers_every_tile_once_longest_first(bh, tq, tk, d,
+                                                         causal):
+    """K2's simt work split: every (query tile, kv tile) that the causal
+    skip keeps in exactly one item, items in contiguous chunks of at most
+    ``chunk`` tiles that start on multiples of it, a query tile without
+    a kv tile as one empty item, the list longest first and within the
+    kernel's table; no split where the chunk covers every tile, and the
+    chunk no longer than the kv tiles over the SMs' block slots."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    tiles = fa.flash_kv_tiles(tq, tk, causal)
+    nq, nk = -(-tq // 64), -(-tk // 64)
+    assert len(tiles) == nq and all(0 <= x <= nk for x in tiles)
+    for qi, x in enumerate(tiles):        # the causal skip: nothing lost
+        rows = range(qi * 64, min(tq, qi * 64 + 64))
+        need = max((i + tk - tq for i in rows), default=-1) if causal \
+            else tk - 1
+        assert x == (0 if need < 0 else min(nk, need // 64 + 1))
+    slots = H100_FLASH_SLOTS[d]
+    chunk, items = fa.flash_plan(bh, tq, tk, causal, slots)
+    if items is None:
+        assert (chunk >= max(tiles) or nq > fa.FLASH_MAX_ITEMS
+                or nk > fa.FLASH_CODE_KV_TILES)
+        return
+    assert len(items) <= fa.FLASH_MAX_ITEMS
+    assert chunk < max(tiles)
+    assert chunk == -(-bh * sum(max(1, x) for x in tiles) // slots)
+    lengths = [t1 - t0 for _, t0, t1 in items]
+    assert lengths == sorted(lengths, reverse=True)
+    walked = sorted((qi, t) for qi, t0, t1 in items for t in range(t0, t1))
+    assert walked == [(qi, t) for qi, x in enumerate(tiles)
+                      for t in range(x)]
+    for qi, t0, t1 in items:
+        assert t0 % chunk == 0 and t1 - t0 <= chunk
+        assert t1 == min(tiles[qi], t0 + chunk)
+    assert sorted(qi for qi, t0, t1 in items if t1 == t0) == [
+        qi for qi, x in enumerate(tiles) if x == 0]
+
+
+@pytest.mark.parametrize("bh,tq,tk", [
+    (12, 64, 70000), (12, 64, 65472), (12, 64, 65473), (1, 300, 20000),
+    (12, 512, 512)])
+def test_flash_plan_items_fit_their_code(bh, tq, tk):
+    """Every item of a split plan comes back from its code as the kernel
+    decodes it (query tile = code >> 20, kv tiles = 10 bits each); past
+    1023 kv tiles (Tk > 65,472 keys) the plan does not split, and a code
+    that cannot hold its tiles raises instead of wrapping."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    chunk, items = fa.flash_plan(bh, tq, tk, False, H100_FLASH_SLOTS[64])
+    nk = -(-tk // 64)
+    assert (items is None) == (nk > fa.FLASH_CODE_KV_TILES)
+    for qi, t0, t1 in items or ():
+        e = fa.flash_item_code(qi, t0, t1)
+        assert (e >> 20, (e >> 10) & 1023, e & 1023) == (qi, t0, t1)
+    with pytest.raises(ValueError):
+        fa.flash_item_code(0, 50, 1024)
+    with pytest.raises(ValueError):
+        fa.flash_item_code(4096, 0, 1)
+
+
+def _flash_items_plain(q, k, v, scale, causal, mask, chunk, items,
+                       fault=None):
+    """K2's simt algorithm in plain torch (``csrc/flash_attention.cu``):
+    each item's (m, l, acc) over its kv tiles, written as out and lse
+    where its query tile is one item, else merged in chunk order as
+    fa_merge_kernel merges them. ``fault`` plants one of the faults the
+    card check must catch: ``"lse_row"`` (each row's lse read from the
+    next row's), ``"diag"`` (causal ``>`` for ``>=``)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    tiles = fa.flash_kv_tiles(tq, tk, causal)
+    if items is None:
+        items = [(qi, 0, x) for qi, x in reversed(list(enumerate(tiles)))]
+    out = torch.zeros_like(q)
+    lse = torch.zeros(b, h, tq)
+    parts = {}
+    for qi, t0, t1 in items:
+        r0, r1 = qi * 64, min(tq, qi * 64 + 64)
+        k0, k1 = t0 * 64, min(tk, t1 * 64)
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1],
+                         k[:, :, k0:k1]) * scale
+        qp = torch.arange(r0, r1)[:, None] + (tk - tq)
+        kp = torch.arange(k0, k1)[None, :]
+        valid = torch.ones(r1 - r0, k1 - k0, dtype=torch.bool)
+        if causal:
+            valid = qp > kp if fault == "diag" else qp >= kp
+        valid = valid[None, None]
+        if mask is not None:
+            valid = valid & mask[:, None, None, k0:k1]
+        s = torch.where(valid, s, torch.full_like(s, fa.NEG_INF))
+        m = s.amax(-1, keepdim=True) if k1 > k0 else torch.full(
+            (b, h, r1 - r0, 1), fa.NEG_INF)
+        p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+        parts.setdefault(qi, []).append(
+            (t0, m, p.sum(-1, keepdim=True), p @ v[:, :, k0:k1]))
+    for qi, chunks in parts.items():
+        r0, r1 = qi * 64, min(tq, qi * 64 + 64)
+        chunks.sort(key=lambda c: c[0])
+        m = chunks[0][1]
+        for c in chunks[1:]:
+            m = torch.maximum(m, c[1])
+        l = sum(c[2] * torch.exp(c[1] - m) for c in chunks)
+        acc = sum(c[3] * torch.exp(c[1] - m) for c in chunks)
+        out[:, :, r0:r1] = torch.where(l > 0, acc / torch.clamp(l, min=1e-30),
+                                       torch.zeros_like(acc))
+        row_lse = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]
+        if fault == "lse_row":
+            row_lse = torch.cat([row_lse[..., 1:], row_lse[..., -1:]], -1)
+        lse[:, :, r0:r1] = row_lse
+    return out, lse
+
+
+@pytest.mark.parametrize("bh_b,h,tq,tk,causal,masked", [
+    (1, 12, 200, 200, True, False), (2, 3, 130, 300, True, True),
+    (2, 2, 300, 100, True, False), (2, 3, 150, 150, False, True)])
+def test_flash_items_algorithm_matches_jax(rng, flags_guard, bh_b, h, tq,
+                                           tk, causal, masked):
+    """K2's simt split-and-merge over the plan's items, in plain torch,
+    against the JAX chunked attention (XLA) and its Pallas kernel in
+    interpret mode at 1e-5, out and lse (rows that see no key: out
+    exactly 0)."""
+    from paddle_tpu.ops.pallas.flash_attention import (
+        _flash_attention_fwd_tpu, chunked_attention)
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    d = 32
+    q = rng.randn(bh_b, h, tq, d).astype(np.float32)
+    k = rng.randn(bh_b, h, tk, d).astype(np.float32)
+    v = rng.randn(bh_b, h, tk, d).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.ones((bh_b, tk), bool)
+        mask[0, tk // 3:] = False
+        mask[-1] = False
+    chunk, items = fa.flash_plan(bh_b * h, tq, tk, causal,
+                                 H100_FLASH_SLOTS[d])
+    assert items is not None                 # the split path runs
+    got, lse = _flash_items_plain(t(q), t(k), t(v), 0.125, causal,
+                                  None if mask is None else t(mask), chunk,
+                                  items)
+    jm = None if mask is None else jnp.asarray(mask)
+    ref = np.asarray(chunked_attention(*map(jnp.asarray, (q, k, v)),
+                                       scale=0.125, causal=causal,
+                                       kv_mask=jm))
+    np.testing.assert_allclose(n(got), ref, **TOL)
+    out, ref_lse = _flash_attention_fwd_tpu(
+        *map(jnp.asarray, (q, k, v)), 0.125, causal, 16, 32, kv_mask=jm,
+        interpret=True, return_lse=True)
+    np.testing.assert_allclose(n(got), np.asarray(out), **TOL)
+    _, plse = fa.chunked_attention(t(q), t(k), t(v), 0.125, causal,
+                                   None if mask is None else t(mask),
+                                   return_lse=True)
+    np.testing.assert_allclose(n(lse), n(plse), **TOL)
+    if masked:
+        assert float(n(got)[-1].__abs__().max()) == 0.0
+
+
+@pytest.mark.parametrize("fault", ["none", "lse_row", "diag"])
+def test_flash_card_check_fails_each_planted_fault(fault):
+    """chip_smoke.py's K2 checks (``held_flash`` on out and its parts,
+    lse within F32_TOL of its scale and absolutely) on the CPU at the
+    serve path's first chunk cut to 2 heads, [1, 2, 512, 512, 64] causal,
+    with the serve shape's split plan (chunk 2): the split-and-merge
+    passes them, and each planted fault fails them."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 2, 512, 64, generator=g) for _ in range(3))
+    chunk, items = fa.flash_plan(12, 512, 512, True, H100_FLASH_SLOTS[64])
+    assert chunk == 2
+    items = [(qi, t0, t1) for qi, t0, t1 in items]
+    got, lse = _flash_items_plain(q, k, v, 0.125, True, None, chunk, items,
+                                  None if fault == "none" else fault)
+    want, wlse = fa.chunked_attention(q, k, v, 0.125, True, return_lse=True)
+    _, q_parts, _ = chip_smoke.flash_parts(1, 2, 512, 512, True, None, "cpu")
+
+    def checks():
+        chip_smoke.held_flash("out", [("out", got, want, q_parts)],
+                              chip_smoke.F32_TOL)
+        held = chip_smoke.held("lse", [lse], [wlse], torch.float32)
+        chip_smoke.check("lse", held["max_abs_err"], chip_smoke.F32_TOL)
+    if fault == "none":
+        checks()
+        return
+    with pytest.raises(AssertionError):
+        checks()
 
 
 def test_sdpa_matches_jax_causal_offset(rng):

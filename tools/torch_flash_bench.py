@@ -5,15 +5,17 @@ loop for attention kernel work.
 
     python3 tools/torch_flash_bench.py [--shapes gpt,gpt_f32,bert,...]
                                        [--untimed] [--cpu-plain]
-                                       [--rounds N]
+                                       [--rounds N] [--profile]
 
 Shapes ([B, H, Tq, Tk, D], dtype, causal, key mask): ``gpt`` GPTConfig
 .small()'s train step [16, 12, 512, 512, 64] bf16 causal, ``gpt_f32`` the
 same in f32, ``bert`` BertConfig.base()'s [64, 12, 512, 512, 64] bf16,
 ``bert_large`` BertConfig.large()'s [8, 16, 512, 512, 64] bf16, and
 ``ragged``, the tc route's edge cases (Tq != Tk, key masks with fully
-masked rows, T not a multiple of 64, D = 128), and ``simt``, the simt
-route's ragged cases (f32 at D = 16-128, bf16 at D = 16). For each case
+masked rows, T not a multiple of 64, D = 128), ``serve``, serving's first
+prefill chunk [1, 12, 512, 512, 64] f32 causal (the simt route, split
+into chunks and merged), and ``simt``, the simt route's ragged cases (f32
+at D = 16-128, bf16 at D = 16). For each case
 it prints one
 JSON line: per kernel its route, its error readings (each output, its
 rows that see few partners and those that see none, each on its own
@@ -28,6 +30,10 @@ result, and the names of the card kernels the plain backward ran
 (torch.profiler): a reading of exactly 0 on the card can then be told
 apart from a kernel that agrees with the plain version only because both
 sum in the same order.
+
+``--profile`` adds, for each case, one K2 call under torch.profiler
+(``chip_smoke.kernel_profile``, L2 warm): the device ms of each CUDA
+kernel it ran (the forward kernel and, where the plan splits, the merge).
 
 ``--rounds N`` adds, for each case, the kernels against the library
 timed in turn N times in one process, kernel first in every round: K2
@@ -66,6 +72,7 @@ SHAPES = {
                (2, 3, 130, 130, 128, BF16, True, None),
                (2, 3, 70, 70, 64, BF16, False, None),
                (1, 4, 300, 100, 128, BF16, True, (77,))],
+    "serve": [(1, 12, 512, 512, 64, F32, True, None)],
     "simt": [(2, 3, 200, 200, 64, F32, True, None),
              (1, 4, 100, 300, 32, F32, True, None),
              (2, 2, 130, 130, 128, F32, False, (43, 0)),
@@ -114,6 +121,16 @@ def cpu_plain(dev, gen, b, h, tq, tk, d, dtype, causal, lengths):
                            card_plain_vs_cpu_plain=chip_smoke.scaled_err(
                                y, z))
     return dict(readings=rows, plain_card_kernels=names)
+
+
+def profiled(dev, gen, b, h, tq, tk, d, dtype, causal, lengths):
+    """Device ms of each CUDA kernel of one K2 call."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    q, k, v, _, mask = inputs(dev, gen, b, h, tq, tk, d, dtype, lengths)
+    ms, launches, by_name = chip_smoke.kernel_profile(
+        lambda: fa.flash_attention_kernel(q, k, v, d ** -0.5, causal, mask))
+    return dict(device_ms=ms, launches=launches,
+                kernels={k_[:90]: t for k_, t in by_name.items()})
 
 
 def verdict(kernel, library):
@@ -167,6 +184,7 @@ def main():
     ap.add_argument("--untimed", action="store_true")
     ap.add_argument("--cpu-plain", action="store_true")
     ap.add_argument("--rounds", type=int, default=0)
+    ap.add_argument("--profile", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_bench: no CUDA device", file=sys.stderr)
@@ -189,6 +207,10 @@ def main():
                 row["failed"] = str(e)
             if a.cpu_plain:
                 row["cpu_plain"] = cpu_plain(
+                    dev, torch.Generator().manual_seed(7), b, h, tq, tk, d,
+                    dtype, causal, lengths)
+            if a.profile:
+                row["profile"] = profiled(
                     dev, torch.Generator().manual_seed(7), b, h, tq, tk, d,
                     dtype, causal, lengths)
             if a.rounds:

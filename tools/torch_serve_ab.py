@@ -20,8 +20,11 @@ with the cache off and a full pool, then ``chip_smoke.sampling_ms`` (the
 host time of one call of the sampler and of the greedy argmax).
 
 Prints one JSON line per tree and wave (decoded tokens/s, p50 TTFT, p50
-step ms, steps), then the card's name and power limit. Needs a CUDA
-device.
+step ms, steps); without ``--shared`` also one line per tree with the
+device ms of one first prefill chunk (512 tokens of one request into an
+empty bf16 pool, through the model's ``paged_prefill_chunk``, under
+``chip_smoke.kernel_profile``, L2 warm) and its largest kernels; then the
+card's name and power limit. Needs a CUDA device.
 """
 
 import argparse
@@ -65,6 +68,29 @@ def one(tree, waves, shared=False):
                                        seed=0)
         print(json.dumps(dict(tree=os.path.relpath(tree), wave=wave,
                               **{k: stats[k] for k in KEYS})), flush=True)
+    print(json.dumps(dict(tree=os.path.relpath(tree),
+                          **chunk_ms(chip_smoke, model, kw))), flush=True)
+
+
+def chunk_ms(chip_smoke, model, kw, top=8):
+    """Device ms, launches and the ``top`` largest kernels (ms by name) of
+    one first prefill chunk of ``kw["prefill_len"]`` tokens."""
+    import numpy as np
+    import torch
+    n, ps = kw["prefill_len"], kw["page_size"]
+    pools = model.init_paged_caches(n // ps + 1, ps, dtype=kw["cache_dtype"])
+    table = torch.arange(n // ps, dtype=torch.int32, device="cuda")[None]
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size, (1, n)).astype(np.int32)).cuda()
+    starts = torch.zeros(1, dtype=torch.int32)
+    lengths = torch.tensor([n], dtype=torch.int32)
+    with torch.inference_mode():
+        ms, launches, by_name = chip_smoke.kernel_profile(
+            lambda: model.paged_prefill_chunk(prompt, starts, lengths, pools,
+                                              table))
+    return dict(chunk_device_ms=ms, chunk_launches=launches,
+                chunk_kernels={k[:70]: v for k, v in
+                               by_name.most_common(top)})
 
 
 def shared_waves(chip_smoke, model, kw, name, waves):
