@@ -2,8 +2,8 @@
 over in-process replicas and over child processes), the DataLoader, GPT
 decoding (float and weight-only int8), GPT training
 (unrolled, scan-over-layers with remat, mixture of experts), BERT
-pretraining, Trainer, translation, image-classification and CTR paths
-on one NVIDIA H100.
+pretraining, Trainer, translation, image-classification, CTR and SSD
+detection paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -295,6 +295,34 @@ Phases, each printing one JSON line:
    moved, the rest bit-identical, no kernel of the port; records
    examples/s, the host ms of each table's pull and push a step, the
    bytes over PCIe a step and the tables' nbytes().
+24. ssd — examples/train_ssd.py at its defaults on the card through
+   tools/torch_ssd.py: TinySSD(300) (weights from seed 0; 75 x 75 and
+   38 x 38 maps, 4 priors a cell, 28,276 priors), the example's batch of
+   4 images with 3 ground-truth boxes each, the mean ssd_loss (batched
+   matching, hard-negative mining, smooth L1) under Momentum(0.01, 0.9),
+   f32, 20 steps with the launch counts zeroed just before: every loss
+   finite, the last below the first, no kernel of the port launched (the
+   reference wrote none for detection). detection_output of each image
+   (score 0.01, NMS 0.45, keep 10, NMS top 400) on the card and on the
+   CPU from the same locs, scores and priors: counts, labels and source
+   indices (multiclass_nms2) exact, scores and boxes within 1e-5, a row
+   differing only at a near tie of scores (within 1e-6, reported);
+   DetectionMAP over the four images in both AP versions. The example
+   divides the head's priors, already normalized, by the image side
+   again, so it matches no prior (recorded); the same run follows with
+   the priors as the head returns them ("matched", every image matching
+   some prior). Records the p50 step, images/s, one profiled step
+   (device ms, idle share, launches), detection_output's wall and device
+   ms and launches on image 0 and its NMS loop's alone (and its share of
+   the call); then, if the phase is under 25 s in, 1 + 5 steps at batch
+   32.
+25. ssd_crosscheck — one f32 Momentum step (TF32 off) of TinySSD(300)
+   at batch 4 on the card and on the CPU from the same weights, the CPU
+   taking the card's ReLU branches and hard negatives (ReluReplay,
+   MiningReplay: each differing choice within its tolerance of 0 or of
+   its row's cut): loss within 1e-4, every gradient within 1e-3 relative
+   L2, no kernel of the port; with the example's loss and again with the
+   priors as the head returns them (ssd_crosscheck_matched).
 
 K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
 and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
@@ -319,8 +347,8 @@ bf16 parameters); "variant" names the route; every row also has each
 path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
 launches_gpt_decode_int8, launches_serve_int8, launches_serve_fleet,
 launches_serve_fleet_proc (the children's), launches_moe_train and
-launches_scan_<policy> among them, and launches_resnet and launches_ctr,
-which are 0), the nvidia-smi line, and
+launches_scan_<policy> among them, and launches_resnet, launches_ctr and
+launches_ssd, which are 0), the nvidia-smi line, and
 the contract line
 {"ok": true, "device": {...}}.
 Any failed phase raises, and the script exits non-zero without the
@@ -2322,8 +2350,10 @@ def check_launches(what, launches, steps, want):
                              f"{wrong}")
 
 
-def train_crosscheck(make_model, loss_fn, args, around=None):
-    """One f32 Adam step of ``loss_fn`` on the card and on the CPU plain
+def train_crosscheck(make_model, loss_fn, args, around=None,
+                     make_opt=None):
+    """One f32 step of ``loss_fn`` (Adam(1e-4), or ``make_opt(params)``)
+    on the card and on the CPU plain
     path, each on a model from ``make_model(device)`` (the same weights):
     (loss card, loss CPU, per-parameter gradient errors, per-buffer
     errors, the card run's launches). A parameter whose gradient is 0 in
@@ -2339,7 +2369,7 @@ def train_crosscheck(make_model, loss_fn, args, around=None):
     out = {}
     for dev in ("cuda", "cpu"):
         model = make_model(dev)
-        opt = Adam(model.parameters(), 1e-4)
+        opt = (make_opt or (lambda ps: Adam(ps, 1e-4)))(model.parameters())
         core.reset_launches()
         with around(dev) if around else contextlib.nullcontext():
             loss = float(opt.minimize(model, loss_fn,
@@ -4126,14 +4156,15 @@ def held_beams(cpu, src, lengths, card, host, bos, eos):
 
 
 def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
-                     kernels, around=None, stats_tol=None, **extra):
+                     kernels, around=None, stats_tol=None, make_opt=None,
+                     **extra):
     """One f32 step on the card against the CPU plain path (see
     ``train_crosscheck``); emits the phase line, then raises if the loss
     or a gradient is outside its tolerance (or, for a model with buffers,
     a running statistic outside ``stats_tol``), or if one of ``kernels``
     did not launch on the card. Returns the card run's launches."""
     loss_card, loss_cpu, errs, stat_errs, launches = train_crosscheck(
-        make_model, loss_fn, args, around)
+        make_model, loss_fn, args, around, make_opt)
     if around is not None:
         extra.update(around.summary())
     if stat_errs:
@@ -5376,6 +5407,331 @@ def scan_remat_phase(smi):
     return peaks, launches_by
 
 
+# --------------------------------------------------------------------- ssd
+
+SSD_BASE = 300           # examples/train_ssd.py without --tiny: 75 x 75 and
+                         # 38 x 38 maps, 4 priors a cell, 28,276 priors
+SSD_BATCH = 4            # the example's batch, 3 gt boxes an image
+SSD_STEPS = 20           # the example's steps
+SSD_BIG_BATCH = 32       # the optional throughput line: 1 warm-up and 5
+SSD_BIG_STEPS = 5        # timed steps at batch 32,
+SSD_BIG_WITHIN_S = 25.0  # run only if the phase is this far in by then
+SSD_VALUE_TOL = 1e-5     # detection_output, card vs CPU: scores and boxes
+SSD_TIE_TOL = 1e-6       # two scores this close are a near tie
+MINING_FLIP_TOL = 1e-4   # a hard negative chosen on one device only must
+                         # lie this close to its row's cut
+SSD_DETECT = dict(score_threshold=0.01, nms_threshold=0.45,
+                  keep_top_k=10)   # the example's inference settings
+SSD_NMS_TOP_K = 400      # detection_output's nms_top_k: the loop's length
+
+
+def ssd_tools():
+    """``tools/torch_ssd.py``: the port's TinySSD, the example's batch,
+    loss and inference."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import torch_ssd
+    return torch_ssd
+
+
+class MiningReplay:
+    """The card's hard-negative selections, replayed on the CPU. The
+    mining picks the unmatched priors of largest loss: two losses that
+    round apart differently on the two devices (the convolutions sum in
+    another order) swap a prior in or out of the loss, and with it that
+    prior's whole gradient. ``around("cuda")`` records each
+    ``ops.detection.mine_hard_examples`` call's mask in order;
+    ``around("cpu")`` computes its own, returns the card's, and counts the
+    entries where they differ: each must lie within ``tol`` of its row's
+    cut (the smallest loss the CPU selected), or the replay raises."""
+
+    def __init__(self, tol=MINING_FLIP_TOL):
+        self.masks, self.flips, self.worst, self.tol = [], 0, 0.0, tol
+
+    @contextlib.contextmanager
+    def __call__(self, dev):
+        from paddle_tpu_torch.ops import detection
+        real, calls = detection.mine_hard_examples, iter(range(10 ** 9))
+
+        def record(neg_loss, match, *args, **kw):
+            mask = real(neg_loss, match, *args, **kw)
+            self.masks.append(mask)
+            return mask
+
+        def replay(neg_loss, match, *args, **kw):
+            mine = real(neg_loss, match, *args, **kw)
+            card = self.masks[next(calls)].to(mine.device)
+            flipped = card != mine
+            if bool(flipped.any()):
+                loss = neg_loss.detach()
+                cut = torch.where(mine, loss, torch.inf).amin(-1,
+                                                              keepdim=True)
+                self.flips += int(flipped.sum())
+                self.worst = max(self.worst, float(
+                    (loss - cut).abs()[flipped].max()))
+            return card
+
+        detection.mine_hard_examples = record if dev == "cuda" else replay
+        try:
+            yield
+        finally:
+            detection.mine_hard_examples = real
+        if dev != "cuda" and self.worst > self.tol:
+            raise AssertionError(f"mining replay: a negative {self.worst} "
+                                 f"from its row's cut chosen on one device "
+                                 f"only (tol {self.tol})")
+
+    def summary(self):
+        return dict(mining_calls=len(self.masks), mining_flips=self.flips,
+                    mining_flip_worst=self.worst, mining_flip_tol=self.tol)
+
+
+class Replays:
+    """Several replays (:class:`ReluReplay`, :class:`MiningReplay`)
+    entered together around each device's step."""
+
+    def __init__(self, *replays):
+        self.replays = replays
+
+    @contextlib.contextmanager
+    def __call__(self, dev):
+        with contextlib.ExitStack() as stack:
+            for r in self.replays:
+                stack.enter_context(r(dev))
+            yield
+
+    def summary(self):
+        out = {}
+        for r in self.replays:
+            out.update(r.summary())
+        return out
+
+
+def ssd_detections(args, dev):
+    """``detection_output`` of one image's (locs, scores, priors,
+    variances) on ``dev`` with the example's settings, beside
+    ``multiclass_nms2``'s source indices on the same decoded boxes (the
+    two rows must agree): (out ``[10, 6]``, indices, count) on the
+    CPU."""
+    from paddle_tpu_torch.ops import detection as D
+    locs, scores, priors, vars_ = (a.to(dev) for a in args)
+    out, count = D.detection_output(locs, scores, priors, vars_,
+                                    nms_top_k=SSD_NMS_TOP_K, **SSD_DETECT)
+    dec = D.box_coder(priors, vars_, locs[:, None, :], "decode_center_size",
+                      axis=1).reshape(-1, 4)
+    out2, idx, count2 = D.multiclass_nms2(dec, scores.T,
+                                          nms_top_k=SSD_NMS_TOP_K,
+                                          background_label=0, **SSD_DETECT)
+    if not (torch.equal(out, out2) and int(count) == int(count2)):
+        raise AssertionError(f"detection_output and multiclass_nms2 differ "
+                             f"on {dev}")
+    return out.cpu(), idx.cpu(), int(count)
+
+
+def held_detections(what, card, cpu):
+    """One image's detections on the card against the CPU's from the same
+    inputs: the count exact; each kept row's label and source index the
+    CPU's, its score and box within SSD_VALUE_TOL; a row whose label or
+    index differs only where the two scores at that row lie within
+    SSD_TIE_TOL of each other (a near tie, returned); the padding rows
+    equal. Returns (near-tie rows, the largest value error)."""
+    (co, ci, cc), (po, pi, pc) = card, cpu
+    if cc != pc:
+        raise AssertionError(f"{what}: {cc} detections on the card, {pc} on "
+                             f"the CPU")
+    ties, worst = [], 0.0
+    for r in range(cc):
+        if int(co[r, 0]) == int(po[r, 0]) and int(ci[r]) == int(pi[r]):
+            worst = max(worst, float((co[r] - po[r]).abs().max()))
+        elif abs(float(co[r, 1]) - float(po[r, 1])) <= SSD_TIE_TOL:
+            ties.append(r)
+        else:
+            raise AssertionError(f"{what}: row {r} is {co[r].tolist()} "
+                                 f"(box {int(ci[r])}) on the card, "
+                                 f"{po[r].tolist()} (box {int(pi[r])}) on "
+                                 f"the CPU")
+    check(f"{what} scores and boxes", worst, SSD_VALUE_TOL)
+    if not (torch.equal(co[cc:], po[cc:]) and torch.equal(ci[cc:], pi[cc:])):
+        raise AssertionError(f"{what}: padding rows differ")
+    return ties, worst
+
+
+def wall_ms(fn, iters=5):
+    """Median wall ms of ``fn()`` synchronized, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def ssd_run(ssd, prior_scale, what):
+    """SSD_STEPS Momentum(0.01, 0.9) steps of TinySSD(SSD_BASE) (weights
+    from seed 0) on the example's batch, the priors divided by
+    ``prior_scale`` (None: the image side, as the example divides them),
+    with the launch counts zeroed just before: every loss finite, the
+    last below the first, no kernel of the port launched. Then
+    ``detection_output`` of each image on the card and on the CPU from the
+    same locs, scores and priors (:func:`held_detections`) and
+    ``DetectionMAP`` over them. Returns (line, launches, model, optimizer,
+    data, the loss, image 0's detection_output arguments)."""
+    import functools
+    from paddle_tpu_torch.metrics import DetectionMAP
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Momentum
+    loss_fn = functools.partial(ssd.ssd_loss_fn, prior_scale=prior_scale)
+    model = ssd.TinySSD(SSD_BASE, device="cuda", seed=0)
+    opt = Momentum(model.parameters(), 0.01, 0.9)
+    data = [a.cuda() for a in ssd.ssd_batch(np.random.RandomState(0),
+                                            SSD_BATCH, SSD_BASE)]
+    matched = ssd.matched_priors(model, data[0], data[1], prior_scale)
+    losses, times, launches, _ = train(model, opt, loss_fn, data, 0,
+                                       SSD_STEPS)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: loss did not fall {losses}")
+    check_no_launches(what, launches)
+    with torch.no_grad():
+        locs, confs, boxes, vars_ = model(data[0])
+        scores = torch.softmax(confs, -1)
+        priors = boxes / (SSD_BASE if prior_scale is None else prior_scale)
+    dmap = {v: DetectionMAP(ssd.NUM_CLASSES, ap_version=v)
+            for v in ("integral", "11point")}
+    ties, worst, counts = [], 0.0, []
+    core.reset_launches()
+    for i in range(SSD_BATCH):
+        args = (locs[i], scores[i], priors, vars_)
+        card = ssd_detections(args, "cuda")
+        img_ties, err = held_detections(f"{what} image {i}", card,
+                                        ssd_detections(args, "cpu"))
+        ties += [[i, r] for r in img_ties]
+        worst = max(worst, err)
+        counts.append(card[2])
+        for m in dmap.values():
+            m.update(card[0][:card[2]], data[2][i], data[1][i])
+    check_no_launches(f"{what} detection_output", core.launch_counts())
+    p50 = float(np.median(times[1:])) * 1e3
+    line = dict(
+        prior_scale=SSD_BASE if prior_scale is None else prior_scale,
+        matched_priors=matched.tolist(), losses=losses, p50_step_ms=p50,
+        images_per_s=SSD_BATCH * (SSD_STEPS - 1) / sum(times[1:]),
+        first_step_ms=times[0] * 1e3,
+        detection=dict(counts=counts, value_err_max=worst,
+                       value_tol=SSD_VALUE_TOL, near_ties=ties,
+                       tie_tol=SSD_TIE_TOL,
+                       map_integral=dmap["integral"].eval(),
+                       map_11point=dmap["11point"].eval()))
+    return (line, launches, model, opt, data, loss_fn,
+            (locs[0], scores[0], priors, vars_))
+
+
+def ssd_phase(smi):
+    """``examples/train_ssd.py`` at its defaults on the card
+    (:func:`ssd_run`): TinySSD(300) (28,276 priors), the example's batch
+    of 4 images with 3 gt boxes each, the mean ``ssd_loss`` under
+    Momentum(0.01, 0.9), 20 steps, no kernel of the port launched (the
+    reference wrote none for detection), ``detection_output`` of each
+    image (score 0.01, NMS 0.45, keep 10) held against the CPU's and
+    ``DetectionMAP``. The example divides the head's already normalized
+    priors by the image side again, so it matches no prior
+    (``matched_priors``, recorded); the same run follows with the priors as
+    the head returns them (``matched``), where matching, mining and the
+    box regression take part. Then one profiled step of the example's
+    (device ms, idle share, launches), ``detection_output``'s wall ms,
+    device ms and launches on image 0 and its NMS loop's alone; then, if
+    the phase is under SSD_BIG_WITHIN_S in, 1 + 5 steps at batch 32.
+    Returns (line, the example's launches)."""
+    from paddle_tpu_torch.ops import detection as D
+    from paddle_tpu_torch.optimizer import Momentum
+    ssd = ssd_tools()
+    t_start = time.perf_counter()
+    line, launches, model, opt, data, loss_fn, args0 = ssd_run(
+        ssd, None, "ssd")
+    step_ms, step_launches, by_name = kernel_profile(
+        lambda: opt.minimize(model, loss_fn, *data))
+    call = (lambda: D.detection_output(*args0, nms_top_k=SSD_NMS_TOP_K,
+                                       **SSD_DETECT))
+    det_ms = wall_ms(call)
+    det_dev_ms, det_launches, _ = kernel_profile(call)
+    locs0, scores0, priors, vars_ = args0
+    dec = D.box_coder(priors, vars_, locs0[:, None, :],
+                      "decode_center_size", axis=1).reshape(-1, 4)
+    top_s, top_i = D._sort_desc(scores0.T)
+    top_s, top_i = top_s[:, :SSD_NMS_TOP_K], top_i[:, :SSD_NMS_TOP_K]
+    cls_boxes = dec[top_i]
+    loop = (lambda: D._nms_keep_mask(cls_boxes, top_s,
+                                     SSD_DETECT["nms_threshold"]))
+    nms_ms = wall_ms(loop)
+    nms_dev_ms, nms_launches, _ = kernel_profile(loop)
+    del model, opt
+    line = dict(
+        config=f"TinySSD(base {SSD_BASE})", priors=int(priors.shape[0]),
+        batch=SSD_BATCH, image=[3, SSD_BASE, SSD_BASE],
+        optimizer="Momentum(0.01, 0.9)", dtype="float32", steps=SSD_STEPS,
+        **line, launches=launches,
+        profile=dict(device_ms=step_ms,
+                     idle_share=1.0 - step_ms / line["p50_step_ms"],
+                     launches_per_step=step_launches,
+                     top_kernels={k[:60]: v for k, v in
+                                  by_name.most_common(6)}),
+        card=smi)
+    line["detection"].update(
+        **SSD_DETECT, nms_top_k=SSD_NMS_TOP_K, wall_ms=det_ms,
+        device_ms=det_dev_ms, launches=det_launches, nms_loop_wall_ms=nms_ms,
+        nms_loop_device_ms=nms_dev_ms, nms_loop_launches=nms_launches,
+        nms_share_of_call=nms_ms / det_ms)
+    line["matched"] = ssd_run(ssd, 1.0, "ssd matched")[0]
+    if min(line["matched"]["matched_priors"]) == 0:
+        raise AssertionError(f"ssd matched: an image matched no prior "
+                             f"{line['matched']['matched_priors']}")
+    torch.cuda.empty_cache()
+    if time.perf_counter() - t_start < SSD_BIG_WITHIN_S:
+        big = ssd.TinySSD(SSD_BASE, device="cuda", seed=1)
+        bopt = Momentum(big.parameters(), 0.01, 0.9)
+        bdata = [a.cuda() for a in ssd.ssd_batch(np.random.RandomState(1),
+                                                 SSD_BIG_BATCH, SSD_BASE)]
+        blosses, btimes, blaunches, _ = train(big, bopt, ssd.ssd_loss_fn,
+                                              bdata, 1, SSD_BIG_STEPS)
+        if not all(np.isfinite(blosses)):
+            raise AssertionError(f"ssd batch 32: non-finite loss {blosses}")
+        check_no_launches("ssd batch 32", blaunches)
+        line["batch32"] = dict(
+            batch=SSD_BIG_BATCH, warmup=1, steps=SSD_BIG_STEPS,
+            losses=blosses, p50_step_ms=float(np.median(btimes)) * 1e3,
+            images_per_s=SSD_BIG_BATCH * SSD_BIG_STEPS / sum(btimes))
+    line["phase_s"] = time.perf_counter() - t_start
+    return line, launches
+
+
+def ssd_crosscheck_phase():
+    """One f32 Momentum(0.01, 0.9) step (TF32 off, cuDNN's too) of
+    TinySSD(300) at the example's batch of 4 (seed 1) on the card and on
+    the CPU from the same weights, the CPU taking the card's ReLU branches
+    and hard negatives (:class:`ReluReplay`, :class:`MiningReplay`): the
+    loss within TRAIN_LOSS_TOL, every gradient within TRAIN_GRAD_TOL
+    relative L2; no kernel of the port launched. Twice: with the example's
+    loss (``ssd_crosscheck``) and with the priors as the head returns
+    them (``ssd_crosscheck_matched``: matching, mining and the box
+    regression carry gradient)."""
+    from paddle_tpu_torch.optimizer import Momentum
+    ssd = ssd_tools()
+    batch = ssd.ssd_batch(np.random.RandomState(1), SSD_BATCH, SSD_BASE)
+    for phase, loss_fn in (("ssd_crosscheck", ssd.ssd_loss_fn),
+                           ("ssd_crosscheck_matched", ssd.matched_loss_fn)):
+        launches = crosscheck_phase(
+            phase, f"TinySSD(base {SSD_BASE})",
+            lambda dev: ssd.TinySSD(SSD_BASE, device=dev, seed=0), loss_fn,
+            batch, SSD_BATCH, None, (),
+            around=Replays(ReluReplay(), MiningReplay()),
+            make_opt=lambda ps: Momentum(ps, 0.01, 0.9),
+            image=[3, SSD_BASE, SSD_BASE], optimizer="Momentum(0.01, 0.9)")
+        check_no_launches(phase, launches)
+
+
 def expected_route(kernel, case):
     """The route a kernel case must take: K2 and K3 by
     :func:`flash_route` (bf16 with D = 64 or 128 on the tensor cores);
@@ -5407,7 +5763,7 @@ def expected_route(kernel, case):
 #: its own path's (``launches_<path>``), the scan step under each remat
 #: policy among them
 LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
-                "transformer", "resnet", "trainer_resnet", "ctr",
+                "transformer", "resnet", "trainer_resnet", "ctr", "ssd",
                 "gpt_decode",
                 "gpt_decode_int8", "serve_int8", "serve_fleet",
                 "serve_fleet_proc", "moe_train", "export",
@@ -5709,6 +6065,12 @@ def main():
     torch.cuda.empty_cache()
     emit(dict(phase="ctr_host", **ctr_host_phase(smi)))
 
+    torch.cuda.empty_cache()
+    ssd_line, ssd_launches = ssd_phase(smi)
+    emit(dict(phase="ssd", **ssd_line))
+    torch.cuda.empty_cache()
+    ssd_crosscheck_phase()
+
     table = kernel_table(by_kernel, {
         "serve": launches, "serve_spec": spec_launches,
         "train": train_launches,
@@ -5716,7 +6078,8 @@ def main():
         "bert_large": large_launches, "trainer": trainer_launches,
         "transformer": transformer_launches, "resnet": resnet_launches,
         "trainer_resnet": trainer_resnet_launches,
-        "ctr": ctr_launches, "gpt_decode": decode_launches,
+        "ctr": ctr_launches, "ssd": ssd_launches,
+        "gpt_decode": decode_launches,
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
         "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,
         "moe_train": moe_launches, "export": export_launches,

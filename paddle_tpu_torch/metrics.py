@@ -1,8 +1,8 @@
 """Streaming metrics (ref: ``paddle_tpu/metrics.py``): the host-side
 accumulators the CTR path reads, in numpy as in the reference, and
 :func:`ctr_metric_bundle`'s per-batch sums in torch on the batch's
-device. ``EditDistance``, ``ChunkEvaluator`` and ``DetectionMAP`` are not
-ported."""
+device, and :class:`DetectionMAP`'s host pass over the detections.
+``EditDistance`` and ``ChunkEvaluator`` are not ported."""
 
 import numpy as np
 import torch
@@ -126,6 +126,113 @@ class Auc(MetricBase):
         neg_prev = np.concatenate([[0], neg_c[:-1]])
         area = np.sum((neg_c - neg_prev) * (pos_c + pos_prev) / 2.0)
         return float(area / max(tot_pos * tot_neg, 1e-12))
+
+
+class DetectionMAP(MetricBase):
+    """Detection mean average precision (ref: ``metrics.py:199``), a host
+    accumulator over per-image results in numpy, as in the reference:
+    ``update(detections, gt_labels, gt_boxes, gt_difficult=None)`` with
+    detections ``[M, 6]`` rows (class, score, xmin, ymin, xmax, ymax),
+    gt_labels ``[N]``, gt_boxes ``[N, 4]`` (tensors on any device, or
+    arrays). ``eval()`` is the mean AP over the classes that have both
+    ground truth and detections, by ``ap_version`` "integral" or
+    "11point"."""
+
+    def __init__(self, class_num, overlap_threshold=0.5,
+                 evaluate_difficult=True, ap_version="integral",
+                 background_label=0, name=None):
+        super().__init__(name)
+        if ap_version not in ("integral", "11point"):
+            raise ValueError("ap_version must be 'integral' or '11point'")
+        self.class_num = class_num
+        self.thresh = overlap_threshold
+        self.eval_difficult = evaluate_difficult
+        self.ap_version = ap_version
+        self.background = background_label
+        self.reset()
+
+    def reset(self):
+        # per class: (score, is_tp) pairs and the count of counted GTs
+        self._scored = {c: [] for c in range(self.class_num)}
+        self._npos = np.zeros(self.class_num, np.int64)
+
+    @staticmethod
+    def _iou(box, boxes):
+        x1 = np.maximum(box[0], boxes[:, 0])
+        y1 = np.maximum(box[1], boxes[:, 1])
+        x2 = np.minimum(box[2], boxes[:, 2])
+        y2 = np.minimum(box[3], boxes[:, 3])
+        inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+        a = (box[2] - box[0]) * (box[3] - box[1])
+        b = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+        return inter / np.maximum(a + b - inter, 1e-12)
+
+    def update(self, detections, gt_labels, gt_boxes, gt_difficult=None):
+        det = _np(detections).astype(np.float64).reshape(-1, 6)
+        gl = _np(gt_labels).reshape(-1).astype(int)
+        gb = _np(gt_boxes).astype(np.float64).reshape(-1, 4)
+        diff = (np.zeros(len(gl), bool) if gt_difficult is None
+                else _np(gt_difficult).reshape(-1).astype(bool))
+        for c in np.unique(gl):
+            # out-of-range labels (-1 padding) are not ground truth
+            if c == self.background or c < 0 or c >= self.class_num:
+                continue
+            sel = gl == c
+            self._npos[c] += int((~diff[sel]).sum()) if not \
+                self.eval_difficult else int(sel.sum())
+        for c in range(self.class_num):
+            if c == self.background:
+                continue
+            dc = det[det[:, 0] == c]
+            gsel = gl == c
+            gboxes = gb[gsel]
+            gdiff = diff[gsel]
+            taken = np.zeros(len(gboxes), bool)
+            # high scores match first (detection_map_op.cc sorts by score)
+            for row in dc[np.argsort(-dc[:, 1])]:
+                score, box = row[1], row[2:6]
+                if len(gboxes) == 0:
+                    self._scored[c].append((score, False))
+                    continue
+                ious = self._iou(box, gboxes)
+                j = int(np.argmax(ious))
+                # strict >, as detection_map_op.cc:395
+                if ious[j] > self.thresh:
+                    if not self.eval_difficult and gdiff[j]:
+                        continue  # a difficult GT is ignored entirely
+                    self._scored[c].append((score, not taken[j]))
+                    taken[j] = True
+                else:
+                    self._scored[c].append((score, False))
+
+    def _ap(self, scored, npos):
+        # the reference averages only classes with both ground truth and
+        # detections (detection_map_op.h skips the others)
+        if npos == 0 or not scored:
+            return None
+        arr = sorted(scored, key=lambda t: -t[0])
+        tp = np.cumsum([1 if t else 0 for _, t in arr])
+        fp = np.cumsum([0 if t else 1 for _, t in arr])
+        recall = tp / npos
+        precision = tp / np.maximum(tp + fp, 1)
+        if self.ap_version == "11point":
+            ap = 0.0
+            for r in np.linspace(0, 1, 11):
+                p = precision[recall >= r]
+                ap += (p.max() if len(p) else 0.0) / 11.0
+            return float(ap)
+        # integral: precision at each true positive, over npos
+        ap = 0.0
+        for p, (_, is_tp) in zip(precision, arr):
+            if is_tp:
+                ap += p
+        return float(ap / npos)
+
+    def eval(self):
+        aps = [self._ap(self._scored[c], self._npos[c])
+               for c in range(self.class_num) if c != self.background]
+        aps = [a for a in aps if a is not None]
+        return float(np.mean(aps)) if aps else 0.0
 
 
 def ctr_metric_bundle(pred, label):

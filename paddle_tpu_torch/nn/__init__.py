@@ -6,6 +6,7 @@ from paddle_tpu_torch.nn.layers import (GRU, LSTM,  # noqa: F401
 from paddle_tpu_torch.nn.rnn import (RNN, BeamSearchDecoder,  # noqa: F401
                                      Decoder, GRUCell, LSTMCell, RNNCell,
                                      dynamic_decode)
+from paddle_tpu_torch.nn.heads import MultiBoxHead  # noqa: F401
 from paddle_tpu_torch.nn.moe import MoE, top_k_gating  # noqa: F401
 from paddle_tpu_torch.nn.scan import (REMAT_POLICIES,  # noqa: F401
                                       ScanLayers, apply_remat,

@@ -4,12 +4,18 @@
 Submodules (the reference's ``paddle_tpu/ops`` names):
   activations   relu, sigmoid, gelu, tanh
   attention     attention, cross-attention and the paged KV cache
+  detection     box geometry, priors and anchors, NMS, matching and the
+                SSD loss, RoI ops, YOLOv3, proposals and RoI targets
   fused         the fused vocab cross-entropy (vh: K5/K6; hv: chunked)
-  loss          softmax cross entropy (hard and soft labels)
+  loss          softmax and sigmoid cross entropy, smooth L1
+  mask          polygon rasterization and mask labels (host numpy)
   nn            layer norm, embedding lookup, promoting matmul; conv2d,
                 pool2d, adaptive_pool2d, batch_norm
   rnn           LSTM/GRU cells and scans, beam search
+  vision        the detection family's vision ops (PS/Pr/deformable RoI
+                pools, FPN collection, focal loss, RetinaNet output)
 """
 
 from paddle_tpu_torch.ops import (activations, attention,  # noqa: F401
-                                  fused, loss, nn, rnn)
+                                  detection, fused, loss, mask, nn, rnn,
+                                  vision)

@@ -1,4 +1,4 @@
-"""Loss ops (the slice's subset of ``paddle_tpu/ops/loss.py``)."""
+"""Loss ops (the slices' subset of ``paddle_tpu/ops/loss.py``)."""
 
 import torch
 
@@ -45,4 +45,17 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
     loss = torch.where(valid, loss, zero)
     if normalize:
         loss = loss / torch.clamp(valid.to(loss.dtype).sum(), min=1.0)
+    return loss
+
+
+def smooth_l1_loss(x, y, sigma=1.0):
+    """Smooth L1, summed over every axis but the first (kept as 1); a 1-D
+    input gives the elementwise loss (ref: ``ops/loss.py:107``)."""
+    sigma2 = sigma * sigma
+    diff = x - y
+    absd = torch.abs(diff)
+    loss = torch.where(absd < 1.0 / sigma2, 0.5 * sigma2 * torch.square(diff),
+                       absd - 0.5 / sigma2)
+    if x.ndim > 1:
+        return torch.sum(loss, dim=tuple(range(1, x.ndim)), keepdim=True)
     return loss

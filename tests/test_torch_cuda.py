@@ -1528,3 +1528,102 @@ def test_export_decode_on_card_is_token_exact(cuda, tmp_path):
     for slot, req in eng._running.items():
         assert got[:, slot].tolist() == \
             req.tokens[before[slot]:before[slot] + 4]
+
+
+# ------------------------------------------------------------ detection
+
+def _ssd_tools():
+    import os
+    import sys
+    tools = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import torch_ssd
+    return torch_ssd
+
+
+@pytest.mark.parametrize("matched", [False, True])
+def test_ssd_step_on_card_matches_cpu(cuda, matched):
+    """One f32 Momentum step of TinySSD (base 64, batch 2) on the card and
+    on the CPU from the same weights, the CPU taking the card's ReLU
+    branches and hard negatives: loss within 1e-4, every gradient within
+    1e-3 relative L2; no kernel of the port launched."""
+    import chip_smoke
+    from paddle_tpu_torch.optimizer import Momentum
+    ssd = _ssd_tools()
+    loss_fn = ssd.matched_loss_fn if matched else ssd.ssd_loss_fn
+    loss_card, loss_cpu, errs, _, launches = chip_smoke.train_crosscheck(
+        lambda dev: ssd.TinySSD(64, device=dev, seed=0), loss_fn,
+        ssd.ssd_batch(np.random.RandomState(0), 2, 64),
+        chip_smoke.Replays(chip_smoke.ReluReplay(),
+                           chip_smoke.MiningReplay()),
+        lambda ps: Momentum(ps, 0.01, 0.9))
+    assert abs(loss_card - loss_cpu) <= 1e-4
+    assert max(errs.values()) <= 1e-3, errs
+    assert not any(launches.values())
+
+
+def _detections(args, dev, **kw):
+    from paddle_tpu_torch.ops import detection as D
+    boxes, scores = (a.to(dev) for a in args)
+    out, idx, count = D.multiclass_nms2(boxes, scores, **kw)
+    return out.cpu(), idx.cpu(), int(count)
+
+
+@pytest.mark.parametrize("case", ["duplicates", "equal_scores", "random"])
+def test_multiclass_nms_on_card_matches_cpu(cuda, case):
+    """multiclass_nms2 on the card equals the CPU's: rows, source indices
+    and counts, including duplicate boxes, tied scores within and across
+    classes and more slots than survivors (-inf padding ties); 2,000 boxes
+    with scores rounded to 2 decimals (many ties in the top-k sort)."""
+    rng = np.random.RandomState(0)
+    if case == "duplicates":
+        boxes = np.tile(np.array([[0, 0, 10, 10], [20, 20, 30, 30]],
+                                 np.float32), (6, 1))
+        scores = np.full((3, 12), 0.6, np.float32)
+        kw = dict(keep_top_k=30, nms_top_k=8)
+    elif case == "equal_scores":
+        xy = rng.uniform(0, 50, (300, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(5, 20, (300, 2))],
+                               1).astype(np.float32)
+        scores = np.full((4, 300), 0.5, np.float32)
+        kw = dict(keep_top_k=100, nms_top_k=120)
+    else:
+        xy = rng.uniform(0, 1, (2000, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(0.02, 0.3, (2000, 2))],
+                               1).astype(np.float32)
+        scores = np.round(rng.rand(5, 2000), 2).astype(np.float32)
+        kw = dict(keep_top_k=200, nms_top_k=400, background_label=0)
+    args = (torch.from_numpy(boxes), torch.from_numpy(scores))
+    kw.update(score_threshold=0.01, nms_threshold=0.45)
+    card = _detections(args, cuda, **kw)
+    cpu = _detections(args, "cpu", **kw)
+    assert card[2] == cpu[2] > 0
+    assert torch.equal(card[1], cpu[1])
+    assert torch.equal(card[0], cpu[0])
+
+
+def test_ssd_detection_output_on_card_matches_cpu(cuda):
+    """detection_output of TinySSD's outputs (base 300, 28,276 priors,
+    after 5 steps against the head's priors) on the card and the CPU
+    from the same locs, scores and priors: chip_smoke.held_detections
+    (count, labels and indices exact, values within 1e-5, a differing row
+    only at a near tie of scores)."""
+    import chip_smoke
+    from paddle_tpu_torch.optimizer import Momentum
+    ssd = _ssd_tools()
+    model = ssd.TinySSD(300, device="cuda", seed=0)
+    opt = Momentum(model.parameters(), 0.01, 0.9)
+    data = [a.cuda() for a in ssd.ssd_batch(np.random.RandomState(0), 2,
+                                            300)]
+    for _ in range(5):
+        opt.minimize(model, ssd.matched_loss_fn, *data)
+    with torch.no_grad():
+        locs, confs, boxes, vars_ = model(data[0])
+        scores = torch.softmax(confs, -1)
+    for i in range(2):
+        args = (locs[i], scores[i], boxes, vars_)
+        chip_smoke.held_detections(f"image {i}",
+                                   chip_smoke.ssd_detections(args, "cuda"),
+                                   chip_smoke.ssd_detections(args, "cpu"))

@@ -837,6 +837,9 @@ def test_slow_step_anomaly_writes_a_flight_bundle(tmp_path):
 
     def loss_fn(m, x, y):
         calls.append(1)
+        # every step takes at least 50 ms, so host jitter before step 7
+        # cannot reach 3x the median, fire slow_step and latch it
+        _time.sleep(0.05)
         if len(calls) == 7:
             _time.sleep(0.5)            # one step far above the median
         return _linreg_loss(m, x, y)
