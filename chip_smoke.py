@@ -2,8 +2,9 @@
 over in-process replicas and over child processes), the DataLoader, GPT
 decoding (float and weight-only int8), GPT training
 (unrolled, scan-over-layers with remat, mixture of experts), BERT
-pretraining, Trainer, translation, image-classification, CTR and SSD
-detection paths on one NVIDIA H100.
+pretraining, Trainer, translation, image-classification, CTR, SSD
+detection and sequence (sentiment nets, BiLSTM-CRF tagger) paths on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -323,6 +324,34 @@ Phases, each printing one JSON line:
    its row's cut): loss within 1e-4, every gradient within 1e-3 relative
    L2, no kernel of the port; with the example's loss and again with the
    priors as the head returns them (ssd_crosscheck_matched).
+26. tagger — the book's BiLSTM-CRF tagger at TaggerConfig()'s widths
+   (vocab 4096, 16 tags, embed 32, hidden 64, 2 bidirectional layers;
+   weights from seed 0): batch 64, lengths uniform in 8-64, labels
+   tokens % 16, f32 Adam(1e-2), 2 warm-up and 10 timed steps with the
+   launch counts zeroed just before (losses finite and falling, no
+   kernel of the port: the reference wrote none for the sequence
+   family), one profiled step (device ms, idle share, launches); then
+   crf_decoding of the trained emissions (wall and device ms, launches,
+   token accuracy) against the CPU's from the same weights: each row's
+   NLL within 1e-4 relative, every path the CPU's or one the CPU scores
+   within 1e-5 (relative) of its own best (near ties, counted).
+27. sentiment — TextCNNSentiment and StackedLSTMSentiment(stacked_num=3)
+   at SentimentConfig()'s widths (vocab 5149, embed 128, hidden 128, 2
+   classes): batch 128, lengths uniform in 32-256, f32 Adam(2e-3), the
+   tagger's fields, then a forward pass (wall and device ms, launches)
+   with logits within 1e-5 of the CPU's (relative to max(1, max |CPU|)).
+28. tagger_crosscheck, sentiment_crosscheck — one f32 Adam step (TF32
+   off) of the tagger and of each sentiment net at full width, batch 8,
+   on the card and on the CPU from the same weights: loss within 1e-4,
+   every gradient within 1e-3 relative L2, no kernel of the port.
+29. sequence_ops — every op of the port's ops/sequence.py,
+   ops/text_match.py, ops/crf.py, ops/nets.py and ops/metrics_ops.py on
+   the card against the CPU on the same inputs (a ragged batch of 64
+   rows of up to 64 steps of 128 features, two of them empty; the
+   tagger's 16 tags): floats within 1e-5 relative to max(1, max |CPU|),
+   integers, lengths and chunk counts exact, Viterbi paths held as the
+   tagger's; prints the op count and the worst error and its op. Then a
+   "timeline" line: the script's time (t_s) to its last phase.
 
 K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
 and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
@@ -347,8 +376,9 @@ bf16 parameters); "variant" names the route; every row also has each
 path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
 launches_gpt_decode_int8, launches_serve_int8, launches_serve_fleet,
 launches_serve_fleet_proc (the children's), launches_moe_train and
-launches_scan_<policy> among them, and launches_resnet, launches_ctr and
-launches_ssd, which are 0), the nvidia-smi line, and
+launches_scan_<policy> among them, and launches_resnet, launches_ctr,
+launches_ssd, launches_tagger and launches_sentiment, which are 0), the
+nvidia-smi line, and
 the contract line
 {"ok": true, "device": {...}}.
 Any failed phase raises, and the script exits non-zero without the
@@ -5732,6 +5762,448 @@ def ssd_crosscheck_phase():
         check_no_launches(phase, launches)
 
 
+# ------------------------------------------------------- sequence models
+
+TAGGER_BATCH = 64        # the tagger's batch: lengths uniform in 8-64,
+TAGGER_LENGTHS = (8, 64)  # labels tokens % 16 (the JAX test's mapping)
+SENTIMENT_BATCH = 128    # the sentiment nets' batch: lengths uniform in
+SENTIMENT_LENGTHS = (32, 256)  # 32-256 (the repo's own choice)
+SEQ_WARMUP = 2
+SEQ_STEPS = 10
+SEQ_CROSS_BATCH = 8      # the crosschecks' batch (full widths)
+TAGGER_LR = 1e-2         # f32 Adam rates of the timed runs
+SENTIMENT_LR = 2e-3
+CRF_NLL_TOL = 1e-4       # each row's CRF NLL, card vs CPU, relative to
+                         # max(1, |CPU's|)
+CRF_TIE_TOL = 1e-5       # a card path may differ from the CPU's only
+                         # where the CPU scores it within this (relative)
+                         # of its own best path
+SEQ_OP_TOL = 1e-5        # sequence_ops floats, card vs CPU, relative to
+                         # max(1, max |CPU's|)
+
+
+def tagger_batch(rs, cfg, batch, lengths):
+    """``(tokens [B, T], lengths [B], labels [B, T])`` on the CPU: tokens
+    uniform over the vocabulary, lengths uniform in ``lengths``, T the
+    longest, labels ``tokens % num_tags``."""
+    lens = rs.randint(lengths[0], lengths[1] + 1, batch).astype(np.int32)
+    toks = rs.randint(0, cfg.vocab_size, (batch, int(lens.max())))
+    return (torch.from_numpy(toks.astype(np.int32)), torch.from_numpy(lens),
+            torch.from_numpy((toks % cfg.num_tags).astype(np.int32)))
+
+
+def sentiment_batch(rs, cfg, batch, lengths):
+    """``(ids [B, T], lengths [B], labels [B, 1])`` on the CPU: ids in
+    ``[1, vocab)``, lengths uniform in ``lengths``, T the longest."""
+    lens = rs.randint(lengths[0], lengths[1] + 1, batch).astype(np.int32)
+    ids = rs.randint(1, cfg.vocab_size, (batch, int(lens.max())))
+    labels = rs.randint(0, cfg.num_classes, (batch, 1))
+    return (torch.from_numpy(ids.astype(np.int32)), torch.from_numpy(lens),
+            torch.from_numpy(labels.astype(np.int32)))
+
+
+def tagger_loss(m, toks, lengths, labels):
+    return m(toks, lengths, labels=labels)
+
+
+def sentiment_loss_of(m, ids, lengths, labels):
+    from paddle_tpu_torch.models.sentiment import sentiment_loss
+    return sentiment_loss(m(ids, lengths), labels)
+
+
+def seq_train(what, config, model, opt, loss_fn, args, smi, extra):
+    """SEQ_WARMUP + SEQ_STEPS f32 steps (:func:`train`), every loss finite
+    and the last below the first, no kernel of the port launched, then
+    one profiled step: the line's training fields and the launches."""
+    losses, times, launches, _ = train(model, opt, loss_fn, args,
+                                       SEQ_WARMUP, SEQ_STEPS)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: loss did not fall {losses}")
+    check_no_launches(what, launches)
+    p50 = float(np.median(times)) * 1e3
+    dev_ms, step_launches, by_name = kernel_profile(
+        lambda: opt.minimize(model, loss_fn, *args))
+    return dict(config=config, dtype="float32", warmup=SEQ_WARMUP,
+                steps=SEQ_STEPS, losses=losses, p50_step_ms=p50,
+                mean_step_ms=float(np.mean(times)) * 1e3, **extra,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches,
+                profile=dict(device_ms=dev_ms, idle_share=1.0 - dev_ms / p50,
+                             launches_per_step=step_launches,
+                             top_kernels={k[:60]: v for k, v in
+                                          by_name.most_common(6)}),
+                card=smi), launches
+
+
+def crf_path_scores(em, transition, paths, lengths):
+    """Each row's path score ``[B]`` under emissions ``em [B, T, K]``:
+    start + emissions + transitions + stop over the row's length."""
+    start, stop, trans = transition[0], transition[1], transition[2:]
+    T = em.shape[1]
+    p = paths.long()
+    mask = (torch.arange(T)[None, :] < lengths[:, None]).to(em.dtype)
+    s = (em.gather(2, p[..., None])[..., 0] * mask).sum(1)
+    s = s + (trans[p[:, :-1], p[:, 1:]] * mask[:, 1:]).sum(1)
+    last = p.gather(1, (lengths.long() - 1).clamp(min=0)[:, None])[:, 0]
+    return s + start[p[:, 0]] + stop[last]
+
+
+def held_paths(what, card, cpu, em_cpu, transition, lengths):
+    """Viterbi paths of the card against the CPU's from the same weights:
+    equal, or (a near tie) the card's path scored by the CPU within
+    CRF_TIE_TOL of the CPU's best, relative to max(1, |best|). Returns
+    (rows equal, near-tie rows, the largest near-tie gap)."""
+    diff = [int(r) for r in torch.nonzero((card != cpu).any(1))[:, 0]]
+    gap = 0.0
+    if diff:
+        best = crf_path_scores(em_cpu, transition, cpu, lengths)
+        got = crf_path_scores(em_cpu, transition, card, lengths)
+        rel = (best - got) / torch.clamp(best.abs(), min=1.0)
+        gap = float(rel[diff].max())
+        if gap > CRF_TIE_TOL:
+            raise AssertionError(f"{what}: rows {diff} decode otherwise on "
+                                 f"the card, {gap} below the CPU's best "
+                                 f"(tie tol {CRF_TIE_TOL})")
+    return card.shape[0] - len(diff), len(diff), gap
+
+
+def tagger_phase(smi):
+    """BiLstmCrfTagger(TaggerConfig()) at the repo's widths (vocab 4096,
+    16 tags, embed 32, hidden 64, 2 bidirectional layers; weights from
+    seed 0) on the card: TAGGER_BATCH rows of lengths in TAGGER_LENGTHS,
+    labels tokens % 16, f32 Adam(TAGGER_LR) (:func:`seq_train`). Then
+    ``crf_decoding`` of the trained emissions (wall and device ms,
+    launches, token accuracy) and the same weights on the CPU: each row's
+    NLL within CRF_NLL_TOL, every path the CPU's or held at a near tie
+    (:func:`held_paths`). Returns (line, launches)."""
+    from paddle_tpu_torch.models.tagging import BiLstmCrfTagger, TaggerConfig
+    from paddle_tpu_torch.ops import crf as C
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adam
+    t_start = time.perf_counter()
+    cfg = TaggerConfig()
+    model = BiLstmCrfTagger(cfg, device="cuda", seed=0)
+    opt = Adam(model.parameters(), TAGGER_LR)
+    host = tagger_batch(np.random.RandomState(0), cfg, TAGGER_BATCH,
+                        TAGGER_LENGTHS)
+    args = [a.cuda() for a in host]
+    line, launches = seq_train(
+        "tagger", "TaggerConfig()", model, opt, tagger_loss, args, smi,
+        dict(batch=TAGGER_BATCH, seq=int(host[0].shape[1]),
+             lengths=list(TAGGER_LENGTHS), optimizer=f"Adam({TAGGER_LR})",
+             tokens_per_step=int(host[1].sum())))
+    toks, lengths, labels = args
+    core.reset_launches()
+    with torch.no_grad():
+        em = model.emissions(toks, lengths)
+        call = lambda: C.crf_decoding(em, model.transition, lengths)
+        path = call()
+        dec_ms = wall_ms(call)
+        dec_dev_ms, dec_launches, _ = kernel_profile(call)
+        nll = C.linear_chain_crf(em, model.transition, labels, lengths)
+    check_no_launches("tagger decoding", core.launch_counts())
+    valid = (torch.arange(toks.shape[1], device=toks.device)[None]
+             < lengths[:, None])
+    acc = float((path == labels)[valid].float().mean())
+    cpu = BiLstmCrfTagger(cfg, device="cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        em_cpu = cpu.emissions(*host[:2])
+        path_cpu = C.crf_decoding(em_cpu, cpu.transition, host[1])
+        nll_cpu = C.linear_chain_crf(em_cpu, cpu.transition, host[2],
+                                     host[1])
+    nll_err = float(((nll.cpu() - nll_cpu).abs()
+                     / torch.clamp(nll_cpu.abs(), min=1.0)).max())
+    check("tagger NLL card vs CPU", nll_err, CRF_NLL_TOL)
+    exact, ties, gap = held_paths("tagger decoding", path.cpu(), path_cpu,
+                                  em_cpu, cpu.transition, host[1])
+    line.update(decode=dict(
+        wall_ms=dec_ms, device_ms=dec_dev_ms, launches=dec_launches,
+        tokens_per_s=int(host[1].sum()) / (dec_ms / 1e3),
+        token_accuracy=acc, nll_rel_err_max=nll_err, nll_tol=CRF_NLL_TOL,
+        rows_exact=exact, rows_near_tie=ties, near_tie_gap_max=gap,
+        tie_tol=CRF_TIE_TOL))
+    line["phase_s"] = time.perf_counter() - t_start
+    return line, launches
+
+
+def sentiment_phase(smi):
+    """TextCNNSentiment and StackedLSTMSentiment(stacked_num=3) at
+    SentimentConfig()'s widths (vocab 5149, embed 128, hidden 128, 2
+    classes; weights from seed 0) on the card: SENTIMENT_BATCH rows of
+    lengths in SENTIMENT_LENGTHS, f32 Adam(SENTIMENT_LR)
+    (:func:`seq_train`); then a forward pass of the batch (wall and device
+    ms, launches, accuracy) held against the CPU's from the same weights
+    (logits within SEQ_OP_TOL of max(1, max |CPU's|)). Returns (line, the
+    launches of both nets' timed steps)."""
+    from paddle_tpu_torch.models.sentiment import (SentimentConfig,
+                                                   StackedLSTMSentiment,
+                                                   TextCNNSentiment)
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.optimizer import Adam
+    t_start = time.perf_counter()
+    cfg = SentimentConfig()
+    host = sentiment_batch(np.random.RandomState(1), cfg, SENTIMENT_BATCH,
+                           SENTIMENT_LENGTHS)
+    args = [a.cuda() for a in host]
+    nets, total = {}, collections.Counter()
+    for name, make in (
+            ("text_cnn", lambda dev, seed: TextCNNSentiment(
+                cfg, device=dev, seed=seed)),
+            ("stacked_lstm", lambda dev, seed: StackedLSTMSentiment(
+                cfg, stacked_num=3, device=dev, seed=seed))):
+        torch.cuda.reset_peak_memory_stats()
+        model = make("cuda", 0)
+        opt = Adam(model.parameters(), SENTIMENT_LR)
+        line, launches = seq_train(
+            f"sentiment {name}", f"{type(model).__name__}(SentimentConfig()"
+            + (", stacked_num=3)" if name == "stacked_lstm" else ")"),
+            model, opt, sentiment_loss_of, args, smi,
+            dict(batch=SENTIMENT_BATCH, seq=int(host[0].shape[1]),
+                 lengths=list(SENTIMENT_LENGTHS),
+                 optimizer=f"Adam({SENTIMENT_LR})",
+                 tokens_per_step=int(host[1].sum())))
+        total.update(launches)
+        core.reset_launches()
+        with torch.no_grad():
+            call = lambda: model(args[0], args[1])
+            logits = call()
+            fwd_ms = wall_ms(call)
+            fwd_dev_ms, fwd_launches, _ = kernel_profile(call)
+        check_no_launches(f"sentiment {name} forward", core.launch_counts())
+        cpu = make("cpu", 1)
+        cpu.load_state_dict({k: v.cpu()
+                             for k, v in model.state_dict().items()})
+        with torch.no_grad():
+            want = cpu(host[0], host[1])
+        err = float((logits.cpu() - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+        check(f"sentiment {name} logits card vs CPU", err, SEQ_OP_TOL)
+        acc = float((logits.argmax(-1) == args[2][:, 0]).float().mean())
+        line.update(forward=dict(
+            wall_ms=fwd_ms, device_ms=fwd_dev_ms, launches=fwd_launches,
+            tokens_per_s=int(host[1].sum()) / (fwd_ms / 1e3), accuracy=acc,
+            logits_rel_err=err, tol=SEQ_OP_TOL))
+        nets[name] = line
+        del model, opt, cpu
+        torch.cuda.empty_cache()
+    return dict(nets=nets, phase_s=time.perf_counter() - t_start,
+                card=smi), dict(total)
+
+
+def seq_crosscheck_phases():
+    """One f32 Adam(1e-4) step (TF32 off) of the tagger (TaggerConfig())
+    and of each sentiment net (SentimentConfig(), the LSTM net's 3
+    stacks) at full width, batch SEQ_CROSS_BATCH, on the card and on the
+    CPU from the same weights (``crosscheck_phase``): loss within
+    TRAIN_LOSS_TOL, every gradient within TRAIN_GRAD_TOL relative L2, no
+    kernel of the port launched."""
+    from paddle_tpu_torch.models.sentiment import (SentimentConfig,
+                                                   StackedLSTMSentiment,
+                                                   TextCNNSentiment)
+    from paddle_tpu_torch.models.tagging import BiLstmCrfTagger, TaggerConfig
+    tcfg = TaggerConfig()
+    batch = tagger_batch(np.random.RandomState(2), tcfg, SEQ_CROSS_BATCH,
+                         TAGGER_LENGTHS)
+    launches = crosscheck_phase(
+        "tagger_crosscheck", "TaggerConfig()",
+        lambda dev: BiLstmCrfTagger(tcfg, device=dev, seed=0), tagger_loss,
+        batch, SEQ_CROSS_BATCH, int(batch[0].shape[1]), (),
+        lengths=list(TAGGER_LENGTHS))
+    check_no_launches("tagger_crosscheck", launches)
+    scfg = SentimentConfig()
+    batch = sentiment_batch(np.random.RandomState(3), scfg, SEQ_CROSS_BATCH,
+                            SENTIMENT_LENGTHS)
+    for name, make in (
+            ("text_cnn", lambda dev: TextCNNSentiment(scfg, device=dev,
+                                                      seed=0)),
+            ("stacked_lstm", lambda dev: StackedLSTMSentiment(
+                scfg, stacked_num=3, device=dev, seed=0))):
+        launches = crosscheck_phase(
+            "sentiment_crosscheck", f"{name}: SentimentConfig()",
+            make, sentiment_loss_of, batch, SEQ_CROSS_BATCH,
+            int(batch[0].shape[1]), (), net=name,
+            lengths=list(SENTIMENT_LENGTHS))
+        check_no_launches(f"sentiment_crosscheck {name}", launches)
+
+
+class OpHolder:
+    """Each op's card result against its CPU result: floats within
+    SEQ_OP_TOL of max(1, max |CPU's|), integers exact; keeps the worst."""
+
+    def __init__(self):
+        self.ops, self.worst, self.worst_op = [], 0.0, None
+
+    def __call__(self, name, card, cpu):
+        if isinstance(card, (tuple, list)):
+            for i, (a, b) in enumerate(zip(card, cpu)):
+                self(f"{name}[{i}]", a, b)
+            return
+        if hasattr(card, "row_lengths"):
+            self(f"{name}.values", card.values, cpu.values)
+            self(f"{name}.row_lengths", card.row_lengths, cpu.row_lengths)
+            return
+        if not isinstance(card, torch.Tensor):
+            if card != cpu:
+                raise AssertionError(f"sequence_ops {name}: {card} on the "
+                                     f"card, {cpu} on the CPU")
+            self.ops.append(name)
+            return
+        card = card.cpu()
+        if card.shape != cpu.shape or card.dtype != cpu.dtype:
+            raise AssertionError(f"sequence_ops {name}: {card.shape} "
+                                 f"{card.dtype} against {cpu.shape} "
+                                 f"{cpu.dtype}")
+        if card.dtype.is_floating_point:
+            fin = torch.isfinite(cpu)
+            if not torch.equal(fin, torch.isfinite(card)) or not torch.equal(
+                    card[~fin], cpu[~fin]):
+                raise AssertionError(f"sequence_ops {name}: non-finite "
+                                     "entries differ")
+            err = (float((card[fin] - cpu[fin]).abs().max()) / max(
+                1.0, float(cpu[fin].abs().max()))) if fin.any() else 0.0
+            check(f"sequence_ops {name}", err, SEQ_OP_TOL)
+            if err >= self.worst:
+                self.worst, self.worst_op = err, name
+        elif not torch.equal(card, cpu):
+            raise AssertionError(f"sequence_ops {name}: integers differ")
+        self.ops.append(name)
+
+
+def sequence_op_cases(dev, rs):
+    """``{op: result}`` of every ported op of ``ops/sequence.py``,
+    ``ops/text_match.py``, ``ops/crf.py``, ``ops/nets.py`` and
+    ``ops/metrics_ops.py`` on ``dev``, from inputs drawn on the host by
+    ``rs`` (a ragged batch of 64 rows of 1-64 steps of 128 features,
+    empty rows among them; the tagger's widths for the CRF ops)."""
+    from paddle_tpu_torch.core.ragged import RaggedBatch
+    from paddle_tpu_torch.ops import crf as C
+    from paddle_tpu_torch.ops import metrics_ops as M
+    from paddle_tpu_torch.ops import nets as N
+    from paddle_tpu_torch.ops import sequence as S
+    from paddle_tpu_torch.ops import text_match as X
+
+    def d(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    lens = rs.randint(1, 65, 64).astype(np.int32)
+    lens[[3, 40]] = 0
+    total = int(lens.sum())
+    rb = RaggedBatch(d(rs.randn(total, 128).astype(np.float32)), d(lens))
+    rb1 = RaggedBatch(d(rs.randn(total).astype(np.float32) * 4), d(lens))
+    ids = RaggedBatch(d(rs.randint(0, 50, total).astype(np.int32)), d(lens))
+    other = RaggedBatch(d(rs.randn(int(lens[::-1].sum()), 128).astype(
+        np.float32)), d(lens[::-1].copy()))
+    out = {}
+    out["sequence_mask"] = S.sequence_mask(d(lens))
+    for pool in ("sum", "mean", "sqrt", "max", "min", "first", "last"):
+        out[f"sequence_pool.{pool}"] = S.sequence_pool(rb, pool)
+    out["sequence_pool.max_int"] = S.sequence_pool(ids, "max")
+    out["sequence_softmax"] = S.sequence_softmax(rb1)
+    x = d(rs.randn(64, 128).astype(np.float32))
+    out["sequence_expand"] = S.sequence_expand(x, rb)
+    out["sequence_expand_as"] = S.sequence_expand_as(x, rb)
+    out["sequence_reverse"] = S.sequence_reverse(rb)
+    dense, plens = S.sequence_pad(rb, -1.0, 64)
+    out["sequence_pad"] = (dense, plens)
+    out["sequence_unpad"] = S.sequence_unpad(dense, plens)
+    out["sequence_concat"] = S.sequence_concat([rb, other])
+    out["sequence_first_step"] = S.sequence_first_step(rb)
+    out["sequence_last_step"] = S.sequence_last_step(rb)
+    out["sequence_slice"] = S.sequence_slice(
+        rb, d(np.minimum(lens, 3)), d(np.minimum(lens, 5)))
+    out["sequence_enumerate"] = S.sequence_enumerate(ids.values, 4, -1)
+    out["sequence_erase"] = S.sequence_erase(ids, [0, 7, 13])
+    upd = RaggedBatch(d(rs.randn(total).astype(np.float32)), d(lens))
+    out["sequence_scatter"] = S.sequence_scatter(
+        d(np.zeros((64, 50), np.float32)), ids, upd)
+    w = d(rs.randn(3 * 128, 64).astype(np.float32) * 0.1)
+    out["sequence_conv"] = S.sequence_conv(rb, w, bias=d(np.ones(
+        64, np.float32)))
+    out["row_conv"] = S.row_conv(rb, d(rs.randn(3, 128).astype(np.float32)))
+    img = d(rs.randn(8, 3, 32, 32).astype(np.float32))
+    out["im2sequence"] = S.im2sequence(img, (3, 3), (2, 2), (1, 1, 1, 1))
+    out["add_position_encoding"] = S.add_position_encoding(
+        d(rs.randn(8, 64, 128).astype(np.float32)), 1.0, 0.5)
+    toks = d(rs.randint(0, 5, (64, 64)).astype(np.int32))
+    out["ctc_align"] = S.ctc_align(toks, d(lens), merge_repeated=True)
+    xs = d(rs.randn(16, 32, 64).astype(np.float32))
+    ys = d(rs.randn(16, 40, 64).astype(np.float32))
+    xl = d(rs.randint(1, 33, 16).astype(np.int32))
+    yl = d(rs.randint(1, 41, 16).astype(np.int32))
+    mm = X.match_matrix_tensor(xs, ys, d(rs.randn(64, 4, 64).astype(
+        np.float32) * 0.1), xl, yl, act="tanh")
+    out["match_matrix_tensor"] = mm
+    out["var_conv_2d"] = X.var_conv_2d(mm, xl, yl, d(rs.randn(
+        8, 4, 3, 3).astype(np.float32)), 1)
+    out["sequence_topk_avg_pooling"] = X.sequence_topk_avg_pooling(
+        mm, xl, yl, (1, 3, 5))
+    K = 16
+    em = d(rs.randn(64, 64, K).astype(np.float32))
+    tr = d(rs.randn(K + 2, K).astype(np.float32))
+    tags = d(rs.randint(0, K, (64, 64)).astype(np.int32))
+    clens = d(np.maximum(lens, 1))
+    out["linear_chain_crf"] = C.linear_chain_crf(em, tr, tags, clens)
+    out["crf_decoding"] = C.crf_decoding(em, tr, clens)
+    out["crf_decoding.label"] = C.crf_decoding(em, tr, clens, tags)
+    hyp = d(rs.randint(0, 6, (64, 48)).astype(np.int32))
+    ref = d(rs.randint(0, 6, (64, 40)).astype(np.int32))
+    out["edit_distance"] = C.edit_distance(
+        hyp, d(rs.randint(0, 49, 64).astype(np.int32)), ref,
+        d(rs.randint(1, 41, 64).astype(np.int32)), normalized=True)
+    out["glu"] = N.glu(x)
+    conv_w = d(rs.randn(16, 3, 3, 3).astype(np.float32) * 0.2)
+    out["simple_img_conv_pool"] = N.simple_img_conv_pool(
+        img, conv_w, d(np.zeros(16, np.float32)), act="relu")
+    out["img_conv_group"] = N.img_conv_group(
+        img, [conv_w, d(rs.randn(16, 16, 3, 3).astype(np.float32) * 0.1)])
+    out["sequence_conv_pool"] = N.sequence_conv_pool(rb, w)
+    scores = d(rs.randn(256, 10).astype(np.float32))
+    labels = d(rs.randint(0, 10, (256, 1)).astype(np.int32))
+    out["accuracy"] = M.accuracy(scores, labels, 3)
+    out["auc"] = M.auc(d(rs.rand(256, 2).astype(np.float32)),
+                       d(rs.randint(0, 2, (256, 1)).astype(np.int32)))
+    out["precision_recall"] = M.precision_recall(
+        scores.argmax(-1), labels, 10)
+    chunks = M.chunk_eval(out["crf_decoding"], tags, clens, "IOB", 8)
+    out["chunk_eval.counts"] = tuple(chunks[3:])
+    out["chunk_eval.f1"] = torch.tensor(chunks[:3], dtype=torch.float64)
+    out["crf_inputs"] = (em.cpu(), tr.cpu(), clens.cpu())
+    return out
+
+
+def sequence_ops_phase(smi):
+    """Every ported op of the sequence family (:func:`sequence_op_cases`)
+    on the card against the CPU on the same inputs (:class:`OpHolder`):
+    floats within SEQ_OP_TOL, integers, lengths and ``chunk_eval``'s
+    counts exact, the CRF paths held as :func:`held_paths` holds them; no
+    kernel of the port launched. Prints the op count and the worst
+    error with its op."""
+    from paddle_tpu_torch.ops.cuda import core
+    core.reset_launches()
+    card = sequence_op_cases("cuda", np.random.RandomState(4))
+    torch.cuda.synchronize()
+    check_no_launches("sequence_ops", core.launch_counts())
+    cpu = sequence_op_cases("cpu", np.random.RandomState(4))
+    hold = OpHolder()
+    crf_in = cpu.pop("crf_inputs")
+    card.pop("crf_inputs")
+    # the CRF paths, and what is computed from them, held as the tagger's
+    derived = ("crf_decoding.label", "chunk_eval.counts", "chunk_eval.f1")
+    exact, ties, gap = held_paths("sequence_ops crf_decoding",
+                                  card.pop("crf_decoding").cpu(),
+                                  cpu.pop("crf_decoding"), *crf_in)
+    hold.ops.append("crf_decoding")
+    for name in cpu:
+        if not (ties and name in derived):
+            hold(name, card[name], cpu[name])
+    return dict(ops=len(hold.ops), worst_rel_err=hold.worst,
+                worst_op=hold.worst_op, tol=SEQ_OP_TOL, held=hold.ops,
+                crf_paths=dict(rows_exact=exact, rows_near_tie=ties,
+                               near_tie_gap_max=gap, tie_tol=CRF_TIE_TOL),
+                card=smi)
+
+
 def expected_route(kernel, case):
     """The route a kernel case must take: K2 and K3 by
     :func:`flash_route` (bf16 with D = 64 or 128 on the tensor cores);
@@ -5764,7 +6236,7 @@ def expected_route(kernel, case):
 #: policy among them
 LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
                 "transformer", "resnet", "trainer_resnet", "ctr", "ssd",
-                "gpt_decode",
+                "tagger", "sentiment", "gpt_decode",
                 "gpt_decode_int8", "serve_int8", "serve_fleet",
                 "serve_fleet_proc", "moe_train", "export",
                 "scan_nothing", "scan_dots_saveable", "scan_full")
@@ -6071,6 +6543,18 @@ def main():
     torch.cuda.empty_cache()
     ssd_crosscheck_phase()
 
+    torch.cuda.empty_cache()
+    tagger_line, tagger_launches = tagger_phase(smi)
+    emit(dict(phase="tagger", **tagger_line))
+    torch.cuda.empty_cache()
+    sentiment_line, sentiment_launches = sentiment_phase(smi)
+    emit(dict(phase="sentiment", **sentiment_line))
+    torch.cuda.empty_cache()
+    seq_crosscheck_phases()
+    emit(dict(phase="sequence_ops", **sequence_ops_phase(smi)))
+    emit(dict(phase="timeline", last_phase="sequence_ops",
+              limit_s=1200.0))
+
     table = kernel_table(by_kernel, {
         "serve": launches, "serve_spec": spec_launches,
         "train": train_launches,
@@ -6079,6 +6563,7 @@ def main():
         "transformer": transformer_launches, "resnet": resnet_launches,
         "trainer_resnet": trainer_resnet_launches,
         "ctr": ctr_launches, "ssd": ssd_launches,
+        "tagger": tagger_launches, "sentiment": sentiment_launches,
         "gpt_decode": decode_launches,
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
         "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,

@@ -12,7 +12,9 @@ The models: GPT (serving and training), BERT and ERNIE (pretraining), the
 NMT Transformer and the attention seq2seq (translation), ResNet, VGG and
 SE-ResNeXt (image classification), the MNIST book models, DeepFM and
 Wide&Deep (CTR, with the sparse-row tables of ``parallel/``), the
-recommender and word2vec's N-gram LM.
+recommender, word2vec's N-gram LM, the SSD example's detection ops, and
+the sequence family (the sentiment nets and the BiLSTM-CRF tagger over
+``core/ragged.py`` and the sequence, CRF and text-matching ops).
 
 The package imports its modules on first use (PEP 562): ``import
 paddle_tpu_torch.io`` loads the export and checkpoint modules and the
@@ -26,13 +28,15 @@ import importlib
 _EXPORTS = {
     "paddle_tpu_torch.models": (
         "GPT", "MLP", "VGG", "AttentionSeq2Seq", "BertConfig",
-        "BertForPretraining", "ConvNet", "CTRConfig", "DeepFM",
-        "ErnieConfig", "ErnieForPretraining", "GPTConfig", "GPTDecoder",
-        "LinearRegression", "RecConfig", "RecommenderNet", "ResNet",
-        "SEResNeXt", "Seq2SeqConfig", "SoftmaxRegression", "Transformer",
-        "TransformerConfig", "WideAndDeep", "Word2Vec", "ctr_loss",
+        "BertForPretraining", "BiLstmCrfTagger", "ConvNet", "CTRConfig",
+        "DeepFM", "ErnieConfig", "ErnieForPretraining", "GPTConfig",
+        "GPTDecoder", "LinearRegression", "RecConfig", "RecommenderNet",
+        "ResNet", "SEResNeXt", "SentimentConfig", "Seq2SeqConfig",
+        "SoftmaxRegression", "StackedLSTMSentiment", "TaggerConfig",
+        "TextCNNSentiment", "Transformer", "TransformerConfig",
+        "WideAndDeep", "Word2Vec", "ctr_loss",
         "make_sparse_deepfm_train_step", "resnet18", "resnet50",
-        "se_resnext50", "vgg16"),
+        "se_resnext50", "sentiment_loss", "vgg16"),
     "paddle_tpu_torch.parallel": (
         "FeatureTable", "HostTable", "ShardedHostTable", "SparseTable"),
 }

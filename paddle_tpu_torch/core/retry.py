@@ -11,7 +11,8 @@ failure, sleep a backoff and re-raise once the budget is spent.
 
 The reference's ``retry_*`` flags become module settings with the flags'
 defaults (4 attempts, 0.05 s doubling to at most 2 s, jitter 0.25, a
-60 s deadline): :func:`default_policy` reads them, and
+60 s deadline): a :class:`RetryPolicy` reads every knob left unset from
+them when it is built, as the reference reads its flags, and
 :func:`configure` changes them.
 """
 
@@ -49,21 +50,28 @@ class RetryPolicy:
     multiplier ** (n - 1)``, at most ``backoff_max_s``, scaled by a
     uniform factor in ``[1 - jitter, 1 + jitter]``; a call gives up
     rather than start a sleep that would end past ``deadline_s`` (0:
-    none). ``retryable`` (default :func:`default_retryable`) says which
-    exceptions are retried. ``sleep`` is injectable for tests."""
+    none). A knob left None takes its setting (:data:`_SETTINGS`) when
+    the policy is built (ref: ``core/retry.py:56-70``). ``retryable``
+    (default :func:`default_retryable`) says which exceptions are
+    retried. ``sleep``, ``rng`` (a ``random.Random``; the global
+    ``random`` module by default, as in the reference) and ``clock``
+    are injectable for tests."""
 
-    def __init__(self, max_attempts=4, backoff_s=0.05, sleep=None,
-                 backoff_max_s=None, multiplier=2.0, jitter=0.0,
-                 deadline_s=0.0, retryable=None):
-        self.max_attempts = max(1, int(max_attempts))
-        self.backoff_s = float(backoff_s)
-        self.backoff_max_s = (float("inf") if backoff_max_s is None
-                              else float(backoff_max_s))
-        self.multiplier = float(multiplier)
-        self.jitter = float(jitter)
-        self.deadline_s = float(deadline_s)
+    def __init__(self, max_attempts=None, backoff_s=None, sleep=None,
+                 backoff_max_s=None, multiplier=None, jitter=None,
+                 deadline_s=None, retryable=None, rng=None, clock=None):
+        def knob(val, key):
+            return _SETTINGS[key] if val is None else val
+        self.max_attempts = max(1, int(knob(max_attempts, "max_attempts")))
+        self.backoff_s = float(knob(backoff_s, "backoff_s"))
+        self.backoff_max_s = float(knob(backoff_max_s, "backoff_max_s"))
+        self.multiplier = float(knob(multiplier, "multiplier"))
+        self.jitter = float(knob(jitter, "jitter"))
+        self.deadline_s = float(knob(deadline_s, "deadline_s"))
         self.retryable = retryable or default_retryable
         self._sleep = sleep or time.sleep
+        self._rng = rng or _random
+        self._clock = clock or time.monotonic
 
     def delay_s(self, attempt):
         """Sleep before retry number ``attempt`` (1-based failure
@@ -71,7 +79,7 @@ class RetryPolicy:
         d = min(self.backoff_max_s,
                 self.backoff_s * self.multiplier ** max(0, attempt - 1))
         if self.jitter:
-            d *= 1.0 + self.jitter * (2.0 * _random.random() - 1.0)
+            d *= 1.0 + self.jitter * (2.0 * self._rng.random() - 1.0)
         return max(0.0, d)
 
     def call(self, fn, *args, **kwargs):
@@ -79,7 +87,7 @@ class RetryPolicy:
         exception is re-raised as itself. Counts ``retry.attempts`` for
         each retryable failure and ``retry.giveups`` when the attempts or
         the deadline run out, labelled with ``fn``'s name."""
-        start = time.monotonic()
+        start = self._clock()
         failures = 0
         op = getattr(fn, "__name__", None) or type(fn).__name__
         while True:
@@ -95,7 +103,7 @@ class RetryPolicy:
                     raise
                 delay = self.delay_s(failures)
                 if (self.deadline_s > 0
-                        and time.monotonic() - start + delay
+                        and self._clock() - start + delay
                         > self.deadline_s):
                     _metrics.counter("retry.giveups").inc(op=op)
                     raise
@@ -104,7 +112,7 @@ class RetryPolicy:
 
 def default_policy():
     """A policy from the current settings (read at each call)."""
-    return RetryPolicy(**_SETTINGS)
+    return RetryPolicy()
 
 
 class RetryBudget:

@@ -1,8 +1,9 @@
 """Streaming metrics (ref: ``paddle_tpu/metrics.py``): the host-side
 accumulators the CTR path reads, in numpy as in the reference, and
 :func:`ctr_metric_bundle`'s per-batch sums in torch on the batch's
-device, and :class:`DetectionMAP`'s host pass over the detections.
-``EditDistance`` and ``ChunkEvaluator`` are not ported."""
+device, :class:`DetectionMAP`'s host pass over the detections, and the
+sequence family's :class:`EditDistance` and :class:`ChunkEvaluator`
+(host numpy, as in the reference)."""
 
 import numpy as np
 import torch
@@ -126,6 +127,92 @@ class Auc(MetricBase):
         neg_prev = np.concatenate([[0], neg_c[:-1]])
         area = np.sum((neg_c - neg_prev) * (pos_c + pos_prev) / 2.0)
         return float(area / max(tot_pos * tot_neg, 1e-12))
+
+
+class EditDistance(MetricBase):
+    """Running mean Levenshtein distance of hypothesis/reference pairs
+    (ref: ``metrics.py:118``), each normalized by its reference's length
+    (at least 1) unless ``normalized=False``."""
+
+    def __init__(self, name=None):
+        super().__init__(name)
+        self.reset()
+
+    def reset(self):
+        self.total = 0.0
+        self.count = 0
+
+    @staticmethod
+    def _levenshtein(a, b):
+        m, n = len(a), len(b)
+        dp = np.arange(n + 1, dtype=np.float64)
+        for i in range(1, m + 1):
+            prev = dp.copy()
+            dp[0] = i
+            for j in range(1, n + 1):
+                dp[j] = min(prev[j] + 1, dp[j - 1] + 1,
+                            prev[j - 1] + (a[i - 1] != b[j - 1]))
+        return dp[n]
+
+    def update(self, hyps, refs, normalized=True):
+        for h, r in zip(hyps, refs):
+            h, r = list(_np(h).reshape(-1)), list(_np(r).reshape(-1))
+            d = self._levenshtein(h, r)
+            if normalized:
+                d = d / max(len(r), 1)
+            self.total += d
+            self.count += 1
+
+    def eval(self):
+        return self.total / max(self.count, 1)
+
+
+class ChunkEvaluator(MetricBase):
+    """Chunk precision, recall and F1 from accumulated counts (ref:
+    ``metrics.py:153``; the counts come from
+    :func:`~paddle_tpu_torch.ops.metrics_ops.chunk_eval`)."""
+
+    def __init__(self, name=None):
+        super().__init__(name)
+        self.reset()
+
+    def reset(self):
+        self.num_infer = 0.0
+        self.num_label = 0.0
+        self.num_correct = 0.0
+
+    def update(self, num_infer_chunks, num_label_chunks, num_correct_chunks):
+        self.num_infer += float(num_infer_chunks)
+        self.num_label += float(num_label_chunks)
+        self.num_correct += float(num_correct_chunks)
+
+    def eval(self):
+        precision = self.num_correct / max(self.num_infer, 1e-12)
+        recall = self.num_correct / max(self.num_label, 1e-12)
+        f1 = 2 * precision * recall / max(precision + recall, 1e-12)
+        return precision, recall, f1
+
+
+class CompositeMetric(MetricBase):
+    """Several metrics updated together (ref: ``metrics.py:177``)."""
+
+    def __init__(self, name=None):
+        super().__init__(name)
+        self._metrics = []
+
+    def add_metric(self, metric):
+        self._metrics.append(metric)
+
+    def reset(self):
+        for m in self._metrics:
+            m.reset()
+
+    def update(self, *args, **kwargs):
+        for m in self._metrics:
+            m.update(*args, **kwargs)
+
+    def eval(self):
+        return [m.eval() for m in self._metrics]
 
 
 class DetectionMAP(MetricBase):

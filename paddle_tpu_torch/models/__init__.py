@@ -17,8 +17,12 @@ from paddle_tpu_torch.models.recommender import (  # noqa: F401
     RecConfig, RecommenderNet, rating_loss)
 from paddle_tpu_torch.models.resnet import (ResNet, resnet18,  # noqa: F401
                                             resnet50)
+from paddle_tpu_torch.models.sentiment import (  # noqa: F401
+    SentimentConfig, StackedLSTMSentiment, TextCNNSentiment, sentiment_loss)
 from paddle_tpu_torch.models.seq2seq import (AttentionSeq2Seq,  # noqa: F401
                                              Seq2SeqConfig)
+from paddle_tpu_torch.models.tagging import (BiLstmCrfTagger,  # noqa: F401
+                                             TaggerConfig)
 from paddle_tpu_torch.models.transformer import (  # noqa: F401
     Transformer, TransformerConfig)
 from paddle_tpu_torch.models.vision_cls import (VGG,  # noqa: F401

@@ -1,7 +1,8 @@
 from paddle_tpu_torch.nn.layers import (GRU, LSTM,  # noqa: F401
                                         BatchNorm, Conv2D, Dropout,
                                         Embedding, LayerNorm, Linear,
-                                        MultiHeadAttention, Pool2D, fused_ffn,
+                                        MultiHeadAttention, Pool2D, RowConv,
+                                        SequenceConv, fused_ffn,
                                         tied_vocab_head)
 from paddle_tpu_torch.nn.rnn import (RNN, BeamSearchDecoder,  # noqa: F401
                                      Decoder, GRUCell, LSTMCell, RNNCell,

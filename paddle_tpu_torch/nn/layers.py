@@ -20,10 +20,12 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch import initializer as I
+from paddle_tpu_torch.core.ragged import RaggedBatch
 from paddle_tpu_torch.ops import activations as A
 from paddle_tpu_torch.ops import attention as att
 from paddle_tpu_torch.ops import nn as F
 from paddle_tpu_torch.ops import rnn as R
+from paddle_tpu_torch.ops import sequence as S
 from paddle_tpu_torch.ops.cuda.layer_norm import add_layer_norm_fused
 from paddle_tpu_torch.ops.cuda.mlp import fused_mlp
 
@@ -342,6 +344,46 @@ class GRU(nn.Module):
                 out = of
                 last.append(hf)
         return out, torch.stack(last)
+
+
+class SequenceConv(nn.Module):
+    """ref: ``nn/layers.py:837`` — context-window convolution over a
+    :class:`~paddle_tpu_torch.core.ragged.RaggedBatch`
+    (:func:`~paddle_tpu_torch.ops.sequence.sequence_conv`): ``filter``
+    ``[context_length * in_dim, out_dim]`` (xavier), ``bias`` ``[out_dim]``
+    (zeros) unless ``bias=False``, then ``act``."""
+
+    def __init__(self, in_dim, out_dim, context_length=3, context_start=-1,
+                 bias=True, act=None, gen=None, dtype=torch.float32):
+        super().__init__()
+        self.context_length = context_length
+        self.context_start = context_start
+        self.act = act
+        self.filter = _xavier((context_length * in_dim, out_dim), gen, dtype)
+        self.bias = (nn.Parameter(torch.zeros(out_dim, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, rb, max_len=None):
+        out = S.sequence_conv(rb, self.filter, self.context_start,
+                              self.context_length, self.bias,
+                              max_len=max_len)
+        if self.act is not None:
+            out = RaggedBatch(_act(self.act, out.values), out.row_lengths)
+        return out
+
+
+class RowConv(nn.Module):
+    """ref: ``nn/layers.py:865`` — lookahead convolution over a
+    :class:`~paddle_tpu_torch.core.ragged.RaggedBatch`
+    (:func:`~paddle_tpu_torch.ops.sequence.row_conv`), ``filter``
+    ``[future_context + 1, dim]`` (xavier)."""
+
+    def __init__(self, dim, future_context=2, gen=None, dtype=torch.float32):
+        super().__init__()
+        self.filter = _xavier((future_context + 1, dim), gen, dtype)
+
+    def forward(self, rb, max_len=None):
+        return S.row_conv(rb, self.filter, max_len=max_len)
 
 
 class MultiHeadAttention(nn.Module):

@@ -1627,3 +1627,70 @@ def test_ssd_detection_output_on_card_matches_cpu(cuda):
         chip_smoke.held_detections(f"image {i}",
                                    chip_smoke.ssd_detections(args, "cuda"),
                                    chip_smoke.ssd_detections(args, "cpu"))
+
+
+@pytest.mark.parametrize("model", ["tagger", "text_cnn", "stacked_lstm"])
+def test_sequence_model_step_on_card_matches_cpu(cuda, model):
+    """One f32 Adam step of the tagger (TaggerConfig()) or a sentiment
+    net (SentimentConfig()) at full width, batch 4, on the card and on the
+    CPU from the same weights: loss within 1e-4, every gradient within
+    1e-3 relative L2; no kernel of the port launched."""
+    import chip_smoke
+    from paddle_tpu_torch.models.sentiment import (SentimentConfig,
+                                                   StackedLSTMSentiment,
+                                                   TextCNNSentiment)
+    from paddle_tpu_torch.models.tagging import BiLstmCrfTagger, TaggerConfig
+    rs = np.random.RandomState(0)
+    if model == "tagger":
+        cfg = TaggerConfig()
+        make = lambda dev: BiLstmCrfTagger(cfg, device=dev, seed=0)
+        loss_fn = chip_smoke.tagger_loss
+        batch = chip_smoke.tagger_batch(rs, cfg, 4, (8, 64))
+    else:
+        cfg = SentimentConfig()
+        cls = TextCNNSentiment if model == "text_cnn" else StackedLSTMSentiment
+        make = lambda dev: cls(cfg, device=dev, seed=0)
+        loss_fn = chip_smoke.sentiment_loss_of
+        batch = chip_smoke.sentiment_batch(rs, cfg, 4, (32, 128))
+    loss_card, loss_cpu, errs, _, launches = chip_smoke.train_crosscheck(
+        make, loss_fn, batch)
+    assert abs(loss_card - loss_cpu) <= 1e-4
+    assert max(errs.values()) <= 1e-3, errs
+    assert not any(launches.values())
+
+
+def test_crf_decoding_on_card_matches_cpu(cuda):
+    """crf_decoding and linear_chain_crf of random emissions at the
+    tagger's 16 tags (64 rows of lengths 1-64) on the card and on the
+    CPU: paths and label marks equal (or a near tie, chip_smoke's rule),
+    each row's NLL within 1e-4 relative; integer-valued scores (ties
+    everywhere) decode alike too."""
+    import chip_smoke
+    from paddle_tpu_torch.ops import crf as C
+    rs = np.random.RandomState(1)
+    lens = torch.from_numpy(rs.randint(1, 65, 64).astype(np.int32))
+    tags = torch.from_numpy(rs.randint(0, 16, (64, 64)).astype(np.int32))
+    for scale in (None, 1.0):
+        if scale is None:
+            em = torch.from_numpy(rs.randn(64, 64, 16).astype(np.float32))
+            tr = torch.from_numpy(rs.randn(18, 16).astype(np.float32))
+        else:
+            em = torch.from_numpy(rs.randint(0, 2, (64, 64, 16)).astype(
+                np.float32))
+            tr = torch.from_numpy(rs.randint(0, 2, (18, 16)).astype(
+                np.float32))
+        card = C.crf_decoding(em.cuda(), tr.cuda(), lens.cuda()).cpu()
+        cpu = C.crf_decoding(em, tr, lens)
+        if scale is None:
+            chip_smoke.held_paths("crf_decoding", card, cpu, em, tr, lens)
+        else:
+            assert torch.equal(card, cpu)
+        if torch.equal(card, cpu):          # marks follow the paths
+            assert torch.equal(C.crf_decoding(
+                em.cuda(), tr.cuda(), lens.cuda(), tags.cuda()).cpu(),
+                C.crf_decoding(em, tr, lens, tags))
+        nll = C.linear_chain_crf(em.cuda(), tr.cuda(), tags.cuda(),
+                                 lens.cuda()).cpu()
+        want = C.linear_chain_crf(em, tr, tags, lens)
+        assert float(((nll - want).abs()
+                      / want.abs().clamp(min=1.0)).max()) <= 1e-4

@@ -574,6 +574,8 @@ def test_engine_recovery_budget_exhaustion_fails_every_request(rng):
     """A decode step that always fails: after ``step_retries`` recoveries
     the engine fails every request and re-raises, with no sleep beyond
     the injected one; the same plan on the JAX engine agrees."""
+    import random
+    from paddle_tpu.core.retry import RetryPolicy as JPolicy
     from paddle_tpu_torch.serving import ServeConfig, ServingEngine
     from paddle_tpu_torch.testing import chaos
     _, _, pm = _shared_pair()
@@ -584,10 +586,17 @@ def test_engine_recovery_budget_exhaustion_fails_every_request(rng):
     rids = [eng.submit(p, max_new=6) for p in _fault_wave(rng)]
     plan = chaos.FaultPlan().fail("fault_point", path=r"^serve\.step$",
                                   times=100)
+    random.seed(3)
     with chaos.active(plan), pytest.raises(chaos.InjectedFault):
         eng.drain()
     assert eng.recoveries == 3 and plan.fired() == 3
-    assert sleeps == [0.05, 0.1]               # doubling backoff
+    # the reference engine's budget policy, jitter drawn from the same
+    # seeded random: doubling backoff from 0.05 s, each sleep jittered
+    random.seed(3)
+    ref = JPolicy(max_attempts=3)
+    np.testing.assert_allclose(sleeps, [ref.backoff_s(1), ref.backoff_s(2)],
+                               rtol=0, atol=1e-12)
+    assert 0.0375 <= sleeps[0] <= 0.0625 and 0.075 <= sleeps[1] <= 0.125
     for rid in rids:
         req = eng.requests[rid]
         assert (req.status, req.retire_reason) == ("failed", "engine_error")
@@ -650,9 +659,12 @@ def test_engine_recovery_drops_old_pools_before_new_ones(rng,
 
 
 def test_retry_budget_and_fault_plan_units():
+    import random
+    from paddle_tpu.core.retry import RetryPolicy as JPolicy
     from paddle_tpu_torch.core.retry import RetryBudget, RetryPolicy
     from paddle_tpu_torch.testing import chaos
     slept = []
+    random.seed(11)
     budget = RetryBudget(RetryPolicy(max_attempts=3, backoff_s=0.1,
                                      sleep=slept.append))
     err = ValueError("x")
@@ -660,7 +672,12 @@ def test_retry_budget_and_fault_plan_units():
     with pytest.raises(ValueError):
         budget.failure(err)
     budget.success()
-    assert budget.failures == 0 and slept == [0.1, 0.2]
+    random.seed(11)                   # the reference's jittered sleeps
+    ref = JPolicy(max_attempts=3, backoff_base_s=0.1, jitter=0.25)
+    want = [ref.backoff_s(1), ref.backoff_s(2)]
+    assert budget.failures == 0 and len(slept) == 2
+    np.testing.assert_allclose(slept, want, rtol=0, atol=1e-12)
+    assert slept != [0.1, 0.2]
     plan = chaos.FaultPlan().fail("fault_point", path="^a$", nth=2, times=2)
     chaos.fault_point("a")                      # no plan active: free
     with chaos.active(plan):
