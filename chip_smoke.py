@@ -3,8 +3,9 @@ over in-process replicas and over child processes), the DataLoader, GPT
 decoding (float and weight-only int8), GPT training
 (unrolled, scan-over-layers with remat, mixture of experts), BERT
 pretraining, Trainer, translation, image-classification, CTR, SSD
-detection and sequence (sentiment nets, BiLSTM-CRF tagger) paths on one
-NVIDIA H100.
+detection and sequence (sentiment nets, BiLSTM-CRF tagger) paths, and
+a ProgramDesc of GPT's loss run through the op registry, on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -107,7 +108,7 @@ Phases, each printing one JSON line:
    module shared by every replica), 4 slots a replica, page 64, a
    64-token shared prefix on half the prompts, prefill_len 256, 64 new
    tokens, bf16 pools, prompts from np.random.RandomState(0); 1, 2 and
-   4 replicas (4n warm-up, 16n timed requests; a rolling deploy of the
+   4 replicas (4n warm-up, 8n timed requests; a rolling deploy of the
    same weights as v1 in the warm-up at 2, the busiest replica killed
    mid-stream at 4), after a disaggregated run (prefill_replicas=1, half
    the prompts longer than prefill_len) at 2. Every request must be done
@@ -350,8 +351,26 @@ Phases, each printing one JSON line:
    rows of up to 64 steps of 128 features, two of them empty; the
    tagger's 16 tags): floats within 1e-5 relative to max(1, max |CPU|),
    integers, lengths and chunk counts exact, Viterbi paths held as the
-   tagger's; prints the op count and the worst error and its op. Then a
-   "timeline" line: the script's time (t_s) to its last phase.
+   tagger's; prints the op count and the worst error and its op.
+30. program — GPT-small's training loss spelled out op by op as a
+   ProgramDesc (gpt_loss_desc: lookup_table, elementwise_add, per block
+   layer_norm, multihead_attention(num_heads=12, causal, use_flash),
+   elementwise_add, layer_norm, fc, gelu, fc, elementwise_add; ln_f; the
+   shifted fused_xent against the tied table; reduce_mean) at full width,
+   12 layers, f32, batch 8 x 512: to_json, parse_from_string,
+   to_static_program and Executor("cuda").run on numpy feeds from a seed
+   (2 warm-up, 5 timed runs: p50 ms); one forward and its gradient over
+   the fed parameters through the parsed build_fn and autograd, with the
+   launches asserted (K1 25, K2 12, K5 1; K3 dq and dk/dv 12 each, K6 dh
+   and dw/db 1 each) and their routes (K1 row, K2/K3/K5 SIMT: f32); the
+   same desc cut to 2 layers at 2 x 128 on the card and the CPU (loss
+   within 1e-4 relative, every gradient within 1e-3 relative L2);
+   Program.capture of the parsed function on the card, which must name
+   the K1, K2 and K5 ops; one profiled run (device ms, idle share); and a
+   one-op desc of paged_decode_attention over the serve configuration's
+   bf16 pool (8 slots, 12 heads, hd 64, page 64): K7 once, held against
+   its plain version. Then a "timeline" line: the script's time (t_s) to
+   its last phase.
 
 K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
 and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
@@ -377,7 +396,8 @@ path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
 launches_gpt_decode_int8, launches_serve_int8, launches_serve_fleet,
 launches_serve_fleet_proc (the children's), launches_moe_train and
 launches_scan_<policy> among them, and launches_resnet, launches_ctr,
-launches_ssd, launches_tagger and launches_sentiment, which are 0), the
+launches_ssd, launches_tagger and launches_sentiment, which are 0, and
+launches_program, the program phase's measured forward and backward), the
 nvidia-smi line, and
 the contract line
 {"ok": true, "device": {...}}.
@@ -390,6 +410,7 @@ import contextlib
 import dataclasses
 import glob
 import json
+import math
 import os
 import re
 import shutil
@@ -4479,8 +4500,9 @@ def serve_int8_phase(model, serve_kw, smi):
 # replica, page 64, a 64-token shared prefix on half the prompts,
 # prefill_len = seq // 2, prompts of [seq // 8, prefill_len] tokens after
 # the prefix, 64 new tokens each, bf16 pools, SLOs of 2 s to the first
-# token and 0.5 s a token; replica counts 1, 2 and 4, 4n warm-up and 16n
-# timed requests each
+# token and 0.5 s a token; replica counts 1, 2 and 4, 4n warm-up
+# requests each and FLEET_TIMED n timed (bench's row times 16n: cut to
+# 8n to keep the script's time)
 FLEET_SLOTS = 4
 FLEET_PAGE = 64
 FLEET_SHARED = 64
@@ -4492,6 +4514,8 @@ FLEET_KILL_AT = 4        # the replica count whose run kills a replica
 FLEET_DEPLOY_AT = 2      # the replica count whose warm-up deploys v1
 FLEET_PROFILE_ROUNDS = 8
 FLEET_DISAGG = 12        # requests of the disaggregated run (half long)
+FLEET_WARM = 4           # warm-up requests a replica
+FLEET_TIMED = 8          # timed requests a replica
 
 
 def fleet_serve_kw(max_len=None):
@@ -4615,8 +4639,8 @@ def fleet_round_profile(router, rounds):
 
 
 def fleet_run(model, n, stream, serve_kw, kill=False, deploy=False):
-    """bench.py's run at ``n`` replicas: a warm-up of 4n requests settled,
-    then 16n timed; with ``kill``, three healthy rounds, the busiest
+    """bench.py's run at ``n`` replicas: a warm-up of FLEET_WARM n requests
+    settled, then FLEET_TIMED n timed; with ``kill``, three healthy rounds, the busiest
     replica killed and the failover round timed. FLEET_PROFILE_ROUNDS
     decode rounds of the warm-up (every slot live, after the admission
     round) run under :func:`fleet_round_profile`, outside the timed
@@ -4631,11 +4655,11 @@ def fleet_run(model, n, stream, serve_kw, kill=False, deploy=False):
     router = FleetRouter(model, FleetConfig(num_replicas=n,
                                             heartbeat_s=60.0),
                          serve_config=ServeConfig(**serve_kw))
-    warm = 4 * n
+    warm, timed_n = FLEET_WARM * n, FLEET_TIMED * n
     for p in stream[:warm]:
         router.submit(p, max_new=FLEET_NEW)
     router.step()                         # the warm-up's admissions
-    line = dict(replicas=n, requests=16 * n,
+    line = dict(replicas=n, requests=timed_n,
                 profile=fleet_round_profile(router, FLEET_PROFILE_ROUNDS))
     if deploy:
         s0 = time.perf_counter()
@@ -4645,7 +4669,7 @@ def fleet_run(model, n, stream, serve_kw, kill=False, deploy=False):
     settle(router)
     hits0, miss0, skip0 = prefix_stats(router)
     aff0 = metrics.counter("fleet.affinity_hits").total()
-    for p in stream[warm:warm + 16 * n]:
+    for p in stream[warm:warm + timed_n]:
         router.submit(p, max_new=FLEET_NEW)
     rounds, healthy = 0, []
     t0 = time.perf_counter()
@@ -4725,7 +4749,8 @@ def serve_fleet_phase(model, cpu_model, smi):
     from paddle_tpu_torch.serving import ServeConfig, fleet
     vocab = model.cfg.vocab_size
     kw = fleet_serve_kw()
-    stream = fleet_stream(vocab, 20 * max(FLEET_COUNTS))
+    stream = fleet_stream(vocab, (FLEET_WARM + FLEET_TIMED)
+                          * max(FLEET_COUNTS))
     dkw = fleet_serve_kw(max_len=2 * FLEET_PREFILL + FLEET_NEW)
     dstream = disagg_stream(vocab, FLEET_DISAGG)
     t0 = time.perf_counter()
@@ -4829,7 +4854,7 @@ def serve_fleet_phase(model, cpu_model, smi):
 
 FLEET_PROC_N = 2          # child replicas
 FLEET_PROC_WARM = 8       # warm-up requests (4n), settled before timing
-FLEET_PROC_TIMED = 32     # the kill drill's timed requests
+FLEET_PROC_TIMED = 16     # the kill drill's timed requests
 FLEET_PROC_KILL_AFTER = 3  # healthy timed rounds before the kill -9
 FLEET_PROC_ASSERT = 8     # the device-assert drill's requests
 FLEET_PROC_ASSERT_AT = 12  # the asserting child's engine step
@@ -6204,6 +6229,302 @@ def sequence_ops_phase(smi):
                 card=smi)
 
 
+# ------------------------------------------------------------ program
+
+#: the program phase's GPT-small ProgramDesc: batch x seq on the card, and
+#: the crosscheck's depth and batch x seq on the card and the CPU
+PROGRAM_BATCH, PROGRAM_SEQ = 8, 512
+PROGRAM_WARMUP, PROGRAM_RUNS = 2, 5
+PROGRAM_CHECK_LAYERS, PROGRAM_CHECK_BATCH, PROGRAM_CHECK_SEQ = 2, 2, 128
+PROGRAM_LOSS_TOL = 1e-4    # f32 loss, card vs CPU, relative (PERF.md §2)
+PROGRAM_GRAD_TOL = 1e-3    # each fed parameter's gradient, relative L2
+#: K1 forward a layer twice and once for ln_f; K2 and K3 once a layer;
+#: K5 and each K6 kernel once
+PROGRAM_FWD = {"layer_norm": lambda n: 2 * n + 1,
+               "flash_attention": lambda n: n, "xent_stats": lambda n: 1}
+PROGRAM_BWD = {"flash_attention_bwd_dq": lambda n: n,
+               "flash_attention_bwd_dkv": lambda n: n,
+               "xent_bwd_dh": lambda n: 1, "xent_bwd_dwb": lambda n: 1}
+PROGRAM_SIMT = ("flash_attention", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv", "xent_stats")
+#: the kernels' torch.library ops a captured program of the desc names
+PROGRAM_OPS = ("paddle_tpu_torch::layer_norm",
+               "paddle_tpu_torch::flash_attention",
+               "paddle_tpu_torch::xent_stats")
+
+
+def gpt_param_shapes(layers, hidden, inter, vocab, max_position):
+    """The fed parameters of :func:`gpt_loss_desc`, by the port's
+    ``models/gpt.py GPT`` parameter names, and their shapes."""
+    shapes = {"tok_emb.weight": (vocab, hidden),
+              "pos_emb.weight": (max_position, hidden)}
+    for i in range(layers):
+        p = f"blocks.{i}."
+        for ln in ("ln1", "ln2"):
+            shapes[p + ln + ".scale"] = (hidden,)
+            shapes[p + ln + ".bias"] = (hidden,)
+        for w in ("q", "k", "v", "o"):
+            shapes[f"{p}attn.w{w}"] = (hidden, hidden)
+            shapes[f"{p}attn.b{w}"] = (hidden,)
+        shapes[p + "fc1.weight"] = (hidden, inter)
+        shapes[p + "fc1.bias"] = (inter,)
+        shapes[p + "fc2.weight"] = (inter, hidden)
+        shapes[p + "fc2.bias"] = (hidden,)
+    shapes["ln_f.scale"] = (hidden,)
+    shapes["ln_f.bias"] = (hidden,)
+    return shapes
+
+
+def gpt_loss_desc(layers, heads, seq, param_names):
+    """GPT's training loss (``paddle_tpu/models/gpt.py:80-84`` and
+    ``GPT.loss``) spelled out op by op as a ProgramDesc: the token and
+    position tables' lookups and their sum; per block ``layer_norm``,
+    causal flash ``multihead_attention``, the residual add, ``layer_norm``,
+    ``fc``, ``gelu``, ``fc`` and the residual add; ``ln_f``; the shifted
+    ``fused_xent`` against the tied token table and ``reduce_mean``. Feeds:
+    ``ids`` ``[B, seq]``, ``pos`` ``[1, seq]`` and the parameters."""
+    from paddle_tpu_torch.static import program_desc
+    d = program_desc(["ids", "pos"] + list(param_names), ["loss"])
+    d.append_op("lookup_table", ["ids", "tok_emb.weight"], ["tok"])
+    d.append_op("lookup_table", ["pos", "pos_emb.weight"], ["posv"])
+    d.append_op("elementwise_add", ["tok", "posv"], ["x0"])
+    x = "x0"
+    for i in range(layers):
+        p, v = f"blocks.{i}.", f"b{i}."
+        d.append_op("layer_norm", [x, p + "ln1.scale", p + "ln1.bias"],
+                    [v + "ln1"], begin_norm_axis=2)
+        d.append_op("multihead_attention",
+                    [v + "ln1"] + [f"{p}attn.{w}{c}" for w in "wb"
+                                   for c in "qkvo"],
+                    [v + "att"], num_heads=heads, causal=True,
+                    use_flash=True)
+        d.append_op("elementwise_add", [x, v + "att"], [v + "mid"])
+        d.append_op("layer_norm", [v + "mid", p + "ln2.scale",
+                                   p + "ln2.bias"], [v + "ln2"],
+                    begin_norm_axis=2)
+        d.append_op("fc", [v + "ln2", p + "fc1.weight", p + "fc1.bias"],
+                    [v + "fc1"], num_flatten_dims=2)
+        d.append_op("gelu", [v + "fc1"], [v + "act"])
+        d.append_op("fc", [v + "act", p + "fc2.weight", p + "fc2.bias"],
+                    [v + "fc2"], num_flatten_dims=2)
+        d.append_op("elementwise_add", [v + "mid", v + "fc2"], [v + "out"])
+        x = v + "out"
+    d.append_op("layer_norm", [x, "ln_f.scale", "ln_f.bias"], ["h"],
+                begin_norm_axis=2)
+    d.append_op("slice", ["h"], ["h_in"], axes=[1], starts=[0],
+                ends=[seq - 1])
+    d.append_op("slice", ["ids"], ["labels"], axes=[1], starts=[1],
+                ends=[seq])
+    d.append_op("fused_xent", ["h_in", "tok_emb.weight", "labels"], ["ce"],
+                weight_layout="vh")
+    d.append_op("reduce_mean", ["ce"], ["loss"])
+    return d
+
+
+def gpt_desc_feeds(rs, shapes, vocab, batch, seq):
+    """Numpy feeds of :func:`gpt_loss_desc` from ``rs``: weights N(0,
+    0.02), biases N(0, 0.01), layer-norm scales 1 + N(0, 0.1), ids
+    uniform over the vocab."""
+    feeds = {"ids": rs.randint(0, vocab, (batch, seq)).astype(np.int32),
+             "pos": np.arange(seq, dtype=np.int32)[None]}
+    for name, shape in shapes.items():
+        if name.endswith(".scale"):
+            a = 1.0 + 0.1 * rs.randn(*shape)
+        elif len(shape) == 1:
+            a = 0.01 * rs.randn(*shape)
+        else:
+            a = 0.02 * rs.randn(*shape)
+        feeds[name] = a.astype(np.float32)
+    return feeds
+
+
+def desc_loss_and_grads(desc, feeds, device):
+    """The parsed desc's loss and its gradient over every float feed, on
+    ``device``, through ``build_fn`` and ``torch.autograd``."""
+    from paddle_tpu_torch.static import ProgramDesc
+    fn = ProgramDesc.parse_from_string(desc.to_json()).build_fn()
+    args = [torch.from_numpy(feeds[n]).to(device) for n in desc.feeds]
+    params = [a.requires_grad_() for a in args if a.is_floating_point()]
+    loss = fn(*args)["loss"]
+    grads = torch.autograd.grad(loss, params)
+    names = [n for n, a in zip(desc.feeds, args) if a.is_floating_point()]
+    return loss.detach(), dict(zip(names, grads))
+
+
+def program_crosscheck(smi):
+    """The desc cut to PROGRAM_CHECK_LAYERS at GPT-small's width, on the
+    card and on the CPU (plain versions) on the same feeds: the loss
+    within PROGRAM_LOSS_TOL relative, every gradient within
+    PROGRAM_GRAD_TOL relative L2. Returns the errors."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    cfg = GPTConfig.small()
+    shapes = gpt_param_shapes(PROGRAM_CHECK_LAYERS, cfg.hidden_size,
+                              cfg.intermediate_size, cfg.vocab_size,
+                              cfg.max_position)
+    desc = gpt_loss_desc(PROGRAM_CHECK_LAYERS, cfg.num_heads,
+                         PROGRAM_CHECK_SEQ, shapes)
+    feeds = gpt_desc_feeds(np.random.RandomState(23), shapes,
+                           cfg.vocab_size, PROGRAM_CHECK_BATCH,
+                           PROGRAM_CHECK_SEQ)
+    card_loss, card_grads = desc_loss_and_grads(desc, feeds, "cuda")
+    cpu_loss, cpu_grads = desc_loss_and_grads(desc, feeds, "cpu")
+    loss_err = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    check("program crosscheck loss", loss_err, PROGRAM_LOSS_TOL)
+    # relative L2 on a scale of at least 1e-3 of the largest gradient's
+    # norm: the key biases' gradients are 0 in exact arithmetic (softmax
+    # ignores a shift every key's score gets), rounding noise on both sides
+    floor = 1e-3 * max(float(g.norm()) for g in cpu_grads.values())
+    grad_err = {n: float((card_grads[n].cpu() - g).norm()
+                         / max(float(g.norm()), floor))
+                for n, g in cpu_grads.items()}
+    worst = max(grad_err, key=grad_err.get)
+    check(f"program crosscheck grad {worst}", grad_err[worst],
+          PROGRAM_GRAD_TOL)
+    return dict(layers=PROGRAM_CHECK_LAYERS, batch=PROGRAM_CHECK_BATCH,
+                seq=PROGRAM_CHECK_SEQ, loss_rel_err=loss_err,
+                grad_rel_l2_max=grad_err[worst], grad_worst=worst,
+                loss_tol=PROGRAM_LOSS_TOL, grad_tol=PROGRAM_GRAD_TOL)
+
+
+def program_decode_check():
+    """A one-op desc, ``paged_decode_attention`` over the serve
+    configuration's bf16 pool (8 slots, 12 heads, hd 64, page 64): K7
+    launches once, and its output is held against K7's plain version."""
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.cuda.decode_attention import (
+        paged_attention_plain)
+    from paddle_tpu_torch.static import Executor, ProgramDesc, program_desc
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(24)
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    slots, heads, hd, ps, pmax = 8, 12, 64, 64, 16
+    pool, ptab = decode_pool(dev, randn, rs, slots, heads, hd, ps, pmax,
+                             torch.bfloat16)
+    lengths = torch.from_numpy(
+        np.array([0, 1, 63, 64, 65, 300, 700, 1024], np.int32)).to(dev)
+    q = randn(slots, heads, hd)
+    desc = program_desc(["q", "k", "v", "table", "lengths"], ["out"])
+    desc.append_op("paged_decode_attention",
+                   ["q", "k", "v", "table", "lengths"], ["out"])
+    prog = ProgramDesc.parse_from_string(desc.to_json()).to_static_program()
+    exe = Executor("cuda")
+    core.reset_launches()
+    (out,) = exe.run(prog, feed={"q": q, "k": pool["k"], "v": pool["v"],
+                                 "table": ptab, "lengths": lengths},
+                     fetch_list=["out"])
+    torch.cuda.synchronize()
+    launches = core.launch_counts()["decode_attention"]
+    if launches != 1:
+        raise AssertionError(f"program decode: K7 launched {launches}x")
+    want = paged_attention_plain(q, pool["k"], pool["v"], ptab, lengths,
+                                 1.0 / hd ** 0.5)
+    err = held_decode("program paged_decode_attention", out, want,
+                      lengths.tolist())
+    return dict(slots=slots, heads=heads, head_dim=hd, page_size=ps,
+                pool="bfloat16", k7_launches=launches, max_abs_err=err,
+                tol=F32_TOL)
+
+
+def program_phase(smi):
+    """GPT-small's training loss as a ProgramDesc (:func:`gpt_loss_desc`,
+    12 layers at full width, f32, dropout 0) written with the port's
+    ``program_desc``, sent through ``to_json`` and
+    ``ProgramDesc.parse_from_string``, and run by ``Executor("cuda")`` on
+    numpy feeds at PROGRAM_BATCH x PROGRAM_SEQ (PROGRAM_WARMUP runs, then
+    PROGRAM_RUNS timed: p50 ms). Then one forward and its gradient over
+    the fed parameters through the parsed ``build_fn`` and autograd, the
+    launches of each (PROGRAM_FWD, PROGRAM_BWD) asserted and every K1
+    launch on the row route, K2/K3/K5 on their SIMT routes (f32); the
+    crosscheck against the CPU (:func:`program_crosscheck`);
+    ``Program.capture`` of the parsed function on the card naming the
+    kernels' ops (PROGRAM_OPS); one profiled run (device ms, idle share);
+    the paged decode desc (:func:`program_decode_check`). Returns the
+    phase line and the launch counts of the measured forward and
+    backward."""
+    from paddle_tpu_torch.core.program import Program
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.static import Executor, ProgramDesc
+    t0 = time.perf_counter()
+    cfg = GPTConfig.small()
+    layers = cfg.num_layers
+    shapes = gpt_param_shapes(layers, cfg.hidden_size, cfg.intermediate_size,
+                              cfg.vocab_size, cfg.max_position)
+    desc = gpt_loss_desc(layers, cfg.num_heads, PROGRAM_SEQ, shapes)
+    text = desc.to_json()
+    parsed = ProgramDesc.parse_from_string(text)
+    feeds = gpt_desc_feeds(np.random.RandomState(22), shapes,
+                           cfg.vocab_size, PROGRAM_BATCH, PROGRAM_SEQ)
+    card = {n: torch.from_numpy(a).to("cuda") for n, a in feeds.items()}
+    prog = parsed.to_static_program()
+    exe = Executor("cuda")
+    times = []
+    for i in range(PROGRAM_WARMUP + PROGRAM_RUNS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (loss,) = exe.run(prog, feed=card, fetch_list=["loss"])
+        torch.cuda.synchronize()
+        if i >= PROGRAM_WARMUP:
+            times.append((time.perf_counter() - t1) * 1e3)
+    if exe.cache_hits != PROGRAM_WARMUP + PROGRAM_RUNS - 1:
+        raise AssertionError(f"program: {exe.cache_hits} cache hits")
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"program: loss {float(loss)}")
+    # the measured forward and backward through the parsed build_fn
+    fn = parsed.build_fn()
+    args = [card[n].clone() for n in parsed.feeds]
+    params = [a.requires_grad_() for a in args if a.is_floating_point()]
+    core.reset_launches()
+    fwd_loss = fn(*args)["loss"]
+    torch.cuda.synchronize()
+    fwd, fwd_routes = core.launch_counts(), core.route_counts()
+    core.reset_launches()
+    grads = torch.autograd.grad(fwd_loss, params)
+    torch.cuda.synchronize()
+    bwd, bwd_routes = core.launch_counts(), core.route_counts()
+    want = {**{k: f(layers) for k, f in PROGRAM_FWD.items()}}
+    got = {k: fwd[k] for k in want}
+    want.update({k: f(layers) for k, f in PROGRAM_BWD.items()})
+    got.update({k: bwd[k] for k in PROGRAM_BWD})
+    if got != want:
+        raise AssertionError(f"program launches {got}, want {want}")
+    check_path_routes("program", fwd_routes, ("layer_norm",))
+    check_routes("program", fwd_routes, "simt", ("flash_attention",
+                                                 "xent_stats"))
+    check_routes("program backward", bwd_routes, "simt",
+                 ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError("program: a gradient is not finite")
+    launches = {k: fwd[k] + bwd[k] for k in fwd}
+    crosscheck = program_crosscheck(smi)
+    captured = Program.capture(parsed.build_fn(), *[card[n]
+                                                    for n in parsed.feeds])
+    named = captured.ops()
+    missing = [op for op in PROGRAM_OPS if op not in named]
+    if missing:
+        raise AssertionError(f"program capture lacks {missing}")
+    dev_ms, dev_launches, _ = kernel_profile(
+        lambda: exe.run(prog, feed=card, fetch_list=["loss"]))
+    p50 = float(np.median(times))
+    decode = program_decode_check()
+    line = dict(config="GPTConfig.small()", layers=layers,
+                batch=PROGRAM_BATCH, seq=PROGRAM_SEQ, dtype="float32",
+                ops=len(parsed.ops), json_bytes=len(text),
+                loss=float(loss), p50_ms=p50, times_ms=times,
+                device_ms=dev_ms, idle_share=1.0 - dev_ms / p50,
+                device_launches=dev_launches, launches_checked=got,
+                launches=launches, crosscheck=crosscheck,
+                captured_ops=len(named),
+                captured_kernel_ops={op: named.count(op)
+                                     for op in PROGRAM_OPS},
+                decode=decode, phase_s=time.perf_counter() - t0, card=smi)
+    return line, launches
+
+
+
 def expected_route(kernel, case):
     """The route a kernel case must take: K2 and K3 by
     :func:`flash_route` (bf16 with D = 64 or 128 on the tensor cores);
@@ -6236,7 +6557,7 @@ def expected_route(kernel, case):
 #: policy among them
 LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
                 "transformer", "resnet", "trainer_resnet", "ctr", "ssd",
-                "tagger", "sentiment", "gpt_decode",
+                "tagger", "sentiment", "program", "gpt_decode",
                 "gpt_decode_int8", "serve_int8", "serve_fleet",
                 "serve_fleet_proc", "moe_train", "export",
                 "scan_nothing", "scan_dots_saveable", "scan_full")
@@ -6552,8 +6873,10 @@ def main():
     torch.cuda.empty_cache()
     seq_crosscheck_phases()
     emit(dict(phase="sequence_ops", **sequence_ops_phase(smi)))
-    emit(dict(phase="timeline", last_phase="sequence_ops",
-              limit_s=1200.0))
+    torch.cuda.empty_cache()
+    program_line, program_launches = program_phase(smi)
+    emit(dict(phase="program", **program_line))
+    emit(dict(phase="timeline", last_phase="program", limit_s=1200.0))
 
     table = kernel_table(by_kernel, {
         "serve": launches, "serve_spec": spec_launches,
@@ -6564,7 +6887,7 @@ def main():
         "trainer_resnet": trainer_resnet_launches,
         "ctr": ctr_launches, "ssd": ssd_launches,
         "tagger": tagger_launches, "sentiment": sentiment_launches,
-        "gpt_decode": decode_launches,
+        "program": program_launches, "gpt_decode": decode_launches,
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
         "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,
         "moe_train": moe_launches, "export": export_launches,

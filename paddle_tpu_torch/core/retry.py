@@ -119,10 +119,13 @@ class RetryBudget:
     """Consecutive-failure budget over a :class:`RetryPolicy`:
     ``failure(exc)`` counts a failure, sleeps the policy's backoff and
     returns the streak length, or re-raises ``exc`` once the policy's
-    attempts are spent; ``success()`` resets the streak."""
+    attempts are spent; ``success()`` resets the streak. Each failure
+    counts ``retry.attempts{op}`` and a give-up ``retry.giveups{op}``, as
+    :meth:`RetryPolicy.call` does."""
 
-    def __init__(self, policy):
+    def __init__(self, policy, op):
         self.policy = policy
+        self.op = op
         self.failures = 0
 
     def success(self):
@@ -130,7 +133,9 @@ class RetryBudget:
 
     def failure(self, exc):
         self.failures += 1
+        _metrics.counter("retry.attempts").inc(op=self.op)
         if self.failures >= self.policy.max_attempts:
+            _metrics.counter("retry.giveups").inc(op=self.op)
             raise exc
         self.policy._sleep(self.policy.delay_s(self.failures))
         return self.failures

@@ -1,27 +1,45 @@
 """Ops of the port: plain PyTorch, with the hand-written kernels under
-``ops/cuda``.
+``ops/cuda``. Every public op is registered by the reference's name in
+``core/registry.py``'s ``GLOBAL_OP_REGISTRY``, so a ProgramDesc
+(``static/desc.py``) can name it; the aliases are added once every module
+has imported, as the reference's ``ops/__init__.py:50-51`` adds them.
 
 Submodules (the reference's ``paddle_tpu/ops`` names):
-  activations   relu, sigmoid, gelu, tanh
+  activations   relu ... maxout: the reference's 26 activations
   attention     attention, cross-attention and the paged KV cache
+  control_flow  loops, conditionals, scan, the functional TensorArray
   crf           linear-chain CRF cost and Viterbi decoding, edit distance
   detection     box geometry, priors and anchors, NMS, matching and the
                 SSD loss, RoI ops, YOLOv3, proposals and RoI targets
   fused         the fused vocab cross-entropy (vh: K5/K6; hv: chunked)
-  loss          softmax and sigmoid cross entropy, smooth L1
+  loss          the reference's 23 losses
   mask          polygon rasterization and mask labels (host numpy)
+  math          matmul/mul, elementwise_*, unary math, reductions, norms
   metrics_ops   accuracy, auc, precision_recall; chunk_eval (host)
   nets          glu and the conv/pool and sequence conv/pool compositions
-  nn            layer norm, embedding lookup, promoting matmul; conv2d,
-                pool2d, adaptive_pool2d, batch_norm
+  nn            fc, convs, pools, norms (layer norm: K1), dropout,
+                embedding lookup, resize, unfold; the promoting matmul
   rnn           LSTM/GRU cells and scans, beam search
   sequence      ragged sequence ops (pools, pad/unpad, conv, ctc_align)
+  tail          the reference's alias table (the rest of tail.py is
+                still to be ported)
+  tensor_ops    shape, index, creation, comparison and random ops
   text_match    match_matrix_tensor, var_conv_2d, top-k average pooling
   vision        the detection family's vision ops (PS/Pr/deformable RoI
                 pools, FPN collection, focal loss, RetinaNet output)
 """
 
+from paddle_tpu_torch.core.registry import GLOBAL_OP_REGISTRY
 from paddle_tpu_torch.ops import (activations, attention,  # noqa: F401
-                                  crf, detection, fused, loss, mask,
-                                  metrics_ops, nets, nn, rnn, sequence,
-                                  text_match, vision)
+                                  control_flow, crf, detection, fused, loss,
+                                  mask, math, metrics_ops, nets, nn, rnn,
+                                  sequence, tail, tensor_ops, text_match,
+                                  vision)
+
+tail.register_reference_aliases()
+fused.register_fused_aliases()
+
+
+def list_ops():
+    """Every registered op name."""
+    return GLOBAL_OP_REGISTRY.list_ops()

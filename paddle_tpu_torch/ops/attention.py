@@ -18,7 +18,8 @@ import math
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device
-from paddle_tpu_torch.core.enforce import EnforceError
+from paddle_tpu_torch.core.enforce import EnforceError, enforce
+from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops.cuda.decode_attention import (  # noqa: F401
     NEG_INF, paged_decode_attention)
 from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -132,6 +133,45 @@ def multihead_attention(x, wq, wk, wv, wo, bq=None, bk=None, bv=None,
                                            dropout_gen=dropout_gen)
     out = matmul(ctx.transpose(1, 2).reshape(b, t, e), wo)
     return out if bo is None else out + bo
+
+
+
+# --- the registered forms, with the reference's signatures ----------------
+# A ProgramDesc passes inputs by position and attrs by name, so each name
+# takes the reference's arguments; the reference's ``dropout_key`` is the
+# port's explicit generator (dropout applies when one is given, as the
+# reference's applies when a key is).
+
+@register_op("scaled_dot_product_attention")
+def scaled_dot_product_attention_op(q, k, v, mask=None, scale=None,
+                                    causal=False, dropout_rate=0.0,
+                                    dropout_key=None):
+    """ref: ``ops/attention.py:22``; ``dropout_key`` a torch.Generator."""
+    return scaled_dot_product_attention(
+        q, k, v, mask=mask, scale=scale, causal=causal,
+        dropout_rate=dropout_rate, training=dropout_key is not None,
+        dropout_gen=dropout_key)
+
+
+@register_op("multihead_attention")
+def multihead_attention_op(x, wq, wk, wv, wo, bq=None, bk=None, bv=None,
+                           bo=None, num_heads=8, mask=None, causal=False,
+                           kv=None, dropout_rate=0.0, dropout_key=None,
+                           use_flash=False, seq_axis=None):
+    """ref: ``ops/attention.py:266``; ``dropout_key`` a torch.Generator.
+    With ``use_flash`` it rides K2/K3 on the card. ``seq_axis`` (ring
+    attention over a device mesh's sequence axis) has no mesh to run on
+    in the port and must be None."""
+    enforce(seq_axis is None,
+            "multihead_attention: seq_axis (ring attention) needs a mesh")
+    return multihead_attention(
+        x, wq, wk, wv, wo, bq, bk, bv, bo, num_heads=num_heads, mask=mask,
+        causal=causal, kv=kv, dropout_rate=dropout_rate,
+        training=dropout_key is not None, use_flash=use_flash,
+        dropout_gen=dropout_key)
+
+
+register_op("paged_decode_attention")(paged_decode_attention)
 
 
 # --- paged KV cache --------------------------------------------------------

@@ -11,6 +11,8 @@ so neither does the port.
 
 import torch
 
+from paddle_tpu_torch.core.registry import register_op
+
 
 def _split_transition(transition):
     return transition[0], transition[1], transition[2:]
@@ -21,6 +23,7 @@ def _valid(lengths, T, device):
             < lengths.to(device)[:, None])
 
 
+@register_op("linear_chain_crf")
 def linear_chain_crf(emission, transition, label, lengths):
     """Negative log-likelihood ``[B]`` of the ``label`` paths (ref:
     ``crf.py:27``): emission ``[B, T, K]``, transition ``[K + 2, K]``,
@@ -48,6 +51,7 @@ def linear_chain_crf(emission, transition, label, lengths):
     return log_z - score
 
 
+@register_op("crf_decoding")
 def crf_decoding(emission, transition, lengths, label=None):
     """Viterbi decode (ref: ``crf.py:72``): the best tag path ``[B, T]``
     int32, 0 past each row's length; with ``label``, instead 1 where the
@@ -80,6 +84,7 @@ def crf_decoding(emission, transition, lengths, label=None):
     return path
 
 
+@register_op("edit_distance")
 def edit_distance(hyp, hyp_lengths, ref, ref_lengths, normalized=False):
     """Batched Levenshtein distance ``[B]`` f32 (ref: ``crf.py:118``):
     hyp ``[B, T1]``, ref ``[B, T2]`` int with their valid lengths;

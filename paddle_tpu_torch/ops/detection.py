@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.registry import register_op
 
 
 def _like(value, ref):
@@ -82,6 +83,7 @@ def _gather_rows(x, idx):
 
 
 # ------------------------------------------------------------------ IoU
+@register_op("iou_similarity")
 def iou_similarity(x, y, box_normalized=True):
     """Pairwise IoU between x ``[..., N, 4]`` and y ``[..., M, 4]`` ->
     ``[..., N, M]`` (ref: ``detection.py:32``)."""
@@ -100,6 +102,7 @@ def iou_similarity(x, y, box_normalized=True):
                        torch.zeros_like(inter))
 
 
+@register_op("box_clip")
 def box_clip(boxes, im_shape):
     """Clip ``[..., 4]`` boxes to the image ``(h, w)`` (ref: ``:51``)."""
     h, w = im_shape[0], im_shape[1]
@@ -110,6 +113,7 @@ def box_clip(boxes, im_shape):
 
 
 # ------------------------------------------------------------------ box_coder
+@register_op("box_coder")
 def box_coder(prior_box, prior_box_var, target_box,
               code_type="encode_center_size", box_normalized=True, axis=0,
               bbox_clip=None):
@@ -202,6 +206,7 @@ def _scaled(boxes, ih, iw, clip, variance):
     return boxes, var
 
 
+@register_op("prior_box")
 def prior_box(feature_shape, image_shape, min_sizes, max_sizes=None,
               aspect_ratios=(1.0,), variance=(0.1, 0.1, 0.2, 0.2),
               flip=False, clip=False, steps=(0.0, 0.0), offset=0.5,
@@ -237,6 +242,7 @@ def prior_box(feature_shape, image_shape, min_sizes, max_sizes=None,
     return _scaled(boxes, ih, iw, clip, variance)
 
 
+@register_op("density_prior_box")
 def density_prior_box(feature_shape, image_shape, fixed_sizes, fixed_ratios,
                       densities, variance=(0.1, 0.1, 0.2, 0.2), clip=False,
                       steps=(0.0, 0.0), offset=0.5, device="cuda"):
@@ -268,6 +274,7 @@ def density_prior_box(feature_shape, image_shape, fixed_sizes, fixed_ratios,
     return _scaled(boxes, ih, iw, clip, variance)
 
 
+@register_op("anchor_generator")
 def anchor_generator(feature_shape, anchor_sizes, aspect_ratios, stride,
                      variance=(0.1, 0.1, 0.2, 0.2), offset=0.5,
                      device="cuda"):
@@ -321,6 +328,7 @@ def _nms_keep_mask(boxes, scores, iou_threshold, box_normalized=True):
     return keep, order
 
 
+@register_op("nms")
 def nms(boxes, scores, iou_threshold=0.3, score_threshold=-math.inf,
         keep_top_k=-1, box_normalized=True):
     """Single-class NMS -> (indices ``[K]``, valid mask ``[K]``), K static:
@@ -337,6 +345,7 @@ def nms(boxes, scores, iou_threshold=0.3, score_threshold=-math.inf,
     return order[srt[:k]], keep[srt][:k]
 
 
+@register_op("multiclass_nms")
 def multiclass_nms(bboxes, scores, score_threshold=0.0, nms_top_k=400,
                    keep_top_k=100, nms_threshold=0.3, background_label=-1,
                    box_normalized=True, return_index=False):
@@ -385,6 +394,7 @@ def multiclass_nms(bboxes, scores, score_threshold=0.0, nms_top_k=400,
     return out, valid.sum()
 
 
+@register_op("multiclass_nms2")
 def multiclass_nms2(bboxes, scores, score_threshold=0.0, nms_top_k=400,
                     keep_top_k=100, nms_threshold=0.3, background_label=-1,
                     box_normalized=True):
@@ -395,6 +405,7 @@ def multiclass_nms2(bboxes, scores, score_threshold=0.0, nms_top_k=400,
                           box_normalized, return_index=True)
 
 
+@register_op("detection_output")
 def detection_output(loc, scores, prior_box, prior_box_var,
                      nms_threshold=0.3, nms_top_k=400, keep_top_k=200,
                      score_threshold=0.01, background_label=0):
@@ -444,6 +455,7 @@ def _bilinear_sample(img, ys, xs):
                        out, 0.0)
 
 
+@register_op("roi_align")
 def roi_align(x, rois, roi_batch_idx, pooled_height=1, pooled_width=1,
               spatial_scale=1.0, sampling_ratio=-1, aligned=False):
     """RoIAlign (ref: ``:329``). x ``[B, C, H, W]``; rois ``[R, 4]``
@@ -473,6 +485,7 @@ def roi_align(x, rois, roi_batch_idx, pooled_height=1, pooled_width=1,
     return vals.reshape(len(rois), c, ph, s, pw, s).mean(dim=(3, 5))
 
 
+@register_op("roi_pool")
 def roi_pool(x, rois, roi_batch_idx, pooled_height=1, pooled_width=1,
              spatial_scale=1.0):
     """RoI max pool over quantized bins (ref: ``:388``) -> ``[R, C, ph,
@@ -503,6 +516,7 @@ def roi_pool(x, rois, roi_batch_idx, pooled_height=1, pooled_width=1,
     return torch.where(torch.isfinite(out), out, 0.0)
 
 
+@register_op("roi_perspective_transform")
 def roi_perspective_transform(x, rois, roi_batch_idx, transformed_height,
                               transformed_width, spatial_scale=1.0):
     """Perspective-warp quadrilateral RoIs ``[R, 8]`` (x0, y0, ..., x3, y3
@@ -575,6 +589,7 @@ def roi_perspective_transform(x, rois, roi_batch_idx, transformed_height,
 
 
 # ------------------------------------------------------------------ YOLO
+@register_op("yolo_box")
 def yolo_box(x, img_size, anchors, class_num, conf_thresh=0.01,
              downsample_ratio=32, clip_bbox=True, scale_x_y=1.0):
     """Decode a YOLOv3 head (ref: ``:427``). x ``[B, A*(5+cls), H, W]``;
@@ -626,6 +641,7 @@ def _bce_logit(x, t):
     return torch.maximum(x, zero) - x * t + torch.log1p(torch.exp(-_abs(x)))
 
 
+@register_op("yolov3_loss")
 def yolov3_loss(x, gt_box, gt_label, anchors, anchor_mask, class_num,
                 ignore_thresh=0.7, downsample_ratio=32, use_label_smooth=False):
     """YOLOv3 training loss of one detection head (ref: ``:469``).
@@ -740,6 +756,7 @@ def yolov3_loss(x, gt_box, gt_label, anchors, anchor_mask, class_num,
 
 
 # ------------------------------------------------------------------ proposals
+@register_op("generate_proposals")
 def generate_proposals(scores, bbox_deltas, anchors, variances, im_shape,
                        pre_nms_top_n=6000, post_nms_top_n=1000,
                        nms_thresh=0.7, min_size=0.0):
@@ -780,6 +797,7 @@ def generate_proposals(scores, bbox_deltas, anchors, variances, im_shape,
 
 
 # ------------------------------------------------------------------ matching
+@register_op("bipartite_match")
 def bipartite_match(dist, match_type="bipartite", overlap_threshold=0.5):
     """Greedy bipartite matching on similarities ``[..., N_gt, M]``
     (ref: ``:625``): min(N, M) times, bind the global maximum's row and
@@ -817,6 +835,7 @@ def bipartite_match(dist, match_type="bipartite", overlap_threshold=0.5):
     return midx, mdist
 
 
+@register_op("target_assign")
 def target_assign(x, match_indices, mismatch_value=0.0):
     """Per-prior targets gathered by match index (ref: ``:659``): x
     ``[..., N_gt, K]``, match_indices ``[..., M]`` (-1 unmatched) -> (out
@@ -828,6 +847,7 @@ def target_assign(x, match_indices, mismatch_value=0.0):
     return out, matched.to(x.dtype)[..., None]
 
 
+@register_op("mine_hard_examples")
 def mine_hard_examples(neg_loss, match_indices, neg_pos_ratio=3.0,
                        min_neg=1):
     """Hard-negative mask, max_negative mode (ref: ``:672``): per row of
@@ -841,6 +861,7 @@ def mine_hard_examples(neg_loss, match_indices, neg_pos_ratio=3.0,
     return (~pos) & (_rank(-masked) < num_neg)
 
 
+@register_op("ssd_loss")
 def ssd_loss(location, confidence, gt_box, gt_label, prior_box_,
              prior_var=None, overlap_threshold=0.5, neg_pos_ratio=3.0,
              background_label=0, loc_loss_weight=1.0, conf_loss_weight=1.0):
@@ -886,6 +907,7 @@ def ssd_loss(location, confidence, gt_box, gt_label, prior_box_,
     return (conf_loss_weight * conf_loss + loc_loss_weight * loc_loss) / n
 
 
+@register_op("distribute_fpn_proposals")
 def distribute_fpn_proposals(rois, min_level=2, max_level=5, refer_level=4,
                              refer_scale=224):
     """Each RoI's FPN level, ``floor(refer + log2(sqrt(area) /
@@ -901,6 +923,7 @@ def distribute_fpn_proposals(rois, min_level=2, max_level=5, refer_level=4,
     return lvl, mask
 
 
+@register_op("box_decoder_and_assign")
 def box_decoder_and_assign(prior_box, prior_box_var, target_box, box_score,
                            bbox_clip=4.135):
     """Per-class decode, then each RoI's box of its best non-background
@@ -946,6 +969,7 @@ def _uniforms(generator, n, like, test_uniforms):
         like.device) for _ in range(2))
 
 
+@register_op("rpn_target_assign")
 def rpn_target_assign(generator, anchors, gt_boxes, gt_valid=None,
                       rpn_batch_size_per_im=256, rpn_fg_fraction=0.5,
                       rpn_positive_overlap=0.7, rpn_negative_overlap=0.3,
@@ -992,6 +1016,7 @@ def _encode_center_size(anchors, gts, eps=1e-8):
     ], dim=1)
 
 
+@register_op("generate_proposal_labels")
 def generate_proposal_labels(generator, rois, gt_classes, gt_boxes,
                              gt_valid=None, batch_size_per_im=512,
                              fg_fraction=0.25, fg_thresh=0.5,
@@ -1033,6 +1058,7 @@ def generate_proposal_labels(generator, rois, gt_classes, gt_boxes,
     return labels, tgt.reshape(R, class_num * 4), fg_sel, bg_sel
 
 
+@register_op("retinanet_target_assign")
 def retinanet_target_assign(anchors, gt_boxes, gt_labels, gt_valid=None,
                             positive_overlap=0.5, negative_overlap=0.4):
     """RetinaNet anchor targets (ref: ``:1048``): the RPN rules with no

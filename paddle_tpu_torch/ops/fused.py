@@ -22,6 +22,7 @@ waits for multi-GPU and raises ``NotImplementedError``.
 
 import torch
 
+from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops.cuda.xent import xent_bwd, xent_stats
 
 #: the reference's default vocab chunk of the hv layout (its
@@ -143,6 +144,7 @@ class HvXentFunction(torch.autograd.Function):
                 None if b is None else db.to(b.dtype), None, None, None)
 
 
+@register_op("fused_xent")
 def fused_xent(hidden, weight, labels, bias=None, weight_layout="vh",
                label_smoothing=0.0, chunk=None, vocab_axis=None,
                batch_axis=None, mesh=None):
@@ -176,3 +178,16 @@ def fused_xent(hidden, weight, labels, bias=None, weight_layout="vh",
         loss = FusedXentFunction.apply(h2, weight.contiguous(), b, lbl,
                                        float(label_smoothing))
     return loss.reshape(lead)
+
+
+def register_fused_aliases():
+    """The reference's fused-op aliases whose base op covers the fused
+    semantics (ref: ``ops/fused.py:603``); one whose target the port
+    lacks (``conv_fusion``) is skipped."""
+    from paddle_tpu_torch.ops.tail import _alias
+    for name, target in (
+            ("fusion_gru", "gru"),
+            ("fusion_lstm", "lstm"),
+            ("fusion_conv_inception", "conv_fusion"),
+            ("multihead_matmul", "multihead_attention")):
+        _alias(name, target)

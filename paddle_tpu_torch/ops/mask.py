@@ -11,8 +11,10 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.registry import register_op
 
 
+@register_op("poly2mask")
 def poly2mask(poly_xy, h, w):
     """Rasterize one polygon (flat ``[x0, y0, x1, y1, ...]``) into a uint8
     ``[h, w]`` mask, even-odd rule at pixel centers (ref: ``:22``)."""
@@ -35,6 +37,7 @@ def poly2mask(poly_xy, h, w):
     return mask
 
 
+@register_op("polys_to_mask_wrt_box")
 def polys_to_mask_wrt_box(polygons, box, resolution):
     """Rasterize a gt's polygon parts into an M x M grid over ``box``, the
     union of the parts (ref: ``:48``)."""
@@ -50,6 +53,7 @@ def polys_to_mask_wrt_box(polygons, box, resolution):
     return out
 
 
+@register_op("generate_mask_labels")
 def generate_mask_labels(rois, labels, gt_boxes, gt_polys, resolution=14):
     """Mask targets of the sampled fg RoIs (ref: ``:65``). rois ``[R, 4]``;
     labels ``[R]`` (``generate_proposal_labels``' labels: class for fg, 0

@@ -7,9 +7,11 @@ counts them.
 
 import torch
 
+from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.metrics import _np
 
 
+@register_op("accuracy")
 def accuracy(input, label, k=1):
     """Top-k accuracy of scores ``[B, C]`` against labels ``[B]`` or
     ``[B, 1]``; the top k by a stable sort of the negated scores, as
@@ -21,6 +23,7 @@ def accuracy(input, label, k=1):
     return correct.to(torch.float32).mean()
 
 
+@register_op("auc")
 def auc(predict, label, num_thresholds=4096):
     """AUC of one batch by a bucketed trapezoid (ref:
     ``metrics_ops.py:24``); ``predict`` is ``[B]`` or ``[B, 2]`` (column
@@ -42,6 +45,7 @@ def auc(predict, label, num_thresholds=4096):
     return area / torch.clamp(pos_c[-1] * neg_c[-1], min=1e-12)
 
 
+@register_op("precision_recall")
 def precision_recall(pred_label, label, num_classes):
     """Per-class ``(precision, recall, f1)``, each ``[num_classes]``."""
     if label.ndim > 1:
@@ -114,6 +118,7 @@ def _extract_chunks(tags, chunk_scheme, num_chunk_types):
     return chunks
 
 
+@register_op("chunk_eval")
 def chunk_eval(inference, label, lengths, chunk_scheme="IOB",
                num_chunk_types=1, excluded_chunk_types=()):
     """Chunk-level counts over ``[B, T]`` tag rows with lengths ``[B]``

@@ -7,11 +7,13 @@ weights.
 import torch
 
 from paddle_tpu_torch.core.ragged import RaggedBatch
+from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops import activations
 from paddle_tpu_torch.ops import nn as F
 from paddle_tpu_torch.ops import sequence as S
 
 
+@register_op("glu")
 def glu(x, axis=-1):
     """Gated linear unit: ``x`` split in half along ``axis``, ``a *
     sigmoid(b)``."""
@@ -31,6 +33,7 @@ def _same_conv(x, w, b, data_format):
                     data_format=data_format)
 
 
+@register_op("simple_img_conv_pool")
 def simple_img_conv_pool(x, conv_w, conv_b=None, pool_size=2, pool_stride=2,
                          pool_type="max", act=None, data_format="NCHW"):
     """conv2d -> act -> pool2d (ref: ``nets.py:34``)."""
@@ -41,6 +44,7 @@ def simple_img_conv_pool(x, conv_w, conv_b=None, pool_size=2, pool_stride=2,
                     data_format=data_format)
 
 
+@register_op("img_conv_group")
 def img_conv_group(x, conv_weights, conv_biases=None, act="relu",
                    pool_size=2, pool_stride=2, pool_type="max",
                    data_format="NCHW"):
@@ -54,6 +58,7 @@ def img_conv_group(x, conv_weights, conv_biases=None, act="relu",
                     data_format=data_format)
 
 
+@register_op("sequence_conv_pool")
 def sequence_conv_pool(rb, filter_w, act="tanh", pool_type="max"):
     """sequence_conv -> act -> sequence_pool (ref: ``nets.py:65``)."""
     out = S.sequence_conv(rb, filter_w)

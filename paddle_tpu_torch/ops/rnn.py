@@ -15,8 +15,10 @@ where f32 rounding makes many of them equal.
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops import activations as A
 from paddle_tpu_torch.ops.nn import matmul
+from paddle_tpu_torch.ops.tensor_ops import top_k  # noqa: F401
 
 #: the score of a masked candidate (the reference's ``neg_inf``)
 NEG_INF = -1e9
@@ -41,6 +43,7 @@ def tree_leaves(tree):
     return [tree]
 
 
+@register_op("lstm_cell")
 def lstm_cell(x, h, c, w_ih, w_hh, b=None, forget_bias=0.0):
     """One LSTM step (ref: ``ops/rnn.py:23``). x ``[B, I]``, h/c ``[B, H]``,
     w_ih ``[I, 4H]``, w_hh ``[H, 4H]``, b ``[4H]``; gate order i, f, g,
@@ -57,6 +60,7 @@ def lstm_cell(x, h, c, w_ih, w_hh, b=None, forget_bias=0.0):
     return o * torch.tanh(new_c), new_c
 
 
+@register_op("gru_cell")
 def gru_cell(x, h, w_ih, w_hh, b_ih=None, b_hh=None, origin_mode=False):
     """One GRU step (ref: ``ops/rnn.py:40``). x ``[B, I]``, h ``[B, H]``,
     w_ih ``[I, 3H]``, w_hh ``[H, 3H]``; gate order r, z, n. ``origin_mode``
@@ -101,6 +105,7 @@ def _masked_scan(cell_step, xs, init, lengths, reverse=False):
     return carry, torch.stack(outs)
 
 
+@register_op("lstm")
 def lstm(x, h0, c0, w_ih, w_hh, b=None, lengths=None, reverse=False,
          time_major=False):
     """Multi-step LSTM (ref: ``ops/rnn.py:87``). x ``[B, T, I]`` (``[T,
@@ -117,6 +122,7 @@ def lstm(x, h0, c0, w_ih, w_hh, b=None, lengths=None, reverse=False,
     return outs, (h, c)
 
 
+@register_op("gru")
 def gru(x, h0, w_ih, w_hh, b_ih=None, b_hh=None, lengths=None,
         reverse=False, time_major=False):
     """Multi-step GRU (ref: ``ops/rnn.py:107``). Returns ``(out [B, T,
@@ -133,6 +139,7 @@ def gru(x, h0, w_ih, w_hh, b_ih=None, b_hh=None, lengths=None,
     return outs, h
 
 
+@register_op("bidirectional_lstm")
 def bidirectional_lstm(x, h0, c0, params_fwd, params_bwd, lengths=None):
     """Forward and backward LSTM outputs concatenated (ref:
     ``ops/rnn.py:123``); params_* are ``(w_ih, w_hh, b)``. Returns
@@ -143,15 +150,7 @@ def bidirectional_lstm(x, h0, c0, params_fwd, params_bwd, lengths=None):
     return torch.cat([out_f, out_b], -1), ((hf, hb), (cf, cb))
 
 
-def top_k(x, k):
-    """The ``k`` largest entries of each row of x and their indices, the
-    lower index first among equal values, as ``lax.top_k`` orders them
-    (``torch.topk`` does not promise an order for ties). A stable sort
-    keeps equal values in index order."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
+@register_op("beam_search")
 def beam_search_step(pre_scores, log_probs, beam_size, eos_id=None,
                      done=None):
     """One beam-search selection step (ref: ``ops/rnn.py:173``).
@@ -176,6 +175,7 @@ def beam_search_step(pre_scores, log_probs, beam_size, eos_id=None,
             torch.div(idx, v, rounding_mode="floor").to(torch.int32))
 
 
+@register_op("beam_search_decode")
 def beam_search_decode(log_probs_fn, init_state, bos_id, eos_id, beam_size,
                        max_len, batch_size, vocab_size):
     """Static-shape beam search (ref: ``ops/rnn.py:132``).

@@ -18,9 +18,11 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.ragged import RaggedBatch, repeat_ids
+from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops.nn import matmul
 
 
+@register_op("sequence_mask")
 def sequence_mask(lengths, maxlen=None, dtype=torch.float32):
     """``[B, maxlen]``: 1 before each length, 0 after; ``maxlen``
     defaults to the longest (a host read)."""
@@ -55,6 +57,7 @@ def _clamped(idx, total):
     return idx.long().clamp(0, max(total - 1, 0))
 
 
+@register_op("sequence_pool")
 def sequence_pool(rb, pool_type="sum"):
     """Per-sequence ``sum``, ``mean``, ``sqrt`` (sum over sqrt of the
     length), ``max``, ``min``, ``first`` or ``last`` (ref:
@@ -84,6 +87,7 @@ def sequence_pool(rb, pool_type="sum"):
     raise ValueError(f"unknown pool_type {pool_type}")
 
 
+@register_op("sequence_softmax")
 def sequence_softmax(rb):
     """Softmax within each sequence of 1-D values, the segment's max
     subtracted first."""
@@ -95,6 +99,7 @@ def sequence_softmax(rb):
     return RaggedBatch(e / z[seg.long()], rb.row_lengths)
 
 
+@register_op("sequence_expand")
 def sequence_expand(x, rb_y):
     """Row i of ``x`` repeated ``rb_y.row_lengths[i]`` times."""
     reps = rb_y.row_lengths
@@ -103,6 +108,7 @@ def sequence_expand(x, rb_y):
     return RaggedBatch(x[idx], reps)
 
 
+@register_op("sequence_reverse")
 def sequence_reverse(rb):
     """Each sequence reversed in place."""
     offs = rb.offsets().long()
@@ -113,6 +119,7 @@ def sequence_reverse(rb):
     return RaggedBatch(rb.values[rev_idx], rb.row_lengths)
 
 
+@register_op("sequence_pad")
 def sequence_pad(rb, pad_value=0.0, maxlen=None):
     """``(padded, lengths)``; ``maxlen`` defaults to the total length, as
     :meth:`RaggedBatch.to_padded`'s does."""
@@ -120,10 +127,12 @@ def sequence_pad(rb, pad_value=0.0, maxlen=None):
     return dense, rb.row_lengths
 
 
+@register_op("sequence_unpad")
 def sequence_unpad(x, lengths):
     return RaggedBatch.from_padded(x, lengths)
 
 
+@register_op("sequence_concat")
 def sequence_concat(rbs):
     """Row i of the result is row i of each input in turn (offsets read
     on the host)."""
@@ -137,14 +146,17 @@ def sequence_concat(rbs):
     return RaggedBatch(torch.cat(parts, 0), lengths)
 
 
+@register_op("sequence_first_step")
 def sequence_first_step(rb):
     return sequence_pool(rb, "first")
 
 
+@register_op("sequence_last_step")
 def sequence_last_step(rb):
     return sequence_pool(rb, "last")
 
 
+@register_op("sequence_slice")
 def sequence_slice(rb, offset, length):
     """Entries ``[offset, offset + length)`` of each sequence; ``offset``
     and ``length`` are ints or ``[B]`` tensors. As in the reference the
@@ -169,6 +181,7 @@ def sequence_slice(rb, offset, length):
     return RaggedBatch(vals[order], lengths)
 
 
+@register_op("sequence_enumerate")
 def sequence_enumerate(x, win_size, pad_value=0):
     """Sliding windows ``[n, win_size]`` over 1-D ids, ``pad_value`` past
     the end."""
@@ -179,6 +192,7 @@ def sequence_enumerate(x, win_size, pad_value=0):
     return torch.where(valid, x[idx.clamp(0, n - 1)], pad_value)
 
 
+@register_op("sequence_erase")
 def sequence_erase(rb, tokens):
     """Every occurrence of ``tokens`` dropped from each sequence. Host
     numpy, as the reference's (the output size depends on the data); the
@@ -193,10 +207,12 @@ def sequence_erase(rb, tokens):
                        torch.from_numpy(new_lengths).to(dev))
 
 
+@register_op("sequence_expand_as")
 def sequence_expand_as(x, rb_y):
     return sequence_expand(x, rb_y)
 
 
+@register_op("sequence_scatter")
 def sequence_scatter(x, rb_ids, rb_updates):
     """For each row i: ``out[i, ids_i[k]] += updates_i[k]``."""
     rows = rb_ids.segment_ids().long()
@@ -223,6 +239,7 @@ def _padded_max_len(rb, max_len):
     return int(rb.row_lengths.max())
 
 
+@register_op("sequence_conv")
 def sequence_conv(rb, filter_w, context_start=-1, context_length=3,
                   bias=None, max_len=None):
     """Context-window projection (ref: ``sequence.py:211``): at each
@@ -248,6 +265,7 @@ def sequence_conv(rb, filter_w, context_start=-1, context_length=3,
     return _repack(out, rb)
 
 
+@register_op("row_conv")
 def row_conv(rb, filter_w, max_len=None):
     """Lookahead convolution (ref: ``sequence.py:239``): ``out[t] =
     sum_k filter_w[k] * x[t + k]`` per channel, zero past the end."""
@@ -264,6 +282,7 @@ def row_conv(rb, filter_w, max_len=None):
     return _repack(torch.where(mask[..., None], out, 0.0), rb)
 
 
+@register_op("im2sequence")
 def im2sequence(x, kernels, strides=(1, 1), paddings=(0, 0, 0, 0)):
     """Each kernel-sized patch of NCHW images as one time step: ``[N, C,
     H, W]`` -> ``[N, out_h * out_w, C * kh * kw]``; ``paddings`` is (top,
@@ -284,6 +303,7 @@ def im2sequence(x, kernels, strides=(1, 1), paddings=(0, 0, 0, 0)):
     return patches.reshape(N, out_h * out_w, C * kh * kw)
 
 
+@register_op("add_position_encoding")
 def add_position_encoding(x, alpha=1.0, beta=1.0):
     """``alpha * x + beta * [sin | cos]`` of the position over ``[B, T,
     D]``, the divisor ``10000 ** (k / (half - 1))`` (ref:
@@ -303,6 +323,7 @@ def add_position_encoding(x, alpha=1.0, beta=1.0):
     return alpha * x + beta * enc[None]
 
 
+@register_op("ctc_align")
 def ctc_align(tokens, lengths=None, blank=0, merge_repeated=True,
               padding_value=0):
     """CTC alignment (ref: ``sequence.py:301``): blanks dropped and, with

@@ -9,6 +9,7 @@ convolution, a stable sort), as the reference leaves them to XLA.
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops import activations
 from paddle_tpu_torch.ops.nn import conv2d
 from paddle_tpu_torch.ops.rnn import top_k
@@ -19,6 +20,7 @@ def _len_mask(lengths, size):
             < lengths[:, None])
 
 
+@register_op("match_matrix_tensor")
 def match_matrix_tensor(x, y, w, x_lens, y_lens, act=None):
     """Match images ``[B, T, L, R]``: ``out[b, t, i, j] = x[b, i] @ w[:,
     t, :] @ y[b, j]`` (x ``[B, L, D]``, y ``[B, R, D]``, w ``[D, T,
@@ -36,6 +38,7 @@ def match_matrix_tensor(x, y, w, x_lens, y_lens, act=None):
     return out
 
 
+@register_op("var_conv_2d")
 def var_conv_2d(x, row_lens, col_lens, weight, stride=1):
     """Convolution over per-sample images of their own size (ref:
     ``text_match.py:58``): x ``[B, C, H, W]`` padded, weight ``[O, C,
@@ -60,6 +63,7 @@ def var_conv_2d(x, row_lens, col_lens, weight, stride=1):
     return torch.where(ovalid, out, 0.0)
 
 
+@register_op("sequence_topk_avg_pooling")
 def sequence_topk_avg_pooling(x, row_lens, col_lens, topks,
                               channel_num=None):
     """Per-row top-k column averages (ref: ``text_match.py:91``): x ``[B,

@@ -10,6 +10,7 @@ and video ops of that module (``:25-251``, ``:272``) are not ported.
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops.detection import _sort_desc, multiclass_nms
 
 
@@ -17,6 +18,7 @@ def _ar(n, like):
     return torch.arange(n, dtype=like.dtype, device=like.device)
 
 
+@register_op("polygon_box_transform")
 def polygon_box_transform(x):
     """EAST geometry map (ref: ``:260``): even channels ``4 w - v``, odd
     channels ``4 h - v``."""
@@ -28,6 +30,7 @@ def polygon_box_transform(x):
     return coord[None] - x
 
 
+@register_op("psroi_pool")
 def psroi_pool(x, rois, roi_batch_ids, output_channels, pooled_height,
                pooled_width, spatial_scale=1.0):
     """Position-sensitive RoI average pooling (R-FCN; ref: ``:335``): x
@@ -76,6 +79,7 @@ def _hat_integral(a, b, n, like):
     return left + right
 
 
+@register_op("prroi_pool")
 def prroi_pool(x, rois, roi_batch_ids, pooled_height=1, pooled_width=1,
                spatial_scale=1.0):
     """Precise RoI pooling (ref: ``:377``): each bin the exact integral of
@@ -98,6 +102,7 @@ def prroi_pool(x, rois, roi_batch_ids, pooled_height=1, pooled_width=1,
                        out / torch.clamp(win_size, min=1e-30), 0.0)
 
 
+@register_op("deformable_psroi_pool")
 def deformable_psroi_pool(x, rois, roi_batch_ids, trans=None, output_dim=1,
                           group_size=(1, 1), pooled_height=1, pooled_width=1,
                           part_size=(1, 1), sample_per_part=1,
@@ -177,6 +182,7 @@ def deformable_psroi_pool(x, rois, roi_batch_ids, trans=None, output_dim=1,
     return torch.where(cnt > 0, s / torch.clamp(cnt, min=1.0), 0.0), cnt
 
 
+@register_op("collect_fpn_proposals")
 def collect_fpn_proposals(multi_rois, multi_scores, post_nms_top_n):
     """Concatenate per-level proposals and keep the global top N by score
     (ref: ``:522``; equal scores: the lower index first)."""
@@ -187,6 +193,7 @@ def collect_fpn_proposals(multi_rois, multi_scores, post_nms_top_n):
     return rois[idx[:k]], top_s[:k]
 
 
+@register_op("sigmoid_focal_loss")
 def sigmoid_focal_loss(logits, labels, fg_num, gamma=2.0, alpha=0.25):
     """RetinaNet focal loss (ref: ``:533``): logits ``[N, C]``; labels
     ``[N]`` in [0, C] with 0 the background (class c is column c - 1);
@@ -206,6 +213,7 @@ def sigmoid_focal_loss(logits, labels, fg_num, gamma=2.0, alpha=0.25):
     return loss / torch.clamp(fg, min=1.0)
 
 
+@register_op("retinanet_detection_output")
 def retinanet_detection_output(bboxes_list, scores_list, anchors_list,
                                im_info, score_threshold=0.05, nms_top_k=1000,
                                keep_top_k=100, nms_threshold=0.3):

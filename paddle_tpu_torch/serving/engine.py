@@ -285,7 +285,8 @@ class ServingEngine:
         self.requests = {}
         self._ids = itertools.count()
         self._retry_budget = RetryBudget(
-            RetryPolicy(max_attempts=cfg.step_retries + 1, sleep=sleep))
+            RetryPolicy(max_attempts=cfg.step_retries + 1, sleep=sleep),
+            "serve.step")
         self.decode_steps = 0
         self.prefill_calls = 0
         self.staged_prefills = 0      # prefill calls that read a staged

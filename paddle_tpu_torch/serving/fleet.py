@@ -680,7 +680,8 @@ class FleetRouter:
 
     def _new_budget(self):
         return RetryBudget(RetryPolicy(
-            max_attempts=self.cfg.respawn_budget + 1, sleep=self._sleep))
+            max_attempts=self.cfg.respawn_budget + 1, sleep=self._sleep),
+            "fleet.respawn")
 
     def _engine_factory(self, i):
         """Replica i's engine on its current version: a failure respawn

@@ -89,7 +89,8 @@ class TrainGuardian:
         self.cfg = (config or GuardianConfig()).resolve()
         self.gate = Gate(check_update_norm=self.cfg.check_update_norm)
         self._budget = RetryBudget(
-            RetryPolicy(max_attempts=self.cfg.rollback_budget + 1))
+            RetryPolicy(max_attempts=self.cfg.rollback_budget + 1),
+            "trainer.rollback")
         self._window = collections.deque(maxlen=self.cfg.spike_window)
         self._pending = None        # (step, loss, applied) device scalars
         self._spike_latched = False

@@ -1694,3 +1694,55 @@ def test_crf_decoding_on_card_matches_cpu(cuda):
         want = C.linear_chain_crf(em, tr, tags, lens)
         assert float(((nll - want).abs()
                       / want.abs().clamp(min=1.0)).max()) <= 1e-4
+
+
+def _tiny_desc(layers=2, heads=4, hidden=64, seq=64, batch=2):
+    import chip_smoke
+    shapes = chip_smoke.gpt_param_shapes(layers, hidden, 4 * hidden, 512,
+                                         seq)
+    desc = chip_smoke.gpt_loss_desc(layers, heads, seq, shapes)
+    feeds = chip_smoke.gpt_desc_feeds(np.random.RandomState(5), shapes, 512,
+                                      batch, seq)
+    return desc, feeds
+
+
+def test_program_desc_launches_the_kernels_through_the_registry(cuda):
+    """GPT's loss as a ProgramDesc on the card: its forward launches K1
+    (twice a layer and ln_f), K2 (once a layer) and K5 through the
+    registered ops, its backward K3 (dq and dk/dv once a layer) and K6,
+    and the loss and gradients are the CPU's."""
+    import chip_smoke
+    from paddle_tpu_torch.ops.cuda import core
+    desc, feeds = _tiny_desc()
+    core.reset_launches()
+    card_loss, card_grads = chip_smoke.desc_loss_and_grads(desc, feeds,
+                                                           "cuda")
+    torch.cuda.synchronize()
+    n = core.launch_counts()
+    assert (n["layer_norm"], n["flash_attention"], n["xent_stats"]) == \
+        (5, 2, 1)
+    assert (n["flash_attention_bwd_dq"], n["flash_attention_bwd_dkv"],
+            n["xent_bwd_dh"], n["xent_bwd_dwb"]) == (2, 2, 1, 1)
+    cpu_loss, cpu_grads = chip_smoke.desc_loss_and_grads(desc, feeds, "cpu")
+    assert abs(float(card_loss) - float(cpu_loss)) <= 1e-4 * abs(
+        float(cpu_loss))
+    floor = 1e-3 * max(float(g.norm()) for g in cpu_grads.values())
+    for name, g in cpu_grads.items():
+        err = float((card_grads[name].cpu() - g).norm())
+        assert err <= 1e-3 * max(float(g.norm()), floor), name
+
+
+def test_program_capture_names_the_kernel_ops(cuda):
+    """``Program.capture`` of the parsed desc on the card names the
+    kernels' torch.library ops, and ``Executor`` runs it on the card."""
+    from paddle_tpu_torch.core.program import Program
+    from paddle_tpu_torch.static import Executor, ProgramDesc
+    desc, feeds = _tiny_desc()
+    parsed = ProgramDesc.parse_from_string(desc.to_json())
+    args = [torch.from_numpy(feeds[n]).cuda() for n in parsed.feeds]
+    ops = Program.capture(parsed.build_fn(), *args).ops()
+    for op in ("layer_norm", "flash_attention", "xent_stats"):
+        assert f"paddle_tpu_torch::{op}" in ops, op
+    (loss,) = Executor().run(parsed.to_static_program(), feed=feeds,
+                             fetch_list=["loss"])
+    assert loss.device.type == "cuda" and torch.isfinite(loss)

@@ -113,7 +113,7 @@ def test_budget_ignores_the_deadline_as_the_reference_does():
     """A budget counts attempts only: its sleeps run on past the policy's
     deadline, in both packages."""
     for make, budget_of in (
-            (RetryPolicy, lambda p: RetryBudget(p)),
+            (RetryPolicy, lambda p: RetryBudget(p, "op")),
             (lambda **kw: JPolicy(
                 backoff_base_s=kw.pop("backoff_s"), **kw),
              lambda p: JBudget(p, "op"))):
@@ -125,3 +125,114 @@ def test_budget_ignores_the_deadline_as_the_reference_does():
         with pytest.raises(ValueError):
             budget.failure(ValueError("x"))
         assert slept == [1.0, 2.0, 2.0, 2.0, 2.0]
+
+
+def _counts(metrics, name, op):
+    return metrics.counter(name).value(op=op)
+
+
+def test_budget_counts_attempts_and_giveups_as_the_reference_does():
+    """One budget of 3 attempts, reset once, then run to exhaustion in
+    each package: both registries gain 4 ``retry.attempts{op}`` and 1
+    ``retry.giveups{op}``."""
+    from paddle_tpu.observability import metrics as jmetrics
+    from paddle_tpu_torch.observability import metrics as pmetrics
+    deltas = []
+    for metrics, budget in (
+            (pmetrics, RetryBudget(RetryPolicy(max_attempts=3, jitter=0.0,
+                                               sleep=lambda s: None),
+                                   "unit.budget")),
+            (jmetrics, JBudget(JPolicy(max_attempts=3, jitter=0.0,
+                                       sleep=lambda s: None),
+                               "unit.budget"))):
+        before = [_counts(metrics, n, "unit.budget")
+                  for n in ("retry.attempts", "retry.giveups")]
+        budget.failure(ValueError("x"))
+        budget.success()
+        budget.failure(ValueError("x"))
+        budget.failure(ValueError("x"))
+        with pytest.raises(ValueError):
+            budget.failure(ValueError("x"))
+        deltas.append([_counts(metrics, n, "unit.budget") - b for n, b in
+                       zip(("retry.attempts", "retry.giveups"), before)])
+    assert deltas[0] == deltas[1] == [4, 1]
+
+
+def test_callers_pass_the_references_op_labels():
+    """The guardian's and the fleet's budgets carry the reference's labels
+    (the engine's ``serve.step``: the recovery test below)."""
+    import types
+    from paddle_tpu_torch.serving.fleet import FleetConfig, FleetRouter
+    from paddle_tpu_torch.static.guardian import TrainGuardian
+    assert TrainGuardian()._budget.op == "trainer.rollback"
+    router = types.SimpleNamespace(cfg=FleetConfig(), _sleep=lambda s: None)
+    assert FleetRouter._new_budget(router).op == "fleet.respawn"
+
+
+def test_step_recovery_counts_serve_step_attempts_in_both_engines():
+    """One ``serve.step`` fault recovered by each engine under the same
+    fault plan: ``retry.attempts{op=serve.step}`` moves by the same count
+    (1) in the two registries, and neither gives up."""
+    import jax
+    import jax.numpy as jnp  # noqa: F401
+    from paddle_tpu.models.gpt import GPTConfig, GPTDecoder
+    from paddle_tpu.observability import metrics as jmetrics
+    from paddle_tpu.serving import ServeConfig as JServe
+    from paddle_tpu.serving import ServingEngine as JEngine
+    from paddle_tpu.testing import chaos as jchaos
+    from paddle_tpu_torch import bridge
+    from paddle_tpu_torch.models.gpt import GPTConfig as PConfig
+    from paddle_tpu_torch.models.gpt import GPTDecoder as PDecoder
+    from paddle_tpu_torch.observability import metrics as pmetrics
+    from paddle_tpu_torch.serving import ServeConfig, ServingEngine
+    from paddle_tpu_torch.testing import chaos
+    cfg = GPTConfig.tiny()
+    cfg.dropout = 0.0
+    jm = GPTDecoder(cfg)
+    v = jm.init(jax.random.key(0))
+    pcfg = PConfig.tiny()
+    pcfg.dropout = 0.0
+    pm = PDecoder(pcfg, device="cpu", seed=1).eval()
+    bridge.load_params(pm, jax.tree_util.tree_map(np.asarray, v["params"]))
+    kw = dict(num_slots=2, page_size=8, max_len=24, prefill_len=8,
+              step_retries=3)
+    prompts = [np.arange(1, 6, dtype=np.int32),
+               np.arange(7, 16, dtype=np.int32)]
+    deltas = []
+    for metrics, run in (
+            (jmetrics, lambda: _drive_jax(JEngine(jm, v, JServe(**kw)),
+                                          jchaos, prompts)),
+            (pmetrics, lambda: _drive_port(
+                ServingEngine(pm, ServeConfig(**kw), sleep=lambda s: None),
+                chaos, prompts))):
+        before = [_counts(metrics, n, "serve.step")
+                  for n in ("retry.attempts", "retry.giveups")]
+        recoveries = run()
+        deltas.append([_counts(metrics, n, "serve.step") - b for n, b in
+                       zip(("retry.attempts", "retry.giveups"), before)]
+                      + [recoveries])
+    assert deltas[0] == deltas[1] == [1, 0, 1]
+
+
+def _drive_jax(engine, jchaos, prompts):
+    for p in prompts:
+        engine.submit(p, max_new=6)
+    plan = jchaos.FaultPlan(seed=0).fail("fault_point",
+                                         path=r"^serve\.step$", nth=4)
+    with jchaos.active(plan):
+        engine.drain()
+    engine.close()
+    assert plan.fired() == 1
+    return engine.recoveries
+
+
+def _drive_port(engine, chaos, prompts):
+    for p in prompts:
+        engine.submit(p, max_new=6)
+    plan = chaos.FaultPlan().fail("fault_point", path=r"^serve\.step$",
+                                  nth=4)
+    with chaos.active(plan):
+        engine.drain()
+    engine.close()
+    assert plan.fired() == 1
+    return engine.recoveries

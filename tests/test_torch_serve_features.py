@@ -666,7 +666,7 @@ def test_retry_budget_and_fault_plan_units():
     slept = []
     random.seed(11)
     budget = RetryBudget(RetryPolicy(max_attempts=3, backoff_s=0.1,
-                                     sleep=slept.append))
+                                     sleep=slept.append), "unit")
     err = ValueError("x")
     assert budget.failure(err) == 1 and budget.failure(err) == 2
     with pytest.raises(ValueError):

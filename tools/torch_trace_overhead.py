@@ -4,7 +4,7 @@
 
 GPTConfig.small() (weights from seed 0, dropout 0) behind serve_fleet's
 FleetRouter (``chip_smoke.fleet_serve_kw``, ``fleet_stream`` and
-``fleet_run``: 4n warm-up and 16n timed requests, the busiest replica
+``fleet_run``: 4n warm-up and 8n timed requests, the busiest replica
 killed when ``--replicas`` is ``chip_smoke.FLEET_KILL_AT``). Each window
 runs in ABBA order: traced, untraced (``trace_fleet`` off and the flight
 ring at 0, as bench.py:1004-1039 turns them off), untraced, traced. The
@@ -51,7 +51,8 @@ def main():
     model = GPTDecoder(cfg, device="cuda", seed=0)
     kw = cs.fleet_serve_kw()
     n = args.replicas
-    stream = cs.fleet_stream(cfg.vocab_size, 20 * n)
+    stream = cs.fleet_stream(cfg.vocab_size,
+                             (cs.FLEET_WARM + cs.FLEET_TIMED) * n)
     was_trace = fleet.configure()["trace_fleet"]
     was_ring = flight.configure()["ring"]
     tps = {True: [], False: []}
