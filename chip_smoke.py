@@ -32,7 +32,10 @@ Phases, each printing one JSON line:
    and, where one exists, one PyTorch library call computing the same
    function, beside the least time the card could take (bytes over
    3.35 TB/s or operations over the peak rate of the input type, and for
-   K2 and K3 exponentials over the special-function rate). K2-K5 (their
+   K2 and K3 exponentials over the special-function rate; f32 products at
+   three TF32 products' 165 TFLOP/s). K5 and K6 timed at GPT's
+   [8176, 32000, 768] head in bf16 and in f32 (tf32x3), checked at the
+   program path's 4088 rows and ragged shapes. K2-K5 (their
    tc routes) also at BertConfig.base()'s and .large()'s shapes. K2 and
    K3 (flash_cases) hold each output on its own scale, and again on the
    rows that see few partners (a causal diagonal, the last keys) and on
@@ -362,8 +365,9 @@ Phases, each printing one JSON line:
    (2 warm-up, 5 timed runs: p50 ms); one forward and its gradient over
    the fed parameters through the parsed build_fn and autograd, with the
    launches asserted (K1 25, K2 12, K5 1; K3 dq and dk/dv 12 each, K6 dh
-   and dw/db 1 each) and their routes (K1 row, K2/K3/K5 SIMT: f32); the
-   same desc cut to 2 layers at 2 x 128 on the card and the CPU (loss
+   and dw/db 1 each) and their routes (K1 row, K2/K3 SIMT, K5/K6 tf32x3:
+   f32); a forward and its backward timed (2 warm-up, 5 timed: p50 ms);
+   the same desc cut to 2 layers at 2 x 128 on the card and the CPU (loss
    within 1e-4 relative, every gradient within 1e-3 relative L2);
    Program.capture of the parsed function on the card, which must name
    the K1, K2 and K5 ops; one profiled run (device ms, idle share); and a
@@ -372,10 +376,12 @@ Phases, each printing one JSON line:
    its plain version. Then a "timeline" line: the script's time (t_s) to
    its last phase.
 
-K2, K3, K4 and K5 have two routes each: the tensor cores for bf16 (K4
-and K5 with widths that are multiples of 8, on the TMA + wgmma mainloop
-of csrc/gemm.cuh; K2 and K3 with a head dim of 64 or 128, on their own
-TMA + wgmma kernels), the SIMT kernel for f32 and other widths. Every
+K2, K3, K4, K5 and K6 have two routes or more: the tensor cores for
+bf16 (K4 and K5 with widths that are multiples of 8, on the TMA + wgmma
+mainloop of csrc/gemm.cuh; K2 and K3 with a head dim of 64 or 128, on
+their own TMA + wgmma kernels; K6 for every bf16 width), 3xTF32 on the
+tensor cores for K5 and K6 in f32 with H a multiple of 4 ("tf32x3"),
+the SIMT kernels for f32 and other widths. Every
 such case records the route it took and must have taken the rule's;
 every K2-K5 launch of train, bert_train and bert_large must be on the
 tensor cores, every K2 and K4 launch of serve on the SIMT kernel. K1 and
@@ -389,7 +395,9 @@ own path: serve for K1 (its row route), K7 (its split route) and the SIMT
 rows of K2 and K4, beside serve_spec's greedy run's,
 train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
 ("flash_attention.tc", "flash_attention_bwd_dq.tc",
-"flash_attention_bwd_dkv.tc", "mlp.tc"), K5 and K6, bert for K8, and
+"flash_attention_bwd_dkv.tc", "mlp.tc") and K5's and K6's bf16 rows,
+program for their f32 rows ("xent_stats.tf32x3", "xent_bwd_dh.tf32x3",
+"xent_bwd_dwb.tf32x3", timed at [8176, 32000, 768] f32), bert for K8, and
 transformer_big for the "add_layer_norm.mixed" row (K8 at f32 rows with
 bf16 parameters); "variant" names the route; every row also has each
 path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
@@ -423,7 +431,11 @@ import numpy as np
 import torch
 
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
-PEAK_OPS = {torch.float32: 67e12,        # f32 outside the tensor cores
+#: f32: three TF32 tensor-core products at 495 TFLOP/s (3xTF32, the
+#: least time at which this card does f32-accurate products; K5's and
+#: K6's f32 routes run so); the CUDA cores' 67 TFLOP/s of f32 FMAs is a
+#: limit of the SIMT kernels, not of the card
+PEAK_OPS = {torch.float32: 165e12,
             torch.bfloat16: 989e12,      # dense bf16 tensor cores
             torch.int8: 1979e12}         # dense int8 tensor cores
 #: exponentials per second of the special-function units (MUFU.EX2) of
@@ -657,8 +669,9 @@ def xent_cases(dev, gen, n, vocab, hid, dtype, ls=0.0, oob=False,
     from the plain statistics, label smoothing ``ls``. Every 97th row
     has the ignore label -100, and with ``oob`` every 7th and every 9th
     (from row 1) is out of range too, so that no label reaches some rows
-    (:func:`held_xent_bwd`). Returns the three cases by kernel name; K5
-    is held at F32_TOL (f32 statistics from either storage type).
+    (:func:`held_xent_bwd`). Returns the three cases by kernel name, each
+    with the route its launch took; K5 is held at F32_TOL (f32
+    statistics from either storage type).
     ``timed`` adds each kernel's time, its plain version's, one library
     call's (the forward of ``F.cross_entropy(F.linear(h, w, b))`` for
     K5, its autograd backward, all three outputs, for K6) and the
@@ -687,7 +700,9 @@ def xent_cases(dev, gen, n, vocab, hid, dtype, ls=0.0, oob=False,
     gg = randn(n, scale=1.0 / n)
     sn, sp = (ls / (vocab - 1), 1.0 - ls) if ls else (0.0, 1.0)
     bwd_args = (h, w, bias, labels, logz, gg, sn, sp)
-    dh, dw, db = xe.xent_bwd_kernel(*bwd_args)
+    dh, dh_route = route_of("xent_bwd_dh", xe.xent_bwd_dh_kernel, *bwd_args)
+    (dw, db), dwb_route = route_of("xent_bwd_dwb", xe.xent_bwd_dwb_kernel,
+                                   *bwd_args)
     pdh, pdw, pdb = xe.xent_bwd_plain(*bwd_args)
     base = dict(shape=shape, dtype=str(dtype), label_smoothing=ls,
                 out_of_range_labels=oob)
@@ -695,10 +710,10 @@ def xent_cases(dev, gen, n, vocab, hid, dtype, ls=0.0, oob=False,
     cases = {"xent_stats": dict(base, route=stats_route,
                                 **held(f"xent_stats {what}", stats, pstats,
                                        torch.float32)),
-             "xent_bwd_dh": dict(base, **held_xent_bwd(
+             "xent_bwd_dh": dict(base, route=dh_route, **held_xent_bwd(
                  f"xent_bwd_dh {what}", [dh], [pdh], labels, vocab,
                  dtype)),
-             "xent_bwd_dwb": dict(base, **held_xent_bwd(
+             "xent_bwd_dwb": dict(base, route=dwb_route, **held_xent_bwd(
                  f"xent_bwd_dwb {what}", [dw, db], [pdw, pdb], labels,
                  vocab, dtype))}
     if not timed:
@@ -1286,10 +1301,15 @@ def train_kernel_cases(dev):
             results["flash_train"].append(dict(kernel=name, **case))
 
     # K5 and K6: [16 x 511, 768] rows against the tied [32000, 768] table
-    # (timed), then f32 and ragged shapes
+    # in bf16 (the tc routes) and f32 (tf32x3), both timed; the program
+    # path's 8 x 511 rows in f32; then ragged shapes, f32 with H % 4 != 0
+    # on the SIMT kernels among them
     for i, spec in enumerate((
             (8176, 32000, 768, bf16, 0.0, False),
             (8176, 32000, 768, torch.float32, 0.0, False),
+            (4088, 32000, 768, torch.float32, 0.0, False),
+            (37, 300, 96, torch.float32, 0.1, True),
+            (45, 700, 66, torch.float32, 0.0, True),
             (78, 300, 128, torch.float32, 0.1, True),
             (130, 1000, 768, torch.float32, 0.0, True),
             (37, 65, 96, bf16, 0.1, True),
@@ -1297,7 +1317,7 @@ def train_kernel_cases(dev):
             (300, 2000, 1024, bf16, 0.1, True),
             (130, 1000, 1024, torch.float32, 0.0, True),
             (200, 3000, 576, bf16, 0.0, True))):
-        for name, case in xent_cases(dev, g, *spec, timed=i == 0).items():
+        for name, case in xent_cases(dev, g, *spec, timed=i < 2).items():
             results[name].append(case)
     return results
 
@@ -1675,8 +1695,7 @@ OP_COST_CALLS = 2000
 
 def opcheck_cases(dev):
     """``(op name, route, args)``: each of the ten ops at small shapes on
-    every route it has (K6 has one registered route, taken at f32 and at
-    bf16, whose plans differ), with the op's own argument order."""
+    every route it has, with the op's own argument order."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import xent
     gen = torch.Generator().manual_seed(11)
@@ -1708,17 +1727,20 @@ def opcheck_cases(dev):
         for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
             cases.append((name, route, (q, k, v, do, lse, delta, mask, 0.125,
                                         True)))
-    for route, dtype, n, vocab in (("simt", f32, 16, 1000),
-                                   ("tc", bf16, 128, 1024)):
-        h, w = r(n, 64, dtype=dtype), r(vocab, 64, dtype=dtype, scale=0.1)
+    # K5 and K6: f32 at H = 66 the SIMT kernels, f32 at 64 3xTF32, bf16
+    # the tensor cores
+    for route, dtype, n, vocab, hid in (("simt", f32, 16, 1000, 66),
+                                        ("tf32x3", f32, 16, 1000, 64),
+                                        ("tc", bf16, 128, 1024, 64)):
+        h, w = r(n, hid, dtype=dtype), r(vocab, hid, dtype=dtype, scale=0.1)
         b = r(vocab)
         labels = torch.randint(0, vocab, (n,), generator=gen).to(dev)
         cases.append(("xent_stats", route, (h, w, b, labels)))
         m, s, _, _ = xent.xent_stats_kernel(h, w, b, labels)
         logz = m + torch.log(s)
         for name in ("xent_bwd_dh", "xent_bwd_dwb"):
-            cases.append((name, "simt", (h, w, b, labels, logz, r(n), 0.001,
-                                         0.9)))
+            cases.append((name, route, (h, w, b, labels, logz, r(n), 0.001,
+                                        0.9)))
     for route, hd, pool in (("split", 64, f32), ("split", 64, torch.int8),
                             ("simt", 12, f32)):
         n_pages, ps = 24, 16
@@ -6239,14 +6261,16 @@ PROGRAM_CHECK_LAYERS, PROGRAM_CHECK_BATCH, PROGRAM_CHECK_SEQ = 2, 2, 128
 PROGRAM_LOSS_TOL = 1e-4    # f32 loss, card vs CPU, relative (PERF.md §2)
 PROGRAM_GRAD_TOL = 1e-3    # each fed parameter's gradient, relative L2
 #: K1 forward a layer twice and once for ln_f; K2 and K3 once a layer;
-#: K5 and each K6 kernel once
+#: K5 and each K6 kernel once, on their f32 3xTF32 routes
 PROGRAM_FWD = {"layer_norm": lambda n: 2 * n + 1,
                "flash_attention": lambda n: n, "xent_stats": lambda n: 1}
 PROGRAM_BWD = {"flash_attention_bwd_dq": lambda n: n,
                "flash_attention_bwd_dkv": lambda n: n,
                "xent_bwd_dh": lambda n: 1, "xent_bwd_dwb": lambda n: 1}
+#: the program path's kernels on their SIMT routes, and on 3xTF32 (f32)
 PROGRAM_SIMT = ("flash_attention", "flash_attention_bwd_dq",
-                "flash_attention_bwd_dkv", "xent_stats")
+                "flash_attention_bwd_dkv")
+PROGRAM_X3 = ("xent_stats", "xent_bwd_dh", "xent_bwd_dwb")
 #: the kernels' torch.library ops a captured program of the desc names
 PROGRAM_OPS = ("paddle_tpu_torch::layer_norm",
                "paddle_tpu_torch::flash_attention",
@@ -6437,13 +6461,15 @@ def program_phase(smi):
     PROGRAM_RUNS timed: p50 ms). Then one forward and its gradient over
     the fed parameters through the parsed ``build_fn`` and autograd, the
     launches of each (PROGRAM_FWD, PROGRAM_BWD) asserted and every K1
-    launch on the row route, K2/K3/K5 on their SIMT routes (f32); the
-    crosscheck against the CPU (:func:`program_crosscheck`);
+    launch on the row route, K2/K3 on their SIMT routes and K5/K6 on
+    tf32x3 (f32); a forward and its backward timed (PROGRAM_WARMUP, then
+    PROGRAM_RUNS: p50 ms); the crosscheck against the CPU
+    (:func:`program_crosscheck`);
     ``Program.capture`` of the parsed function on the card naming the
     kernels' ops (PROGRAM_OPS); one profiled run (device ms, idle share);
     the paged decode desc (:func:`program_decode_check`). Returns the
-    phase line and the launch counts of the measured forward and
-    backward."""
+    phase line and the launch and route counts of the measured forward
+    and backward."""
     from paddle_tpu_torch.core.program import Program
     from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.ops.cuda import core
@@ -6492,13 +6518,25 @@ def program_phase(smi):
     if got != want:
         raise AssertionError(f"program launches {got}, want {want}")
     check_path_routes("program", fwd_routes, ("layer_norm",))
-    check_routes("program", fwd_routes, "simt", ("flash_attention",
-                                                 "xent_stats"))
-    check_routes("program backward", bwd_routes, "simt",
-                 ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+    for what, rts, run in (("program", fwd_routes, PROGRAM_FWD),
+                           ("program backward", bwd_routes, PROGRAM_BWD)):
+        check_routes(what, rts, "simt", [k for k in PROGRAM_SIMT if k in run])
+        check_routes(what, rts, "tf32x3",
+                     [k for k in PROGRAM_X3 if k in run])
+    routes = {k: {r: fwd_routes[k][r] + bwd_routes[k][r] for r in rts}
+              for k, rts in fwd_routes.items()}
     if not all(torch.isfinite(g).all() for g in grads):
         raise AssertionError("program: a gradient is not finite")
     launches = {k: fwd[k] + bwd[k] for k in fwd}
+    # a forward and its backward, timed (the backward holds K3 and K6)
+    step_times = []
+    for i in range(PROGRAM_WARMUP + PROGRAM_RUNS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(fn(*args)["loss"], params)
+        torch.cuda.synchronize()
+        if i >= PROGRAM_WARMUP:
+            step_times.append((time.perf_counter() - t1) * 1e3)
     crosscheck = program_crosscheck(smi)
     captured = Program.capture(parsed.build_fn(), *[card[n]
                                                     for n in parsed.feeds])
@@ -6514,6 +6552,8 @@ def program_phase(smi):
                 batch=PROGRAM_BATCH, seq=PROGRAM_SEQ, dtype="float32",
                 ops=len(parsed.ops), json_bytes=len(text),
                 loss=float(loss), p50_ms=p50, times_ms=times,
+                fwd_bwd_p50_ms=float(np.median(step_times)),
+                fwd_bwd_times_ms=step_times,
                 device_ms=dev_ms, idle_share=1.0 - dev_ms / p50,
                 device_launches=dev_launches, launches_checked=got,
                 launches=launches, crosscheck=crosscheck,
@@ -6521,7 +6561,7 @@ def program_phase(smi):
                 captured_kernel_ops={op: named.count(op)
                                      for op in PROGRAM_OPS},
                 decode=decode, phase_s=time.perf_counter() - t0, card=smi)
-    return line, launches
+    return line, launches, routes
 
 
 
@@ -6533,11 +6573,13 @@ def expected_route(kernel, case):
     dims that are multiples of 8 up to 256); K4 by :func:`mlp_route`
     (bf16 here the tensor cores: every case has widths that are multiples
     of 8; f32 the split route up to 32 rows, the gemm route past them);
-    K5 the tensor cores in bf16 and the SIMT kernel in f32."""
+    K5 by :func:`stats_route` and K6 by :func:`bwd_route` (bf16 the
+    tensor cores; f32 3xTF32 where H % 4 == 0, else the SIMT kernels)."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
     from paddle_tpu_torch.ops.cuda import mlp
+    from paddle_tpu_torch.ops.cuda import xent
     bf16 = case.get("dtype") in ("bf16", str(torch.bfloat16))
     dtype = torch.bfloat16 if bf16 else torch.float32
     if kernel.startswith("flash"):
@@ -6549,6 +6591,10 @@ def expected_route(kernel, case):
     if kernel == "mlp":
         rows, hid, inter, hout = case["shape"]
         return mlp.mlp_route(dtype, hid, inter, hout, rows)
+    if kernel == "xent_stats":
+        return xent.stats_route(dtype, case["shape"][2])
+    if kernel.startswith("xent"):
+        return xent.bwd_route(dtype, case["shape"][2])
     return "tc" if bf16 else "simt"
 
 
@@ -6567,7 +6613,10 @@ LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
 ROUTED_ROWS = {"flash_attention": ("simt", "tc"),
                "flash_attention_bwd_dq": ("simt", "tc"),
                "flash_attention_bwd_dkv": ("simt", "tc"),
-               "mlp": ("split", "gemm", "tc")}
+               "mlp": ("split", "gemm", "tc"),
+               "xent_stats": ("tc", "tf32x3"),
+               "xent_bwd_dh": ("tc", "tf32x3"),
+               "xent_bwd_dwb": ("tc", "tf32x3")}
 
 
 def kernel_table(by_kernel, paths, routes):
@@ -6577,7 +6626,9 @@ def kernel_table(by_kernel, paths, routes):
     split route at decode's 8 rows under the kernel's name and its gemm
     route at a 512-row prefill chunk as "mlp.gemm"; train_crosscheck's f32
     step for K3) and the tc one (GPT training's) as "<name>.tc"; K5 and
-    K6 one row, their bf16 tensor-core kernels; the others one SIMT row.
+    K6 their bf16 tensor-core kernels under the kernel's name (GPT
+    training's) and their f32 3xTF32 ones as "<name>.tf32x3" (the program
+    path's); the others one SIMT row.
     ``paths`` holds each path's launch counts: serve and train_crosscheck
     (a row's own path only) and :data:`LISTED_PATHS` (resnet and ctr are
     0 for every kernel); ``routes`` the route counts of the paths that
@@ -6590,11 +6641,13 @@ def kernel_table(by_kernel, paths, routes):
         elif name in PATH_ROUTE:
             variants = (PATH_ROUTE[name],)
         else:
-            variants = ("tc",) if name.startswith("xent") else ("simt",)
+            variants = ("simt",)
         for variant in variants:
             case = next(c for c in by_kernel[name] if "kernel_ms" in c
                         and c.get("route", variant) == variant)
-            if variant == "tc" or name not in SERVE_KERNELS + BERT_KERNELS:
+            if variant == "tf32x3":
+                path = "program"
+            elif variant == "tc" or name not in SERVE_KERNELS + BERT_KERNELS:
                 path = "train"
             elif name in SERVE_KERNELS:
                 path = "serve"
@@ -6874,7 +6927,7 @@ def main():
     seq_crosscheck_phases()
     emit(dict(phase="sequence_ops", **sequence_ops_phase(smi)))
     torch.cuda.empty_cache()
-    program_line, program_launches = program_phase(smi)
+    program_line, program_launches, program_routes = program_phase(smi)
     emit(dict(phase="program", **program_line))
     emit(dict(phase="timeline", last_phase="program", limit_s=1200.0))
 
@@ -6892,7 +6945,7 @@ def main():
         "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,
         "moe_train": moe_launches, "export": export_launches,
         **{f"scan_{p}": n for p, n in scan_launches.items()}},
-        {"serve": serve_routes})
+        {"serve": serve_routes, "program": program_routes})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

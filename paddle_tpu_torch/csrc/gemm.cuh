@@ -1,7 +1,9 @@
 // The port's one Hopper GEMM mainloop: C = A B on bf16 tensor cores with an
 // f32 accumulator, fed by TMA through an mbarrier ring, with the epilogue
 // supplied by the caller. K4 (csrc/mlp.cu, both passes) and K5
-// (csrc/xent.cu, the statistics) run on it.
+// (csrc/xent.cu, the statistics) run on it. With f32 operands (T = float,
+// K5's f32 route) it runs the 3xTF32 products of hopper.cuh instead: see
+// "f32 operands" below.
 //
 // Operands. A is row-major [M, K] (K-major). B is either row-major [K, N]
 // (MN-major: x @ W, K4) or row-major [N, K] (K-major: h W^T, K5's tied
@@ -33,6 +35,17 @@
 // blocks hold the same row tile of A at once (read from device memory
 // about once), and B (the weights, 4.7 MB at BERT's MLP) stays in L2.
 // The ring's position is stepped, never divided (hopper::Ring).
+//
+// f32 operands (3xTF32). A box is [64 rows, 32 f32] (8 KB, the 128-byte
+// swizzle), so a stage covers 32 of K. Each stage has a second half of the
+// same size for the lo parts: once a stage has arrived, the 256 consumer
+// threads split it in place (each value becomes its tf32 hi, its lo goes
+// to the same offset of the second half; hopper::split_tf32_smem), fence
+// the generic writes for the async proxy and meet at named barrier 1;
+// then each k8 step issues lo·hi, hi·lo and hi·hi. The split of stage s
+// runs while the products of stage s - 1 are in flight. Only a K-major B
+// is taken (TF32 wgmma has no transpose). kN = 256 leaves room for 2
+// stages of 96 KB.
 //
 // The epilogue Epi is a struct whose copy in each consumer thread carries
 // that thread's state across the item's tiles. Epi::kScratch bytes of
@@ -210,23 +223,46 @@ struct Wgmma<256> {
   }
 };
 
+// The operand types: a box's K width, and whether products are 3xTF32.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kBoxK = 64;
+  static constexpr bool kX3 = false;
+};
+template <>
+struct Elem<float> {
+  static constexpr int kBoxK = 32;
+  static constexpr bool kX3 = true;
+};
+
+// The bytes TMA brings into a stage: A's two boxes and B's kN / 64.
 template <int kN>
 __host__ __device__ constexpr int stage_bytes() {
   return (2 + kN / 64) * kBoxBytes;
 }
 
+// A stage's bytes in shared memory: twice the loaded ones with f32
+// operands (the lo parts).
+template <int kN, typename T>
+__host__ __device__ constexpr int stage_span() {
+  return stage_bytes<kN>() * (Elem<T>::kX3 ? 2 : 1);
+}
+
 // Ring stages that fit beside an epilogue's kScratch bytes.
-template <int kN, int kScratch>
+template <int kN, int kScratch, typename T>
 __host__ __device__ constexpr int stages() {
-  constexpr int n = (232448 - 1024 - kScratch) / (stage_bytes<kN>() + 16);
+  constexpr int n =
+      (232448 - 1024 - kScratch) / (stage_span<kN, T>() + 16);
   return n < kMaxStages ? n : kMaxStages;
 }
 
-template <int kN, int kScratch>
+template <int kN, int kScratch, typename T>
 __host__ __device__ constexpr size_t smem_bytes() {
   return 1024 +
-         static_cast<size_t>(stages<kN, kScratch>()) *
-             (stage_bytes<kN>() + 16) +
+         static_cast<size_t>(stages<kN, kScratch, T>()) *
+             (stage_span<kN, T>() + 16) +
          kScratch;
 }
 
@@ -252,20 +288,24 @@ __device__ __forceinline__ Item item_of(const Sched& s, int it, int ntiles) {
   return w;
 }
 
-template <int kN, bool kBKMajor, class Epi>
+template <int kN, bool kBKMajor, class Epi, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                 const __grid_constant__ CUtensorMap tm_b, const Sched s,
                 const Epi epi) {
-  constexpr int kStage = stage_bytes<kN>();
-  constexpr int kStages = stages<kN, Epi::kScratch>();
+  constexpr bool kX3 = Elem<T>::kX3;
+  constexpr int kBoxK = Elem<T>::kBoxK;
+  static_assert(kBKMajor || !kX3, "3xTF32 takes a K-major B only");
+  constexpr int kLoad = stage_bytes<kN>();
+  constexpr int kStage = stage_span<kN, T>();
+  constexpr int kStages = stages<kN, Epi::kScratch, T>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
   uint64_t* empty = full + kStages;
   uint8_t* scratch = reinterpret_cast<uint8_t*>(empty + kStages);
-  const int ksteps = (s.K + 63) / 64;
+  const int ksteps = (s.K + kBoxK - 1) / kBoxK;
   const int ntiles = (s.N + kN - 1) / kN;
 
   if (threadIdx.x == 0) {
@@ -291,15 +331,15 @@ __global__ void __launch_bounds__(kThreads, 1)
             uint8_t* dst = ring + w.stage * kStage;
             uint64_t* bar = full + w.stage;
             hopper::mbar_wait(empty + w.stage, w.phase ^ 1);
-            hopper::mbar_expect_tx(bar, kStage);
-            hopper::tma_load_2d(dst, &tm_a, bar, 64 * k, t.m0);
-            hopper::tma_load_2d(dst + kBoxBytes, &tm_a, bar, 64 * k,
+            hopper::mbar_expect_tx(bar, kLoad);
+            hopper::tma_load_2d(dst, &tm_a, bar, kBoxK * k, t.m0);
+            hopper::tma_load_2d(dst + kBoxBytes, &tm_a, bar, kBoxK * k,
                                 t.m0 + 64);
 #pragma unroll
             for (int j = 0; j < kN / 64; ++j) {
               if (kBKMajor)
                 hopper::tma_load_2d(dst + (2 + j) * kBoxBytes, &tm_b, bar,
-                                    64 * k, n0 + 64 * j);
+                                    kBoxK * k, n0 + 64 * j);
               else
                 hopper::tma_load_2d(dst + (2 + j) * kBoxBytes, &tm_b, bar,
                                     n0 + 64 * j, 64 * k);
@@ -329,16 +369,36 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int k = 0; k < ksteps; ++k) {
           const int st = r.stage;
           hopper::mbar_wait(full + st, r.phase);
-          const uint8_t* a = ring + st * kStage + wg * kBoxBytes;
-          const uint8_t* b = ring + st * kStage + 2 * kBoxBytes;
-          hopper::wgmma_fence();
+          uint8_t* sp = ring + st * kStage;
+          const uint8_t* a = sp + wg * kBoxBytes;
+          const uint8_t* b = sp + 2 * kBoxBytes;
+          if constexpr (kX3) {
+            hopper::split_tf32_smem(reinterpret_cast<float4*>(sp),
+                                    reinterpret_cast<float4*>(sp + kLoad),
+                                    kLoad / 16, threadIdx.x, 256);
+            hopper::fence_async_shared();
+            hopper::named_barrier(1, 256);    // the stage split by both
+            hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)        // scale_d 0: overwrite
-            Wgmma<kN>::template run<kBKMajor ? 0 : 1>(
-                acc, hopper::desc_sw128(a + 32 * kk),
-                kBKMajor ? hopper::desc_sw128(b + 32 * kk)
-                         : hopper::desc_sw128(b + 2048 * kk, kBoxBytes),
-                k | kk);
+            for (int kk = 0; kk < 4; ++kk) {    // scale_d 0: overwrite
+              const uint64_t ah = hopper::desc_sw128(a + 32 * kk);
+              const uint64_t al = hopper::desc_sw128(a + kLoad + 32 * kk);
+              const uint64_t bh = hopper::desc_sw128(b + 32 * kk);
+              const uint64_t bl = hopper::desc_sw128(b + kLoad + 32 * kk);
+              hopper::wgmma_m64n256k8_tf32(acc, al, bh, k | kk);
+              hopper::wgmma_m64n256k8_tf32(acc, ah, bl, 1);
+              hopper::wgmma_m64n256k8_tf32(acc, ah, bh, 1);
+            }
+          } else {
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)      // scale_d 0: overwrite
+              Wgmma<kN>::template run<kBKMajor ? 0 : 1>(
+                  acc, hopper::desc_sw128(a + 32 * kk),
+                  kBKMajor ? hopper::desc_sw128(b + 32 * kk)
+                           : hopper::desc_sw128(b + 2048 * kk, kBoxBytes),
+                  k | kk);
+          }
           hopper::wgmma_commit();
           hopper::wgmma_wait<1>();
           if (prev >= 0) release(prev);       // its products are done
@@ -355,22 +415,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Encode the operands' tensor maps and launch `grid` blocks. A is [M, K];
-// B is [N, K] when kBKMajor, else [K, N]; both bf16, rows 16-byte
-// multiples, bases 16-byte aligned (the caller checks).
-template <int kN, bool kBKMajor, class Epi>
+// B is [N, K] when kBKMajor, else [K, N]; both of type T (bf16, or f32
+// for 3xTF32), rows 16-byte multiples, bases 16-byte aligned (the caller
+// checks).
+template <int kN, bool kBKMajor, class Epi, typename T = __nv_bfloat16>
 cudaError_t launch(const void* a, const void* b, const Sched& s, int grid,
                    const Epi& epi, cudaStream_t st) {
+  auto encode = Elem<T>::kX3 ? hopper::encode_f32_boxes
+                             : hopper::encode_bf16_boxes;
   CUtensorMap tm_a, tm_b;
-  cudaError_t err = hopper::encode_bf16_boxes(&tm_a, a, s.M, s.K);
+  cudaError_t err = encode(&tm_a, a, s.M, s.K);
   if (err != cudaSuccess) return err;
-  err = kBKMajor ? hopper::encode_bf16_boxes(&tm_b, b, s.N, s.K)
-                 : hopper::encode_bf16_boxes(&tm_b, b, s.K, s.N);
+  err = kBKMajor ? encode(&tm_b, b, s.N, s.K) : encode(&tm_b, b, s.K, s.N);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes<kN, Epi::kScratch>();
-  err = ptt_set_smem(gemm_kernel<kN, kBKMajor, Epi>, smem);
+  const size_t smem = smem_bytes<kN, Epi::kScratch, T>();
+  err = ptt_set_smem(gemm_kernel<kN, kBKMajor, Epi, T>, smem);
   if (err != cudaSuccess) return err;
-  gemm_kernel<kN, kBKMajor, Epi><<<grid, kThreads, smem, st>>>(tm_a, tm_b,
-                                                               s, epi);
+  gemm_kernel<kN, kBKMajor, Epi, T><<<grid, kThreads, smem, st>>>(
+      tm_a, tm_b, s, epi);
   return cudaGetLastError();
 }
 

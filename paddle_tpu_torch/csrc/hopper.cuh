@@ -3,7 +3,9 @@
 // wgmma shared-memory descriptors, the bf16 wgmma shapes K6 and the flash
 // kernels use (csrc/gemm.cuh holds the wide ones of the shared GEMM
 // mainloop), register-A wgmma on a packed accumulator fragment, the ring
-// position, 2^x, and the host-side tensor-map encoding.
+// position, 2^x, the 3xTF32 split and the tf32 wgmma shapes of K5's and
+// K6's f32 routes, cluster shared memory, and the host-side tensor-map
+// encoding.
 //
 // Layout convention: every tile in shared memory is made of TMA boxes of
 // [64 rows, 64 bf16 columns] = 8 KB, written with the 128-byte swizzle
@@ -352,6 +354,222 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(kTransB));
 }
 
+// ----------------------------------------------------------------- 3xTF32
+//
+// f32-accurate products on the tensor cores (K5's and K6's f32 routes,
+// csrc/xent.cu). TF32 wgmma reads 19 bits of each f32 operand (sign, 8 of
+// exponent, 10 of mantissa) at 495 TFLOP/s. Each f32 operand is split
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to
+// nearest (cvt.rna: low 13 mantissa bits 0, so the tensor core reads them
+// exactly), and a product is lo·hi + hi·lo + hi·hi in the f32
+// accumulator. x - hi is exact in f32 and |x - hi| <= 2^-11 |x|, so
+// |x - hi - lo| <= 2^-22 |x|; the dropped lo·lo and the two operands' lo
+// roundings leave each product within about 3 x 2^-22 of its f32 value
+// (1xTF32, hi·hi alone: 2^-10). Three TF32 products: 165 TFLOP/s.
+// TF32 wgmma takes no transpose: both shared-memory operands are
+// K-major. A k8 step is 32 bytes along a row, as a bf16 k16 step is, so
+// the boxes of the layout convention above serve with 32 f32 columns.
+
+// tf32(x), rounded to nearest (ties away), as an f32 with 13 zero bits.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+
+// Split `n4` float4s of shared memory at `hi` in place: each value
+// becomes its hi part, and its lo part goes to the same offset at `lo`.
+// Thread `tid` of `threads` takes every threads-th float4.
+__device__ __forceinline__ void split_tf32_smem(float4* hi, float4* lo,
+                                                int n4, int tid,
+                                                int threads) {
+  for (int i = tid; i < n4; i += threads) {
+    const float4 v = hi[i];
+    const float4 h = make_float4(tf32_rna(v.x), tf32_rna(v.y),
+                                 tf32_rna(v.z), tf32_rna(v.w));
+    hi[i] = h;
+    lo[i] = make_float4(tf32_rna(v.x - h.x), tf32_rna(v.y - h.y),
+                        tf32_rna(v.z - h.z), tf32_rna(v.w - h.w));
+  }
+}
+
+// The "+f" operands of an accumulator's 32 (128) registers.
+#define PTT_ACC32(d) \
+  "+f"((d)[0]), "+f"((d)[1]), "+f"((d)[2]), "+f"((d)[3]), "+f"((d)[4]), \
+  "+f"((d)[5]), "+f"((d)[6]), "+f"((d)[7]), "+f"((d)[8]), "+f"((d)[9]), \
+  "+f"((d)[10]), "+f"((d)[11]), "+f"((d)[12]), "+f"((d)[13]), "+f"((d)[14]), \
+  "+f"((d)[15]), "+f"((d)[16]), "+f"((d)[17]), "+f"((d)[18]), "+f"((d)[19]), \
+  "+f"((d)[20]), "+f"((d)[21]), "+f"((d)[22]), "+f"((d)[23]), "+f"((d)[24]), \
+  "+f"((d)[25]), "+f"((d)[26]), "+f"((d)[27]), "+f"((d)[28]), "+f"((d)[29]), \
+  "+f"((d)[30]), "+f"((d)[31])
+#define PTT_ACC128(d) \
+  PTT_ACC32(d), PTT_ACC32((d) + 32), PTT_ACC32((d) + 64), \
+  PTT_ACC32((d) + 96)
+
+// d[64 x 256] (+)= A[64 x 8] B[8 x 256], tf32, both K-major in shared
+// memory; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128],
+                                                     uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1;\n"
+      "}\n"
+      : PTT_ACC128(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 256] (+)= A[64 x 8] B[8 x 256], tf32: A in registers, B K-major
+// in shared memory; scale_d 0 overwrites d. The tf32 A fragment of an
+// m64 k8 slice holds, in thread t of the warpgroup (warp w, lane l), rows
+// r = 16 w + l / 4 and r + 8 at columns l % 4 and l % 4 + 4: a[0] is
+// (r, l % 4), a[1] (r + 8, l % 4), a[2] (r, l % 4 + 4), a[3]
+// (r + 8, l % 4 + 4).
+__device__ __forceinline__ void wgmma_m64n256k8_tf32_rs(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1;\n"
+      "}\n"
+      : PTT_ACC128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32: A in registers (the tf32 A
+// fragment, see wgmma_m64n256k8_tf32_rs), B K-major in shared memory;
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : PTT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// -------------------------------------------------------------- clusters
+//
+// Distributed shared memory between the blocks of a thread block cluster
+// (K6's tf32x3 route: the blocks of one resident tile, one per chunk of
+// H, exchange their partial logits).
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Arrive, with release at cluster scope, on an mbarrier given by its
+// shared::cluster address (this block's or another's).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: the arrivals' writes from the
+// other blocks of the cluster are visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // --------------------------------------------------------------- host
 
 // A tensor map of a row-major [rows, cols] bf16 matrix read in boxes of
@@ -387,22 +605,40 @@ inline cudaError_t tensor_map_encoder(TensorMapEncode* out) {
   return cudaSuccess;
 }
 
-inline cudaError_t encode_bf16_boxes(CUtensorMap* map, const void* base,
-                                     int rows, int cols) {
+// The boxes of a row-major [rows, cols] matrix of `elem_bytes`-byte
+// values: [64 rows, 128 bytes], 128-byte swizzle.
+inline cudaError_t encode_boxes(CUtensorMap* map, CUtensorMapDataType type,
+                                int elem_bytes, const void* base, int rows,
+                                int cols) {
   TensorMapEncode encode;
   const cudaError_t err = tensor_map_encoder(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {kBoxCols, kBoxRows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) *
+                                 elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             kBoxRows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_bf16_boxes(CUtensorMap* map, const void* base,
+                                     int rows, int cols) {
+  return encode_boxes(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows,
+                      cols);
+}
+
+// The same for f32: boxes of [64 rows, 32 f32] (8 KB, as a bf16 box), for
+// the 3xTF32 routes. cols * 4 must be a multiple of 16.
+inline cudaError_t encode_f32_boxes(CUtensorMap* map, const void* base,
+                                    int rows, int cols) {
+  return encode_boxes(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows,
+                      cols);
 }
 
 // The same boxes over `mats` row-major [rows, cols] bf16 matrices stored

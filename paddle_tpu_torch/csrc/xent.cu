@@ -51,12 +51,45 @@
 //   (each tile's operands are re-read from L2 per 64 x 64 logits), and
 //   the per-tile dlogit phase, in which the tensor cores wait.
 //
-// f32 (the crosschecks): CUDA cores, xent_bwd_kernel below, chosen by the
-//   storage type only. A RESIDENT tile of 32 rows ([32, H] f32 in shared
-//   memory) against STREAMED 64-row tiles; S = R X^T ([32, 64]) as f32
-//   FMAs, then gch X added into an f32 [32, 768] register accumulator;
-//   H beyond 768 takes further column chunks (blockIdx.z), each
-//   recomputing the logits.
+// f32 with H % 4 == 0 and H <= 2048 (the f32 training path: the program
+//   path, the crosschecks): 3xTF32 on the tensor cores,
+//   xent_bwd_x3_kernel below. Both products are f32-accurate TF32 wgmma
+//   (lo·hi + hi·lo + hi·hi, hopper.cuh): the bound is 4 N V H operations
+//   at 165 TFLOP/s. The bf16 route's resident tile does not fit: [64, H]
+//   in f32 with its lo part is 384 KB at H = 768. So a block owns 128
+//   resident rows (64 a consumer warpgroup) and one chunk of 256 columns
+//   of H, and the H / 256 blocks of one resident tile form a thread
+//   block CLUSTER. Each block STREAMS both operands of the first product
+//   over its own chunk of H only, a [64, 32] f32 box of each at a time
+//   through a ring of 2 stages (R's two boxes and X's one, 24 KB, and
+//   X's lo part). Once a stage arrives, the consumers split X's box in
+//   place (hi in place, lo beside it) and stage it transposed (K-major,
+//   as TF32 wgmma needs its B), hi and lo, into a [256, 64] X^T tile
+//   (128 KB); R's box is split in registers, the first product's
+//   register A. Per streamed tile of 64 rows each warpgroup computes
+//     S_c = R X^T  [64, 64] over its chunk c of H (m64n64k8), then writes
+//                  S_c to its shared memory; every block of the cluster
+//                  reads all of them over distributed shared memory and
+//                  sums them in rank order, so each holds the same
+//                  S = R X^T over all of H (the logits computed once);
+//     gch in f32 from S (db summed from it), split into hi and lo in
+//                  registers: the register A of
+//     acc += gch X [64, 256] (m64n256k8), B the staged X^T, whose K order
+//                  is permuted to match the accumulator's column pairs
+//                  (see the staging), so gch never passes through shared
+//                  memory.
+//   What holds it back (PERF.md §6): ptxas serializes every wgmma of
+//   the kernel (its note C7512: too few registers beside the 128-register
+//   accumulator), so the many small first-product wgmmas wait on each
+//   other; the split and staging passes run on the CUDA cores. Blocks
+//   that each recompute the whole S for their chunk were slower than the
+//   cluster, and 192-column chunks (a 96-register accumulator, which
+//   ptxas left asynchronous there) slower still.
+// f32 with H % 4 != 0: CUDA cores, xent_bwd_kernel below. A RESIDENT tile
+//   of 32 rows ([32, H] f32 in shared memory) against STREAMED 64-row
+//   tiles; S = R X^T ([32, 64]) as f32 FMAs, then gch X added into an f32
+//   [32, 768] register accumulator; H beyond 768 takes further column
+//   chunks (blockIdx.z), each recomputing the logits.
 //
 // K5 reduces each row of the logits online to (m, s, picked, sum_logits),
 // as the TPU kernel's revisited output block does. Two routes, chosen in
@@ -73,8 +106,13 @@
 //   producer already loads the next tile's boxes. No [64, H] tile is held
 //   in shared memory, so this route has no H limit. Bound: 2 N V H
 //   operations at 989 TFLOP/s; exp is ex2.approx (~2^-22 relative).
-// f32, or bf16 with H % 8 != 0: CUDA cores, xent_stats_kernel below, the
-//   f32 block shape for both storage types.
+// f32 with H % 4 == 0: the same mainloop and epilogue with f32 operands
+//   on 3xTF32 (gemm.cuh "f32 operands": boxes of 32 f32, each stage split
+//   into hi and lo in shared memory, three tf32 wgmma a k8 step). Bound:
+//   2 N V H operations at 165 TFLOP/s.
+// Any other shape (f32 with H % 4 != 0, bf16 with H % 8 != 0): CUDA
+//   cores, xent_stats_kernel below, the f32 block shape for both storage
+//   types.
 //
 // The streamed axis may be split across blocks (the last grid axis) so
 // that the grid fills the card in whole waves: each split writes f32
@@ -88,8 +126,9 @@
 // storage type (f32 or bf16).
 //
 // What bounds it on the H100: operations (2 N V H for K5, 4 N V H for
-// each backward kernel: 989 TFLOP/s in bf16 on the tensor cores, 67 in
-// f32 on the CUDA cores).
+// each backward kernel: 989 TFLOP/s in bf16 on the tensor cores, 165 for
+// f32-accurate products as 3xTF32; the SIMT kernels' 67 on the CUDA cores
+// is their own limit, not the card's).
 
 #include "common.cuh"
 #include "gemm.cuh"
@@ -506,9 +545,9 @@ cudaError_t stats_launch(const void* h, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-// ---------------------------------------- K5 stats, bf16 tensor-core route
+// ---------------------------------- K5 stats, tensor-core routes (tc, x3)
 
-// The epilogue of K5's tensor-core route (see the header): each consumer
+// The epilogue of K5's tensor-core routes (see the header): each consumer
 // thread keeps (m, s, picked, sum_logits) of its two rows over its
 // columns, m and s in natural units, the exps as 2^x.
 struct StatsEpi {
@@ -623,11 +662,15 @@ struct StatsEpi {
 
 constexpr int kStatsWidth = 256;   // vocab columns per tile (ops/cuda/xent.py)
 
+// K5 on the mainloop: T = bf16 (the tc route) or f32 (3xTF32); H a
+// multiple of 16 bytes of T.
+template <typename T>
 cudaError_t stats_tc_launch(const void* h, const void* w, const void* bias,
                             const void* labels, void* out, void* part, int N,
                             int V, int H, int nsplit, int tiles_per_split,
                             int grid, cudaStream_t st) {
-  if (H % 8 != 0 || (reinterpret_cast<uintptr_t>(h) & 15) ||
+  if (H % (16 / static_cast<int>(sizeof(T))) != 0 ||
+      (reinterpret_cast<uintptr_t>(h) & 15) ||
       (reinterpret_cast<uintptr_t>(w) & 15))
     return cudaErrorInvalidValue;
   gemm::Sched s;
@@ -644,7 +687,7 @@ cudaError_t stats_tc_launch(const void* h, const void* w, const void* bias,
   epi.N = N;
   epi.V = V;
   cudaError_t err =
-      gemm::launch<kStatsWidth, true>(h, w, s, grid, epi, st);
+      gemm::launch<kStatsWidth, true, StatsEpi, T>(h, w, s, grid, epi, st);
   if (err != cudaSuccess || nsplit == 1) return err;
   xent_stats_combine_kernel<<<(N + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(part), static_cast<float*>(out), N, nsplit);
@@ -1096,17 +1139,483 @@ cudaError_t launch(const void* h, const void* w, const void* bias,
 
 }  // namespace tc
 
-// The backward by storage type: f32 on the CUDA cores, bf16 on the
-// tensor cores; then the fixed-order sum of the splits' partials.
+// ------------------------------------------ K6 backward, 3xTF32 f32 route
+
+namespace x3 {
+
+using hopper::kBoxBytes;
+using hopper::kLog2e;
+constexpr int kRows = 128;         // resident rows per block: 64 a warpgroup
+constexpr int kStr = 64;           // streamed rows per tile
+constexpr int kCols = 256;         // output columns per block: one chunk
+constexpr int kBoxK = 32;          // f32 columns of a box
+constexpr int kChunkBoxes = kCols / kBoxK;
+constexpr int kThreads = 384;      // consumer warpgroups 0, 1; producer 2
+constexpr int kLoad = 3 * kBoxBytes;     // a stage's boxes: R's two, X's
+constexpr int kStage = 4 * kBoxBytes;    // ... and X's lo part
+constexpr int kStages = 2;
+constexpr int kMaxCluster = 8;           // chunks a resident tile, at most
+// streamed tiles a block sums on the tensor cores before it adds its
+// accumulator into its output region (see the kernel's note)
+constexpr int kFlush = 16;
+constexpr int kHalf = kCols * 128;       // X^T rows at 32 of K: 32 KB
+constexpr int kStaged = 4 * kHalf;       // hi K 0-31, hi 32-63, lo, lo
+constexpr int kSx = 2 * 32 * 128 * 4;    // a block's partial S: 32 KB
+constexpr size_t kSmem = 1024 + kStages * kStage + kStaged + kSx +
+                         4 * kStr * 4 + (2 * kStages + 2) * 8;
+static_assert(kSmem <= 232448, "x3 tiles exceed a block's shared memory");
+
+struct Params {
+  const float* bias;
+  const int* labels;
+  const float* logz;
+  const float* g;
+  float* out;
+  float* db_out;
+  int N, V, H, tiles_per_split;
+  float sn, sp;
+};
+
+// The staged X^T's K position of streamed row `srow` of a tile, within
+// its 32-row half: the k8 slice srow / 8 keeps its place, and inside it
+// row 2 j goes to position j and row 2 j + 1 to j + 4. The register A
+// fragment of a k8 slice (hopper.cuh) then holds gch's columns 2 (l % 4)
+// and 2 (l % 4) + 1 at positions l % 4 and l % 4 + 4: exactly the column
+// pair that the first product's accumulator gives the same thread.
+__device__ __forceinline__ int staged_k(int srow) {
+  const int q = srow & 7;
+  return (srow & 24) + ((q >> 1) | ((q & 1) << 2));
+}
+
+// kRowsResident: dh (resident rows of h, streamed rows of W); otherwise
+// dw/db (resident rows of W, streamed rows of h). Grid: (output chunks of
+// 256 columns, resident tiles of 128, splits of the streamed axis); the
+// chunks of a resident tile and split are one cluster, which every block
+// of it leaves only once the others have read its partial logits.
+// The second product's sum runs over the whole streamed axis, and the
+// tensor cores' f32 accumulation loses accuracy with its length (PERF.md
+// §6: summed over 500 tiles on the tensor cores alone, dh's rows that no
+// label reaches came 2.1e-4 of their scale from the plain version, 1.1e-4
+// over 250): so every kFlush tiles a block adds its accumulator
+// into its own output region (f32 adds, rounded to nearest; the first
+// time a store) and starts again from zero.
 template <bool kRowsResident>
-cudaError_t bwd_route(int dtype, const void* h, const void* w,
+__global__ void __launch_bounds__(kThreads, 1)
+    xent_bwd_x3_kernel(const __grid_constant__ CUtensorMap tm_res,
+                       const __grid_constant__ CUtensorMap tm_str,
+                       const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* xt = ring + kStages * kStage;          // the staged X^T
+  float* sx = reinterpret_cast<float*>(xt + kStaged);     // partial S
+  float* cpar = sx + kSx / 4;                              // [4][kStr]
+  int* clab = reinterpret_cast<int*>(cpar + 2 * kStr);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cpar + 4 * kStr);
+  uint64_t* empty = full + kStages;
+  uint64_t* sx_full = empty + kStages;    // the cluster's partials written
+  uint64_t* sx_free = sx_full + 1;        // ... and read
+
+  const int nres = kRowsResident ? p.N : p.V;
+  const int nstr = kRowsResident ? p.V : p.N;
+  const int r0 = blockIdx.y * kRows;
+  const int chunk = hopper::cluster_rank();       // == blockIdx.x
+  const uint32_t nclus = gridDim.x;               // the cluster: all chunks
+  const int split = blockIdx.z;
+  const int ntiles = (nstr + kStr - 1) / kStr;
+  const int t0 = split * p.tiles_per_split;
+  const int t1 = min(ntiles, t0 + p.tiles_per_split);
+  const int nk = (p.H + kBoxK - 1) / kBoxK;       // boxes along H
+  const int kb0 = chunk * kChunkBoxes;            // the chunk's boxes
+  const int kb1 = min(nk, kb0 + kChunkBoxes);
+  const int nkc = kb1 - kb0;                      // k-steps a tile
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(full + i, 1);
+      hopper::mbar_init(empty + i, 8);     // one arrival per consumer warp
+    }
+    // one arrival per consumer thread of every block of the cluster
+    hopper::mbar_init(sx_full, 256 * nclus);
+    hopper::mbar_init(sx_free, 256 * nclus);
+    hopper::mbar_fence_init();
+  }
+  hopper::cluster_sync();           // the cluster's barriers initialised
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // --------------------------------------------------------- producer
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 256) {
+      hopper::Ring w(kStages);
+      for (int t = t0; t < t1; ++t) {
+        for (int kb = kb0; kb < kb1; ++kb) {
+          uint8_t* dst = ring + w.stage * kStage;
+          uint64_t* bar = full + w.stage;
+          hopper::mbar_wait(empty + w.stage, w.phase ^ 1);
+          hopper::mbar_expect_tx(bar, kLoad);
+          hopper::tma_load_2d(dst, &tm_res, bar, kb * kBoxK, r0);
+          hopper::tma_load_2d(dst + kBoxBytes, &tm_res, bar, kb * kBoxK,
+                              r0 + 64);
+          hopper::tma_load_2d(dst + 2 * kBoxBytes, &tm_str, bar,
+                              kb * kBoxK, t * kStr);
+          w.next();
+        }
+      }
+    }
+  } else {
+    // -------------------------------------------------------- consumers
+    hopper::reg_alloc<232>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int rr0 = 64 * wg + 16 * warp + (lane >> 2);   // rows rr0, +8
+    const int q4 = lane & 3;
+    auto release = [&](int st) {           // this warp is done with st
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty + st);
+    };
+    // per resident row: (logz, g, label) for dh, the bias for dw/db
+    float rz[2], rg[2], rb[2];
+    int rl[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int row = r0 + rr0 + 8 * a;
+      const bool ok = row < nres;
+      if (kRowsResident) {
+        rz[a] = ok ? p.logz[row] * kLog2e : 0.f;      // logz in log2 units
+        rg[a] = ok ? p.g[row] : 0.f;
+        rl[a] = ok ? p.labels[row] : -1;
+        rb[a] = 0.f;
+      } else {
+        rb[a] = (ok && p.bias != nullptr) ? p.bias[row] : 0.f;
+        rz[a] = rg[a] = 0.f;
+        rl[a] = -1;
+      }
+    }
+
+    // the second product's accumulator, set by its first wgmma (scale_d
+    // 0) and after every flush: no other instruction writes it
+    float acc[kCols / 2];
+    bool fresh = true;
+    float dbacc[2] = {0.f, 0.f};
+    // this warpgroup's 64 rows of the chunk, f32: stored, or added to
+    // what an earlier flush stored
+    float* o = p.out + static_cast<size_t>(split) * nres * p.H;
+    const int c0 = kb0 * kBoxK;
+    bool flushed = false;
+    auto spill = [&]() {
+#pragma unroll
+      for (int i = 0; i < kCols / 8; ++i)
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int row = r0 + rr0 + 8 * a;
+          const int col = c0 + 8 * i + 2 * q4;   // H % 4 == 0: col + 1 too
+          if (row < nres && col < p.H) {
+            float2* q = reinterpret_cast<float2*>(
+                o + static_cast<size_t>(row) * p.H + col);
+            float2 v = make_float2(acc[4 * i + 2 * a],
+                                   acc[4 * i + 2 * a + 1]);
+            if (flushed) {
+              const float2 u = *q;
+              v.x += u.x;
+              v.y += u.y;
+            }
+            *q = v;
+          }
+        }
+      flushed = true;
+    };
+
+    hopper::Ring r(kStages);
+    for (int t = t0; t < t1; ++t) {
+      const int x0 = t * kStr;
+      // the tile's per-column parameters (the bias for dh; logz, g and
+      // the label for dw/db), read after the tile's first barrier; the
+      // last tile's readers passed the barrier that ended it
+      if (threadIdx.x < kStr) {
+        const int idx = x0 + threadIdx.x;
+        const bool ok = idx < nstr;
+        if (kRowsResident) {
+          cpar[threadIdx.x] = (ok && p.bias != nullptr) ? p.bias[idx] : 0.f;
+        } else {
+          cpar[threadIdx.x] = ok ? p.logz[idx] * kLog2e : 0.f;
+          cpar[kStr + threadIdx.x] = ok ? p.g[idx] : 0.f;
+          clab[threadIdx.x] = ok ? p.labels[idx] : -1;
+        }
+      }
+
+      // first product: S = R X^T, this warpgroup's 64 rows, over K = H
+      float s[32];
+      uint32_t rhi[4][4], rlo[4][4];        // R's fragments, hi and lo
+      int prev = -1;
+      for (int j = 0; j < nkc; ++j) {
+        const int st = r.stage;
+        hopper::mbar_wait(full + st, r.phase);
+        uint8_t* sp = ring + st * kStage;
+        // split this warpgroup's half of the X box (rows 32 wg to 32 wg +
+        // 31) in place, its lo part to the stage's fourth box, and stage
+        // it as X^T. The products of the last stage run meanwhile.
+        float4* xh = reinterpret_cast<float4*>(sp + 2 * kBoxBytes);
+        float4* xl = reinterpret_cast<float4*>(sp + 3 * kBoxBytes);
+        const int cbox = j * kBoxK;             // the box's X^T rows
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = 256 * wg + 128 * u + tid;   // float4 of the box
+          const float4 v = xh[i];
+          const float hv[4] = {hopper::tf32_rna(v.x), hopper::tf32_rna(v.y),
+                               hopper::tf32_rna(v.z), hopper::tf32_rna(v.w)};
+          const float lv[4] = {hopper::tf32_rna(v.x - hv[0]),
+                               hopper::tf32_rna(v.y - hv[1]),
+                               hopper::tf32_rna(v.z - hv[2]),
+                               hopper::tf32_rna(v.w - hv[3])};
+          xh[i] = make_float4(hv[0], hv[1], hv[2], hv[3]);
+          xl[i] = make_float4(lv[0], lv[1], lv[2], lv[3]);
+          const int srow = i >> 3;                    // streamed row
+          const int c4 = (i & 7) ^ (srow & 7);        // unswizzled chunk
+          const int kp = staged_k(srow);
+          uint8_t* hi = xt + (srow >> 5) * kHalf;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = cbox + 4 * c4 + e;          // an X^T row
+            const int off = c * 128 + (((kp >> 2) ^ (c & 7)) << 4) +
+                            ((kp & 3) << 2);
+            *reinterpret_cast<float*>(hi + off) = hv[e];
+            *reinterpret_cast<float*>(hi + 2 * kHalf + off) = lv[e];
+          }
+        }
+        hopper::fence_async_shared();
+        hopper::named_barrier(1, 256);      // the X box split by both
+        // the last stage's products are done: free it, and this
+        // warpgroup's R fragments of the stage become the register A
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(rhi);
+        hopper::fence_regs(rlo);
+        if (prev >= 0) release(prev);
+        // R's box (raw f32, 128-byte swizzle): rows g and g + 8 of this
+        // warp's 16 (g = lane / 4, rows of the box r0 + 64 wg + ...),
+        // columns 8 kk + q4 and 8 kk + q4 + 4, split in registers
+        const uint8_t* rbox = sp + wg * kBoxBytes +
+                              (16 * warp + (lane >> 2)) * 128 + 4 * q4;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int chunk16 = (2 * kk + (k >> 1)) ^ (lane >> 2);
+            const float x = *reinterpret_cast<const float*>(
+                rbox + (k & 1) * 1024 + chunk16 * 16);
+            const float hx = hopper::tf32_rna(x);
+            rhi[kk][k] = __float_as_uint(hx);
+            rlo[kk][k] = __float_as_uint(hopper::tf32_rna(x - hx));
+          }
+        const uint8_t* b = sp + 2 * kBoxBytes;
+        hopper::fence_regs(s);
+        hopper::fence_regs(rhi);
+        hopper::fence_regs(rlo);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {      // scale_d 0: overwrite
+          const uint64_t bh = hopper::desc_sw128(b + 32 * kk);
+          const uint64_t bl = hopper::desc_sw128(b + kBoxBytes + 32 * kk);
+          hopper::wgmma_m64n64k8_tf32_rs(s, rlo[kk], bh, j | kk);
+          hopper::wgmma_m64n64k8_tf32_rs(s, rhi[kk], bl, 1);
+          hopper::wgmma_m64n64k8_tf32_rs(s, rhi[kk], bh, 1);
+        }
+        hopper::wgmma_commit();
+        prev = st;
+        r.next();
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(rhi);
+      hopper::fence_regs(rlo);
+      release(prev);
+
+      // S's K is cut over the cluster, a chunk of H a block: each block
+      // writes its partial, then sums all of them in rank order (the
+      // same sums in every block, so every block gets the same gch)
+      float* mine = sx + wg * 32 * 128 + tid;   // [wg][e][tid]
+      if (t > t0) hopper::mbar_wait_cluster(sx_free, (t - t0 - 1) & 1);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) mine[e * 128] = s[e];
+      for (uint32_t c = 0; c < nclus; ++c)
+        hopper::mbar_arrive_cluster(hopper::cluster_addr(sx_full, c));
+      hopper::mbar_wait_cluster(sx_full, (t - t0) & 1);
+      float sum[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sum[e] = 0.f;
+      for (uint32_t c = 0; c < nclus; ++c) {
+        const uint32_t from = hopper::cluster_addr(mine, c);
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          sum[e] += hopper::ld_cluster(from + e * 128 * 4);
+      }
+      for (uint32_t c = 0; c < nclus; ++c)
+        hopper::mbar_arrive_cluster(hopper::cluster_addr(sx_free, c));
+
+      // gch in f32 from S (db's row sums from it), split into hi and lo
+      // as the register A of the second product: fragment entry k of
+      // k8 slice i is S's row 8 (k & 1) at column 8 i + 2 q4 + (k >> 1),
+      // the staged K order. S itself is only read: a non-wgmma write to
+      // an accumulator makes ptxas serialize every wgmma of the kernel.
+      float rsum[2] = {0.f, 0.f};
+      uint32_t gh[8][4], gl[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int a = k & 1, e = k >> 1;
+          const int sc = 8 * i + 2 * q4 + e;     // streamed index in tile
+          int row, col, lbl;
+          float logit = sum[4 * i + 2 * a + e], z, gg;
+          if (kRowsResident) {
+            row = r0 + rr0 + 8 * a;
+            col = x0 + sc;
+            logit += cpar[sc];
+            z = rz[a];
+            gg = rg[a];
+            lbl = rl[a];
+          } else {
+            row = x0 + sc;
+            col = r0 + rr0 + 8 * a;
+            logit += rb[a];
+            z = cpar[sc];
+            gg = cpar[kStr + sc];
+            lbl = clab[sc];
+          }
+          // dlogit() with exp(logit - logz) = 2^(logit log2e - z)
+          const float pr = hopper::ex2(fmaf(logit, kLog2e, -z));
+          const float hit = col == lbl ? 1.f : 0.f;
+          const float d = (pr - p.sn - (p.sp - p.sn) * hit) * gg;
+          const float v = (row < p.N && col < p.V) ? d : 0.f;
+          rsum[a] += v;
+          const float hv = hopper::tf32_rna(v);
+          gh[i][k] = __float_as_uint(hv);
+          gl[i][k] = __float_as_uint(hopper::tf32_rna(v - hv));
+        }
+      if (!kRowsResident) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          rsum[a] += __shfl_xor_sync(0xffffffffu, rsum[a], 1);
+          rsum[a] += __shfl_xor_sync(0xffffffffu, rsum[a], 2);
+          dbacc[a] += rsum[a];
+        }
+      }
+
+      // second product: acc += gch X[:, the chunk], B the staged X^T
+      hopper::fence_regs(acc);
+      hopper::fence_regs(gh);
+      hopper::fence_regs(gl);
+      hopper::wgmma_fence();
+      // the first product after a flush (or the block's first) overwrites
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint8_t* b = xt + (i >> 2) * kHalf + 32 * (i & 3);
+        const uint64_t bh = hopper::desc_sw128(b);
+        const uint64_t bl = hopper::desc_sw128(b + 2 * kHalf);
+        hopper::wgmma_m64n256k8_tf32_rs(acc, gl[i], bh, i > 0 || !fresh);
+        hopper::wgmma_m64n256k8_tf32_rs(acc, gh[i], bl, 1);
+        hopper::wgmma_m64n256k8_tf32_rs(acc, gh[i], bh, 1);
+      }
+      fresh = false;
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(gh);
+      hopper::fence_regs(gl);
+      // both warpgroups are done with X^T and the column parameters
+      hopper::named_barrier(1, 256);
+      if (t + 1 < t1 && (t + 1 - t0) % kFlush == 0) {
+        spill();
+        fresh = true;                      // the next product overwrites
+      }
+    }
+
+    spill();                               // the epilogue
+    // the other blocks of the cluster are done with this block's sx
+    hopper::mbar_wait_cluster(sx_free, (t1 - t0 - 1) & 1);
+    if (!kRowsResident && chunk == 0 && q4 == 0) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int row = r0 + rr0 + 8 * a;
+        if (row < p.V)
+          p.db_out[static_cast<size_t>(split) * p.V + row] = dbacc[a];
+      }
+    }
+  }
+}
+
+template <bool kRowsResident>
+cudaError_t launch(const void* h, const void* w, const void* bias,
+                   const void* labels, const void* logz, const void* g,
+                   void* out, void* db, void* part, void* db_part, int N,
+                   int V, int H, int nsplit, int tiles_per_split,
+                   int nchunks, float sn, float sp, cudaStream_t st) {
+  // the shapes the Python plan guarantees (ops/cuda/xent.py x3_plan)
+  if (H % 4 != 0 || (reinterpret_cast<uintptr_t>(h) & 15) ||
+      (reinterpret_cast<uintptr_t>(w) & 15) ||
+      nchunks != (H + kCols - 1) / kCols || nchunks > kMaxCluster)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_h, tm_w;
+  cudaError_t err = hopper::encode_f32_boxes(&tm_h, h, N, H);
+  if (err != cudaSuccess) return err;
+  err = hopper::encode_f32_boxes(&tm_w, w, V, H);
+  if (err != cudaSuccess) return err;
+  err = ptt_set_smem(xent_bwd_x3_kernel<kRowsResident>, kSmem);
+  if (err != cudaSuccess) return err;
+  const int nres = kRowsResident ? N : V;
+  Params p;
+  p.bias = static_cast<const float*>(bias);
+  p.labels = static_cast<const int*>(labels);
+  p.logz = static_cast<const float*>(logz);
+  p.g = static_cast<const float*>(g);
+  p.out = static_cast<float*>(nsplit == 1 ? out : part);
+  p.db_out = static_cast<float*>(nsplit == 1 ? db : db_part);
+  p.N = N;
+  p.V = V;
+  p.H = H;
+  p.tiles_per_split = tiles_per_split;
+  p.sn = sn;
+  p.sp = sp;
+  // a cluster of the nchunks blocks of one resident tile and split
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nchunks, (nres + kRows - 1) / kRows, nsplit);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nchunks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, xent_bwd_x3_kernel<kRowsResident>,
+                           kRowsResident ? tm_h : tm_w,
+                           kRowsResident ? tm_w : tm_h, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace x3
+
+// The backward: f32 on 3xTF32 when `x3`, else by storage type (f32 on the
+// CUDA cores, bf16 on the tensor cores); then the fixed-order sum of the
+// splits' partials.
+template <bool kRowsResident>
+cudaError_t bwd_route(bool x3, int dtype, const void* h, const void* w,
                       const void* bias, const void* labels, const void* logz,
                       const void* g, void* out, void* db, void* part,
                       void* db_part, int N, int V, int H, int nsplit,
                       int tiles_per_split, int nchunks, int stages, float sn,
                       float sp, cudaStream_t st) {
   cudaError_t err;
-  if (dtype == PTT_F32) {
+  if (x3) {
+    if (dtype != PTT_F32) return cudaErrorInvalidValue;
+    err = x3::launch<kRowsResident>(h, w, bias, labels, logz, g, out, db,
+                                    part, db_part, N, V, H, nsplit,
+                                    tiles_per_split, nchunks, sn, sp, st);
+  } else if (dtype == PTT_F32) {
     err = bwd_launch<kRowsResident>(h, w, bias, labels, logz, g, out, db,
                                     part, db_part, N, V, H, nsplit,
                                     tiles_per_split, nchunks, sn, sp, st);
@@ -1160,7 +1669,19 @@ extern "C" int ptt_xent_stats_tc(const void* h, const void* w,
                                  void* out, void* part, int N, int V, int H,
                                  int nsplit, int tiles_per_split, int grid,
                                  void* stream) {
-  return static_cast<int>(stats_tc_launch(
+  return static_cast<int>(stats_tc_launch<__nv_bfloat16>(
+      h, w, bias, labels, out, part, N, V, H, nsplit, tiles_per_split, grid,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K5's f32 route on 3xTF32 (H % 4 == 0): the tc route's arguments and
+// plan, on f32 h and w.
+extern "C" int ptt_xent_stats_tf32x3(const void* h, const void* w,
+                                     const void* bias, const void* labels,
+                                     void* out, void* part, int N, int V,
+                                     int H, int nsplit, int tiles_per_split,
+                                     int grid, void* stream) {
+  return static_cast<int>(stats_tc_launch<float>(
       h, w, bias, labels, out, part, N, V, H, nsplit, tiles_per_split, grid,
       static_cast<cudaStream_t>(stream)));
 }
@@ -1175,8 +1696,24 @@ extern "C" int ptt_xent_bwd_dh(int dtype, const void* h, const void* w,
                                int tiles_per_split, int nchunks, int stages,
                                float sn, float sp, void* stream) {
   return static_cast<int>(bwd_route<true>(
-      dtype, h, w, bias, labels, logz, g, dh, nullptr, part, nullptr, N, V,
-      H, nsplit, tiles_per_split, nchunks, stages, sn, sp,
+      false, dtype, h, w, bias, labels, logz, g, dh, nullptr, part, nullptr,
+      N, V, H, nsplit, tiles_per_split, nchunks, stages, sn, sp,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K6's dh on 3xTF32 (f32, H % 4 == 0): the same arguments; `stages` is
+// not read (the ring is fixed), nchunks chunks of 256 columns.
+extern "C" int ptt_xent_bwd_dh_tf32x3(int dtype, const void* h,
+                                      const void* w, const void* bias,
+                                      const void* labels, const void* logz,
+                                      const void* g, void* dh, void* part,
+                                      int N, int V, int H, int nsplit,
+                                      int tiles_per_split, int nchunks,
+                                      int stages, float sn, float sp,
+                                      void* stream) {
+  return static_cast<int>(bwd_route<true>(
+      true, dtype, h, w, bias, labels, logz, g, dh, nullptr, part, nullptr,
+      N, V, H, nsplit, tiles_per_split, nchunks, stages, sn, sp,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -1190,7 +1727,23 @@ extern "C" int ptt_xent_bwd_dwb(int dtype, const void* h, const void* w,
                                 int tiles_per_split, int nchunks, int stages,
                                 float sn, float sp, void* stream) {
   return static_cast<int>(bwd_route<false>(
-      dtype, h, w, bias, labels, logz, g, dw, db, part, db_part, N, V, H,
-      nsplit, tiles_per_split, nchunks, stages, sn, sp,
+      false, dtype, h, w, bias, labels, logz, g, dw, db, part, db_part, N,
+      V, H, nsplit, tiles_per_split, nchunks, stages, sn, sp,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K6's dw/db on 3xTF32 (f32, H % 4 == 0): the same arguments.
+extern "C" int ptt_xent_bwd_dwb_tf32x3(int dtype, const void* h,
+                                       const void* w, const void* bias,
+                                       const void* labels, const void* logz,
+                                       const void* g, void* dw, void* db,
+                                       void* part, void* db_part, int N,
+                                       int V, int H, int nsplit,
+                                       int tiles_per_split, int nchunks,
+                                       int stages, float sn, float sp,
+                                       void* stream) {
+  return static_cast<int>(bwd_route<false>(
+      true, dtype, h, w, bias, labels, logz, g, dw, db, part, db_part, N, V,
+      H, nsplit, tiles_per_split, nchunks, stages, sn, sp,
       static_cast<cudaStream_t>(stream)));
 }

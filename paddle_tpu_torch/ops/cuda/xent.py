@@ -12,18 +12,25 @@ Source: ``paddle_tpu_torch/csrc/xent.cu``. The ``[N, V]`` logits never
 reach device memory. Weights are in the tied ``[V, H]`` ("vh") layout;
 h and W share one storage type (f32 or bf16); the bias is f32.
 
-K5 takes one of two routes by :func:`stats_route`: bf16 with ``H % 8 ==
-0`` runs on the tensor cores (the shared TMA + wgmma mainloop of
-``csrc/gemm.cuh`` with an online-statistics epilogue, split as
-:func:`stats_tc_plan` says; no H limit), everything else on the CUDA
-cores (``H <= 1744``, shared memory). A launch that fails raises.
+K5 takes one of three routes by :func:`stats_route`: bf16 with ``H % 8 ==
+0`` runs on the tensor cores (``"tc"``: the shared TMA + wgmma mainloop
+of ``csrc/gemm.cuh`` with an online-statistics epilogue, split as
+:func:`stats_tc_plan` says; no H limit), f32 with ``H % 4 == 0`` on the
+same mainloop with f32-accurate 3xTF32 products (``"tf32x3"``: each
+operand split into two TF32 parts, three tensor-core products; the same
+plan), everything else on the CUDA cores (``"simt"``, ``H <= 1744``,
+shared memory). A launch that fails raises.
 
-K6 takes one of two routes, by storage type only: bf16 runs on the tensor
-cores (wgmma fed by TMA, :func:`tc_plan`), f32 on the CUDA cores
-(:func:`simt_plan`). A bf16 launch that fails raises; it never falls back
-to the f32 route. The limits are shared memory: each plan raises for a
-hidden size whose tiles do not fit in :data:`core.MAX_SMEM`, and the bf16
-route needs ``H % 8 == 0`` (TMA rows are whole 16-byte units).
+K6 takes one of three routes by :func:`bwd_route`: bf16 runs on the
+tensor cores (``"tc"``: wgmma fed by TMA, :func:`tc_plan`), f32 with ``H
+% 4 == 0`` on 3xTF32 wgmma (``"tf32x3"``, :func:`x3_plan`: the blocks of
+one resident tile, a chunk of H each, form a cluster that computes the
+logits once; ``H <= 2048``), any other f32 on the CUDA cores (``"simt"``,
+:func:`simt_plan`). A launch that fails
+raises; no route falls back to another. The limits are shared memory:
+each plan raises for a hidden size whose tiles do not fit in
+:data:`core.MAX_SMEM`, and the TMA routes need H to be a whole number of
+16-byte units (``H % 8 == 0`` in bf16, ``H % 4 == 0`` in f32).
 
 On the card the kernels are reached through their ops
 (``core.define_op``): ``torch.ops.paddle_tpu_torch.xent_stats`` returns
@@ -49,18 +56,25 @@ KERNEL_STATS = core.register(
     "xent_stats", "ptt_xent_stats",
     [core.I32] + [core.VP] * 6 + [core.I32] * 5 + [core.VP],
     replaces="paddle_tpu/ops/pallas/xent.py:49", source=_SRC,
-    routes={"tc": ("ptt_xent_stats_tc",
-                   [core.VP] * 6 + [core.I32] * 6 + [core.VP])})
+    routes={r: (sym, [core.VP] * 6 + [core.I32] * 6 + [core.VP])
+            for r, sym in (("tc", "ptt_xent_stats_tc"),
+                           ("tf32x3", "ptt_xent_stats_tf32x3"))})
+_DH_ARGS = ([core.I32] + [core.VP] * 8 + [core.I32] * 7
+            + [core.F32_ARG, core.F32_ARG, core.VP])
+_DWB_ARGS = ([core.I32] + [core.VP] * 10 + [core.I32] * 7
+             + [core.F32_ARG, core.F32_ARG, core.VP])
+# K6's C entry chooses between its SIMT and bf16 kernels by storage type;
+# the "tc" route names the same entry, so that each route counts its own
 KERNEL_DH = core.register(
-    "xent_bwd_dh", "ptt_xent_bwd_dh",
-    [core.I32] + [core.VP] * 8 + [core.I32] * 7
-    + [core.F32_ARG, core.F32_ARG, core.VP],
-    replaces="paddle_tpu/ops/pallas/xent.py:178", source=_SRC)
+    "xent_bwd_dh", "ptt_xent_bwd_dh", _DH_ARGS,
+    replaces="paddle_tpu/ops/pallas/xent.py:178", source=_SRC,
+    routes={"tc": ("ptt_xent_bwd_dh", _DH_ARGS),
+            "tf32x3": ("ptt_xent_bwd_dh_tf32x3", _DH_ARGS)})
 KERNEL_DWB = core.register(
-    "xent_bwd_dwb", "ptt_xent_bwd_dwb",
-    [core.I32] + [core.VP] * 10 + [core.I32] * 7
-    + [core.F32_ARG, core.F32_ARG, core.VP],
-    replaces="paddle_tpu/ops/pallas/xent.py:200", source=_SRC)
+    "xent_bwd_dwb", "ptt_xent_bwd_dwb", _DWB_ARGS,
+    replaces="paddle_tpu/ops/pallas/xent.py:200", source=_SRC,
+    routes={"tc": ("ptt_xent_bwd_dwb", _DWB_ARGS),
+            "tf32x3": ("ptt_xent_bwd_dwb_tf32x3", _DWB_ARGS)})
 
 #: vocab chunk of the plain versions (the reference's xent_chunk flag)
 CHUNK = 8192
@@ -72,13 +86,19 @@ RES_ROWS, STREAM_ROWS, SIMT_COLS = 32, 64, 768
 #: columns per TMA box, 64-column output slots per warpgroup at most, and
 #: the ring's largest stage count
 TC_ROWS, TC_BOX, TC_MAX_SLOTS, TC_MAX_STAGES = 64, 64, 4, 8
-#: K6 (both routes): the most splits of the streamed axis
+#: K6 (every route): the most splits of the streamed axis
 MAX_SPLITS = 8
 #: K5's bf16 route (csrc/gemm.cuh): rows and vocab columns per tile, the
 #: most vocab splits, and the share of the waves' SM slots to keep busy
 STATS_TC_ROWS, STATS_TC_WIDTH, STATS_TC_MAX_SPLITS = 128, 256, 16
 STATS_TC_BUSY = 7 / 8
 _BOX_BYTES = TC_BOX * TC_BOX * 2          # a TMA box; a ring stage holds 2
+#: K6's f32 route on 3xTF32 (csrc/xent.cu x3): resident rows per block (64
+#: a consumer warpgroup), streamed rows per tile, output columns per
+#: block (a chunk of H) and ring stages
+X3_ROWS, X3_STREAM, X3_COLS, X3_STAGES = 128, 64, 256, 2
+#: the most chunks of H (blocks of a cluster) K6's tf32x3 route takes
+X3_MAX_CLUSTER = 8
 
 
 def _chunk_logits(h, w, b, c0, c1):
@@ -160,6 +180,19 @@ def tc_smem(hid, stages):
             + 16 * 8)
 
 
+def x3_smem():
+    """Shared memory of a 3xTF32 K6 block (``csrc/xent.cu x3::kSmem``):
+    1 KB of alignment; the ring, each stage four boxes (R's two, X's one
+    and its lo part); the staged ``[256, 64]`` X^T, hi and lo; the
+    block's partial ``[128, 64]`` logits for its cluster; the per-column
+    parameters of a tile; the barriers."""
+    stage = 4 * _BOX_BYTES
+    staged = 2 * X3_COLS * X3_STREAM * 4
+    partial = X3_ROWS * X3_STREAM * 4
+    return 1024 + X3_STAGES * stage + staged + partial \
+        + 4 * X3_STREAM * 4 + (2 * X3_STAGES + 2) * 8
+
+
 def wave_splits(units, tiles, sms):
     """``(splits, tiles_per_split)`` of a streamed axis of ``tiles`` tiles
     under ``units`` blocks of equal work, one block per SM (both K6
@@ -206,6 +239,29 @@ def tc_plan(resident, streamed, hid, sms):
                 stages=stages, smem=tc_smem(hid, stages))
 
 
+def x3_plan(resident, streamed, hid, sms):
+    """K6's f32 plan on 3xTF32: ``dict(chunks, splits, per, stages,
+    smem)``. Blocks are ``chunks x ceil(resident / 128) x splits``, one
+    per SM; H is cut into chunks of 256 columns, the blocks of one
+    resident tile and split (one a chunk) form a cluster that shares the
+    logits; the streamed axis split as :func:`wave_splits` says. Raises
+    for a shape the kernel does not take."""
+    what = "xent backward (f32, tf32x3)"
+    if hid % 4:
+        raise ValueError(f"{what}: hidden size {hid} is not a multiple of 4 "
+                         "(TMA rows are whole 16-byte units)")
+    _fits(what, hid, x3_smem())
+    chunks = -(-hid // X3_COLS)
+    if chunks > X3_MAX_CLUSTER:
+        raise ValueError(f"{what}: hidden size {hid} needs {chunks} chunks "
+                         f"of {X3_COLS}, a cluster takes at most "
+                         f"{X3_MAX_CLUSTER}")
+    splits, per = wave_splits(-(-resident // X3_ROWS) * chunks,
+                              max(1, -(-streamed // X3_STREAM)), sms)
+    return dict(chunks=chunks, splits=splits, per=per, stages=X3_STAGES,
+                smem=x3_smem())
+
+
 def simt_plan(resident, streamed, hid, sms):
     """K6's f32 launch plan: ``dict(chunks, splits, per, smem)``; blocks
     are ``ceil(resident / 32) x splits x chunks`` of 768 columns each,
@@ -233,9 +289,22 @@ def _split_plan(resident, streamed, blocks_wanted):
 
 
 def stats_route(dtype, hid):
-    """K5's route: ``"tc"`` for bf16 with ``H % 8 == 0`` (whole 16-byte
-    TMA rows), else ``"simt"``: the rule of K4's ``mlp_route``."""
-    return "tc" if dtype == torch.bfloat16 and hid % 8 == 0 else "simt"
+    """K5's route: ``"tc"`` for bf16 with ``H % 8 == 0`` and
+    ``"tf32x3"`` for f32 with ``H % 4 == 0`` (whole 16-byte TMA rows),
+    else ``"simt"``."""
+    if dtype == torch.bfloat16 and hid % 8 == 0:
+        return "tc"
+    if dtype == torch.float32 and hid % 4 == 0:
+        return "tf32x3"
+    return "simt"
+
+
+def bwd_route(dtype, hid):
+    """K6's route: ``"tc"`` for bf16 (:func:`tc_plan` refuses ``H % 8 !=
+    0``), ``"tf32x3"`` for f32 with ``H % 4 == 0``, else ``"simt"``."""
+    if dtype == torch.bfloat16:
+        return "tc"
+    return "tf32x3" if hid % 4 == 0 else "simt"
 
 
 def stats_tc_plan(n, v, sms):
@@ -263,7 +332,9 @@ def _sms(t):
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
-def _stats_tc(h, w, b, lbl, out, n, v, hid):
+def _stats_tc(h, w, b, lbl, out, n, v, hid, route):
+    """K5 on the mainloop: ``route`` ``"tc"`` (bf16) or ``"tf32x3"``
+    (f32), one plan for both."""
     # TMA reads 16-byte aligned rows: a misaligned operand is copied
     h, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (h, w))
     nsplit, per, grid = stats_tc_plan(n, v, _sms(h))
@@ -271,7 +342,7 @@ def _stats_tc(h, w, b, lbl, out, n, v, hid):
                         device=h.device) if nsplit > 1 else None)
     KERNEL_STATS(core.ptr(h), core.ptr(w), core.ptr(b), core.ptr(lbl),
                  core.ptr(out), core.ptr(part), n, v, hid, nsplit, per, grid,
-                 core.stream(h), route="tc")
+                 core.stream(h), route=route)
     return out
 
 
@@ -283,8 +354,9 @@ def _xent_stats_cuda(h, w, b, labels):
     if n == 0 or v == 0:
         return out
     lbl = labels.to(torch.int32).contiguous()
-    if stats_route(h.dtype, hid) == "tc":
-        return _stats_tc(h, w, b, lbl, out, n, v, hid)
+    route = stats_route(h.dtype, hid)
+    if route != "simt":
+        return _stats_tc(h, w, b, lbl, out, n, v, hid, route)
     _fits("xent_stats kernel", hid, stats_smem(hid))
     # two blocks fit on an SM: aim for two waves of them
     nsplit, per = _split_plan(n, v, 4 * _sms(h))
@@ -337,27 +409,33 @@ def xent_bwd_plain(h, w, b, labels, logz, g, sn, sp, chunk=CHUNK):
 
 
 def _bwd_setup(h, w, b, labels, logz, g, what, resident):
-    """``(code, n, v, hid, plan, ptrs, operands)``. The plan is
-    :func:`tc_plan` for bf16 and :func:`simt_plan` for f32, over
-    ``resident`` rows (N for dh, V for dw/db). The caller holds
-    ``operands`` (labels, logz and g converted for the kernel) until the
-    launch: a converted copy freed before its kernel is enqueued goes back
+    """``(code, n, v, hid, route, plan, ptrs, operands)``. The route is
+    :func:`bwd_route`'s, the plan its own (:func:`tc_plan`,
+    :func:`x3_plan` or :func:`simt_plan`) over ``resident`` rows (N for
+    dh, V for dw/db). The caller holds ``operands`` (labels, logz and g
+    converted for the kernel, and h and w, copied where the tf32x3 route
+    needs them aligned) until the launch: a converted copy freed before its kernel is enqueued goes back
     to the caching allocator, and the next allocation on the stream (the
     kernel's own output) may be handed the same memory."""
     code, n, v, hid = _check(h, w, b, labels, what)
     res, streamed = (n, v) if resident == "rows" else (v, n)
-    if code == core.BF16:
+    route = bwd_route(h.dtype, hid)
+    if route == "simt":
+        plan = dict(simt_plan(res, streamed, hid, _sms(h)), stages=0)
+    elif route == "tc":
         plan = tc_plan(res, streamed, hid, _sms(h))
         if h.data_ptr() % 16 or w.data_ptr() % 16:
             raise ValueError(f"{what}: bf16 h and weight must start on a "
                              "16-byte boundary (TMA)")
     else:
-        plan = dict(simt_plan(res, streamed, hid, _sms(h)), stages=0)
+        plan = x3_plan(res, streamed, hid, _sms(h))
+        # TMA reads 16-byte aligned rows: a misaligned operand is copied
+        h, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (h, w))
     operands = (labels.to(torch.int32).contiguous(),
-                logz.float().contiguous(), g.float().contiguous())
+                logz.float().contiguous(), g.float().contiguous(), h, w)
     ptrs = (core.ptr(h), core.ptr(w), core.ptr(b),
-            *(core.ptr(t) for t in operands))
-    return code, n, v, hid, plan, ptrs, operands
+            *(core.ptr(t) for t in operands[:3]))
+    return code, n, v, hid, route, plan, ptrs, operands
 
 
 def _plan_args(plan):
@@ -366,7 +444,7 @@ def _plan_args(plan):
 
 def _xent_dh_cuda(h, w, b, labels, logz, g, sn, sp):
     """K6's dh op on CUDA tensors: one launch -> dh ``[N, H]`` f32."""
-    code, n, v, hid, plan, ptrs, operands = _bwd_setup(
+    code, n, v, hid, route, plan, ptrs, operands = _bwd_setup(
         h, w, b, labels, logz, g, "xent_bwd_dh kernel", "rows")
     dh = torch.empty((n, hid), dtype=torch.float32, device=h.device)
     if n == 0 or v == 0:
@@ -374,7 +452,8 @@ def _xent_dh_cuda(h, w, b, labels, logz, g, sn, sp):
     part = (torch.empty((plan["splits"], n, hid), dtype=torch.float32,
                         device=h.device) if plan["splits"] > 1 else None)
     KERNEL_DH(code, *ptrs, core.ptr(dh), core.ptr(part), n, v, hid,
-              *_plan_args(plan), float(sn), float(sp), core.stream(h))
+              *_plan_args(plan), float(sn), float(sp), core.stream(h),
+              route=route)
     del operands                     # enqueued: stream order protects them
     return dh
 
@@ -382,7 +461,7 @@ def _xent_dh_cuda(h, w, b, labels, logz, g, sn, sp):
 def _xent_dwb_cuda(h, w, b, labels, logz, g, sn, sp):
     """K6's dw/db op on CUDA tensors: one launch -> ``(dw [V, H], db
     [V])`` f32."""
-    code, n, v, hid, plan, ptrs, operands = _bwd_setup(
+    code, n, v, hid, route, plan, ptrs, operands = _bwd_setup(
         h, w, b, labels, logz, g, "xent_bwd_dwb kernel", "vocab")
     dw = torch.empty((v, hid), dtype=torch.float32, device=h.device)
     db = torch.empty(v, dtype=torch.float32, device=h.device)
@@ -396,7 +475,7 @@ def _xent_dwb_cuda(h, w, b, labels, logz, g, sn, sp):
                               device=h.device)
     KERNEL_DWB(code, *ptrs, core.ptr(dw), core.ptr(db), core.ptr(part),
                core.ptr(db_part), n, v, hid, *_plan_args(plan), float(sn),
-               float(sp), core.stream(h))
+               float(sp), core.stream(h), route=route)
     del operands                     # enqueued: stream order protects them
     return dw, db
 

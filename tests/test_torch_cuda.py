@@ -693,7 +693,7 @@ def test_flash_takes_the_tensor_core_route_by_the_rule(cuda):
 # K6's bf16 route feeds the second product gch rounded to bf16 (one
 # rounding, 2^-9 relative, per dlogit), so its dh and dw are held at 2^-8
 # of their largest plain value; db (summed from the f32 gch), its f32
-# route and K5 at F32_TOL.
+# routes (3xTF32, SIMT) and K5 at F32_TOL.
 XENT_BF16_TOL = 2.0 ** -8
 
 
@@ -724,9 +724,23 @@ def _held_xent_bwd(got, want, labels, v, dtype):
     (130, 1000, 1024, torch.float32, 0.0),
     (50, 300, 64, torch.bfloat16, 0.0),        # one box: a zero box pads
     (200, 3000, 576, torch.bfloat16, 0.1),     # 9 boxes: odd ring parts
+    (4088, 32000, 768, torch.float32, 0.0),    # the program path's head
+    (37, 300, 96, torch.float32, 0.1),         # ragged: a vocab tail
+    (45, 700, 66, torch.float32, 0.0),         # H % 4 != 0: SIMT
 ])
 def test_xent_kernels(cuda, n, v, hid, dtype, ls):
-    from paddle_tpu_torch.ops.cuda import xent
+    """K5 and K6 against their plain versions (F32_TOL in f32, on each
+    output's scale and on the entries no label reaches), each launch on
+    its route: f32 3xTF32 where H % 4 == 0, else SIMT; bf16 the tensor
+    cores (K5 where H % 8 == 0)."""
+    from paddle_tpu_torch.ops.cuda import core, xent
+    names = ("xent_stats", "xent_bwd_dh", "xent_bwd_dwb")
+    if dtype == torch.float32:
+        route = dict.fromkeys(names, "tf32x3" if hid % 4 == 0 else "simt")
+    else:
+        route = dict.fromkeys(names, "tc")
+        route["xent_stats"] = "tc" if hid % 8 == 0 else "simt"
+    before = {k: dict(core.KERNELS[k].route_launches) for k in names}
     g = torch.Generator().manual_seed(5)
     h = _randn(g, n, hid, dtype=dtype)
     w = _randn(g, v, hid, scale=0.05, dtype=dtype)
@@ -742,6 +756,10 @@ def test_xent_kernels(cuda, n, v, hid, dtype, ls):
         xent.xent_bwd_kernel(h, w, bias, labels, logz, gg, sn, sp),
         xent.xent_bwd_plain(h, w, bias, labels, logz, gg, sn, sp), labels,
         v, dtype)
+    for k in names:
+        after = core.KERNELS[k].route_launches
+        assert {r: after[r] - before[k][r] for r in after} == {
+            r: int(r == route[k]) for r in after}, (k, after)
 
 
 @pytest.mark.parametrize("n,v,hid", [
@@ -775,7 +793,7 @@ def test_k4_k5_take_the_tensor_core_route_by_the_rule(cuda):
     """bf16 K4 and K5 with widths that are multiples of 8 launch on the
     tc route (its count rises, no other route's does); H = 100 in bf16
     takes K4's split route and K5's simt route, f32 at 40 rows K4's gemm
-    route and K5's simt route, each still right."""
+    route and K5's tf32x3 route, each still right."""
     from paddle_tpu_torch.ops.cuda import core, mlp, xent
     g = torch.Generator().manual_seed(12)
 
@@ -795,7 +813,7 @@ def test_k4_k5_take_the_tensor_core_route_by_the_rule(cuda):
 
     for hid, dtype, routes in ((128, torch.bfloat16, ("tc", "tc")),
                                (100, torch.bfloat16, ("split", "simt")),
-                               (128, torch.float32, ("gemm", "simt"))):
+                               (128, torch.float32, ("gemm", "tf32x3"))):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         for name, fn, plain, case, route in (
                 ("mlp", mlp.mlp_kernel, mlp.mlp_plain, mlp_case, routes[0]),

@@ -441,14 +441,15 @@ def test_xent_stats_tc_plan_covers_every_tile_once(n, v):
     (torch.bfloat16, (100, 3072, 100), "split", "simt"),
     (torch.bfloat16, (768, 3004, 768), "split", "tc"),
     (torch.bfloat16, (768, 3072, 100), "split", "tc"),
-    (torch.float32, (768, 3072, 768), "split", "simt"),
+    (torch.float32, (768, 3072, 768), "split", "tf32x3"),
 ])
 def test_k4_k5_route_rule(dtype, widths, route, k5_route):
     """K4's and K5's route: bf16 with every width a multiple of 8 (whole
     16-byte TMA rows; K4 has H, I and Hout, K5 only H) takes the tensor
     cores; any other width in bf16 K4's split route and K5's SIMT
     kernel; f32 at 8 rows K4's split route (the gemm route takes f32
-    past 32 rows: test_mlp_route_rule_by_rows) and K5's SIMT kernel."""
+    past 32 rows: test_mlp_route_rule_by_rows) and K5's 3xTF32 route
+    (H % 4 == 0: test_xent_route_rule)."""
     from paddle_tpu_torch.ops.cuda import mlp, xent
     assert mlp.mlp_route(dtype, *widths, 8) == route
     assert xent.stats_route(dtype, widths[0]) == k5_route
@@ -549,6 +550,144 @@ def test_xent_bwd_plan_covers_every_tile_in_whole_waves(hid):
         plan = xent.tc_plan(res, streamed, hid, sms)
         blocks = -(-res // 64) * plan["chunks"] * plan["splits"]
         assert _wave_fill(blocks, sms) >= 0.5
+
+
+@pytest.mark.parametrize("dtype,hid,k5,k6", [
+    (torch.bfloat16, 768, "tc", "tc"),
+    (torch.bfloat16, 100, "simt", "tc"),
+    (torch.float32, 768, "tf32x3", "tf32x3"),
+    (torch.float32, 96, "tf32x3", "tf32x3"),
+    (torch.float32, 100, "tf32x3", "tf32x3"),
+    (torch.float32, 66, "simt", "simt"),
+    (torch.float32, 770, "simt", "simt"),
+])
+def test_xent_route_rule(dtype, hid, k5, k6):
+    """K5's and K6's routes: f32 with H % 4 == 0 (whole 16-byte TMA rows)
+    takes 3xTF32, f32 with any other H the SIMT kernels; bf16 K5 the
+    tensor cores for H % 8 == 0, else SIMT, and bf16 K6 always the tensor
+    cores (its plan refuses H % 8 != 0)."""
+    from paddle_tpu_torch.ops.cuda import xent
+    assert xent.stats_route(dtype, hid) == k5
+    assert xent.bwd_route(dtype, hid) == k6
+
+
+@pytest.mark.parametrize("hid", [64, 96, 576, 768, 1024])
+def test_xent_x3_plan_covers_every_tile_in_whole_waves(hid):
+    """K6's 3xTF32 plan: H in chunks of 256 columns (the blocks of one
+    cluster), every (resident tile of 128, chunk, streamed tile of 64)
+    covered exactly once; the last
+    wave at least half full wherever a split of the streamed axis can
+    make it so, with the fewest splits that do; one fixed shared-memory
+    size within the H100's 227 KB per block."""
+    from paddle_tpu_torch.ops.cuda import core, xent
+    sms = 132
+    shapes = ((8176, 32000), (4088, 32000), (4864, 30522), (37, 65),
+              (37, 300), (130, 1000))
+    for n_, v in shapes:
+        for res, streamed in ((n_, v), (v, n_)):   # dh, then dw/db
+            plan = xent.x3_plan(res, streamed, hid, sms)
+            assert plan["smem"] == xent.x3_smem() <= core.MAX_SMEM
+            assert plan["stages"] == xent.X3_STAGES
+            assert (plan["chunks"] - 1) * xent.X3_COLS < hid
+            assert hid <= plan["chunks"] * xent.X3_COLS
+            units = -(-res // xent.X3_ROWS) * plan["chunks"]
+            tiles = -(-streamed // xent.X3_STREAM)
+            _covers_in_whole_waves(units, tiles, plan["splits"],
+                                   plan["per"], sms, xent.MAX_SPLITS)
+            for want in range(1, plan["splits"]):
+                fewer = -(-tiles // -(-tiles // want))
+                if fewer < plan["splits"]:
+                    assert _wave_fill(units * fewer, sms) < 0.5
+    # the program path's and GPT training's f32 shapes: last wave half full
+    for res, streamed in ((4088, 32000), (32000, 4088), (8176, 32000),
+                          (32000, 8176)):
+        plan = xent.x3_plan(res, streamed, hid, sms)
+        blocks = -(-res // xent.X3_ROWS) * plan["chunks"] * plan["splits"]
+        assert _wave_fill(blocks, sms) >= 0.5
+
+
+def test_xent_x3_plan_refuses_what_the_tf32x3_route_cannot_take(
+        monkeypatch):
+    from paddle_tpu_torch.ops.cuda import core, xent
+    with pytest.raises(ValueError, match="multiple of 4"):
+        xent.x3_plan(100, 200, 66, 132)
+    assert xent.x3_plan(100, 200, 2048, 132)["chunks"] == 8
+    with pytest.raises(ValueError, match="cluster"):
+        xent.x3_plan(100, 200, 2052, 132)
+    monkeypatch.setattr(core, "MAX_SMEM", xent.x3_smem() - 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        xent.x3_plan(100, 200, 64, 132)
+
+
+def _tf32(x):
+    """f32 -> tf32 as ``cvt.rna.tf32.f32`` rounds: to nearest, ties away
+    from zero, at 10 mantissa bits (the low 13 bits 0), on the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_mm(a, b, terms):
+    """``a @ b`` in f32 as the tensor cores do it from tf32 operands: one
+    product of the rounded operands (1xTF32), or the split ``a = ah +
+    al``, ``b = bh + bl`` (hi = tf32(x), lo = tf32(x - hi)) and al bh +
+    ah bl + ah bh (3xTF32, csrc/hopper.cuh)."""
+    if terms == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_xent_tf32x3_emulation_holds_f32_tol_and_1xtf32_does_not():
+    """K5's and K6's f32 products emulated bit for bit as their 3xTF32
+    routes round (the split of each operand, three products, f32 sums)
+    on [130, 768]·[1000, 768]ᵀ logits: every output (m, s, picked,
+    sum_logits; dh, dw, db) within F32_TOL (1e-4, chip_smoke.py's f32
+    bar) of float64 on its own scale. 1xTF32 (the rounded operands, one
+    product) misses it: so the card's check at F32_TOL tells a dropped
+    correction term."""
+    f32_tol = 1e-4
+    rs = np.random.RandomState(23)
+    n_, v, hid = 130, 1000, 768
+    h = torch.from_numpy(rs.randn(n_, hid).astype(np.float32))
+    w = torch.from_numpy((rs.randn(v, hid) * 0.05).astype(np.float32))
+    b = torch.from_numpy((rs.randn(v) * 0.1).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, v, n_))
+    labels[::7] = v + 3
+    g = torch.from_numpy((rs.randn(n_) * 0.01).astype(np.float32))
+    hit = torch.arange(v)[None, :] == labels[:, None]
+
+    def outputs(logits, mm, dt):
+        m = logits.max(1).values
+        s = torch.exp(logits - m[:, None]).sum(1)
+        picked = torch.where(hit, logits, torch.zeros_like(logits)).sum(1)
+        logz = (m + torch.log(s)).to(dt)
+        gch = ((torch.exp(logits.to(dt) - logz[:, None]) - hit.to(dt))
+               * g.to(dt)[:, None])
+        return dict(m=m, s=s, picked=picked, sum_logits=logits.sum(1),
+                    dh=mm(gch, w.to(dt)), dw=mm(gch.T, h.to(dt)),
+                    db=gch.sum(0))
+
+    want = outputs(h.double() @ w.double().T + b.double(),
+                   lambda a, c: a @ c, torch.float64)
+    rel = {}
+    for terms in (3, 1):
+        logits = _tf32_mm(h, w.T, terms) + b
+        got = outputs(logits.double(),
+                      lambda a, c: _tf32_mm(a, c, terms), torch.float32)
+        rel[terms] = {k: float((got[k].double() - want[k]).abs().max()
+                               / want[k].abs().max()) for k in want}
+    assert max(rel[3].values()) <= f32_tol, rel[3]
+    assert rel[1]["dh"] > f32_tol and rel[1]["dw"] > f32_tol, rel[1]
+    # the split as the kernels make it: hi has 13 zero bits, and hi + lo
+    # is x within 2^-22 |x|
+    x = h.reshape(-1)
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert ((x - hi).abs() <= 2.0 ** -11 * x.abs()).all()
+    assert ((x.double() - hi.double() - lo.double()).abs()
+            <= 2.0 ** -22 * x.double().abs()).all()
 
 
 def test_xent_bwd_plan_refuses_what_the_bf16_route_cannot_take():
