@@ -35,7 +35,11 @@ Phases, each printing one JSON line:
    K2 and K3 exponentials over the special-function rate; f32 products at
    three TF32 products' 165 TFLOP/s). K5 and K6 timed at GPT's
    [8176, 32000, 768] head in bf16 and in f32 (tf32x3), checked at the
-   program path's 4088 rows and ragged shapes. K2-K5 (their
+   program path's 4088 rows and ragged shapes. K3 timed at GPT-train's
+   [16, 12, 512, 512, 64] causal in bf16 (tc) and f32 (tf32x3), and at
+   D = 32 in f32 (its SIMT route); its tf32x3 route also held at
+   Tq != Tk, T = 200 with a key mask that masks whole rows, Tq = Tk =
+   2048 and on a misaligned view. K2-K5 (their
    tc routes) also at BertConfig.base()'s and .large()'s shapes. K2 and
    K3 (flash_cases) hold each output on its own scale, and again on the
    rows that see few partners (a causal diagonal, the last keys) and on
@@ -365,7 +369,7 @@ Phases, each printing one JSON line:
    (2 warm-up, 5 timed runs: p50 ms); one forward and its gradient over
    the fed parameters through the parsed build_fn and autograd, with the
    launches asserted (K1 25, K2 12, K5 1; K3 dq and dk/dv 12 each, K6 dh
-   and dw/db 1 each) and their routes (K1 row, K2/K3 SIMT, K5/K6 tf32x3:
+   and dw/db 1 each) and their routes (K1 row, K2 SIMT, K3/K5/K6 tf32x3:
    f32); a forward and its backward timed (2 warm-up, 5 timed: p50 ms);
    the same desc cut to 2 layers at 2 x 128 on the card and the CPU (loss
    within 1e-4 relative, every gradient within 1e-3 relative L2);
@@ -380,8 +384,9 @@ K2, K3, K4, K5 and K6 have two routes or more: the tensor cores for
 bf16 (K4 and K5 with widths that are multiples of 8, on the TMA + wgmma
 mainloop of csrc/gemm.cuh; K2 and K3 with a head dim of 64 or 128, on
 their own TMA + wgmma kernels; K6 for every bf16 width), 3xTF32 on the
-tensor cores for K5 and K6 in f32 with H a multiple of 4 ("tf32x3"),
-the SIMT kernels for f32 and other widths. Every
+tensor cores for K5 and K6 in f32 with H a multiple of 4 and for K3 in
+f32 with a head dim of 64 ("tf32x3"), the SIMT kernels for f32 and
+other widths. Every
 such case records the route it took and must have taken the rule's;
 every K2-K5 launch of train, bert_train and bert_large must be on the
 tensor cores, every K2 and K4 launch of serve on the SIMT kernel. K1 and
@@ -393,11 +398,15 @@ takes.
 Then the {"kernels": [...]} line (each kernel with the launches of its
 own path: serve for K1 (its row route), K7 (its split route) and the SIMT
 rows of K2 and K4, beside serve_spec's greedy run's,
-train_crosscheck (f32) for K3's SIMT rows, train for the tc rows
-("flash_attention.tc", "flash_attention_bwd_dq.tc",
+train_crosscheck (f32) for K3's SIMT rows (timed at D = 32, its route's
+launches there: 0, since the f32 crosschecks take tf32x3), train for the
+tc rows ("flash_attention.tc", "flash_attention_bwd_dq.tc",
 "flash_attention_bwd_dkv.tc", "mlp.tc") and K5's and K6's bf16 rows,
-program for their f32 rows ("xent_stats.tf32x3", "xent_bwd_dh.tf32x3",
-"xent_bwd_dwb.tf32x3", timed at [8176, 32000, 768] f32), bert for K8, and
+program for the f32 3xTF32 rows ("xent_stats.tf32x3",
+"xent_bwd_dh.tf32x3", "xent_bwd_dwb.tf32x3", timed at [8176, 32000,
+768] f32; "flash_attention_bwd_dq.tf32x3" and
+"flash_attention_bwd_dkv.tf32x3", timed at [16, 12, 512, 512, 64] f32
+causal), bert for K8, and
 transformer_big for the "add_layer_norm.mixed" row (K8 at f32 rows with
 bf16 parameters); "variant" names the route; every row also has each
 path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
@@ -831,18 +840,21 @@ def flash_parts(b, h, tq, tk, causal, mask, dev):
 
 
 def flash_cases(dev, gen, b, h, tq, tk, d, dtype, causal=False,
-                lengths=None, timed=False):
+                lengths=None, timed=False, misaligned=False):
     """K2 and K3 on one attention: q, k, v and dO ``[B, H, T, D]`` drawn
     from ``gen``, scale D^-0.5, and with ``lengths`` a key-padding mask
     (batch row i attends its first ``lengths[i]`` keys; 0 masks every
-    key, so its rows must come out exactly 0). K2's out and K3's dq, dk
+    key, so its rows must come out exactly 0); ``misaligned`` puts each of
+    them one element past a 16-byte boundary (a view the TMA routes
+    copy). K2's out and K3's dq, dk
     and dv are each held against the plain versions (K3's from K2's own
     out and lse) by :func:`held_flash` at F32_TOL in f32 and
     FLASH_BF16_TOL in bf16, and K2's out also absolutely, within F32_TOL
     in f32 and BF16_TOL in bf16; K2's lse on the rows that see a key at
     F32_TOL of its scale and within F32_TOL absolutely, and exactly on the
     rows that see none. Each case records the route its launch took,
-    which must be :func:`flash_route`'s. Returns the three cases by
+    which must be :func:`flash_route`'s (K2) or :func:`flash_bwd_route`'s
+    (K3). Returns the three cases by
     kernel name. ``timed`` adds each kernel's time, its plain version's,
     one library call's (SDPA forward for K2, its autograd backward, all
     three gradients, for K3) and the bound, with the pairs a causal
@@ -853,7 +865,11 @@ def flash_cases(dev, gen, b, h, tq, tk, d, dtype, causal=False,
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     def randn(*shape):
-        return torch.randn(*shape, generator=gen).to(dev, dtype)
+        x = torch.randn(*shape, generator=gen).to(dev, dtype)
+        if misaligned:
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+            x = buf[1:].view_as(x).copy_(x)
+        return x
 
     q, do = randn(b, h, tq, d), randn(b, h, tq, d)
     k, v = randn(b, h, tk, d), randn(b, h, tk, d)
@@ -875,19 +891,22 @@ def flash_cases(dev, gen, b, h, tq, tk, d, dtype, causal=False,
                                    fa.flash_attention_bwd_dkv_kernel, *bwd)
     pdq, pdk, pdv = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
                                                  scale, causal, mask)
-    want_route = fa.flash_route(dtype, d)
     shape = [b, h, tq, tk, d]
-    what = f"{shape} {dtype} causal={causal} mask={lengths}"
+    what = (f"{shape} {dtype} causal={causal} mask={lengths}"
+            + (" misaligned" if misaligned else ""))
     for kernel, route in (("flash_attention", fwd_route),
                           ("flash_attention_bwd_dq", dq_route),
                           ("flash_attention_bwd_dkv", dkv_route)):
+        want_route = expected_route(kernel, dict(dtype=str(dtype),
+                                                 shape=shape))
         if route != want_route:
             raise AssertionError(f"{kernel} {what}: took the {route} "
                                  f"route, not {want_route}")
     keys, q_parts, k_parts = flash_parts(b, h, tq, tk, causal, mask, dev)
     tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     base = dict(shape=shape, dtype=str(dtype), causal=causal,
-                kv_mask=lengths)
+                kv_mask=lengths, **({"misaligned": True} if misaligned
+                                    else {}))
     cases, failed = {}, []
     for kernel, route, outs in (
             ("flash_attention", fwd_route, [("out", out, pout, q_parts)]),
@@ -1279,19 +1298,28 @@ def train_kernel_cases(dev):
     results["train_shapes"].append(case)
 
     # K2 and K3 (flash_cases): GPT-train's [16, 12, 512, 512, 64] causal
-    # in bf16 (the tc route) and f32 (the simt route), both timed; then
-    # the tc route at Tq != Tk, ragged T with key masks and fully masked
-    # rows, T not a multiple of 64, at D = 64 and 128; then the simt
-    # route's ragged and narrow head dims
+    # in bf16 (the tc routes) and f32 (K2 simt, K3 tf32x3), and at D = 32
+    # in f32 (K3's simt route), all timed; then the tc route at Tq != Tk,
+    # ragged T with key masks and fully masked rows, T not a multiple of
+    # 64, at D = 64 and 128; then K3's tf32x3 route at Tq != Tk, a key
+    # mask with fully masked rows, 2048 keys (32 tiles summed on the
+    # tensor cores) and a misaligned view; then the simt routes' ragged
+    # and narrow head dims
+    f32 = torch.float32
     for spec, causal, lengths, timed in (
             ((16, 12, 512, 512, 64, bf16), True, None, True),
-            ((16, 12, 512, 512, 64, torch.float32), True, None, True),
+            ((16, 12, 512, 512, 64, f32), True, None, True),
+            ((16, 12, 512, 512, 32, f32), True, None, True),
             ((1, 4, 100, 300, 64, bf16), True, None, False),
             ((3, 4, 200, 200, 64, bf16), True, (200, 137, 0), False),
             ((3, 4, 200, 200, 128, bf16), False, (190, 61, 0), False),
             ((2, 3, 130, 130, 128, bf16), True, None, False),
             ((2, 3, 70, 70, 64, bf16), False, None, False),
             ((1, 4, 300, 100, 128, bf16), True, (77,), False),
+            ((1, 4, 100, 300, 64, f32), True, None, False),
+            ((1, 4, 300, 100, 64, f32), True, (77,), False),
+            ((3, 4, 200, 200, 64, f32), True, (200, 137, 0), False),
+            ((1, 2, 2048, 2048, 64, f32), True, None, False),
             ((2, 3, 200, 200, 64, torch.float32), True, None, False),
             ((1, 4, 100, 300, 32, torch.float32), True, None, False),
             ((2, 2, 130, 130, 128, torch.float32), False, (43, 0), False),
@@ -1299,6 +1327,9 @@ def train_kernel_cases(dev):
         for name, case in flash_cases(dev, g, *spec, causal=causal,
                                       lengths=lengths, timed=timed).items():
             results["flash_train"].append(dict(kernel=name, **case))
+    for name, case in flash_cases(dev, g, 2, 2, 130, 130, 64, f32,
+                                  lengths=(43, 0), misaligned=True).items():
+        results["flash_train"].append(dict(kernel=name, **case))
 
     # K5 and K6: [16 x 511, 768] rows against the tied [32000, 768] table
     # in bf16 (the tc routes) and f32 (tf32x3), both timed; the program
@@ -1716,17 +1747,20 @@ def opcheck_cases(dev):
         ("mlp", "tc", (r(128, 64, dtype=bf16),
                        r(64, 256, dtype=bf16, scale=0.1), r(256, dtype=bf16),
                        r(256, 64, dtype=bf16, scale=0.1), r(64, dtype=bf16)))]
-    # the simt route at 200 rows: a split plan, so its merge runs too
-    for route, dtype, t in (("simt", f32, 200), ("tc", bf16, 128)):
-        q, k, v = (r(1, 2, t, 64, dtype=dtype) for _ in range(3))
+    # K2's simt route at 200 rows: a split plan, so its merge runs too;
+    # K3 there on tf32x3, and on simt at D = 32
+    for route, bwd_route, dtype, t, d in (("simt", "tf32x3", f32, 200, 64),
+                                          ("simt", "simt", f32, 100, 32),
+                                          ("tc", "tc", bf16, 128, 64)):
+        q, k, v = (r(1, 2, t, d, dtype=dtype) for _ in range(3))
         mask = (torch.arange(t, device=dev) < t - 5)[None].contiguous()
         cases.append(("flash_attention", route, (q, k, v, mask, 0.125, True)))
         out, lse = fa.flash_attention_kernel(q, k, v, 0.125, True, mask)
-        do = r(1, 2, t, 64, dtype=dtype)
+        do = r(1, 2, t, d, dtype=dtype)
         delta = (do.float() * out.float()).sum(-1)
         for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            cases.append((name, route, (q, k, v, do, lse, delta, mask, 0.125,
-                                        True)))
+            cases.append((name, bwd_route, (q, k, v, do, lse, delta, mask,
+                                            0.125, True)))
     # K5 and K6: f32 at H = 66 the SIMT kernels, f32 at 64 3xTF32, bf16
     # the tensor cores
     for route, dtype, n, vocab, hid in (("simt", f32, 16, 1000, 66),
@@ -2424,7 +2458,7 @@ def check_launches(what, launches, steps, want):
 
 
 def train_crosscheck(make_model, loss_fn, args, around=None,
-                     make_opt=None):
+                     make_opt=None, routes=None):
     """One f32 step of ``loss_fn`` (Adam(1e-4), or ``make_opt(params)``)
     on the card and on the CPU plain
     path, each on a model from ``make_model(device)`` (the same weights):
@@ -2436,7 +2470,8 @@ def train_crosscheck(make_model, loss_fn, args, around=None,
     norm's running statistics, updated by the step) is its largest
     difference over its largest CPU value. ``around(device)``, when
     given, is a context entered around each device's step
-    (:class:`ReluReplay`)."""
+    (:class:`ReluReplay`). ``routes``, when given, a dict that receives the
+    card run's route counts (``core.route_counts()``)."""
     from paddle_tpu_torch.ops.cuda import core
     from paddle_tpu_torch.optimizer import Adam
     out = {}
@@ -2451,6 +2486,8 @@ def train_crosscheck(make_model, loss_fn, args, around=None,
                            for n, p in model.named_parameters()},
                     {n: b.detach().cpu() for n, b in model.named_buffers()},
                     core.launch_counts())
+        if dev == "cuda" and routes is not None:
+            routes.update(core.route_counts())
     (lc, gc, bc, launches), (lp, gp, bp, _) = out["cuda"], out["cpu"]
     top = max(float(g.norm()) for g in gp.values())
     errs = {n: float((gc[n] - gp[n]).norm())
@@ -3143,6 +3180,8 @@ FORWARD_KERNELS = ("layer_norm", "add_layer_norm", "flash_attention", "mlp",
                    "xent_stats")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+#: K3's two kernels
+K3_KERNELS = FLASH_KERNELS[1:]
 
 
 class PretrainData:
@@ -4230,14 +4269,19 @@ def held_beams(cpu, src, lengths, card, host, bos, eos):
 
 def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
                      kernels, around=None, stats_tol=None, make_opt=None,
-                     **extra):
+                     routes=None, **extra):
     """One f32 step on the card against the CPU plain path (see
     ``train_crosscheck``); emits the phase line, then raises if the loss
     or a gradient is outside its tolerance (or, for a model with buffers,
     a running statistic outside ``stats_tol``), or if one of ``kernels``
-    did not launch on the card. Returns the card run's launches."""
+    did not launch on the card. With ``routes`` (a dict, which receives
+    the card run's route counts) the line also gives K3's, and every K3
+    launch must have taken its f32 route at D = 64, tf32x3. Returns the
+    card run's launches."""
     loss_card, loss_cpu, errs, stat_errs, launches = train_crosscheck(
-        make_model, loss_fn, args, around, make_opt)
+        make_model, loss_fn, args, around, make_opt, routes)
+    if routes is not None:
+        extra.update(flash_bwd_routes={k: routes[k] for k in K3_KERNELS})
     if around is not None:
         extra.update(around.summary())
     if stat_errs:
@@ -4260,6 +4304,8 @@ def crosscheck_phase(phase, config, make_model, loss_fn, args, batch, seq,
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{phase}: kernels not launched {missing}")
+    if routes is not None:
+        check_routes(phase, routes, "tf32x3", K3_KERNELS)
     return launches
 
 
@@ -6261,16 +6307,16 @@ PROGRAM_CHECK_LAYERS, PROGRAM_CHECK_BATCH, PROGRAM_CHECK_SEQ = 2, 2, 128
 PROGRAM_LOSS_TOL = 1e-4    # f32 loss, card vs CPU, relative (PERF.md §2)
 PROGRAM_GRAD_TOL = 1e-3    # each fed parameter's gradient, relative L2
 #: K1 forward a layer twice and once for ln_f; K2 and K3 once a layer;
-#: K5 and each K6 kernel once, on their f32 3xTF32 routes
+#: K5 and each K6 kernel once; K3, K5 and K6 on their f32 3xTF32 routes
 PROGRAM_FWD = {"layer_norm": lambda n: 2 * n + 1,
                "flash_attention": lambda n: n, "xent_stats": lambda n: 1}
 PROGRAM_BWD = {"flash_attention_bwd_dq": lambda n: n,
                "flash_attention_bwd_dkv": lambda n: n,
                "xent_bwd_dh": lambda n: 1, "xent_bwd_dwb": lambda n: 1}
 #: the program path's kernels on their SIMT routes, and on 3xTF32 (f32)
-PROGRAM_SIMT = ("flash_attention", "flash_attention_bwd_dq",
-                "flash_attention_bwd_dkv")
-PROGRAM_X3 = ("xent_stats", "xent_bwd_dh", "xent_bwd_dwb")
+PROGRAM_SIMT = ("flash_attention",)
+PROGRAM_X3 = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+              "xent_stats", "xent_bwd_dh", "xent_bwd_dwb")
 #: the kernels' torch.library ops a captured program of the desc names
 PROGRAM_OPS = ("paddle_tpu_torch::layer_norm",
                "paddle_tpu_torch::flash_attention",
@@ -6461,8 +6507,8 @@ def program_phase(smi):
     PROGRAM_RUNS timed: p50 ms). Then one forward and its gradient over
     the fed parameters through the parsed ``build_fn`` and autograd, the
     launches of each (PROGRAM_FWD, PROGRAM_BWD) asserted and every K1
-    launch on the row route, K2/K3 on their SIMT routes and K5/K6 on
-    tf32x3 (f32); a forward and its backward timed (PROGRAM_WARMUP, then
+    launch on the row route, K2 on its SIMT route and K3/K5/K6 on tf32x3
+    (f32); a forward and its backward timed (PROGRAM_WARMUP, then
     PROGRAM_RUNS: p50 ms); the crosscheck against the CPU
     (:func:`program_crosscheck`);
     ``Program.capture`` of the parsed function on the card naming the
@@ -6520,9 +6566,10 @@ def program_phase(smi):
     check_path_routes("program", fwd_routes, ("layer_norm",))
     for what, rts, run in (("program", fwd_routes, PROGRAM_FWD),
                            ("program backward", bwd_routes, PROGRAM_BWD)):
-        check_routes(what, rts, "simt", [k for k in PROGRAM_SIMT if k in run])
-        check_routes(what, rts, "tf32x3",
-                     [k for k in PROGRAM_X3 if k in run])
+        for route, names in (("simt", PROGRAM_SIMT), ("tf32x3", PROGRAM_X3)):
+            ran = [k for k in names if k in run]
+            if ran:
+                check_routes(what, rts, route, ran)
     routes = {k: {r: fwd_routes[k][r] + bwd_routes[k][r] for r in rts}
               for k, rts in fwd_routes.items()}
     if not all(torch.isfinite(g).all() for g in grads):
@@ -6566,8 +6613,9 @@ def program_phase(smi):
 
 
 def expected_route(kernel, case):
-    """The route a kernel case must take: K2 and K3 by
-    :func:`flash_route` (bf16 with D = 64 or 128 on the tensor cores);
+    """The route a kernel case must take: K2 by :func:`flash_route` (bf16
+    with D = 64 or 128 on the tensor cores) and K3 by
+    :func:`flash_bwd_route` (also f32 with D = 64 on 3xTF32);
     K1 by :func:`ln_route` (the row route for C of whole 16-byte packs, at
     most 8 a lane); K7 by :func:`decode_route` (the split route for head
     dims that are multiples of 8 up to 256); K4 by :func:`mlp_route`
@@ -6582,6 +6630,8 @@ def expected_route(kernel, case):
     from paddle_tpu_torch.ops.cuda import xent
     bf16 = case.get("dtype") in ("bf16", str(torch.bfloat16))
     dtype = torch.bfloat16 if bf16 else torch.float32
+    if kernel.startswith("flash_attention_bwd"):
+        return fa.flash_bwd_route(dtype, case["shape"][-1])
     if kernel.startswith("flash"):
         return fa.flash_route(dtype, case["shape"][-1])
     if kernel == "layer_norm":
@@ -6611,8 +6661,8 @@ LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
 #: the kernels with a row per route in the kernels line, their routes
 #: (the first row under the kernel's name, the others "<name>.<route>")
 ROUTED_ROWS = {"flash_attention": ("simt", "tc"),
-               "flash_attention_bwd_dq": ("simt", "tc"),
-               "flash_attention_bwd_dkv": ("simt", "tc"),
+               "flash_attention_bwd_dq": ("simt", "tc", "tf32x3"),
+               "flash_attention_bwd_dkv": ("simt", "tc", "tf32x3"),
                "mlp": ("split", "gemm", "tc"),
                "xent_stats": ("tc", "tf32x3"),
                "xent_bwd_dh": ("tc", "tf32x3"),
@@ -6625,10 +6675,11 @@ def kernel_table(by_kernel, paths, routes):
     (:data:`ROUTED_ROWS`): the SIMT ones (serve's for K2 and K4: K4's
     split route at decode's 8 rows under the kernel's name and its gemm
     route at a 512-row prefill chunk as "mlp.gemm"; train_crosscheck's f32
-    step for K3) and the tc one (GPT training's) as "<name>.tc"; K5 and
-    K6 their bf16 tensor-core kernels under the kernel's name (GPT
-    training's) and their f32 3xTF32 ones as "<name>.tf32x3" (the program
-    path's); the others one SIMT row.
+    step for K3, whose SIMT launches there are 0: its f32 D = 64 takes
+    tf32x3) and the tc one (GPT training's) as "<name>.tc"; K5 and K6
+    their bf16 tensor-core kernels under the kernel's name (GPT
+    training's); K3, K5 and K6 their f32 3xTF32 ones as "<name>.tf32x3"
+    (the program path's); the others one SIMT row.
     ``paths`` holds each path's launch counts: serve and train_crosscheck
     (a row's own path only) and :data:`LISTED_PATHS` (resnet and ctr are
     0 for every kernel); ``routes`` the route counts of the paths that
@@ -6831,10 +6882,11 @@ def main():
     small.dropout = 0.0
     ids = torch.from_numpy(np.random.RandomState(3).randint(
         0, small.vocab_size, (2, 128)))
+    crosscheck_routes = {}
     crosscheck_launches = crosscheck_phase(
         "train_crosscheck", "GPTConfig.small()",
         lambda dev: GPT(small, device=dev, seed=0), loss_of, (ids,), 2, 128,
-        TRAIN_KERNELS)
+        TRAIN_KERNELS, routes=crosscheck_routes)
 
     torch.cuda.empty_cache()
     scan_peaks, scan_launches = scan_remat_phase(smi)
@@ -6847,7 +6899,7 @@ def main():
     crosscheck_phase(
         "moe_crosscheck", "GPTConfig.small() + moe_experts=8, moe_k=2",
         lambda dev: GPT(moe_small, device=dev, seed=0), loss_of, (ids,), 2,
-        128, tuple(k for k in TRAIN_KERNELS if k != "mlp"))
+        128, tuple(k for k in TRAIN_KERNELS if k != "mlp"), routes={})
 
     torch.cuda.empty_cache()
     bert_stats, bert_launches = bert_train_phase(smi)
@@ -6861,7 +6913,7 @@ def main():
     crosscheck_phase(
         "bert_crosscheck", "BertConfig.base()",
         lambda dev: BertForPretraining(base, device=dev, seed=0),
-        bert_loss_of, batch, 2, 128, BERT_KERNELS,
+        bert_loss_of, batch, 2, 128, BERT_KERNELS, routes={},
         attention_mask="row 0 padded after 90 tokens",
         token_type_ids="segment B from position 60", mask_positions=19)
 
@@ -6873,7 +6925,8 @@ def main():
     crosscheck_phase(
         "ernie_crosscheck", "ErnieConfig.base()",
         lambda dev: ErnieForPretraining(ernie, device=dev, seed=0),
-        bert_loss_of, batch, 2, 128, BERT_KERNELS, vocab=ernie.vocab_size,
+        bert_loss_of, batch, 2, 128, BERT_KERNELS, routes={},
+        vocab=ernie.vocab_size,
         attention_mask="row 0 padded after 90 tokens",
         token_type_ids="segment B from position 60", mask_positions=19)
 
@@ -6945,7 +6998,8 @@ def main():
         "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,
         "moe_train": moe_launches, "export": export_launches,
         **{f"scan_{p}": n for p, n in scan_launches.items()}},
-        {"serve": serve_routes, "program": program_routes})
+        {"serve": serve_routes, "program": program_routes,
+         "train_crosscheck": crosscheck_routes})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,9 +3,9 @@
 // wgmma shared-memory descriptors, the bf16 wgmma shapes K6 and the flash
 // kernels use (csrc/gemm.cuh holds the wide ones of the shared GEMM
 // mainloop), register-A wgmma on a packed accumulator fragment, the ring
-// position, 2^x, the 3xTF32 split and the tf32 wgmma shapes of K5's and
-// K6's f32 routes, cluster shared memory, and the host-side tensor-map
-// encoding.
+// position, 2^x, the 3xTF32 split and the tf32 wgmma shapes of K3's, K5's
+// and K6's f32 routes, cluster shared memory, and the host-side
+// tensor-map encoding.
 //
 // Layout convention: every tile in shared memory is made of TMA boxes of
 // [64 rows, 64 bf16 columns] = 8 KB, written with the 128-byte swizzle
@@ -440,6 +440,28 @@ __device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 64] (+)= A[64 x 8] B[8 x 64], tf32, both K-major in shared
+// memory; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : PTT_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[64 x 256] (+)= A[64 x 8] B[8 x 256], tf32: A in registers, B K-major
 // in shared memory; scale_d 0 overwrites d. The tf32 A fragment of an
 // m64 k8 slice holds, in thread t of the warpgroup (warp w, lane l), rows
@@ -641,28 +663,43 @@ inline cudaError_t encode_f32_boxes(CUtensorMap* map, const void* base,
                       cols);
 }
 
-// The same boxes over `mats` row-major [rows, cols] bf16 matrices stored
-// one after another ([mats, rows, cols]): a box never crosses from one
-// matrix into the next, whose rows it reads as zeros instead.
-inline cudaError_t encode_bf16_boxes_3d(CUtensorMap* map, const void* base,
-                                        int mats, int rows, int cols) {
+// The same boxes over `mats` row-major [rows, cols] matrices of
+// `elem_bytes`-byte values stored one after another ([mats, rows, cols]):
+// a box never crosses from one matrix into the next, whose rows it reads
+// as zeros instead.
+inline cudaError_t encode_boxes_3d(CUtensorMap* map, CUtensorMapDataType type,
+                                   int elem_bytes, const void* base,
+                                   int mats, int rows, int cols) {
   TensorMapEncode encode;
   const cudaError_t err = tensor_map_encoder(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(mats)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * elem_bytes;
   const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(cols) * 2,
-      static_cast<cuuint64_t>(cols) * 2 * static_cast<cuuint64_t>(rows)};
-  const cuuint32_t box[3] = {kBoxCols, kBoxRows, 1};
+      row_bytes, row_bytes * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             kBoxRows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_bf16_boxes_3d(CUtensorMap* map, const void* base,
+                                        int mats, int rows, int cols) {
+  return encode_boxes_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
+                         mats, rows, cols);
+}
+
+// The same for f32: boxes of [64 rows, 32 f32] (K3's tf32x3 route).
+inline cudaError_t encode_f32_boxes_3d(CUtensorMap* map, const void* base,
+                                       int mats, int rows, int cols) {
+  return encode_boxes_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, mats,
+                         rows, cols);
 }
 
 }  // namespace hopper

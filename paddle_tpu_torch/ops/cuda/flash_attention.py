@@ -11,8 +11,8 @@ K3 replaces ``:180 _fa_bwd_dq_kernel`` and ``:232 _fa_bwd_dkv_kernel``
 ``p = exp(s - lse)`` from K2's saved lse; ``delta = rowsum(dO * O)`` is
 computed here in torch, as the reference computes it in XLA (:299).
 
-Two routes each, chosen by :func:`flash_route`, a rule on the storage type
-and the head dim:
+Two routes for K2, chosen by :func:`flash_route`, and three for K3, chosen
+by :func:`flash_bwd_route`, rules on the storage type and the head dim:
 
 * ``"tc"`` — bf16 with D = 64 or 128 (the training paths): persistent
   ``wgmma`` kernels fed by TMA (``csrc/flash_attention_tc.cu``,
@@ -20,9 +20,17 @@ and the head dim:
   probabilities (and K3's dS) are rounded to bf16 in registers for the
   products that take them. Inputs that do not start on 16 bytes are
   copied (TMA's alignment).
-* ``"simt"`` — f32 at every head dim and bf16 at D = 16 or 32 (serving's
-  f32 prefill, the crosschecks): the CUDA cores in f32
-  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``). K2's
+* ``"tf32x3"`` — K3 only, f32 with D = 64 (the program path's and the
+  f32 crosschecks' backward): 3xTF32 ``wgmma``
+  (``csrc/flash_attention_bwd_x3.cu``; each f32 operand split hi =
+  tf32(x), lo = tf32(x - hi), each product lo·hi + hi·lo + hi·hi), P and
+  dS split in registers, never rounded to bf16; :func:`x3_plan` says
+  what it takes. Inputs that do not start on 16 bytes are copied (TMA's
+  alignment).
+* ``"simt"`` — K2 in f32 at every head dim, K3 in f32 at D = 16, 32 and
+  128, both in bf16 at D = 16 or 32 (serving's f32 prefill): the CUDA
+  cores in f32 (``csrc/flash_attention.cu``,
+  ``csrc/flash_attention_bwd.cu``). K2's
   simt kernel walks work items of :func:`flash_plan`: a query tile's kv
   tiles cut into chunks where the heads' tiles alone would leave the
   card's block slots idle, longest items first, the chunks' (m, l, acc)
@@ -68,13 +76,16 @@ KERNEL = core.register(
     route_sources={"tc": "paddle_tpu_torch/csrc/flash_attention_tc.cu"})
 _DQ_ARGS = [core.VP] * 8 + [core.I32] * 5 + [core.F32_ARG, core.I32,
                                              core.VP]
+_BWD_X3_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd_x3.cu"
 KERNEL_BWD_DQ = core.register(
     "flash_attention_bwd_dq", "ptt_flash_attention_bwd_dq",
     [core.I32] + _DQ_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:180",
     source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-    routes={"tc": ("ptt_flash_attention_bwd_dq_tc", _DQ_ARGS)},
-    route_sources={"tc": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu"})
+    routes={"tc": ("ptt_flash_attention_bwd_dq_tc", _DQ_ARGS),
+            "tf32x3": ("ptt_flash_attention_bwd_dq_x3", _DQ_ARGS)},
+    route_sources={"tc": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+                   "tf32x3": _BWD_X3_SOURCE})
 _DKV_ARGS = [core.VP] * 9 + [core.I32] * 5 + [core.F32_ARG, core.I32,
                                               core.VP]
 KERNEL_BWD_DKV = core.register(
@@ -82,8 +93,10 @@ KERNEL_BWD_DKV = core.register(
     [core.I32] + _DKV_ARGS,
     replaces="paddle_tpu/ops/pallas/flash_attention.py:232",
     source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-    routes={"tc": ("ptt_flash_attention_bwd_dkv_tc", _DKV_ARGS)},
-    route_sources={"tc": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu"})
+    routes={"tc": ("ptt_flash_attention_bwd_dkv_tc", _DKV_ARGS),
+            "tf32x3": ("ptt_flash_attention_bwd_dkv_x3", _DKV_ARGS)},
+    route_sources={"tc": "paddle_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+                   "tf32x3": _BWD_X3_SOURCE})
 
 NEG_INF = -1e30
 #: the reference's default kv block (flag flash_block_k), which is also
@@ -92,6 +105,14 @@ CHUNK = 512
 HEAD_DIMS = (16, 32, 64, 128)
 #: the head dims of the tc route: one or two [64, 64] TMA boxes per row
 TC_HEAD_DIMS = (64, 128)
+#: K3's tf32x3 route (csrc/flash_attention_bwd_x3.cu): its head dims, the
+#: rows of a tile, the ring's stages, and the [64, 64] f32 tiles of a
+#: block's shared memory besides the ring (its resident tiles, hi and lo,
+#: and the work tiles: the streamed tiles' lo parts and staged transposes)
+X3_HEAD_DIMS = (64,)
+X3_TILE, X3_STAGES = 64, 2
+X3_TILES = {"dq": 4 + 6, "dkv": 4 + 6}
+_X3_TILE_BYTES = X3_TILE * 64 * 4
 #: K2's simt route (csrc/flash_attention.cu): query rows of an item, keys
 #: of a kv tile, the most items of a split plan
 FLASH_ROWS, FLASH_KEYS, FLASH_MAX_ITEMS = 64, 64, 512
@@ -101,12 +122,52 @@ FLASH_CODE_Q_TILES, FLASH_CODE_KV_TILES = 1 << 12, (1 << 10) - 1
 
 
 def flash_route(dtype, d):
-    """K2's and K3's route: ``"tc"`` (the bf16 wgmma kernels) for bf16
-    with a head dim of 64 or 128, else ``"simt"`` (f32 at every head dim,
-    bf16 at 16 and 32). A launch on either route that fails raises."""
+    """K2's route: ``"tc"`` (the bf16 wgmma kernel) for bf16 with a head
+    dim of 64 or 128, else ``"simt"`` (f32 at every head dim, bf16 at 16
+    and 32). A launch on either route that fails raises."""
     if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         return "tc"
     return "simt"
+
+
+def flash_bwd_route(dtype, d):
+    """K3's route: ``"tc"`` for bf16 with a head dim of 64 or 128,
+    ``"tf32x3"`` (3xTF32 wgmma) for f32 at a head dim of
+    :data:`X3_HEAD_DIMS`, else ``"simt"`` (f32 at 16, 32 and 128, bf16 at
+    16 and 32). A launch on any route that fails raises."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tc"
+    if dtype == torch.float32 and d in X3_HEAD_DIMS:
+        return "tf32x3"
+    return "simt"
+
+
+def x3_smem(kernel):
+    """Shared memory of a block of K3's tf32x3 ``kernel`` (``"dq"`` or
+    ``"dkv"``; ``csrc/flash_attention_bwd_x3.cu kDqSmem``, ``kDkvSmem``):
+    1 KB of alignment, the ring (two raw tiles a stage), the resident and
+    work tiles, dk/dv's lse and delta of a tile, the barriers."""
+    side = 2 * X3_TILE * 4 if kernel == "dkv" else 0
+    return (1024 + (2 * X3_STAGES + X3_TILES[kernel]) * _X3_TILE_BYTES
+            + side + 8 * (X3_STAGES + 1))
+
+
+def x3_plan(d):
+    """K3's launch plan on the tf32x3 route: ``dict(dq_smem, dkv_smem,
+    stages)``, one block of 128 threads over each 64-row resident tile.
+    Raises ``ValueError`` for a head dim the route does not take or a
+    block that does not fit :data:`core.MAX_SMEM`; it never falls back."""
+    what = "flash backward (f32, tf32x3)"
+    if d not in X3_HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {X3_HEAD_DIMS}")
+    plan = dict(dq_smem=x3_smem("dq"), dkv_smem=x3_smem("dkv"),
+                stages=X3_STAGES)
+    for kernel in ("dq", "dkv"):
+        if plan[f"{kernel}_smem"] > core.MAX_SMEM:
+            raise ValueError(f"{what}: the {kernel} block needs "
+                             f"{plan[kernel + '_smem']} bytes of shared "
+                             f"memory > {core.MAX_SMEM}")
+    return plan
 
 
 def flash_kv_tiles(tq, tk, causal):
@@ -166,16 +227,18 @@ def flash_item_code(qi, t0, t1):
 
 def _launch(kernel, code, route, *args):
     """Launch ``kernel`` on ``route``; the simt entry takes the storage
-    type's code first, the tc entry is bf16 only."""
-    if route == "tc":
-        kernel(*args, route="tc")
+    type's code first, the tc entry is bf16 only, the tf32x3 entry f32
+    only."""
+    if route in ("tc", "tf32x3"):
+        kernel(*args, route=route)
     else:
         kernel(code, *args)
 
 
 def _aligned(*ts):
     """TMA reads from 16-byte aligned bases: a tensor that does not start
-    on 16 bytes is copied (a fresh allocation does)."""
+    on 16 bytes is copied (a fresh allocation does); the tc and tf32x3
+    routes take their operands through it."""
     return [t if t is None or t.data_ptr() % 16 == 0 else t.clone()
             for t in ts]
 
@@ -343,8 +406,10 @@ def _bwd_setup(q, k, v, do, lse, delta, causal, kv_mask, scale):
         raise ValueError(f"flash backward kernel: lse and delta must be "
                          f"[{b}, {h}, {tq}]")
     core.require_contiguous(q=q, k=k, v=v, do=do)
-    route = flash_route(q.dtype, d)
-    if route == "tc":
+    route = flash_bwd_route(q.dtype, d)
+    if route == "tf32x3":
+        x3_plan(d)
+    if route != "simt":
         q, k, v, do = _aligned(q, k, v, do)
     # the caller holds these converted operands until the launch: a copy
     # freed before its kernel is enqueued goes back to the caching

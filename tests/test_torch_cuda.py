@@ -646,9 +646,11 @@ def test_flash_backward_kernel(cuda, b, h, tq, tk, d, dtype, causal, masked):
 
 def test_flash_takes_the_tensor_core_route_by_the_rule(cuda):
     """bf16 K2 and K3 at D = 64 and 128 launch on the tc route (its count
-    rises, the simt count does not); bf16 at D = 32 and f32 at D = 64 take
-    the simt route, each still right; a bf16 input that does not start on
-    16 bytes (TMA's alignment) is copied and still takes the tc route."""
+    rises, no other route's does); bf16 at D = 32 takes the simt route;
+    f32 at D = 64 K2's simt route and K3's tf32x3 route, f32 at D = 32 the
+    simt routes; each still right. An input that does not start on 16
+    bytes (TMA's alignment) is copied and still takes the tc route (bf16)
+    or K3's tf32x3 route (f32)."""
     from paddle_tpu_torch.ops.cuda import core
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     g = torch.Generator().manual_seed(13)
@@ -677,17 +679,28 @@ def test_flash_takes_the_tensor_core_route_by_the_rule(cuda):
         return {n: {r: after[n][r] - before[n][r] for r in after[n]}
                 for n in names}
 
-    for d, dtype, route in ((64, torch.bfloat16, "tc"),
-                            (128, torch.bfloat16, "tc"),
-                            (32, torch.bfloat16, "simt"),
-                            (64, torch.float32, "simt")):
+    def taken(counts):
+        return [r for r, n in counts.items() if n]
+
+    for d, dtype, route, bwd_route in (
+            (64, torch.bfloat16, "tc", "tc"),
+            (128, torch.bfloat16, "tc", "tc"),
+            (32, torch.bfloat16, "simt", "simt"),
+            (64, torch.float32, "simt", "tf32x3"),
+            (32, torch.float32, "simt", "simt")):
         assert fa.flash_route(dtype, d) == route
-        other = "simt" if route == "tc" else "tc"
+        assert fa.flash_bwd_route(dtype, d) == bwd_route
         for name, counts in run(d, dtype).items():
-            assert counts[route] == 1 and counts[other] == 0, (name, d,
-                                                               dtype)
-    for name, counts in run(64, torch.bfloat16, misaligned=True).items():
-        assert counts == {"simt": 0, "tc": 1}, name
+            want = route if name == "flash_attention" else bwd_route
+            assert counts[want] == 1 and taken(counts) == [want], (
+                name, d, dtype, counts)
+    for dtype, bwd_route in ((torch.bfloat16, "tc"),
+                             (torch.float32, "tf32x3")):
+        for name, counts in run(64, dtype, misaligned=True).items():
+            want = ("tc" if dtype == torch.bfloat16 else "simt") \
+                if name == "flash_attention" else bwd_route
+            assert taken(counts) == [want] and counts[want] == 1, (
+                name, dtype, counts)
 
 
 # K6's bf16 route feeds the second product gch rounded to bf16 (one

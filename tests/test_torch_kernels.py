@@ -917,7 +917,7 @@ def test_flash_items_algorithm_matches_jax(rng, flags_guard, bh_b, h, tq,
 
 
 @pytest.mark.parametrize("fault", ["none", "lse_row", "diag"])
-def test_flash_card_check_fails_each_planted_fault(fault):
+def test_flash_fwd_card_check_fails_each_planted_fault(fault):
     """chip_smoke.py's K2 checks (``held_flash`` on out and its parts,
     lse within F32_TOL of its scale and absolutely) on the CPU at the
     serve path's first chunk cut to 2 heads, [1, 2, 512, 512, 64] causal,
@@ -1252,12 +1252,105 @@ def test_quantize_rows_matches_jax(rng):
     (torch.float32, 128, "simt"),
 ])
 def test_flash_route_rule(dtype, d, route):
-    """K2's and K3's route: bf16 with a head dim of 64 or 128 (one or two
-    [64, 64] TMA boxes per row) takes the tensor cores; bf16 at 16 or 32,
-    and f32 at every head dim, the SIMT kernels, so every case the SIMT
-    kernels took before still runs."""
+    """K2's route: bf16 with a head dim of 64 or 128 (one or two [64, 64]
+    TMA boxes per row) takes the tensor cores; bf16 at 16 or 32, and f32
+    at every head dim, the SIMT kernel, so every case the SIMT kernel took
+    before still runs."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     assert fa.flash_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"),
+    (torch.float32, 32, "simt"),
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "simt"),
+])
+def test_flash_bwd_route_rule(dtype, d, route):
+    """K3's route: bf16 at D = 64 or 128 the tensor cores (as K2), f32 at
+    D = 64 3xTF32 wgmma (its block does not fit at 128), every other case
+    the SIMT kernels."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    assert fa.flash_bwd_route(dtype, d) == route
+
+
+def test_flash_x3_plan_refuses_what_the_tf32x3_route_cannot_take(
+        monkeypatch):
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    plan = fa.x3_plan(64)
+    # csrc/flash_attention_bwd_x3.cu's kDqSmem and kDkvSmem
+    assert (plan["dq_smem"], plan["dkv_smem"]) == (230424, 230936)
+    for d in (16, 32, 128):
+        with pytest.raises(ValueError, match="head dim"):
+            fa.x3_plan(d)
+    monkeypatch.setattr(core, "MAX_SMEM", plan["dkv_smem"] - 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.x3_plan(64)
+    # the op's setup raises too: no route gives way to another
+    q = torch.zeros(1, 1, 8, 64)
+    lse = torch.zeros(1, 1, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa._bwd_setup(q, q, q, q, lse, lse, True, None, 0.125)
+
+
+def test_flash_tf32x3_emulation_holds_f32_tol_and_1xtf32_does_not():
+    """K3's seven products emulated bit for bit as the tf32x3 route
+    rounds them (each operand split hi = tf32(x), lo = tf32(x - hi), three
+    products, f32 sums; P and dS split as the kernels split their
+    register fragments) at a causal [1, 2, 200, 200, 64] with a key mask
+    (keys past 137 masked): dq, dk and dv within F32_TOL (1e-4,
+    chip_smoke.py's f32 bar) of float64 on their own scale, and the keys
+    no query sees exactly 0. One TF32 product a product (1xTF32) misses
+    the bar: so the card's check at F32_TOL tells a dropped correction
+    term."""
+    f32_tol = 1e-4
+    rs = np.random.RandomState(24)
+    b, h, tq, tk, d = 1, 2, 200, 200, 64
+    q, k, v, do = (torch.from_numpy(rs.randn(b, h, t_, d).astype(np.float32))
+                   for t_ in (tq, tk, tk, tq))
+    scale = d ** -0.5
+    mask = torch.arange(tk)[None, :] < 137
+    valid = (torch.arange(tq)[:, None] >= torch.arange(tk)[None, :]) & mask
+
+    def reference():
+        q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+        s = q64 @ k64.transpose(-1, -2) * scale
+        s = torch.where(valid, s, torch.full_like(s, -torch.inf))
+        lse = torch.logsumexp(s, -1)
+        p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+        out = p @ v64
+        delta = (do64 * out).sum(-1)
+        dp = do64 @ v64.transpose(-1, -2)
+        ds = p * (dp - delta[..., None])
+        return lse, delta, (ds @ k64 * scale,
+                            ds.transpose(-1, -2) @ q64 * scale,
+                            p.transpose(-1, -2) @ do64)
+
+    lse, delta, want = reference()
+    lse2 = (lse.float() * 1.4426950408889634).float()
+    sc = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    rel = {}
+    for terms in (3, 1):
+        s = _tf32_mm(q, k.transpose(-1, -2).contiguous(), terms)
+        dp = _tf32_mm(do, v.transpose(-1, -2).contiguous(), terms)
+        p = torch.where(valid, torch.exp2(s * sc - lse2[..., None]), 0.0)
+        ds = p * (dp - delta.float()[..., None])
+        got = (_tf32_mm(ds, k, terms) * scale,
+               _tf32_mm(ds.transpose(-1, -2).contiguous(), q, terms) * scale,
+               _tf32_mm(p.transpose(-1, -2).contiguous(), do, terms))
+        rel[terms] = {name: float((g.double() - w).abs().max()
+                                  / w.abs().max())
+                      for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+        if terms == 3:
+            for g in got[1:]:
+                assert float(g[..., 137:, :].abs().max()) == 0.0
+    assert max(rel[3].values()) <= f32_tol, rel[3]
+    assert min(rel[1].values()) > f32_tol, rel[1]
 
 
 def _faulty_flash_bwd(q, k, v, out, lse, do, scale, causal, fault):
@@ -1290,9 +1383,10 @@ def _faulty_flash_bwd(q, k, v, out, lse, do, scale, causal, fault):
 @pytest.mark.parametrize("fault", ["none", "noscale", "lse_next", "diag",
                                    "dropkey"])
 def test_flash_card_check_fails_each_planted_fault(fault):
-    """chip_smoke.py's K3 check (``held_flash`` at FLASH_BF16_TOL) on the
-    CPU: the plain backward passes it, and each planted fault fails it at
-    a causal [2, 3, 200, 200, 64]. At the general bf16 bar (BF16_TOL) the
+    """chip_smoke.py's K3 check (``held_flash`` at FLASH_BF16_TOL, the tc
+    route's bar, and at F32_TOL, the f32 routes') on the CPU: the plain
+    backward passes it, and each planted fault fails it at a causal
+    [2, 3, 200, 200, 64] of f32 inputs. At the general bf16 bar (BF16_TOL) the
     dropped key moves the whole outputs by less than the bar (dq 2.3e-2,
     dk 1.5e-2, dv 8.7e-3 on the card); only the rows of the keys that few
     queries see show it, which is why the check holds them on their own
@@ -1318,9 +1412,13 @@ def test_flash_card_check_fails_each_planted_fault(fault):
             ("dv", got[2], want[2], k_parts)]
     if fault == "none":
         chip_smoke.held_flash("plain", outs, chip_smoke.FLASH_BF16_TOL)
+        # and at the f32 bar of the tf32x3 and SIMT routes
+        chip_smoke.held_flash("plain", outs, chip_smoke.F32_TOL)
         return
     with pytest.raises(AssertionError):
         chip_smoke.held_flash(fault, outs, chip_smoke.FLASH_BF16_TOL)
+    with pytest.raises(AssertionError):
+        chip_smoke.held_flash(fault, outs, chip_smoke.F32_TOL)
     if fault == "dropkey":
         # at the general bf16 bar the whole outputs alone pass it; the
         # rows of the keys few queries see do not

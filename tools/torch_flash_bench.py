@@ -6,16 +6,20 @@ loop for attention kernel work.
     python3 tools/torch_flash_bench.py [--shapes gpt,gpt_f32,bert,...]
                                        [--untimed] [--cpu-plain]
                                        [--rounds N] [--profile]
+                                       [--tree DIR]
 
 Shapes ([B, H, Tq, Tk, D], dtype, causal, key mask): ``gpt`` GPTConfig
 .small()'s train step [16, 12, 512, 512, 64] bf16 causal, ``gpt_f32`` the
-same in f32, ``bert`` BertConfig.base()'s [64, 12, 512, 512, 64] bf16,
+same in f32 (K3 on its tf32x3 route, K2 on SIMT), ``bert`` BertConfig.base()'s [64, 12, 512, 512, 64] bf16,
 ``bert_large`` BertConfig.large()'s [8, 16, 512, 512, 64] bf16, and
 ``ragged``, the tc route's edge cases (Tq != Tk, key masks with fully
 masked rows, T not a multiple of 64, D = 128), ``serve``, serving's first
 prefill chunk [1, 12, 512, 512, 64] f32 causal (the simt route, split
-into chunks and merged), and ``simt``, the simt route's ragged cases (f32
-at D = 16-128, bf16 at D = 16). For each case
+into chunks and merged), ``simt``, the simt route's ragged cases (f32
+at D = 16-128, bf16 at D = 16; K3 takes tf32x3 at f32 D = 64), ``x3``,
+K3's tf32x3 edge cases (Tq != Tk, key masks with fully masked rows, T
+not a multiple of 64, Tq = Tk = 2048), and ``simt32``, GPT's shape at
+D = 32 in f32 (K3's SIMT route). For each case
 it prints one
 JSON line: per kernel its route, its error readings (each output, its
 rows that see few partners and those that see none, each on its own
@@ -44,9 +48,15 @@ the readings, their median and the verdict: ``met`` where every kernel
 reading is below every library reading, ``missed`` where every one is
 above, else ``unresolved``. Then the card's name and power limit. Needs
 a CUDA device.
+
+``--tree DIR`` runs the case and the kernels of another checkout of the
+repo (say a parent commit unpacked with ``git archive`` into a gitignored
+directory), so that two versions are timed in one call on one card: run
+parent, change, change, parent, one process each.
 """
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -54,10 +64,9 @@ import sys
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-
-import chip_smoke  # noqa: E402  (at the repo root: the K2/K3 case)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the K2/K3 case of the tree's chip_smoke.py, imported by main()
+chip_smoke = None
 
 BF16, F32 = torch.bfloat16, torch.float32
 #: name -> [(B, H, Tq, Tk, D, dtype, causal, key-mask lengths)]
@@ -77,6 +86,13 @@ SHAPES = {
              (1, 4, 100, 300, 32, F32, True, None),
              (2, 2, 130, 130, 128, F32, False, (43, 0)),
              (1, 2, 70, 70, 16, BF16, True, (0,))],
+    "x3": [(1, 4, 100, 300, 64, F32, True, None),
+           (1, 4, 300, 100, 64, F32, True, (77,)),
+           (3, 4, 200, 200, 64, F32, True, (200, 137, 0)),
+           (2, 3, 70, 70, 64, F32, False, None),
+           (1, 2, 2048, 2048, 64, F32, False, None),
+           (1, 2, 2048, 2048, 64, F32, True, None)],
+    "simt32": [(16, 12, 512, 512, 32, F32, True, None)],
 }
 
 
@@ -185,7 +201,11 @@ def main():
     ap.add_argument("--cpu-plain", action="store_true")
     ap.add_argument("--rounds", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--tree", default=ROOT)
     a = ap.parse_args()
+    global chip_smoke
+    sys.path.insert(0, os.path.abspath(a.tree))
+    chip_smoke = importlib.import_module("chip_smoke")
     if not torch.cuda.is_available():
         print("torch_flash_bench: no CUDA device", file=sys.stderr)
         return 2
@@ -196,8 +216,9 @@ def main():
     for name in a.shapes.split(","):
         for b, h, tq, tk, d, dtype, causal, lengths in SHAPES[name]:
             gen = torch.Generator().manual_seed(7)
-            row = dict(name=name, shape=[b, h, tq, tk, d], dtype=str(dtype),
-                       causal=causal, kv_mask=lengths, card=smi)
+            row = dict(name=name, tree=a.tree, shape=[b, h, tq, tk, d],
+                       dtype=str(dtype), causal=causal, kv_mask=lengths,
+                       card=smi)
             try:
                 row["cases"] = chip_smoke.flash_cases(
                     dev, gen, b, h, tq, tk, d, dtype, causal, lengths,
