@@ -377,8 +377,33 @@ Phases, each printing one JSON line:
    the K1, K2 and K5 ops; one profiled run (device ms, idle share); and a
    one-op desc of paged_decode_attention over the serve configuration's
    bf16 pool (8 slots, 12 heads, hd 64, page 64): K7 once, held against
-   its plain version. Then a "timeline" line: the script's time (t_s) to
-   its last phase.
+   its plain version.
+31. word2vec — the book path of tools/torch_word2vec.py as a user runs
+   it: a seeded Zipf corpus (3000 lines over 2000 words) written to a
+   file, build_dict(markers=True), 5-grams (ngram_reader(n=5)), four
+   record files (write_record_file over numpy_records), read back through
+   FileDataset with 2 native reader threads (every record byte for byte
+   the one written; records a second), then Word2Vec(vocab, 32, 4, 256)
+   and SkipGramNCE(2048, 64, 16) trained 20 steps each at batch 512 (the
+   skip-gram's 2048 (center, target) pairs a batch) under Adam(1e-3) on
+   the card, with the negatives drawn on the host; the first 5 losses of
+   each within 1e-4 relative of the same models' on the CPU (same
+   weights, batches and negatives); one skip-gram step on the model's
+   own generator; p50 step ms, launches a step, device ms and idle share
+   of each; no kernel of the port launched.
+32. op_tail — every name the op surface's last slice registered (the
+   rest of ops/tail.py, ops/fused.py's compositions, the sampling grids,
+   3-D ops and shuffles of ops/vision.py, ops/graph.py's tree_conv) on
+   the card against the CPU on the same inputs (OpHolder: floats within
+   1e-5 relative to max(1, max |CPU|), integers and indices exact,
+   max_pool2d_with_index's planted ties included), each op's launches
+   counted alone: fused_fc_elementwise_layernorm exactly one K8 launch,
+   every other op none; the random ops on shape, range and seeded
+   determinism on the card's generator; LayerNorm(768, scale=False,
+   shift=False) (and with scale or shift alone) on a few rows: K1 once,
+   and K8 once with a residual, held against the CPU. Prints the op count
+   and the worst error and its op. Then a "timeline" line: the script's
+   time (t_s) to its last phase.
 
 K2, K3, K4, K5 and K6 have two routes or more: the tensor cores for
 bf16 (K4 and K5 with widths that are multiples of 8, on the TMA + wgmma
@@ -413,8 +438,9 @@ path's count (LISTED_PATHS), launches_transformer, launches_gpt_decode,
 launches_gpt_decode_int8, launches_serve_int8, launches_serve_fleet,
 launches_serve_fleet_proc (the children's), launches_moe_train and
 launches_scan_<policy> among them, and launches_resnet, launches_ctr,
-launches_ssd, launches_tagger and launches_sentiment, which are 0, and
-launches_program, the program phase's measured forward and backward), the
+launches_ssd, launches_tagger, launches_sentiment and launches_word2vec,
+which are 0, launches_program, the program phase's measured forward and
+backward, and launches_op_tail, K8's and K1's in the op_tail phase), the
 nvidia-smi line, and
 the contract line
 {"ok": true, "device": {...}}.
@@ -426,6 +452,7 @@ import collections
 import contextlib
 import dataclasses
 import glob
+import importlib
 import json
 import math
 import os
@@ -5548,14 +5575,18 @@ SSD_DETECT = dict(score_threshold=0.01, nms_threshold=0.45,
 SSD_NMS_TOP_K = 400      # detection_output's nms_top_k: the loop's length
 
 
-def ssd_tools():
-    """``tools/torch_ssd.py``: the port's TinySSD, the example's batch,
-    loss and inference."""
+def tool_module(name):
+    """The module ``tools/<name>.py`` of this checkout."""
     tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
     if tools not in sys.path:
         sys.path.insert(0, tools)
-    import torch_ssd
-    return torch_ssd
+    return importlib.import_module(name)
+
+
+def ssd_tools():
+    """``tools/torch_ssd.py``: the port's TinySSD, the example's batch,
+    loss and inference."""
+    return tool_module("torch_ssd")
 
 
 class MiningReplay:
@@ -6122,9 +6153,11 @@ def seq_crosscheck_phases():
 
 class OpHolder:
     """Each op's card result against its CPU result: floats within
-    SEQ_OP_TOL of max(1, max |CPU's|), integers exact; keeps the worst."""
+    SEQ_OP_TOL of max(1, max |CPU's|), integers exact; keeps the worst.
+    ``what`` names the phase in its errors."""
 
-    def __init__(self):
+    def __init__(self, what="sequence_ops"):
+        self.what = what
         self.ops, self.worst, self.worst_op = [], 0.0, None
 
     def __call__(self, name, card, cpu):
@@ -6136,30 +6169,34 @@ class OpHolder:
             self(f"{name}.values", card.values, cpu.values)
             self(f"{name}.row_lengths", card.row_lengths, cpu.row_lengths)
             return
+        if hasattr(card, "lengths") and hasattr(card, "values"):
+            self(f"{name}.values", card.values, cpu.values)
+            self(f"{name}.lengths", card.lengths, cpu.lengths)
+            return
         if not isinstance(card, torch.Tensor):
             if card != cpu:
-                raise AssertionError(f"sequence_ops {name}: {card} on the "
+                raise AssertionError(f"{self.what} {name}: {card} on the "
                                      f"card, {cpu} on the CPU")
             self.ops.append(name)
             return
         card = card.cpu()
         if card.shape != cpu.shape or card.dtype != cpu.dtype:
-            raise AssertionError(f"sequence_ops {name}: {card.shape} "
+            raise AssertionError(f"{self.what} {name}: {card.shape} "
                                  f"{card.dtype} against {cpu.shape} "
                                  f"{cpu.dtype}")
         if card.dtype.is_floating_point:
             fin = torch.isfinite(cpu)
             if not torch.equal(fin, torch.isfinite(card)) or not torch.equal(
                     card[~fin], cpu[~fin]):
-                raise AssertionError(f"sequence_ops {name}: non-finite "
+                raise AssertionError(f"{self.what} {name}: non-finite "
                                      "entries differ")
             err = (float((card[fin] - cpu[fin]).abs().max()) / max(
                 1.0, float(cpu[fin].abs().max()))) if fin.any() else 0.0
-            check(f"sequence_ops {name}", err, SEQ_OP_TOL)
+            check(f"{self.what} {name}", err, SEQ_OP_TOL)
             if err >= self.worst:
                 self.worst, self.worst_op = err, name
         elif not torch.equal(card, cpu):
-            raise AssertionError(f"sequence_ops {name}: integers differ")
+            raise AssertionError(f"{self.what} {name}: integers differ")
         self.ops.append(name)
 
 
@@ -6651,9 +6688,413 @@ def expected_route(kernel, case):
 #: the paths whose launches every row of the kernels line lists beside
 #: its own path's (``launches_<path>``), the scan step under each remat
 #: policy among them
+# ------------------------------------------------------------ word2vec
+
+#: the word2vec phase: the corpus, the reader, the steps (the JAX
+#: defaults' model widths, batch 512, the book's 5-grams)
+W2V_LINES, W2V_WORDS = 3000, 2000
+W2V_FILES, W2V_THREADS = 4, 2
+W2V_BATCH, W2V_STEPS = 512, 20
+W2V_CHECK_STEPS = 5
+W2V_LOSS_TOL = 1e-4     # card vs CPU, each of the first steps' losses,
+                        # relative
+
+
+def word2vec_phase(smi):
+    """The word2vec book path on the card (see the module docstring, 31).
+    Returns (line, launches)."""
+    import tempfile
+    from paddle_tpu_torch.ops.cuda import core
+    bk = tool_module("torch_word2vec")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = bk.zipf_corpus(os.path.join(tmp, "corpus.txt"), W2V_LINES,
+                                W2V_WORDS)
+        word_idx, grams = bk.book_grams([corpus])
+        paths, written = bk.write_grams(grams, tmp, W2V_FILES)
+        raw, read, rate = bk.read_grams(paths, W2V_THREADS)
+    ingest_s = time.perf_counter() - t0
+    if not bk.same_records(written, raw):
+        raise AssertionError("word2vec: the records read back are not the "
+                             "records written")
+    vocab = len(word_idx)
+    if vocab > bk.SKIPGRAM["vocab_size"]:
+        raise AssertionError(f"word2vec: {vocab} words do not fit the "
+                             "skip-gram's vocabulary")
+    batches = bk.batches(read, W2V_BATCH, W2V_STEPS)
+    negs = bk.negatives(W2V_BATCH * (bk.NGRAM - 1), W2V_STEPS)
+    models = bk.make_models(vocab, "cuda")
+    torch.cuda.synchronize()
+    core.reset_launches()
+    w2v, sg, tw, ts = bk.train("cuda", vocab, batches, negs, models=models)
+    torch.cuda.synchronize()
+    launches = core.launch_counts()
+    check_no_launches("word2vec", launches)
+    if not (np.isfinite(w2v).all() and np.isfinite(sg).all()):
+        raise AssertionError(f"word2vec: non-finite loss {w2v} {sg}")
+    n = W2V_CHECK_STEPS
+    cw, cs, _, _ = bk.train("cpu", vocab, batches[:n], negs[:n])
+    errs = [abs(a - b) / abs(b) for a, b in zip(w2v[:n] + sg[:n], cw + cs)]
+    check("word2vec card vs CPU loss", max(errs), W2V_LOSS_TOL)
+    w2v_m, w2v_opt, sg_m, sg_opt = models
+    a, b = bk.step_args(batches[0], None, "cuda")
+    own = float(sg_opt.minimize(sg_m, bk.nce_loss, *b))
+    if not math.isfinite(own):
+        raise AssertionError("word2vec: the skip-gram's own draw gave a "
+                             "non-finite loss")
+    profile = {}
+    for name, (model, opt, loss_fn, args, times, losses) in {
+            "w2v": (w2v_m, w2v_opt, bk.w2v_loss, a, tw, w2v),
+            "skipgram": (sg_m, sg_opt, bk.nce_loss,
+                         bk.step_args(batches[0], negs[0], "cuda")[1], ts,
+                         sg)}.items():
+        dev_ms, step_launches, by_name = kernel_profile(
+            lambda: opt.minimize(model, loss_fn, *args))
+        p50 = float(np.median(times)) * 1e3
+        profile[name] = dict(
+            p50_step_ms=p50, mean_step_ms=float(np.mean(times)) * 1e3,
+            device_ms=dev_ms, idle_share=1.0 - dev_ms / p50,
+            launches_per_step=step_launches, losses=losses,
+            top_kernels={k[:60]: v for k, v in by_name.most_common(5)})
+    line = dict(
+        corpus=f"Zipf(1.2) over {W2V_WORDS} words, {W2V_LINES} lines",
+        vocab=vocab, grams=len(grams), record_files=W2V_FILES,
+        reader_threads=W2V_THREADS, records_per_s=rate, ingest_s=ingest_s,
+        w2v=dict(config=dict(vocab_size=vocab, **bk.W2V),
+                 batch=W2V_BATCH, **profile["w2v"]),
+        skipgram=dict(config=bk.SKIPGRAM, pairs_per_step=W2V_BATCH * (
+            bk.NGRAM - 1), **profile["skipgram"]),
+        optimizer="Adam(1e-3)", steps=W2V_STEPS, crosscheck_steps=n,
+        crosscheck_max_rel_err=max(errs), tol=W2V_LOSS_TOL,
+        own_draw_loss=own, launches=launches, card=smi)
+    return line, launches
+
+
+# ------------------------------------------------------------ op_tail
+
+#: every name the op surface's last slice registered
+OP_TAIL_NAMES = (
+    # ops/tail.py
+    "adaptive_pool3d", "assign", "autoincreased_step_counter",
+    "bilinear_tensor_product", "continuous_value_model", "conv_shift",
+    "create_global_var", "create_parameter", "create_tensor", "crop",
+    "crop_tensor", "ctc_greedy_decoder", "cvm", "dynamic_lstmp",
+    "filter_by_instag", "gather_tree", "gaussian_random_batch_size_like",
+    "get_tensor_from_selected_rows", "has_inf", "has_nan", "hash",
+    "image_resize_short", "is_empty", "l1_norm", "label_smooth",
+    "lod_append", "lod_reset", "mean_iou", "merge_selected_rows", "minus",
+    "modified_huber_loss", "multiplex", "ones", "pad_constant_like",
+    "positive_negative_pair", "py_func", "random_crop", "resize_trilinear",
+    "sample_logits", "sampling_id", "scatter_nd", "sequence_reshape",
+    "similarity_focus", "soft_relu", "spectral_norm", "squared_l2_distance",
+    "squared_l2_norm", "sums", "teacher_student_sigmoid_loss",
+    "tensor_array_to_tensor", "uniform_random_batch_size_like", "zeros",
+    # ops/fused.py
+    "conv_fusion", "fused_elemwise_activation", "fused_embedding_fc_lstm",
+    "fused_embedding_seq_pool", "fused_fc_elementwise_layernorm",
+    "fusion_conv_inception", "fusion_repeated_fc_relu",
+    "fusion_seqconv_eltadd_relu", "fusion_seqexpand_concat_fc",
+    "fusion_seqpool_concat", "fusion_seqpool_cvm_concat",
+    "fusion_squared_mat_sub", "fusion_transpose_flatten_concat",
+    # ops/vision.py
+    "affine_grid", "conv3d_transpose", "data_norm", "deformable_conv",
+    "grid_sampler", "max_pool2d_with_index", "pool3d", "shuffle_channel",
+    "space_to_depth", "spp", "temporal_shift", "unpool",
+    # ops/graph.py
+    "tree_conv")
+#: the random ones, held on shape, range and seeded determinism
+OP_TAIL_RANDOM = ("sampling_id", "random_crop",
+                  "uniform_random_batch_size_like",
+                  "gaussian_random_batch_size_like")
+#: the one name whose call launches a kernel: K8, once a call
+OP_TAIL_KERNEL = {"fused_fc_elementwise_layernorm": {"add_layer_norm": 1}}
+
+
+def op_tail_cases(dev, rs):
+    """``({name: result}, {name: {kernel: launches}})`` of every
+    deterministic name of OP_TAIL_NAMES on ``dev`` (each op's launches
+    counted alone), from inputs drawn on the host by ``rs``."""
+    from paddle_tpu_torch.core.ragged import RaggedBatch
+    from paddle_tpu_torch.core.registry import GLOBAL_OP_REGISTRY as REG
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.graph import tree_patch_coefficients
+    from paddle_tpu_torch.ops.tail import ShapeDtype
+
+    def d(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def f(*shape, scale=1.0):
+        return d(rs.randn(*shape).astype(np.float32) * scale)
+
+    def pos(*shape):
+        return d(rs.rand(*shape).astype(np.float32) * 3.0)
+
+    def ints(lo, hi, *shape):
+        return d(rs.randint(lo, hi, shape).astype(np.int32))
+
+    out, launched = {}, {}
+
+    def run(name, *args, **kw):
+        core.reset_launches()
+        out[name] = REG.get(name)(*args, **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launched[name] = {k: n for k, n in core.launch_counts().items() if n}
+
+    x = f(512, 64)
+    run("label_smooth", torch.softmax(f(256, 100), -1), epsilon=0.1)
+    run("multiplex", [f(512, 64), f(512, 64), x], ints(0, 3, 512, 1))
+    run("mean_iou", ints(0, 21, 4096), ints(0, 21, 4096), 21)
+    vol = f(8, 64, 64)
+    run("crop_tensor", vol, [4, 32, 48], [2, 16, 8])
+    run("crop", vol, [6, 20, 30], [1, 30, 20])
+    run("bilinear_tensor_product", f(256, 32), f(256, 48),
+        f(16, 32, 48, scale=0.1), f(16))
+    run("gather_tree", ints(0, 1000, 20, 32, 4), ints(0, 4, 20, 32, 4))
+    run("hash", d(rs.randint(-2 ** 31, 2 ** 31 - 1, (1024, 4)).astype(
+        np.int32)), 100003, 4)
+    run("soft_relu", f(4096, scale=50.0), 40.0)
+    run("pad_constant_like", vol, f(8, 40, 50), 0.5)
+    lens = rs.randint(1, 51, 64).astype(np.int32)
+    lens[[5, 9]] = 0
+    run("ctc_greedy_decoder", f(64, 50, 20), d(lens))
+    rb = RaggedBatch(f(int(lens.sum()), 8), d(lens))
+    run("sequence_reshape", rb, 4)
+    run("lod_reset", rb, d(lens[::-1].copy()))
+    run("teacher_student_sigmoid_loss", f(4096, scale=10.0),
+        d(np.where(rs.rand(4096) < 0.5, -rs.rand(4096),
+                   rs.randint(0, 2, 4096)).astype(np.float32)))
+    cvm_in = pos(1024, 34)
+    run("continuous_value_model", cvm_in, True)
+    run("cvm", cvm_in, False)
+    run("adaptive_pool3d", f(4, 8, 8, 16, 16), (2, 4, 4), "avg")
+    outer = np.array([3, 0, 2, 4], np.int32)
+    inner = rs.randint(0, 6, int(outer.sum())).astype(np.int32)
+    run("lod_append", f(int(inner.sum()), 16), d(outer), d(inner))
+    run("image_resize_short", f(4, 3, 60, 80), 32)
+    run("spectral_norm", f(64, 32, 3, 3), f(64), f(288), power_iters=3)
+    steps = rs.randint(1, 21, 16).astype(np.int32)
+    run("dynamic_lstmp", f(16, 20, 32), f(16, 16), f(16, 64),
+        f(32, 256, scale=0.2), f(16, 256, scale=0.2), f(64, 16, scale=0.2),
+        f(256), lengths=d(steps))
+    run("filter_by_instag", f(256, 16), ints(0, 12, 256, 3), [3, 7, 11],
+        out_size=300)
+    run("conv_shift", f(256, 128), f(256, 7))
+    run("squared_l2_distance", x, f(1, 64))
+    run("squared_l2_norm", x)
+    run("l1_norm", x)
+    run("modified_huber_loss", f(4096, scale=2.0),
+        d(rs.randint(0, 2, 4096).astype(np.float32)))
+    run("positive_negative_pair", d(np.round(rs.rand(512), 2).astype(
+        np.float32)), d(rs.randint(0, 3, 512).astype(np.float32)),
+        ints(0, 16, 512))
+    labels = ints(0, 1000, 256, 1)
+    samples = torch.cat([labels, ints(0, 1000, 256, 32)], 1)
+    run("sample_logits", f(256, 1000), labels, 32, None,
+        use_customized_samples=True, customized_samples=samples,
+        customized_probabilities=d(rs.uniform(0.001, 0.01, (256, 33))
+                                   .astype(np.float32)))
+    run("similarity_focus", f(4, 6, 16, 16), 1, [0, 3])
+    run("is_empty", x)
+    run("minus", x, f(512, 64))
+    run("scatter_nd", ints(0, 64, 1000, 2), f(1000, 16), [64, 64, 16])
+    run("autoincreased_step_counter", d(np.array(41, np.int32)))
+    run("resize_trilinear", f(2, 4, 8, 16, 16), size=(12, 20, 24))
+    ids = ints(0, 500, 2048)
+    rows = f(2048, 32)
+    run("merge_selected_rows", ids, rows)
+    run("get_tensor_from_selected_rows", ids, rows, 500)
+    run("py_func", lambda a, b: np.tanh(a) * b.sum(), x, f(3),
+        out_shape_dtype=ShapeDtype((512, 64), torch.float32))
+    run("assign", x)
+    run("sums", [x, f(512, 64), f(512, 64)])
+    run("has_inf", d(np.array([1.0, np.inf], np.float32)))
+    run("has_nan", x)
+    run("tensor_array_to_tensor", f(6, 32, 16), 1, False)
+    run("ones", [64, 64], "float32", device=dev)
+    run("zeros", [64, 32], "int32", device=dev)
+    run("create_tensor", "float32", [8, 8], device=dev)
+    run("create_global_var", [8, 8], 1.5, device=dev)
+    run("create_parameter", [8, 8], device=dev)
+    # ops/fused.py
+    img = f(8, 16, 32, 32)
+    conv_args = (img, f(32, 16, 3, 3, scale=0.1), f(32),
+                 f(8, 32, 32, 32), 1, 1)
+    run("conv_fusion", *conv_args)
+    run("fusion_conv_inception", *conv_args)
+    run("fused_elemwise_activation", x, f(512, 64),
+        ["elementwise_add", "relu"])
+    run("fused_embedding_fc_lstm", ints(0, 500, 16, 20),
+        f(500, 256, scale=0.3), f(16, 64), f(16, 64), f(64, 256, scale=0.1),
+        f(256), lengths=d(steps))
+    run("fused_embedding_seq_pool", f(1000, 64), ints(0, 1000, 256, 20),
+        d(rs.randint(0, 21, 256).astype(np.int32)), "mean")
+    run("fused_fc_elementwise_layernorm", f(512, 768),
+        f(768, 768, scale=0.05), f(512, 768), f(768), f(768), f(768))
+    run("fusion_repeated_fc_relu", f(512, 256),
+        [f(256, 512, scale=0.1), f(512, 128, scale=0.1)], [f(512), f(128)])
+    seq_lens = d(rs.randint(0, 41, 32).astype(np.int32))
+    seq = f(32, 40, 64)
+    run("fusion_seqconv_eltadd_relu", seq, f(192, 128, scale=0.1), f(128),
+        3, lengths=seq_lens)
+    run("fusion_seqexpand_concat_fc", seq, [f(32, 16)],
+        f(80, 128, scale=0.1), f(128), "relu")
+    pool_lens = d(rs.randint(0, 41, 64).astype(np.int32))
+    run("fusion_seqpool_concat", [f(64, 40, 32), f(64, 40, 16)], pool_lens,
+        "SQRT")
+    run("fusion_seqpool_cvm_concat", [pos(64, 40, 34)], pool_lens, True,
+        "SUM")
+    run("fusion_squared_mat_sub", f(256, 128), f(128, 64), 0.5)
+    run("fusion_transpose_flatten_concat", [f(8, 16, 32), f(8, 16, 24)],
+        (0, 2, 1), 1, 1)
+    # ops/vision.py
+    theta = d(np.tile(np.array([[1.1, 0.1, 0.05], [-0.1, 1.05, -0.1]],
+                               np.float32), (8, 1, 1))
+              + rs.randn(8, 2, 3).astype(np.float32) * 0.05)
+    run("affine_grid", theta, (8, 3, 32, 32))
+    run("grid_sampler", f(8, 3, 32, 32), out["affine_grid"])
+    run("space_to_depth", img, 2)
+    run("shuffle_channel", f(8, 16, 16, 16), 4)
+    run("temporal_shift", f(32, 16, 8, 8), 8, 0.25)
+    run("pool3d", f(4, 8, 16, 16, 16), 3, "max", 2, 1)
+    run("conv3d_transpose", f(2, 8, 8, 8, 8), f(8, 4, 3, 3, 3, scale=0.2),
+        2, 1, bias=f(4))
+    ties = d(np.floor(rs.randn(8, 16, 32, 32) * 2.0).astype(np.float32))
+    run("max_pool2d_with_index", ties, 2, 2)
+    vals, idx = out["max_pool2d_with_index"]
+    run("unpool", vals, idx, (32, 32))
+    run("spp", img, 3, "max")
+    run("data_norm", f(1024, 64), d(rs.uniform(100, 200, 64).astype(
+        np.float32)), f(64, scale=10.0), d(rs.uniform(50, 500, 64).astype(
+            np.float32)))
+    run("deformable_conv", f(4, 16, 24, 24), f(4, 18, 24, 24, scale=2.0),
+        f(32, 16, 3, 3, scale=0.1), 1, 1,
+        mask=d(rs.rand(4, 9, 24, 24).astype(np.float32)))
+    # ops/graph.py
+    edges = np.zeros((16, 29, 2), np.int64)
+    for b in range(16):
+        n = rs.randint(2, 31)
+        edges[b, :n - 1] = [(rs.randint(1, v), v) for v in range(2, n + 1)]
+    run("tree_conv", f(16, 30, 32),
+        d(tree_patch_coefficients(edges, 30, 3)), f(32, 3, 16, 8))
+    return out, launched
+
+
+def op_tail_random(gen_seed):
+    """The random names on the card: ``{name: (result, again with the
+    same seed, with another seed)}``."""
+    from paddle_tpu_torch.core.registry import GLOBAL_OP_REGISTRY as REG
+    probs = torch.softmax(torch.randn(4096, 8, device="cuda") * 2, -1)
+    like = torch.zeros(300, 4, device="cuda")
+    vol = torch.arange(6 * 64 * 64, dtype=torch.float32,
+                       device="cuda").reshape(6, 64, 64)
+    calls = {
+        "sampling_id": lambda g: REG.get("sampling_id")(probs, g),
+        "random_crop": lambda g: REG.get("random_crop")(vol, g, [6, 32, 40]),
+        "uniform_random_batch_size_like": lambda g: REG.get(
+            "uniform_random_batch_size_like")(like, g, [-1, 2048],
+                                              min=-2.0, max=1.0),
+        "gaussian_random_batch_size_like": lambda g: REG.get(
+            "gaussian_random_batch_size_like")(like, g, [-1, 2048],
+                                               mean=1.0, std=0.5),
+        "sample_logits": lambda g: REG.get("sample_logits")(
+            torch.randn(256, 1000, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1)),
+            torch.zeros(256, 1, dtype=torch.int32, device="cuda"), 32, g)[0]}
+
+    def gen(seed):
+        return torch.Generator("cuda").manual_seed(seed)
+    out = {name: (fn(gen(gen_seed)), fn(gen(gen_seed)), fn(gen(gen_seed + 1)))
+           for name, fn in calls.items()}
+    checks = {}
+    for name, (a, b, c) in out.items():
+        if not torch.equal(a, b) or torch.equal(a, c):
+            raise AssertionError(f"op_tail {name}: not determined by its "
+                                 "generator's seed")
+        checks[name] = list(a.shape)
+    ids = out["sampling_id"][0]
+    freq = torch.bincount(ids, minlength=8).float() / ids.numel()
+    check("op_tail sampling_id frequencies",
+          float((freq - probs.mean(0)).abs().max()), 0.03)
+    crop = out["random_crop"][0]
+    i0, j0 = int(crop[0, 0, 0]) // 64 % 64, int(crop[0, 0, 0]) % 64
+    if not torch.equal(crop, vol[:, i0:i0 + 32, j0:j0 + 40]):
+        raise AssertionError("op_tail random_crop: not a crop of its input")
+    u = out["uniform_random_batch_size_like"][0]
+    if u.shape != (300, 2048) or float(u.min()) < -2.0 or float(
+            u.max()) >= 1.0:
+        raise AssertionError("op_tail uniform_random_batch_size_like: "
+                             "shape or range")
+    check("op_tail uniform mean", abs(float(u.mean()) + 0.5), 0.01)
+    n = out["gaussian_random_batch_size_like"][0]
+    check("op_tail gaussian mean", abs(float(n.mean()) - 1.0), 0.01)
+    check("op_tail gaussian std", abs(float(n.std()) - 0.5), 0.01)
+    if out["sample_logits"][0].shape != (256, 33):
+        raise AssertionError("op_tail sample_logits: shape")
+    return checks
+
+
+def op_tail_phase(smi):
+    """Every OP_TAIL_NAMES name on the card against the CPU (see the
+    module docstring, 32). Returns (line, launches)."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.core.registry import GLOBAL_OP_REGISTRY as REG
+    from paddle_tpu_torch.ops.cuda import core
+    t0 = time.perf_counter()
+    missing = [n for n in OP_TAIL_NAMES if n not in REG]
+    if missing:
+        raise AssertionError(f"op_tail: not registered {missing}")
+    card, launched = op_tail_cases("cuda", np.random.RandomState(5))
+    cpu, _ = op_tail_cases("cpu", np.random.RandomState(5))
+    covered = set(card) | set(OP_TAIL_RANDOM)
+    if covered != set(OP_TAIL_NAMES):
+        raise AssertionError(f"op_tail: names not run "
+                             f"{sorted(set(OP_TAIL_NAMES) - covered)}")
+    wrong = {n: k for n, k in launched.items()
+             if k != OP_TAIL_KERNEL.get(n, {})}
+    if wrong:
+        raise AssertionError(f"op_tail launches (name: kernels): {wrong}")
+    launches = collections.Counter()
+    for k in launched.values():
+        launches.update(k)
+    hold = OpHolder("op_tail")
+    for name in cpu:
+        hold(name, card[name], cpu[name])
+    random_shapes = op_tail_random(7)
+    # LayerNorm with scale and shift off: K1 (K8 with a residual)
+    g = torch.Generator().manual_seed(8)
+    x, r = torch.randn(6, 768, generator=g), torch.randn(6, 768, generator=g)
+    ln_launches = {}
+    for scale, shift in ((False, False), (True, False), (False, True)):
+        ln = pnn.LayerNorm(768, scale=scale, shift=shift)
+        with torch.no_grad():
+            want = (ln(x), ln(x, r))
+            ln.to("cuda")
+            core.reset_launches()
+            got = (ln(x.cuda()), ln(x.cuda(), r.cuda()))
+            torch.cuda.synchronize()
+        counts = {k: n for k, n in core.launch_counts().items() if n}
+        if counts != {"layer_norm": 1, "add_layer_norm": 1}:
+            raise AssertionError(f"op_tail LayerNorm(scale={scale}, "
+                                 f"shift={shift}) launched {counts}")
+        launches.update(counts)
+        ln_launches[f"scale={scale},shift={shift}"] = counts
+        hold(f"LayerNorm(scale={scale},shift={shift})", got, want)
+    line = dict(names=len(OP_TAIL_NAMES), ops=len(hold.ops),
+                worst_rel_err=hold.worst, worst_op=hold.worst_op,
+                tol=SEQ_OP_TOL, random=random_shapes,
+                kernel_launches=dict(launches),
+                fused_fc_elementwise_layernorm=launched[
+                    "fused_fc_elementwise_layernorm"],
+                layer_norm_switches=ln_launches,
+                seconds=time.perf_counter() - t0, held=hold.ops, card=smi)
+    return line, collections.Counter(launches)
+
+
 LISTED_PATHS = ("serve_spec", "train", "bert", "bert_large", "trainer",
                 "transformer", "resnet", "trainer_resnet", "ctr", "ssd",
-                "tagger", "sentiment", "program", "gpt_decode",
+                "tagger", "sentiment", "program", "word2vec", "op_tail",
+                "gpt_decode",
                 "gpt_decode_int8", "serve_int8", "serve_fleet",
                 "serve_fleet_proc", "moe_train", "export",
                 "scan_nothing", "scan_dots_saveable", "scan_full")
@@ -6982,7 +7423,13 @@ def main():
     torch.cuda.empty_cache()
     program_line, program_launches, program_routes = program_phase(smi)
     emit(dict(phase="program", **program_line))
-    emit(dict(phase="timeline", last_phase="program", limit_s=1200.0))
+    torch.cuda.empty_cache()
+    word2vec_line, word2vec_launches = word2vec_phase(smi)
+    emit(dict(phase="word2vec", **word2vec_line))
+    torch.cuda.empty_cache()
+    op_tail_line, op_tail_launches = op_tail_phase(smi)
+    emit(dict(phase="op_tail", **op_tail_line))
+    emit(dict(phase="timeline", last_phase="op_tail", limit_s=1200.0))
 
     table = kernel_table(by_kernel, {
         "serve": launches, "serve_spec": spec_launches,
@@ -6993,7 +7440,8 @@ def main():
         "trainer_resnet": trainer_resnet_launches,
         "ctr": ctr_launches, "ssd": ssd_launches,
         "tagger": tagger_launches, "sentiment": sentiment_launches,
-        "program": program_launches, "gpt_decode": decode_launches,
+        "program": program_launches, "word2vec": word2vec_launches,
+        "op_tail": op_tail_launches, "gpt_decode": decode_launches,
         "gpt_decode_int8": decode8_launches, "serve_int8": serve8_launches,
         "serve_fleet": fleet_launches, "serve_fleet_proc": proc_launches,
         "moe_train": moe_launches, "export": export_launches,

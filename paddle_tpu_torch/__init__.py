@@ -12,9 +12,12 @@ The models: GPT (serving and training), BERT and ERNIE (pretraining), the
 NMT Transformer and the attention seq2seq (translation), ResNet, VGG and
 SE-ResNeXt (image classification), the MNIST book models, DeepFM and
 Wide&Deep (CTR, with the sparse-row tables of ``parallel/``), the
-recommender, word2vec's N-gram LM, the SSD example's detection ops, and
-the sequence family (the sentiment nets and the BiLSTM-CRF tagger over
-``core/ragged.py`` and the sequence, CRF and text-matching ops).
+recommender, word2vec's N-gram LM and skip-gram NCE (fed by
+``data/formats.py`` and the native record reader of ``data/native.py``),
+the SSD example's detection ops, and the sequence family (the sentiment
+nets and the BiLSTM-CRF tagger over ``core/ragged.py`` and the sequence,
+CRF and text-matching ops). ``distributions`` holds the reference's four
+distributions, and ``ops`` registers all of the reference's op names.
 
 The package imports its modules on first use (PEP 562): ``import
 paddle_tpu_torch.io`` loads the export and checkpoint modules and the
@@ -32,7 +35,8 @@ _EXPORTS = {
         "DeepFM", "ErnieConfig", "ErnieForPretraining", "GPTConfig",
         "GPTDecoder", "LinearRegression", "RecConfig", "RecommenderNet",
         "ResNet", "SEResNeXt", "SentimentConfig", "Seq2SeqConfig",
-        "SoftmaxRegression", "StackedLSTMSentiment", "TaggerConfig",
+        "SkipGramNCE", "SoftmaxRegression", "StackedLSTMSentiment",
+        "TaggerConfig",
         "TextCNNSentiment", "Transformer", "TransformerConfig",
         "WideAndDeep", "Word2Vec", "ctr_loss",
         "make_sparse_deepfm_train_step", "resnet18", "resnet50",

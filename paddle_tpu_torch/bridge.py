@@ -8,9 +8,13 @@ as ``blocks/<i>/attn/wq``, ``blocks/<i>/fc1/weight``,
 ``blocks/<i>/ln1/scale``, ``tok_emb/weight`` and ``ln_f/bias``. The port
 names its parameters the same way, joined with dots, and keeps the same
 ``[in, out]`` layout for every projection (``x @ W``), so the bridge
-copies arrays without transposing any. A scan-stacked subtree (the JAX
-package's ``ScanLayers``, ``scan_layers=True``: ``encoder/layers/layer/
-<leaf>`` with a leading layer axis) loads into the port's unrolled
+copies arrays without transposing any. A leaf a module declares on
+itself sits at its module's level under its own name (``SkipGramNCE``'s
+``nce_weight`` and ``nce_bias``; ``SpectralNorm``'s ``u`` and ``v`` in
+the state), and the port's attribute of that name takes it. A
+scan-stacked subtree (the JAX package's ``ScanLayers``,
+``scan_layers=True``: ``encoder/layers/layer/<leaf>`` with a leading
+layer axis) loads into the port's unrolled
 layers ``encoder.layers.<i>.<leaf>``, and as it is into a scan model
 (``scan_layers=True``, whose parameters are that tree's);
 :func:`export_params` writes the model's own layout. A weight-only int8

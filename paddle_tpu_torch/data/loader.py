@@ -264,3 +264,21 @@ def batch(reader, batch_size, drop_last=True):
         if buf and not drop_last:
             yield _collate(buf)
     return batch_reader
+
+
+def shuffle(reader, buf_size, seed=None):
+    """Shuffle a sample reader through a buffer of ``buf_size`` samples
+    with ``np.random.RandomState(seed)`` (ref: ``loader.py:171``): the
+    reference's order for the same seed."""
+    def shuffled():
+        rng = np.random.RandomState(seed)
+        pool = []
+        for s in reader():
+            pool.append(s)
+            if len(pool) >= buf_size:
+                rng.shuffle(pool)
+                yield from pool
+                pool = []
+        rng.shuffle(pool)
+        yield from pool
+    return shuffled

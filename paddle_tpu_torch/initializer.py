@@ -1,5 +1,5 @@
-"""Parameter initializers (ref: ``paddle_tpu/initializer.py``), the ones
-the port's layers use.
+"""Parameter initializers (ref: ``paddle_tpu/initializer.py``): every one
+of the reference's.
 
 Each initializer is ``fn(shape, gen, dtype) -> tensor``: it draws on the
 CPU from the explicit ``torch.Generator`` ``gen`` (the reference's
@@ -10,6 +10,7 @@ it come through ``paddle_tpu_torch/bridge.py``.
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,6 +41,11 @@ def zeros():
     return constant(0.0)
 
 
+def ones():
+    """ref: ``initializer.py:42``."""
+    return constant(1.0)
+
+
 def normal(loc=0.0, scale=1.0):
     """N(loc, scale^2) (ref: ``initializer.py:52``)."""
     def init(shape, gen=None, dtype=torch.float32):
@@ -53,6 +59,16 @@ def uniform(low=-1.0, high=1.0):
     def init(shape, gen=None, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype).uniform_(low, high,
                                                         generator=gen)
+    return init
+
+
+def truncated_normal(loc=0.0, scale=1.0):
+    """``loc + scale * z``, z a standard normal truncated to [-2, 2] (ref:
+    ``initializer.py:58``)."""
+    def init(shape, gen=None, dtype=torch.float32):
+        z = torch.nn.init.trunc_normal_(torch.empty(shape, dtype=dtype),
+                                        0.0, 1.0, -2.0, 2.0, generator=gen)
+        return loc + scale * z
     return init
 
 
@@ -84,4 +100,32 @@ def msra(uniform_=False, fan_in=None):
             limit = math.sqrt(6.0 / fi)
             return w.uniform_(-limit, limit, generator=gen)
         return w.normal_(0.0, math.sqrt(2.0 / fi), generator=gen)
+    return init
+
+
+def bilinear():
+    """The bilinear upsampling kernel of a transposed convolution, on the
+    diagonal channels of ``[C, C', kh, kw]`` (ref: ``initializer.py:94``);
+    draws nothing from ``gen``."""
+    def init(shape, gen=None, dtype=torch.float32):
+        kh, kw = shape[-2], shape[-1]
+        f_h, f_w = (kh + 1) // 2, (kw + 1) // 2
+        c_h = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h)
+        c_w = (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+        og = np.ogrid[:kh, :kw]
+        filt = ((1 - abs(og[0] / f_h - c_h)) * (1 - abs(og[1] / f_w - c_w)))
+        w = np.zeros(shape, np.float32)
+        for i in range(min(shape[0], shape[1])):
+            w[i, i] = filt
+        return torch.from_numpy(w).to(dtype)
+    return init
+
+
+def numpy_array(arr):
+    """The given array, which must have the parameter's shape (ref:
+    ``initializer.py:112``); draws nothing from ``gen``."""
+    def init(shape, gen=None, dtype=torch.float32):
+        a = torch.as_tensor(np.asarray(arr)).to(dtype).clone()
+        assert tuple(a.shape) == tuple(shape), (tuple(a.shape), shape)
+        return a
     return init

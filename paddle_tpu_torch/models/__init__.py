@@ -28,4 +28,5 @@ from paddle_tpu_torch.models.transformer import (  # noqa: F401
 from paddle_tpu_torch.models.vision_cls import (VGG,  # noqa: F401
                                                 SEResNeXt, se_resnext50,
                                                 vgg16)
-from paddle_tpu_torch.models.word2vec import Word2Vec, lm_loss  # noqa: F401
+from paddle_tpu_torch.models.word2vec import (SkipGramNCE,  # noqa: F401
+                                             Word2Vec, lm_loss)

@@ -13,8 +13,12 @@ the port runs on this path. Parameter names are the reference's
 statistics are buffers named as its ``state`` leaves
 (``stages.0.0.conv1.bn.mean``).
 
-Not ported: the space-to-depth stem (``resnet_s2d_stem``, off by default
-in the reference); the port takes every flag's default.
+The space-to-depth stem (the reference's ``resnet_s2d_stem`` flag, off
+by default: ``PT_FLAGS_resnet_s2d_stem=1`` or :func:`configure`) runs the
+7x7 stride-2 stem of an NHWC ImageNet model as the exact 4x4 stride-1
+convolution over the 2x2 space-to-depth input (``_space_to_depth_nhwc``,
+``_stem_s2d_weights``), the same logits by an index rewrite of the
+kernel.
 """
 
 import torch
@@ -23,8 +27,44 @@ from torch import nn
 from paddle_tpu_torch import initializer as I
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.settings import env_default
 from paddle_tpu_torch.ops import activations as A
 from paddle_tpu_torch.ops import nn as F
+
+
+_SETTINGS = {"resnet_s2d_stem": env_default("resnet_s2d_stem", False)}
+
+
+def configure(resnet_s2d_stem=None):
+    """Turn the space-to-depth stem on or off (None leaves it); returns
+    the settings."""
+    if resnet_s2d_stem is not None:
+        _SETTINGS["resnet_s2d_stem"] = bool(resnet_s2d_stem)
+    return dict(_SETTINGS)
+
+
+def _space_to_depth_nhwc(x, b=2):
+    """``[N, H, W, C]`` -> ``[N, H / b, W / b, b b C]``, channel order
+    (di, dj, c) (ref: ``resnet.py:20``)."""
+    n, h, w, c = x.shape
+    if h % b or w % b:
+        raise ValueError(
+            f"the s2d stem requires H and W divisible by {b}; got {h}x{w}. "
+            "Use the default 7x7 stem for odd input sizes.")
+    x = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // b, w // b, b * b * c)
+
+
+def _stem_s2d_weights(w):
+    """The 7x7/s2 stem kernel ``[7, 7, cin, cout]`` (HWIO) as the exact
+    4x4/s1 kernel over space-to-depth(2) input, ``[4, 4, 4 cin, cout]``
+    (ref: ``resnet.py:31``): the 7-tap window zero-padded on the top and
+    left to 8 taps, which are s2d rows o-2 .. o+1, so padding (2, 1)."""
+    k, _, cin, cout = w.shape
+    assert k == 7, "s2d stem transform expects the 7x7 ImageNet stem"
+    w8 = torch.nn.functional.pad(w, (0, 0, 0, 0, 1, 0, 1, 0))
+    ws = w8.reshape(4, 2, 4, 2, cin, cout).permute(0, 2, 1, 3, 4, 5)
+    return ws.reshape(4, 4, 4 * cin, cout)
 
 
 class ConvBN(nn.Module):
@@ -142,7 +182,14 @@ class ResNet(nn.Module):
     def forward(self, x):
         if self.data_format == "NHWC" and self.input_layout == "NCHW":
             x = x.permute(0, 2, 3, 1).contiguous()    # once, at the stem
-        x = self.stem(x)
+        if (not self.small_input and self.data_format == "NHWC"
+                and _SETTINGS["resnet_s2d_stem"]):
+            w = _stem_s2d_weights(self.stem.conv.weight)
+            x = F.conv2d(_space_to_depth_nhwc(x), w.to(x.dtype),
+                         padding=((2, 1), (2, 1)), data_format="NHWC")
+            x = self.stem.bn(x)
+        else:
+            x = self.stem(x)
         if not self.small_input:
             x = F.pool2d(x, 3, "max", 2, padding=1,
                          data_format=self.data_format)

@@ -1,8 +1,11 @@
-from paddle_tpu_torch.nn.layers import (GRU, LSTM,  # noqa: F401
-                                        BatchNorm, Conv2D, Dropout,
-                                        Embedding, LayerNorm, Linear,
-                                        MultiHeadAttention, Pool2D, RowConv,
-                                        SequenceConv, fused_ffn,
+from paddle_tpu_torch.nn.layers import (FC, GRU, LSTM, NCE,  # noqa: F401
+                                        BatchNorm, BilinearTensorProduct,
+                                        Conv2D, Conv2DTranspose, Conv3D,
+                                        Dropout, Embedding, GroupNorm,
+                                        GRUUnit, LayerNorm, Linear,
+                                        MultiHeadAttention, Pool2D, PRelu,
+                                        RMSNorm, RowConv, SequenceConv,
+                                        SpectralNorm, TreeConv, fused_ffn,
                                         tied_vocab_head)
 from paddle_tpu_torch.nn.rnn import (RNN, BeamSearchDecoder,  # noqa: F401
                                      Decoder, GRUCell, LSTMCell, RNNCell,

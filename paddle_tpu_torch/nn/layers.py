@@ -57,18 +57,20 @@ def _int8_dot(x, q, scale, rhs_axis=0):
 
 class Linear(nn.Module):
     """ref: ``nn/layers.py:37`` — ``act(x @ weight + bias)``, weight
-    ``[in, out]`` drawn by ``weight_init`` (xavier by default);
-    ``bias=False`` has no bias parameter, ``act`` names an activation of
+    ``[in, out]`` drawn by ``weight_init`` (xavier by default), the bias
+    by ``bias_init`` (zeros by default); ``bias=False`` has no bias
+    parameter, ``act`` names an activation of
     ``ops/activations.py`` (``"gelu"``, ``"relu"``, ``"sigmoid"``)."""
 
     def __init__(self, in_features, out_features, bias=True, act=None,
-                 gen=None, dtype=torch.float32, weight_init=None):
+                 gen=None, dtype=torch.float32, weight_init=None,
+                 bias_init=None):
         super().__init__()
         self.act = act
         self.weight = nn.Parameter((weight_init or I.xavier())(
             (in_features, out_features), gen, dtype))
-        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype))
-                     if bias else None)
+        self.bias = (nn.Parameter((bias_init or I.zeros())(
+            (out_features,), gen, dtype)) if bias else None)
 
     def forward(self, x):
         if is_int8(self):
@@ -97,9 +99,12 @@ def fused_ffn(fc1, fc2, x, act="gelu"):
 
 
 class LayerNorm(nn.Module):
-    """ref: ``nn/layers.py:208``."""
+    """ref: ``nn/layers.py:208``. ``scale=False`` / ``shift=False`` leave
+    out the ``scale`` / ``bias`` parameter (the kernels then normalize
+    with ones and zeros)."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5, dtype=torch.float32):
+    def __init__(self, normalized_shape, epsilon=1e-5, scale=True,
+                 shift=True, dtype=torch.float32):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
@@ -108,8 +113,10 @@ class LayerNorm(nn.Module):
         n = 1
         for d in self.shape:
             n *= d
-        self.scale = nn.Parameter(torch.ones(n, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(n, dtype=dtype))
+        self.scale = (nn.Parameter(torch.ones(n, dtype=dtype)) if scale
+                      else None)
+        self.bias = (nn.Parameter(torch.zeros(n, dtype=dtype)) if shift
+                     else None)
 
     def forward(self, x, residual=None):
         """``ln(x)`` (K1 on the card); with ``residual``, ``ln(x +
@@ -237,21 +244,27 @@ def tied_vocab_head(emb, x):
 
 
 class Dropout(nn.Module):
-    """ref: ``nn/layers.py:304`` — inverted dropout in training, identity
-    otherwise. The mask is drawn from the explicit ``torch.Generator``
-    ``gen`` (the reference's ``rngs={"dropout": key}``); training with a
-    nonzero rate and no generator raises."""
+    """ref: ``nn/layers.py:304`` — the reference's two modes:
+    ``upscale_in_train`` (inverted dropout in training, identity
+    otherwise) and ``downgrade_in_infer`` (the mask alone in training,
+    ``x * (1 - rate)`` otherwise). The mask is drawn from the explicit
+    ``torch.Generator`` ``gen`` (the reference's ``rngs={"dropout":
+    key}``); training with a nonzero rate and no generator raises."""
 
-    def __init__(self, rate=0.5, gen=None):
+    def __init__(self, rate=0.5, gen=None, mode="upscale_in_train"):
         super().__init__()
         self.rate = rate
         self.gen = gen
+        self.mode = mode
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
-            return x
+            return F.dropout(x, None, self.rate, training=False,
+                             mode=self.mode)
         keep = att.dropout_mask(x.shape, self.rate, self.gen, x.device)
-        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+        kept = x / (1.0 - self.rate) if self.mode == "upscale_in_train" \
+            else x
+        return torch.where(keep, kept, torch.zeros_like(x))
 
 
 def _rnn_params(module, input_size, hidden_size, num_layers, ndir, gates,
@@ -601,3 +614,248 @@ class MultiHeadAttention(nn.Module):
         full = torch.einsum("bhqk,bhkd->bhqd", p, vf)
         return torch.where(l > 0, full / torch.clamp(l, min=1e-30),
                            torch.zeros_like(full))
+
+
+# ------------------------------------------------ the rest of the layers
+
+class FC(Linear):
+    """ref: ``nn/layers.py:756`` — :class:`Linear` over x flattened to 2-D
+    at ``num_flatten_dims`` (``ops.nn.fc``)."""
+
+    def __init__(self, in_features, out_features, num_flatten_dims=1, **kw):
+        super().__init__(in_features, out_features, **kw)
+        self.num_flatten_dims = num_flatten_dims
+
+    def forward(self, x):
+        out = F.fc(x, self.weight, self.bias,
+                   num_flatten_dims=self.num_flatten_dims)
+        return _act(self.act, out)
+
+
+class Conv2DTranspose(nn.Module):
+    """ref: ``nn/layers.py:120`` — weight ``[in, out / groups, kh, kw]``
+    (xavier by default), bias zeros."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 bias=True, act=None, weight_init=None, gen=None,
+                 dtype=torch.float32):
+        super().__init__()
+        k = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+             else tuple(kernel_size))
+        self.stride, self.padding, self.dilation, self.groups = \
+            stride, padding, dilation, groups
+        self.output_padding = output_padding
+        self.act = act
+        self.weight = nn.Parameter((weight_init or I.xavier())(
+            (in_channels, out_channels // groups) + k, gen, dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x):
+        out = F.conv2d_transpose(x, self.weight, self.bias, self.stride,
+                                 self.padding, self.output_padding,
+                                 self.dilation, self.groups)
+        return _act(self.act, out)
+
+
+class Conv3D(nn.Module):
+    """ref: ``nn/layers.py:770`` — weight OIDHW (msra by default), bias
+    zeros, over NCDHW."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, bias=True, act=None,
+                 weight_init=None, gen=None, dtype=torch.float32):
+        super().__init__()
+        k = ((kernel_size,) * 3 if isinstance(kernel_size, int)
+             else tuple(kernel_size))
+        self.stride, self.padding, self.dilation, self.groups = \
+            stride, padding, dilation, groups
+        self.act = act
+        self.weight = nn.Parameter((weight_init or I.msra())(
+            (out_channels, in_channels // groups) + k, gen, dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x):
+        out = F.conv3d(x, self.weight, self.bias, self.stride, self.padding,
+                       self.dilation, self.groups)
+        return _act(self.act, out)
+
+
+class RMSNorm(nn.Module):
+    """ref: ``nn/layers.py:242`` — ``ops.nn.rms_norm`` with a ``scale``
+    of ones (plain torch: the reference runs no kernel for it)."""
+
+    def __init__(self, dim, epsilon=1e-6, dtype=torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.scale, self.epsilon)
+
+
+class GroupNorm(nn.Module):
+    """ref: ``nn/layers.py:252`` — ``ops.nn.group_norm`` over NCHW, scale
+    ones and bias zeros (plain torch, as the reference runs no kernel)."""
+
+    def __init__(self, channels, groups=32, epsilon=1e-5,
+                 dtype=torch.float32):
+        super().__init__()
+        self.groups, self.epsilon = groups, epsilon
+        self.scale = nn.Parameter(torch.ones(channels, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=dtype))
+
+    def forward(self, x):
+        return F.group_norm(x, self.scale, self.bias, self.groups,
+                            self.epsilon)
+
+
+class PRelu(nn.Module):
+    """ref: ``nn/layers.py:333`` — ``alpha`` 0.25, one for ``mode="all"``
+    or one a channel (axis 1) for ``mode="channel"``."""
+
+    def __init__(self, mode="all", channels=None, dtype=torch.float32):
+        super().__init__()
+        self.mode = mode
+        shape = (1,) if mode == "all" else (channels,)
+        self.alpha = nn.Parameter(torch.full(shape, 0.25, dtype=dtype))
+
+    def forward(self, x):
+        a = self.alpha
+        if self.mode == "channel":
+            a = a.reshape(1, -1, *([1] * (x.ndim - 2)))
+        return torch.where(x >= 0, x, a * x)
+
+
+class BilinearTensorProduct(nn.Module):
+    """ref: ``nn/layers.py:349`` — ``out[b, o] = x[b] W[o] y[b] +
+    bias[o]``, weight ``[out, in1, in2]`` (xavier), bias zeros."""
+
+    def __init__(self, in1_features, in2_features, out_features, gen=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(I.xavier()(
+            (out_features, in1_features, in2_features), gen, dtype))
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype))
+
+    def forward(self, x, y):
+        return torch.einsum("bi,oij,bj->bo", x, self.weight, y) + self.bias
+
+
+class SpectralNorm(nn.Module):
+    """ref: ``nn/layers.py:364`` — ``weight / sigma`` by power iteration
+    (``ops.tail.spectral_norm``). The iteration's vectors ``u`` ``[h]``
+    and ``v`` ``[w]`` (N(0, 1) draws) are buffers, the reference's state:
+    each training-mode call writes the iterated vectors back; eval mode
+    reads them and leaves them as they are."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 gen=None, dtype=torch.float32):
+        super().__init__()
+        self.dim, self.power_iters, self.eps = dim, power_iters, eps
+        h = weight_shape[dim]
+        w = 1
+        for i, d in enumerate(weight_shape):
+            if i != dim:
+                w *= d
+        self.h, self.w = h, w
+        self.register_buffer("u", I.normal(0.0, 1.0)((h,), gen, dtype))
+        self.register_buffer("v", I.normal(0.0, 1.0)((w,), gen, dtype))
+
+    def forward(self, weight):
+        from paddle_tpu_torch.ops.tail import spectral_norm
+        # clones: the backward keeps the vectors it started from, and the
+        # buffers are written below
+        normed, u, v = spectral_norm(weight, self.u.clone(), self.v.clone(),
+                                     dim=self.dim,
+                                     power_iters=self.power_iters,
+                                     eps=self.eps)
+        if self.training:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.v.copy_(v)
+        return normed
+
+
+class GRUUnit(nn.Module):
+    """ref: ``nn/layers.py:795`` — one GRU step (``ops.rnn.gru_cell``) of
+    ``x [B, I]`` and ``h [B, H]``; ``w_ih [I, 3H]``, ``w_hh [H, 3H]``
+    (xavier), ``b_ih``, ``b_hh`` zeros."""
+
+    def __init__(self, input_size, hidden_size, bias=True,
+                 origin_mode=False, gen=None, dtype=torch.float32):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.origin_mode = origin_mode
+        self.w_ih = _xavier((input_size, 3 * hidden_size), gen, dtype)
+        self.w_hh = _xavier((hidden_size, 3 * hidden_size), gen, dtype)
+        self.b_ih = (nn.Parameter(torch.zeros(3 * hidden_size, dtype=dtype))
+                     if bias else None)
+        self.b_hh = (nn.Parameter(torch.zeros(3 * hidden_size, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x, h):
+        return R.gru_cell(x, h, self.w_ih, self.w_hh, self.b_ih, self.b_hh,
+                          origin_mode=self.origin_mode)
+
+
+class NCE(nn.Module):
+    """ref: ``nn/layers.py:818`` — the NCE head, weight ``[classes, dim]``
+    (xavier) and bias zeros. ``forward(input, label, neg=None,
+    generator=None)``: the negatives ``neg`` ``[B, num_neg_samples]`` as
+    given, or drawn from ``generator`` (the reference's ``rngs={"nce":
+    key}``); neither raises."""
+
+    def __init__(self, dim, num_total_classes, num_neg_samples=10,
+                 gen=None, dtype=torch.float32):
+        super().__init__()
+        self.num_total_classes = num_total_classes
+        self.num_neg_samples = num_neg_samples
+        self.weight = _xavier((num_total_classes, dim), gen, dtype)
+        self.bias = nn.Parameter(torch.zeros(num_total_classes, dtype=dtype))
+
+    def forward(self, input, label, neg=None, generator=None):
+        from paddle_tpu_torch.core.enforce import enforce
+        from paddle_tpu_torch.ops import loss as L
+        if neg is None:
+            enforce(generator is not None, "NCE needs its negatives or a "
+                    "torch.Generator to draw them from")
+            neg = L.nce_negatives(generator, input.shape[0],
+                                  self.num_neg_samples,
+                                  self.num_total_classes)
+        return L.nce_loss_from(input, label, self.weight, self.bias, neg,
+                               self.num_total_classes)
+
+
+class TreeConv(nn.Module):
+    """ref: ``nn/layers.py:877`` — TBCNN over (nodes, coefficients):
+    filter ``[feature, 3, output, num_filters]`` (xavier), optional bias
+    ``[num_filters]`` zeros. :meth:`build_coef` builds the coefficients
+    on the host at this layer's ``max_depth``."""
+
+    def __init__(self, feature_size, output_size, num_filters, max_depth=2,
+                 act=None, bias=True, gen=None, dtype=torch.float32):
+        super().__init__()
+        self.max_depth = max_depth
+        self.act = act
+        self.filter = _xavier((feature_size, 3, output_size, num_filters),
+                              gen, dtype)
+        self.bias = (nn.Parameter(torch.zeros(num_filters, dtype=dtype))
+                     if bias else None)
+
+    def build_coef(self, edge_set, n_nodes):
+        import numpy as np
+        from paddle_tpu_torch.ops.graph import tree_patch_coefficients
+        return tree_patch_coefficients(np.asarray(edge_set), n_nodes,
+                                       self.max_depth)
+
+    def forward(self, nodes_vector, coef):
+        from paddle_tpu_torch.ops.graph import tree_conv
+        if not isinstance(coef, torch.Tensor):
+            coef = torch.as_tensor(coef, device=nodes_vector.device)
+        out = tree_conv(nodes_vector, coef, self.filter)
+        if self.bias is not None:
+            out = out + self.bias
+        return _act(self.act, out)

@@ -12,6 +12,9 @@ Submodules (the reference's ``paddle_tpu/ops`` names):
   detection     box geometry, priors and anchors, NMS, matching and the
                 SSD loss, RoI ops, YOLOv3, proposals and RoI targets
   fused         the fused vocab cross-entropy (vh: K5/K6; hv: chunked)
+                and the reference's fused compositions (the fc + add +
+                layer norm: K8)
+  graph         tree convolution (TBCNN) and its host-built coefficients
   loss          the reference's 23 losses
   mask          polygon rasterization and mask labels (host numpy)
   math          matmul/mul, elementwise_*, unary math, reductions, norms
@@ -21,17 +24,20 @@ Submodules (the reference's ``paddle_tpu/ops`` names):
                 embedding lookup, resize, unfold; the promoting matmul
   rnn           LSTM/GRU cells and scans, beam search
   sequence      ragged sequence ops (pools, pad/unpad, conv, ctc_align)
-  tail          the reference's alias table (the rest of tail.py is
-                still to be ported)
+  tail          the rest of layers/nn.py's surface and the reference's
+                alias table
   tensor_ops    shape, index, creation, comparison and random ops
   text_match    match_matrix_tensor, var_conv_2d, top-k average pooling
-  vision        the detection family's vision ops (PS/Pr/deformable RoI
-                pools, FPN collection, focal loss, RetinaNet output)
+  vision        sampling grids, deformable conv, 3-D pools and transposed
+                conv, max pool with index and unpool, spp, data_norm,
+                channel/depth/temporal shuffles, and the detection
+                family's vision ops
 """
 
 from paddle_tpu_torch.core.registry import GLOBAL_OP_REGISTRY
 from paddle_tpu_torch.ops import (activations, attention,  # noqa: F401
-                                  control_flow, crf, detection, fused, loss,
+                                  control_flow, crf, detection, fused, graph,
+                                  loss,
                                   mask, math, metrics_ops, nets, nn, rnn,
                                   sequence, tail, tensor_ops, text_match,
                                   vision)

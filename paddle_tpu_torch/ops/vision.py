@@ -1,17 +1,30 @@
-"""Vision ops of the detection family (ref: ``paddle_tpu/ops/vision.py``:
-``polygon_box_transform``, ``psroi_pool``, ``prroi_pool``,
-``deformable_psroi_pool``, ``collect_fpn_proposals``,
-``sigmoid_focal_loss`` and ``retinanet_detection_output``), in plain
-PyTorch as dense gathers over all RoIs at once, where the reference
-``vmap``s over them. The sampling grids, deformable convolution, 3-D ops
-and video ops of that module (``:25-251``, ``:272``) are not ported.
+"""Vision ops (ref: ``paddle_tpu/ops/vision.py``), in plain PyTorch.
+
+The sampling grids (``affine_grid``, ``grid_sampler``) and the deformable
+convolution use the reference's own bilinear sampler
+(:func:`_bilinear_sample`): ``align_corners=True`` coordinates, zero
+padding, and a corner exactly on the border keeps its weight; the
+deformable convolution is its im2col form, one product over every tap.
+``max_pool2d_with_index`` returns the flat index into each image's
+``H * W`` plane, the first maximum of a window in row-major order (the
+lowest index) on a tie, on every device; its gradient reaches the chosen
+position, as the reference's custom VJP routes it. The 3-D pools and the
+transposed 3-D convolution, ``spp``, ``unpool``, ``data_norm`` and the
+channel, depth and temporal shuffles follow.
+
+The detection family's ops (``polygon_box_transform``, ``psroi_pool``,
+``prroi_pool``, ``deformable_psroi_pool``, ``collect_fpn_proposals``,
+``sigmoid_focal_loss`` and ``retinanet_detection_output``) are dense
+gathers over all RoIs at once, where the reference ``vmap``s over them.
 """
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops.detection import _sort_desc, multiclass_nms
+from paddle_tpu_torch.ops.nn import _pair, _triple
 
 
 def _ar(n, like):
@@ -253,3 +266,238 @@ def retinanet_detection_output(bboxes_list, scores_list, anchors_list,
                           nms_threshold=nms_threshold, background_label=-1,
                           box_normalized=False)
 
+
+
+# ------------------------------------------------ grids, pools, convs
+
+@register_op("affine_grid")
+def affine_grid(theta, out_shape):
+    """theta ``[N, 2, 3]`` -> the sampling grid ``[N, H, W, 2]`` in [-1,
+    1] (align_corners=True; ref: ``vision.py:24``)."""
+    _, _, H, W = out_shape
+    xs = torch.linspace(-1.0, 1.0, W, device=theta.device)
+    ys = torch.linspace(-1.0, 1.0, H, device=theta.device)
+    gx, gy = torch.meshgrid(xs, ys, indexing="xy")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], -1)
+    return torch.einsum("hwk,nck->nhwc", base.to(theta.dtype), theta)
+
+
+def _bilinear_sample(x, ix, iy):
+    """NCHW ``x`` sampled at float pixel coordinates ``ix``/``iy``
+    ``[N, ...]`` -> ``[N, ..., C]``, zero padding (ref: ``vision.py:38``):
+    four corners, each weighted ``(1 - |dx|)(1 - |dy|)`` and kept when it
+    lies inside, border included."""
+    N, C, H, W = x.shape
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    batch = torch.arange(N, device=x.device).reshape(
+        (N,) + (1,) * (ix.ndim - 1))
+    chans = torch.arange(C, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    out = 0.0
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi = x0 + dx
+        yi = y0 + dy
+        w = (1 - torch.abs(ix - xi)) * (1 - torch.abs(iy - yi))
+        valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        xc = torch.clamp(xi, 0, W - 1).long()
+        yc = torch.clamp(yi, 0, H - 1).long()
+        vals = x[batch[..., None], chans, yc[..., None], xc[..., None]]
+        wv = (valid.to(w.dtype) * w)[..., None]
+        out = out + torch.where(wv != 0, vals * wv, zero)
+    return out
+
+
+@register_op("grid_sampler")
+def grid_sampler(x, grid):
+    """Bilinear sample of NCHW x at grid ``[N, H, W, 2]`` (normalized,
+    align_corners=True, zero padding; ref: ``vision.py:58``) -> NCHW."""
+    _, _, H, W = x.shape
+    gx = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
+    gy = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
+    return _bilinear_sample(x, gx, gy).permute(0, 3, 1, 2)
+
+
+@register_op("space_to_depth")
+def space_to_depth(x, blocksize):
+    """NCHW ``[N, C, H, W]`` -> ``[N, C b b, H / b, W / b]`` (ref:
+    ``vision.py:69``)."""
+    N, C, H, W = x.shape
+    b = blocksize
+    x = x.reshape(N, C, H // b, b, W // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(N, C * b * b, H // b, W // b)
+
+
+@register_op("shuffle_channel")
+def shuffle_channel(x, group):
+    """ShuffleNet's channel shuffle (ref: ``vision.py:79``)."""
+    N, C, H, W = x.shape
+    return x.reshape(N, group, C // group, H, W).transpose(1, 2).reshape(
+        N, C, H, W)
+
+
+@register_op("temporal_shift")
+def temporal_shift(x, seg_num, shift_ratio=0.25):
+    """TSM's shift over ``[N T, C, H, W]`` (ref: ``vision.py:87``): the
+    first ``C ratio`` channels from t - 1, the next from t + 1."""
+    NT, C, H, W = x.shape
+    N = NT // seg_num
+    x = x.reshape(N, seg_num, C, H, W)
+    c1 = int(C * shift_ratio)
+    c2 = int(C * 2 * shift_ratio)
+    pad = torch.zeros((N, 1, C, H, W), dtype=x.dtype, device=x.device)
+    prev = torch.cat([pad, x[:, :-1]], 1)
+    nxt = torch.cat([x[:, 1:], pad], 1)
+    out = torch.cat([prev[:, :, :c1], nxt[:, :, c1:c2], x[:, :, c2:]], 2)
+    return out.reshape(NT, C, H, W)
+
+
+def _windows(x, ks, st, pads, value):
+    """``x`` padded per side by ``pads`` with ``value``, cut into its
+    windows: ``[..., *out, *ks]`` over the trailing ``len(ks)`` dims."""
+    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+    xp = F.pad(x, flat, value=value)
+    lead = x.ndim - len(ks)
+    for i, (k, s) in enumerate(zip(ks, st)):
+        xp = xp.unfold(lead + i, k, s)
+    return xp
+
+
+@register_op("pool3d")
+def pool3d(x, pool_size, pool_type="max", pool_stride=1, pool_padding=0,
+           ceil_mode=False, exclusive=True):
+    """NCDHW max/avg pooling (ref: ``vision.py:104``); ``ceil_mode`` pads
+    ``stride - 1`` more at the high side; ``exclusive`` averages over the
+    window's unpadded entries."""
+    ks, st, pd = _triple(pool_size), _triple(pool_stride), \
+        _triple(pool_padding)
+    pads = [(p, p + (s - 1 if ceil_mode else 0)) for p, s in zip(pd, st)]
+    red = (-3, -2, -1)
+    if pool_type == "max":
+        return torch.amax(_windows(x, ks, st, pads, -float("inf")), red)
+    s = _windows(x, ks, st, pads, 0.0).sum(red)
+    if exclusive:
+        cnt = _windows(torch.ones_like(x[:1, :1]), ks, st, pads, 0.0).sum(red)
+    else:
+        cnt = float(ks[0] * ks[1] * ks[2])
+    return s / cnt
+
+
+@register_op("conv3d_transpose")
+def conv3d_transpose(x, weight, stride=1, padding=0, dilation=1, groups=1,
+                     bias=None):
+    """NCDHW transposed convolution, weight ``[C_in, C_out / groups, kd,
+    kh, kw]`` (ref: ``vision.py:130``, the lhs-dilated convolution with
+    the flipped kernel that ``conv_transpose3d`` computes)."""
+    out = F.conv_transpose3d(x, weight, None, _triple(stride),
+                             _triple(padding), 0, groups, _triple(dilation))
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1, 1)
+    return out
+
+
+@register_op("max_pool2d_with_index")
+def max_pool2d_with_index(x, pool_size, pool_stride=1, pool_padding=0):
+    """``(pooled, flat argmax index into each image's H x W plane)`` (ref:
+    ``vision.py:205``), as ``unpool`` consumes it; on a tie the lowest
+    index. The pooled values are gathered at the index, so the gradient
+    reaches the chosen position."""
+    N, C, H, W = x.shape
+    ks, st, pd = _pair(pool_size), _pair(pool_stride), _pair(pool_padding)
+    pads = [(p, p) for p in pd]
+    vals = _windows(x, ks, st, pads, -float("inf")).detach()
+    plane = torch.arange(H * W, dtype=torch.float32,
+                         device=x.device).reshape(1, 1, H, W)
+    idx = _windows(plane, ks, st, pads, -1.0)
+    vals = vals.flatten(-2)
+    idx = idx.flatten(-2).expand(N, C, *vals.shape[2:])
+    top = vals.amax(-1, keepdim=True)
+    pick = torch.where(vals == top, idx, torch.full_like(idx, float(H * W)))
+    best = pick.amin(-1).to(torch.int32)
+    flat = x.reshape(N, C, H * W)
+    got = torch.gather(flat, 2, torch.clamp(best, min=0).long().reshape(
+        N, C, -1)).reshape(best.shape)
+    neg = torch.full((), -float("inf"), dtype=x.dtype, device=x.device)
+    return torch.where(best >= 0, got, neg), best
+
+
+@register_op("unpool")
+def unpool(x, indices, out_hw):
+    """Max-unpool (ref: ``vision.py:221``): each pooled value added at its
+    index of a zeros ``[N, C, H, W]``."""
+    N, C, _, _ = x.shape
+    H, W = out_hw
+    idx = indices.reshape(N, C, -1).long()
+    vals = x.reshape(N, C, -1)
+    vals = torch.where(idx >= 0, vals, torch.zeros_like(vals))
+    flat = torch.zeros((N, C, H * W), dtype=x.dtype, device=x.device)
+    return flat.scatter_add(2, torch.clamp(idx, 0, H * W - 1), vals).reshape(
+        N, C, H, W)
+
+
+@register_op("spp")
+def spp(x, pyramid_height=3, pool_type="max"):
+    """Spatial pyramid pooling at 1, 2, 4 ... bins, flattened and
+    concatenated (ref: ``vision.py:236``)."""
+    from paddle_tpu_torch.ops.nn import adaptive_pool2d
+    N = x.shape[0]
+    return torch.cat([adaptive_pool2d(x, (2 ** lv, 2 ** lv),
+                                      pool_type=pool_type).reshape(N, -1)
+                      for lv in range(pyramid_height)], 1)
+
+
+@register_op("data_norm")
+def data_norm(x, batch_size, batch_sum, batch_square_sum, epsilon=1e-4):
+    """Normalization by accumulated batch statistics (ref:
+    ``vision.py:250``): ``((x - means) * scales, means, scales)``."""
+    means = batch_sum / batch_size
+    scales = torch.sqrt(batch_size / torch.maximum(
+        batch_square_sum, torch.full((), epsilon, dtype=batch_square_sum.dtype,
+                                     device=batch_square_sum.device)))
+    return (x - means) * scales, means, scales
+
+
+@register_op("deformable_conv")
+def deformable_conv(x, offset, weight, stride=1, padding=0, dilation=1,
+                    deformable_groups=1, groups=1, mask=None):
+    """Deformable convolution v1, and v2 with ``mask`` (ref:
+    ``vision.py:271``): x ``[N, C, H, W]``; offset ``[N, 2 dg kh kw, Ho,
+    Wo]`` (y, x interleaved a tap); weight ``[C_out, C_in / groups, kh,
+    kw]``; mask ``[N, dg kh kw, Ho, Wo]``. Each tap bilinearly sampled
+    (:func:`_bilinear_sample`), then one ``[N Ho Wo, kh kw C] x [kh kw C,
+    C_out]`` product (one a group)."""
+    N, C, H, W = x.shape
+    Cout, _, kh, kw = weight.shape
+    st, pd, dl = _pair(stride), _pair(padding), _pair(dilation)
+    Ho = (H + 2 * pd[0] - dl[0] * (kh - 1) - 1) // st[0] + 1
+    Wo = (W + 2 * pd[1] - dl[1] * (kw - 1) - 1) // st[1] + 1
+    dg = deformable_groups
+    base_y = (torch.arange(Ho, device=x.device) * st[0] - pd[0])[:, None]
+    base_x = (torch.arange(Wo, device=x.device) * st[1] - pd[1])[None, :]
+    off = offset.reshape(N, dg, kh * kw, 2, Ho, Wo)
+    cg = C // dg
+    cols = []
+    for t in range(kh * kw):
+        ky, kx = divmod(t, kw)
+        iy = base_y[None, None] + ky * dl[0] + off[:, :, t, 0]
+        ix = base_x[None, None] + kx * dl[1] + off[:, :, t, 1]
+        tap = []
+        for g in range(dg):
+            smp = _bilinear_sample(x[:, g * cg:(g + 1) * cg], ix[:, g],
+                                   iy[:, g])
+            if mask is not None:
+                smp = smp * mask[:, g * kh * kw + t][..., None]
+            tap.append(smp)
+        cols.append(torch.cat(tap, -1))
+    col = torch.stack(cols, 3).reshape(N, Ho, Wo, kh * kw * C)
+    if groups == 1:
+        out = col @ weight.permute(2, 3, 1, 0).reshape(kh * kw * C, Cout)
+    else:
+        cing, coutg = C // groups, Cout // groups
+        colg = col.reshape(N, Ho, Wo, kh * kw, groups, cing)
+        wg = weight.reshape(groups, coutg, cing, kh, kw)
+        out = torch.cat([
+            colg[..., g, :].reshape(N, Ho, Wo, kh * kw * cing)
+            @ wg[g].permute(2, 3, 1, 0).reshape(kh * kw * cing, coutg)
+            for g in range(groups)], -1)
+    return out.permute(0, 3, 1, 2)

@@ -1777,3 +1777,48 @@ def test_program_capture_names_the_kernel_ops(cuda):
     (loss,) = Executor().run(parsed.to_static_program(), feed=feeds,
                              fetch_list=["loss"])
     assert loss.device.type == "cuda" and torch.isfinite(loss)
+
+
+def test_fused_fc_elementwise_layernorm_launches_k8_once(cuda):
+    """The op's add and layer norm are one K8 launch a call, the result
+    within F32_TOL of the op on the CPU (its plain version) on the same
+    inputs, in its values and gradients."""
+    from paddle_tpu_torch.ops.cuda import core
+    from paddle_tpu_torch.ops.fused import fused_fc_elementwise_layernorm
+    g = torch.Generator().manual_seed(0)
+    args = [_randn(g, 37, 64, dev="cpu"), _randn(g, 64, 96, scale=0.1,
+                                                 dev="cpu"),
+            _randn(g, 37, 96, dev="cpu"), _randn(g, 96, dev="cpu"),
+            _randn(g, 96, dev="cpu"), _randn(g, 96, dev="cpu")]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        xs = [a.to(dev).requires_grad_() for a in args]
+        core.reset_launches()
+        out = fused_fc_elementwise_layernorm(*xs)
+        launches = core.launch_counts()
+        out.square().sum().backward()
+        outs[dev] = [out.detach().cpu()] + [x.grad.cpu() for x in xs]
+        if dev == "cuda":
+            assert launches["add_layer_norm"] == 1
+            assert sum(launches.values()) == 1
+    _held(outs["cuda"], outs["cpu"], F32_TOL)
+
+
+def test_layer_norm_without_scale_and_shift_launches_k1_and_k8(cuda):
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.ops.cuda import core
+    g = torch.Generator().manual_seed(1)
+    x, r = _randn(g, 5, 768, dev="cpu"), _randn(g, 5, 768, dev="cpu")
+    for scale, shift in ((False, False), (True, False), (False, True)):
+        ln = pnn.LayerNorm(768, scale=scale, shift=shift)
+        with torch.no_grad():
+            want = (ln(x), ln(x, r))
+            ln.to("cuda")
+            core.reset_launches()
+            got = ln(x.cuda())
+            assert core.launch_counts()["layer_norm"] == 1
+            got_r = ln(x.cuda(), r.cuda())
+        launches = core.launch_counts()
+        assert launches["add_layer_norm"] == 1
+        assert sum(launches.values()) == 2
+        _held((got.cpu(), got_r.cpu()), want, F32_TOL)

@@ -5,6 +5,7 @@ its entry points refuse to run without a card unless asked for the CPU."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -719,3 +720,83 @@ def test_process_fleet_parts_run_with_reference_and_triton_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout
     assert "PROCESS FLEET PARTS 3 2" in proc.stdout
+
+
+#: what would load the JAX package's own native build: the repository
+#: root's ``csrc/build`` (the port builds into ``paddle_tpu_torch/csrc/
+#: build``), its library's name, or the environment variable naming it
+_FOREIGN_BUILD = re.compile(r"(?<!paddle_tpu_torch/)\bcsrc/build|"
+                            r"PT_DATAIO_LIB|libptdataio")
+
+
+def _foreign_build_refs(text):
+    return _FOREIGN_BUILD.findall(text)
+
+
+def test_no_port_file_names_the_reference_native_build():
+    assert _foreign_build_refs('os.environ.get("PT_DATAIO_LIB")')
+    assert _foreign_build_refs('"csrc/build/libptdataio.so"')
+    assert not _foreign_build_refs("paddle_tpu_torch/csrc/build/<hash>/")
+    bad = {}
+    for path in _port_files():
+        with open(path) as f:
+            found = _foreign_build_refs(f.read())
+        if found:
+            bad[os.path.relpath(path, ROOT)] = found
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module", [
+    "data/formats.py", "data/native.py", "data/dataset.py",
+    "distributions.py", "ops/graph.py", "ops/tail.py", "ops/vision.py",
+    "models/word2vec.py"])
+def test_ast_scan_covers_the_op_surface_modules(module):
+    path = os.path.join(ROOT, "paddle_tpu_torch", *module.split("/"))
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(BLOCKED)
+
+
+_W2V_BLOCKED = _SERVE_BLOCKED.split("from paddle_tpu_torch.models")[0] \
+    + r"""
+import os, tempfile
+sys.path.insert(0, os.path.join({root!r}, "tools"))
+import torch_word2vec as book
+from paddle_tpu_torch.ops.cuda import core
+with tempfile.TemporaryDirectory() as tmp:
+    corpus = book.zipf_corpus(os.path.join(tmp, "c.txt"), lines=60,
+                              words=200)
+    word_idx, grams = book.book_grams([corpus])
+    paths, written = book.write_grams(grams, tmp)
+    raw, read, _ = book.read_grams(paths, threads=2)
+assert book.same_records(written, raw)
+bs = book.batches(read, 32, 2)
+w2v, sg, _, _ = book.train("cpu", len(word_idx), bs,
+                           book.negatives(32 * 4, 2))
+assert all(np.isfinite(w2v + sg))
+assert sum(core.launch_counts().values()) == 0
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("WORD2VEC", len(w2v), len(sg))
+"""
+
+
+def test_word2vec_book_path_runs_with_reference_and_triton_blocked():
+    """The corpus, the native reader and both word2vec models, in a
+    process that cannot import jax."""
+    code = _W2V_BLOCKED.format(blocked=BLOCKED, root=ROOT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout
+    assert "WORD2VEC 2 2" in proc.stdout
+
+
+def test_word2vec_models_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.models import SkipGramNCE, Word2Vec
+    with pytest.raises(EnforceError):
+        SkipGramNCE(64, 8, 4)
+    with pytest.raises(EnforceError):
+        Word2Vec(64, 8)

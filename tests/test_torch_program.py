@@ -262,9 +262,13 @@ def test_reference_desc_unknown_op_rejected():
     desc = program_desc(["x"], ["y"])
     with pytest.raises(EnforceError, match="not registered"):
         desc.append_op("no_such_op", ["x"], ["y"])
-    # a still-to-port op of the reference is refused the same way
-    with pytest.raises(EnforceError, match="not registered"):
-        desc.append_op("fused_elemwise_activation", ["x"], ["y"])
+    # every op of the reference is registered: one that was still to
+    # port is taken like any other, and runs
+    desc.append_op("fused_elemwise_activation", ["x", "x"], ["y"],
+                   functor_list=["elementwise_add", "relu"])
+    x = rand(2, 3)
+    np.testing.assert_allclose(
+        desc.build_fn()(t(x))["y"].numpy(), x + np.maximum(x, 0.0), rtol=1e-6)
     text = ('{"version": 1, "feeds": ["x"], "fetches": ["y"], '
             '"ops": [{"type": "definitely_missing", "inputs": ["x"], '
             '"outputs": ["y"]}]}')
